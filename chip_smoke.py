@@ -1,0 +1,445 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py          # from the root of a checkout, one GPU
+
+Phases (any failure raises and the script exits non-zero):
+
+  1. device: the card's name, count and ``nvidia-smi`` name/power limit.
+  2. build: compile the comm plane's CUDA kernels from
+     ``src/repro_torch/fastpath/csrc`` with nvcc (sm_90a).
+  3. kernels vs plain versions on ragged synthetic layouts (leaf sizes
+     {1, 127, 129, 32768, 0}, W ∈ {1, 3}, the unstacked operand, LAQ bits
+     {2, 4, 8}, all three masked modes): bitwise for masked_combine,
+     absmax and the LAQ payload/residual, rtol 1e-5 for the sum partials.
+  4. the same four kernels at the main path's shapes (llama3.2-1b's flat
+     layout, W = 2: 2.47e9 elements per operand, above 2^31), against the
+     plain versions applied in row chunks, with their times.
+  5. the main path: ``repro_torch.launch.train`` on llama3.2-1b at full
+     width and depth, W = 2, batch 4, seq 256, 4 rounds of lag-wk, then of
+     laq@4, with random weights from a seed; launch counters reset just
+     before each run and read just after.
+  6. agreement on a small input: the reduced model, 3 rounds per policy,
+     on the GPU (kernels) and on the CPU (plain versions) from the same
+     weights — equal upload masks, losses within rtol 1e-4.
+
+Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
+{...}}``.  Times are CUDA-event times on this card (kernels: the mean of
+several launches after a warm-up); bounds use the H100 SXM's published
+3.35 TB/s and 67 TFLOP/s float32 (non-tensor) peaks.
+"""
+import gc
+import json
+import math
+import os
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(HERE, "src")
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+F32_FLOP_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+SUM_RTOL = 1e-5
+RAGGED = (1, 127, 129, 32768, 0)
+REPLACES = {
+    "delta_sqnorm_blocks": "src/repro/fastpath/kernels.py:130",
+    "absmax_blocks": "src/repro/fastpath/kernels.py:142",
+    "laq_encode_blocks": "src/repro/fastpath/kernels.py:168",
+    "masked_combine": "src/repro/fastpath/kernels.py:214",
+}
+SOURCE = "src/repro_torch/fastpath/csrc/fastpath_kernels.cu"
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def cuda_ms(torch, fn, n=5, warmup=1):
+    """Mean CUDA-event time of ``fn`` over ``n`` runs after a warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def bound_ms(nbytes, nops):
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = nops / F32_FLOP_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def max_abs(x, y):
+    return float((x - y).abs().max()) if x.numel() else 0.0
+
+
+def bitwise(torch, x, y):
+    return x.shape == y.shape and torch.equal(
+        x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: ragged synthetic layouts
+# ---------------------------------------------------------------------------
+
+def ragged_phase(torch, dev):
+    from repro_torch.fastpath import kernels, kernels_ref
+    from repro_torch.fastpath.layout import FlatLayout
+    from repro_torch.fastpath.plan import FastPathPlan
+
+    tmpl = {f"l{i}": torch.empty((s,), device="meta")
+            for i, s in enumerate(RAGGED)}
+    lo = FlatLayout.for_tree(tmpl)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+
+    def buf(W, scale=1.0):
+        flat = lo.empty((W,), dev)
+        for v in lo.unflatten_stacked(flat).values():
+            if v.numel():
+                v.normal_(0.0, scale, generator=gen)
+        return flat
+
+    plan = FastPathPlan("on")
+    for W in (1, 3):
+        a, b, c = buf(W), buf(W), buf(W, 0.1)
+        for name, bb in (("stacked", b), ("unstacked", b[0])):
+            got = kernels.delta_sqnorm_blocks(a, bb)
+            want = kernels_ref.delta_sqnorm_blocks(a, bb)
+            torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=0)
+            ms = cuda_ms(torch, lambda: kernels.delta_sqnorm_blocks(a, bb),
+                         n=20)
+            print(f"  ragged W={W} delta_sqnorm_blocks[{name}] max_abs_err "
+                  f"{max_abs(got, want):.3e} {ms:.4f} ms")
+        got = kernels.absmax_blocks(a, b, c)
+        check(bitwise(torch, got, kernels_ref.absmax_blocks(a, b, c)),
+              f"absmax_blocks W={W} not bitwise")
+        ms = cuda_ms(torch, lambda: kernels.absmax_blocks(a, b, c), n=20)
+        print(f"  ragged W={W} absmax_blocks bitwise {ms:.4f} ms")
+        for bits in (2, 4, 8):
+            steps = plan._per_leaf(got, lo, "max") / float(2 ** (bits - 1)
+                                                           - 1)
+            subs = steps[:, plan.sub_leaf(lo, dev)].contiguous()
+            p, r, sq = kernels.laq_encode_blocks(a, b, c, subs, bits)
+            wp, wr, wsq = kernels_ref.laq_encode_blocks(a, b, c, subs, bits)
+            check(bitwise(torch, p, wp) and bitwise(torch, r, wr),
+                  f"laq_encode_blocks W={W} bits={bits} not bitwise")
+            torch.testing.assert_close(sq, wsq, rtol=SUM_RTOL, atol=0)
+            ms = cuda_ms(torch, lambda: kernels.laq_encode_blocks(
+                a, b, c, subs, bits), n=20)
+            print(f"  ragged W={W} laq_encode_blocks[bits={bits}] payload/"
+                  f"residual bitwise, sq max_abs_err {max_abs(sq, wsq):.3e}"
+                  f" {ms:.4f} ms")
+        mask = torch.tensor([True, False, True][:W], device=dev)
+        for mode in ("add", "update", "select"):
+            for name, aa in (("stacked", a), ("unstacked", a[0])):
+                got = kernels.masked_combine(aa, b, mask, mode)
+                check(bitwise(torch, got, kernels_ref.masked_combine(
+                    aa, b, mask, mode)),
+                    f"masked_combine {mode} {name} W={W} not bitwise")
+                ms = cuda_ms(torch, lambda: kernels.masked_combine(
+                    aa, b, mask, mode), n=20)
+                print(f"  ragged W={W} masked_combine[{mode},{name}] "
+                      f"bitwise {ms:.4f} ms")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the main path's shapes
+# ---------------------------------------------------------------------------
+
+def chunked(fn, rows, step=1 << 19):
+    """Apply a plain version over whole-sub-block row chunks (results
+    dropped as they come: only the time is wanted)."""
+    for r0 in range(0, rows, step):
+        fn(r0, min(r0 + step, rows))
+
+
+def full_shape_phase(torch, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.dist.lag_trainer import param_layout
+    from repro_torch.fastpath import kernels, kernels_ref
+    from repro_torch.fastpath.plan import FastPathPlan
+
+    lo = param_layout(get_config("llama3.2-1b"))
+    W, R = 2, lo.rows
+    N, S = W * R * 128, W * R // 8
+    print(f"  layout: {lo.num_leaves} leaves, rows {R}, W {W}: {N} elements"
+          f" per operand (2^31 = {2 ** 31})")
+    check(N > 2 ** 31, "full-shape operand must exceed 2^31 elements")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(99)
+    a = torch.randn((W, R, 128), device=dev, generator=gen)
+    b = torch.randn((W, R, 128), device=dev, generator=gen)
+    c = torch.randn((W, R, 128), device=dev, generator=gen) * 0.1
+    results = {}
+
+    def plain_ms(fn):
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        chunked(fn, R)
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e)
+
+    def sub_rows(r0, r1):
+        return slice(r0 // 8, r1 // 8)
+
+    # -- delta_sqnorm_blocks (lag-wk LHS: both operands stacked) ------------
+    out = kernels.delta_sqnorm_blocks(a, b)
+    err = 0.0
+    for r0 in range(0, R, 1 << 19):
+        r1 = min(r0 + (1 << 19), R)
+        want = kernels_ref.delta_sqnorm_blocks(a[:, r0:r1], b[:, r0:r1])
+        got = out[:, sub_rows(r0, r1)]
+        torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=0)
+        err = max(err, max_abs(got, want))
+    t_b, by = bound_ms(2 * N * 4 + S * 4, 3 * N)
+    results["delta_sqnorm_blocks"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: kernels.delta_sqnorm_blocks(a, b)),
+        plain_ms=plain_ms(lambda r0, r1: kernels_ref.delta_sqnorm_blocks(
+            a[:, r0:r1], b[:, r0:r1])),
+        bound_ms=t_b, bound_by=by, library_ms=None)
+    del out
+
+    # -- absmax_blocks ------------------------------------------------------
+    parts = kernels.absmax_blocks(a, b, c)
+    for r0 in range(0, R, 1 << 19):
+        r1 = min(r0 + (1 << 19), R)
+        check(bitwise(torch, parts[:, sub_rows(r0, r1)],
+                      kernels_ref.absmax_blocks(a[:, r0:r1], b[:, r0:r1],
+                                                c[:, r0:r1])),
+              "absmax_blocks at full shape not bitwise")
+    t_b, by = bound_ms(3 * N * 4 + S * 4, 4 * N)
+    results["absmax_blocks"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: kernels.absmax_blocks(a, b, c)),
+        plain_ms=plain_ms(lambda r0, r1: kernels_ref.absmax_blocks(
+            a[:, r0:r1], b[:, r0:r1], c[:, r0:r1])),
+        bound_ms=t_b, bound_by=by, library_ms=None)
+
+    # -- laq_encode_blocks (bits 4, steps from the per-leaf absmax) ---------
+    plan = FastPathPlan("auto")
+    steps = plan._per_leaf(parts, lo, "max") / 7.0
+    subs = steps[:, plan.sub_leaf(lo, dev)].contiguous()
+    p, r, sq = kernels.laq_encode_blocks(a, b, c, subs, 4)
+    err = 0.0
+    for r0 in range(0, R, 1 << 19):
+        r1 = min(r0 + (1 << 19), R)
+        wp, wr, wsq = kernels_ref.laq_encode_blocks(
+            a[:, r0:r1], b[:, r0:r1], c[:, r0:r1],
+            subs[:, sub_rows(r0, r1)], 4)
+        check(bitwise(torch, p[:, r0:r1], wp) and bitwise(torch, r[:, r0:r1],
+                                                          wr),
+              "laq_encode_blocks at full shape not bitwise")
+        torch.testing.assert_close(sq[:, sub_rows(r0, r1)], wsq,
+                                   rtol=SUM_RTOL, atol=0)
+        err = max(err, max_abs(sq[:, sub_rows(r0, r1)], wsq))
+        del wp, wr, wsq
+    t_b, by = bound_ms(5 * N * 4 + 2 * S * 4, 10 * N)
+    results["laq_encode_blocks"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: kernels.laq_encode_blocks(
+            a, b, c, subs, 4, payload_out=p), n=3),
+        plain_ms=plain_ms(lambda r0, r1: kernels_ref.laq_encode_blocks(
+            a[:, r0:r1], b[:, r0:r1], c[:, r0:r1],
+            subs[:, sub_rows(r0, r1)], 4)),
+        bound_ms=t_b, bound_by=by, library_ms=None)
+    del p, r, sq
+
+    # -- masked_combine (add: the ĝ fold; select: θ̂ / residual) -----------
+    mask = torch.tensor([True, False], device=dev)
+    m3 = mask.to(torch.float32).view(W, 1, 1)
+    for mode in ("add", "select"):
+        got = kernels.masked_combine(a, b, mask, mode)
+        for r0 in range(0, R, 1 << 19):
+            r1 = min(r0 + (1 << 19), R)
+            check(bitwise(torch, got[:, r0:r1], kernels_ref.masked_combine(
+                a[:, r0:r1], b[:, r0:r1], mask, mode)),
+                f"masked_combine {mode} at full shape not bitwise")
+        del got
+    sel_ms = cuda_ms(torch, lambda: kernels.masked_combine(a, b, mask,
+                                                           "select"))
+    print(f"  masked_combine[select] {sel_ms:.3f} ms (torch.where "
+          f"{cuda_ms(torch, lambda: torch.where(m3 != 0, a, b)):.3f} ms)")
+    t_b, by = bound_ms(3 * N * 4 + W * 4, 2 * N)
+    results["masked_combine"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: kernels.masked_combine(a, b, mask, "add")),
+        plain_ms=plain_ms(lambda r0, r1: kernels_ref.masked_combine(
+            a[:, r0:r1], b[:, r0:r1], mask, "add")),
+        bound_ms=t_b, bound_by=by,
+        library_ms=cuda_ms(torch, lambda: torch.addcmul(b, a, m3)))
+    for k, v in results.items():
+        print(f"  full-shape {k}: max_abs_err {v['max_abs_err']:.3e} | "
+              f"{v['ms']:.3f} ms (plain {v['plain_ms']:.3f} ms, bound "
+              f"{v['bound_ms']:.3f} ms by {v['bound_by']}, library "
+              f"{v['library_ms']})")
+    del a, b, c, parts
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the main path through the entry point
+# ---------------------------------------------------------------------------
+
+def trainer_phase(torch, algo, steps=4):
+    from repro_torch.fastpath import kernels
+    from repro_torch.launch import train
+
+    rounds = []
+
+    def on_step(step, m, timing):
+        rounds.append(dict(loss=float(m["loss"]),
+                           mask=m["comm_mask"].to(torch.int32).tolist(),
+                           comm_total=int(m["comm_total"]), **timing))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    state = train.main(["--arch", "llama3.2-1b", "--algo", algo,
+                        "--workers", "2", "--batch", "4", "--seq", "256",
+                        "--steps", str(steps), "--seed", "0"],
+                       on_step=on_step)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(len(rounds) == steps, f"{algo}: {len(rounds)} rounds")
+    check(all(math.isfinite(r["loss"]) for r in rounds),
+          f"{algo}: non-finite loss")
+    check(bool(torch.isfinite(state["theta"]).all()),
+          f"{algo}: non-finite parameters")
+    check(rounds[-1]["comm_total"] == sum(sum(r["mask"]) for r in rounds),
+          f"{algo}: comm_total disagrees with the masks")
+    check(rounds[0]["mask"] == [1, 1], f"{algo}: round 0 must upload all")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    steady = rounds[1:]
+    summary = {k: sum(r[k] for r in steady) / len(steady)
+               for k in ("ms", "grad_ms", "comm_ms")}
+    print(f"  {algo}: losses {[round(r['loss'], 6) for r in rounds]} | "
+          f"masks {[r['mask'] for r in rounds]} | comm_total "
+          f"{rounds[-1]['comm_total']} | rounds 1-{steps - 1} mean "
+          f"{summary['ms']:.1f} ms (device: fwd/bwd {summary['grad_ms']:.1f}"
+          f" ms, comm plane + server {summary['comm_ms']:.1f} ms) | round 0 "
+          f"{rounds[0]['ms']:.1f} ms | peak memory {peak:.2f} GB | launches "
+          f"{launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: GPU (kernels) vs CPU (plain versions) on a small input
+# ---------------------------------------------------------------------------
+
+def small_agreement_phase(torch, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream, make_inputs
+    from repro_torch.dist.lag_trainer import (TrainerConfig, init_state,
+                                              make_train_step, params_of)
+
+    cfg = get_config("llama3.2-1b").reduced()
+    for algo in ("lag-wk", "laq@4"):
+        tcfg = TrainerConfig(algo=algo, num_workers=2, lr=0.3)
+        cpu = init_state(cfg, tcfg, device="cpu", seed=5)
+        gpu = init_state(cfg, tcfg, device=dev,
+                         params=params_of(cpu, cfg))
+        # auto on CPU tensors is the per-leaf oracle: force the plane so
+        # the CPU side runs the kernels' plain versions
+        cpu_step = make_train_step(cfg, tcfg.replace(fastpath="on"))
+        gpu_step = make_train_step(cfg, tcfg)
+        stream = TokenStream(cfg.vocab_size, seed=5)
+        for k in range(3):
+            b = make_inputs(cfg, stream, k, 4, 32)
+            cpu, mc = cpu_step(cpu, b)
+            gpu, mg = gpu_step(gpu, {n: t.to(dev) for n, t in b.items()})
+            lc, lg = float(mc["loss"]), float(mg["loss"])
+            check(abs(lc - lg) <= 1e-4 * abs(lc),
+                  f"small {algo} round {k}: loss cpu {lc} vs gpu {lg}")
+            check(mc["comm_mask"].tolist() == mg["comm_mask"].cpu().tolist(),
+                  f"small {algo} round {k}: masks differ")
+        print(f"  small {algo}: 3 rounds, GPU vs CPU losses within rtol 1e-4,"
+              f" masks equal (last loss {lg:.6f})")
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this test "
+              "needs a CUDA GPU", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print(f"chip_smoke: {SRC}/repro_torch not found; run from the root "
+              f"of a checkout", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    from repro_torch.device import gpu_name_and_power_limit
+    from repro_torch.fastpath import kernels
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    smi = gpu_name_and_power_limit()
+    print(f"[1] device: {name} | count {torch.cuda.device_count()} | "
+          f"torch {torch.__version__} cuda {torch.version.cuda}")
+    print(smi, flush=True)
+
+    t0 = time.perf_counter()
+    kernels.load_library()
+    print(f"[2] built {kernels.SOURCE.name} in {time.perf_counter() - t0:.1f}"
+          f" s: {kernels.BUILD_LOG.get('cmd', '(cached)')}")
+    for line in kernels.BUILD_LOG.get("ptxas", "").splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            print(f"    {line.strip()}")
+
+    print("[3] kernels vs plain versions, ragged layouts", flush=True)
+    ragged_phase(torch, dev)
+    print("[4] kernels vs plain versions at the main path's shapes",
+          flush=True)
+    full = full_shape_phase(torch, dev)
+
+    print("[5] main path: llama3.2-1b full width, W=2, batch 4, seq 256",
+          flush=True)
+    # the kernels each policy's fast route must launch every round
+    want = {"lag-wk": ("delta_sqnorm_blocks", "masked_combine"),
+            "laq@4": ("absmax_blocks", "laq_encode_blocks", "masked_combine")}
+    launches = {k: 0 for k in kernels.LAUNCHES}
+    for algo, names in want.items():
+        got = trainer_phase(torch, algo)
+        for k in names:
+            check(got[k] >= 4, f"{algo}: kernel {k} launched {got[k]} times "
+                               f"in 4 rounds")
+        for k, v in got.items():
+            launches[k] += v
+    for k in kernels.LAUNCHES:
+        check(launches[k] > 0, f"kernel {k} never launched on the main path")
+
+    print("[6] GPU vs CPU on the reduced model", flush=True)
+    small_agreement_phase(torch, dev)
+
+    rows = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
+                 launches=launches[k], **full[k]) for k in REPLACES]
+    print(json.dumps({"kernels": rows}))
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

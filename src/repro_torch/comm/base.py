@@ -1,0 +1,151 @@
+"""The communication-policy protocol — port of ``repro.comm.base``.
+
+A policy owns one worker's round: ``encode`` (candidate upload),
+``should_upload`` (the trigger), ``decode`` (mask the payload into the
+server's ledger and advance the worker's mirror state) and ``wire_bytes``.
+The batched fast path adds ``fast_precompute`` (one kernel launch for all
+workers' trigger/encode reductions, before the trigger) and ``fast_decode``
+(the masked state folds, after it).
+
+Trees here are nested dicts of tensors (``repro_torch.core.tree``); a flat
+``(W, rows, 128)`` buffer of ``repro_torch.fastpath.layout`` is a one-leaf
+tree, so the fast route runs ``encode``/``should_upload`` ONCE on the
+stacked buffers with the worker dim written out (the reference vmaps them).
+
+The fast route works in place to fit full-width models on one card:
+``fast_decode`` folds the payload into ``grad_hat`` (and ``theta_hat``) in
+place and turns the payload buffer into the masked delta in place.  The
+plain route is functional.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import lag
+from repro_torch.core.tree import tree_leaves, tree_map
+
+Pytree = Any
+PolicyState = Dict[str, Any]
+
+
+@dataclasses.dataclass
+class CommRound:
+    """Everything one worker (or, on the fast route, every worker at once)
+    sees when deciding/encoding one round."""
+    theta: Pytree                        # current iterate θ^k (shared)
+    grad_new: Pytree                     # fresh gradient ∇L_m(θ^k)
+    hist: torch.Tensor                   # (D,) iterate-lag ring buffer
+    cfg: lag.LAGConfig                   # α, M, D, ξ — the trigger constants
+    L_m: Optional[torch.Tensor] = None   # smoothness (PS rule only)
+    fast: Optional[Dict[str, Any]] = None    # the batched precompute
+
+
+def _mask_like(comm: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Broadcast a () or (W,) mask against a payload leaf."""
+    m = comm.to(p.dtype)
+    return m.reshape(m.shape + (1,) * (p.dim() - m.dim()))
+
+
+class CommPolicy:
+    """Base class: the dense δ∇ = ∇L_m(θ^k) − ĝ_m upload family.
+
+    Every shipped policy implements :meth:`fast_precompute`; the base
+    method raises — the tripwire against a new policy silently bypassing
+    the plane.
+    """
+    name: str = "base"
+    state_keys: Tuple[str, ...] = ("grad_hat",)
+    needs_theta_hat: bool = False
+    needs_L_m: bool = False
+
+    def __init__(self, fastpath="auto"):
+        from repro_torch.fastpath import plan as plan_lib
+        self.fastpath = plan_lib.make_plan(fastpath)
+
+    # -- state --------------------------------------------------------------
+    def init_state(self, grad0, theta0=None) -> PolicyState:
+        """Mirror state from zero templates: zero ``grad_hat`` with an empty
+        history makes round 0 trigger every worker."""
+        st: PolicyState = {"grad_hat": grad0}
+        if self.needs_theta_hat:
+            if theta0 is None:
+                raise ValueError(f"{self.name} policy needs theta0")
+            st["theta_hat"] = theta0
+        return st
+
+    # -- the four protocol methods ------------------------------------------
+    def encode(self, ctx: CommRound, st: PolicyState
+               ) -> Tuple[Pytree, Dict[str, Any]]:
+        """Candidate upload: the gradient innovation g − ĝ."""
+        payload = tree_map(lambda g, gh: g - gh.to(g.dtype), ctx.grad_new,
+                           st["grad_hat"])
+        return payload, {}
+
+    def should_upload(self, ctx: CommRound, st: PolicyState, payload: Pytree,
+                      aux: Dict[str, Any]) -> torch.Tensor:
+        raise NotImplementedError
+
+    def decode(self, ctx: CommRound, st: PolicyState, payload: Pytree,
+               aux: Dict[str, Any], comm: torch.Tensor
+               ) -> Tuple[Pytree, PolicyState]:
+        """(server-side δ∇ contribution, advanced worker state); the delta
+        is all-zero when ``comm`` is False and ``grad_hat`` absorbs exactly
+        it (the Σ_m ĝ_m = ∇^k invariant)."""
+        delta = tree_map(lambda p: comm.to(p.dtype) * p, payload)
+        new_st = dict(st)
+        new_st["grad_hat"] = tree_map(lambda gh, d: gh + d.to(gh.dtype),
+                                      st["grad_hat"], delta)
+        if "theta_hat" in st:
+            new_st["theta_hat"] = lag.tree_select(comm, ctx.theta,
+                                                  st["theta_hat"])
+        return delta, new_st
+
+    # -- the batched fast path ----------------------------------------------
+    def fast_precompute(self, plan, grads: torch.Tensor, st: PolicyState, *,
+                        theta: torch.Tensor, layout
+                        ) -> Optional[Dict[str, Any]]:
+        """Batched per-round precompute over the (W, rows, 128) buffers: a
+        dict of (W, …) tensors routed into ``ctx.fast``, or None when the
+        policy has nothing kernel-served (the plain route then runs)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not declare a fast-path route: "
+            f"implement fast_precompute() to serve its trigger/encode "
+            f"reductions from the batched plane (repro_torch.fastpath), or "
+            f"'return None' to explicitly opt out")
+
+    def fast_decode(self, plan, st: PolicyState, payload: torch.Tensor,
+                    aux: Dict[str, Any], comm: torch.Tensor, *,
+                    theta: torch.Tensor, layout
+                    ) -> Tuple[torch.Tensor, PolicyState]:
+        """Batched :meth:`decode` over the (W, rows, 128) buffers, IN PLACE:
+        ĝ ← ĝ + m·payload and θ̂ ← where(m, θ, θ̂) update the state buffers,
+        then the payload buffer becomes the masked delta m·payload."""
+        new_st = dict(st)
+        new_st["grad_hat"] = plan.masked_add(payload, st["grad_hat"], comm,
+                                             out=st["grad_hat"])
+        if "theta_hat" in st:
+            new_st["theta_hat"] = plan.masked_select(
+                theta, st["theta_hat"], comm, out=st["theta_hat"])
+        delta = payload.mul_(_mask_like(comm, payload))
+        return delta, new_st
+
+    def wire_bytes(self, grad_like: Pytree) -> float:
+        """Bytes ONE triggered upload of ``grad_like`` puts on the wire:
+        the raw payload (size × itemsize per leaf)."""
+        return float(sum(l.numel() * l.element_size()
+                         for l in tree_leaves(grad_like)))
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"{type(self).__name__}(name={self.name!r})"
+
+
+def run_round(policy: CommPolicy, ctx: CommRound, st: PolicyState
+              ) -> Tuple[torch.Tensor, Pytree, PolicyState]:
+    """One worker's full round: encode → trigger → decode."""
+    payload, aux = policy.encode(ctx, st)
+    comm = policy.should_upload(ctx, st, payload, aux)
+    delta, new_st = policy.decode(ctx, st, payload, aux, comm)
+    return comm, delta, new_st

@@ -1,0 +1,105 @@
+"""Core LAG primitives (Chen et al., NIPS 2018) — port of ``repro.core.lag``.
+
+``LAGConfig``, the pytree helpers, the iterate-lag ring buffer (eq. 14) and
+the trigger right-hand side of (15a)/(15b).  Trees are nested dicts/lists of
+tensors flattened in JAX's order (``repro_torch.core.tree``).  Everything is
+float32 and functional: new tensors out, inputs untouched.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.core.tree import tree_leaves, tree_map
+
+Pytree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class LAGConfig:
+    """Hyper-parameters of LAG (paper notation in brackets): workers [M],
+    stepsize [α], iterate-lag window [D], trigger weight [ξ], rule "wk"
+    (15a) or "ps" (15b), and the trigger-RHS floor (0.0 = the exact paper
+    trigger)."""
+    num_workers: int
+    alpha: float
+    D: int = 10
+    xi: float = 0.1
+    rule: str = "wk"
+    rhs_floor: float = 0.0
+
+    def xi_vector(self, device=None) -> torch.Tensor:
+        return torch.full((self.D,), self.xi, dtype=torch.float32,
+                          device=device)
+
+
+# ---------------------------------------------------------------------------
+# Pytree helpers
+# ---------------------------------------------------------------------------
+
+def tree_sqnorm(tree: Pytree) -> torch.Tensor:
+    """Σ ‖leaf‖² over the tree, per-leaf sums added in leaf order (f32)."""
+    total = None
+    for leaf in tree_leaves(tree):
+        x = leaf.float()
+        s = torch.sum(x * x)
+        total = s if total is None else total + s
+    return total if total is not None else torch.zeros((), dtype=torch.float32)
+
+
+def tree_sqdist(a: Pytree, b: Pytree) -> torch.Tensor:
+    """``tree_sqnorm(tree_sub(a, b))`` without holding the difference tree:
+    one leaf's difference is alive at a time."""
+    total = None
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        d = x.float() - y.float()
+        s = torch.sum(d * d)
+        total = s if total is None else total + s
+    return total if total is not None else torch.zeros((), dtype=torch.float32)
+
+
+def tree_sub(a: Pytree, b: Pytree) -> Pytree:
+    return tree_map(lambda x, y: x - y, a, b)
+
+
+def tree_select(pred: torch.Tensor, on_true: Pytree, on_false: Pytree
+                ) -> Pytree:
+    """Per-tree select on a scalar bool predicate: an exact copy."""
+    return tree_map(lambda t, f: torch.where(pred, t.to(f.dtype), f),
+                    on_true, on_false)
+
+
+# ---------------------------------------------------------------------------
+# Iterate-lag history (the RHS of the triggers, eq. 14)
+# ---------------------------------------------------------------------------
+
+def hist_init(D: int, device=None) -> torch.Tensor:
+    """Ring buffer of ‖θ^{k+1-d} − θ^{k-d}‖², most recent first; zeros ⇒
+    round 0 triggers every worker (the paper's all-upload init)."""
+    return torch.zeros((D,), dtype=torch.float32, device=device)
+
+
+def hist_push(hist: torch.Tensor, sqnorm_new: torch.Tensor) -> torch.Tensor:
+    """Push the newest squared iterate difference to the front."""
+    return torch.cat([sqnorm_new.reshape(1).to(torch.float32), hist[:-1]])
+
+
+def _raw_rhs(hist: torch.Tensor, cfg: LAGConfig) -> torch.Tensor:
+    xi = cfg.xi_vector(hist.device)
+    return torch.dot(xi, hist) / (cfg.alpha ** 2 * cfg.num_workers ** 2)
+
+
+def trigger_rhs(hist: torch.Tensor, cfg: LAGConfig) -> torch.Tensor:
+    """RHS of (15a)/(15b): (1/(α² M²)) Σ_d ξ_d ‖θ^{k+1-d} − θ^{k-d}‖²,
+    floored at ``cfg.rhs_floor`` (0.0 ⇒ the exact paper trigger)."""
+    raw = _raw_rhs(hist, cfg)
+    if cfg.rhs_floor:
+        return torch.clamp(raw, min=float(cfg.rhs_floor))
+    return raw
+
+
+def rhs_underflow(hist: torch.Tensor, cfg: LAGConfig, step) -> torch.Tensor:
+    """() bool — the un-floored RHS is exactly 0 after the warm-up round."""
+    return (_raw_rhs(hist, cfg) == 0.0) & (torch.as_tensor(step) > 0)

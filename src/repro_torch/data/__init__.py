@@ -1,0 +1,4 @@
+"""Deterministic synthetic data (port of ``repro.data``)."""
+from repro_torch.data.pipeline import TokenStream, make_inputs
+
+__all__ = ["TokenStream", "make_inputs"]

@@ -1,0 +1,150 @@
+"""Static flat-buffer layout: ONE padded ``(rows, 128)`` view of a pytree —
+port of ``repro.fastpath.layout``.
+
+Each leaf is flattened, cast to float32 and padded up to whole sub-blocks
+(``SUB_ROWS`` × ``LANES`` = 1024 elements), so a sub-block never straddles
+two leaves and per-leaf quantities (LAQ's quantizer scale, the fixed-order
+per-(worker, leaf) partial sums) survive batching.  The buffer tail is
+padded to whole ``BLOCK_ROWS`` blocks; ``sub_leaf`` maps every sub-block to
+its leaf (tail sub-blocks map to leaf 0 — they are all-zero, absorbing for
+every plane op).  The constants are the reference's: ``rows``, ``sub_leaf``
+and LAQ's per-leaf grid depend on them.
+
+The port keeps per-worker state natively in these buffers.  ``unflatten``
+of a float32 buffer returns VIEWS (no copy), so a tree of model parameters
+or mirror state can live inside one flat buffer.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.tree import tree_flatten, tree_leaves, tree_unflatten
+
+Pytree = Any
+
+LANES = 128
+SUB_ROWS = 8                    # (8, 128) f32 tile — the leaf-padding unit
+SUB = SUB_ROWS * LANES          # 1024 elements per sub-block
+BLOCK_ROWS = 256                # buffer-tail padding unit (rows)
+SUBS_PER_BLOCK = BLOCK_ROWS // SUB_ROWS
+BLOCK = BLOCK_ROWS * LANES
+
+#: leaf dtypes the flat plane serves; everything is computed in float32
+SUPPORTED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatLayout:
+    """The static offset table for one pytree structure (unstacked)."""
+    treedef: Any
+    shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[torch.dtype, ...]
+    sizes: Tuple[int, ...]
+    leaf_subs: Tuple[int, ...]         # sub-blocks per leaf (0 when empty)
+    leaf_sub_offsets: Tuple[int, ...]
+    nsubs: int                         # data sub-blocks (pre tail pad)
+    nblocks: int                       # BLOCK_ROWS blocks (tail padded)
+    sub_leaf: np.ndarray               # (nblocks·SUBS_PER_BLOCK,) int32
+
+    @property
+    def rows(self) -> int:
+        return self.nblocks * BLOCK_ROWS
+
+    @property
+    def num_leaves(self) -> int:
+        return len(self.shapes)
+
+    @classmethod
+    def for_tree(cls, tree: Pytree) -> "FlatLayout":
+        """Build the layout from an (unstacked) template tree of tensors."""
+        leaves, treedef = tree_flatten(tree)
+        shapes = tuple(tuple(int(d) for d in l.shape) for l in leaves)
+        dtypes = tuple(l.dtype for l in leaves)
+        sizes = tuple(int(np.prod(s, dtype=np.int64)) for s in shapes)
+        subs = tuple(-(-s // SUB) for s in sizes)       # ceil; 0 stays 0
+        offsets, acc = [], 0
+        for b in subs:
+            offsets.append(acc)
+            acc += b
+        nblocks = -(-acc // SUBS_PER_BLOCK)
+        sub_leaf = np.zeros((nblocks * SUBS_PER_BLOCK,), np.int32)
+        sub_leaf[:acc] = np.repeat(np.arange(len(leaves), dtype=np.int32),
+                                   np.asarray(subs, np.int64))
+        return cls(treedef=treedef, shapes=shapes, dtypes=dtypes,
+                   sizes=sizes, leaf_subs=subs,
+                   leaf_sub_offsets=tuple(offsets), nsubs=acc,
+                   nblocks=nblocks, sub_leaf=sub_leaf)
+
+    # -- flatten ------------------------------------------------------------
+
+    def _check(self, leaves):
+        if len(leaves) != self.num_leaves:
+            raise ValueError(f"tree has {len(leaves)} leaves, layout expects "
+                             f"{self.num_leaves}")
+
+    def empty(self, lead: Tuple[int, ...] = (), device=None) -> torch.Tensor:
+        """A zero ``lead + (rows, LANES)`` float32 buffer."""
+        return torch.zeros(lead + (self.rows, LANES), dtype=torch.float32,
+                           device=device)
+
+    def flatten(self, tree: Pytree, out: torch.Tensor = None) -> torch.Tensor:
+        """Template-shaped tree → ``(rows, LANES)`` float32 buffer."""
+        leaves = tree_leaves(tree)
+        self._check(leaves)
+        dev = leaves[0].device if leaves else None
+        buf = self.empty(device=dev) if out is None else out
+        flat = buf.view(-1)
+        for i, l in enumerate(leaves):
+            if self.sizes[i]:
+                off = self.leaf_sub_offsets[i] * SUB
+                flat[off:off + self.sizes[i]].copy_(l.reshape(-1))
+        return buf
+
+    def flatten_stacked(self, tree: Pytree) -> torch.Tensor:
+        """Stacked ``(W, …leaf)`` tree → ``(W, rows, LANES)`` float32."""
+        leaves = tree_leaves(tree)
+        self._check(leaves)
+        W = leaves[0].shape[0]
+        buf = self.empty((W,), device=leaves[0].device)
+        flat = buf.view(W, -1)
+        for i, l in enumerate(leaves):
+            if self.sizes[i]:
+                off = self.leaf_sub_offsets[i] * SUB
+                flat[:, off:off + self.sizes[i]].copy_(l.reshape(W, -1))
+        return buf
+
+    # -- scatter back -------------------------------------------------------
+
+    def _out_dtypes(self, like: Any):
+        if like is None:
+            return self.dtypes
+        if isinstance(like, torch.dtype):
+            return (like,) * self.num_leaves
+        return tuple(l.dtype for l in tree_leaves(like))
+
+    def _unflatten(self, flat: torch.Tensor, lead: Tuple[int, ...],
+                   like: Any) -> Pytree:
+        dts = self._out_dtypes(like)
+        leaves = []
+        for i, shape in enumerate(self.shapes):
+            size = self.sizes[i]
+            off = self.leaf_sub_offsets[i] * SUB
+            seg = flat[..., off:off + size].reshape(lead + shape)
+            leaves.append(seg.to(dts[i]))
+        return tree_unflatten(self.treedef, leaves)
+
+    def unflatten(self, buf: torch.Tensor, like: Any = None) -> Pytree:
+        """``(rows, LANES)`` buffer → template tree.  Float32 leaves are
+        views of ``buf``; other dtypes are cast copies."""
+        return self._unflatten(buf.reshape(-1), (), like)
+
+    def unflatten_stacked(self, buf: torch.Tensor, like: Any = None
+                          ) -> Pytree:
+        """``(W, rows, LANES)`` buffer → stacked template tree (views for
+        float32 leaves)."""
+        W = buf.shape[0]
+        return self._unflatten(buf.reshape(W, self.rows * LANES), (W,), like)

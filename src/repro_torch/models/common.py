@@ -1,0 +1,111 @@
+"""Shared model machinery: config, initializers, RMSNorm — port of
+``repro.models.common`` for the dense llama family.
+
+Models are plain functions over nested dicts of tensors (the reference's
+pytree layout, so the flat-buffer layout and LAQ's per-leaf grid agree).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    arch_id: str
+    family: str                      # only "dense" is ported
+    num_layers: int
+    d_model: int
+    vocab_size: int
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    causal: bool = True
+    window: Optional[int] = None     # sliding window: not ported yet
+    rope: str = "rope"               # rope | none
+    rope_theta: float = 500_000.0
+    block_pattern: Tuple[str, ...] = ("attn",)
+    norm: str = "rmsnorm"
+    act: str = "swiglu"
+    use_bias: bool = False           # not ported yet
+    tie_embeddings: bool = False
+    dtype: str = "float32"           # activation/compute dtype
+    param_dtype: str = "float32"
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def params_dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.num_heads // max(self.num_kv_heads, 1)
+
+    @property
+    def num_superblocks(self) -> int:
+        return self.num_layers // len(self.block_pattern)
+
+    @property
+    def tail_layers(self) -> int:
+        return self.num_layers - self.num_superblocks * len(self.block_pattern)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def reduced(self, **kw) -> "ModelConfig":
+        """A small same-family variant for CPU tests (the reference's)."""
+        small = dict(
+            num_layers=min(self.num_layers, len(self.block_pattern) * 2),
+            d_model=min(self.d_model, 256),
+            num_heads=min(self.num_heads, 4) if self.num_heads else 0,
+            num_kv_heads=min(self.num_kv_heads, 2) if self.num_kv_heads else 0,
+            head_dim=min(self.head_dim, 64) if self.head_dim else 0,
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 512),
+            window=min(self.window, 64) if self.window else self.window,
+        )
+        small.update(kw)
+        return self.replace(**small)
+
+
+# ---------------------------------------------------------------------------
+# Initializers (in place, on the tensors' own device)
+# ---------------------------------------------------------------------------
+
+def dense_init_(t: torch.Tensor, in_dim: int, gen: torch.Generator) -> None:
+    """Truncated-normal fan-in init: std · N(0, 1) cut at ±2 (the
+    reference's ``dense_init``; its bits come from ``jax.random`` and are
+    carried across by ``repro_torch.weights`` where parity matters)."""
+    with torch.no_grad():
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        t.mul_(1.0 / math.sqrt(in_dim))
+
+
+def embed_init_(t: torch.Tensor, gen: torch.Generator) -> None:
+    with torch.no_grad():
+        t.normal_(0.0, 0.02, generator=gen)
+
+
+# ---------------------------------------------------------------------------
+# Norms / activations
+# ---------------------------------------------------------------------------
+
+def apply_norm(p: dict, x: torch.Tensor, kind: str,
+               eps: float = 1e-6) -> torch.Tensor:
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"]
+
+
+def swiglu(x_gate: torch.Tensor, x_up: torch.Tensor) -> torch.Tensor:
+    return F.silu(x_gate) * x_up
