@@ -22,6 +22,21 @@ Phases (any failure raises and the script exits non-zero):
   6. agreement on a small input: the reduced model, 3 rounds per policy,
      on the GPU (kernels) and on the CPU (plain versions) from the same
      weights — equal upload masks, losses within rtol 1e-4.
+  7. the model kernels (rmsnorm, flash attention) vs their plain versions
+     at ragged shapes (rows {1, 7, 129, 1000} x d {2048, 256, 132}; S {1,
+     7, 129, 1000}, causal / window / non-causal, GQA 32/8, Sq != Skv) and
+     at the serving path's shapes (rmsnorm (8192, 2048); attention (4,
+     2048, 32/8, 64) causal), within rtol = atol = 1e-5, with their times
+     against their bounds, the plain versions and one PyTorch call each.
+  8. the serving path: ``repro_torch.launch.serve`` on llama3.2-1b at full
+     width and depth, batch 4, prompt 2048, 32 generated tokens, 2 rounds
+     (round 0 is warm-up), random weights from seed 0; launch counters
+     reset just before and read just after: rmsnorm 33 and flash attention
+     16 launches per prefill, none per decode step.  Then the prefill
+     through the kernels (``use_pallas=True``) against the plain route on
+     the card (``use_pallas=False``) on one prompt batch: last-position
+     logits and every layer's KV cache within 2e-3, the reference's own
+     tolerance for its Pallas route against XLA (tests/test_kernels.py).
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Times are CUDA-event times on this card (kernels: the mean of
@@ -42,13 +57,27 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 SUM_RTOL = 1e-5
 RAGGED = (1, 127, 129, 32768, 0)
+MODEL_TOL = 1e-5                 # kernel vs plain: f32, sums reordered
+SERVE_TOL = 2e-3                 # kernel route vs plain route, 16 layers
 REPLACES = {
     "delta_sqnorm_blocks": "src/repro/fastpath/kernels.py:130",
     "absmax_blocks": "src/repro/fastpath/kernels.py:142",
     "laq_encode_blocks": "src/repro/fastpath/kernels.py:168",
     "masked_combine": "src/repro/fastpath/kernels.py:214",
+    "rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:25",
+    "flash_attention": "src/repro/kernels/flash_attention/"
+                       "flash_attention.py:68",
+}
+SOURCES = {
+    "rmsnorm": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+    "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention.cu",
 }
 SOURCE = "src/repro_torch/fastpath/csrc/fastpath_kernels.cu"
+SERVE_ARGS = ["--arch", "llama3.2-1b", "--batch", "4", "--prompt-len", "2048",
+              "--gen", "32", "--rounds", "2", "--seed", "0"]
+RMS_FULL = (4 * 2048, 2048)      # the prefill's (B·S, d)
+ATTN_FULL = (4, 2048, 32, 8, 64)  # the prefill's (B, S, H, KV, hd)
 
 
 def check(cond, msg):
@@ -372,6 +401,171 @@ def small_agreement_phase(torch, dev):
               f" masks equal (last loss {lg:.6f})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the model kernels vs their plain versions
+# ---------------------------------------------------------------------------
+
+def model_kernel_phase(torch, dev):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm as rms
+
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    errs = []
+
+    def compare(what, got, want):
+        err = max_abs(got, want)
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(
+            got, want, rtol=MODEL_TOL, atol=MODEL_TOL)
+        errs.append((what, err, ok))
+        return err
+
+    for rows in (1, 7, 129, 1000):
+        for d in (2048, 256, 132):
+            x = torch.randn((rows, d), device=dev, generator=gen)
+            sc = torch.randn((d,), device=dev, generator=gen)
+            compare(f"rmsnorm ({rows}, {d})", rms.rmsnorm_2d(x, sc),
+                    rms_ref.rmsnorm(x, sc))
+    cases = [(S, S, c, w) for S in (1, 7, 129, 1000)
+             for c, w in ((True, None), (True, 64), (False, None))]
+    cases += [(129, 1000, False, None), (129, 1000, True, None),
+              (1000, 129, True, 64)]
+    for S, Skv, causal, window in cases:
+        q = torch.randn((1, S, 32, 64), device=dev, generator=gen)
+        k = torch.randn((1, Skv, 8, 64), device=dev, generator=gen)
+        v = torch.randn((1, Skv, 8, 64), device=dev, generator=gen)
+        got = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        want = fa_ref.attention(q, k, v, causal=causal, window=window)
+        if S > Skv and window is not None:       # rows that see no key
+            live = torch.arange(S, device=dev) - window + 1 < Skv
+            got, want = got[:, live], want[:, live]
+        compare(f"flash_attention Sq {S} Skv {Skv} causal {causal} "
+                f"window {window}", got, want)
+    for what, err, ok in errs:
+        print(f"  {what}: max_abs_err {err:.3e}{'' if ok else '  FAILED'}")
+
+    results = {}
+    # -- rmsnorm at prefill: (B·S, d) = (8192, 2048) ------------------------
+    R, d = RMS_FULL
+    x = torch.randn((R, d), device=dev, generator=gen)
+    sc = torch.randn((d,), device=dev, generator=gen)
+    err = compare("rmsnorm full", rms.rmsnorm_2d(x, sc),
+                  rms_ref.rmsnorm(x, sc))
+    t_b, by = bound_ms(2 * R * d * 4 + d * 4, 4 * R * d)
+    results["rmsnorm"] = dict(
+        max_abs_err=err, ms=cuda_ms(torch, lambda: rms.rmsnorm_2d(x, sc),
+                                    n=50),
+        plain_ms=cuda_ms(torch, lambda: rms_ref.rmsnorm(x, sc), n=20),
+        bound_ms=t_b, bound_by=by,
+        library_ms=cuda_ms(torch, lambda: F.rms_norm(x, (d,), sc, 1e-6),
+                           n=20))
+    del x, sc
+
+    # -- flash attention at prefill: (4, 2048, 32/8, 64), causal -------------
+    B, S, H, KV, hd = ATTN_FULL
+    q = torch.randn((B, S, H, hd), device=dev, generator=gen)
+    k = torch.randn((B, S, KV, hd), device=dev, generator=gen)
+    v = torch.randn((B, S, KV, hd), device=dev, generator=gen)
+    err = compare("flash_attention full", fa.flash_attention_fwd(q, k, v),
+                  fa_ref.attention(q, k, v))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    t_b, by = bound_ms(4 * (2 * B * S * H * hd + 2 * B * S * KV * hd),
+                       4 * B * H * hd * S * (S + 1) // 2)
+    results["flash_attention"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v), n=10),
+        plain_ms=cuda_ms(torch, lambda: fa_ref.attention(q, k, v), n=3),
+        bound_ms=t_b, bound_by=by,
+        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), n=10))
+    del q, k, v, qt, kt, vt
+    for k_, r in results.items():
+        print(f"  full-shape {k_}: max_abs_err {r['max_abs_err']:.3e} | "
+              f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}, library "
+              f"{r['library_ms']:.4f} ms)")
+    bad = [what for what, _, ok in errs if not ok]
+    check(not bad, f"kernel vs plain beyond rtol = atol = {MODEL_TOL}: "
+                   f"{bad}")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the serving path through the entry point
+# ---------------------------------------------------------------------------
+
+def serve_phase(torch, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.rmsnorm import rmsnorm as rms
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    args = serve.build_argparser().parse_args(SERVE_ARGS)
+    cfg = get_config(args.arch)
+    cfg = (cfg.reduced() if args.reduced else cfg).replace(use_pallas=True)
+    params = model.init(cfg, device=dev, seed=args.seed)
+    rounds = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rms.reset_launches()
+    fa.reset_launches()
+    serve.main(SERVE_ARGS, params=params,
+               on_round=lambda r, t, toks: rounds.append((t, toks)))
+    launches = {"rmsnorm": rms.LAUNCHES["rmsnorm"],
+                "flash_attention": fa.LAUNCHES["flash_attention"]}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n = len(rounds)
+    check(n == args.rounds, f"serve: {n} rounds")
+    per_prefill = {"rmsnorm": 2 * cfg.num_layers + 1,
+                   "flash_attention": cfg.num_layers}
+    for k_, want in per_prefill.items():
+        check(launches[k_] == n * want,
+              f"serve: {k_} launched {launches[k_]} times in {n} rounds, "
+              f"want {want} per prefill and none per decode step")
+    for _, toks in rounds:
+        check(tuple(toks.shape) == (args.batch, args.gen),
+              f"serve: tokens {tuple(toks.shape)}")
+        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              "serve: token out of the vocabulary")
+    timing = rounds[1][0]
+    print(f"  serve round 1: prefill {timing['prefill_ms']:.1f} ms | decode "
+          f"{timing['decode_ms']:.1f} ms for {args.gen - 1} tokens "
+          f"({timing['ms_per_token']:.2f} ms/token) | round 0 prefill "
+          f"{rounds[0][0]['prefill_ms']:.1f} ms | peak memory {peak:.2f} GB"
+          f" | launches {launches}")
+
+    # the kernel route against the plain route on the card, same prompts
+    prompts = torch.from_numpy(serve.make_prompts(
+        cfg.vocab_size, args.batch, args.prompt_len, args.seed + 1)).to(dev)
+    outs = {}
+    with torch.inference_mode():
+        for up in (True, False):
+            last, cache = model.prefill(params, cfg.replace(use_pallas=up),
+                                        {"tokens": prompts},
+                                        max_len=args.prompt_len + args.gen)
+            outs[up] = (last, cache["blocks"]["0"])
+    (lk, ck), (lp, cp) = outs[True], outs[False]
+    check(bool(torch.isfinite(lk).all()), "serve: non-finite logits")
+    errs = {"logits": max_abs(lk, lp),
+            "k cache": max_abs(ck["k"], cp["k"]),
+            "v cache": max_abs(ck["v"], cp["v"])}
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    print(f"  prefill kernels vs plain route: max_abs_err {errs} | argmax "
+          f"agreement {agree:.2f} | logits max |x| "
+          f"{float(lp.abs().max()):.3f}")
+    for what, e in errs.items():
+        check(e <= SERVE_TOL, f"serve: {what} differs by {e} > {SERVE_TOL}")
+    del params, outs, lk, lp, ck, cp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -385,6 +579,9 @@ def main():
     sys.path.insert(0, SRC)
     from repro_torch.device import gpu_name_and_power_limit
     from repro_torch.fastpath import kernels
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.rmsnorm import rmsnorm as rms
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -397,12 +594,19 @@ def main():
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    kernels.load_library()
-    print(f"[2] built {kernels.SOURCE.name} in {time.perf_counter() - t0:.1f}"
-          f" s: {kernels.BUILD_LOG.get('cmd', '(cached)')}")
-    for line in kernels.BUILD_LOG.get("ptxas", "").splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print(f"    {line.strip()}")
+    libs = [kernels.LIBRARY, rms.LIBRARY, fa.LIBRARY]
+    build.build(libs)                  # one nvcc per source, all at once
+    for lib in libs:
+        build.load(lib)
+    print(f"[2] built {len(libs)} libraries in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for lib in libs:
+        log = build.BUILD_LOG.get(lib.name, {})
+        print(f"  {lib.source.name}: {log.get('seconds', '?')} s: "
+              f"{log.get('cmd', '(cached)')}")
+        for line in log.get("ptxas", "").splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"    {line.strip()}")
 
     print("[3] kernels vs plain versions, ragged layouts", flush=True)
     ragged_phase(torch, dev)
@@ -429,8 +633,20 @@ def main():
     print("[6] GPU vs CPU on the reduced model", flush=True)
     small_agreement_phase(torch, dev)
 
-    rows = [dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
-                 launches=launches[k], **full[k]) for k in REPLACES]
+    print("[7] model kernels vs plain versions, ragged and full shapes",
+          flush=True)
+    full.update(model_kernel_phase(torch, dev))
+    print("[8] serving path: llama3.2-1b full width, batch 4, prompt 2048, "
+          "32 tokens", flush=True)
+    serve_launches = serve_phase(torch, dev)
+    launches.update(serve_launches)
+    for k in serve_launches:
+        check(launches[k] > 0, f"kernel {k} never launched on the serving "
+                               f"path")
+
+    rows = [dict(name=k, route="cuda", source=SOURCES.get(k, SOURCE),
+                 replaces=REPLACES[k], launches=launches[k], **full[k])
+            for k in REPLACES]
     print(json.dumps({"kernels": rows}))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")

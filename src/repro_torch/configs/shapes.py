@@ -1,0 +1,54 @@
+"""The input shapes and their applicability rule — port of
+``repro.configs.shapes`` as far as the launchers need it (``applicable``).
+
+  train_4k     seq 4,096    global_batch 256   train_step
+  prefill_32k  seq 32,768   global_batch 32    forward (prefill)
+  decode_32k   seq 32,768   global_batch 128   serve_step (1 token, 32k cache)
+  long_500k    seq 524,288  global_batch 1     serve_step (1 token, 500k ctx)
+
+Encoder-only archs have no decode shapes; long_500k needs a sub-quadratic
+sequence mixer (ssd / rec layers or a sliding window).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+from repro_torch.models.common import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+def subquadratic(cfg: ModelConfig) -> bool:
+    """True iff every sequence mixer is O(S·window) or better."""
+    for k in cfg.block_pattern:
+        if k in ("ssd", "rec", "lattn"):
+            continue                      # recurrent / windowed by definition
+        if k in ("dense", "moe") and cfg.window is None:
+            return False                  # full attention
+    return True
+
+
+def applicable(cfg: ModelConfig, shape_name: str) -> Tuple[bool, str]:
+    """(runs?, reason-if-skipped)."""
+    shp = SHAPES[shape_name]
+    if shp.kind == "decode" and cfg.family == "audio":
+        return False, "encoder-only architecture has no decode step"
+    if shape_name == "long_500k" and not subquadratic(cfg):
+        return False, ("pure full-attention arch; long_500k needs "
+                       "sub-quadratic mixer")
+    return True, ""

@@ -5,19 +5,14 @@ Each wrapper takes the layout's float32 flat buffers.  For tensors on the
 CPU it runs the plain PyTorch version (``kernels_ref``); for CUDA tensors
 it launches the hand-written kernel of ``csrc/fastpath_kernels.cu`` or
 raises — there is no fallback.  The kernels are compiled with ``nvcc`` for
-``sm_90a`` at first use into ``build/torch_ext/`` of the checkout and bound
-through a plain C interface with ``ctypes`` (a file that includes no
-PyTorch header builds in seconds).  ``LAUNCHES`` counts the kernel
-launches per kernel; nothing else increments it.
+``sm_90a`` at first use by the port's shared builder
+(``repro_torch.kernels.build``) and bound through a plain C interface with
+``ctypes``.  ``LAUNCHES`` counts the kernel launches per kernel; nothing
+else increments it.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -25,6 +20,7 @@ import torch
 
 from repro_torch.fastpath import kernels_ref
 from repro_torch.fastpath.layout import LANES, SUB_ROWS
+from repro_torch.kernels import build
 
 MASK_MODES = kernels_ref.MASK_MODES
 
@@ -32,14 +28,18 @@ MASK_MODES = kernels_ref.MASK_MODES
 LAUNCHES: Dict[str, int] = {"delta_sqnorm_blocks": 0, "absmax_blocks": 0,
                             "laq_encode_blocks": 0, "masked_combine": 0}
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "fastpath_kernels.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
-
-_lib: Optional[ctypes.CDLL] = None
-#: the compiler's report (``-Xptxas -v``) of the last build in this process
-BUILD_LOG: Dict[str, str] = {}
+_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+#: ``--fmad=false``: ``v - codes*step`` must never become an FMA, so the LAQ
+#: payload/residual equal the plain version bit for bit
+LIBRARY = build.CudaLibrary(
+    "fastpath", Path(__file__).resolve().parent / "csrc"
+    / "fastpath_kernels.cu",
+    {"lag_delta_sq_blocks": (_P, _P, _P, _I64, _I64, _I64, _I64),
+     "lag_absmax_blocks": (_P, _P, _P, _P, _I64),
+     "lag_laq_encode_blocks": (_P, _P, _P, _P, _P, _P, _P, _I64,
+                               ctypes.c_float),
+     "lag_masked_combine": (_P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int)},
+    extra_flags=("--fmad=false",))
 
 
 def reset_launches() -> None:
@@ -47,60 +47,8 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def build_dir() -> Path:
-    """``build/torch_ext`` at the root of the checkout."""
-    return Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
-            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME): the comm-plane CUDA "
-                       "kernels cannot be built")
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (once per source/flags) and load the kernels' shared library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    so = out_dir / f"libfastpath_{key}.so"
-    if not so.exists():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stderr}")
-        os.replace(tmp, so)
-        BUILD_LOG["cmd"] = " ".join(cmd)
-        BUILD_LOG["ptxas"] = res.stderr
-    lib = ctypes.CDLL(str(so))
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.lag_delta_sq_blocks.argtypes = [p, p, p, i64, i64, i64, i64, p]
-    lib.lag_absmax_blocks.argtypes = [p, p, p, p, i64, p]
-    lib.lag_laq_encode_blocks.argtypes = [p, p, p, p, p, p, p, i64,
-                                          ctypes.c_float, p]
-    lib.lag_masked_combine.argtypes = [p, p, p, p, i64, i64, i64,
-                                       ctypes.c_int, p]
-    for fn in (lib.lag_delta_sq_blocks, lib.lag_absmax_blocks,
-               lib.lag_laq_encode_blocks, lib.lag_masked_combine):
-        fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
-
-
 # ---------------------------------------------------------------------------
-# Argument checks and launch
+# Argument checks
 # ---------------------------------------------------------------------------
 
 def _check(name: str, x: torch.Tensor, ndims=(3,)) -> None:
@@ -113,14 +61,6 @@ def _check(name: str, x: torch.Tensor, ndims=(3,)) -> None:
     if x.is_cuda and (not x.is_contiguous() or x.data_ptr() % 16):
         raise ValueError(f"{name}: CUDA operand must be contiguous and "
                          f"16-byte aligned")
-
-
-def _launch(fn, *args, device: torch.device) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
 
 
 def _same_device(*xs: torch.Tensor) -> bool:
@@ -150,9 +90,9 @@ def delta_sqnorm_blocks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((W, R // SUB_ROWS), dtype=torch.float32,
                       device=a.device)
     vec = R * LANES // 4
-    _launch(load_library().lag_delta_sq_blocks, a.data_ptr(), b.data_ptr(),
-            out.data_ptr(), W, R // SUB_ROWS, vec, vec if b.dim() == 3 else 0,
-            device=a.device)
+    build.launch(build.load(LIBRARY).lag_delta_sq_blocks, a.data_ptr(),
+                 b.data_ptr(), out.data_ptr(), W, R // SUB_ROWS, vec,
+                 vec if b.dim() == 3 else 0, device=a.device)
     LAUNCHES["delta_sqnorm_blocks"] += 1
     return out
 
@@ -169,9 +109,9 @@ def absmax_blocks(g: torch.Tensor, q: torch.Tensor,
     W, R = g.shape[0], g.shape[1]
     out = torch.empty((W, R // SUB_ROWS), dtype=torch.float32,
                       device=g.device)
-    _launch(load_library().lag_absmax_blocks, g.data_ptr(), q.data_ptr(),
-            e.data_ptr(), out.data_ptr(), W * (R // SUB_ROWS),
-            device=g.device)
+    build.launch(build.load(LIBRARY).lag_absmax_blocks, g.data_ptr(),
+                 q.data_ptr(), e.data_ptr(), out.data_ptr(),
+                 W * (R // SUB_ROWS), device=g.device)
     LAUNCHES["absmax_blocks"] += 1
     return out
 
@@ -209,10 +149,11 @@ def laq_encode_blocks(g: torch.Tensor, q: torch.Tensor, e: torch.Tensor,
     r = torch.empty_like(g)
     sq = torch.empty((W, R // SUB_ROWS), dtype=torch.float32,
                      device=g.device)
-    _launch(load_library().lag_laq_encode_blocks, g.data_ptr(), q.data_ptr(),
-            e.data_ptr(), steps_subs.data_ptr(), p.data_ptr(), r.data_ptr(),
-            sq.data_ptr(), W * (R // SUB_ROWS),
-            float(2 ** (bits - 1) - 1), device=g.device)
+    build.launch(build.load(LIBRARY).lag_laq_encode_blocks, g.data_ptr(),
+                 q.data_ptr(), e.data_ptr(), steps_subs.data_ptr(),
+                 p.data_ptr(), r.data_ptr(), sq.data_ptr(),
+                 W * (R // SUB_ROWS), float(2 ** (bits - 1) - 1),
+                 device=g.device)
     LAUNCHES["laq_encode_blocks"] += 1
     return p, r, sq
 
@@ -246,8 +187,9 @@ def masked_combine(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
     m = mask.to(torch.float32).contiguous()
     res = torch.empty_like(b) if out is None else out
     vec = R * LANES // 4
-    _launch(load_library().lag_masked_combine, a.data_ptr(), b.data_ptr(),
-            m.data_ptr(), res.data_ptr(), W, vec, vec if a.dim() == 3 else 0,
-            MASK_MODES.index(mode), device=b.device)
+    build.launch(build.load(LIBRARY).lag_masked_combine, a.data_ptr(),
+                 b.data_ptr(), m.data_ptr(), res.data_ptr(), W, vec,
+                 vec if a.dim() == 3 else 0, MASK_MODES.index(mode),
+                 device=b.device)
     LAUNCHES["masked_combine"] += 1
     return res

@@ -1,0 +1,79 @@
+"""Flash attention forward on Hopper: the launch of
+``csrc/flash_attention.cu`` (port of the Pallas kernel
+``repro.kernels.flash_attention.flash_attention.flash_attention_padded``).
+
+The CUDA kernel takes any Sq and Skv (it masks the ragged edges itself, so
+nothing is padded), float32, head_dim 64, contiguous operands in the
+reference's layout.  It has no backward, like the reference's kernel: an
+input that requires grad raises.  ``LAUNCHES`` counts its launches;
+nothing else increments it.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+#: the one head_dim the kernel is built for
+HEAD_DIM = 64
+
+#: kernel launches since the last ``reset_launches()``
+LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+
+_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+LIBRARY = build.CudaLibrary(
+    "flash_attention",
+    Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
+    {"lag_flash_attention_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                                 _I64, _I64, ctypes.c_float, ctypes.c_int,
+                                 _I64)})
+
+
+def reset_launches() -> None:
+    LAUNCHES["flash_attention"] = 0
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """q (B, Sq, H, hd), k/v (B, Skv, KV, hd) on one CUDA device →
+    (B, Sq, H, hd)."""
+    if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
+        raise ValueError(f"flash_attention_fwd: CUDA operands on one device "
+                         f"required, got {[str(t.device) for t in (q, k, v)]}")
+    if any(t.dtype != torch.float32 for t in (q, k, v)):
+        raise TypeError(f"flash_attention_fwd: float32 required, got "
+                        f"{[t.dtype for t in (q, k, v)]}")
+    if any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention_fwd has no backward (nor has the "
+                           "reference's kernel): call it under no_grad")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention_fwd: want q (B,S,H,hd), k/v "
+                         f"(B,Skv,KV,hd), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or KV == 0 or H % KV:
+        raise ValueError(f"flash_attention_fwd: q {tuple(q.shape)} and k/v "
+                         f"{tuple(k.shape)} do not pair (H % KV == 0)")
+    if hd != HEAD_DIM:
+        raise ValueError(f"flash_attention_fwd: head_dim {hd} not built "
+                         f"(the kernel takes {HEAD_DIM})")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention_fwd: window must be >= 1, got "
+                         f"{window}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (q, k, v)):
+        raise ValueError("flash_attention_fwd: operands must be contiguous "
+                         "and 16-byte aligned")
+    o = torch.empty_like(q)
+    build.launch(build.load(LIBRARY).lag_flash_attention_f32, q.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Skv, H, KV,
+                 hd, float(hd ** -0.5), int(causal),
+                 0 if window is None else int(window), device=q.device)
+    LAUNCHES["flash_attention"] += 1
+    return o

@@ -13,6 +13,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -36,6 +38,9 @@ class ModelConfig:
     tie_embeddings: bool = False
     dtype: str = "float32"           # activation/compute dtype
     param_dtype: str = "float32"
+    # the hand-written kernels (rmsnorm, flash attention) on the prefill
+    # path; for CPU tensors their plain versions
+    use_pallas: bool = False
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -98,10 +103,12 @@ def embed_init_(t: torch.Tensor, gen: torch.Generator) -> None:
 # Norms / activations
 # ---------------------------------------------------------------------------
 
-def apply_norm(p: dict, x: torch.Tensor, kind: str,
-               eps: float = 1e-6) -> torch.Tensor:
+def apply_norm(p: dict, x: torch.Tensor, kind: str, eps: float = 1e-6,
+               use_pallas: bool = False) -> torch.Tensor:
     if kind != "rmsnorm":
         raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    if use_pallas:
+        return rms_ops.rmsnorm(x, p["scale"], eps=eps)
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"]

@@ -1,0 +1,228 @@
+"""The port's model kernels against the LIVE JAX reference.
+
+RMSNorm and flash attention: the port's dispatch (``ops``) on CPU tensors
+runs the plain PyTorch version; it is held against the reference's Pallas
+kernels in interpret mode (``repro.kernels.*.ops``) and against the
+reference's oracles (``ref``), on the same numpy inputs, in float32.
+
+Tolerances: RMSNorm 1e-5 absolute, the reference's own f32 tolerance for
+its kernel against its oracle (``tests/test_kernels.py``); only the order
+of the mean's sum differs.  Attention 1e-5 absolute on outputs of size
+~1: the online softmax of the Pallas kernel rescales its partial sums per
+kv block where the oracles take one softmax, and the dots run in another
+order — f32 rounding of a few ulp per term, ~1e-6 measured.
+
+The CUDA kernels themselves run only on the card: the ``cuda``-marked
+tests skip here, and ``chip_smoke.py`` holds them against the plain
+versions on an H100.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as fa_ops
+from repro.kernels.flash_attention import ref as fa_ref
+from repro.kernels.rmsnorm import ops as rms_ops
+from repro.kernels.rmsnorm import ref as rms_ref
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import flash_attention as t_fa
+from repro_torch.kernels.flash_attention import ops as t_fa_ops
+from repro_torch.kernels.flash_attention import ref as t_fa_ref
+from repro_torch.kernels.rmsnorm import ops as t_rms_ops
+from repro_torch.kernels.rmsnorm import ref as t_rms_ref
+from repro_torch.kernels.rmsnorm import rmsnorm as t_rms
+
+RMS_TOL = 1e-5
+ATTN_TOL = 1e-5
+
+
+def max_err(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a, np.float64)
+                               - np.asarray(b, np.float64))))
+
+
+def attn_inputs(S, Skv, B=2, H=4, KV=2, hd=64, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, Skv, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Skv, KV, hd)).astype(np.float32)
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(4, 256), (3, 7, 512), (1, 128)])
+def test_rmsnorm_plain_matches_reference(shape):
+    rng = np.random.default_rng(len(shape) * 100 + shape[-1])
+    x = rng.standard_normal(shape).astype(np.float32)
+    s = rng.standard_normal(shape[-1]).astype(np.float32)
+    before = t_rms.LAUNCHES["rmsnorm"]
+    got = t_rms_ops.rmsnorm(torch.from_numpy(x), torch.from_numpy(s))
+    assert got.shape == shape and got.dtype == torch.float32
+    pallas = rms_ops.rmsnorm(jnp.asarray(x), jnp.asarray(s))  # interpret
+    oracle = rms_ref.rmsnorm(jnp.asarray(x), jnp.asarray(s))
+    assert max_err(got, pallas) < RMS_TOL
+    assert max_err(got, oracle) < RMS_TOL
+    assert torch.equal(got, t_rms_ref.rmsnorm(torch.from_numpy(x),
+                                              torch.from_numpy(s)))
+    assert t_rms.LAUNCHES["rmsnorm"] == before      # no kernel on the CPU
+
+
+def test_rmsnorm_eps_and_zero_rows():
+    x = np.zeros((2, 128), np.float32)
+    x[1] = 1e-4
+    s = np.ones(128, np.float32)
+    for eps in (1e-6, 1e-2):
+        got = t_rms_ops.rmsnorm(torch.from_numpy(x), torch.from_numpy(s),
+                                eps=eps)
+        want = rms_ops.rmsnorm(jnp.asarray(x), jnp.asarray(s), eps=eps)
+        assert max_err(got, want) < RMS_TOL
+        assert float(got[0].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# Flash attention
+# ---------------------------------------------------------------------------
+
+ATTN_CASES = [(S, S, causal, window)
+              for S in (40, 72)
+              for causal, window in ((True, None), (True, 16),
+                                     (False, None))] + [
+    (40, 72, False, None), (40, 72, True, None), (72, 40, True, 16)]
+
+
+@pytest.mark.parametrize("S,Skv,causal,window", ATTN_CASES)
+def test_attention_plain_matches_reference(S, Skv, causal, window):
+    q, k, v = attn_inputs(S, Skv, seed=S * 7 + Skv)
+    before = t_fa.LAUNCHES["flash_attention"]
+    got = t_fa_ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                   causal=causal, window=window)
+    assert got.shape == q.shape and got.dtype == torch.float32
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    pallas = fa_ops.flash_attention(jq, jk, jv, causal=causal,
+                                    window=window)            # interpret
+    oracle = fa_ref.attention(jq, jk, jv, causal=causal, window=window)
+    if S > Skv and window is not None:
+        # rows that see no key: the oracle's softmax over all −1e30 averages
+        # v, the Pallas kernel (and the CUDA one) floors l and writes 0
+        live = np.arange(S) - window + 1 < Skv
+        got, pallas, oracle = (np.asarray(a)[:, live]
+                               for a in (got, pallas, oracle))
+    assert max_err(got, pallas) < ATTN_TOL
+    assert max_err(got, oracle) < ATTN_TOL
+    assert t_fa.LAUNCHES["flash_attention"] == before
+
+
+def test_attention_gqa_reads_kv_head_h_over_q_per_kv():
+    """Query head h attends with kv head h // (H/KV): zeroing kv head 1
+    changes exactly the outputs of query heads 2 and 3."""
+    q, k, v = map(torch.from_numpy, attn_inputs(16, 16, B=1))
+    out = t_fa_ops.flash_attention(q, k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 1] = 0.0
+    v2[:, :, 1] = 0.0
+    out2 = t_fa_ops.flash_attention(q, k2, v2)
+    assert torch.equal(out[:, :, :2], out2[:, :, :2])
+    assert not torch.equal(out[:, :, 2:], out2[:, :, 2:])
+
+
+def test_plain_attention_is_differentiable():
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in attn_inputs(24, 24, B=1))
+    t_fa_ops.flash_attention(q, k, v, causal=True, window=8).sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in (q, k, v))
+
+
+# ---------------------------------------------------------------------------
+# The CUDA wrappers take CUDA tensors only; the builder
+# ---------------------------------------------------------------------------
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """No silent fallback inside the kernel wrappers: a CPU tensor is the
+    dispatcher's business, the wrapper raises."""
+    x = torch.ones((8, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        t_rms.rmsnorm_2d(x, torch.ones(128))
+    with pytest.raises(ValueError, match="CUDA"):
+        t_rms_ops.rmsnorm_2d(x, torch.ones(128))
+    q, k, v = map(torch.from_numpy, attn_inputs(8, 8, B=1))
+    with pytest.raises(ValueError, match="CUDA"):
+        t_fa.flash_attention_fwd(q, k, v)
+
+
+def test_builder_caches_by_source_and_flags(tmp_path, monkeypatch):
+    src = tmp_path / "k.cu"
+    src.write_text("// a\n")
+    lib = build.CudaLibrary("demo", src, {"f": ()})
+    other = build.CudaLibrary("demo", src, {"f": ()}, extra_flags=("-G",))
+    assert lib.path() != other.path()
+    assert lib.path().name.startswith("libdemo_")
+    first = lib.path()
+    src.write_text("// b\n")
+    assert lib.path() != first                 # an edited source rebuilds
+
+    monkeypatch.setattr(build, "build_dir", lambda: tmp_path / "out")
+    (tmp_path / "out").mkdir()
+    lib.path().write_bytes(b"")                # already built: no nvcc
+
+    def no_nvcc():
+        raise AssertionError("nvcc must not run for a cached library")
+    monkeypatch.setattr(build, "nvcc", no_nvcc)
+    build.build([lib])
+    with pytest.raises(AssertionError):
+        build.build([other])
+
+
+def test_kernel_libraries_share_one_builder():
+    from repro_torch.fastpath import kernels as fp
+    libs = [fp.LIBRARY, t_rms.LIBRARY, t_fa.LIBRARY]
+    assert len({lib.name for lib in libs}) == 3
+    assert {lib.path().parent for lib in libs} == {build.build_dir()}
+    assert build.build_dir().parts[-2:] == ("build", "torch_ext")
+    assert all(lib.source.exists() and "sm_90a" in " ".join(lib.flags)
+               for lib in libs)
+    assert "--fmad=false" in fp.LIBRARY.flags
+
+
+# ---------------------------------------------------------------------------
+# On the card: each CUDA kernel against its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(1, 2048), (13, 2048), (9, 256),
+                                    (5, 132), (3, 4096)])
+def test_cuda_rmsnorm_matches_plain(cuda_device, rows, d):
+    g = torch.Generator(device=cuda_device).manual_seed(rows * d)
+    x = torch.randn((rows, d), device=cuda_device, generator=g)
+    s = torch.randn((d,), device=cuda_device, generator=g)
+    torch.testing.assert_close(t_rms_ops.rmsnorm(x, s),
+                               t_rms_ref.rmsnorm(x, s), rtol=RMS_TOL,
+                               atol=RMS_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,Skv,causal,window", ATTN_CASES)
+def test_cuda_flash_attention_matches_plain(cuda_device, S, Skv, causal,
+                                            window):
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in attn_inputs(S, Skv, H=8, KV=2))
+    got = t_fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = t_fa_ref.attention(q, k, v, causal=causal, window=window)
+    if S > Skv and window is not None:
+        live = torch.arange(S, device=cuda_device) - window + 1 < Skv
+        got, want = got[:, live], want[:, live]
+    torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+    with pytest.raises(RuntimeError, match="no backward"):
+        t_fa_ops.flash_attention(q.requires_grad_(), k, v)
