@@ -6,13 +6,15 @@
 Phases (any failure raises and the script exits non-zero):
 
   1. device: the card's name, count and ``nvidia-smi`` name/power limit.
-  2. build: compile the comm plane's CUDA kernels from
-     ``src/repro_torch/fastpath/csrc`` with nvcc (sm_90a).
-  3. kernels vs plain versions on ragged synthetic layouts (leaf sizes
-     {1, 127, 129, 32768, 0}, W ∈ {1, 3}, the unstacked operand, LAQ bits
-     {2, 4, 8}, all three masked modes): bitwise for masked_combine,
-     absmax and the LAQ payload/residual, rtol 1e-5 for the sum partials.
-  4. the same four kernels at the main path's shapes (llama3.2-1b's flat
+  2. build: compile the four CUDA sources (the comm plane's, rmsnorm's,
+     flash attention's and the legacy per-leaf kernels') with nvcc
+     (sm_90a), one process each, all at once.
+  3. the comm plane's kernels vs plain versions on ragged synthetic
+     layouts (leaf sizes {1, 127, 129, 32768, 0}, W ∈ {1, 3}, the
+     unstacked operand, LAQ bits {2, 4, 8}, all three masked modes):
+     bitwise for masked_combine, absmax and the LAQ payload/residual, rtol
+     1e-5 for the sum partials (delta_sqnorm_blocks, sqnorm_blocks).
+  4. the same five kernels at the main path's shapes (llama3.2-1b's flat
      layout, W = 2: 2.47e9 elements per operand, above 2^31), against the
      plain versions applied in row chunks, with their times.
   5. the main path: ``repro_torch.launch.train`` on llama3.2-1b at full
@@ -21,7 +23,8 @@ Phases (any failure raises and the script exits non-zero):
      before each run and read just after.
   6. agreement on a small input: the reduced model, 3 rounds per policy,
      on the GPU (kernels) and on the CPU (plain versions) from the same
-     weights — equal upload masks, losses within rtol 1e-4.
+     weights — equal upload masks, losses within rtol 1e-4; on the batched
+     plane, and on the legacy per-leaf route (``use_pallas_comm``).
   7. the model kernels (rmsnorm, flash attention) vs their plain versions
      at ragged shapes (rows {1, 7, 129, 1000} x d {2048, 256, 132}; S {1,
      7, 129, 1000}, causal / window / non-causal, GQA 32/8, Sq != Skv) and
@@ -37,6 +40,20 @@ Phases (any failure raises and the script exits non-zero):
      the card (``use_pallas=False``) on one prompt batch: last-position
      logits and every layer's KV cache within 2e-3, the reference's own
      tolerance for its Pallas route against XLA (tests/test_kernels.py).
+  9. the five legacy per-leaf kernels (``kernels/lag_trigger``) vs their
+     plain versions at ragged sizes ({1, 3, 127, 129, 1000, 257·33, 32768,
+     32769}, aligned and one element off, float32 and bfloat16 where the
+     kernel takes it, bits {2, 4, 8}, m ∈ {0, 1}) and at every one of
+     llama3.2-1b's 11 full-width leaves: bitwise for the masked update,
+     absmax, LAQ payload/residual and steps, rtol 1e-5 for the sums; one
+     round's launches (11 leaves × W = 2) timed against the bound, the
+     plain versions and one PyTorch call where one exists.
+ 10. the legacy per-leaf route: ``repro_torch.launch.train`` with
+     ``use_pallas_comm=True`` for lag-wk, lag-ps and laq@4 in phase 5's
+     configuration; launches per round (sqnorm_2d 22 for lag-wk and
+     lag-ps; innovation_absmax_2d and laq_encode_2d 22 for laq@4; none of
+     the batched plane's), peak memory under 80 GB, and for lag-wk and
+     laq@4 phase 5's masks and losses within rtol 1e-4.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Times are CUDA-event times on this card (kernels: the mean of
@@ -67,12 +84,35 @@ REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:25",
     "flash_attention": "src/repro/kernels/flash_attention/"
                        "flash_attention.py:68",
+    "sqnorm_blocks": "src/repro/fastpath/kernels.py:137",
+    "delta_sqnorm_2d": "src/repro/kernels/lag_trigger/lag_trigger.py:37",
+    "sqnorm_2d": "src/repro/kernels/lag_trigger/lag_trigger.py:64",
+    "masked_update_2d": "src/repro/kernels/lag_trigger/lag_trigger.py:87",
+    "innovation_absmax_2d": "src/repro/kernels/lag_trigger/"
+                            "lag_trigger.py:127",
+    "laq_encode_2d": "src/repro/kernels/lag_trigger/lag_trigger.py:161",
 }
+LEGACY_SOURCE = "src/repro_torch/kernels/lag_trigger/csrc/lag_trigger.cu"
 SOURCES = {
     "rmsnorm": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/"
                        "flash_attention.cu",
+    **{k: LEGACY_SOURCE for k in ("delta_sqnorm_2d", "sqnorm_2d",
+                                  "masked_update_2d", "innovation_absmax_2d",
+                                  "laq_encode_2d")},
 }
+#: kernels that no path of the reference runs: their main-path launches
+#: are 0, and the "never launched" checks exempt them by name
+OFF_PATH = {
+    "sqnorm_blocks": "nothing in src/repro calls FastPathPlan.sqnorm "
+                     "(src/repro/fastpath/plan.py:160), only its tests",
+    "delta_sqnorm_2d": "src/repro calls lag_trigger.ops.delta_sqnorm "
+                       "nowhere; tests and benchmarks/perf_comm.py's "
+                       "per-leaf baseline do",
+    "masked_update_2d": "src/repro calls lag_trigger.ops."
+                        "masked_lazy_update nowhere; its tests do",
+}
+LEGACY_SIZES = (1, 3, 127, 129, 1000, 257 * 33, 32768, 32769)
 SOURCE = "src/repro_torch/fastpath/csrc/fastpath_kernels.cu"
 SERVE_ARGS = ["--arch", "llama3.2-1b", "--batch", "4", "--prompt-len", "2048",
               "--gen", "32", "--rounds", "2", "--seed", "0"]
@@ -111,8 +151,9 @@ def max_abs(x, y):
 
 
 def bitwise(torch, x, y):
-    return x.shape == y.shape and torch.equal(
-        x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))
+    as_int = torch.int16 if x.element_size() == 2 else torch.int32
+    return x.shape == y.shape and x.dtype == y.dtype and torch.equal(
+        x.contiguous().view(as_int), y.contiguous().view(as_int))
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +189,12 @@ def ragged_phase(torch, dev):
                          n=20)
             print(f"  ragged W={W} delta_sqnorm_blocks[{name}] max_abs_err "
                   f"{max_abs(got, want):.3e} {ms:.4f} ms")
+        got = kernels.sqnorm_blocks(a)
+        want = kernels_ref.sqnorm_blocks(a)
+        torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=0)
+        ms = cuda_ms(torch, lambda: kernels.sqnorm_blocks(a), n=20)
+        print(f"  ragged W={W} sqnorm_blocks max_abs_err "
+              f"{max_abs(got, want):.3e} {ms:.4f} ms")
         got = kernels.absmax_blocks(a, b, c)
         check(bitwise(torch, got, kernels_ref.absmax_blocks(a, b, c)),
               f"absmax_blocks W={W} not bitwise")
@@ -241,6 +288,26 @@ def full_shape_phase(torch, dev):
         bound_ms=t_b, bound_by=by, library_ms=None)
     del out
 
+    # -- sqnorm_blocks (plan.sqnorm; no path of the reference calls it) -----
+    out = kernels.sqnorm_blocks(a)
+    err = 0.0
+    for r0 in range(0, R, 1 << 19):
+        r1 = min(r0 + (1 << 19), R)
+        want = kernels_ref.sqnorm_blocks(a[:, r0:r1])
+        got = out[:, sub_rows(r0, r1)]
+        torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=0)
+        err = max(err, max_abs(got, want))
+    t_b, by = bound_ms(N * 4 + S * 4, 2 * N)
+    results["sqnorm_blocks"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: kernels.sqnorm_blocks(a)),
+        plain_ms=plain_ms(lambda r0, r1: kernels_ref.sqnorm_blocks(
+            a[:, r0:r1])),
+        bound_ms=t_b, bound_by=by,
+        library_ms=cuda_ms(torch, lambda: torch.linalg.vector_norm(
+            a.view(W, -1, 1024), dim=2)))
+    del out
+
     # -- absmax_blocks ------------------------------------------------------
     parts = kernels.absmax_blocks(a, b, c)
     for r0 in range(0, R, 1 << 19):
@@ -322,8 +389,12 @@ def full_shape_phase(torch, dev):
 # Phase 5: the main path through the entry point
 # ---------------------------------------------------------------------------
 
-def trainer_phase(torch, algo, steps=4):
+def trainer_phase(torch, algo, steps=4, use_pallas_comm=False):
+    """Run the launcher at full width; returns the launches of the batched
+    plane's kernels (``plane``) and of the legacy per-leaf kernels
+    (``legacy``), the rounds' losses and masks, and the peak memory."""
     from repro_torch.fastpath import kernels
+    from repro_torch.kernels.lag_trigger import lag_trigger as lt
     from repro_torch.launch import train
 
     rounds = []
@@ -337,11 +408,13 @@ def trainer_phase(torch, algo, steps=4):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
+    lt.reset_launches()
     state = train.main(["--arch", "llama3.2-1b", "--algo", algo,
                         "--workers", "2", "--batch", "4", "--seq", "256",
                         "--steps", str(steps), "--seed", "0"],
-                       on_step=on_step)
+                       on_step=on_step, use_pallas_comm=use_pallas_comm)
     launches = dict(kernels.LAUNCHES)
+    legacy = dict(lt.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(len(rounds) == steps, f"{algo}: {len(rounds)} rounds")
     check(all(math.isfinite(r["loss"]) for r in rounds),
@@ -357,14 +430,15 @@ def trainer_phase(torch, algo, steps=4):
     steady = rounds[1:]
     summary = {k: sum(r[k] for r in steady) / len(steady)
                for k in ("ms", "grad_ms", "comm_ms")}
+    shown = {**launches, **legacy} if use_pallas_comm else launches
     print(f"  {algo}: losses {[round(r['loss'], 6) for r in rounds]} | "
           f"masks {[r['mask'] for r in rounds]} | comm_total "
           f"{rounds[-1]['comm_total']} | rounds 1-{steps - 1} mean "
           f"{summary['ms']:.1f} ms (device: fwd/bwd {summary['grad_ms']:.1f}"
           f" ms, comm plane + server {summary['comm_ms']:.1f} ms) | round 0 "
           f"{rounds[0]['ms']:.1f} ms | peak memory {peak:.2f} GB | launches "
-          f"{launches}")
-    return launches
+          f"{shown}")
+    return dict(plane=launches, legacy=legacy, rounds=rounds, peak=peak)
 
 
 # ---------------------------------------------------------------------------
@@ -378,14 +452,18 @@ def small_agreement_phase(torch, dev):
                                               make_train_step, params_of)
 
     cfg = get_config("llama3.2-1b").reduced()
-    for algo in ("lag-wk", "laq@4"):
-        tcfg = TrainerConfig(algo=algo, num_workers=2, lr=0.3)
+    for algo, legacy in (("lag-wk", False), ("laq@4", False),
+                         ("lag-wk", True), ("laq@4", True)):
+        tcfg = TrainerConfig(algo=algo, num_workers=2, lr=0.3,
+                             use_pallas_comm=legacy)
         cpu = init_state(cfg, tcfg, device="cpu", seed=5)
         gpu = init_state(cfg, tcfg, device=dev,
                          params=params_of(cpu, cfg))
         # auto on CPU tensors is the per-leaf oracle: force the plane so
-        # the CPU side runs the kernels' plain versions
-        cpu_step = make_train_step(cfg, tcfg.replace(fastpath="on"))
+        # the CPU side runs the kernels' plain versions (the legacy route
+        # runs its plain versions on CPU tensors by itself)
+        cpu_step = make_train_step(cfg, tcfg if legacy
+                                   else tcfg.replace(fastpath="on"))
         gpu_step = make_train_step(cfg, tcfg)
         stream = TokenStream(cfg.vocab_size, seed=5)
         for k in range(3):
@@ -394,11 +472,13 @@ def small_agreement_phase(torch, dev):
             gpu, mg = gpu_step(gpu, {n: t.to(dev) for n, t in b.items()})
             lc, lg = float(mc["loss"]), float(mg["loss"])
             check(abs(lc - lg) <= 1e-4 * abs(lc),
-                  f"small {algo} round {k}: loss cpu {lc} vs gpu {lg}")
+                  f"small {algo} legacy={legacy} round {k}: loss cpu {lc} "
+                  f"vs gpu {lg}")
             check(mc["comm_mask"].tolist() == mg["comm_mask"].cpu().tolist(),
-                  f"small {algo} round {k}: masks differ")
-        print(f"  small {algo}: 3 rounds, GPU vs CPU losses within rtol 1e-4,"
-              f" masks equal (last loss {lg:.6f})")
+                  f"small {algo} legacy={legacy} round {k}: masks differ")
+        route = "legacy per-leaf route" if legacy else "batched plane"
+        print(f"  small {algo} ({route}): 3 rounds, GPU vs CPU losses within "
+              f"rtol 1e-4, masks equal (last loss {lg:.6f})")
 
 
 # ---------------------------------------------------------------------------
@@ -566,6 +646,212 @@ def serve_phase(torch, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the legacy per-leaf kernels vs their plain versions
+# ---------------------------------------------------------------------------
+
+def legacy_kernel_phase(torch, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.dist.lag_trainer import param_layout
+    from repro_torch.kernels.lag_trigger import lag_trigger as lt
+    from repro_torch.kernels.lag_trigger import ops, ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+
+    def rand(n, dtype=torch.float32, scale=1.0, offset=0):
+        """n values on the card; ``offset`` 1 starts the view one element
+        into its storage (an unaligned base: the scalar path)."""
+        x = torch.randn((n + offset,), device=dev, generator=gen) * scale
+        return x.to(dtype)[offset:]
+
+    def laq_check(g, q, e, bits, what):
+        scale = lt.innovation_absmax_2d(g, q, e)
+        check(bitwise(torch, scale, ref.innovation_absmax(g, q, e)),
+              f"innovation_absmax_2d {what} not bitwise")
+        p, r, sq = lt.laq_encode_2d(g, q, e, scale, bits)
+        wp, wr, wsq = ref.laq_encode(g, q, e, scale, bits)
+        check(bitwise(torch, p, wp) and bitwise(torch, r, wr),
+              f"laq_encode_2d {what} bits={bits} not bitwise")
+        torch.testing.assert_close(sq, wsq, rtol=SUM_RTOL, atol=0)
+        steps = ops.laq_encode(g, q, e, bits=bits, return_steps=True)[3]
+        check(bitwise(torch, steps, ref.quantizer_step(scale, bits)
+                      .reshape(1)), f"LAQ steps {what} not bitwise")
+        return max_abs(sq, wsq)
+
+    # -- ragged sizes ------------------------------------------------------
+    for n in LEGACY_SIZES:
+        for offset in (0, 1):
+            for dt in (torch.float32, torch.bfloat16):
+                a, b = rand(n, dt, offset=offset), rand(n, dt, offset=offset)
+                what = f"n={n} offset={offset} {dt}"
+                torch.testing.assert_close(lt.sqnorm_2d(a), ref.sqnorm(a),
+                                           rtol=SUM_RTOL, atol=0)
+                torch.testing.assert_close(lt.delta_sqnorm_2d(a, b),
+                                           ref.delta_sqnorm(a, b),
+                                           rtol=SUM_RTOL, atol=0)
+                for m in (0.0, 1.0):
+                    mt = torch.tensor(m, device=dev)
+                    check(bitwise(torch, lt.masked_update_2d(a, b, mt),
+                                  ref.masked_lazy_update(a, b, mt)),
+                          f"masked_update_2d {what} m={m} not bitwise")
+            g, q, e = (rand(n, scale=sc, offset=offset)
+                       for sc in (1.0, 0.25, 0.01))
+            for bits in (2, 4, 8):
+                laq_check(g, q, e, bits, f"n={n} offset={offset}")
+    print(f"  ragged sizes {LEGACY_SIZES}, aligned and one element off: "
+          f"sums within rtol {SUM_RTOL} (float32, bfloat16), masked update "
+          f"(m 0/1, float32, bfloat16), absmax, LAQ payload/residual/steps "
+          f"(bits 2/4/8) bitwise")
+    x = torch.rand((1 << 20,), device=dev, generator=gen) * 10.0
+    share = float((x / 7.0 != x / torch.full_like(x, 7.0)).float().mean())
+    print(f"  torch on CUDA: x / 7.0 (a Python scalar) differs from the IEEE "
+          f"division x / tensor(7.0) in {100 * share:.2f} % of {x.numel()} "
+          f"values")
+    del x
+
+    # -- every full-width leaf, W = 2 ----------------------------------------
+    lo = param_layout(get_config("llama3.2-1b"))
+    W = 2
+    bufs = [torch.randn((W, lo.rows, 128), device=dev, generator=gen) * sc
+            for sc in (1.0, 1.0, 0.1)]
+    A, B, C = (tree_leaves(lo.unflatten_stacked(x)) for x in bufs)
+    pairs = [(i, m) for m in range(W) for i in range(lo.num_leaves)]
+    n_el = W * sum(lo.sizes)
+    mask = torch.tensor(1.0, device=dev)
+    errs = {"sqnorm_2d": 0.0, "delta_sqnorm_2d": 0.0, "laq_encode_2d": 0.0}
+
+    def check_leaf(a, b, c):
+        got, want = lt.sqnorm_2d(a), ref.sqnorm(a)
+        torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=0)
+        errs["sqnorm_2d"] = max(errs["sqnorm_2d"], max_abs(got, want))
+        got, want = lt.delta_sqnorm_2d(a, b), ref.delta_sqnorm(a, b)
+        torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=0)
+        errs["delta_sqnorm_2d"] = max(errs["delta_sqnorm_2d"],
+                                      max_abs(got, want))
+        check(bitwise(torch, lt.masked_update_2d(a, b, mask),
+                      ref.masked_lazy_update(a, b, mask)),
+              f"masked_update_2d leaf {tuple(a.shape)} not bitwise")
+        errs["laq_encode_2d"] = max(errs["laq_encode_2d"], laq_check(
+            a, b, c, 4, f"leaf {tuple(a.shape)}"))
+
+    for i in range(lo.num_leaves):
+        check_leaf(A[i][0], B[i][0], C[i][0])
+    print(f"  {lo.num_leaves} full-width leaves {sorted(lo.sizes)}: all "
+          f"match (sum max_abs_err {errs})")
+
+    def each(fn):
+        """One round's launches: every leaf of every worker, in turn."""
+        def go():
+            for i, m in pairs:
+                fn(i, m)
+        return go
+
+    kern = {
+        "sqnorm_2d": lambda i, m: lt.sqnorm_2d(A[i][m]),
+        "delta_sqnorm_2d": lambda i, m: lt.delta_sqnorm_2d(A[i][m], B[i][m]),
+        "masked_update_2d": lambda i, m: lt.masked_update_2d(
+            A[i][m], B[i][m], mask),
+        "innovation_absmax_2d": lambda i, m: lt.innovation_absmax_2d(
+            A[i][m], B[i][m], C[i][m]),
+        "laq_encode_2d": lambda i, m: lt.laq_encode_2d(
+            A[i][m], B[i][m], C[i][m], mask, 4),
+    }
+    plain = {
+        "sqnorm_2d": lambda i, m: ref.sqnorm(A[i][m]),
+        "delta_sqnorm_2d": lambda i, m: ref.delta_sqnorm(A[i][m], B[i][m]),
+        "masked_update_2d": lambda i, m: ref.masked_lazy_update(
+            A[i][m], B[i][m], mask),
+        "innovation_absmax_2d": lambda i, m: ref.innovation_absmax(
+            A[i][m], B[i][m], C[i][m]),
+        "laq_encode_2d": lambda i, m: ref.laq_encode(
+            A[i][m], B[i][m], C[i][m], mask, 4),
+    }
+    library = {          # one PyTorch call computing the same function
+        "sqnorm_2d": lambda i, m: torch.dot(A[i][m].view(-1),
+                                            A[i][m].view(-1)),
+        "delta_sqnorm_2d": lambda i, m: torch.dist(A[i][m], B[i][m]),
+        "masked_update_2d": lambda i, m: torch.lerp(B[i][m], A[i][m], mask),
+    }
+    # bytes: each input read once, each output written once; operations
+    # per element: sq 2, delta 3, update 3, absmax 4, encode ~10
+    work = {"sqnorm_2d": (4 * n_el, 2 * n_el),
+            "delta_sqnorm_2d": (8 * n_el, 3 * n_el),
+            "masked_update_2d": (12 * n_el, 3 * n_el),
+            "innovation_absmax_2d": (12 * n_el, 4 * n_el),
+            "laq_encode_2d": (20 * n_el, 10 * n_el)}
+    small = min(range(lo.num_leaves), key=lambda i: lo.sizes[i])
+    big = max(range(lo.num_leaves), key=lambda i: lo.sizes[i])
+    results = {}
+    for k, fn in kern.items():
+        nbytes, nops = work[k]
+        t_b, by = bound_ms(nbytes + len(pairs) * 4, nops)
+        lib = library.get(k)
+        results[k] = dict(
+            max_abs_err=errs.get(k, 0.0), ms=cuda_ms(torch, each(fn), n=3),
+            plain_ms=cuda_ms(torch, each(plain[k]), n=2),
+            bound_ms=t_b, bound_by=by,
+            library_ms=None if lib is None else cuda_ms(torch, each(lib),
+                                                        n=3))
+        per = {j: cuda_ms(torch, lambda: fn(j, 0), n=20 if j == small else 3)
+               for j in (small, big)}
+        r = results[k]
+        print(f"  round ({len(pairs)} launches) {k}: {r['ms']:.3f} ms (plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms by "
+              f"{r['bound_by']}, library {r['library_ms']}) | leaf "
+              f"{lo.shapes[big]}: {per[big]:.3f} ms, bound "
+              f"{bound_ms(nbytes / n_el * lo.sizes[big], 0)[0]:.3f} ms | "
+              f"leaf {lo.shapes[small]} (launch-bound): {per[small]:.4f} ms")
+    del A, B, C, bufs          # the leaf views hold the 29.7 GB of operands
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the legacy per-leaf route through the entry point
+# ---------------------------------------------------------------------------
+
+def legacy_route_phase(torch, phase5, steps=4):
+    """lag-wk, lag-ps and laq@4 with ``use_pallas_comm=True``; returns the
+    legacy kernels' launches over the three runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.lag_trainer import param_layout
+    from repro_torch.kernels.lag_trigger import lag_trigger as lt
+
+    per_leaf = 2 * param_layout(get_config("llama3.2-1b")).num_leaves
+    per_round = {"lag-wk": ("sqnorm_2d",), "lag-ps": ("sqnorm_2d",),
+                 "laq@4": ("innovation_absmax_2d", "laq_encode_2d")}
+    totals = {k: 0 for k in lt.LAUNCHES}
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  allocated before the runs: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    for algo, names in per_round.items():
+        run = trainer_phase(torch, algo, steps=steps, use_pallas_comm=True)
+        check(not any(run["plane"].values()),
+              f"{algo}: the batched plane launched {run['plane']} on the "
+              f"legacy route")
+        for k, v in run["legacy"].items():
+            want = per_leaf * steps if k in names else 0
+            check(v == want, f"{algo}: {k} launched {v} times in {steps} "
+                             f"rounds, want {want}")
+            totals[k] += v
+        check(run["peak"] < 80.0, f"{algo}: peak memory {run['peak']:.2f} "
+                                  f"GB on the legacy route")
+        if algo in phase5:
+            for k, (r, p) in enumerate(zip(run["rounds"], phase5[algo])):
+                check(r["mask"] == p["mask"], f"{algo} round {k}: legacy "
+                      f"masks {r['mask']} vs plane {p['mask']}")
+                check(abs(r["loss"] - p["loss"]) <= 1e-4 * abs(p["loss"]),
+                      f"{algo} round {k}: legacy loss {r['loss']} vs plane "
+                      f"{p['loss']}")
+            print(f"  {algo}: masks equal to phase 5's, losses within rtol "
+                  f"1e-4")
+    return totals
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -581,6 +867,7 @@ def main():
     from repro_torch.fastpath import kernels
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.lag_trigger import lag_trigger as lt
     from repro_torch.kernels.rmsnorm import rmsnorm as rms
 
     t_start = time.perf_counter()
@@ -594,7 +881,7 @@ def main():
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    libs = [kernels.LIBRARY, rms.LIBRARY, fa.LIBRARY]
+    libs = [kernels.LIBRARY, rms.LIBRARY, fa.LIBRARY, lt.LIBRARY]
     build.build(libs)                  # one nvcc per source, all at once
     for lib in libs:
         build.load(lib)
@@ -620,14 +907,20 @@ def main():
     want = {"lag-wk": ("delta_sqnorm_blocks", "masked_combine"),
             "laq@4": ("absmax_blocks", "laq_encode_blocks", "masked_combine")}
     launches = {k: 0 for k in kernels.LAUNCHES}
+    phase5 = {}
     for algo, names in want.items():
-        got = trainer_phase(torch, algo)
+        run = trainer_phase(torch, algo)
+        got = run["plane"]
+        phase5[algo] = run["rounds"]
         for k in names:
             check(got[k] >= 4, f"{algo}: kernel {k} launched {got[k]} times "
                                f"in 4 rounds")
         for k, v in got.items():
             launches[k] += v
     for k in kernels.LAUNCHES:
+        if k in OFF_PATH:
+            print(f"  {k}: {launches[k]} launches, exempt: {OFF_PATH[k]}")
+            continue
         check(launches[k] > 0, f"kernel {k} never launched on the main path")
 
     print("[6] GPU vs CPU on the reduced model", flush=True)
@@ -643,6 +936,19 @@ def main():
     for k in serve_launches:
         check(launches[k] > 0, f"kernel {k} never launched on the serving "
                                f"path")
+
+    print("[9] legacy per-leaf kernels vs plain versions, ragged and full "
+          "shapes", flush=True)
+    full.update(legacy_kernel_phase(torch, dev))
+    print("[10] legacy per-leaf route (use_pallas_comm=True): llama3.2-1b "
+          "full width, W=2, batch 4, seq 256", flush=True)
+    legacy_launches = legacy_route_phase(torch, phase5)
+    launches.update(legacy_launches)
+    for k, v in legacy_launches.items():
+        if k in OFF_PATH:
+            print(f"  {k}: {v} launches, exempt: {OFF_PATH[k]}")
+            continue
+        check(v > 0, f"kernel {k} never launched on the legacy route")
 
     rows = [dict(name=k, route="cuda", source=SOURCES.get(k, SOURCE),
                  replaces=REPLACES[k], launches=launches[k], **full[k])

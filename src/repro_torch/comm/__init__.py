@@ -7,6 +7,7 @@ from repro_torch.comm.base import (CommPolicy, CommRound, PolicyState,
                                    run_round)
 from repro_torch.comm.laq import LAQPolicy
 from repro_torch.comm.policies import GDPolicy, LAGPSPolicy, LAGWKPolicy
+from repro_torch.fastpath.plan import make_plan
 
 POLICIES = {
     "gd": GDPolicy,
@@ -16,12 +17,17 @@ POLICIES = {
 }
 
 
-def make_policy(spec: str, *, bits: int = 4, fastpath="auto") -> CommPolicy:
+def make_policy(spec: str, *, bits: int = 4, use_pallas: bool = False,
+                sqnorm_fn=None, fastpath="auto") -> CommPolicy:
     """Build a policy from ``<algo>[@<bits>]`` (``"lag-wk"``, ``"laq@8"``).
 
     ``fastpath``: ``"auto"`` (the plane is on for CUDA tensors; CPU
     tensors take the plain per-leaf route) or ``"on"`` (forced, plain
-    kernel versions on CPU tensors).
+    kernel versions on CPU tensors).  ``use_pallas=True`` SELECTS the
+    legacy per-leaf route instead: the policy gets no plane, LAQ encodes
+    with the per-leaf kernels of ``repro_torch.kernels.lag_trigger``, and
+    ``sqnorm_fn`` (when given) replaces the triggers' squared norm.
+    Combined with ``fastpath="on"`` it raises.
     """
     if not isinstance(spec, str) or not spec:
         raise ValueError(f"policy spec must be a non-empty string, got "
@@ -41,9 +47,20 @@ def make_policy(spec: str, *, bits: int = 4, fastpath="auto") -> CommPolicy:
         except ValueError:
             raise ValueError(f"bad policy spec {spec!r}: '@{param}' is not "
                              f"an integer bit width") from None
+    make_plan(fastpath)                            # validate the mode
+    if use_pallas:
+        if fastpath == "on":
+            raise ValueError(
+                "conflicting comm-plane configs: use_pallas=True selects "
+                "the legacy per-leaf kernels but fastpath='on' forces the "
+                "batched plane (repro_torch.fastpath) — pass one of them")
+        fastpath = None
+    kw = {"fastpath": fastpath}
+    if sqnorm_fn is not None:
+        kw["sqnorm_fn"] = sqnorm_fn
     if cls is LAQPolicy:
-        return LAQPolicy(bits=bits, fastpath=fastpath)
-    return cls(fastpath=fastpath)
+        kw.update(bits=bits, use_pallas=use_pallas)
+    return cls(**kw)
 
 
 __all__ = ["CommPolicy", "CommRound", "PolicyState", "run_round",

@@ -20,7 +20,7 @@ plain route is functional.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -61,9 +61,16 @@ class CommPolicy:
     needs_theta_hat: bool = False
     needs_L_m: bool = False
 
-    def __init__(self, fastpath="auto"):
+    def __init__(self, sqnorm_fn: Callable[[Pytree], torch.Tensor]
+                 = lag.tree_sqnorm, fastpath="auto"):
         from repro_torch.fastpath import plan as plan_lib
-        self.fastpath = plan_lib.make_plan(fastpath)
+        # the triggers' squared norm off the plane; injectable so the
+        # trainer can supply the per-leaf kernels' fused_tree_sqnorm
+        self.sqnorm_fn = sqnorm_fn
+        # the batched plane ("auto", "on" or a plan), or None where
+        # make_policy(use_pallas=True) selected the per-leaf kernels
+        self.fastpath = None if fastpath is None \
+            else plan_lib.make_plan(fastpath)
 
     # -- state --------------------------------------------------------------
     def init_state(self, grad0, theta0=None) -> PolicyState:

@@ -11,68 +11,38 @@ Per-worker round (server mirror q̂_m = ``grad_hat``, worker residual e_m):
 
 The fast route is two kernel launches for all workers (absmax sweep, then
 the fused quantize/residual/‖p‖² sweep) and writes the payload over the
-consumed gradient buffer; off the plane, ``encode`` runs the per-leaf
-oracle (the math of ``repro.kernels.lag_trigger.ref``).  The packed wire
-format (``pack_codes``/``wire_*``) waits for the device plane.
+consumed gradient buffer.  Off the plane, ``encode`` runs the per-leaf
+encode of ``repro_torch.kernels.lag_trigger.ops``: the per-leaf kernels
+under ``use_pallas`` (two launches per leaf), else the plain version.  The
+packed wire format (``pack_codes``/``wire_*``) waits for the device plane.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
 from repro_torch.comm.base import CommPolicy, CommRound, PolicyState, Pytree
 from repro_torch.core import lag
-from repro_torch.core.tree import tree_flatten, tree_leaves, tree_unflatten
-
-
-def _laq_leaf(g, q, e, bits: int):
-    """One leaf of the oracle encode → (payload, residual, Σp², step)."""
-    qmax = float(2 ** (bits - 1) - 1)
-    v = (g.float() - q.float()) + e.float()
-    if v.numel() == 0:      # the max-reduction identity, as the plane's
-        scale = torch.full((), float("-inf"), device=v.device)
-    else:
-        scale = torch.amax(torch.abs(v))
-    step = scale / qmax
-    inv = torch.where(step > 0.0,
-                      1.0 / torch.where(step > 0.0, step,
-                                        torch.ones_like(step)),
-                      torch.zeros_like(step))
-    codes = torch.clamp(torch.round(v * inv), -qmax, qmax)
-    p = codes * step
-    return p, v - p, torch.sum(p * p), step
-
-
-def laq_encode_oracle(g_new: Pytree, q_hat: Pytree, resid: Pytree,
-                      bits: int):
-    """Per-leaf LAQ encode → (payload tree, residual tree, ‖payload‖²,
-    (num_leaves,) quantizer steps)."""
-    g_leaves, tdef = tree_flatten(g_new)
-    ps, es, steps = [], [], []
-    lhs = torch.zeros((), dtype=torch.float32,
-                      device=g_leaves[0].device if g_leaves else None)
-    for g, q, e in zip(g_leaves, tree_leaves(q_hat), tree_leaves(resid)):
-        p, enew, sq, step = _laq_leaf(g, q, e, bits)
-        ps.append(p)
-        es.append(enew)
-        steps.append(step)
-        lhs = lhs + sq
-    st = torch.stack(steps) if steps else torch.zeros((0,))
-    return (tree_unflatten(tdef, ps), tree_unflatten(tdef, es), lhs, st)
+from repro_torch.core.tree import tree_leaves
+from repro_torch.kernels.lag_trigger import ops as lag_ops
 
 
 class LAQPolicy(CommPolicy):
     """b-bit quantized lazy uploads with error feedback.  ``grad_hat`` is
-    the server mirror q̂_m, ``resid`` the float32 residual e_m."""
+    the server mirror q̂_m, ``resid`` the float32 residual e_m.
+    ``use_pallas`` selects the per-leaf encode kernels off the plane."""
     name = "laq"
     state_keys = ("grad_hat", "resid")
 
-    def __init__(self, bits: int = 4, fastpath="auto"):
-        super().__init__(fastpath=fastpath)
+    def __init__(self, bits: int = 4, use_pallas: bool = False,
+                 sqnorm_fn: Callable[[Pytree], torch.Tensor]
+                 = lag.tree_sqnorm, fastpath="auto"):
+        super().__init__(sqnorm_fn=sqnorm_fn, fastpath=fastpath)
         if not 2 <= bits <= 16:
             raise ValueError(f"LAQ bits must be in [2, 16], got {bits}")
         self.bits = bits
+        self.use_pallas = use_pallas
 
     def init_state(self, grad0, theta0=None) -> PolicyState:
         return {"grad_hat": grad0, "resid": torch.zeros_like(
@@ -85,8 +55,9 @@ class LAQPolicy(CommPolicy):
             return f["payload"], {"resid_new": f["resid_new"],
                                   "lhs_sq": f["lhs_sq"],
                                   "wire_steps": f["wire_steps"]}
-        payload, resid_new, lhs, steps = laq_encode_oracle(
-            ctx.grad_new, st["grad_hat"], st["resid"], self.bits)
+        payload, resid_new, lhs, steps = lag_ops.laq_encode(
+            ctx.grad_new, st["grad_hat"], st["resid"], bits=self.bits,
+            use_ref=not self.use_pallas, return_steps=True)
         return payload, {"resid_new": resid_new, "lhs_sq": lhs,
                          "wire_steps": steps}
 

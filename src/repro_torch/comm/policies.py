@@ -37,7 +37,7 @@ class LAGWKPolicy(CommPolicy):
         if ctx.fast is not None and "lhs_sq" in ctx.fast:
             lhs = ctx.fast["lhs_sq"]      # one batched launch, all workers
         else:
-            lhs = lag.tree_sqnorm(payload)
+            lhs = self.sqnorm_fn(payload)
         return lhs > lag.trigger_rhs(ctx.hist, ctx.cfg)
 
     def fast_precompute(self, plan, grads, st, *, theta, layout):
@@ -57,11 +57,10 @@ class LAGPSPolicy(CommPolicy):
         if ctx.L_m is None:
             raise ValueError("LAG-PS requires per-worker smoothness L_m")
         if ctx.fast is not None and "dtheta_sq" in ctx.fast:
-            drift = ctx.fast["dtheta_sq"]
-        else:
-            drift = lag.tree_sqnorm(lag.tree_sub(ctx.theta, st["theta_hat"]))
-        lhs = (ctx.L_m.to(torch.float32) ** 2) * drift
-        return lhs > lag.trigger_rhs(ctx.hist, ctx.cfg)
+            lhs = (ctx.L_m.to(torch.float32) ** 2) * ctx.fast["dtheta_sq"]
+            return lhs > lag.trigger_rhs(ctx.hist, ctx.cfg)
+        return lag.ps_communicate(ctx.theta, st["theta_hat"], ctx.L_m,
+                                  ctx.hist, ctx.cfg, sqnorm_fn=self.sqnorm_fn)
 
     def fast_precompute(self, plan, grads, st, *, theta, layout):
         # 15b's drift ‖θ̂_m − θ‖² for every worker; θ is the shared

@@ -1,9 +1,10 @@
 """Core LAG primitives (Chen et al., NIPS 2018) — port of ``repro.core.lag``.
 
-``LAGConfig``, the pytree helpers, the iterate-lag ring buffer (eq. 14) and
-the trigger right-hand side of (15a)/(15b).  Trees are nested dicts/lists of
-tensors flattened in JAX's order (``repro_torch.core.tree``).  Everything is
-float32 and functional: new tensors out, inputs untouched.
+``LAGConfig``, the pytree helpers, the iterate-lag ring buffer (eq. 14),
+the trigger right-hand side of (15a)/(15b) and the two trigger rules.
+Trees are nested dicts/lists of tensors flattened in JAX's order
+(``repro_torch.core.tree``).  Everything is float32 and functional: new
+tensors out, inputs untouched.
 """
 from __future__ import annotations
 
@@ -103,3 +104,24 @@ def trigger_rhs(hist: torch.Tensor, cfg: LAGConfig) -> torch.Tensor:
 def rhs_underflow(hist: torch.Tensor, cfg: LAGConfig, step) -> torch.Tensor:
     """() bool — the un-floored RHS is exactly 0 after the warm-up round."""
     return (_raw_rhs(hist, cfg) == 0.0) & (torch.as_tensor(step) > 0)
+
+
+# ---------------------------------------------------------------------------
+# Trigger rules (eq. 15): True ⇒ the worker communicates
+# ---------------------------------------------------------------------------
+
+def wk_communicate(grad_new: Pytree, grad_hat: Pytree, hist: torch.Tensor,
+                   cfg: LAGConfig, *, sqnorm_fn=tree_sqnorm) -> torch.Tensor:
+    """LAG-WK (15a): communicate iff ‖∇L_m(θ̂) − ∇L_m(θ^k)‖² > RHS.
+    ``sqnorm_fn`` is injectable (the per-leaf kernels' fused norm)."""
+    lhs = sqnorm_fn(tree_sub(grad_new, grad_hat))
+    return lhs > trigger_rhs(hist, cfg)
+
+
+def ps_communicate(theta: Pytree, theta_hat: Pytree, L_m: torch.Tensor,
+                   hist: torch.Tensor, cfg: LAGConfig,
+                   *, sqnorm_fn=tree_sqnorm) -> torch.Tensor:
+    """LAG-PS (15b): communicate iff L_m² ‖θ̂_m − θ^k‖² > RHS."""
+    lhs = (L_m.to(torch.float32) ** 2) * sqnorm_fn(tree_sub(theta,
+                                                            theta_hat))
+    return lhs > trigger_rhs(hist, cfg)

@@ -18,45 +18,51 @@ Pytree = Any
 TreeDef = Tuple
 
 
-def tree_flatten(tree: Pytree, is_leaf: Optional[Callable] = None
-                 ) -> Tuple[List[Any], TreeDef]:
-    """(leaves, treedef); ``is_leaf(node)`` True stops the descent there."""
-    leaves: List[Any] = []
-
-    def rec(t):
-        if is_leaf is not None and is_leaf(t):
-            leaves.append(t)
-            return ("leaf",)
-        if t is None:
-            return ("none",)
-        if isinstance(t, dict):
-            keys = tuple(sorted(t))
-            return ("dict", keys, tuple(rec(t[k]) for k in keys))
-        if isinstance(t, (list, tuple)):
-            kind = "list" if isinstance(t, list) else "tuple"
-            return (kind, tuple(rec(c) for c in t))
+def _flatten(t, leaves: List[Any], is_leaf) -> TreeDef:
+    if is_leaf is not None and is_leaf(t):
         leaves.append(t)
         return ("leaf",)
+    if t is None:
+        return ("none",)
+    if isinstance(t, dict):
+        keys = tuple(sorted(t))
+        return ("dict", keys, tuple(_flatten(t[k], leaves, is_leaf)
+                                    for k in keys))
+    if isinstance(t, (list, tuple)):
+        kind = "list" if isinstance(t, list) else "tuple"
+        return (kind, tuple(_flatten(c, leaves, is_leaf) for c in t))
+    leaves.append(t)
+    return ("leaf",)
 
-    treedef = rec(tree)
+
+def tree_flatten(tree: Pytree, is_leaf: Optional[Callable] = None
+                 ) -> Tuple[List[Any], TreeDef]:
+    """(leaves, treedef); ``is_leaf(node)`` True stops the descent there.
+
+    The recursion is a module-level function, not a closure: a recursive
+    closure is a reference cycle that keeps its leaves alive until the
+    cyclic garbage collector runs, which on the card can hold several
+    model-sized trees at once."""
+    leaves: List[Any] = []
+    treedef = _flatten(tree, leaves, is_leaf)
     return leaves, treedef
+
+
+def _unflatten(d: TreeDef, it) -> Pytree:
+    kind = d[0]
+    if kind == "leaf":
+        return next(it)
+    if kind == "none":
+        return None
+    if kind == "dict":
+        return {k: _unflatten(c, it) for k, c in zip(d[1], d[2])}
+    children = [_unflatten(c, it) for c in d[1]]
+    return children if kind == "list" else tuple(children)
 
 
 def tree_unflatten(treedef: TreeDef, leaves) -> Pytree:
     it = iter(leaves)
-
-    def rec(d):
-        kind = d[0]
-        if kind == "leaf":
-            return next(it)
-        if kind == "none":
-            return None
-        if kind == "dict":
-            return {k: rec(c) for k, c in zip(d[1], d[2])}
-        children = [rec(c) for c in d[1]]
-        return children if kind == "list" else tuple(children)
-
-    out = rec(treedef)
+    out = _unflatten(treedef, it)
     rest = list(it)
     if rest:
         raise ValueError(f"{len(rest)} leaves left over after unflatten")

@@ -28,8 +28,8 @@ from repro_torch.core.tree import tree_flatten, tree_unflatten
 from repro_torch.engine import rounds as engine_rounds
 from repro_torch.engine import server as server_lib
 from repro_torch.engine.topology import BatchShards
-from repro_torch.fastpath import plan as plan_lib
 from repro_torch.fastpath.layout import FlatLayout
+from repro_torch.kernels.lag_trigger import ops as lag_ops
 from repro_torch.models import model
 from repro_torch.models.common import ModelConfig
 
@@ -43,17 +43,20 @@ class TrainerConfig:
     α = lr/M, and the triggers (15a)/(15b) read that same α.  ``algo`` is
     any ``repro_torch.comm.make_policy`` spec (``"laq@8"`` sets LAQ's
     bits); ``fastpath`` is "auto" (the plane runs for CUDA tensors) or
-    "on" (forced)."""
+    "on" (forced).  ``use_pallas_comm`` selects the legacy per-leaf route
+    instead of the plane: the per-leaf kernels' ``fused_tree_sqnorm`` as
+    the triggers' norm and LAQ's per-leaf kernel encode; combined with
+    ``fastpath="on"`` it raises."""
     algo: str = "lag-wk"
     num_workers: int = 4
     lr: float = 0.05
     D: int = 10
     xi: float = 0.1
     fastpath: str = "auto"
+    use_pallas_comm: bool = False
 
     def __post_init__(self):
-        comm.make_policy(self.algo)                       # validate spec
-        plan_lib.make_plan(self.fastpath)
+        self.comm_policy()      # raises on a bad spec, mode or combination
 
     @property
     def lag_rule(self) -> str:
@@ -65,7 +68,10 @@ class TrainerConfig:
                              xi=self.xi, rule=self.lag_rule)
 
     def comm_policy(self) -> comm.CommPolicy:
-        return comm.make_policy(self.algo, fastpath=self.fastpath)
+        sqnorm_fn = lag_ops.fused_tree_sqnorm if self.use_pallas_comm \
+            else None
+        return comm.make_policy(self.algo, use_pallas=self.use_pallas_comm,
+                                sqnorm_fn=sqnorm_fn, fastpath=self.fastpath)
 
     def server_optimizer(self) -> server_lib.ServerOptimizer:
         """The paper's eq. (4); the other servers are not ported yet."""

@@ -38,8 +38,11 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
     kernel-served quantities come from ONE batched ``fast_precompute``,
     ``encode``/``should_upload`` run once over the stacked buffers, and
     ``fast_decode`` folds the state in place.  ``grads`` is consumed (LAQ
-    writes its payload over it).  Plain route: a loop over workers, each
-    round on per-leaf views of the buffers — the oracle.
+    writes its payload over it).  Plain route (no plane, or an inactive
+    one): a loop over workers, each round on per-leaf views of the
+    buffers — the oracle, or the per-leaf kernels under
+    ``use_pallas_comm`` — and the delta goes over ``grads``, the state
+    over its buffers, in place.
     """
     W = grads.shape[0]
     pst = {k: lag_state[k] for k in policy.state_keys}
@@ -67,10 +70,12 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
                                             theta=theta, layout=layout)
         return comm, delta, new_pst
 
+    # worker m's round returns new trees; its delta then goes over its
+    # consumed gradient row and its state over its own state rows, in
+    # place (only worker m reads row m), so no (W, rows, 128) buffer is
+    # added: at full width the route has to fit one card
     theta_t = layout.unflatten(theta)
     comms = []
-    delta = torch.zeros_like(grads)
-    new_pst = {k: torch.zeros_like(v) for k, v in pst.items()}
     for m in range(W):
         ctx = CommRound(theta=theta_t, grad_new=layout.unflatten(grads[m]),
                         hist=hist, cfg=lagcfg,
@@ -79,10 +84,11 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
                 for k, v in pst.items()}
         comm_m, delta_m, new_st = run_round(policy, ctx, st_m)
         comms.append(comm_m.reshape(()))
-        layout.flatten(delta_m, out=delta[m])
-        for k in new_pst:
-            layout.flatten(new_st[k], out=new_pst[k][m])
-    return torch.stack(comms), delta, new_pst
+        layout.flatten(delta_m, out=grads[m])
+        for k in pst:
+            layout.flatten(new_st[k], out=pst[k][m])
+        del ctx, st_m, delta_m, new_st
+    return torch.stack(comms), grads, pst
 
 
 def sum_reduce(comm: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
 // Batched flat-buffer comm-plane kernels for Hopper (sm_90a).
 //
-// Hand-written CUDA replacements of the four Pallas kernels of
+// Hand-written CUDA replacements of the five Pallas kernels of
 // src/repro/fastpath/kernels.py:
 //
 //   lag_delta_sq_blocks   <- delta_sqnorm_blocks (_delta_sq_kernel)
+//   lag_sq_blocks         <- sqnorm_blocks       (_sq_kernel)
 //   lag_absmax_blocks     <- absmax_blocks       (_absmax_kernel)
 //   lag_laq_encode_blocks <- laq_encode_blocks   (_laq_kernel)
 //   lag_masked_combine    <- masked_combine      (_masked_kernel)
@@ -12,7 +13,7 @@
 // repro_torch/fastpath/layout.py; a "sub-block" is 8 x 128 = 1024
 // contiguous floats and never straddles two leaves.  Every kernel is one
 // streaming sweep over device memory with a few flops per element, so all
-// four are bound by HBM bytes, not by arithmetic: the design is coalesced
+// five are bound by HBM bytes, not by arithmetic: the design is coalesced
 // 16-byte (float4) loads and stores, no shared memory, no atomics.
 //
 //   * Per-sub-block reductions: ONE WARP PER SUB-BLOCK.  Lane l reads the
@@ -92,6 +93,26 @@ __global__ void delta_sq_kernel(const float4* a, const float4* b, float* out,
     acc = sq_diff_acc(acc, x.y, y.y);
     acc = sq_diff_acc(acc, x.z, y.z);
     acc = sq_diff_acc(acc, x.w, y.w);
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) out[sub] = acc;
+}
+
+// per-(worker, sub-block) sum a^2: delta_sq_kernel with one operand
+__global__ void sq_kernel(const float4* a, float* out, int64_t total_subs) {
+  const int64_t sub = (int64_t)blockIdx.x * WARPS_PER_BLOCK
+                      + threadIdx.x / WARP;
+  if (sub >= total_subs) return;
+  const int lane = threadIdx.x % WARP;
+  const float4* pa = a + sub * SUB_VEC;
+  float acc = 0.f;
+#pragma unroll
+  for (int j = 0; j < VEC_PER_LANE; ++j) {
+    const float4 x = pa[lane + j * WARP];
+    acc = __fadd_rn(acc, __fmul_rn(x.x, x.x));
+    acc = __fadd_rn(acc, __fmul_rn(x.y, x.y));
+    acc = __fadd_rn(acc, __fmul_rn(x.z, x.z));
+    acc = __fadd_rn(acc, __fmul_rn(x.w, x.w));
   }
   acc = warp_sum(acc);
   if (lane == 0) out[sub] = acc;
@@ -216,6 +237,15 @@ int lag_delta_sq_blocks(const void* a, const void* b, void* out, int64_t W,
   delta_sq_kernel<<<sub_grid(total), THREADS, 0, (cudaStream_t)stream>>>(
       (const float4*)a, (const float4*)b, (float*)out, total, nsubs, a_ws,
       b_ws);
+  return (int)cudaGetLastError();
+}
+
+// a: (W, R, 128) float32; out: (W, R/8) float32
+int lag_sq_blocks(const void* a, void* out, int64_t total_subs,
+                  void* stream) {
+  if (total_subs == 0) return 0;
+  sq_kernel<<<sub_grid(total_subs), THREADS, 0, (cudaStream_t)stream>>>(
+      (const float4*)a, (float*)out, total_subs);
   return (int)cudaGetLastError();
 }
 

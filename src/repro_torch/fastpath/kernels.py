@@ -1,4 +1,4 @@
-"""The comm plane's four kernels: dispatch to CUDA (Hopper) or the plain
+"""The comm plane's five kernels: dispatch to CUDA (Hopper) or the plain
 version — port of ``repro.fastpath.kernels``.
 
 Each wrapper takes the layout's float32 flat buffers.  For tensors on the
@@ -25,8 +25,9 @@ from repro_torch.kernels import build
 MASK_MODES = kernels_ref.MASK_MODES
 
 #: kernel launches since the last ``reset_launches()``, per kernel
-LAUNCHES: Dict[str, int] = {"delta_sqnorm_blocks": 0, "absmax_blocks": 0,
-                            "laq_encode_blocks": 0, "masked_combine": 0}
+LAUNCHES: Dict[str, int] = {"delta_sqnorm_blocks": 0, "sqnorm_blocks": 0,
+                            "absmax_blocks": 0, "laq_encode_blocks": 0,
+                            "masked_combine": 0}
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 #: ``--fmad=false``: ``v - codes*step`` must never become an FMA, so the LAQ
@@ -35,6 +36,7 @@ LIBRARY = build.CudaLibrary(
     "fastpath", Path(__file__).resolve().parent / "csrc"
     / "fastpath_kernels.cu",
     {"lag_delta_sq_blocks": (_P, _P, _P, _I64, _I64, _I64, _I64),
+     "lag_sq_blocks": (_P, _P, _I64),
      "lag_absmax_blocks": (_P, _P, _P, _P, _I64),
      "lag_laq_encode_blocks": (_P, _P, _P, _P, _P, _P, _P, _I64,
                                ctypes.c_float),
@@ -72,7 +74,7 @@ def _same_device(*xs: torch.Tensor) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# The four kernels
+# The five kernels
 # ---------------------------------------------------------------------------
 
 def delta_sqnorm_blocks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -94,6 +96,20 @@ def delta_sqnorm_blocks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                  b.data_ptr(), out.data_ptr(), W, R // SUB_ROWS, vec,
                  vec if b.dim() == 3 else 0, device=a.device)
     LAUNCHES["delta_sqnorm_blocks"] += 1
+    return out
+
+
+def sqnorm_blocks(a: torch.Tensor) -> torch.Tensor:
+    """Per-sub-block partials of ‖a‖²: (W, R, L) → (W, R/8)."""
+    _check("a", a)
+    if not a.is_cuda:
+        return kernels_ref.sqnorm_blocks(a)
+    W, R = a.shape[0], a.shape[1]
+    out = torch.empty((W, R // SUB_ROWS), dtype=torch.float32,
+                      device=a.device)
+    build.launch(build.load(LIBRARY).lag_sq_blocks, a.data_ptr(),
+                 out.data_ptr(), W * (R // SUB_ROWS), device=a.device)
+    LAUNCHES["sqnorm_blocks"] += 1
     return out
 
 

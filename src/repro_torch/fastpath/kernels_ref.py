@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the comm plane's four kernels.
+"""Plain PyTorch versions of the comm plane's five kernels.
 
 Same function and same per-(worker, sub-block) partials as the CUDA
 kernels in ``csrc/fastpath_kernels.cu`` (and the Pallas kernels of
@@ -28,6 +28,12 @@ def delta_sqnorm_blocks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if d.dim() == 2:
         d = d[None]
     return torch.sum(_subs(d * d), dim=-1)
+
+
+def sqnorm_blocks(a: torch.Tensor) -> torch.Tensor:
+    """Per-sub-block Σa²: (W, R, L) → (W, R/8)."""
+    x = a.float()
+    return torch.sum(_subs(x * x), dim=-1)
 
 
 def absmax_blocks(g: torch.Tensor, q: torch.Tensor,

@@ -97,6 +97,10 @@ class FastPathPlan:
         parts = kernels.delta_sqnorm_blocks(a, b)
         return self._total(parts, lo)
 
+    def sqnorm(self, t: torch.Tensor, lo: FlatLayout) -> torch.Tensor:
+        """Per-worker ‖t‖² over a (W, rows, 128) buffer → (W,) float32."""
+        return self._total(kernels.sqnorm_blocks(t), lo)
+
     def laq_encode(self, g: torch.Tensor, q: torch.Tensor, e: torch.Tensor,
                    lo: FlatLayout, *, bits: int,
                    payload_out: Optional[torch.Tensor] = None):
@@ -137,6 +141,7 @@ def make_plan(spec) -> FastPathPlan:
 
 def active_plan(policy, x: torch.Tensor) -> Optional[FastPathPlan]:
     """The policy's plan iff it is active for tensors like ``x`` (on CUDA,
-    or forced)."""
+    or forced); None for a policy without a plan (the per-leaf kernels
+    selected by ``make_policy(use_pallas=True)``)."""
     plan = policy.fastpath
-    return plan if plan.enabled_for(x) else None
+    return plan if plan is not None and plan.enabled_for(x) else None

@@ -1,6 +1,6 @@
-"""Hand-written CUDA kernels for the model's hot spots — port of
-``repro.kernels`` (RMSNorm and flash attention; the legacy per-leaf
-``lag_trigger`` kernels are not ported yet).
+"""Hand-written CUDA kernels — port of ``repro.kernels``: RMSNorm and
+flash attention for the model, and the legacy per-leaf ``lag_trigger``
+kernels for the trainer's ``use_pallas_comm`` route.
 
 Each kernel has a plain PyTorch version beside it (``ref.py``).  The
 reference picks its route by backend (``on_tpu()``); the port picks it by

@@ -52,11 +52,13 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def main(argv=None, on_step=None):
+def main(argv=None, on_step=None, use_pallas_comm=False):
     """Run the trainer; ``on_step(step, metrics, timing)`` sees every
     round's metrics and its times (``ms`` on the host clock; on the GPU
-    also ``grad_ms``/``comm_ms`` of device time).  Returns the final
-    state."""
+    also ``grad_ms``/``comm_ms`` of device time).  ``use_pallas_comm``
+    selects the legacy per-leaf comm route (``TrainerConfig``): a keyword
+    of the API, not a flag of the command line, as in the reference.
+    Returns the final state."""
     args = build_argparser().parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":
@@ -68,7 +70,8 @@ def main(argv=None, on_step=None):
         cfg = cfg.reduced()
     tcfg = TrainerConfig(algo=args.algo, num_workers=args.workers,
                          lr=args.lr, D=args.D, xi=args.xi,
-                         fastpath=args.fastpath)
+                         fastpath=args.fastpath,
+                         use_pallas_comm=use_pallas_comm)
     state = init_state(cfg, tcfg, device=device, seed=args.seed)
     train_step = make_train_step(cfg, tcfg)
     stream = TokenStream(vocab=cfg.vocab_size, seed=args.seed)

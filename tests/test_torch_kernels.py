@@ -180,13 +180,15 @@ def test_builder_caches_by_source_and_flags(tmp_path, monkeypatch):
 
 def test_kernel_libraries_share_one_builder():
     from repro_torch.fastpath import kernels as fp
-    libs = [fp.LIBRARY, t_rms.LIBRARY, t_fa.LIBRARY]
-    assert len({lib.name for lib in libs}) == 3
+    from repro_torch.kernels.lag_trigger import lag_trigger as lt
+    libs = [fp.LIBRARY, t_rms.LIBRARY, t_fa.LIBRARY, lt.LIBRARY]
+    assert len({lib.name for lib in libs}) == 4
     assert {lib.path().parent for lib in libs} == {build.build_dir()}
     assert build.build_dir().parts[-2:] == ("build", "torch_ext")
     assert all(lib.source.exists() and "sm_90a" in " ".join(lib.flags)
                for lib in libs)
     assert "--fmad=false" in fp.LIBRARY.flags
+    assert "--fmad=false" in lt.LIBRARY.flags
 
 
 # ---------------------------------------------------------------------------

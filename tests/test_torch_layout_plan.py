@@ -72,6 +72,7 @@ def test_port_imports_without_jax_or_repro():
         for n in names:
             importlib.import_module(n)
         assert "repro_torch.fastpath.kernels" in names, names
+        assert "repro_torch.kernels.lag_trigger.ops" in names, names
         print(len(names))
         """)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -155,6 +156,15 @@ def test_delta_sqnorm_blocks_matches_pallas(W, stacked_b):
                                             interpret=True))
     got = kernels.delta_sqnorm_blocks(torch.from_numpy(a),
                                       torch.from_numpy(b)).numpy()
+    assert got.shape == ref.shape == (W, lo.rows // 8)
+    np.testing.assert_allclose(got, ref, rtol=SUM_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("W", [1, 3])
+def test_sqnorm_blocks_matches_pallas(W):
+    lo, (a,) = flat_inputs(W, 1, seed=15 * W)
+    ref = np.asarray(jk.sqnorm_blocks(jnp.asarray(a), interpret=True))
+    got = kernels.sqnorm_blocks(torch.from_numpy(a)).numpy()
     assert got.shape == ref.shape == (W, lo.rows // 8)
     np.testing.assert_allclose(got, ref, rtol=SUM_RTOL, atol=0)
 
@@ -277,6 +287,16 @@ def test_plan_laq_encode_matches_reference(bits):
     np.testing.assert_allclose(lhs.numpy(), np.asarray(jlhs), rtol=SUM_RTOL)
 
 
+@pytest.mark.parametrize("W", [1, 3])
+def test_plan_sqnorm_matches_reference(W):
+    t = np_tree(W=W, seed=W)
+    ref = JPlan("on").sqnorm(t)
+    lo = FlatLayout.for_tree(to_torch(np_tree()))
+    got = FastPathPlan("on").sqnorm(lo.flatten_stacked(to_torch(t)), lo)
+    assert got.shape == (W,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=SUM_RTOL)
+
+
 def test_plan_modes():
     auto, on = make_plan("auto"), make_plan("on")
     cpu = torch.zeros(1)
@@ -314,6 +334,9 @@ def test_cuda_kernels_match_plain_versions(cuda_device, W):
     wp, wr, wsq = kernels_ref.laq_encode_blocks(ta, tb, tc, steps, 4)
     assert torch.equal(p, wp) and torch.equal(r, wr)
     torch.testing.assert_close(sq, wsq, rtol=SUM_RTOL, atol=0)
+    torch.testing.assert_close(kernels.sqnorm_blocks(ta),
+                               kernels_ref.sqnorm_blocks(ta), rtol=SUM_RTOL,
+                               atol=0)
     mask = torch.tensor([True, False, True][:W], device=cuda_device)
     for mode in ("add", "update", "select"):
         assert torch.equal(kernels.masked_combine(ta[0], tb, mask, mode),

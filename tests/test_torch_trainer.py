@@ -8,8 +8,10 @@ exported to numpy and see the same ``TokenStream`` batches.  Losses agree
 within rtol 1e-4, upload masks and counters are equal, parameters allclose
 (rtol 1e-4, atol 1e-6) — for LAQ outside the few coordinates whose code
 flips at a rounding boundary, a mechanism the test checks round by round
-(:func:`check_laq_codes`).  The golden files are not used: they were
-recorded on another jax version.
+(:func:`check_laq_codes`).  The legacy per-leaf route
+(``use_pallas_comm=True``: lag-wk, lag-ps and laq@4) is held to the same
+checks with losses within rtol 1e-5, and to the port's own batched plane.
+The golden files are not used: they were recorded on another jax version.
 """
 import jax
 import numpy as np
@@ -92,17 +94,16 @@ def ref_params(cfgs):
     return jax.tree_util.tree_map(np.asarray, st["params"])
 
 
-@pytest.mark.parametrize("algo,lr,xi", [("lag-wk", 0.3, 0.1),
-                                        ("laq@4", 0.3, 0.1),
-                                        ("lag-wk", 0.1, 10.0)])
-def test_trainer_matches_live_reference(cfgs, ref_params, algo, lr, xi):
+def check_against_reference(cfgs, ref_params, algo, lr, xi, loss_rtol,
+                            **route):
+    """STEPS rounds of the reference and of the port on the same route
+    (``route``: the TrainerConfig keywords both sides take), from the same
+    weights and batches."""
     jcfg, cfg = cfgs
-    jt = JTrainerConfig(algo=algo, num_workers=W, lr=lr, xi=xi,
-                        fastpath="on")
+    jt = JTrainerConfig(algo=algo, num_workers=W, lr=lr, xi=xi, **route)
     jstate = jinit_state(jax.random.PRNGKey(0), jcfg, jt)
     jstep = jax.jit(jmake_train_step(jcfg, jt))
-    tcfg = TrainerConfig(algo=algo, num_workers=W, lr=lr, xi=xi,
-                         fastpath="on")
+    tcfg = TrainerConfig(algo=algo, num_workers=W, lr=lr, xi=xi, **route)
     state = init_state(cfg, tcfg, device="cpu",
                        params=params_from_reference(ref_params, cfg))
     step = make_train_step(cfg, tcfg)
@@ -130,7 +131,7 @@ def test_trainer_matches_live_reference(cfgs, ref_params, algo, lr, xi):
                 flat(lo.flatten_stacked(to_torch(jstate["lag"]["resid"]))),
                 touched, qmax=7.0)
         np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
-                                   rtol=1e-4)
+                                   rtol=loss_rtol)
         np.testing.assert_array_equal(m["comm_mask"].numpy(),
                                       np.asarray(jm["comm_mask"]))
         assert int(m["comm_this_round"]) == int(jm["comm_this_round"])
@@ -155,6 +156,47 @@ def test_trainer_matches_live_reference(cfgs, ref_params, algo, lr, xi):
         assert flips == 0           # no code flipped: dense everywhere
     if xi == 10.0:      # the skip regime: lazy rounds happened
         assert masks[0] == [True, True] and not any(masks[1])
+
+
+@pytest.mark.parametrize("algo,lr,xi", [("lag-wk", 0.3, 0.1),
+                                        ("laq@4", 0.3, 0.1),
+                                        ("lag-wk", 0.1, 10.0)])
+def test_trainer_matches_live_reference(cfgs, ref_params, algo, lr, xi):
+    check_against_reference(cfgs, ref_params, algo, lr, xi, 1e-4,
+                            fastpath="on")
+
+
+@pytest.mark.parametrize("algo", ["lag-wk", "lag-ps", "laq@4"])
+def test_legacy_route_matches_live_reference(cfgs, ref_params, algo):
+    """``use_pallas_comm=True`` on both sides: the reference's per-leaf
+    Pallas kernels (interpret mode) against the port's per-leaf route (the
+    kernels' plain versions on the CPU)."""
+    check_against_reference(cfgs, ref_params, algo, 0.3, 0.1, 1e-5,
+                            use_pallas_comm=True)
+
+
+@pytest.mark.parametrize("algo", ["lag-wk", "lag-ps", "laq@4"])
+def test_legacy_route_matches_the_forced_plane(cfgs, ref_params, algo):
+    """The port's per-leaf route against its own batched plane (forced on),
+    as the reference's ``test_trainer_pallas_comm_flag_parity``: the same
+    uploads every round, losses within rtol 1e-5."""
+    _, cfg = cfgs
+    out = {}
+    for route in ({"use_pallas_comm": True}, {"fastpath": "on"}):
+        tcfg = TrainerConfig(algo=algo, num_workers=W, lr=0.3, **route)
+        state = init_state(cfg, tcfg, device="cpu",
+                           params=params_from_reference(ref_params, cfg))
+        step = make_train_step(cfg, tcfg)
+        stream = TokenStream(cfg.vocab_size)
+        rounds = []
+        for k in range(STEPS):
+            state, m = step(state, make_inputs(cfg, stream, k, BATCH, SEQ))
+            rounds.append((float(m["loss"]), m["comm_mask"].tolist()))
+        out[tuple(route)] = rounds
+    legacy, plane = out[("use_pallas_comm",)], out[("fastpath",)]
+    assert [c for _, c in legacy] == [c for _, c in plane]
+    np.testing.assert_allclose([l for l, _ in legacy],
+                               [l for l, _ in plane], rtol=1e-5)
 
 
 def test_reference_params_keep_jax_leaf_order(cfgs, ref_params):
