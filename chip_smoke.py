@@ -8,7 +8,9 @@ Phases (any failure raises and the script exits non-zero):
   1. device: the card's name, count and ``nvidia-smi`` name/power limit.
   2. build: compile the four CUDA sources (the comm plane's, rmsnorm's,
      flash attention's and the legacy per-leaf kernels') with nvcc
-     (sm_90a), one process each, all at once.
+     (sm_90a), one process each, all at once; ptxas's registers and spills
+     of every kernel, the flash kernel's shared memory, and a check that the
+     flash kernel does not spill.
   3. the comm plane's kernels vs plain versions on ragged synthetic
      layouts (leaf sizes {1, 127, 129, 32768, 0}, W ∈ {1, 3}, the
      unstacked operand, LAQ bits {2, 4, 8}, all three masked modes):
@@ -24,13 +26,20 @@ Phases (any failure raises and the script exits non-zero):
   6. agreement on a small input: the reduced model, 3 rounds per policy,
      on the GPU (kernels) and on the CPU (plain versions) from the same
      weights — equal upload masks, losses within rtol 1e-4; on the batched
-     plane, and on the legacy per-leaf route (``use_pallas_comm``).
+     plane, and on the legacy per-leaf route (``use_pallas_comm``).  On the
+     plane, laq@4's quantizer steps on the card equal bit for bit the IEEE
+     division of the same scales on the CPU.
   7. the model kernels (rmsnorm, flash attention) vs their plain versions
      at ragged shapes (rows {1, 7, 129, 1000} x d {2048, 256, 132}; S {1,
-     7, 129, 1000}, causal / window / non-causal, GQA 32/8, Sq != Skv) and
+     7, 63, 64, 65, 127, 128, 129, 1000, 2047} on and around the flash
+     kernel's 64-row and 64-key tile edges, causal / windows 16, 64, 100
+     that straddle tiles / non-causal, GQA 32/8, Sq != Skv both ways) and
      at the serving path's shapes (rmsnorm (8192, 2048); attention (4,
      2048, 32/8, 64) causal), within rtol = atol = 1e-5, with their times
      against their bounds, the plain versions and one PyTorch call each.
+     The flash kernel's bound is its split-TF32 work on the tensor cores;
+     the float32 FMA units' bound and the kernel-to-library ratio are
+     printed beside it.
   8. the serving path: ``repro_torch.launch.serve`` on llama3.2-1b at full
      width and depth, batch 4, prompt 2048, 32 generated tokens, 2 rounds
      (round 0 is warm-up), random weights from seed 0; launch counters
@@ -58,7 +67,8 @@ Phases (any failure raises and the script exits non-zero):
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Times are CUDA-event times on this card (kernels: the mean of
 several launches after a warm-up); bounds use the H100 SXM's published
-3.35 TB/s and 67 TFLOP/s float32 (non-tensor) peaks.
+3.35 TB/s, 67 TFLOP/s float32 (non-tensor) and 495 TFLOP/s dense TF32
+peaks.
 """
 import gc
 import json
@@ -72,6 +82,7 @@ SRC = os.path.join(HERE, "src")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12         # H100 SXM dense TF32 on the tensor cores
 SUM_RTOL = 1e-5
 RAGGED = (1, 127, 129, 32768, 0)
 MODEL_TOL = 1e-5                 # kernel vs plain: f32, sums reordered
@@ -117,6 +128,15 @@ SOURCE = "src/repro_torch/fastpath/csrc/fastpath_kernels.cu"
 SERVE_ARGS = ["--arch", "llama3.2-1b", "--batch", "4", "--prompt-len", "2048",
               "--gen", "32", "--rounds", "2", "--seed", "0"]
 RMS_FULL = (4 * 2048, 2048)      # the prefill's (B·S, d)
+# flash attention's ragged cases: S on and around its 64-row / 64-key tile
+# edges, windows that straddle tiles, Sq != Skv both ways
+FLASH_S = (1, 7, 63, 64, 65, 127, 128, 129, 1000, 2047)
+FLASH_MASKS = ((True, None), (True, 16), (True, 64), (True, 100),
+               (False, None))
+FLASH_CROSS = [(129, 1000, False, None), (129, 1000, True, None),
+               (1000, 129, True, 64), (65, 200, True, None),
+               (200, 65, True, None), (200, 65, True, 100),
+               (64, 130, False, 16)]
 ATTN_FULL = (4, 2048, 32, 8, 64)  # the prefill's (B, S, H, KV, hd)
 
 
@@ -140,9 +160,9 @@ def cuda_ms(torch, fn, n=5, warmup=1):
     return start.elapsed_time(end) / n
 
 
-def bound_ms(nbytes, nops):
+def bound_ms(nbytes, nops, flop_per_s=F32_FLOP_PER_S):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = nops / F32_FLOP_PER_S * 1e3
+    t_o = nops / flop_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -446,6 +466,44 @@ def trainer_phase(torch, algo, steps=4, use_pallas_comm=False):
 # ---------------------------------------------------------------------------
 
 def small_agreement_phase(torch, dev):
+    from repro_torch.fastpath import kernels
+    from repro_torch.fastpath.plan import FastPathPlan
+
+    # the plane's LAQ steps on the card, each beside the scales it divided
+    steps_seen = []
+    encode = FastPathPlan.laq_encode
+
+    def recording_encode(self, g, q, e, lo, *, bits, payload_out=None):
+        # the scales first: the payload may overwrite g
+        scales = self._per_leaf(kernels.absmax_blocks(g, q, e), lo, "max")
+        out = encode(self, g, q, e, lo, bits=bits, payload_out=payload_out)
+        if g.is_cuda:
+            steps_seen.append((scales, out[3], bits))
+        return out
+
+    FastPathPlan.laq_encode = recording_encode
+    try:
+        agreement_runs(torch, dev)
+    finally:
+        FastPathPlan.laq_encode = encode
+    check(steps_seen, "laq@4 on the plane made no encode on the card")
+    n_steps = n_recip = 0
+    for scales, steps, bits in steps_seen:
+        qmax = float(2 ** (bits - 1) - 1)
+        check(bitwise(torch, steps.cpu(), scales.cpu() / torch.tensor(qmax)),
+              "the plane's LAQ steps on the card differ from the IEEE "
+              "division of their scales")
+        live = torch.isfinite(scales)
+        n_steps += int(live.sum())
+        # what torch's reciprocal multiply (a Python-scalar divisor) gives
+        n_recip += int(((scales / qmax) != steps)[live].sum())
+    print(f"  plane laq@4 on the card: {n_steps} steps in {len(steps_seen)} "
+          f"encodes equal the CPU's IEEE division of their scales bit for "
+          f"bit ({n_recip} of them differ from scale / {qmax} computed with "
+          f"a Python-scalar divisor on the card)")
+
+
+def agreement_runs(torch, dev):
     from repro_torch.configs import get_config
     from repro_torch.data import TokenStream, make_inputs
     from repro_torch.dist.lag_trainer import (TrainerConfig, init_state,
@@ -509,10 +567,8 @@ def model_kernel_phase(torch, dev):
             sc = torch.randn((d,), device=dev, generator=gen)
             compare(f"rmsnorm ({rows}, {d})", rms.rmsnorm_2d(x, sc),
                     rms_ref.rmsnorm(x, sc))
-    cases = [(S, S, c, w) for S in (1, 7, 129, 1000)
-             for c, w in ((True, None), (True, 64), (False, None))]
-    cases += [(129, 1000, False, None), (129, 1000, True, None),
-              (1000, 129, True, 64)]
+    cases = [(S, S, c, w) for S in FLASH_S for c, w in FLASH_MASKS]
+    cases += FLASH_CROSS
     for S, Skv, causal, window in cases:
         q = torch.randn((1, S, 32, 64), device=dev, generator=gen)
         k = torch.randn((1, Skv, 8, 64), device=dev, generator=gen)
@@ -552,21 +608,33 @@ def model_kernel_phase(torch, dev):
     err = compare("flash_attention full", fa.flash_attention_fwd(q, k, v),
                   fa_ref.attention(q, k, v))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    t_b, by = bound_ms(4 * (2 * B * S * H * hd + 2 * B * S * KV * hd),
-                       4 * B * H * hd * S * (S + 1) // 2)
-    results["flash_attention"] = dict(
+    # the two products the causal mask leaves; the kernel runs each as
+    # three TF32 products on the tensor cores
+    nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    flop = 4 * B * H * hd * S * (S + 1) // 2
+    t_b, by = bound_ms(nbytes, 3 * flop, TF32_FLOP_PER_S)
+    r = results["flash_attention"] = dict(
         max_abs_err=err,
         ms=cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v), n=10),
         plain_ms=cuda_ms(torch, lambda: fa_ref.attention(q, k, v), n=3),
         bound_ms=t_b, bound_by=by,
+        fma_bound_ms=bound_ms(nbytes, flop)[0],
         library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), n=10))
+    r["library_ratio"] = r["ms"] / r["library_ms"]
     del q, k, v, qt, kt, vt
     for k_, r in results.items():
         print(f"  full-shape {k_}: max_abs_err {r['max_abs_err']:.3e} | "
               f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}, library "
               f"{r['library_ms']:.4f} ms)")
+    r = results["flash_attention"]
+    print(f"  flash_attention: bound {r['bound_ms']:.4f} ms as split TF32 "
+          f"(3 x {flop / 1e9:.1f} GFLOP at {TF32_FLOP_PER_S / 1e12:.0f} "
+          f"TFLOP/s), {r['fma_bound_ms']:.4f} ms on the FMA units "
+          f"({F32_FLOP_PER_S / 1e12:.0f} TFLOP/s) | kernel "
+          f"{r['ms']:.4f} ms = {r['bound_ms'] / r['ms']:.1%} of its bound | "
+          f"kernel / library {r['library_ratio']:.3f}")
     bad = [what for what, _, ok in errs if not ok]
     check(not bad, f"kernel vs plain beyond rtol = atol = {MODEL_TOL}: "
                    f"{bad}")
@@ -894,6 +962,13 @@ def main():
         for line in log.get("ptxas", "").splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"    {line.strip()}")
+    flash_log = build.BUILD_LOG.get(fa.LIBRARY.name, {}).get("ptxas", "")
+    spills = [line.strip() for line in flash_log.splitlines()
+              if "spill" in line]
+    print(f"  flash_attention: {fa.SHARED_BYTES} bytes of dynamic shared "
+          f"memory a block | {spills or '(cached build: no ptxas report)'}")
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in line
+              for line in spills), f"the flash kernel spills: {spills}")
 
     print("[3] kernels vs plain versions, ragged layouts", flush=True)
     ragged_phase(torch, dev)

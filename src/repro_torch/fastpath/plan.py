@@ -109,12 +109,16 @@ class FastPathPlan:
         Returns (payload (W, rows, 128), residual (W, rows, 128), trigger
         LHS ‖payload‖² (W,), quantizer steps (W, num_leaves)).  The
         scale/qmax division happens once, here: the encode kernel gets the
-        already-divided steps.  ``payload_out`` (may be ``g``) receives the
-        payload in place.
+        already-divided steps.  It is an IEEE division on every device: the
+        divisor is a tensor on the scales' own device, because PyTorch's
+        CUDA division by a Python scalar (or by a CPU 0-d tensor, which it
+        treats as one) multiplies by the reciprocal, which differs in the
+        last bit for about half the scales.  ``payload_out`` (may be
+        ``g``) receives the payload in place.
         """
         parts = kernels.absmax_blocks(g, q, e)
         scales = self._per_leaf(parts, lo, "max")          # (W, num_leaves)
-        steps = scales / float(2 ** (bits - 1) - 1)
+        steps = scales / torch.full_like(scales, float(2 ** (bits - 1) - 1))
         steps_subs = steps[:, self.sub_leaf(lo, g.device)]
         payload, resid, sq = kernels.laq_encode_blocks(
             g, q, e, steps_subs, bits, payload_out=payload_out)

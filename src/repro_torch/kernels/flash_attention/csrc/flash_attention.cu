@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper (sm_90a), float32.
+// Flash attention forward for Hopper (sm_90a), float32 in and out, the two
+// products on the tensor cores in split TF32 ("3xTF32").
 //
 // Hand-written CUDA replacement of the Pallas kernel flash_attention_padded
 // (_flash_kernel) of src/repro/kernels/flash_attention/flash_attention.py:
@@ -7,8 +8,7 @@
 //   q (B, Sq, H, hd), k/v (B, Skv, KV, hd) -> o (B, Sq, H, hd),
 //
 // query head h reads kv head h / (H / KV).  It computes what _flash_kernel
-// computes, in float32 throughout (no TF32: the reference takes a full
-// precision dot): per kv tile s = (q . k) * scale; masked entries are
+// computes: per kv tile s = (q . k) * scale; masked entries are
 // NEG = -1e30; m_new = max(m, rowmax s); p = exp(s - m_new) where unmasked,
 // else 0; l = exp(m - m_new) * l + rowsum p; acc = acc * exp(m - m_new) +
 // p . v; at the end o = acc / max(l, 1e-30).  Masks: query < Sq, key < Skv,
@@ -16,47 +16,152 @@
 // both q and k, as in the reference.
 //
 // Bound: operations.  At the serving path's shape (B 4, S 2048, H 32/KV 8,
-// hd 64, causal) the two products take 4*B*H*hd*S(S+1)/2 = 68.7 GFLOP:
-// 1.03 ms at the H100's 67 TFLOP/s of float32 outside the tensor cores,
-// against 0.05 ms for the 168 MB of q/k/v/o.  So the design spends its
-// effort on keeping the FMA pipes fed, not on bytes:
+// hd 64, causal) the two products take 4*B*H*hd*S(S+1)/2 = 68.7 GFLOP.
+// The kernel runs them as three TF32 products each (below), 206 GFLOP on
+// the tensor cores: 0.416 ms at the H100's 495 TFLOP/s of dense TF32.  The
+// same work on the float32 FMA units would take 1.03 ms at 67 TFLOP/s; the
+// 168 MB of q/k/v/o take 0.05 ms.  The design:
 //
-//   * One block per (b*h, query tile of BQ = 128 rows), ONE THREAD PER
-//     QUERY ROW.  The thread keeps its q row, its output accumulator (64
-//     floats each) and its running max m and denominator l in registers.
-//   * A loop inside the block over kv tiles takes the place of the TPU's
-//     sequential kv grid axis.  Each tile (BK = 32 keys) of K and V is
-//     staged in shared memory (2 x 8 KB) by all threads with coalesced
-//     16-byte loads; every thread then reads the same K/V row at the same
-//     time, a broadcast with no bank conflicts, so each shared-memory load
-//     feeds 4 FMAs per thread.  The scores of a tile are 32 independent
-//     FMA chains, the output update 64.
-//   * GQA in the index: the block reads kv head h / (H/KV) directly; K/V
-//     are never repeated in memory.
-//   * Tiles that are masked for every query of the block (past the
-//     diagonal under causal, before the window) are skipped; the TPU kernel
-//     still runs them.  Skipping is exact: such a tile gives p = 0 for every
-//     entry and alpha = exp(m - max(m, NEG)) = exp(0) = 1, so l and acc
-//     would come out of it unchanged, bit for bit.
-//   * Rows past Sq and keys past Skv are masked in the kernel: no padding,
-//     any S.  The heaviest query tiles (last under causal) are launched
-//     first.
+//   * Split TF32, float32-accurate.  Every operand x of both products is
+//     split into hi = tf32_rna(x) and lo = tf32_rna(x - hi), and a product
+//     a.b is lo(a).hi(b) + hi(a).lo(b) + hi(a).hi(b), small terms first,
+//     into one float32 accumulator (mma.sync m16n8k8 .tf32, f32 accumulate).
+//     The dropped lo.lo term is below float32's rounding; one TF32 pass
+//     would miss the plain version by ~1e-3 (tests/test_torch_kernels.py
+//     emulates both).  The scale hd^-0.5 = 0.125 is folded into q once: a
+//     power of two, so exact.
+//   * Tiles.  A block of 4 warps takes BQ = 64 query rows of one (b, h),
+//     16 rows per warp (the m16 of the mma); the loop inside the block
+//     (the TPU's sequential kv grid axis) runs over BK = 64 keys per tile.
+//     Each warp keeps its q fragments for the whole loop (hi in registers,
+//     lo in its threads' own slots of shared memory, 16 KB a block, which
+//     keeps the kernel within 255 registers without a spill), its 16 x 64
+//     scores and its 16 x 64 output accumulator in registers, in the mma
+//     accumulator layout.
+//   * K and V come through a two-stage cp.async ring in dynamic shared
+//     memory; the copy of tile t + 1 runs under the work on tile t.  Keys
+//     past Skv are zero-filled by the copy itself (src-size 0): no read
+//     leaves the tensors.  Once a tile has landed, the block splits it in
+//     place, once (hi over the copy, lo into one more buffer), so that the
+//     four warps do not each split the same K and V: 2 x 32 KB of ring,
+//     32 KB of lo and q's 16 KB, 112 KB a block, two blocks an SM.
+//   * 16-byte fragment reads.  Inside every 16 columns of hd the order of
+//     the score product's k steps is relabelled (k step 2m takes columns
+//     16m + 4t and 16m + 4t + 1 as its columns t and t + 4, k step 2m + 1
+//     columns 16m + 4t + 2 and + 3), the same for q and K, so that one
+//     float4 holds a thread's K fragments of two k steps.  The output's hd
+//     columns are relabelled the same way (n tile n, column c is hd 8c +
+//     n), so that one float4 holds a thread's V fragments of four n tiles
+//     and a thread writes 16 consecutive floats of o.  Shared rows are
+//     unpadded, with their 16-byte chunks XOR-swizzled by the key's low
+//     three bits: each quarter warp's reads of K and of V hit all 32 banks
+//     once.
+//   * Online softmax in the accumulator's layout: a thread holds columns
+//     (2t, 2t+1) of rows g and g + 8 of each 8-key slab; the row max takes
+//     two __shfl_xor_sync within the quad, the row sum stays a per-thread
+//     partial until the end.  exp(x) is exp2(x * log2(e)) on the SFU.  Only
+//     tiles that some query of the block sees only in part (the diagonal,
+//     the window edge, the ragged last tile) evaluate the mask per entry.
+//   * P.V with no shuffles: the accumulator gives a thread columns (2t,
+//     2t+1) of a slab, the A fragment wants columns (t, t + 4).  Keys are
+//     relabelled inside each 8-key slab (A column t is key 2t, column t + 4
+//     key 2t + 1) and V's B fragment is read at the same keys: the sum over
+//     keys is the same, in another order.  Each tile's P.V goes into a fresh
+//     accumulator that is added to the running one in float32 (round to
+//     nearest), so no long chain of tensor-core accumulations builds up.
+//   * GQA in the index (K/V never repeated in memory), int64 offsets, the
+//     heaviest query tiles (last under causal) launched first, and tiles
+//     that every query of the block has masked (past the diagonal, before
+//     the window) skipped: such a tile gives p = 0 everywhere and alpha =
+//     1, so l and acc would come out of it unchanged.  Rows past Sq are
+//     computed on zeros and not stored: any Sq and Skv, no padding.
 //
 // No backward: the reference's kernel has none either.
 //
 // C interface (loaded with ctypes): launches on the given stream, does not
-// synchronise, allocates nothing, returns cudaGetLastError().
+// synchronise, allocates nothing, returns the first CUDA error of the
+// shared-memory attribute call or of the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int HD = 64;          // head_dim the kernel is built for
-constexpr int HD4 = HD / 4;
-constexpr int BQ = 128;         // query rows per block = threads per block
-constexpr int BK = 32;          // keys per shared-memory tile
+constexpr int HD = 64;                 // head_dim the kernel is built for
+constexpr int WARPS = 4;
+constexpr int BQ = 16 * WARPS;         // query rows per block, 16 per warp
+constexpr int BK = 64;                 // keys per tile
+constexpr int THREADS = 32 * WARPS;
+constexpr int TILE = BK * HD;          // floats of one K or V tile
+constexpr int STAGE = 2 * TILE;        // one ring stage: K tile, V tile
+constexpr int QLO = WARPS * (HD / 8) * 32 * 4;  // floats of q's lo
+// 2 ring stages, the lo of the current tile, q's lo fragments
+constexpr int SMEM_BYTES = (3 * STAGE + QLO) * (int)sizeof(float);
+constexpr int MAX_DEVICES = 64;
 constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x, flushing results below 2^-126 to 0 (a weight that small adds
+// nothing a float32 sum of weights up to 1 and beyond can hold)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo to float32 precision, both TF32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         float b0, float b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+        "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+// d += a . b in split TF32, small terms first; b0/b1 already split in
+// shared memory (hi: bh, lo: bl)
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float bh0,
+                                     float bh1, float bl0, float bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// float offset of the 16-byte chunk c (0..15) of row r of a tile: chunks
+// XOR-swizzled by r's low three bits (see the header)
+__device__ __forceinline__ int chunk_at(int r, int c) {
+  const int sw = (((r ^ (r >> 2)) & 1) << 2) | ((r >> 1) & 1);
+  return r * HD + 4 * (c ^ sw);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
 __device__ __forceinline__ bool visible(int64_t qi, int64_t kp, int64_t Skv,
                                         int causal, int64_t window) {
@@ -64,37 +169,98 @@ __device__ __forceinline__ bool visible(int64_t qi, int64_t kp, int64_t Skv,
          && (window <= 0 || qi - kp < window);
 }
 
-__global__ void __launch_bounds__(BQ)
-flash_fwd_kernel(const float4* __restrict__ q, const float4* __restrict__ k,
-                 const float4* __restrict__ v, float4* __restrict__ o,
+// online softmax of one tile's scores in place (scores -> weights p);
+// returns the rescale factors alpha of rows r0 and r1.  kMasked: bit
+// 4j + e of vis says whether score sc[j][e] is visible; a tile every score
+// of which is visible skips the bit tests
+template <bool kMasked>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 8][4],
+                                             uint32_t vis, float& m0,
+                                             float& m1, float& l0, float& l1,
+                                             float& al0, float& al1) {
+  float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (kMasked && !((vis >> (4 * j + e)) & 1u)) sc[j][e] = NEG;
+      if (e < 2) mx0 = fmaxf(mx0, sc[j][e]);
+      else mx1 = fmaxf(mx1, sc[j][e]);
+    }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  al0 = exp2_ftz((m0 - mn0) * LOG2E);
+  al1 = exp2_ftz((m1 - mn1) * LOG2E);
+  m0 = mn0;
+  m1 = mn1;
+  const float ml0 = mn0 * LOG2E, ml1 = mn1 * LOG2E;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = exp2_ftz(fmaf(sc[j][e], LOG2E, -(e < 2 ? ml0 : ml1)));
+      if (kMasked && !((vis >> (4 * j + e)) & 1u)) p = 0.f;
+      sc[j][e] = p;
+      if (e < 2) ps0 += p;
+      else ps1 += p;
+    }
+  l0 = al0 * l0 + ps0;
+  l1 = al1 * l1 + ps1;
+}
+
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  int64_t Sq, int64_t Skv, int64_t H, int64_t KV,
                  float scale, int causal, int64_t window) {
-  __shared__ float4 ks[BK][HD4];
-  __shared__ float4 vs[BK][HD4];
+  extern __shared__ __align__(16) float smem[];
+  float* const lo_buf = smem + 2 * STAGE;     // lo of the current tile
 
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane / 4, tq = lane % 4;      // mma group row, thread in group
   const int64_t bh = blockIdx.x;
   const int64_t b = bh / H, h = bh % H;
   const int64_t g = h / (H / KV);
   const int64_t q0 = (int64_t)(gridDim.y - 1 - blockIdx.y) * BQ;
-  const int64_t qi = q0 + threadIdx.x;
-  const bool qvalid = qi < Sq;
+  const int64_t r0 = q0 + warp * 16 + gr, r1 = r0 + 8;   // this thread's rows
 
-  float qr[HD], acc[HD];
-  if (qvalid) {
-    const float4* src = q + ((b * Sq + qi) * H + h) * HD4;
+  // q * scale as A fragments: [k step][a0..a3], a0 row r0, a1 row r1, a2
+  // row r0, a3 row r1; k step 2m takes hd 16m + 4tq (a0, a1) and + 1 (a2,
+  // a3), k step 2m + 1 hd + 2 and + 3.  hi in registers, lo in this
+  // thread's own slots of shared memory (one 16-byte slot per k step,
+  // consecutive lanes on consecutive slots), which saves 32 registers
+  uint32_t qh[HD / 8][4];
+  uint4* const qlo = reinterpret_cast<uint4*>(smem + 3 * STAGE)
+                     + warp * (HD / 8) * 32 + lane;
+  {
+    uint32_t ql[HD / 8][4];
+    const float4* qr0 = reinterpret_cast<const float4*>(
+        q + ((b * Sq + (r0 < Sq ? r0 : 0)) * H + h) * HD);
+    const float4* qr1 = reinterpret_cast<const float4*>(
+        q + ((b * Sq + (r1 < Sq ? r1 : 0)) * H + h) * HD);
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int c = 0; c < HD4; ++c) {
-      const float4 t = src[c];
-      qr[4 * c] = t.x; qr[4 * c + 1] = t.y;
-      qr[4 * c + 2] = t.z; qr[4 * c + 3] = t.w;
+    for (int m = 0; m < HD / 16; ++m) {
+      const float4 x = r0 < Sq ? qr0[4 * m + tq] : zero;
+      const float4 y = r1 < Sq ? qr1[4 * m + tq] : zero;
+      split(x.x * scale, qh[2 * m][0], ql[2 * m][0]);
+      split(y.x * scale, qh[2 * m][1], ql[2 * m][1]);
+      split(x.y * scale, qh[2 * m][2], ql[2 * m][2]);
+      split(y.y * scale, qh[2 * m][3], ql[2 * m][3]);
+      split(x.z * scale, qh[2 * m + 1][0], ql[2 * m + 1][0]);
+      split(y.z * scale, qh[2 * m + 1][1], ql[2 * m + 1][1]);
+      split(x.w * scale, qh[2 * m + 1][2], ql[2 * m + 1][2]);
+      split(y.w * scale, qh[2 * m + 1][3], ql[2 * m + 1][3]);
     }
-  } else {
 #pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] = 0.f;
+    for (int kk = 0; kk < HD / 8; ++kk)
+      qlo[32 * kk] = make_uint4(ql[kk][0], ql[kk][1], ql[kk][2], ql[kk][3]);
   }
-#pragma unroll
-  for (int d = 0; d < HD; ++d) acc[d] = 0.f;
-  float m = NEG, l = 0.f;
 
   // the keys any valid query of this block can see
   const int64_t q_last = (q0 + BQ < Sq ? q0 + BQ : Sq) - 1;
@@ -104,77 +270,171 @@ flash_fwd_kernel(const float4* __restrict__ q, const float4* __restrict__ k,
   if (window > 0 && q0 - window + 1 > 0) k_begin = q0 - window + 1;
   const int64_t t_begin = k_begin / BK, t_end = (k_end + BK - 1) / BK;
 
+  // one tile of K and V into ring stage s: 16-byte copies, a row of 16
+  // chunks per 16 consecutive threads; keys past Skv are zero-filled
+  auto load_tile = [&](int64_t t, int s) {
+    float* ks = smem + s * STAGE;
+    float* vs = ks + TILE;
+#pragma unroll
+    for (int it = 0; it < TILE / 4 / THREADS; ++it) {
+      const int i = it * THREADS + threadIdx.x;
+      const int r = i / (HD / 4), c = i % (HD / 4);
+      const int64_t kp = t * BK + r;
+      const bool in = kp < Skv;
+      const int64_t idx = in ? ((b * Skv + kp) * KV + g) * HD + 4 * c : 0;
+      cp_async16(ks + chunk_at(r, c), k + idx, in ? 16 : 0);
+      cp_async16(vs + chunk_at(r, c), v + idx, in ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  float acc[HD / 8][4];                   // O; n tile n, column c: hd 8c + n
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m0 = NEG, m1 = NEG;               // running max of rows r0, r1
+  float l0 = 0.f, l1 = 0.f;               // this thread's part of the sums
+
+  if (t_begin < t_end) load_tile(t_begin, 0);
   for (int64_t t = t_begin; t < t_end; ++t) {
+    const int s = (int)((t - t_begin) & 1);
+    float* const ks = smem + s * STAGE;
+    float* const vs = ks + TILE;
+    cp_async_wait_all();                  // tile t has landed
+    __syncthreads();                      // ... for every thread, and every
+                                          // warp is done with tile t - 1
+    if (t + 1 < t_end) load_tile(t + 1, s ^ 1);
+    // split tile t once: hi in place, lo into lo_buf (same offsets)
+#pragma unroll
+    for (int it = 0; it < STAGE / 4 / THREADS; ++it) {
+      const int i = 4 * (it * THREADS + threadIdx.x);
+      float4 x = *reinterpret_cast<float4*>(ks + i);
+      uint32_t hx, lx, hy, ly, hz, lz, hw, lw;
+      split(x.x, hx, lx);
+      split(x.y, hy, ly);
+      split(x.z, hz, lz);
+      split(x.w, hw, lw);
+      *reinterpret_cast<float4*>(ks + i) = make_float4(
+          __uint_as_float(hx), __uint_as_float(hy), __uint_as_float(hz),
+          __uint_as_float(hw));
+      *reinterpret_cast<float4*>(lo_buf + i) = make_float4(
+          __uint_as_float(lx), __uint_as_float(ly), __uint_as_float(lz),
+          __uint_as_float(lw));
+    }
+    __syncthreads();
+    const float* const kl = lo_buf;
+    const float* const vl = lo_buf + TILE;
     const int64_t k0 = t * BK;
-    for (int i = threadIdx.x; i < BK * HD4; i += BQ) {
-      const int r = i / HD4, c = i % HD4;
-      const int64_t kp = k0 + r;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
-      if (kp < Skv) {
-        const int64_t idx = ((b * Skv + kp) * KV + g) * HD4 + c;
-        kk = k[idx];
-        vv = v[idx];
+
+    // -- scores: sc[j] holds keys 8j + 2tq (+1) of rows r0 (0, 1), r1 (2, 3)
+    float sc[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+    for (int m = 0; m < HD / 16; ++m) {
+      uint32_t ql[2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const uint4 x = qlo[32 * (2 * m + u)];
+        ql[u][0] = x.x; ql[u][1] = x.y; ql[u][2] = x.z; ql[u][3] = x.w;
       }
-      ks[r][c] = kk;
-      vs[r][c] = vv;
-    }
-    __syncthreads();
-    if (qvalid) {
-      float s[BK];
 #pragma unroll
-      for (int j = 0; j < BK; ++j) s[j] = 0.f;
-#pragma unroll
-      for (int c = 0; c < HD4; ++c) {
-#pragma unroll
-        for (int j = 0; j < BK; ++j) {
-          const float4 kk = ks[j][c];
-          s[j] = fmaf(qr[4 * c], kk.x, s[j]);
-          s[j] = fmaf(qr[4 * c + 1], kk.y, s[j]);
-          s[j] = fmaf(qr[4 * c + 2], kk.z, s[j]);
-          s[j] = fmaf(qr[4 * c + 3], kk.w, s[j]);
-        }
-      }
-      float mt = NEG;
-#pragma unroll
-      for (int j = 0; j < BK; ++j) {
-        s[j] = visible(qi, k0 + j, Skv, causal, window) ? s[j] * scale : NEG;
-        mt = fmaxf(mt, s[j]);
-      }
-      const float m_new = fmaxf(m, mt);
-      const float alpha = expf(m - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < BK; ++j) {
-        s[j] = visible(qi, k0 + j, Skv, causal, window) ? expf(s[j] - m_new)
-                                                         : 0.f;
-        psum += s[j];
-      }
-      l = alpha * l + psum;
-      m = m_new;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int j = 0; j < BK; ++j) {
-#pragma unroll
-        for (int c = 0; c < HD4; ++c) {
-          const float4 vv = vs[j][c];
-          acc[4 * c] = fmaf(s[j], vv.x, acc[4 * c]);
-          acc[4 * c + 1] = fmaf(s[j], vv.y, acc[4 * c + 1]);
-          acc[4 * c + 2] = fmaf(s[j], vv.z, acc[4 * c + 2]);
-          acc[4 * c + 3] = fmaf(s[j], vv.w, acc[4 * c + 3]);
-        }
+      for (int j = 0; j < BK / 8; ++j) {
+        // B = K^T at key 8j + gr: hd 16m + 4tq .. + 3, two k steps
+        const int off = chunk_at(8 * j + gr, 4 * m + tq);
+        const float4 bh = *reinterpret_cast<const float4*>(ks + off);
+        const float4 bl = *reinterpret_cast<const float4*>(kl + off);
+        mma3(sc[j], qh[2 * m], ql[0], bh.x, bh.y, bl.x, bl.y);
+        mma3(sc[j], qh[2 * m + 1], ql[1], bh.z, bh.w, bl.z, bl.w);
       }
     }
-    __syncthreads();
+
+    // -- mask: one bit per score, all set unless some query of the block
+    // sees this tile only in part
+    uint32_t vis = 0xffffffffu;
+    const bool full = k0 + BK <= Skv && (!causal || k0 + BK - 1 <= q0)
+                      && (window <= 0 || q0 + BQ - 1 - k0 < window);
+    if (!full) {
+      vis = 0u;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int64_t kp = k0 + 8 * j + 2 * tq + (e & 1);
+          if (visible(e < 2 ? r0 : r1, kp, Skv, causal, window))
+            vis |= 1u << (4 * j + e);
+        }
+    }
+
+    float al0, al1;
+    if (full) softmax_tile<false>(sc, vis, m0, m1, l0, l1, al0, al1);
+    else softmax_tile<true>(sc, vis, m0, m1, l0, l1, al0, al1);
+
+    // -- acc = acc * alpha + P . V, P . V into a fresh accumulator
+    float ot[HD / 8][4];
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ot[n][e] = 0.f;
+#pragma unroll
+    for (int js = 0; js < BK / 8; ++js) {
+      // A = P of slab js, keys relabelled: column tq is key 2tq, column
+      // tq + 4 key 2tq + 1
+      uint32_t ph[4], pl[4];
+      split(sc[js][0], ph[0], pl[0]);
+      split(sc[js][2], ph[1], pl[1]);
+      split(sc[js][1], ph[2], pl[2]);
+      split(sc[js][3], ph[3], pl[3]);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        // B = V at keys 8js + 2tq (b0) and + 1 (b1), hd 8gr + 4hh .. + 3:
+        // n tiles 4hh .. 4hh + 3
+        const int o0 = chunk_at(8 * js + 2 * tq, 2 * gr + hh);
+        const int o1 = chunk_at(8 * js + 2 * tq + 1, 2 * gr + hh);
+        const float4 h0 = *reinterpret_cast<const float4*>(vs + o0);
+        const float4 h1 = *reinterpret_cast<const float4*>(vs + o1);
+        const float4 w0 = *reinterpret_cast<const float4*>(vl + o0);
+        const float4 w1 = *reinterpret_cast<const float4*>(vl + o1);
+        mma3(ot[4 * hh], ph, pl, h0.x, h1.x, w0.x, w1.x);
+        mma3(ot[4 * hh + 1], ph, pl, h0.y, h1.y, w0.y, w1.y);
+        mma3(ot[4 * hh + 2], ph, pl, h0.z, h1.z, w0.z, w1.z);
+        mma3(ot[4 * hh + 3], ph, pl, h0.w, h1.w, w0.w, w1.w);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n][e] = fmaf(acc[n][e], e < 2 ? al0 : al1, ot[n][e]);
   }
 
-  if (qvalid) {
-    const float den = fmaxf(l, 1e-30f);
-    float4* dst = o + ((b * Sq + qi) * H + h) * HD4;
 #pragma unroll
-    for (int c = 0; c < HD4; ++c)
-      dst[c] = make_float4(acc[4 * c] / den, acc[4 * c + 1] / den,
-                           acc[4 * c + 2] / den, acc[4 * c + 3] / den);
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  // row r0 (r1): hd 16tq + n is acc[n][0] ([2]), hd 16tq + 8 + n acc[n][1]
+  // ([3]): 16 consecutive floats
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int64_t r = e ? r1 : r0;
+    const float den = e ? den1 : den0;
+    if (r < Sq) {
+      float4* dst = reinterpret_cast<float4*>(
+          o + ((b * Sq + r) * H + h) * HD + 16 * tq);
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          dst[2 * c + hh] = make_float4(
+              acc[4 * hh][2 * e + c] / den, acc[4 * hh + 1][2 * e + c] / den,
+              acc[4 * hh + 2][2 * e + c] / den,
+              acc[4 * hh + 3][2 * e + c] / den);
+    }
   }
 }
 
@@ -192,10 +452,24 @@ int lag_flash_attention_f32(const void* q, const void* k, const void* v,
   if (B * H == 0 || Sq == 0) return 0;
   const int64_t nq = (Sq + BQ - 1) / BQ;
   if (B * H > 0x7fffffffLL || nq > 65535) return (int)cudaErrorInvalidValue;
+  // above 48 KB of dynamic shared memory a kernel must opt in, once per
+  // device
+  static bool opted_in[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
+    err = cudaFuncSetAttribute(flash_fwd_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    opted_in[dev] = true;
+  }
   const dim3 grid((unsigned)(B * H), (unsigned)nq);
-  flash_fwd_kernel<<<grid, BQ, 0, (cudaStream_t)stream>>>(
-      (const float4*)q, (const float4*)k, (const float4*)v, (float4*)o, Sq,
-      Skv, H, KV, scale, causal, window);
+  flash_fwd_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Skv,
+      H, KV, scale, causal, window);
   return (int)cudaGetLastError();
 }
 

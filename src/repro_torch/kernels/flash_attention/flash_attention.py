@@ -4,9 +4,11 @@
 
 The CUDA kernel takes any Sq and Skv (it masks the ragged edges itself, so
 nothing is padded), float32, head_dim 64, contiguous operands in the
-reference's layout.  It has no backward, like the reference's kernel: an
-input that requires grad raises.  ``LAUNCHES`` counts its launches;
-nothing else increments it.
+reference's layout.  It runs both products on the tensor cores in split
+TF32 (three TF32 products per float32 product, float32-accurate), with K
+and V coming through a ``cp.async`` ring in shared memory.  It has no
+backward, like the reference's kernel: an input that requires grad raises.
+``LAUNCHES`` counts its launches; nothing else increments it.
 """
 from __future__ import annotations
 
@@ -20,6 +22,12 @@ from repro_torch.kernels import build
 
 #: the one head_dim the kernel is built for
 HEAD_DIM = 64
+
+#: dynamic shared memory a block of the kernel takes (``SMEM_BYTES`` of the
+#: source): two K/V ring stages and the lo of the current tile, 64 keys x
+#: 64 floats each, and the lo of q's fragments (4 warps x 8 k steps x 32
+#: lanes x 4 floats)
+SHARED_BYTES = (3 * 2 * 64 * HEAD_DIM + 4 * (HEAD_DIM // 8) * 32 * 4) * 4
 
 #: kernel launches since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}

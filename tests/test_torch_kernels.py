@@ -14,7 +14,12 @@ order — f32 rounding of a few ulp per term, ~1e-6 measured.
 
 The CUDA kernels themselves run only on the card: the ``cuda``-marked
 tests skip here, and ``chip_smoke.py`` holds them against the plain
-versions on an H100.
+versions on an H100.  What the CPU can hold is the flash kernel's
+arithmetic: both of its products run on the tensor cores in split TF32
+(each operand x as hi = tf32(x) and lo = tf32(x − hi), a product as
+lo·hi + hi·lo + hi·hi with float32 sums).  A test-local emulation of that
+arithmetic is held to ``ATTN_TOL`` against the reference, and a single
+TF32 pass is shown to miss it.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -49,6 +54,16 @@ def attn_inputs(S, Skv, B=2, H=4, KV=2, hd=64, seed=0):
     k = rng.standard_normal((B, Skv, KV, hd)).astype(np.float32)
     v = rng.standard_normal((B, Skv, KV, hd)).astype(np.float32)
     return q, k, v
+
+
+def live_rows(S, Skv, window, *arrays):
+    """Drop the rows that see no key (S > Skv under a window): the oracle's
+    softmax over all −1e30 averages v, the Pallas kernel (and the CUDA one)
+    floors l and writes 0."""
+    if not (S > Skv and window is not None):
+        return arrays
+    live = np.arange(S) - window + 1 < Skv
+    return tuple(np.asarray(a)[:, live] for a in arrays)
 
 
 # ---------------------------------------------------------------------------
@@ -88,11 +103,15 @@ def test_rmsnorm_eps_and_zero_rows():
 # Flash attention
 # ---------------------------------------------------------------------------
 
+# S 63/64/65/129 and the last four cases sit on and around the CUDA
+# kernel's 64-row and 64-key tile edges (window 100 crosses a tile)
 ATTN_CASES = [(S, S, causal, window)
-              for S in (40, 72)
+              for S in (40, 72, 63, 64, 65, 129)
               for causal, window in ((True, None), (True, 16),
                                      (False, None))] + [
-    (40, 72, False, None), (40, 72, True, None), (72, 40, True, 16)]
+    (40, 72, False, None), (40, 72, True, None), (72, 40, True, 16),
+    (129, 129, True, 100), (65, 130, True, None), (130, 65, True, 100),
+    (64, 129, False, 16)]
 
 
 @pytest.mark.parametrize("S,Skv,causal,window", ATTN_CASES)
@@ -106,15 +125,120 @@ def test_attention_plain_matches_reference(S, Skv, causal, window):
     pallas = fa_ops.flash_attention(jq, jk, jv, causal=causal,
                                     window=window)            # interpret
     oracle = fa_ref.attention(jq, jk, jv, causal=causal, window=window)
-    if S > Skv and window is not None:
-        # rows that see no key: the oracle's softmax over all −1e30 averages
-        # v, the Pallas kernel (and the CUDA one) floors l and writes 0
-        live = np.arange(S) - window + 1 < Skv
-        got, pallas, oracle = (np.asarray(a)[:, live]
-                               for a in (got, pallas, oracle))
+    got, pallas, oracle = live_rows(S, Skv, window, got, pallas, oracle)
     assert max_err(got, pallas) < ATTN_TOL
     assert max_err(got, oracle) < ATTN_TOL
     assert t_fa.LAUNCHES["flash_attention"] == before
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's arithmetic, emulated: split TF32 on the tensor cores
+# ---------------------------------------------------------------------------
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties
+    away from zero, the 13 low mantissa bits dropped (on the int32 bits:
+    the magnitude sits in the low 31, so adding half an ulp of TF32 and
+    masking rounds either sign)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_mm(a: torch.Tensor, b: torch.Tensor, passes: int = 3):
+    """a @ b as the kernel's mma.sync: TF32 operands, exact products (11 x
+    11 significand bits), float32 sums; three products lo·hi + hi·lo +
+    hi·hi, small terms first, or one (hi·hi)."""
+    ah, bh = tf32(a), tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = tf32(a - ah), tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def emulated_kernel(q, k, v, *, causal, window, passes=3):
+    """The CUDA kernel's attention on numpy inputs: scale folded into q,
+    both products in split TF32, masked scores -1e30 with weight 0, o =
+    acc / max(l, 1e-30) (rows that see no key write 0)."""
+    q, k, v = (torch.from_numpy(a) for a in (q, k, v))
+    B, S, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    k, v = (torch.repeat_interleave(t, H // KV, dim=2) for t in (k, v))
+    qs = (q * hd ** -0.5).permute(0, 2, 1, 3)            # exact: 2^-3
+    s = split_mm(qs, k.permute(0, 2, 3, 1), passes)     # (B, H, S, Skv)
+    qpos = torch.arange(S)[:, None]
+    kpos = torch.arange(Skv)[None, :]
+    mask = torch.ones((S, Skv), dtype=torch.bool)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    s = torch.where(mask, s, torch.tensor(-1e30))
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)),
+                    torch.tensor(0.0))
+    o = split_mm(p, v.permute(0, 2, 1, 3), passes)
+    o = o / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    return o.permute(0, 2, 1, 3).numpy()
+
+
+def test_tf32_rounding_is_rna():
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11,
+                      -(1.0 + 2 ** -11), 3.0 + 2 ** -12, 1.0 + 2 ** -23])
+    want = torch.tensor([1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -9,
+                         -(1.0 + 2 ** -10), 3.0, 1.0])
+    assert torch.equal(tf32(x), want)        # ties away from zero
+    y = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        1000).astype(np.float32))
+    hi = tf32(y)
+    lo = tf32(y - hi)
+    assert torch.equal(tf32(hi), hi)
+    assert bool((((y - hi) / y).abs() <= 2.0 ** -11).all())
+    # hi + lo holds y to 22 bits: what makes three products float32-exact
+    assert bool((((hi.double() + lo.double() - y.double()) / y.double())
+                 .abs() <= 2.0 ** -22).all())
+
+
+@pytest.mark.parametrize("S,Skv,causal,window", ATTN_CASES)
+def test_split_tf32_emulation_matches_reference(S, Skv, causal, window):
+    q, k, v = attn_inputs(S, Skv, seed=S * 7 + Skv)
+    got = emulated_kernel(q, k, v, causal=causal, window=window)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    pallas = fa_ops.flash_attention(jq, jk, jv, causal=causal,
+                                    window=window)            # interpret
+    oracle = fa_ref.attention(jq, jk, jv, causal=causal, window=window)
+    got, pallas, oracle = live_rows(S, Skv, window, got, pallas, oracle)
+    assert max_err(got, pallas) < ATTN_TOL
+    assert max_err(got, oracle) < ATTN_TOL
+
+
+def long_row_inputs():
+    """One head, S = 2048, causal: the serving path's row length."""
+    return attn_inputs(2048, 2048, B=1, H=1, KV=1, seed=2048)
+
+
+def test_split_tf32_emulation_matches_reference_at_2048():
+    q, k, v = long_row_inputs()
+    got = emulated_kernel(q, k, v, causal=True, window=None)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    assert max_err(got, fa_ops.flash_attention(jq, jk, jv)) < ATTN_TOL
+    assert max_err(got, fa_ref.attention(jq, jk, jv)) < ATTN_TOL
+
+
+@pytest.mark.parametrize("S,causal,window", [(2048, True, None),
+                                             (129, True, 100),
+                                             (72, False, None)])
+def test_single_tf32_pass_misses_the_tolerance(S, causal, window):
+    """Why the kernel takes three products: one TF32 pass (10 mantissa
+    bits per operand) misses ``ATTN_TOL`` by orders of magnitude on the
+    same inputs on which the split passes."""
+    q, k, v = (long_row_inputs() if S == 2048
+               else attn_inputs(S, S, seed=S * 8))
+    want = fa_ref.attention(*map(jnp.asarray, (q, k, v)), causal=causal,
+                            window=window)
+    split = emulated_kernel(q, k, v, causal=causal, window=window)
+    single = emulated_kernel(q, k, v, causal=causal, window=window,
+                             passes=1)
+    assert max_err(split, want) < ATTN_TOL
+    assert max_err(single, want) > 10 * ATTN_TOL
 
 
 def test_attention_gqa_reads_kv_head_h_over_q_per_kv():

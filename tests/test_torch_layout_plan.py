@@ -287,6 +287,24 @@ def test_plan_laq_encode_matches_reference(bits):
     np.testing.assert_allclose(lhs.numpy(), np.asarray(jlhs), rtol=SUM_RTOL)
 
 
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_plan_laq_steps_are_ieee_quotients(bits):
+    """The plane's steps are the IEEE quotient scale / qmax bit for bit,
+    the division of a tensor divisor (on CUDA a Python-scalar divisor
+    becomes a multiply by the reciprocal; the card-side check is the
+    ``cuda`` test below and ``chip_smoke.py`` phase 6).  That they equal
+    the reference's steps is ``test_plan_laq_encode_matches_reference``."""
+    W = 3
+    tg, tq, te = (np_tree(W=W, seed=s) for s in (4, 5, 6))
+    lo = FlatLayout.for_tree(to_torch(np_tree()))
+    g, q, e = (lo.flatten_stacked(to_torch(t)) for t in (tg, tq, te))
+    plan = FastPathPlan("on")
+    steps = plan.laq_encode(g, q, e, lo, bits=bits)[3]
+    scales = plan._per_leaf(kernels_ref.absmax_blocks(g, q, e), lo, "max")
+    qmax = float(2 ** (bits - 1) - 1)
+    assert bits_equal(steps.numpy(), (scales / torch.tensor(qmax)).numpy())
+
+
 @pytest.mark.parametrize("W", [1, 3])
 def test_plan_sqnorm_matches_reference(W):
     t = np_tree(W=W, seed=W)
@@ -341,3 +359,18 @@ def test_cuda_kernels_match_plain_versions(cuda_device, W):
     for mode in ("add", "update", "select"):
         assert torch.equal(kernels.masked_combine(ta[0], tb, mask, mode),
                            kernels_ref.masked_combine(ta[0], tb, mask, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_cuda_plan_laq_steps_divide_exactly(cuda_device, bits):
+    """On the card the plane's steps equal the CPU's IEEE division of the
+    same scales, bit for bit."""
+    _, (a, b, c) = flat_inputs(3, 3, seed=11)
+    lo = FlatLayout.for_tree(to_torch(np_tree()))
+    ta, tb, tc = (torch.from_numpy(x).to(cuda_device) for x in (a, b, c))
+    plan = FastPathPlan("on")
+    steps = plan.laq_encode(ta, tb, tc, lo, bits=bits)[3]
+    scales = plan._per_leaf(kernels.absmax_blocks(ta, tb, tc), lo, "max")
+    qmax = float(2 ** (bits - 1) - 1)
+    assert torch.equal(steps.cpu(), scales.cpu() / torch.tensor(qmax))
