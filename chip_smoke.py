@@ -25,10 +25,12 @@ Phases (any failure raises and the script exits non-zero):
      before each run and read just after.
   6. agreement on a small input: the reduced model, 3 rounds per policy,
      on the GPU (kernels) and on the CPU (plain versions) from the same
-     weights — equal upload masks, losses within rtol 1e-4; on the batched
-     plane, and on the legacy per-leaf route (``use_pallas_comm``).  On the
-     plane, laq@4's quantizer steps on the card equal bit for bit the IEEE
-     division of the same scales on the CPU.
+     weights — equal upload masks, losses within rtol 1e-4: lag-wk and
+     laq@4 on the batched plane and on the legacy per-leaf route
+     (``use_pallas_comm``), lasg-wk on both, cyc-laq@4 on the plane,
+     lag-adam (lr 1e-3) on the plane.  On the plane, the LAQ quantizer steps
+     on the card equal bit for bit the IEEE division of the same scales on
+     the CPU.
   7. the model kernels (rmsnorm, flash attention) vs their plain versions
      at ragged shapes (rows {1, 7, 129, 1000} x d {2048, 256, 132}; S {1,
      7, 63, 64, 65, 127, 128, 129, 1000, 2047} on and around the flash
@@ -63,6 +65,17 @@ Phases (any failure raises and the script exits non-zero):
      lag-ps; innovation_absmax_2d and laq_encode_2d 22 for laq@4; none of
      the batched plane's), peak memory under 80 GB, and for lag-wk and
      laq@4 phase 5's masks and losses within rtol 1e-4.
+ 11. LASG-WK, the schedules and the server steps through
+     ``repro_torch.launch.train`` in phase 5's configuration: lasg-wk on
+     the plane (its second backward pass at θ̂_m; delta_sqnorm_blocks and
+     masked_combine's add and select every round) and on the legacy route
+     (sqnorm_2d 22 a round, none of the plane's), cyc-iag and num-iag (the
+     GD payload: no plane kernel, as in the reference), cyc-laq@4 on the
+     plane (absmax, encode, masked_combine), lag-adam at lr 1e-3, lag-wk
+     with ``--server momentum@0.9`` and with ``--server prox-l1@1e-6``.
+     Each run's losses, masks, ms a round, device fwd/bwd and comm ms, peak
+     memory (under 80 GB) and launches; a schedule uploads from exactly its
+     scheduled worker every round.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Times are CUDA-event times on this card (kernels: the mean of
@@ -138,6 +151,27 @@ FLASH_CROSS = [(129, 1000, False, None), (129, 1000, True, None),
                (200, 65, True, None), (200, 65, True, 100),
                (64, 130, False, 16)]
 ATTN_FULL = (4, 2048, 32, 8, 64)  # the prefill's (B, S, H, KV, hd)
+# phase 6: (algo, legacy per-leaf route, lr) on the reduced model
+AGREEMENT_RUNS = (("lag-wk", False, 0.3), ("laq@4", False, 0.3),
+                  ("lag-wk", True, 0.3), ("laq@4", True, 0.3),
+                  ("lasg-wk", False, 0.3), ("lasg-wk", True, 0.3),
+                  ("cyc-laq@4", False, 0.3), ("lag-adam", False, 1e-3))
+# phase 11: (algo, legacy route, extra launcher flags, the plane's kernels
+# and their least launches a round; {} = none of the plane's at all)
+PHASE11 = (
+    ("lasg-wk", False, (), {"delta_sqnorm_blocks": 1, "masked_combine": 2}),
+    ("lasg-wk", True, (), {}),
+    ("cyc-iag", False, (), {}),
+    ("num-iag", False, (), {}),
+    ("cyc-laq@4", False, (), {"absmax_blocks": 1, "laq_encode_blocks": 1,
+                              "masked_combine": 2}),
+    ("lag-adam", False, ("--lr", "1e-3"),
+     {"delta_sqnorm_blocks": 1, "masked_combine": 1}),
+    ("lag-wk", False, ("--server", "momentum@0.9"),
+     {"delta_sqnorm_blocks": 1, "masked_combine": 1}),
+    ("lag-wk", False, ("--server", "prox-l1@1e-6"),
+     {"delta_sqnorm_blocks": 1, "masked_combine": 1}),
+)
 
 
 def check(cond, msg):
@@ -409,10 +443,27 @@ def full_shape_phase(torch, dev):
 # Phase 5: the main path through the entry point
 # ---------------------------------------------------------------------------
 
-def trainer_phase(torch, algo, steps=4, use_pallas_comm=False):
-    """Run the launcher at full width; returns the launches of the batched
-    plane's kernels (``plane``) and of the legacy per-leaf kernels
-    (``legacy``), the rounds' losses and masks, and the peak memory."""
+def scheduled_uploaders(algo, steps, workers=2, seed=0):
+    """The worker a schedule spec uploads from at each round (None for a
+    triggered policy): cyc- round-robin, num- the policy's own draw."""
+    from repro_torch.comm import ScheduledPolicy
+    from repro_torch.dist.lag_trainer import TrainerConfig
+
+    pol = TrainerConfig(algo=algo, num_workers=workers).comm_policy()
+    if not isinstance(pol, ScheduledPolicy):
+        return None
+    if pol.needs_rng:
+        return [pol.draw(k, workers, seed) for k in range(steps)]
+    return [k % workers for k in range(steps)]
+
+
+def trainer_phase(torch, algo, steps=4, use_pallas_comm=False, extra=()):
+    """Run the launcher at full width (``extra``: more launcher flags, e.g.
+    ``--server``); returns the launches of the batched plane's kernels
+    (``plane``) and of the legacy per-leaf kernels (``legacy``), the
+    rounds' losses and masks, and the peak memory.  Round 0 uploads from
+    every worker for a triggered policy; a schedule uploads from exactly
+    its scheduled worker every round."""
     from repro_torch.fastpath import kernels
     from repro_torch.kernels.lag_trigger import lag_trigger as lt
     from repro_torch.launch import train
@@ -431,7 +482,7 @@ def trainer_phase(torch, algo, steps=4, use_pallas_comm=False):
     lt.reset_launches()
     state = train.main(["--arch", "llama3.2-1b", "--algo", algo,
                         "--workers", "2", "--batch", "4", "--seq", "256",
-                        "--steps", str(steps), "--seed", "0"],
+                        "--steps", str(steps), "--seed", "0", *extra],
                        on_step=on_step, use_pallas_comm=use_pallas_comm)
     launches = dict(kernels.LAUNCHES)
     legacy = dict(lt.LAUNCHES)
@@ -443,7 +494,14 @@ def trainer_phase(torch, algo, steps=4, use_pallas_comm=False):
           f"{algo}: non-finite parameters")
     check(rounds[-1]["comm_total"] == sum(sum(r["mask"]) for r in rounds),
           f"{algo}: comm_total disagrees with the masks")
-    check(rounds[0]["mask"] == [1, 1], f"{algo}: round 0 must upload all")
+    sched = scheduled_uploaders(algo, steps)
+    if sched is None:
+        check(rounds[0]["mask"] == [1, 1], f"{algo}: round 0 must upload "
+                                           f"all")
+    else:
+        for k, (r, m) in enumerate(zip(rounds, sched)):
+            check(r["mask"] == [int(i == m) for i in range(2)],
+                  f"{algo} round {k}: mask {r['mask']}, scheduled worker {m}")
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -451,13 +509,15 @@ def trainer_phase(torch, algo, steps=4, use_pallas_comm=False):
     summary = {k: sum(r[k] for r in steady) / len(steady)
                for k in ("ms", "grad_ms", "comm_ms")}
     shown = {**launches, **legacy} if use_pallas_comm else launches
-    print(f"  {algo}: losses {[round(r['loss'], 6) for r in rounds]} | "
+    label = " ".join((algo,) + tuple(extra))
+    print(f"  {label}: losses {[round(r['loss'], 6) for r in rounds]} | "
           f"masks {[r['mask'] for r in rounds]} | comm_total "
           f"{rounds[-1]['comm_total']} | rounds 1-{steps - 1} mean "
           f"{summary['ms']:.1f} ms (device: fwd/bwd {summary['grad_ms']:.1f}"
           f" ms, comm plane + server {summary['comm_ms']:.1f} ms) | round 0 "
           f"{rounds[0]['ms']:.1f} ms | peak memory {peak:.2f} GB | launches "
-          f"{shown}")
+          f"{shown}" + ("" if sched is None else
+                         f" | scheduled uploaders {sched}"))
     return dict(plane=launches, legacy=legacy, rounds=rounds, peak=peak)
 
 
@@ -510,9 +570,8 @@ def agreement_runs(torch, dev):
                                               make_train_step, params_of)
 
     cfg = get_config("llama3.2-1b").reduced()
-    for algo, legacy in (("lag-wk", False), ("laq@4", False),
-                         ("lag-wk", True), ("laq@4", True)):
-        tcfg = TrainerConfig(algo=algo, num_workers=2, lr=0.3,
+    for algo, legacy, lr in AGREEMENT_RUNS:
+        tcfg = TrainerConfig(algo=algo, num_workers=2, lr=lr,
                              use_pallas_comm=legacy)
         cpu = init_state(cfg, tcfg, device="cpu", seed=5)
         gpu = init_state(cfg, tcfg, device=dev,
@@ -524,6 +583,7 @@ def agreement_runs(torch, dev):
                                    else tcfg.replace(fastpath="on"))
         gpu_step = make_train_step(cfg, tcfg)
         stream = TokenStream(cfg.vocab_size, seed=5)
+        masks = []
         for k in range(3):
             b = make_inputs(cfg, stream, k, 4, 32)
             cpu, mc = cpu_step(cpu, b)
@@ -534,9 +594,11 @@ def agreement_runs(torch, dev):
                   f"vs gpu {lg}")
             check(mc["comm_mask"].tolist() == mg["comm_mask"].cpu().tolist(),
                   f"small {algo} legacy={legacy} round {k}: masks differ")
+            masks.append(mg["comm_mask"].to(torch.int32).tolist())
         route = "legacy per-leaf route" if legacy else "batched plane"
-        print(f"  small {algo} ({route}): 3 rounds, GPU vs CPU losses within "
-              f"rtol 1e-4, masks equal (last loss {lg:.6f})")
+        print(f"  small {algo} lr {lr} ({route}): 3 rounds, GPU vs CPU "
+              f"losses within rtol 1e-4, masks equal (last loss {lg:.6f}, "
+              f"masks {masks})")
 
 
 # ---------------------------------------------------------------------------
@@ -920,6 +982,42 @@ def legacy_route_phase(torch, phase5, steps=4):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: LASG-WK, the schedules and the server steps through the entry
+# point
+# ---------------------------------------------------------------------------
+
+def policies_phase(torch, steps=4):
+    """PHASE11's runs; returns the launches of the plane's and of the legacy
+    route's kernels over all of them."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.lag_trainer import param_layout
+
+    per_leaf = 2 * param_layout(get_config("llama3.2-1b")).num_leaves
+    plane, legacy = {}, {}
+    for algo, use_legacy, extra, want in PHASE11:
+        run = trainer_phase(torch, algo, steps=steps,
+                            use_pallas_comm=use_legacy, extra=extra)
+        label = " ".join((algo,) + tuple(extra)) + (
+            " (legacy route)" if use_legacy else "")
+        got = run["plane"]
+        for k, v in got.items():
+            if k in want:
+                check(v >= want[k] * steps, f"{label}: {k} launched {v} "
+                      f"times in {steps} rounds, want >= {want[k]} a round")
+            elif not want:
+                check(v == 0, f"{label}: the plane's {k} launched {v} times")
+            plane[k] = plane.get(k, 0) + v
+        for k, v in run["legacy"].items():
+            n = per_leaf * steps if use_legacy and k == "sqnorm_2d" else 0
+            check(v == n, f"{label}: {k} launched {v} times in {steps} "
+                          f"rounds, want {n}")
+            legacy[k] = legacy.get(k, 0) + v
+        check(run["peak"] < 80.0, f"{label}: peak memory "
+                                  f"{run['peak']:.2f} GB")
+    return plane, legacy
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1024,6 +1122,13 @@ def main():
             print(f"  {k}: {v} launches, exempt: {OFF_PATH[k]}")
             continue
         check(v > 0, f"kernel {k} never launched on the legacy route")
+
+    print("[11] lasg-wk, the schedules and the server steps: llama3.2-1b "
+          "full width, W=2, batch 4, seq 256", flush=True)
+    p11_plane, p11_legacy = policies_phase(torch)
+    for k, v in {**p11_plane, **p11_legacy}.items():
+        launches[k] += v
+    print(f"  phase 11 launches: plane {p11_plane} | legacy {p11_legacy}")
 
     rows = [dict(name=k, route="cuda", source=SOURCES.get(k, SOURCE),
                  replaces=REPLACES[k], launches=launches[k], **full[k])

@@ -41,6 +41,12 @@ class CommRound:
     cfg: lag.LAGConfig                   # α, M, D, ξ — the trigger constants
     L_m: Optional[torch.Tensor] = None   # smoothness (PS rule only)
     fast: Optional[Dict[str, Any]] = None    # the batched precompute
+    grad_at_hat: Optional[Pytree] = None     # ∇ℓ_m(θ̂_m) (LASG-WK only)
+    k: Optional[int] = None                  # round index (schedules)
+    # this worker's id: an int on the plain route, the (W,) ids on the
+    # device on the fast route
+    worker_id: Any = None
+    draw: Optional[int] = None   # the worker a sampled schedule drew
 
 
 def _mask_like(comm: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -60,6 +66,8 @@ class CommPolicy:
     state_keys: Tuple[str, ...] = ("grad_hat",)
     needs_theta_hat: bool = False
     needs_L_m: bool = False
+    needs_grad_at_hat: bool = False  # the trainer's 2nd backward pass at θ̂_m
+    needs_rng: bool = False          # the trainer passes a per-round draw
 
     def __init__(self, sqnorm_fn: Callable[[Pytree], torch.Tensor]
                  = lag.tree_sqnorm, fastpath="auto"):
@@ -112,11 +120,13 @@ class CommPolicy:
 
     # -- the batched fast path ----------------------------------------------
     def fast_precompute(self, plan, grads: torch.Tensor, st: PolicyState, *,
-                        theta: torch.Tensor, layout
+                        theta: torch.Tensor, layout,
+                        grad_at_hat: Optional[torch.Tensor] = None
                         ) -> Optional[Dict[str, Any]]:
         """Batched per-round precompute over the (W, rows, 128) buffers: a
         dict of (W, …) tensors routed into ``ctx.fast``, or None when the
-        policy has nothing kernel-served (the plain route then runs)."""
+        policy has nothing kernel-served (the plain route then runs).
+        ``grad_at_hat`` is LASG-WK's stacked ∇ℓ_m(θ̂_m), read here only."""
         raise NotImplementedError(
             f"{type(self).__name__} does not declare a fast-path route: "
             f"implement fast_precompute() to serve its trigger/encode "
@@ -147,12 +157,3 @@ class CommPolicy:
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return f"{type(self).__name__}(name={self.name!r})"
-
-
-def run_round(policy: CommPolicy, ctx: CommRound, st: PolicyState
-              ) -> Tuple[torch.Tensor, Pytree, PolicyState]:
-    """One worker's full round: encode → trigger → decode."""
-    payload, aux = policy.encode(ctx, st)
-    comm = policy.should_upload(ctx, st, payload, aux)
-    delta, new_st = policy.decode(ctx, st, payload, aux, comm)
-    return comm, delta, new_st

@@ -73,7 +73,8 @@ class LAQPolicy(CommPolicy):
                                           st["resid"])
         return delta, new_st
 
-    def fast_precompute(self, plan, grads, st, *, theta, layout):
+    def fast_precompute(self, plan, grads, st, *, theta, layout,
+                        grad_at_hat=None):
         # two launches for all workers; the payload overwrites ``grads``
         payload, resid_new, lhs, steps = plan.laq_encode(
             grads, st["grad_hat"], st["resid"], layout, bits=self.bits,

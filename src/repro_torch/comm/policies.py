@@ -1,9 +1,11 @@
-"""The dense-upload policies GD, LAG-WK and LAG-PS — port of
+"""The dense-upload policies GD, LAG-WK, LAG-PS and LASG-WK — port of
 ``repro.comm.policies``.
 
-All three upload the raw gradient innovation δ∇_m = ∇L_m(θ^k) − ĝ_m; they
+All four upload the raw gradient innovation δ∇_m = ∇L_m(θ^k) − ĝ_m; they
 differ in the trigger: GD always uploads, LAG-WK uploads iff ‖δ∇_m‖² > RHS
-(15a), LAG-PS iff L_m²‖θ̂_m − θ^k‖² > RHS (15b).
+(15a), LAG-PS iff L_m²‖θ̂_m − θ^k‖² > RHS (15b), LASG-WK iff
+‖∇ℓ_m(θ^k; ξ^k) − ∇ℓ_m(θ̂_m; ξ^k)‖² > RHS (Chen et al. 2020: both
+gradients on the current sample).
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ class GDPolicy(CommPolicy):
                       aux: Dict[str, Any]) -> torch.Tensor:
         return torch.ones((), dtype=torch.bool, device=ctx.hist.device)
 
-    def fast_precompute(self, plan, grads, st, *, theta, layout):
+    def fast_precompute(self, plan, grads, st, *, theta, layout,
+                        grad_at_hat=None):
         # explicit opt-out: no trigger reduction or encode sweep to serve
         return None
 
@@ -40,7 +43,8 @@ class LAGWKPolicy(CommPolicy):
             lhs = self.sqnorm_fn(payload)
         return lhs > lag.trigger_rhs(ctx.hist, ctx.cfg)
 
-    def fast_precompute(self, plan, grads, st, *, theta, layout):
+    def fast_precompute(self, plan, grads, st, *, theta, layout,
+                        grad_at_hat=None):
         return {"lhs_sq": plan.delta_sqnorm(grads, st["grad_hat"], layout)}
 
 
@@ -62,8 +66,41 @@ class LAGPSPolicy(CommPolicy):
         return lag.ps_communicate(ctx.theta, st["theta_hat"], ctx.L_m,
                                   ctx.hist, ctx.cfg, sqnorm_fn=self.sqnorm_fn)
 
-    def fast_precompute(self, plan, grads, st, *, theta, layout):
+    def fast_precompute(self, plan, grads, st, *, theta, layout,
+                        grad_at_hat=None):
         # 15b's drift ‖θ̂_m − θ‖² for every worker; θ is the shared
         # (unstacked) buffer, broadcast inside the kernel
         return {"dtheta_sq": plan.delta_sqnorm(st["theta_hat"], theta,
                                                layout)}
+
+
+class LASGWKPolicy(CommPolicy):
+    """LASG-WK: the worker trigger on stochastic gradients.  LAG-WK's LHS
+    ‖∇ℓ(θ^k; ξ^k) − ĝ_m‖² never shrinks under minibatch noise (ĝ_m is from
+    an old sample); LASG-WK differences two gradients on the SAME sample —
+    the fresh one and ∇ℓ_m(θ̂_m; ξ^k) at the worker's last-upload iterate θ̂_m
+    (the trainer's second backward pass, ``needs_grad_at_hat``).  The upload
+    is still the dense innovation against ĝ_m, and θ̂_m ← θ^k on upload."""
+    name = "lasg-wk"
+    state_keys = ("grad_hat", "theta_hat")
+    needs_theta_hat = True
+    needs_grad_at_hat = True
+
+    def should_upload(self, ctx: CommRound, st: PolicyState, payload: Pytree,
+                      aux: Dict[str, Any]) -> torch.Tensor:
+        if ctx.fast is not None and "lhs_sq" in ctx.fast:
+            return ctx.fast["lhs_sq"] > lag.trigger_rhs(ctx.hist, ctx.cfg)
+        if ctx.grad_at_hat is None:
+            raise ValueError("LASG-WK requires grad_at_hat (the trainer must "
+                             "evaluate ∇ℓ_m(θ̂_m) on the current sample)")
+        lhs = self.sqnorm_fn(lag.tree_sub(ctx.grad_new, ctx.grad_at_hat))
+        return lhs > lag.trigger_rhs(ctx.hist, ctx.cfg)
+
+    def fast_precompute(self, plan, grads, st, *, theta, layout,
+                        grad_at_hat=None):
+        if grad_at_hat is None:
+            raise ValueError("LASG-WK requires grad_at_hat (the trainer must "
+                             "evaluate ∇ℓ_m(θ̂_m) on the current sample)")
+        # the correlated stochastic trigger ‖∇ℓ(θ^k;ξ) − ∇ℓ(θ̂;ξ)‖², one
+        # launch for all workers; θ̂ is folded by the base fast_decode
+        return {"lhs_sq": plan.delta_sqnorm(grads, grad_at_hat, layout)}

@@ -65,6 +65,10 @@ def tree_sub(a: Pytree, b: Pytree) -> Pytree:
     return tree_map(lambda x, y: x - y, a, b)
 
 
+def tree_scale(a: Pytree, s) -> Pytree:
+    return tree_map(lambda x: x * s, a)
+
+
 def tree_select(pred: torch.Tensor, on_true: Pytree, on_false: Pytree
                 ) -> Pytree:
     """Per-tree select on a scalar bool predicate: an exact copy."""

@@ -4,13 +4,25 @@ A "worker" is a slice of the global batch (rows ``m·B/W:(m+1)·B/W``).
 Each step computes every worker's loss and gradient — the reference's
 ``jax.vmap(value_and_grad)`` becomes a loop over workers, each writing its
 gradients into slot m of one flat ``(W, rows, 128)`` buffer — and hands the
-round to ``repro_torch.engine.rounds.lag_round``.
+round to ``repro_torch.engine.rounds.lag_round``.  LASG-WK adds a second
+backward pass per worker at its last-upload iterate θ̂_m.  Algorithms:
+
+  gd, lag-wk, lag-ps, laq   as in ``repro_torch.comm``
+  lasg-wk                   the stochastic worker trigger (Chen et al. 2020)
+  adam, lag-adam            GD / the 15a trigger with an Adam server step
+
+plus any ``repro_torch.comm.make_policy`` spec (``"laq@8"``,
+``"cyc-iag"``, ``"num-lag-wk"``, …); ``TrainerConfig.server`` overrides the
+server step with any ``repro_torch.engine.server`` spec
+(``"prox-l1@1e-4"``, ``"momentum@0.9"``).
 
 Memory at full width: the parameters live in ONE flat ``(rows, 128)``
 float32 buffer ``theta`` whose leaves are views (so the comm plane's θ
 operand and the server step need no copy), and the per-worker mirror state
-(``grad_hat``, LAQ's ``resid``, LAG-PS's ``theta_hat``) is kept natively as
-flat ``(W, rows, 128)`` buffers, updated in place on the fast route.  For
+(``grad_hat``, LAQ's ``resid``, LAG-PS's and LASG-WK's ``theta_hat``) is
+kept natively as flat ``(W, rows, 128)`` buffers, updated in place on the
+fast route, and so is the server's state (momentum's ``m``, Adam's
+``mu``/``nu``: flat ``(rows, 128)`` buffers).  For
 llama3.2-1b at W = 2 that is θ 4.9 GB + ∇ 4.9 GB + 9.9 GB per stacked
 buffer, instead of the several W-fold copies a flatten/unflatten per call
 would hold.
@@ -18,7 +30,7 @@ would hold.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -28,12 +40,13 @@ from repro_torch.core.tree import tree_flatten, tree_unflatten
 from repro_torch.engine import rounds as engine_rounds
 from repro_torch.engine import server as server_lib
 from repro_torch.engine.topology import BatchShards
+from repro_torch.fastpath import plan as plan_lib
 from repro_torch.fastpath.layout import FlatLayout
 from repro_torch.kernels.lag_trigger import ops as lag_ops
 from repro_torch.models import model
 from repro_torch.models.common import ModelConfig
 
-ALGOS = ("gd", "lag-wk", "lag-ps", "laq")
+ALGOS = ("gd", "lag-wk", "lag-ps", "laq", "lasg-wk", "adam", "lag-adam")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,22 +54,40 @@ class TrainerConfig:
     """Trainer hyper-parameters.  ``lr`` is the stepsize on the MEAN
     aggregated gradient: θ^{k+1} = θ^k − (lr/M)·∇^k, i.e. eq. (4) with
     α = lr/M, and the triggers (15a)/(15b) read that same α.  ``algo`` is
-    any ``repro_torch.comm.make_policy`` spec (``"laq@8"`` sets LAQ's
-    bits); ``fastpath`` is "auto" (the plane runs for CUDA tensors) or
-    "on" (forced).  ``use_pallas_comm`` selects the legacy per-leaf route
-    instead of the plane: the per-leaf kernels' ``fused_tree_sqnorm`` as
-    the triggers' norm and LAQ's per-leaf kernel encode; combined with
-    ``fastpath="on"`` it raises."""
+    a name of :data:`ALGOS` or any ``repro_torch.comm.make_policy`` spec
+    (``laq_bits`` is LAQ's width unless the spec says ``"laq@8"``);
+    ``server`` overrides the algo's server step with any
+    ``repro_torch.engine.server`` spec; ``momentum`` > 0 makes it heavy
+    ball, the adam algos Adam (``adam_b1``/``adam_b2``).  ``rhs_floor``
+    floors the trigger RHS (0.0: the paper's trigger).  ``fastpath`` is
+    "auto" (the plane runs for CUDA tensors) or "on" (forced).
+    ``use_pallas_comm`` selects the legacy per-leaf route instead of the
+    plane: the per-leaf kernels' ``fused_tree_sqnorm`` as the triggers'
+    norm and LAQ's per-leaf kernel encode; combined with ``fastpath="on"``
+    it raises.  The reference's ``grad_hat_dtype`` (bfloat16 mirrors) is
+    not ported."""
     algo: str = "lag-wk"
     num_workers: int = 4
     lr: float = 0.05
     D: int = 10
     xi: float = 0.1
-    fastpath: str = "auto"
+    momentum: float = 0.0
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    laq_bits: int = 4
     use_pallas_comm: bool = False
+    fastpath: str = "auto"
+    server: Optional[str] = None
+    rhs_floor: float = 0.0
 
     def __post_init__(self):
         self.comm_policy()      # raises on a bad spec, mode or combination
+        if self.server is not None:
+            server_lib.make_server(self.server)   # validate the spec early
+
+    @property
+    def uses_adam(self) -> bool:
+        return self.algo in ("adam", "lag-adam")
 
     @property
     def lag_rule(self) -> str:
@@ -65,17 +96,28 @@ class TrainerConfig:
     def lag_config(self, num_units: Optional[int] = None) -> lag.LAGConfig:
         m = num_units or self.num_workers
         return lag.LAGConfig(num_workers=m, alpha=self.lr / m, D=self.D,
-                             xi=self.xi, rule=self.lag_rule)
+                             xi=self.xi, rule=self.lag_rule,
+                             rhs_floor=self.rhs_floor)
 
     def comm_policy(self) -> comm.CommPolicy:
+        """The policy this config selects (adam → GD uploads, lag-adam →
+        the 15a trigger)."""
         sqnorm_fn = lag_ops.fused_tree_sqnorm if self.use_pallas_comm \
             else None
-        return comm.make_policy(self.algo, use_pallas=self.use_pallas_comm,
+        return comm.make_policy(self.algo, bits=self.laq_bits,
+                                use_pallas=self.use_pallas_comm,
                                 sqnorm_fn=sqnorm_fn, fastpath=self.fastpath)
 
     def server_optimizer(self) -> server_lib.ServerOptimizer:
-        """The paper's eq. (4); the other servers are not ported yet."""
-        return server_lib.make_server("sgd")
+        """``server`` spec if set, else Adam for the adam algos, heavy ball
+        when ``momentum > 0``, else the paper's SGD (eq. 4)."""
+        if self.server is not None:
+            return server_lib.make_server(self.server)
+        if self.uses_adam:
+            return server_lib.AdamServer(b1=self.adam_b1, b2=self.adam_b2)
+        if self.momentum:
+            return server_lib.MomentumServer(self.momentum)
+        return server_lib.SGDServer()
 
     def replace(self, **kw) -> "TrainerConfig":
         return dataclasses.replace(self, **kw)
@@ -92,17 +134,19 @@ def param_layout(cfg: ModelConfig) -> FlatLayout:
 
 def init_state(cfg: ModelConfig, tcfg: TrainerConfig, *, device,
                seed: int = 0, params: Optional[Dict] = None,
-               policy=None) -> Dict:
+               policy=None, server=None) -> Dict:
     """Fresh trainer state on ``device``.
 
     ``params`` (a parameter tree, e.g. from ``repro_torch.weights``) is
     copied into the flat θ buffer; without it the weights are drawn from a
-    ``torch.Generator`` seeded with ``seed``.  ``grad_hat`` starts at zero
-    with an empty history, so round 0 triggers every worker.
+    ``torch.Generator`` seeded with ``seed``.  ``grad_hat`` (and θ̂) start
+    at zero with an empty history, so round 0 triggers every worker.  A
+    stateful server's state (``opt``) is flat, beside θ.
     """
     device = torch.device(device)
     W = tcfg.num_workers
     policy = policy if policy is not None else tcfg.comm_policy()
+    server = server if server is not None else tcfg.server_optimizer()
     lo = param_layout(cfg)
     theta = lo.empty(device=device)
     if params is None:
@@ -124,7 +168,11 @@ def init_state(cfg: ModelConfig, tcfg: TrainerConfig, *, device,
         # no oracle L_m for a deep net: the 1/α heuristic (paper: α = 1/L)
         lag_state["L_m"] = torch.full((W,), 1.0 / tcfg.lr,
                                       dtype=torch.float32, device=device)
-    return {"theta": theta, "lag": lag_state, "step": 0}
+    state = {"theta": theta, "lag": lag_state, "step": 0}
+    opt0 = server.init(theta)
+    if opt0 is not None:
+        state["opt"] = opt0
+    return state
 
 
 def params_of(state: Dict, cfg: ModelConfig) -> Dict:
@@ -137,22 +185,42 @@ def params_of(state: Dict, cfg: ModelConfig) -> Dict:
 # ---------------------------------------------------------------------------
 
 def worker_grads(theta: torch.Tensor, lo: FlatLayout, cfg: ModelConfig,
-                 shards: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Every worker's (loss, gradient): losses (W,), gradients written into
-    one zeroed (W, rows, 128) buffer (the padding stays zero)."""
+                 shards: Dict, out=None) -> Tuple[torch.Tensor, object]:
+    """Every worker's (loss, gradient): losses (W,), gradient m written into
+    ``out[m]`` — by default one zeroed (W, rows, 128) buffer; a list of W
+    (rows, 128) buffers also serves (the padding stays zero).  ``theta``
+    is the shared (rows, 128) iterate, or one iterate per worker (W, rows,
+    128): LASG-WK's θ̂_m, whose leaves are views of row m."""
     W = next(iter(shards.values())).shape[0]
-    grads = lo.empty((W,), theta.device)
-    leaves, treedef = tree_flatten(lo.unflatten(theta))
+    grads = lo.empty((W,), theta.device) if out is None else out
+    shared = theta.dim() == 2
     losses = []
     for m in range(W):
+        leaves, treedef = tree_flatten(lo.unflatten(
+            theta if shared else theta[m]))
         req = [l.detach().requires_grad_() for l in leaves]
         shard = {k: v[m] for k, v in shards.items()}
         loss = model.loss_fn(tree_unflatten(treedef, req), cfg, shard)
         g = torch.autograd.grad(loss, req)
         lo.flatten(tree_unflatten(treedef, list(g)), out=grads[m])
         losses.append(loss.detach())
-        del g, req
+        del g, req, leaves
     return torch.stack(losses), grads
+
+
+def grads_at_hat(policy, theta: torch.Tensor, theta_hat: torch.Tensor,
+                 lo: FlatLayout, cfg: ModelConfig, shards: Dict) -> List:
+    """LASG-WK's ∇ℓ_m(θ̂_m; ξ^k): each worker's gradient at its own θ̂_m on
+    the current shard, in the form the round consumes
+    (``engine.rounds.policy_rounds``): ``[one (W, rows, 128) buffer]`` for
+    the plane, W separate (rows, 128) buffers for the plain route, so
+    each worker's row is freed once its trigger has read it."""
+    W = theta_hat.shape[0]
+    if plan_lib.active_plan(policy, theta) is not None:
+        return [worker_grads(theta_hat, lo, cfg, shards)[1]]
+    rows = [lo.empty(device=theta.device) for _ in range(W)]
+    worker_grads(theta_hat, lo, cfg, shards, out=rows)
+    return rows
 
 
 def phase_ms(metrics: Dict) -> Dict[str, float]:
@@ -167,11 +235,14 @@ def phase_ms(metrics: Dict) -> Dict[str, float]:
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainerConfig, policy=None,
-                    server=None, topology=None):
+                    server=None, topology=None, schedule_seed: int = 0):
     """Build ``train_step(state, batch) → (state, metrics)``; the state's
-    buffers are updated in place.  On the GPU, ``metrics["phase_events"]``
-    holds three CUDA events: before the gradients, after them, after the
-    round (read them with :func:`phase_ms` once the device has caught up)."""
+    buffers are updated in place.  ``schedule_seed`` seeds a sampled
+    schedule's per-round draw (num-IAG), deterministic in the step
+    counter.  On the GPU, ``metrics["phase_events"]`` holds three CUDA
+    events: before the gradients (both passes for LASG-WK), after them,
+    after the round (read them with :func:`phase_ms` once the device has
+    caught up)."""
     policy = policy if policy is not None else tcfg.comm_policy()
     server = server if server is not None else tcfg.server_optimizer()
     topology = topology if topology is not None else BatchShards()
@@ -189,14 +260,21 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainerConfig, policy=None,
         if events:
             events[0].record()
         losses, grads = worker_grads(theta, lo, cfg, shards)
-        loss = server.composite_loss(torch.mean(losses), None)
+        # the objective at the pre-step parameters (views of θ)
+        loss = server.composite_loss(torch.mean(losses), lo.unflatten(theta))
+        gah = None
+        if policy.needs_grad_at_hat:
+            gah = grads_at_hat(policy, theta, lag_state["theta_hat"], lo, cfg,
+                               shards)
+        draw = policy.draw(state["step"], W, schedule_seed) \
+            if policy.needs_rng else None
         if events:
             events[1].record()
         theta, new_opt, new_lag, metrics = engine_rounds.lag_round(
             policy, server, lagcfg, theta=theta, layout=lo,
             opt_state=state.get("opt"), lag_state=lag_state, grads=grads,
-            step=state["step"])
-        del grads
+            step=state["step"], grad_at_hat=gah, draw=draw)
+        del grads, gah
         if events:
             events[2].record()
             metrics["phase_events"] = events

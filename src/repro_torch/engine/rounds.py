@@ -16,33 +16,72 @@ State contract (the trainer's ``lag`` group):
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.comm import CommPolicy, CommRound, run_round
+from repro_torch.comm import CommPolicy, CommRound
 from repro_torch.core import lag
 from repro_torch.engine.server import ServerOptimizer
 from repro_torch.fastpath import plan as plan_lib
 from repro_torch.fastpath.layout import FlatLayout
 
 
+def _take_stacked(grad_at_hat: Optional[List[torch.Tensor]]
+                  ) -> Optional[torch.Tensor]:
+    """The fast route's ∇ℓ_m(θ̂_m): the one stacked (W, rows, 128) buffer,
+    taken out of the caller's list."""
+    if grad_at_hat is None:
+        return None
+    if len(grad_at_hat) != 1 or grad_at_hat[0].dim() != 3:
+        raise ValueError("on the batched plane grad_at_hat must be [one "
+                         "stacked (W, rows, 128) buffer], got "
+                         f"{[tuple(t.shape) for t in grad_at_hat]}")
+    return grad_at_hat.pop()
+
+
+def _take_rows(grad_at_hat: Optional[List[torch.Tensor]], W: int
+               ) -> Optional[List[torch.Tensor]]:
+    """The plain route's ∇ℓ_m(θ̂_m), one (rows, 128) buffer per worker,
+    taken out of the caller's list."""
+    if grad_at_hat is None:
+        return None
+    if len(grad_at_hat) != W or any(t.dim() != 2 for t in grad_at_hat):
+        raise ValueError(f"on the plain route grad_at_hat must be {W} "
+                         f"(rows, 128) buffers, got "
+                         f"{[tuple(t.shape) for t in grad_at_hat]}")
+    rows = list(grad_at_hat)
+    grad_at_hat.clear()
+    return rows
+
+
 def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
                   theta: torch.Tensor, grads: torch.Tensor, lag_state: Dict,
-                  layout: FlatLayout):
+                  layout: FlatLayout,
+                  grad_at_hat: Optional[List[torch.Tensor]] = None,
+                  step: Optional[int] = None, draw: Optional[int] = None):
     """Run a policy for every worker → (comm (W,) bool, delta (W, rows,
     128), new policy-state dict).
+
+    Every ``CommRound`` carries the round index ``step`` (``k``), the
+    worker id (the (W,) ids on the device on the fast route, ``m`` on the
+    plain route) and a sampled schedule's ``draw`` for this round.
+    ``grad_at_hat`` (LASG-WK's ∇ℓ_m(θ̂_m)) is a list the round CONSUMES, so
+    that each buffer is freed as soon as it has been read: on the fast
+    route ``[stacked (W, rows, 128)]``, dropped once ``fast_precompute``
+    has read it; on the plain route W ``(rows, 128)`` rows, row m dropped
+    once worker m's trigger has read it.
 
     Fast route (the policy's plan is active: CUDA tensors, or forced; a
     layout the float32 plane cannot serve then raises): the
     kernel-served quantities come from ONE batched ``fast_precompute``,
     ``encode``/``should_upload`` run once over the stacked buffers, and
     ``fast_decode`` folds the state in place.  ``grads`` is consumed (LAQ
-    writes its payload over it).  Plain route (no plane, or an inactive
-    one): a loop over workers, each round on per-leaf views of the
-    buffers — the oracle, or the per-leaf kernels under
-    ``use_pallas_comm`` — and the delta goes over ``grads``, the state
-    over its buffers, in place.
+    writes its payload over it).  Plain route (no plane, an inactive one,
+    or a policy that opts out): a loop over workers, each round on
+    per-leaf views of the buffers — the oracle, or the per-leaf kernels
+    under ``use_pallas_comm`` — and the delta goes over ``grads``, the
+    state over its buffers, in place.
     """
     W = grads.shape[0]
     pst = {k: lag_state[k] for k in policy.state_keys}
@@ -59,11 +98,15 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
                          f"{sorted({str(d) for d in layout.dtypes})}")
     fast = None
     if plan is not None:
+        gah = _take_stacked(grad_at_hat)
         fast = policy.fast_precompute(plan, grads, pst, theta=theta,
-                                      layout=layout)
+                                      layout=layout, grad_at_hat=gah)
+        del gah            # read by the precompute: free it before encode
     if fast is not None:
         ctx = CommRound(theta=theta, grad_new=grads, hist=hist, cfg=lagcfg,
-                        L_m=L_arr, fast=fast)
+                        L_m=L_arr, fast=fast, k=step, draw=draw,
+                        worker_id=torch.arange(W, dtype=torch.int32,
+                                               device=grads.device))
         payload, aux = policy.encode(ctx, pst)
         comm = policy.should_upload(ctx, pst, payload, aux)
         delta, new_pst = policy.fast_decode(plan, pst, payload, aux, comm,
@@ -74,20 +117,30 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
     # consumed gradient row and its state over its own state rows, in
     # place (only worker m reads row m), so no (W, rows, 128) buffer is
     # added: at full width the route has to fit one card
+    gah_rows = _take_rows(grad_at_hat, W)
     theta_t = layout.unflatten(theta)
     comms = []
     for m in range(W):
         ctx = CommRound(theta=theta_t, grad_new=layout.unflatten(grads[m]),
                         hist=hist, cfg=lagcfg,
-                        L_m=None if L_arr is None else L_arr[m])
+                        L_m=None if L_arr is None else L_arr[m],
+                        grad_at_hat=None if gah_rows is None
+                        else layout.unflatten(gah_rows[m]),
+                        k=step, worker_id=m, draw=draw)
         st_m = {k: layout.unflatten(v[m], like=torch.float32)
                 for k, v in pst.items()}
-        comm_m, delta_m, new_st = run_round(policy, ctx, st_m)
+        # encode → trigger → decode, worker m's ∇ℓ_m(θ̂_m) freed once its
+        # trigger has read it
+        payload, aux = policy.encode(ctx, st_m)
+        comm_m = policy.should_upload(ctx, st_m, payload, aux)
+        if gah_rows is not None:
+            ctx.grad_at_hat = gah_rows[m] = None
+        delta_m, new_st = policy.decode(ctx, st_m, payload, aux, comm_m)
         comms.append(comm_m.reshape(()))
         layout.flatten(delta_m, out=grads[m])
         for k in pst:
             layout.flatten(new_st[k], out=pst[k][m])
-        del ctx, st_m, delta_m, new_st
+        del ctx, st_m, payload, aux, delta_m, new_st
     return torch.stack(comms), grads, pst
 
 
@@ -102,18 +155,25 @@ def sum_reduce(comm: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
 def lag_round(policy: CommPolicy, server: ServerOptimizer,
               lagcfg: lag.LAGConfig, *, theta: torch.Tensor,
               layout: FlatLayout, opt_state, lag_state: Dict,
-              grads: torch.Tensor, step: int
+              grads: torch.Tensor, step: int,
+              grad_at_hat: Optional[List[torch.Tensor]] = None,
+              draw: Optional[int] = None
               ) -> Tuple[torch.Tensor, Optional[object], Dict, Dict]:
     """One full lazy-aggregation round for every worker.  Returns
     ``(theta, opt_state, lag_state, metrics)``; ``theta`` and the state
-    buffers are updated in place."""
+    buffers are updated in place.  ``grad_at_hat`` and ``draw`` as in
+    :func:`policy_rounds`."""
     comm, delta, new_pst = policy_rounds(policy, lagcfg, theta, grads,
-                                         lag_state, layout)
-    sum_delta = sum_reduce(comm, delta)
+                                         lag_state, layout,
+                                         grad_at_hat=grad_at_hat, step=step,
+                                         draw=draw)
+    sums = [sum_reduce(comm, delta)]
     del delta
+    # hand finish_round the only reference to Σ δ∇, so that it is freed
+    # once ∇ has absorbed it, before the server step's temporaries
     return finish_round(policy, server, lagcfg, theta=theta, layout=layout,
                         opt_state=opt_state, lag_state=lag_state, comm=comm,
-                        sum_delta=sum_delta, new_pst=new_pst, step=step)
+                        sum_delta=sums.pop(), new_pst=new_pst, step=step)
 
 
 def finish_round(policy: CommPolicy, server: ServerOptimizer,
@@ -122,17 +182,19 @@ def finish_round(policy: CommPolicy, server: ServerOptimizer,
                  comm: torch.Tensor, sum_delta: torch.Tensor, new_pst: Dict,
                  step: int):
     """The server half of :func:`lag_round`: aggregate recursion, server
-    step, history push, counters, metrics."""
+    step (``opt_state`` is the server's flat state, None for a stateless
+    one), history push, counters, metrics."""
     nabla = lag_state["nabla"].add_(sum_delta)       # ∇^k = ∇^{k-1} + Σ δ∇
     del sum_delta
+    # every server is elementwise: it steps the flat buffers (one-leaf
+    # trees; the zero padding stays zero) and keeps its state flat
+    new_theta, new_opt = server.apply(theta, opt_state, nabla, step, lagcfg)
     params = layout.unflatten(theta)
-    new_params, new_opt = server.apply(params, opt_state,
-                                       layout.unflatten(nabla), step, lagcfg)
-    # iterate-lag entry from the ACTUAL movement
-    hist_new = lag.hist_push(lag_state["hist"],
-                             lag.tree_sqdist(new_params, params))
-    layout.flatten(new_params, out=theta)
-    del new_params
+    # iterate-lag entry from the ACTUAL movement, summed leaf by leaf
+    hist_new = lag.hist_push(lag_state["hist"], lag.tree_sqdist(
+        layout.unflatten(new_theta), params))
+    theta.copy_(new_theta)
+    del new_theta
 
     comm_i = comm.to(torch.int32)
     n_up = torch.sum(comm_i, dtype=torch.int32)

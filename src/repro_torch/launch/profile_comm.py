@@ -1,10 +1,16 @@
 """Device-time breakdown of the comm phase of a LAG round, per comm route.
 
   python -m repro_torch.launch.profile_comm --algos lag-wk,laq@4 --steps 3
+  python -m repro_torch.launch.profile_comm --algos lag-adam --lr 1e-3
+  python -m repro_torch.launch.profile_comm --algos lag-wk \
+      --server prox-l1@1e-6
 
 Trains llama3.2-1b at full width on the GPU (``--workers 2 --batch 4 --seq
-256`` by default, seed 0) once on the batched plane and once on the legacy
-per-leaf route (``use_pallas_comm=True``) for each policy, and traces the
+256 --lr 0.3`` by default, seed 0) once on the batched plane and once on
+the legacy per-leaf route (``use_pallas_comm=True``) for each policy (any
+``launch.train`` spec: ``lasg-wk``, ``cyc-laq@4``, ``num-iag``, …; a GD
+payload under a schedule takes the plain route on both), with the server
+step ``--server`` (default: the algo's), and traces the
 comm phase (``engine.rounds.lag_round``: policy rounds, worker sum, server
 step) of the last round with ``torch.profiler``.  Prints, per route, the
 comm phase's device time (CUDA events), the busy time of the kernels in it
@@ -93,14 +99,21 @@ def main(argv=None):
     p.add_argument("--batch", default="4")
     p.add_argument("--seq", default="256")
     p.add_argument("--steps", default="3")
+    p.add_argument("--lr", default="0.3")
+    p.add_argument("--server", default=None,
+                   help="server-optimizer spec ('momentum@0.9', "
+                        "'prox-l1@1e-6', adam)")
     p.add_argument("--top", type=int, default=12)
     args = p.parse_args(argv)
     for algo in args.algos.split(","):
         for legacy in (False, True):
+            server = [] if args.server is None else ["--server",
+                                                      args.server]
             profile_route(algo, legacy, [
                 "--arch", args.arch, "--algo", algo, "--workers",
                 args.workers, "--batch", args.batch, "--seq", args.seq,
-                "--steps", args.steps, "--seed", "0"], args.top)
+                "--steps", args.steps, "--lr", args.lr, "--seed", "0"]
+                + server, args.top)
             torch.cuda.empty_cache()
 
 

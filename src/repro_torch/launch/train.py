@@ -27,7 +27,13 @@ def build_argparser():
                                             "(PyTorch/CUDA port)")
     p.add_argument("--arch", default="llama3.2-1b")
     p.add_argument("--algo", default="lag-wk",
-                   help=f"comm policy spec ({', '.join(ALGOS)}, 'laq@8')")
+                   help=f"trainer algo ({', '.join(ALGOS)}) or any comm "
+                        f"policy spec [cyc-|num-]<algo>[@<bits>]: "
+                        f"'laq@8', 'cyc-iag', 'num-iag', 'cyc-laq@4', "
+                        f"'num-lag-wk'")
+    p.add_argument("--server", default=None,
+                   help="server-optimizer spec overriding the algo's "
+                        "(sgd, adam, 'momentum@0.9', 'prox-l1@1e-4')")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch", type=int, default=32)
     p.add_argument("--seq", type=int, default=256)
@@ -70,13 +76,21 @@ def main(argv=None, on_step=None, use_pallas_comm=False):
         cfg = cfg.reduced()
     tcfg = TrainerConfig(algo=args.algo, num_workers=args.workers,
                          lr=args.lr, D=args.D, xi=args.xi,
-                         fastpath=args.fastpath,
+                         fastpath=args.fastpath, server=args.server,
                          use_pallas_comm=use_pallas_comm)
-    state = init_state(cfg, tcfg, device=device, seed=args.seed)
-    train_step = make_train_step(cfg, tcfg)
+    policy = tcfg.comm_policy()
+    state = init_state(cfg, tcfg, device=device, seed=args.seed,
+                       policy=policy)
+    train_step = make_train_step(cfg, tcfg, policy=policy,
+                                 schedule_seed=args.seed)
     stream = TokenStream(vocab=cfg.vocab_size, seed=args.seed)
     t_all = time.perf_counter()
     for step in range(args.steps):
+        if step == 0 and policy.needs_rng:
+            draws = [policy.draw(k, args.workers, args.seed)
+                     for k in range(args.steps)]
+            print(f"{policy.name}: sampled uploaders of rounds 0-"
+                  f"{args.steps - 1} (seed {args.seed}): {draws}")
         batch = make_inputs(cfg, stream, step, args.batch, args.seq,
                             device=device)
         _sync(device)

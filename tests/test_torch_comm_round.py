@@ -55,29 +55,57 @@ def to_t(tree):
 
 
 def make_inputs(spec):
+    """(grads, state, theta, hist, grad_at_hat): LASG-WK's trigger reads
+    ∇ℓ_m(θ̂_m), near the fresh gradient for worker 1 only; ``spec`` may
+    carry a schedule prefix."""
     grads = np_tree((W,), 1)
     state = {"grad_hat": near(grads, 2)}
     theta = np_tree((), 3)
-    if spec == "lag-ps":
+    if spec in ("lag-ps", "lasg-wk"):
         state["theta_hat"] = near(jax.tree_util.tree_map(
             lambda x: np.broadcast_to(x, (W,) + x.shape), theta), 4,
             s=(0.05, 0.0005, 0.05))
-    if spec.startswith("laq"):
+    if "laq" in spec:
         state["resid"] = np_tree((W,), 5, scale=0.01)
+    gah = near(grads, 6) if spec == "lasg-wk" else None
     lhs = [sum(float(np.sum((a[m] - b[m]) ** 2)) for a, b in zip(
         jax.tree_util.tree_leaves(grads),
-        jax.tree_util.tree_leaves(state["grad_hat"]))) for m in range(W)]
+        jax.tree_util.tree_leaves(state["grad_hat"] if gah is None
+                                  else gah))) for m in range(W)]
     hist = np.full((4,), 0.03 * max(lhs) * 0.01 * W * W / (0.25 * 4),
                    np.float32)
     if spec == "lag-ps":
         hist = hist * np.float32(1e-2)
-    return grads, state, theta, hist
+    return grads, state, theta, hist, gah
+
+
+def reference_draw(k):
+    """The reference's num- schedule draw for round k (schedule seed 0),
+    injected into the port's ``SampledSchedule``."""
+    return int(jax.random.choice(jax.random.fold_in(
+        jax.random.PRNGKey(0), k), W))
+
+
+def with_reference_draws(pol):
+    """``pol`` with a sampled schedule's draw replaced by the reference's."""
+    if not pol.needs_rng:
+        return pol
+    return comm.ScheduledPolicy(pol.inner,
+                                comm.SampledSchedule(draw=reference_draw))
+
+
+SPECS = ["gd", "lag-wk", "lag-ps", "laq@4", "lasg-wk", "cyc-iag", "num-iag",
+         "cyc-laq@4", "num-lag-wk"]
 
 
 @pytest.mark.parametrize("port_mode", ["on", "auto"])
-@pytest.mark.parametrize("spec", ["gd", "lag-wk", "lag-ps", "laq@4"])
+@pytest.mark.parametrize("spec", SPECS)
 def test_one_round_matches_reference(spec, port_mode):
-    grads, state, theta, hist = make_inputs(spec)
+    """Round K = 5; the sampled schedules see the reference's draw.  The
+    port's ``grad_at_hat`` is the stacked buffer on the plane and W rows
+    on the plain route; either way the round empties the list."""
+    K = 5
+    grads, state, theta, hist, gah = make_inputs(spec)
     L_m = np.full((W,), 10.0, np.float32)
     jcfg = jlag.LAGConfig(num_workers=W, alpha=0.1, D=4, xi=0.25,
                           rule="ps" if spec == "lag-ps" else "wk")
@@ -85,21 +113,32 @@ def test_one_round_matches_reference(spec, port_mode):
                         rule=jcfg.rule)
     jpol = jcomm.make_policy(spec, fastpath="on")
     jstate = dict(state, hist=hist, L_m=L_m)
-    jc, jd, jst = jrounds.policy_rounds(jpol, jcfg, theta, grads, jstate)
+    jc, jd, jst = jrounds.policy_rounds(
+        jpol, jcfg, theta, grads, jstate, gah, step=K,
+        key=jax.random.fold_in(jax.random.PRNGKey(0), K))
 
-    pol = comm.make_policy(spec, fastpath=port_mode)
+    pol = with_reference_draws(comm.make_policy(spec, fastpath=port_mode))
     lo = FlatLayout.for_tree(to_t(theta))
     pstate = {k: lo.flatten_stacked(to_t(v)) for k, v in state.items()}
     pstate.update(hist=torch.from_numpy(hist), L_m=torch.from_numpy(L_m))
     gh_before = pstate["grad_hat"].clone()
+    holder = None
+    if gah is not None:
+        stacked = lo.flatten_stacked(to_t(gah))
+        holder = [stacked] if port_mode == "on" else list(stacked.clone())
+    draw = pol.draw(K, W) if pol.needs_rng else None
     c, d, st = rounds.policy_rounds(pol, cfg, lo.flatten(to_t(theta)),
                                     lo.flatten_stacked(to_t(grads)), pstate,
-                                    lo)
+                                    lo, grad_at_hat=holder, step=K, draw=draw)
 
     assert c.dtype == torch.bool and c.shape == (W,)
     np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
     if spec != "gd":
         assert 0 < int(c.sum()) < W, "inputs should give a mixed mask"
+    if spec.startswith(("cyc-", "num-")):
+        want = K % W if spec.startswith("cyc-") else reference_draw(K)
+        assert c.tolist() == [m == want for m in range(W)]
+    assert holder in (None, [])
     for a, b in zip(tree_leaves(lo.unflatten_stacked(d)),
                     jax.tree_util.tree_leaves(jd)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL,
@@ -116,7 +155,7 @@ def test_one_round_matches_reference(spec, port_mode):
 
 
 def test_fast_route_updates_state_in_place():
-    grads, state, theta, hist = make_inputs("laq@4")
+    grads, state, theta, hist, _ = make_inputs("laq@4")
     pol = comm.make_policy("laq@4", fastpath="on")
     lo = FlatLayout.for_tree(to_t(theta))
     pstate = {k: lo.flatten_stacked(to_t(v)) for k, v in state.items()}
@@ -136,7 +175,9 @@ def test_make_policy_grammar():
     for mode in ("off", None):
         with pytest.raises(ValueError, match="fastpath mode"):
             comm.make_policy("lag-wk", fastpath=mode)
-    for bad in ("lasg-wk", "cyc-iag", "lag-wk@4", "laq@x", ""):
+    for good in ("lasg-wk", "cyc-iag", "num-iag", "cyc-laq@8", "lag-adam"):
+        comm.make_policy(good)
+    for bad in ("iag", "rand-iag", "lag-wk@4", "laq@x", "", "sgd"):
         with pytest.raises(ValueError):
             comm.make_policy(bad)
 

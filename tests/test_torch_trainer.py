@@ -1,6 +1,9 @@
 """The slice as a whole: the port's trainer against the LIVE JAX reference.
 
-Reduced llama3.2-1b, W = 2 workers, 3 steps of lag-wk and of laq@4: the
+Reduced llama3.2-1b, W = 2 workers, 3 steps of lag-wk, laq@4, lasg-wk
+(its second backward pass at θ̂_m) and the schedules cyc-iag, num-iag,
+cyc-laq@4 and num-lag-wk (the num- draws injected from the reference's
+``jax.random.choice``; each round uploads exactly the scheduled worker): the
 reference ``repro.dist.make_train_step`` (fastpath "on", interpret-mode
 Pallas) and the port's ``make_train_step`` (fastpath "on", plain kernel
 versions on the CPU) start from the same ``model.init`` parameters
@@ -9,7 +12,7 @@ within rtol 1e-4, upload masks and counters are equal, parameters allclose
 (rtol 1e-4, atol 1e-6) — for LAQ outside the few coordinates whose code
 flips at a rounding boundary, a mechanism the test checks round by round
 (:func:`check_laq_codes`).  The legacy per-leaf route
-(``use_pallas_comm=True``: lag-wk, lag-ps and laq@4) is held to the same
+(``use_pallas_comm=True``: lag-wk, lag-ps, laq@4, lasg-wk) is held to the same
 checks with losses within rtol 1e-5, and to the port's own batched plane.
 The golden files are not used: they were recorded on another jax version.
 """
@@ -25,6 +28,7 @@ from repro.dist import TrainerConfig as JTrainerConfig
 from repro.dist import init_state as jinit_state
 from repro.dist import make_train_step as jmake_train_step
 
+from repro_torch.comm import SampledSchedule, ScheduledPolicy
 from repro_torch.configs import get_config
 from repro_torch.core.tree import tree_leaves
 from repro_torch.data import TokenStream, make_inputs
@@ -94,6 +98,22 @@ def ref_params(cfgs):
     return jax.tree_util.tree_map(np.asarray, st["params"])
 
 
+def reference_draw(k):
+    """The reference trainer's num- schedule draw at step k (schedule seed
+    0), injected into the port's ``SampledSchedule``."""
+    return int(jax.random.choice(jax.random.fold_in(
+        jax.random.PRNGKey(0), k), W))
+
+
+def port_policy(tcfg):
+    """``tcfg``'s policy, a sampled schedule drawing the reference's
+    workers (the port's own draw is not jax's)."""
+    pol = tcfg.comm_policy()
+    if not pol.needs_rng:
+        return pol
+    return ScheduledPolicy(pol.inner, SampledSchedule(draw=reference_draw))
+
+
 def check_against_reference(cfgs, ref_params, algo, lr, xi, loss_rtol,
                             **route):
     """STEPS rounds of the reference and of the port on the same route
@@ -104,12 +124,13 @@ def check_against_reference(cfgs, ref_params, algo, lr, xi, loss_rtol,
     jstate = jinit_state(jax.random.PRNGKey(0), jcfg, jt)
     jstep = jax.jit(jmake_train_step(jcfg, jt))
     tcfg = TrainerConfig(algo=algo, num_workers=W, lr=lr, xi=xi, **route)
-    state = init_state(cfg, tcfg, device="cpu",
+    policy = port_policy(tcfg)
+    state = init_state(cfg, tcfg, device="cpu", policy=policy,
                        params=params_from_reference(ref_params, cfg))
-    step = make_train_step(cfg, tcfg)
+    step = make_train_step(cfg, tcfg, policy=policy)
     jstream, stream = JTokenStream(jcfg.vocab_size), TokenStream(
         cfg.vocab_size)
-    laq = algo.startswith("laq")
+    laq = "laq" in algo
     lo = param_layout(cfg)
     flat = lambda t: t.reshape(W, -1).double().numpy()
     touched = np.zeros((W, lo.rows * 128), bool)
@@ -136,6 +157,9 @@ def check_against_reference(cfgs, ref_params, algo, lr, xi, loss_rtol,
                                       np.asarray(jm["comm_mask"]))
         assert int(m["comm_this_round"]) == int(jm["comm_this_round"])
         masks.append(m["comm_mask"].tolist())
+        if algo.startswith(("cyc-", "num-")):     # exactly the scheduled one
+            want = k % W if algo.startswith("cyc-") else reference_draw(k)
+            assert masks[-1] == [i == want for i in range(W)]
     np.testing.assert_array_equal(state["lag"]["comm_per_worker"].numpy(),
                                   np.asarray(jstate["lag"]["comm_per_worker"]))
     flips, n = 0, 0
@@ -160,13 +184,18 @@ def check_against_reference(cfgs, ref_params, algo, lr, xi, loss_rtol,
 
 @pytest.mark.parametrize("algo,lr,xi", [("lag-wk", 0.3, 0.1),
                                         ("laq@4", 0.3, 0.1),
-                                        ("lag-wk", 0.1, 10.0)])
+                                        ("lag-wk", 0.1, 10.0),
+                                        ("lasg-wk", 0.3, 0.1),
+                                        ("cyc-iag", 0.3, 0.1),
+                                        ("num-iag", 0.3, 0.1),
+                                        ("cyc-laq@4", 0.3, 0.1),
+                                        ("num-lag-wk", 0.3, 0.1)])
 def test_trainer_matches_live_reference(cfgs, ref_params, algo, lr, xi):
     check_against_reference(cfgs, ref_params, algo, lr, xi, 1e-4,
                             fastpath="on")
 
 
-@pytest.mark.parametrize("algo", ["lag-wk", "lag-ps", "laq@4"])
+@pytest.mark.parametrize("algo", ["lag-wk", "lag-ps", "laq@4", "lasg-wk"])
 def test_legacy_route_matches_live_reference(cfgs, ref_params, algo):
     """``use_pallas_comm=True`` on both sides: the reference's per-leaf
     Pallas kernels (interpret mode) against the port's per-leaf route (the
@@ -175,7 +204,7 @@ def test_legacy_route_matches_live_reference(cfgs, ref_params, algo):
                             use_pallas_comm=True)
 
 
-@pytest.mark.parametrize("algo", ["lag-wk", "lag-ps", "laq@4"])
+@pytest.mark.parametrize("algo", ["lag-wk", "lag-ps", "laq@4", "lasg-wk"])
 def test_legacy_route_matches_the_forced_plane(cfgs, ref_params, algo):
     """The port's per-leaf route against its own batched plane (forced on),
     as the reference's ``test_trainer_pallas_comm_flag_parity``: the same
