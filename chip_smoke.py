@@ -76,6 +76,34 @@ Phases (any failure raises and the script exits non-zero):
      Each run's losses, masks, ms a round, device fwd/bwd and comm ms, peak
      memory (under 80 GB) and launches; a schedule uploads from exactly its
      scheduled worker every round.
+ 12. the paper's convex parameter-server simulation
+     (``repro_torch.core.simulate.run`` → ``Experiment(problem=)`` →
+     ``SimWorkers``), each run's ms per round on the card and on the CPU:
+     a. Fig. 3 (``synthetic("linreg")``, 9 workers, d 50) in float64 on
+        the card, K = 600, every ``ALGOS`` entry on the plain route (no
+        plane kernel): iterations, uploads and bytes to ε = 1e-8 equal to
+        the reference's (gd, lag-wk, lag-ps, lasg-wk, cyc-iag) and to the
+        port's CPU run (all seven; laq's IEEE quantizer and num-iag's own
+        draw), masks equal to the CPU run's through its iters_to(1e-6)
+        (all K where it is never reached), losses within rtol 1e-12 there
+        and at the last round;
+     b. the same problem in float32 on the batched plane (``fastpath``
+        "auto" on the card) for lag-wk, lag-ps, lasg-wk, laq@4 and
+        cyc-laq@4 (at IAG's α = 1/(M·L)), K = 300: the plane's kernels vs
+        their plain versions at this path's shapes (9 workers × 256 rows),
+        the kernels each round launches, masks and losses against the CPU
+        run with ``fastpath="on"`` (the kernels' plain versions) through
+        the ε the float32 runs reach;
+     c. Gisette at the paper's own shape (``gisette_standin(n=2000,
+        d=4837)``, float64): ``optimum()`` timed, gd and lag-wk at K =
+        3000 with iterations and uploads to 1e-8, the first 20 rounds'
+        masks and losses against a CPU run;
+     d. ``Experiment(problem=hetero_problem("linreg", h=0.8, float64),
+        algo="lag-wk", steps=600, cluster="hetero:9@10ms/1Gbps")``:
+        ``seconds_to(1e-8)``, and every round's masks and seconds through
+        iters_to(1e-6), equal to the CPU run's; ``wall_seconds`` within
+        rtol 1e-3 of the CPU run's (past the optimum the triggers compare
+        round-off, and the two devices' float64 products differ in it).
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Times are CUDA-event times on this card (kernels: the mean of
@@ -172,6 +200,44 @@ PHASE11 = (
     ("lag-wk", False, ("--server", "prox-l1@1e-6"),
      {"delta_sqnorm_blocks": 1, "masked_combine": 1}),
 )
+
+# phase 12: the convex simulation.  Fig. 3's reference numbers (the live
+# JAX reference in float64, ε = 1e-8): iterations, uploads and bytes to ε
+# per algo.  laq's and num-iag's are the reference's XLA-CPU quantizer and
+# jax.random draw, which the port does not make (ROADMAP queue 3): those
+# two are held to the port's own CPU run.
+CONVEX_TABLE = {"gd": (62, 567, 226800.0), "lag-wk": (66, 122, 48800.0),
+                "lag-ps": (78, 153, 61200.0), "lasg-wk": (66, 122, 48800.0),
+                "laq": (65, 162, 4698.0), "cyc-iag": (555, 556, 222400.0),
+                "num-iag": (528, 529, 211600.0)}
+CONVEX_OWN = ("laq", "num-iag")
+# 12b: the plane's kernels each float32 spec launches every round
+CONVEX_PLANE = {
+    "lag-wk": {"delta_sqnorm_blocks": 1, "masked_combine": 1},
+    "lag-ps": {"delta_sqnorm_blocks": 1, "masked_combine": 2},
+    "lasg-wk": {"delta_sqnorm_blocks": 1, "masked_combine": 2},
+    "laq@4": {"absmax_blocks": 1, "laq_encode_blocks": 1,
+              "masked_combine": 2},
+    "cyc-laq@4": {"absmax_blocks": 1, "laq_encode_blocks": 1,
+                  "masked_combine": 2},
+}
+# 12b: the float32 runs' ε (their loss gap floor is near 1e-5); LAQ's codes
+# turn last-bit differences of the two devices' matrix products into whole
+# quantizer steps, so its triggered masks are compared through 1e-1 and its
+# losses within 1e-3 (the parity tests' float32 LAQ bounds)
+CONVEX_EPS32, CONVEX_RTOL32 = 1e-4, 1e-5
+LAQ_EPS32, LAQ_RTOL32 = 1e-1, 1e-3
+# 12a: float64 losses on the card against the CPU's (the two devices' float64
+# products add in different orders)
+CONVEX_RTOL64 = 1e-12
+# 12d: past the optimum the triggers compare round-off, so the priced tail
+# may differ.  Readings of lag-wk's wall_seconds at K 600 (hetero:9@10ms/
+# 1Gbps, h 0.8): the card against the port's CPU run 30.6046848 against
+# 30.6043264 s (rtol 1.2e-5, NVIDIA H100 80GB HBM3); the port's CPU run
+# against the JAX reference's, both on a CPU, 30.6043264 against 30.6132864
+# s (rtol 2.9e-4: 418 rounds from round 182, where the loss is within
+# 8.9e-16 of the optimum, upload differently).  The check allows 1e-3.
+WALL_RTOL = 1e-3
 
 
 def check(cond, msg):
@@ -1018,6 +1084,313 @@ def policies_phase(torch, steps=4):
     return plane, legacy
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the convex simulation
+# ---------------------------------------------------------------------------
+
+def timed_run(torch, run):
+    """(report, ms per round): host clock around a run that ends in a
+    device synchronise, divided by its rounds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = run()
+    torch.cuda.synchronize()
+    return rep, (time.perf_counter() - t0) * 1e3 / len(rep.losses)
+
+
+def traced_rounds(torch, run):
+    """(device kernels a round, their busy ms a round, the device's idle
+    share) over ``run()``'s rounds, from a ``torch.profiler`` trace (the
+    profiler's own host cost included in the wall time)."""
+    from repro_torch.launch.profile_comm import _kernel_times
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        rep = run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, by_name = _kernel_times(prof)
+    K = len(rep.losses)
+    n = sum(c for _, c in by_name.values())
+    idle = f"{100 * (1 - busy / wall_ms):.1f} %" if n else "not measured"
+    return n / K, busy / K, idle
+
+
+def on_cpu(problem):
+    """The same problem (bitwise the same tensors) on the CPU."""
+    from repro_torch.core.convex import Problem
+    return Problem(name=problem.name, kind=problem.kind, X=problem.X.cpu(),
+                   y=problem.y.cpu(), L_m=problem.L_m.cpu(), L=problem.L,
+                   lam=problem.lam)
+
+
+def to_eps(rep, eps):
+    return rep.iters_to(eps), rep.comms_to(eps), rep.bytes_to(eps)
+
+
+def masks_through(got, want, eps):
+    """Rounds 0..iters_to(eps) of ``want`` (all when it never gets there);
+    True iff ``got``'s masks equal ``want``'s there."""
+    k = want.iters_to(eps)
+    n = len(want.losses) if k is None else k + 1
+    return n, bool((got.comm_mask[:n] == want.comm_mask[:n]).all())
+
+
+def reset_counts():
+    from repro_torch.fastpath import kernels
+    from repro_torch.kernels.lag_trigger import lag_trigger as lt
+    kernels.reset_launches()
+    lt.reset_launches()
+
+
+def counts():
+    from repro_torch.fastpath import kernels
+    from repro_torch.kernels.lag_trigger import lag_trigger as lt
+    return {**kernels.LAUNCHES, **lt.LAUNCHES}
+
+
+def convex_fig3_float64(torch, dev):
+    """12a: every ALGOS entry in float64 on the card's plain route."""
+    from repro_torch.core import convex, simulate
+
+    gpu = convex.synthetic("linreg", num_workers=9, seed=0,
+                           dtype=torch.float64, device=dev)
+    cpu = on_cpu(gpu)
+    _, opt = cpu.optimum()
+    for algo in simulate.ALGOS:
+        reset_counts()
+        g, ms = timed_run(torch, lambda: simulate.run(gpu, algo, K=600,
+                                                      opt_loss=opt))
+        launched = {k: v for k, v in counts().items() if v}
+        c, cpu_ms = timed_run(torch, lambda: simulate.run(cpu, algo, K=600,
+                                                          opt_loss=opt))
+        check(not launched, f"12a {algo}: float64 launched {launched}")
+        ops, busy, idle = traced_rounds(torch, lambda: simulate.run(
+            gpu, algo, K=20, opt_loss=opt))
+        check(g.losses.dtype.name == "float64" and
+              bool(torch.isfinite(torch.from_numpy(g.losses)).all()),
+              f"12a {algo}: losses {g.losses.dtype}")
+        row = to_eps(g, 1e-8)
+        check(row == to_eps(c, 1e-8), f"12a {algo}: card {row} vs CPU "
+                                      f"{to_eps(c, 1e-8)}")
+        if algo not in CONVEX_OWN:
+            check(row == CONVEX_TABLE[algo], f"12a {algo}: {row} vs the "
+                                             f"reference's "
+                                             f"{CONVEX_TABLE[algo]}")
+        n, same = masks_through(g, c, 1e-6)
+        check(same, f"12a {algo}: masks differ from the CPU run's in "
+                    f"rounds 0-{n - 1}")
+        # every round's loss through iters_to(1e-6) (all K where it is never
+        # reached) and the last round's: the card's steps, aggregates and
+        # mirror updates are the CPU's, not only its masks
+        err = float(abs(g.losses[:n] / c.losses[:n] - 1.0).max())
+        last = float(abs(g.losses[-1] / c.losses[-1] - 1.0))
+        check(err <= CONVEX_RTOL64 and last <= CONVEX_RTOL64,
+              f"12a {algo}: losses off the CPU's by rtol {err:.3e} in rounds "
+              f"0-{n - 1}, {last:.3e} at round {len(g.losses) - 1}")
+        ref = CONVEX_TABLE[algo]
+        note = {"laq": " with XLA-CPU's quantizer",
+                "num-iag": " with jax.random's draw"}.get(algo, "")
+        print(f"  12a {algo}: to 1e-8 {row[0]} rounds, {row[1]} uploads, "
+              f"{row[2]} B (reference{note} {ref[0]}, {ref[1]}, "
+              f"{ref[2]:.0f}); card = CPU; masks equal to the CPU's through "
+              f"round {n - 1}, losses within rtol {err:.1e} there and "
+              f"{last:.1e} at round {len(g.losses) - 1} (gap "
+              f"{g.losses[-1] - opt:.3e}); {g.bytes_per_upload:.0f} B an "
+              f"upload; "
+              f"L_m_spread {g.extras['L_m_spread']:.3f} hetero_score "
+              f"{g.extras['hetero_score']:.3f}; no kernel launched | "
+              f"{ms:.3f} ms a round on the card, {cpu_ms:.3f} on the CPU; "
+              f"traced: {ops:.0f} device kernels a round busy {busy:.3f} "
+              f"ms, device idle {idle}")
+
+
+def convex_plane_kernels(torch, dev):
+    """12b, first: the plane's kernels vs their plain versions at the
+    convex path's shapes (9 workers, one (50,) leaf padded to 256 rows)."""
+    from repro_torch.fastpath import kernels, kernels_ref
+    from repro_torch.fastpath.layout import FlatLayout
+    from repro_torch.fastpath.plan import FastPathPlan
+
+    lo = FlatLayout.for_tree(torch.zeros(50, device="meta"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+
+    def buf(scale):
+        b = lo.empty((9,), dev)
+        lo.unflatten_stacked(b).normal_(0.0, scale, generator=gen)
+        return b
+
+    a, b, c = buf(1.0), buf(1.0), buf(0.1)
+    reset_counts()
+    for bb in (b, b[0]):
+        torch.testing.assert_close(kernels.delta_sqnorm_blocks(a, bb),
+                                   kernels_ref.delta_sqnorm_blocks(a, bb),
+                                   rtol=SUM_RTOL, atol=0)
+    parts = kernels.absmax_blocks(a, b, c)
+    check(bitwise(torch, parts, kernels_ref.absmax_blocks(a, b, c)),
+          "12b absmax_blocks not bitwise")
+    plan = FastPathPlan("on")
+    steps = plan._per_leaf(parts, lo, "max") / torch.full(
+        (9, 1), 7.0, device=dev)
+    subs = steps[:, plan.sub_leaf(lo, dev)].contiguous()
+    p, r, sq = kernels.laq_encode_blocks(a, b, c, subs, 4)
+    wp, wr, wsq = kernels_ref.laq_encode_blocks(a, b, c, subs, 4)
+    check(bitwise(torch, p, wp) and bitwise(torch, r, wr),
+          "12b laq_encode_blocks not bitwise")
+    torch.testing.assert_close(sq, wsq, rtol=SUM_RTOL, atol=0)
+    mask = torch.tensor([i % 2 == 0 for i in range(9)], device=dev)
+    for mode, aa in (("add", a), ("select", a), ("select", a[0])):
+        check(bitwise(torch, kernels.masked_combine(aa, b, mask, mode),
+                      kernels_ref.masked_combine(aa, b, mask, mode)),
+              f"12b masked_combine {mode} not bitwise")
+    print(f"  12b kernels at (9, {lo.rows}, 128) vs plain versions: sums "
+          f"within rtol {SUM_RTOL}, absmax / encode / masked_combine "
+          f"bitwise (comparison launches, not counted: {counts()})")
+
+
+def convex_plane_float32(torch, dev):
+    """12b: the float32 problem on the batched plane; returns the plane's
+    launches over the runs."""
+    from repro_torch.core import convex, simulate
+
+    gpu = convex.synthetic("linreg", num_workers=9, seed=0,
+                           dtype=torch.float32, device=dev)
+    cpu = on_cpu(gpu)
+    _, opt = cpu.optimum()
+    K = 300
+    total = {}
+    for spec, want in CONVEX_PLANE.items():
+        # a cyclic schedule takes IAG's α = 1/(M·L): the default 1/L
+        # diverges for cyc-laq (in the reference too)
+        kw = dict(K=K, opt_loss=opt, alpha=1.0 / (9 * gpu.L)
+                  if spec.startswith("cyc-") else None)
+        reset_counts()
+        g, ms = timed_run(torch, lambda: simulate.run(gpu, spec, **kw))
+        got = counts()
+        c, cpu_ms = timed_run(torch, lambda: simulate.run(
+            cpu, spec, fastpath="on", **kw))
+        ops, busy, idle = traced_rounds(torch, lambda: simulate.run(
+            gpu, spec, **dict(kw, K=20)))
+        for k, v in got.items():
+            n = want.get(k, 0) * K
+            check(v == n, f"12b {spec}: {k} launched {v} times in {K} "
+                          f"rounds, want {n}")
+            total[k] = total.get(k, 0) + v
+        laq = "laq" in spec
+        # a schedule's masks do not depend on the gradients: all rounds
+        eps = LAQ_EPS32 if laq and not spec.startswith("cyc-") \
+            else CONVEX_EPS32
+        rtol = LAQ_RTOL32 if laq else CONVEX_RTOL32
+        n, same = masks_through(g, c, eps)
+        first = (g.comm_mask != c.comm_mask).any(axis=1).nonzero()[0]
+        check(same, f"12b {spec}: masks differ from the CPU run's in rounds "
+                    f"0-{n - 1} (first {first[:3]})")
+        err = float(abs(g.losses[:n] / c.losses[:n] - 1.0).max())
+        check(err <= rtol, f"12b {spec}: losses off by rtol {err:.3e} in "
+                           f"rounds 0-{n - 1}")
+        print(f"  12b {spec}: float32 plane, launches "
+              f"{ {k: v // K for k, v in got.items() if v} } a round; "
+              f"masks equal to the CPU's (fastpath='on') through round "
+              f"{n - 1} (iters_to({eps:g}); first difference "
+              f"{first[0] if first.size else 'none'} of {K}), losses within "
+              f"rtol {err:.2e}; gap at round {K - 1} "
+              f"{g.losses[-1] - opt:.3e}; uploads {g.total_comms} | "
+              f"{ms:.3f} ms a round on the card, {cpu_ms:.3f} on the CPU; "
+              f"traced: {ops:.0f} device kernels a round busy {busy:.3f} "
+              f"ms, device idle {idle}")
+    return total
+
+
+def convex_gisette(torch, dev):
+    """12c: Gisette at the paper's shape, float64."""
+    from repro_torch.core import convex, simulate
+
+    t0 = time.perf_counter()
+    gpu = convex.gisette_standin(n=2000, d=4837, lam=1e-3,
+                                 dtype=torch.float64, device=dev)
+    gen_s = time.perf_counter() - t0
+    cpu = on_cpu(gpu)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, opt = gpu.optimum()
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
+    check(math.isfinite(opt), f"12c optimum {opt}")
+    print(f"  12c gisette (9 workers x {gpu.X.shape[1]} x {gpu.dim}, "
+          f"float64): generated on the host in {gen_s:.1f} s; optimum() "
+          f"(200,000 GD steps) {opt_s:.1f} s on the card, loss {opt!r}")
+    for algo in ("gd", "lag-wk"):
+        reset_counts()
+        g, ms = timed_run(torch, lambda: simulate.run(gpu, algo, K=3000,
+                                                      opt_loss=opt))
+        launched = {k: v for k, v in counts().items() if v}
+        check(not launched, f"12c {algo}: float64 launched {launched}")
+        ops, busy, idle = traced_rounds(torch, lambda: simulate.run(
+            gpu, algo, K=20, opt_loss=opt))
+        c, cpu_ms = timed_run(torch, lambda: simulate.run(cpu, algo, K=20,
+                                                          opt_loss=opt))
+        check(bool((g.comm_mask[:20] == c.comm_mask).all()),
+              f"12c {algo}: the first 20 rounds' masks differ")
+        err = float(abs(g.losses[:20] / c.losses - 1.0).max())
+        check(err <= 1e-12, f"12c {algo}: the first 20 losses off by "
+                            f"rtol {err:.3e}")
+        check(bool(torch.isfinite(torch.from_numpy(g.losses)).all()),
+              f"12c {algo}: non-finite loss")
+        print(f"  12c {algo}: K 3000, to 1e-8 {g.iters_to(1e-8)} rounds, "
+              f"{g.comms_to(1e-8)} uploads (total {g.total_comms}); gap at "
+              f"round 2999 {g.losses[-1] - opt:.3e}; first 20 rounds: masks "
+              f"equal to the CPU's, losses within rtol {err:.1e} | "
+              f"{ms:.3f} ms a round on the card, {cpu_ms:.3f} on the CPU; "
+              f"traced: {ops:.0f} device kernels a round busy {busy:.3f} "
+              f"ms, device idle {idle}")
+
+
+def convex_cluster(torch, dev):
+    """12d: the dial's problem priced on the hetero cluster."""
+    from repro_torch.engine import Experiment
+    from repro_torch.netsim import hetero_problem
+
+    gpu = hetero_problem("linreg", h=0.8, dtype=torch.float64, device=dev)
+    cpu = on_cpu(gpu)
+    _, opt = cpu.optimum()
+    reports = []
+    for prob in (gpu, cpu):
+        rep, ms = timed_run(torch, lambda: Experiment(
+            problem=prob, algo="lag-wk", steps=600,
+            cluster="hetero:9@10ms/1Gbps", opt_loss=opt).run())
+        reports.append((rep, ms))
+    (g, ms), (c, cpu_ms) = reports
+    check(g.seconds_to(1e-8) == c.seconds_to(1e-8) is not None,
+          f"12d seconds_to(1e-8) card {g.seconds_to(1e-8)!r} vs CPU "
+          f"{c.seconds_to(1e-8)!r}")
+    # through the optimum the masks, and so every round's price, are the
+    # CPU's; past it the triggers compare round-off of the two devices'
+    # float64 products, so the priced tail (and wall_seconds) may differ
+    n, same = masks_through(g, c, 1e-6)
+    check(same and bool((g.round_seconds[:n] == c.round_seconds[:n]).all()),
+          f"12d masks or round seconds differ from the CPU's in rounds "
+          f"0-{n - 1}")
+    wall_err = abs(g.wall_seconds / c.wall_seconds - 1.0)
+    check(wall_err <= WALL_RTOL,
+          f"12d wall_seconds card {g.wall_seconds!r} vs CPU "
+          f"{c.wall_seconds!r}: rtol {wall_err:.3e} > {WALL_RTOL}")
+    differ = (g.comm_mask != c.comm_mask).any(axis=1).nonzero()[0]
+    print(f"  12d lag-wk on hetero:9@10ms/1Gbps, h 0.8 (L_m_spread "
+          f"{g.extras['L_m_spread']:.3f}): seconds_to(1e-8) "
+          f"{g.seconds_to(1e-8)!r} after {g.iters_to(1e-8)} rounds and "
+          f"{g.comms_to(1e-8)} uploads, equal to the CPU's, and every round's "
+          f"seconds equal through round {n - 1} (iters_to(1e-6)); "
+          f"wall_seconds card {g.wall_seconds!r}, CPU {c.wall_seconds!r} "
+          f"(rtol {wall_err:.2e}, allowed {WALL_RTOL}): {differ.size} "
+          f"rounds past the optimum upload differently "
+          f"(from round {differ[0] if differ.size else '-'}) | {ms:.3f} ms a "
+          f"round on the card, {cpu_ms:.3f} on the CPU")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1129,6 +1502,17 @@ def main():
     for k, v in {**p11_plane, **p11_legacy}.items():
         launches[k] += v
     print(f"  phase 11 launches: plane {p11_plane} | legacy {p11_legacy}")
+
+    print("[12] the convex simulation: Fig. 3 float64 (a), the float32 "
+          "plane (b), Gisette d=4837 (c), netsim pricing (d)", flush=True)
+    convex_fig3_float64(torch, dev)
+    convex_plane_kernels(torch, dev)
+    p12 = convex_plane_float32(torch, dev)
+    for k, v in p12.items():
+        launches[k] += v
+    print(f"  phase 12b launches: {p12}")
+    convex_gisette(torch, dev)
+    convex_cluster(torch, dev)
 
     rows = [dict(name=k, route="cuda", source=SOURCES.get(k, SOURCE),
                  replaces=REPLACES[k], launches=launches[k], **full[k])

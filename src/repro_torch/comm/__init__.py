@@ -50,8 +50,10 @@ def make_policy(spec: str, *, bits: int = 4, use_pallas: bool = False,
     feeds the sampled one (uniform when omitted).
 
     ``fastpath``: ``"auto"`` (the plane is on for CUDA tensors; CPU
-    tensors take the plain per-leaf route) or ``"on"`` (forced, plain
-    kernel versions on CPU tensors).  ``use_pallas=True`` SELECTS the
+    tensors take the plain per-leaf route), ``"on"`` (forced, plain
+    kernel versions on CPU tensors) or None (no plan: the plain route on
+    every device — what the convex driver selects for a float64 problem,
+    which the float32 plane cannot serve).  ``use_pallas=True`` SELECTS the
     legacy per-leaf route instead: the policy gets no plane, LAQ encodes
     with the per-leaf kernels of ``repro_torch.kernels.lag_trigger``, and
     ``sqnorm_fn`` (when given) replaces the triggers' squared norm.
@@ -93,7 +95,8 @@ def make_policy(spec: str, *, bits: int = 4, use_pallas: bool = False,
                 f"bad policy spec {spec!r}: '@{param}' is not an integer "
                 f"bit width (want e.g. 'laq@8')") from None
 
-    make_plan(fastpath)                            # validate the mode
+    if fastpath is not None:
+        make_plan(fastpath)                        # validate the mode
     if use_pallas:
         if fastpath == "on":
             raise ValueError(

@@ -75,8 +75,9 @@ class CommPolicy:
         # the triggers' squared norm off the plane; injectable so the
         # trainer can supply the per-leaf kernels' fused_tree_sqnorm
         self.sqnorm_fn = sqnorm_fn
-        # the batched plane ("auto", "on" or a plan), or None where
-        # make_policy(use_pallas=True) selected the per-leaf kernels
+        # the batched plane ("auto", "on" or a plan), or None: no plan,
+        # where make_policy(use_pallas=True) selected the per-leaf kernels
+        # or the convex driver the plain route of a float64 problem
         self.fastpath = None if fastpath is None \
             else plan_lib.make_plan(fastpath)
 

@@ -3,8 +3,10 @@
 ``LAGConfig``, the pytree helpers, the iterate-lag ring buffer (eq. 14),
 the trigger right-hand side of (15a)/(15b) and the two trigger rules.
 Trees are nested dicts/lists of tensors flattened in JAX's order
-(``repro_torch.core.tree``).  Everything is float32 and functional: new
-tensors out, inputs untouched.
+(``repro_torch.core.tree``).  The trigger quantities (history, ξ, RHS) are
+float32; squared norms accumulate in ``promote_types(dtype, float32)``, so
+float64 leaves (the x64 convex runs) keep float64.  Everything is
+functional: new tensors out, inputs untouched.
 """
 from __future__ import annotations
 
@@ -40,11 +42,17 @@ class LAGConfig:
 # Pytree helpers
 # ---------------------------------------------------------------------------
 
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The accumulation dtype of a leaf: at least float32, float64 kept."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def tree_sqnorm(tree: Pytree) -> torch.Tensor:
-    """Σ ‖leaf‖² over the tree, per-leaf sums added in leaf order (f32)."""
+    """Σ ‖leaf‖² over the tree, per-leaf sums added in leaf order, each
+    in ``promote_types(leaf dtype, float32)``."""
     total = None
     for leaf in tree_leaves(tree):
-        x = leaf.float()
+        x = leaf.to(_acc(leaf.dtype))
         s = torch.sum(x * x)
         total = s if total is None else total + s
     return total if total is not None else torch.zeros((), dtype=torch.float32)
@@ -52,10 +60,12 @@ def tree_sqnorm(tree: Pytree) -> torch.Tensor:
 
 def tree_sqdist(a: Pytree, b: Pytree) -> torch.Tensor:
     """``tree_sqnorm(tree_sub(a, b))`` without holding the difference tree:
-    one leaf's difference is alive at a time."""
+    one leaf's difference is alive at a time (accumulated as in
+    :func:`tree_sqnorm`)."""
     total = None
     for x, y in zip(tree_leaves(a), tree_leaves(b)):
-        d = x.float() - y.float()
+        acc = _acc(torch.promote_types(x.dtype, y.dtype))
+        d = x.to(acc) - y.to(acc)
         s = torch.sum(d * d)
         total = s if total is None else total + s
     return total if total is not None else torch.zeros((), dtype=torch.float32)

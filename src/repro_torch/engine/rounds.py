@@ -7,7 +7,9 @@ rows, 128) and the policy state in ``lag_state`` (each (W, rows, 128)).
 
 State contract (the trainer's ``lag`` group):
 
-  <policy.state_keys>   per-worker mirror state, (W, rows, 128) float32
+  <policy.state_keys>   per-worker mirror state, (W, rows, 128), each key
+                        in its own dtype: the layout's for ``grad_hat``
+                        and ``theta_hat``, float32 for LAQ's ``resid``
   nabla                 aggregate ∇^k = Σ_m ĝ_m, (rows, 128)
   hist                  (D,) iterate-lag ring buffer
   comm_total            () int32 upload counter
@@ -22,9 +24,10 @@ import torch
 
 from repro_torch.comm import CommPolicy, CommRound
 from repro_torch.core import lag
+from repro_torch.core.tree import tree_leaves
 from repro_torch.engine.server import ServerOptimizer
 from repro_torch.fastpath import plan as plan_lib
-from repro_torch.fastpath.layout import FlatLayout
+from repro_torch.fastpath.layout import FlatLayout, buffer_dtype
 
 
 def _take_stacked(grad_at_hat: Optional[List[torch.Tensor]]
@@ -80,8 +83,9 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
     writes its payload over it).  Plain route (no plane, an inactive one,
     or a policy that opts out): a loop over workers, each round on
     per-leaf views of the buffers — the oracle, or the per-leaf kernels
-    under ``use_pallas_comm`` — and the delta goes over ``grads``, the
-    state over its buffers, in place.
+    under ``use_pallas_comm`` — and the delta goes over ``grads`` (into a
+    buffer of its own when its dtype differs), the state over its
+    buffers, in place.
     """
     W = grads.shape[0]
     pst = {k: lag_state[k] for k in policy.state_keys}
@@ -116,10 +120,14 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
     # worker m's round returns new trees; its delta then goes over its
     # consumed gradient row and its state over its own state rows, in
     # place (only worker m reads row m), so no (W, rows, 128) buffer is
-    # added: at full width the route has to fit one card
+    # added: at full width the route has to fit one card.  A delta whose
+    # buffer dtype is not the gradients' (LAQ's float32 payload of a
+    # float64 tree) gets a buffer of its own, so that the worker sum adds
+    # in the payload's dtype, as the reference's does
     gah_rows = _take_rows(grad_at_hat, W)
     theta_t = layout.unflatten(theta)
     comms = []
+    delta = grads
     for m in range(W):
         ctx = CommRound(theta=theta_t, grad_new=layout.unflatten(grads[m]),
                         hist=hist, cfg=lagcfg,
@@ -127,7 +135,7 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
                         grad_at_hat=None if gah_rows is None
                         else layout.unflatten(gah_rows[m]),
                         k=step, worker_id=m, draw=draw)
-        st_m = {k: layout.unflatten(v[m], like=torch.float32)
+        st_m = {k: layout.unflatten(v[m], like=v.dtype)
                 for k, v in pst.items()}
         # encode → trigger → decode, worker m's ∇ℓ_m(θ̂_m) freed once its
         # trigger has read it
@@ -137,11 +145,16 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
             ctx.grad_at_hat = gah_rows[m] = None
         delta_m, new_st = policy.decode(ctx, st_m, payload, aux, comm_m)
         comms.append(comm_m.reshape(()))
-        layout.flatten(delta_m, out=grads[m])
+        if m == 0:
+            dt = buffer_dtype(l.dtype for l in tree_leaves(delta_m))
+            if dt != grads.dtype:
+                delta = torch.zeros(grads.shape, dtype=dt,
+                                    device=grads.device)
+        layout.flatten(delta_m, out=delta[m])
         for k in pst:
             layout.flatten(new_st[k], out=pst[k][m])
         del ctx, st_m, payload, aux, delta_m, new_st
-    return torch.stack(comms), grads, pst
+    return torch.stack(comms), delta, pst
 
 
 def sum_reduce(comm: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:

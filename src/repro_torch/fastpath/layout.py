@@ -1,8 +1,10 @@
 """Static flat-buffer layout: ONE padded ``(rows, 128)`` view of a pytree —
 port of ``repro.fastpath.layout``.
 
-Each leaf is flattened, cast to float32 and padded up to whole sub-blocks
-(``SUB_ROWS`` × ``LANES`` = 1024 elements), so a sub-block never straddles
+Each leaf is flattened, cast to the buffer's dtype (:func:`buffer_dtype`:
+float64 for a tree with a float64 leaf, else float32) and padded up to
+whole sub-blocks (``SUB_ROWS`` × ``LANES`` = 1024 elements), so a sub-block
+never straddles
 two leaves and per-leaf quantities (LAQ's quantizer scale, the fixed-order
 per-(worker, leaf) partial sums) survive batching.  The buffer tail is
 padded to whole ``BLOCK_ROWS`` blocks; ``sub_leaf`` maps every sub-block to
@@ -11,8 +13,8 @@ every plane op).  The constants are the reference's: ``rows``, ``sub_leaf``
 and LAQ's per-leaf grid depend on them.
 
 The port keeps per-worker state natively in these buffers.  ``unflatten``
-of a float32 buffer returns VIEWS (no copy), so a tree of model parameters
-or mirror state can live inside one flat buffer.
+returns VIEWS (no copy) for leaves of the buffer's own dtype, so a tree of
+model parameters or mirror state can live inside one flat buffer.
 """
 from __future__ import annotations
 
@@ -37,6 +39,13 @@ BLOCK = BLOCK_ROWS * LANES
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
+def buffer_dtype(dtypes) -> torch.dtype:
+    """The flat buffers' dtype for leaves of ``dtypes``: float64 when one
+    of them is float64 (the x64 convex runs, which the plane refuses), so
+    that flattening rounds nothing; float32 otherwise."""
+    return torch.float64 if torch.float64 in tuple(dtypes) else torch.float32
+
+
 @dataclasses.dataclass(frozen=True)
 class FlatLayout:
     """The static offset table for one pytree structure (unstacked)."""
@@ -49,6 +58,11 @@ class FlatLayout:
     nsubs: int                         # data sub-blocks (pre tail pad)
     nblocks: int                       # BLOCK_ROWS blocks (tail padded)
     sub_leaf: np.ndarray               # (nblocks·SUBS_PER_BLOCK,) int32
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The flat buffers' dtype (:func:`buffer_dtype` of the leaves)."""
+        return buffer_dtype(self.dtypes)
 
     @property
     def rows(self) -> int:
@@ -87,12 +101,12 @@ class FlatLayout:
                              f"{self.num_leaves}")
 
     def empty(self, lead: Tuple[int, ...] = (), device=None) -> torch.Tensor:
-        """A zero ``lead + (rows, LANES)`` float32 buffer."""
-        return torch.zeros(lead + (self.rows, LANES), dtype=torch.float32,
+        """A zero ``lead + (rows, LANES)`` buffer of the layout's dtype."""
+        return torch.zeros(lead + (self.rows, LANES), dtype=self.dtype,
                            device=device)
 
     def flatten(self, tree: Pytree, out: torch.Tensor = None) -> torch.Tensor:
-        """Template-shaped tree → ``(rows, LANES)`` float32 buffer."""
+        """Template-shaped tree → ``(rows, LANES)`` buffer."""
         leaves = tree_leaves(tree)
         self._check(leaves)
         dev = leaves[0].device if leaves else None
@@ -105,7 +119,7 @@ class FlatLayout:
         return buf
 
     def flatten_stacked(self, tree: Pytree) -> torch.Tensor:
-        """Stacked ``(W, …leaf)`` tree → ``(W, rows, LANES)`` float32."""
+        """Stacked ``(W, …leaf)`` tree → ``(W, rows, LANES)`` buffer."""
         leaves = tree_leaves(tree)
         self._check(leaves)
         W = leaves[0].shape[0]
@@ -138,13 +152,13 @@ class FlatLayout:
         return tree_unflatten(self.treedef, leaves)
 
     def unflatten(self, buf: torch.Tensor, like: Any = None) -> Pytree:
-        """``(rows, LANES)`` buffer → template tree.  Float32 leaves are
-        views of ``buf``; other dtypes are cast copies."""
+        """``(rows, LANES)`` buffer → template tree.  Leaves of ``buf``'s
+        dtype are views of it; other dtypes are cast copies."""
         return self._unflatten(buf.reshape(-1), (), like)
 
     def unflatten_stacked(self, buf: torch.Tensor, like: Any = None
                           ) -> Pytree:
         """``(W, rows, LANES)`` buffer → stacked template tree (views for
-        float32 leaves)."""
+        leaves of ``buf``'s dtype)."""
         W = buf.shape[0]
         return self._unflatten(buf.reshape(W, self.rows * LANES), (W,), like)

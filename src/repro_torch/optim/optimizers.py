@@ -153,7 +153,9 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             if weight_decay:
                 delta = delta + weight_decay * p.float()
             delta.mul_(a)
-            return torch.sub(p, delta, out=delta).to(p.dtype)
+            # θ in float32 first, as the reference: a float64 θ (the x64
+            # convex runs) is rounded before the step, not after it
+            return torch.sub(p.float(), delta, out=delta).to(p.dtype)
 
         flat_p, tdef = tree_flatten(params)
         new = [upd(p, g, mu, nu) for p, g, mu, nu in zip(

@@ -250,9 +250,12 @@ def test_conflicting_comm_plane_configs_raise():
         comm.make_policy("lag-wk", use_pallas=True, fastpath="on")
     with pytest.raises(ValueError, match="conflicting comm-plane"):
         TrainerConfig(algo="laq@4", use_pallas_comm=True, fastpath="on")
-    for mode in ("off", None):      # the user still has no "off" mode
-        with pytest.raises(ValueError, match="fastpath mode"):
-            comm.make_policy("lag-wk", use_pallas=True, fastpath=mode)
+    with pytest.raises(ValueError, match="fastpath mode"):
+        # the user still has no "off" mode
+        comm.make_policy("lag-wk", use_pallas=True, fastpath="off")
+    # None (no plan) agrees with use_pallas, which selects no plan either
+    assert comm.make_policy("lag-wk", use_pallas=True,
+                            fastpath=None).fastpath is None
 
 
 @pytest.mark.parametrize("algo", ["lag-wk", "lag-ps", "laq@4"])

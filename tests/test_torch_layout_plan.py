@@ -71,8 +71,17 @@ def test_port_imports_without_jax_or_repro():
             repro_torch.__path__, "repro_torch.")]
         for n in names:
             importlib.import_module(n)
-        assert "repro_torch.fastpath.kernels" in names, names
-        assert "repro_torch.kernels.lag_trigger.ops" in names, names
+        for want in ("repro_torch.fastpath.kernels",
+                     "repro_torch.kernels.lag_trigger.ops",
+                     "repro_torch.core.convex", "repro_torch.core.simulate",
+                     "repro_torch.engine.experiment",
+                     "repro_torch.engine.report",
+                     "repro_torch.engine.topology",
+                     "repro_torch.netsim.cluster",
+                     "repro_torch.netsim.hetero"):
+            assert want in names, (want, names)
+        from repro_torch.engine import Experiment, SimWorkers
+        from repro_torch.netsim import make_cluster, hetero_problem
         print(len(names))
         """)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
