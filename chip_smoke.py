@@ -104,6 +104,35 @@ Phases (any failure raises and the script exits non-zero):
         iters_to(1e-6), equal to the CPU run's; ``wall_seconds`` within
         rtol 1e-3 of the CPU run's (past the optimum the triggers compare
         round-off, and the two devices' float64 products differ in it).
+ 13. the deep topologies, the fleet and the deep front door, llama3.2-1b at
+     full width through ``repro_torch.launch.train`` in phase 5's
+     configuration, each run's exact launches a round, ms, device fwd/bwd
+     and comm ms and peak memory (under 80 GB):
+     a. ``--topology async:2@1`` for lag-wk and lag-ps (the 2-slot θ ring is
+        the stacked view: gradients and triggers at θ^{k−s_m});
+        ``delta_sqnorm_blocks`` and ``masked_combine`` every round; on the
+        reduced model on the card, ``async:2@0`` equal to ``shards`` bit
+        for bit (losses, masks, θ);
+     b. ``--topology pods:2`` lag-wk: masks and losses bitwise phase 5's
+        shards, rounds_skipped; on the reduced model (lr 0.01, one fixed
+        batch) a quiet round takes the zero branch on the card, masks
+        equal to the CPU's;
+     c. ``--topology fleet:4@2`` lag-wk (uniform selection), then with
+        ``--fleet-selection innovation --fleet-churn 0.25``, then laq@4 on
+        ``fleet:2@1``: cohorts, uploads, the cohort's gather and scatter
+        ms; kernel 1 twice a round (the innovation and the trigger);
+     d. the convex fleet at ``BENCH_fleet.json``'s scale row
+        (``fleet_problem('linreg', n_per=2, d=4)`` float32, N 10,000, k
+        625, K 300, lag-wk) priced on ``fleet:10000@50ms/20Mbps``: the
+        kernels at the cohort's (625, 256, 128) shape vs their plain
+        versions; the card's plane against the CPU's plain kernel versions
+        on the port's own draws: equal cohorts, masks equal through
+        iters_to(1e-2) (1e-4 is not reached in 300 rounds), losses within
+        rtol 1e-5, ms a round on each;
+     e. ``Experiment(model="llama3.2-1b", reduced=False, hetero=0.8,
+        cluster="hetero:2@10ms/1Gbps")`` against ``launch.train --hetero
+        0.8 --cluster …`` on the same rounds: equal masks, losses and
+        priced seconds.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Times are CUDA-event times on this card (kernels: the mean of
@@ -238,6 +267,37 @@ CONVEX_RTOL64 = 1e-12
 # s (rtol 2.9e-4: 418 rounds from round 182, where the loss is within
 # 8.9e-16 of the optimum, upload differently).  The check allows 1e-3.
 WALL_RTOL = 1e-3
+# phase 13: (part, algo, launcher flags, the plane's kernels and their exact
+# launches a round) at full width; a fleet adds one delta_sqnorm_blocks a
+# round for the cohort's innovation ‖∇L_m − ĝ_m‖²
+PHASE13 = (
+    ("13a", "lag-wk", ("--topology", "async:2@1"),
+     {"delta_sqnorm_blocks": 1, "masked_combine": 1}),
+    ("13a", "lag-ps", ("--topology", "async:2@1"),
+     {"delta_sqnorm_blocks": 1, "masked_combine": 2}),
+    ("13b", "lag-wk", ("--topology", "pods:2"),
+     {"delta_sqnorm_blocks": 1, "masked_combine": 1}),
+    ("13c", "lag-wk", ("--topology", "fleet:4@2"),
+     {"delta_sqnorm_blocks": 2, "masked_combine": 1}),
+    ("13c", "lag-wk", ("--topology", "fleet:4@2", "--fleet-selection",
+                       "innovation", "--fleet-churn", "0.25"),
+     {"delta_sqnorm_blocks": 2, "masked_combine": 1}),
+    ("13c", "laq@4", ("--topology", "fleet:2@1"),
+     {"delta_sqnorm_blocks": 1, "absmax_blocks": 1, "laq_encode_blocks": 1,
+      "masked_combine": 2}),
+)
+# 13d: BENCH_fleet.json's scale row (N, k, K) and the kernels a round
+FLEET_SCALE = (10_000, 625, 300)
+CONVEX_FLEET_PLANE = {"delta_sqnorm_blocks": 2, "masked_combine": 1}
+# 13d compares masks through the CPU run's iters_to(1e-2).  On the port's
+# own draws the gap reaches 1e-2 at round 250 and never 1e-4 in 300 rounds
+# (1.7e-3 at round 299; the CPU run, fastpath "on"); on an H100 80GB HBM3
+# (700 W) the card's masks equal the CPU's through round 261 (gap 5e-3)
+# and a trigger flips at 262: past that point the
+# triggers of 625 clients compare the two devices' float32 round-off
+# (kernel 1's partial sums agree with the plain version's within rtol 1e-5,
+# not bitwise), as in 12b past its ε
+CONVEX_FLEET_EPS = 1e-2
 
 
 def check(cond, msg):
@@ -537,8 +597,14 @@ def trainer_phase(torch, algo, steps=4, use_pallas_comm=False, extra=()):
     rounds = []
 
     def on_step(step, m, timing):
+        # a fleet's uploads are its cohort's (its comm_mask is population
+        # wide)
+        mask = m.get("cohort_comm", m["comm_mask"])
         rounds.append(dict(loss=float(m["loss"]),
-                           mask=m["comm_mask"].to(torch.int32).tolist(),
+                           mask=mask.to(torch.int32).tolist(),
+                           cohort=m["cohort_ids"].tolist()
+                           if "cohort_ids" in m else None,
+                           skipped=int(m["skipped_round"]),
                            comm_total=int(m["comm_total"]), **timing))
 
     gc.collect()
@@ -562,8 +628,9 @@ def trainer_phase(torch, algo, steps=4, use_pallas_comm=False, extra=()):
           f"{algo}: comm_total disagrees with the masks")
     sched = scheduled_uploaders(algo, steps)
     if sched is None:
-        check(rounds[0]["mask"] == [1, 1], f"{algo}: round 0 must upload "
-                                           f"all")
+        # (under churn a cohort client may have left before round 0)
+        check(all(rounds[0]["mask"]) or "--fleet-churn" in extra,
+              f"{algo}: round 0 must upload all")
     else:
         for k, (r, m) in enumerate(zip(rounds, sched)):
             check(r["mask"] == [int(i == m) for i in range(2)],
@@ -573,18 +640,24 @@ def trainer_phase(torch, algo, steps=4, use_pallas_comm=False, extra=()):
     torch.cuda.empty_cache()
     steady = rounds[1:]
     summary = {k: sum(r[k] for r in steady) / len(steady)
-               for k in ("ms", "grad_ms", "comm_ms")}
+               for k in ("ms", "grad_ms", "comm_ms", "gather_ms",
+                         "scatter_ms") if k in steady[0]}
     shown = {**launches, **legacy} if use_pallas_comm else launches
     label = " ".join((algo,) + tuple(extra))
+    fleet = "" if rounds[0]["cohort"] is None else (
+        f" | cohorts {[r['cohort'] for r in rounds]} | gather "
+        f"{summary['gather_ms']:.1f} ms, scatter {summary['scatter_ms']:.1f}"
+        f" ms a round (device)")
     print(f"  {label}: losses {[round(r['loss'], 6) for r in rounds]} | "
           f"masks {[r['mask'] for r in rounds]} | comm_total "
           f"{rounds[-1]['comm_total']} | rounds 1-{steps - 1} mean "
           f"{summary['ms']:.1f} ms (device: fwd/bwd {summary['grad_ms']:.1f}"
           f" ms, comm plane + server {summary['comm_ms']:.1f} ms) | round 0 "
           f"{rounds[0]['ms']:.1f} ms | peak memory {peak:.2f} GB | launches "
-          f"{shown}" + ("" if sched is None else
-                         f" | scheduled uploaders {sched}"))
-    return dict(plane=launches, legacy=legacy, rounds=rounds, peak=peak)
+          f"{shown}" + fleet + ("" if sched is None else
+                                f" | scheduled uploaders {sched}"))
+    return dict(plane=launches, legacy=legacy, rounds=rounds, peak=peak,
+                summary=summary)
 
 
 # ---------------------------------------------------------------------------
@@ -651,7 +724,7 @@ def agreement_runs(torch, dev):
         stream = TokenStream(cfg.vocab_size, seed=5)
         masks = []
         for k in range(3):
-            b = make_inputs(cfg, stream, k, 4, 32)
+            b = make_inputs(cfg, stream, k, 4, 32, device="cpu")
             cpu, mc = cpu_step(cpu, b)
             gpu, mg = gpu_step(gpu, {n: t.to(dev) for n, t in b.items()})
             lc, lg = float(mc["loss"]), float(mg["loss"])
@@ -1391,6 +1464,244 @@ def convex_cluster(torch, dev):
           f"round on the card, {cpu_ms:.3f} on the CPU")
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the deep topologies, the fleet, the deep front door
+# ---------------------------------------------------------------------------
+
+def phase13_deep(torch, phase5, steps=4):
+    """13a-13c at full width through the launcher: PHASE13's runs, each
+    with its kernels' exact launches a round; returns the plane's launches
+    over all of them."""
+    from repro_torch.engine.topology import AsyncShards
+
+    s = AsyncShards(staleness=1).stale_steps(2).tolist()
+    check(s == [0, 1], f"async:2@1 staleness ramp {s}")
+    print(f"  13a async:2@1: staleness ramp {s} = the ring's slots, so the "
+          f"ring (2 x 4.94 GB) is the stacked view: nothing is gathered")
+    total = {}
+    for part, algo, extra, want in PHASE13:
+        run = trainer_phase(torch, algo, steps=steps, extra=extra)
+        label = f"{part} " + " ".join((algo,) + tuple(extra))
+        for k, v in run["plane"].items():
+            n = want.get(k, 0) * steps
+            check(v == n, f"{label}: {k} launched {v} times in {steps} "
+                          f"rounds, want {n}")
+            total[k] = total.get(k, 0) + v
+        check(run["peak"] < 80.0, f"{label}: peak {run['peak']:.2f} GB")
+        if "pods:2" in extra:
+            # the pods' trajectory is the shards' (phase 5's lag-wk run):
+            # a quiet round's deltas are exactly zero
+            want5 = phase5["lag-wk"]
+            check([r["mask"] for r in run["rounds"]]
+                  == [r["mask"] for r in want5]
+                  and [r["loss"] for r in run["rounds"]]
+                  == [r["loss"] for r in want5],
+                  f"{label}: masks or losses differ from phase 5's shards")
+            print(f"  {label}: masks and losses bitwise phase 5's shards; "
+                  f"rounds_skipped "
+                  f"{sum(r['skipped'] for r in run['rounds'])}")
+        if "fleet" in extra[1]:
+            k = int(extra[1].split("@")[1])
+            check(all(len(r["cohort"]) == k for r in run["rounds"]),
+                  f"{label}: cohorts {[r['cohort'] for r in run['rounds']]}")
+        print(f"  {label}: launches a round "
+              f"{ {k: v // steps for k, v in run['plane'].items() if v} }")
+    return total
+
+
+def small_topologies(torch, dev):
+    """The reduced model on the card: async:2@0 bitwise shards (losses,
+    masks, θ), and pods:2 in a setting with a quiet round (lag-wk at lr
+    0.01 on one fixed batch), the card's masks equal to the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream, make_heterogeneous_inputs
+    from repro_torch.dist.lag_trainer import (TrainerConfig, init_state,
+                                              make_train_step, params_of)
+    from repro_torch.engine.topology import make_topology
+
+    cfg = get_config("llama3.2-1b").reduced()
+
+    def run(topology, algo, lr, device, params=None):
+        tcfg = TrainerConfig(algo=algo, num_workers=2, lr=lr)
+        topo = make_topology(topology)
+        st = init_state(cfg, tcfg, device=device, seed=0, params=params,
+                        topology=topo)
+        step = make_train_step(cfg, tcfg, topology=topo)
+        batch = make_heterogeneous_inputs(cfg, TokenStream(cfg.vocab_size),
+                                          0, 2, 4, 32, device=device)
+        losses, masks = [], []
+        for _ in range(3):
+            st, m = step(st, batch)
+            losses.append(float(m["loss"]))
+            masks.append(m["comm_mask"].to(torch.int32).tolist())
+        return losses, masks, st, topo
+
+    params = params_of(init_state(cfg, TrainerConfig(num_workers=2),
+                                  device="cpu", seed=0), cfg)
+    for algo in ("lag-wk", "lag-ps"):
+        a_l, a_m, a_st, _ = run("async:2@0", algo, 0.3, dev, params)
+        s_l, s_m, s_st, _ = run("shards", algo, 0.3, dev, params)
+        check(a_l == s_l and a_m == s_m
+              and bitwise(torch, a_st["theta"], s_st["theta"]),
+              f"13a {algo}: async:2@0 is not bitwise shards on the card")
+        print(f"  13a small {algo}: async:2@0 on the card = shards bit for "
+              f"bit (losses {[round(x, 6) for x in a_l]}, masks {a_m}, θ)")
+    g_l, g_m, g_st, g_topo = run("pods:2", "lag-wk", 0.01, dev, params)
+    c_l, c_m, c_st, _ = run("pods:2", "lag-wk", 0.01, "cpu", params)
+    skipped = int(g_st["lag"]["rounds_skipped"])
+    check(g_m == c_m, f"13b small: masks card {g_m} vs CPU {c_m}")
+    check(all(abs(x - y) <= 1e-4 * abs(y) for x, y in zip(g_l, c_l)),
+          f"13b small: losses card {g_l} vs CPU {c_l}")
+    check(skipped >= 1 and g_topo.branches["zero"] == skipped,
+          f"13b small: rounds_skipped {skipped}, branches "
+          f"{g_topo.branches}")
+    print(f"  13b small pods:2 lag-wk lr 0.01: masks {g_m} (= the CPU's), "
+          f"rounds_skipped {skipped}, reduce branches {g_topo.branches} "
+          f"(the quiet round's sum is zeros on the card)")
+
+
+def convex_fleet_kernels(torch, dev, k=625):
+    """13d, first: the plane's kernels at the convex fleet's cohort shape
+    (k clients, one (4,) leaf padded to 256 rows) vs their plain
+    versions."""
+    from repro_torch.fastpath import kernels, kernels_ref
+    from repro_torch.fastpath.layout import FlatLayout
+
+    lo = FlatLayout.for_tree(torch.zeros(4, device="meta"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    bufs = []
+    for _ in range(2):
+        b = lo.empty((k,), dev)
+        lo.unflatten_stacked(b).normal_(generator=gen)
+        bufs.append(b)
+    a, b = bufs
+    reset_counts()
+    torch.testing.assert_close(kernels.delta_sqnorm_blocks(a, b),
+                               kernels_ref.delta_sqnorm_blocks(a, b),
+                               rtol=SUM_RTOL, atol=0)
+    mask = torch.arange(k, device=dev) % 3 == 0
+    check(bitwise(torch, kernels.masked_combine(a, b, mask, "add"),
+                  kernels_ref.masked_combine(a, b, mask, "add")),
+          "13d masked_combine add not bitwise")
+    print(f"  13d kernels at ({k}, {lo.rows}, 128) vs plain versions: "
+          f"delta_sqnorm within rtol {SUM_RTOL}, masked_combine bitwise "
+          f"(comparison launches, not counted: {counts()})")
+
+
+def convex_fleet(torch, dev):
+    """13d: the reference benchmark's scale row on the plane, card against
+    CPU (the kernels' plain versions), the port's own draws; returns the
+    plane's launches."""
+    import numpy as np
+
+    from repro_torch.engine import Experiment
+    from repro_torch.fleet import fleet_problem
+
+    N, k, K = FLEET_SCALE
+    gpu = fleet_problem("linreg", num_clients=N, n_per=2, d=4,
+                        dtype=torch.float32, device=dev)
+    cpu = on_cpu(gpu)
+    _, opt = cpu.optimum()
+    kw = dict(algo="lag-wk", steps=K, opt_loss=opt,
+              topology=f"fleet:{N}@{k}", cluster=f"fleet:{N}@50ms/20Mbps")
+    reset_counts()
+    g, ms = timed_run(torch, lambda: Experiment(problem=gpu, **kw).run())
+    got = counts()
+    c, cpu_ms = timed_run(torch, lambda: Experiment(
+        problem=cpu, fastpath="on", **kw).run())
+    for name, v in got.items():
+        n = CONVEX_FLEET_PLANE.get(name, 0) * K
+        check(v == n, f"13d: {name} launched {v} times in {K} rounds, "
+                      f"want {n}")
+    check(np.array_equal(g.extras["cohort_ids"], c.extras["cohort_ids"]),
+          "13d: the card drew other cohorts than the CPU")
+    n, same = masks_through(g, c, CONVEX_FLEET_EPS)
+    first = (g.comm_mask != c.comm_mask).any(axis=1).nonzero()[0]
+    check(same, f"13d: masks differ from the CPU's in rounds 0-{n - 1} "
+                f"(first {first[:3]})")
+    err = float(abs(g.losses[:n] / c.losses[:n] - 1.0).max())
+    check(err <= CONVEX_RTOL32, f"13d: losses off the CPU's by rtol "
+                                f"{err:.3e} in rounds 0-{n - 1}")
+    check(bool(np.isfinite(g.losses).all()), "13d: non-finite loss")
+    ops, busy, idle = traced_rounds(torch, lambda: Experiment(
+        problem=gpu, **dict(kw, steps=10)).run())
+    print(f"  13d fleet_problem('linreg', n_per=2, d=4) float32, N {N}, k "
+          f"{k}, K {K}, lag-wk: launches "
+          f"{ {name: v // K for name, v in got.items() if v} } a round; "
+          f"cohorts equal to the CPU's, masks equal through round {n - 1} "
+          f"(iters_to({CONVEX_FLEET_EPS:g}); iters_to(1e-4) "
+          f"{g.iters_to(1e-4)}; first difference "
+          f"{first[0] if first.size else 'none'} of {K}, {first.size} "
+          f"rounds differ), losses "
+          f"within rtol {err:.2e}; gap round 0 {g.losses[0] - opt:.6g}, round "
+          f"{K - 1} {g.losses[-1] - opt:.6g}; uploads {g.total_comms} of "
+          f"{K * k}, most in a round {int(g.comms_per_iter.max())}; priced "
+          f"on fleet:{N}@50ms/20Mbps: wall_seconds card {g.wall_seconds!r}, "
+          f"CPU {c.wall_seconds!r} | {ms:.3f} ms a round on the card, "
+          f"{cpu_ms:.3f} on the CPU; traced: {ops:.0f} device kernels a "
+          f"round busy {busy:.3f} ms, device idle {idle}")
+    return got
+
+
+def experiment_cluster(torch, steps=4):
+    """13e: Experiment(model=…, reduced=False, hetero=0.8, cluster=…)
+    against the launcher's --hetero 0.8 --cluster on the same rounds: the
+    same masks, losses and priced seconds."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from repro_torch.engine import Experiment
+    from repro_torch.launch import train
+    from repro_torch.netsim import make_cluster, price_mask
+
+    cluster = "hetero:2@10ms/1Gbps"
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    rep, ms = timed_run(torch, lambda: Experiment(
+        model="llama3.2-1b", reduced=False, topology="shards", algo="lag-wk",
+        workers=2, lr=0.3, batch=4, seq=256, steps=steps, hetero=0.8,
+        fixed_batch=False, cluster=cluster).run())
+    got = counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    masks, losses = [], []
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train.main(["--arch", "llama3.2-1b", "--algo", "lag-wk", "--workers",
+                    "2", "--batch", "4", "--seq", "256", "--steps",
+                    str(steps), "--seed", "0", "--hetero", "0.8",
+                    "--cluster", cluster],
+                   on_step=lambda s, m, t: (
+                       masks.append(m["comm_mask"].cpu().numpy()),
+                       losses.append(float(m["loss"]))))
+    line = [x for x in out.getvalue().splitlines()
+            if x.startswith("simulated wall-clock")]
+    check(len(line) == 1, f"13e: the launcher printed {line}")
+    check(np.array_equal(np.stack(masks), rep.comm_mask)
+          and np.array_equal(np.asarray(losses, np.float32), rep.losses),
+          f"13e: launcher masks/losses {masks} {losses} vs Experiment's "
+          f"{rep.comm_mask.tolist()} {rep.losses.tolist()}")
+    priced = price_mask(np.stack(masks), rep.bytes_per_upload,
+                        make_cluster(cluster, num_workers=2),
+                        dense_bytes=rep.bytes_per_upload).sum()
+    check(float(priced) == rep.wall_seconds and
+          f"{rep.wall_seconds:.2f}s" in line[0],
+          f"13e: launcher {line[0]!r} / {priced!r} vs Experiment "
+          f"{rep.wall_seconds!r}")
+    for name in ("delta_sqnorm_blocks", "masked_combine"):
+        check(got[name] == steps, f"13e: {name} launched {got[name]} times")
+    print(f"  13e Experiment(model='llama3.2-1b', reduced=False, hetero=0.8, "
+          f"cluster='{cluster}'): wall_seconds {rep.wall_seconds!r} "
+          f"(hetero_dial {rep.extras['hetero_dial']}), masks "
+          f"{rep.comm_mask.astype(int).tolist()}, the launcher's on the same "
+          f"rounds: {line[0]!r} | {ms:.1f} ms a round, set-up included")
+    return got
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1513,6 +1824,19 @@ def main():
     print(f"  phase 12b launches: {p12}")
     convex_gisette(torch, dev)
     convex_cluster(torch, dev)
+
+    print("[13] the deep topologies (a async, b pods), the fleet (c deep, d "
+          "convex), the deep front door (e): llama3.2-1b full width, W=2, "
+          "batch 4, seq 256", flush=True)
+    p13 = phase13_deep(torch, phase5)
+    small_topologies(torch, dev)
+    convex_fleet_kernels(torch, dev)
+    for part in (convex_fleet(torch, dev), experiment_cluster(torch)):
+        for k, v in part.items():
+            p13[k] = p13.get(k, 0) + v
+    for k, v in p13.items():
+        launches[k] += v
+    print(f"  phase 13 launches: { {k: v for k, v in p13.items() if v} }")
 
     rows = [dict(name=k, route="cuda", source=SOURCES.get(k, SOURCE),
                  replaces=REPLACES[k], launches=launches[k], **full[k])

@@ -2,7 +2,10 @@
 (LM batches only).
 
 The stream is numpy, seeded per (seed, step, worker) exactly as the
-reference, so the port's batches equal the reference's bit for bit.
+reference, so the port's batches equal the reference's bit for bit.  The
+batches land on ``device``: the card unless the caller asks for the CPU.
+Worker-shard heterogeneity is a dial (``repro_torch.netsim.hetero``);
+:func:`make_heterogeneous_inputs` is its wrapper.
 """
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models.common import ModelConfig
 
 
@@ -39,11 +43,29 @@ class TokenStream:
 
 def make_inputs(cfg: ModelConfig, stream: TokenStream, step: int,
                 batch: int, seq: int, worker: int = 0,
-                device="cpu") -> dict:
-    """One LM training batch: {"tokens", "targets"} (B, seq) int32."""
+                device="cuda") -> dict:
+    """One LM training batch: {"tokens", "targets"} (B, seq) int32 on
+    ``device`` ("cuda" by default, which raises without a GPU)."""
+    device = resolve_device(device)
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} inputs are not "
                                   f"ported yet")
     toks = stream.batch(step, worker, batch, seq + 1)
     return {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(device),
             "targets": torch.from_numpy(toks[:, 1:].copy()).to(device)}
+
+
+def make_heterogeneous_inputs(cfg: ModelConfig, stream: TokenStream,
+                              step: int, num_workers: int, batch: int,
+                              seq: int, *, fixed: bool = True,
+                              noise_lo: float = 0.01, noise_hi: float = 0.4,
+                              h: float = 1.0, device="cuda") -> dict:
+    """Global batch whose worker shards have heterogeneous predictability:
+    worker m's stream noise sits at dial position ``h`` of the
+    noise_lo→noise_hi ramp (:func:`repro_torch.netsim.hetero.
+    hetero_inputs`; h = 1 is the full ramp, h = 0 its midpoint for every
+    worker).  ``fixed=True`` reuses step 0's data every round."""
+    from repro_torch.netsim.hetero import hetero_inputs  # data ↛ netsim
+    return hetero_inputs(cfg, stream, step, num_workers, batch, seq, h=h,
+                         fixed=fixed, noise_lo=noise_lo, noise_hi=noise_hi,
+                         device=device)

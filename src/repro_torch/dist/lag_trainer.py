@@ -132,21 +132,12 @@ def param_layout(cfg: ModelConfig) -> FlatLayout:
 # State
 # ---------------------------------------------------------------------------
 
-def init_state(cfg: ModelConfig, tcfg: TrainerConfig, *, device,
-               seed: int = 0, params: Optional[Dict] = None,
-               policy=None, server=None) -> Dict:
-    """Fresh trainer state on ``device``.
-
-    ``params`` (a parameter tree, e.g. from ``repro_torch.weights``) is
-    copied into the flat θ buffer; without it the weights are drawn from a
-    ``torch.Generator`` seeded with ``seed``.  ``grad_hat`` (and θ̂) start
-    at zero with an empty history, so round 0 triggers every worker.  A
-    stateful server's state (``opt``) is flat, beside θ.
-    """
+def init_params(cfg: ModelConfig, *, device, seed: int = 0,
+                params: Optional[Dict] = None) -> torch.Tensor:
+    """The flat ``(rows, 128)`` θ buffer on ``device``: ``params`` (a
+    parameter tree) copied in, or weights drawn from a ``torch.Generator``
+    seeded with ``seed``."""
     device = torch.device(device)
-    W = tcfg.num_workers
-    policy = policy if policy is not None else tcfg.comm_policy()
-    server = server if server is not None else tcfg.server_optimizer()
     lo = param_layout(cfg)
     theta = lo.empty(device=device)
     if params is None:
@@ -155,6 +146,28 @@ def init_state(cfg: ModelConfig, tcfg: TrainerConfig, *, device,
         model.init_(lo.unflatten(theta), cfg, gen)
     else:
         lo.flatten(params, out=theta)
+    return theta
+
+
+def init_state(cfg: ModelConfig, tcfg: TrainerConfig, *, device,
+               seed: int = 0, params: Optional[Dict] = None,
+               policy=None, server=None, topology=None) -> Dict:
+    """Fresh trainer state on ``device``.
+
+    ``params`` (a parameter tree, e.g. from ``repro_torch.weights``) is
+    copied into the flat θ buffer; without it the weights are drawn from a
+    ``torch.Generator`` seeded with ``seed``.  ``grad_hat`` (and θ̂) start
+    at zero with an empty history, so round 0 triggers every worker.  A
+    stateful server's state (``opt``) is flat, beside θ; a topology's
+    extra state (the pods' skip counter, the async ring) joins the lag
+    group.
+    """
+    device = torch.device(device)
+    W = tcfg.num_workers
+    policy = policy if policy is not None else tcfg.comm_policy()
+    server = server if server is not None else tcfg.server_optimizer()
+    lo = param_layout(cfg)
+    theta = init_params(cfg, device=device, seed=seed, params=params)
     theta0 = lo.empty((W,), device) if policy.needs_theta_hat else None
     lag_state = dict(policy.init_state(lo.empty((W,), device), theta0))
     lag_state.update({
@@ -168,6 +181,8 @@ def init_state(cfg: ModelConfig, tcfg: TrainerConfig, *, device,
         # no oracle L_m for a deep net: the 1/α heuristic (paper: α = 1/L)
         lag_state["L_m"] = torch.full((W,), 1.0 / tcfg.lr,
                                       dtype=torch.float32, device=device)
+    if topology is not None:
+        lag_state.update(topology.extra_state(theta))
     state = {"theta": theta, "lag": lag_state, "step": 0}
     opt0 = server.init(theta)
     if opt0 is not None:
@@ -226,26 +241,38 @@ def grads_at_hat(policy, theta: torch.Tensor, theta_hat: torch.Tensor,
 def phase_ms(metrics: Dict) -> Dict[str, float]:
     """{"grad_ms", "comm_ms"} from a finished step's CUDA events ({} on
     the CPU): device time of the workers' forward/backward, and of the
-    comm plane + server step."""
+    comm plane + server step; a fleet step adds "gather_ms" and
+    "scatter_ms"."""
     ev = metrics.get("phase_events")
     if not ev:
         return {}
-    return {"grad_ms": ev[0].elapsed_time(ev[1]),
-            "comm_ms": ev[1].elapsed_time(ev[2])}
+    out = {"grad_ms": ev[0].elapsed_time(ev[1]),
+           "comm_ms": ev[1].elapsed_time(ev[2])}
+    fl = metrics.get("fleet_events")
+    if fl:
+        # the fleet's cohort gather (before the gradients) and its scatter
+        # back (inside the comm phase)
+        out.update(gather_ms=fl[0].elapsed_time(fl[1]),
+                   scatter_ms=fl[2].elapsed_time(fl[3]))
+    return out
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainerConfig, policy=None,
                     server=None, topology=None, schedule_seed: int = 0):
     """Build ``train_step(state, batch) → (state, metrics)``; the state's
-    buffers are updated in place.  ``schedule_seed`` seeds a sampled
-    schedule's per-round draw (num-IAG), deterministic in the step
-    counter.  On the GPU, ``metrics["phase_events"]`` holds three CUDA
+    buffers are updated in place.  ``topology`` (default ``BatchShards``)
+    places the batch, may hand each worker its own parameter view (the
+    async ring: gradients and triggers at θ^{k−s_m}), reduces the masked
+    deltas (the pods' quiet-round skip) and advances its views after the
+    server step.  ``schedule_seed`` seeds a sampled schedule's per-round
+    draw (num-IAG), deterministic in the step counter.  On the GPU, ``metrics["phase_events"]`` holds three CUDA
     events: before the gradients (both passes for LASG-WK), after them,
     after the round (read them with :func:`phase_ms` once the device has
     caught up)."""
     policy = policy if policy is not None else tcfg.comm_policy()
     server = server if server is not None else tcfg.server_optimizer()
     topology = topology if topology is not None else BatchShards()
+    reduce_fn = topology.reduce_fn()
     lo = param_layout(cfg)
 
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
@@ -259,7 +286,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainerConfig, policy=None,
             if theta.is_cuda else None
         if events:
             events[0].record()
-        losses, grads = worker_grads(theta, lo, cfg, shards)
+        # an async topology hands each worker the parameters it last saw
+        views = topology.worker_views(theta, lag_state, W)
+        losses, grads = worker_grads(theta if views is None else views, lo,
+                                     cfg, shards)
         # the objective at the pre-step parameters (views of θ)
         loss = server.composite_loss(torch.mean(losses), lo.unflatten(theta))
         gah = None
@@ -273,8 +303,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainerConfig, policy=None,
         theta, new_opt, new_lag, metrics = engine_rounds.lag_round(
             policy, server, lagcfg, theta=theta, layout=lo,
             opt_state=state.get("opt"), lag_state=lag_state, grads=grads,
-            step=state["step"], grad_at_hat=gah, draw=draw)
-        del grads, gah
+            step=state["step"], grad_at_hat=gah, draw=draw,
+            reduce_fn=reduce_fn, theta_view=views)
+        del grads, gah, views
+        adv = topology.advance_views(new_lag, theta)
+        if adv:
+            new_lag = dict(new_lag, **adv)
         if events:
             events[2].record()
             metrics["phase_events"] = events

@@ -1,5 +1,5 @@
-"""``Experiment`` — the front door of the convex runs — port of the convex
-dispatch of ``repro.engine.experiment``.
+"""``Experiment`` — the one front door: any policy × any server × any
+topology as a config — port of ``repro.engine.experiment``.
 
     from repro_torch.core.convex import synthetic
     from repro_torch.engine import Experiment
@@ -8,22 +8,30 @@ dispatch of ``repro.engine.experiment``.
     prob = synthetic("linreg", dtype=torch.float64)
     Experiment(problem=prob, algo="lag-wk", steps=3000).run()
 
-    # LAG-Adam in the convex sim
-    Experiment(problem=prob, algo="lag-wk", server="adam", steps=200).run()
-
     # netsim: priced on a simulated network — the report gains
     # seconds_to(eps) / wall_seconds
     Experiment(problem=hetero_problem("linreg", h=0.8), algo="lag-wk",
                steps=1000, cluster="hetero:9@10ms/1Gbps").run()
 
-Convex defaults follow the paper: α = 1/L (1/(M·L) for the IAG
-schedules), ξ = 1/D (10/D for LAG-PS).  The comm plane follows the
-problem's dtype: a float64 problem gets a policy without a plan (the plain
-route; the float32 plane cannot serve it), unless ``fastpath="on"`` forces
-the plane, which then raises; a float32 problem gets the caller's mode
-(``None`` → ``"auto"``: the plane on CUDA tensors).  The deep dispatch
-(``model=``) is not ported yet: the port's trainer is
-``repro_torch.launch.train``.
+    # the deep trainer: two lazy pods, bounded-staleness async LAG, a
+    # sampled-cohort fleet (reduced=False: full width on the card)
+    Experiment(model="llama3.2-1b", algo="lag-wk", topology="pods:2",
+               steps=10).run()
+    Experiment(model="llama3.2-1b", topology="async:4@2", steps=20).run()
+    Experiment(model="llama3.2-1b", topology="fleet:100@8", steps=20).run()
+
+    # the convex fleet: k of N clients a round
+    Experiment(problem=fleet_problem(num_clients=10_000), steps=300,
+               topology="fleet:10000@625").run()
+
+Every run returns a ``RunReport`` with the same trajectory fields whether
+the units are convex workers, batch shards, pods or cohort slots.  Convex
+defaults follow the paper: α = 1/L (1/(M·L) for the IAG schedules), ξ =
+1/D (10/D for LAG-PS); the comm plane follows the problem's dtype (a
+float64 problem gets a policy without a plan, the plain route; ``"on"``
+then raises).  Deep defaults follow ``repro_torch.dist.TrainerConfig``;
+deep runs go to ``device`` (the card unless the caller asks for the CPU).
+The reference's ``devices`` and ``graph`` topologies are not ported yet.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import torch
 
 from repro_torch import comm as comm_lib
 from repro_torch.core import lag
+from repro_torch.core.tree import tree_leaves
 from repro_torch.engine.report import RunReport
 from repro_torch.engine.server import ProxL1Server, make_server
 from repro_torch.engine.topology import SimWorkers, make_topology
@@ -43,17 +52,19 @@ from repro_torch.netsim import cluster as netsim_cluster
 
 @dataclasses.dataclass
 class Experiment:
-    """A declarative experiment spec: a ``repro_torch.core.convex.Problem``
-    (``problem``) and spec strings (or objects) for the policy
-    (``algo``), the server step and the topology."""
+    """A declarative experiment spec.  Exactly one of ``problem`` (a
+    ``repro_torch.core.convex.Problem``) or ``model`` (a ``ModelConfig`` or
+    an arch name for ``repro_torch.configs.get_config``) selects the
+    workload; ``algo``/``server``/``topology`` are spec strings (or
+    objects) for the three composable axes."""
     # workload (exactly one)
     problem: Optional[Any] = None
-    model: Optional[Any] = None          # not ported yet: raises
+    model: Optional[Any] = None          # ModelConfig | arch-name str
 
     # the three axes
     algo: str = "lag-wk"                 # policy spec → comm.make_policy
     server: Optional[Any] = None         # spec/object; None → paper default
-    topology: Optional[Any] = None       # spec/object; None → sim
+    topology: Optional[Any] = None       # spec/object; None → sim | shards
 
     # shared knobs
     steps: int = 500                     # rounds [K]
@@ -77,23 +88,44 @@ class Experiment:
     theta0: Optional[Any] = None
     opt_loss: Optional[float] = None
 
+    # deep knobs
+    workers: int = 4
+    lr: float = 0.05
+    batch: int = 8
+    seq: int = 64
+    hetero: Optional[float] = None       # deep heterogeneity dial h ∈ [0, 1]
+    #   for the worker shards (repro_torch.netsim.hetero); None → the full
+    #   ramp (h = 1).  Convex heterogeneity is a property of the Problem
+    fixed_batch: bool = True             # True: one batch every round (the
+    #   paper's full-batch regime); False: a fresh batch per step
+    reduced: bool = True                 # CPU-sized arch when model is a str
+    device: Any = "cuda"                 # deep runs: "cuda" (raises without
+    #   a GPU) or "cpu"
+
     def run(self) -> RunReport:
         if (self.problem is None) == (self.model is None):
             raise ValueError("Experiment needs exactly one of problem= "
                              "(convex) or model= (deep)")
-        if self.model is not None:
-            raise NotImplementedError(
-                "Experiment(model=...) is not ported yet, use "
-                "repro_torch.launch.train (python -m "
-                "repro_torch.launch.train)")
-        report = self._run_convex()
-        if self.cluster is not None:
+        if self.problem is not None:
+            if self.hetero is not None:
+                raise ValueError(
+                    "hetero= is the DEEP shard dial; convex heterogeneity "
+                    "is a property of the Problem — build one with "
+                    "repro_torch.netsim.hetero_problem(h=...)")
             # the broadcast moves DENSE params even when uploads are
             # quantized, so it is sized separately from bytes_per_upload
-            dense = float(self.problem.dim
-                          * self.problem.X.element_size())
-            netsim_cluster.price_report(report, self.cluster,
-                                        dense_bytes=dense)
+            report, dense = self._run_convex(), float(
+                self.problem.dim * self.problem.X.element_size())
+        else:
+            report, dense = self._run_deep()
+        if self.cluster is not None:
+            if "cohort_ids" in report.extras:
+                # fleet runs: price only the k sampled uplinks per round
+                netsim_cluster.price_fleet_report(report, self.cluster,
+                                                  dense_bytes=dense)
+            else:
+                netsim_cluster.price_report(report, self.cluster,
+                                            dense_bytes=dense)
         return report
 
     # -- resolution ---------------------------------------------------------
@@ -123,10 +155,12 @@ class Experiment:
     def _plane_mode(self) -> Optional[str]:
         """The policy's comm-plane mode, decided by the problem's dtype: no
         plan for float64 (unless forced, which then raises in the round),
-        the caller's mode (default "auto") for float32."""
+        the caller's mode (default "auto") for float32 and the deep
+        models."""
         mode = self.fastpath or "auto"
         make_plan(mode)                              # validate the mode
-        if self.problem.dtype == torch.float64 and mode != "on":
+        if self.problem is not None and self.problem.dtype == torch.float64 \
+                and mode != "on":
             return None
         return mode
 
@@ -150,10 +184,15 @@ class Experiment:
         prob = self.problem
         M = prob.num_workers
         topo = make_topology(self.topology or "sim")
-        if not isinstance(topo, SimWorkers):
+        fleet = topo.name == "fleet"
+        if not (fleet or isinstance(topo, SimWorkers)):
             raise ValueError(
                 f"convex problems run on the 'sim' topology, got "
                 f"{topo.name!r} (deep topologies need model=)")
+        if isinstance(topo, SimWorkers) and topo.num_units not in (None, M):
+            raise ValueError(
+                f"topology {self.topology!r}: the unit count "
+                f"{topo.num_units} is not the problem's {M} workers")
         alpha = self.alpha
         if alpha is None:
             # paper defaults: α = 1/L, except 1/(M·L) for the one-upload-
@@ -175,8 +214,107 @@ class Experiment:
             probs = L_m / torch.sum(L_m)
         policy = self._resolve_policy(probs=probs)
         server = self._resolve_server()
-        report = topo.run(prob, policy, server, cfg, K=self.steps,
-                          seed=self.seed, theta0=self.theta0,
-                          opt_loss=self.opt_loss)
+        if fleet:
+            # cohort-sampled convex rounds over an N-client population
+            # (function-level import: repro_torch.fleet consumes the engine)
+            from repro_torch import fleet as fleet_lib
+            report = fleet_lib.run_convex(prob, policy, server, cfg, topo,
+                                          K=self.steps, seed=self.seed,
+                                          theta0=self.theta0,
+                                          opt_loss=self.opt_loss)
+        else:
+            report = topo.run(prob, policy, server, cfg, K=self.steps,
+                              seed=self.seed, theta0=self.theta0,
+                              opt_loss=self.opt_loss)
         report.algo = self.algo
         return report
+
+    # -- deep ---------------------------------------------------------------
+
+    def _run_deep(self):
+        """(report, dense bytes of one parameter copy): ``steps`` rounds of
+        the trainer (``shards``, ``pods``, ``async``) or the fleet step."""
+        # function-level: repro_torch.dist and repro_torch.fleet consume
+        # the engine; importing them at module scope would close a cycle
+        from repro_torch.configs import get_config
+        from repro_torch.data import TokenStream, make_heterogeneous_inputs
+        from repro_torch.device import resolve_device
+        from repro_torch.dist import lag_trainer
+        from repro_torch.models.common import ModelConfig
+
+        cfg = self.model
+        if isinstance(cfg, str):
+            cfg = get_config(cfg)
+            if self.reduced:
+                cfg = cfg.reduced()
+        if not isinstance(cfg, ModelConfig):
+            raise ValueError(f"model= must be a ModelConfig or an arch "
+                             f"name, got {type(self.model).__name__}")
+        topo = make_topology(self.topology or "shards")
+        if topo.kind != "deep":
+            raise ValueError("deep models run on 'shards' or 'pods:N' "
+                             "topologies, not 'sim' (sim needs problem=)")
+        device = resolve_device(self.device)
+        W = topo.units(self.workers)
+        tcfg = lag_trainer.TrainerConfig(
+            algo=self.algo, num_workers=W, lr=self.lr, D=self.D,
+            xi=self.xi if self.xi is not None else 0.1,
+            laq_bits=self.bits, rhs_floor=self.rhs_floor,
+            fastpath=self._plane_mode())
+        policy = self._resolve_policy()
+        server = self._resolve_server()
+        fleet = topo.name == "fleet"
+        if fleet:
+            from repro_torch import fleet as fleet_lib
+            state = fleet_lib.init_fleet_state(
+                cfg, tcfg, topo, device=device, seed=self.seed,
+                policy=policy, server=server)
+            step_fn = fleet_lib.make_fleet_step(
+                cfg, tcfg, topo, policy=policy, server=server,
+                schedule_seed=self.seed)
+        else:
+            state = lag_trainer.init_state(
+                cfg, tcfg, device=device, seed=self.seed, policy=policy,
+                server=server, topology=topo)
+            step_fn = lag_trainer.make_train_step(
+                cfg, tcfg, policy=policy, server=server, topology=topo,
+                schedule_seed=self.seed)
+        stream = TokenStream(vocab=cfg.vocab_size, seed=self.seed)
+
+        losses, masks, underflow, cohorts, cohort_comm = [], [], [], [], []
+        batch = None
+        h = 1.0 if self.hetero is None else self.hetero
+        for k in range(self.steps):
+            if batch is None or not self.fixed_batch:
+                batch = make_heterogeneous_inputs(
+                    cfg, stream, k, W, self.batch, self.seq,
+                    fixed=self.fixed_batch, h=h, device=device)
+            state, m = step_fn(state, batch)
+            losses.append(m["loss"])
+            masks.append(m["comm_mask"])
+            underflow.append(m["trigger_rhs_underflow"])
+            if fleet:
+                cohorts.append(m["cohort_ids"])
+                cohort_comm.append(m["cohort_comm"])
+            del m
+        extras = {"trigger_rhs_underflow_rounds":
+                  int(torch.stack(underflow).sum())}
+        if fleet:
+            extras["cohort_ids"] = torch.stack(cohorts).cpu().numpy()
+            extras["cohort_comm"] = torch.stack(cohort_comm).cpu().numpy()
+            extras["population"] = topo.population
+            extras["cohort"] = topo.cohort
+        if self.hetero is not None:
+            extras["hetero_dial"] = float(self.hetero)
+        if "rounds_skipped" in state["lag"]:
+            extras["rounds_skipped"] = int(state["lag"]["rounds_skipped"])
+        params = lag_trainer.params_of(state, cfg)
+        dense_bytes = float(sum(l.numel() * l.element_size()
+                                for l in tree_leaves(params)))
+        report = RunReport(
+            algo=self.algo,
+            losses=torch.stack(losses).cpu().numpy(),
+            comm_mask=torch.stack(masks).cpu().numpy(), opt_loss=0.0,
+            bytes_per_upload=policy.wire_bytes(params), server=server.name,
+            topology=topo.name, extras=extras)
+        return report, dense_bytes

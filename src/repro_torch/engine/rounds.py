@@ -15,10 +15,12 @@ State contract (the trainer's ``lag`` group):
   comm_total            () int32 upload counter
   comm_per_worker       (W,) int32 per-worker upload counts
   L_m                   (W,) smoothness (PS-rule policies)
+  rounds_skipped        optional () int32, advanced when no worker uploads
+                        (the pod topology's all-quiet counter)
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -62,9 +64,16 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
                   theta: torch.Tensor, grads: torch.Tensor, lag_state: Dict,
                   layout: FlatLayout,
                   grad_at_hat: Optional[List[torch.Tensor]] = None,
-                  step: Optional[int] = None, draw: Optional[int] = None):
+                  step: Optional[int] = None, draw: Optional[int] = None,
+                  theta_view: Optional[torch.Tensor] = None):
     """Run a policy for every worker → (comm (W,) bool, delta (W, rows,
     128), new policy-state dict).
+
+    ``theta_view`` (W, rows, 128) is the bounded-staleness hook: each
+    worker's own iterate θ^{k−s_m} (the async topology's ring), against
+    which the triggers and the θ̂ refresh are evaluated — on the plane the
+    kernels take the stacked operand, on the plain route worker m's
+    ``CommRound.theta`` is row m.  None: every worker sees ``theta``.
 
     Every ``CommRound`` carries the round index ``step`` (``k``), the
     worker id (the (W,) ids on the device on the fast route, ``m`` on the
@@ -92,6 +101,11 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
     L_arr = lag_state["L_m"] if policy.needs_L_m else None
     hist = lag_state["hist"]
 
+    if theta_view is not None and theta_view.shape != grads.shape:
+        raise ValueError(f"theta_view must be the stacked (W, rows, 128) "
+                         f"view {tuple(grads.shape)}, got "
+                         f"{tuple(theta_view.shape)}")
+    theta_arg = theta if theta_view is None else theta_view
     plan = plan_lib.active_plan(policy, grads)
     if plan is not None and not plan.supports(layout):
         # an active plan never steps aside: the rounds would leave the
@@ -103,18 +117,18 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
     fast = None
     if plan is not None:
         gah = _take_stacked(grad_at_hat)
-        fast = policy.fast_precompute(plan, grads, pst, theta=theta,
+        fast = policy.fast_precompute(plan, grads, pst, theta=theta_arg,
                                       layout=layout, grad_at_hat=gah)
         del gah            # read by the precompute: free it before encode
     if fast is not None:
-        ctx = CommRound(theta=theta, grad_new=grads, hist=hist, cfg=lagcfg,
-                        L_m=L_arr, fast=fast, k=step, draw=draw,
+        ctx = CommRound(theta=theta_arg, grad_new=grads, hist=hist,
+                        cfg=lagcfg, L_m=L_arr, fast=fast, k=step, draw=draw,
                         worker_id=torch.arange(W, dtype=torch.int32,
                                                device=grads.device))
         payload, aux = policy.encode(ctx, pst)
         comm = policy.should_upload(ctx, pst, payload, aux)
         delta, new_pst = policy.fast_decode(plan, pst, payload, aux, comm,
-                                            theta=theta, layout=layout)
+                                            theta=theta_arg, layout=layout)
         return comm, delta, new_pst
 
     # worker m's round returns new trees; its delta then goes over its
@@ -129,6 +143,8 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
     comms = []
     delta = grads
     for m in range(W):
+        if theta_view is not None:
+            theta_t = layout.unflatten(theta_view[m])
         ctx = CommRound(theta=theta_t, grad_new=layout.unflatten(grads[m]),
                         hist=hist, cfg=lagcfg,
                         L_m=None if L_arr is None else L_arr[m],
@@ -170,17 +186,22 @@ def lag_round(policy: CommPolicy, server: ServerOptimizer,
               layout: FlatLayout, opt_state, lag_state: Dict,
               grads: torch.Tensor, step: int,
               grad_at_hat: Optional[List[torch.Tensor]] = None,
-              draw: Optional[int] = None
+              draw: Optional[int] = None,
+              reduce_fn: Optional[Callable] = None,
+              theta_view: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Optional[object], Dict, Dict]:
     """One full lazy-aggregation round for every worker.  Returns
     ``(theta, opt_state, lag_state, metrics)``; ``theta`` and the state
-    buffers are updated in place.  ``grad_at_hat`` and ``draw`` as in
-    :func:`policy_rounds`."""
+    buffers are updated in place.  ``grad_at_hat``, ``draw`` and
+    ``theta_view`` as in :func:`policy_rounds`; ``reduce_fn(comm, delta)
+    → Σ δ∇`` is the topology's reduction (the pod topology skips it on a
+    quiet round), :func:`sum_reduce` by default.  The server step, ∇ and
+    the iterate-lag history stay on the server's shared θ."""
     comm, delta, new_pst = policy_rounds(policy, lagcfg, theta, grads,
                                          lag_state, layout,
                                          grad_at_hat=grad_at_hat, step=step,
-                                         draw=draw)
-    sums = [sum_reduce(comm, delta)]
+                                         draw=draw, theta_view=theta_view)
+    sums = [(reduce_fn or sum_reduce)(comm, delta)]
     del delta
     # hand finish_round the only reference to Σ δ∇, so that it is freed
     # once ∇ has absorbed it, before the server step's temporaries
@@ -193,10 +214,12 @@ def finish_round(policy: CommPolicy, server: ServerOptimizer,
                  lagcfg: lag.LAGConfig, *, theta: torch.Tensor,
                  layout: FlatLayout, opt_state, lag_state: Dict,
                  comm: torch.Tensor, sum_delta: torch.Tensor, new_pst: Dict,
-                 step: int):
+                 step: int, index: Optional[torch.Tensor] = None):
     """The server half of :func:`lag_round`: aggregate recursion, server
     step (``opt_state`` is the server's flat state, None for a stateless
-    one), history push, counters, metrics."""
+    one), history push, counters, metrics.  ``index`` maps each mask slot
+    to its row of ``comm_per_worker`` when the two differ — the fleet's
+    (k,) cohort mask against its per-client (N,) counter."""
     nabla = lag_state["nabla"].add_(sum_delta)       # ∇^k = ∇^{k-1} + Σ δ∇
     del sum_delta
     # every server is elementwise: it steps the flat buffers (one-leaf
@@ -211,10 +234,15 @@ def finish_round(policy: CommPolicy, server: ServerOptimizer,
 
     comm_i = comm.to(torch.int32)
     n_up = torch.sum(comm_i, dtype=torch.int32)
+    per_worker = lag_state["comm_per_worker"] + comm_i if index is None \
+        else lag_state["comm_per_worker"].index_add(0, index, comm_i)
     new_lag = dict(lag_state, nabla=nabla, hist=hist_new, **new_pst,
                    comm_total=lag_state["comm_total"] + n_up,
-                   comm_per_worker=lag_state["comm_per_worker"] + comm_i)
+                   comm_per_worker=per_worker)
     any_comm = torch.any(comm)
+    if "rounds_skipped" in lag_state:
+        new_lag["rounds_skipped"] = lag_state["rounds_skipped"] \
+            + (~any_comm).to(torch.int32)
     bytes_per_upload = policy.wire_bytes(params)
     metrics = {
         "comm_mask": comm,

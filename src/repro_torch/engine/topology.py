@@ -1,21 +1,38 @@
-"""Topologies: WHERE the lazy-aggregation units live — port of
-``repro.engine.topology`` (``sim`` and ``shards``).
+"""Topologies: WHERE the lazy-aggregation units live and HOW their masked
+deltas cross the expensive link — port of ``repro.engine.topology``.
+
+A topology owns only batching and placement; the round itself is
+``repro_torch.engine.rounds.lag_round`` for every backend:
 
   SimWorkers   the paper's parameter-server simulation: the units are the
                M convex workers; K rounds of ``engine.rounds.lag_round``
                on the flat buffers of a one-leaf ``(d,)`` layout
   BatchShards  the deep trainer: the units are slices of the global batch
                (rows m·B/W:(m+1)·B/W), deltas reduced by plain sum
+  PodMesh      whole pods as lazy units: the cross-pod reduction runs only
+               when some pod uploads (a host branch on ``any(comm)``, one
+               device sync a round); a quiet round's sum is zeros of the
+               delta's dtype, made on the delta's device
+  AsyncShards  bounded-staleness batch shards: worker m computes its
+               gradient and evaluates its trigger at θ^{k−s_m}, the
+               parameters it last saw, kept in a (τ+1)-deep ring of flat
+               buffers in the lag state; staleness 0 is bitwise
+               ``BatchShards``
+  fleet        sampled k-client cohorts over an N-client population
+               (``repro_torch.fleet``)
 
-``make_topology`` takes ``"sim"`` or ``"shards"``; the reference's other
-topologies (pods, async, devices, fleet, graph) are not ported yet and
-raise.  Simulated wall-clock for an upload mask comes from
-``repro_torch.netsim.cluster``.
+``make_topology`` takes the reference's grammar (``"pods:2"``,
+``"async:4@2"``, ``"fleet:100000@64"``); ``devices`` and ``graph`` are not
+ported yet and raise.  The deep step functions consume ``units`` /
+``place_batch`` / ``reduce_fn`` / ``extra_state`` / ``worker_views`` /
+``advance_views``; the convex run ``SimWorkers.run``.  Simulated
+wall-clock for an upload mask comes from ``repro_torch.netsim.cluster``.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import lag
@@ -41,15 +58,154 @@ def split_batch(batch: Dict[str, torch.Tensor], num_workers: int) -> Dict:
     return out
 
 
-class BatchShards:
+# ---------------------------------------------------------------------------
+# Deep backends
+# ---------------------------------------------------------------------------
+
+class Topology:
+    """Placement contract the deep step functions consume.  Parameters are
+    the trainer's flat ``(rows, 128)`` θ buffer."""
+    name: str = "topology"
+    kind: str = "deep"                   # "deep" | "convex"
+
+    def __init__(self, num_units: Optional[int] = None):
+        self.num_units = num_units
+
+    def units(self, default: int) -> int:
+        """Lazy-aggregation unit count (``num_units`` wins over the
+        trainer config's worker count)."""
+        return self.num_units or default
+
+    def place_batch(self, batch: Dict, num_units: int) -> Dict:
+        """Split the global batch into per-unit shards."""
+        return split_batch(batch, num_units)
+
+    def reduce_fn(self):
+        """``(comm, delta) → sum_delta``, or None for the plain sum."""
+        return None
+
+    def extra_state(self, theta: Optional[torch.Tensor] = None) -> Dict:
+        """Extra lag-group state this topology keeps (counters, the async
+        ring — sized from the flat ``theta``)."""
+        return {}
+
+    def worker_views(self, theta: torch.Tensor, lag_state: Dict,
+                     num_units: int) -> Optional[torch.Tensor]:
+        """Stacked ``(W, rows, 128)`` per-worker parameter views, or None
+        when every worker sees the server's current θ^k."""
+        return None
+
+    def advance_views(self, lag_state: Dict, new_theta: torch.Tensor
+                      ) -> Dict:
+        """Post-round lag-state updates of the view machinery (the async
+        ring's push), merged into the new lag state."""
+        return {}
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"{type(self).__name__}(num_units={self.num_units})"
+
+
+class BatchShards(Topology):
     """Batch-shard workers reduced by plain sum — the flat trainer."""
     name = "shards"
 
-    def place_batch(self, batch: Dict, num_units: int) -> Dict:
-        return split_batch(batch, num_units)
+
+class PodMesh(Topology):
+    """Whole pods as lazy units.  The cross-pod reduction runs only when
+    some pod uploads: a quiet round's deltas are all exactly zero, so its
+    sum is zeros and the trajectory is bitwise ``BatchShards``'s.  The
+    reference's ``lax.cond`` becomes a host branch on ``any(comm)`` — one
+    device sync a round.  ``branches`` counts the rounds each branch took.
+    """
+    name = "pods"
+
+    def __init__(self, num_units: Optional[int] = None):
+        super().__init__(num_units)
+        self.branches = {"sum": 0, "zero": 0}
+
+    def reduce_fn(self):
+        def cond_sum(comm: torch.Tensor, delta: torch.Tensor):
+            if bool(torch.any(comm)):
+                self.branches["sum"] += 1
+                return rounds.sum_reduce(comm, delta)
+            # zeros of the summed DELTA's dtype (LAQ's payload is float32
+            # whatever the parameters' dtype), on its device
+            self.branches["zero"] += 1
+            return torch.zeros(delta.shape[1:], dtype=delta.dtype,
+                               device=delta.device)
+
+        return cond_sum
+
+    def extra_state(self, theta=None) -> Dict:
+        dev = None if theta is None else theta.device
+        return {"rounds_skipped": torch.zeros((), dtype=torch.int32,
+                                              device=dev)}
 
 
-class SimWorkers:
+class AsyncShards(Topology):
+    """Bounded-staleness async LAG: worker m's gradient and trigger are
+    evaluated at θ^{k−s_m}, with the staleness ramp ``s_m = ⌊m·τ/(W−1)⌋``
+    from 0 (the fastest worker) to the bound τ (``staleness``).
+
+    The lag state carries ``theta_ring``, ONE ``(τ+1, rows, 128)`` buffer
+    of the last τ+1 iterates (slot i holds θ^{k−i}), shifted in place after
+    every server step (slot by slot from the end: an overlapping copy is
+    undefined).  When ``s = arange(W)`` (W = τ+1) the ring itself is the
+    stacked view and nothing is gathered; otherwise ``index_select``
+    copies W rows.  The server side — ∇, the server step, the iterate-lag
+    history — measures the shared θ, so at τ = 0 the trajectory is
+    bitwise ``BatchShards``'s.  Memory: τ+1 parameter copies (9.9 GB for
+    llama3.2-1b at τ = 1), plus W copies for a gathered view.
+    """
+    name = "async"
+
+    def __init__(self, num_units: Optional[int] = None, staleness: int = 1):
+        super().__init__(num_units)
+        if staleness < 0:
+            raise ValueError(f"staleness bound must be >= 0, got "
+                             f"{staleness}")
+        self.staleness = int(staleness)
+
+    def stale_steps(self, num_units: int) -> np.ndarray:
+        """(W,) per-worker staleness: a 0→τ ramp over the worker index."""
+        W, tau = num_units, self.staleness
+        if W <= 1:
+            return np.full((W,), tau, np.int32)
+        return ((np.arange(W) * tau) // (W - 1)).astype(np.int32)
+
+    def extra_state(self, theta=None) -> Dict:
+        if theta is None:
+            raise ValueError("AsyncShards.extra_state needs params to size "
+                             "the staleness ring")
+        depth = self.staleness + 1
+        ring = theta.unsqueeze(0).repeat((depth,) + (1,) * theta.dim())
+        return {"theta_ring": ring}
+
+    def worker_views(self, theta, lag_state, num_units):
+        ring = lag_state["theta_ring"]
+        s = self.stale_steps(num_units)
+        if len(s) == ring.shape[0] and np.array_equal(s, np.arange(len(s))):
+            return ring
+        return ring.index_select(0, torch.as_tensor(s, dtype=torch.long,
+                                                    device=ring.device))
+
+    def advance_views(self, lag_state, new_theta) -> Dict:
+        ring = lag_state["theta_ring"]
+        for i in range(ring.shape[0] - 1, 0, -1):
+            ring[i].copy_(ring[i - 1])
+        ring[0].copy_(new_theta)
+        return {"theta_ring": ring}
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return (f"AsyncShards(num_units={self.num_units}, "
+                f"staleness={self.staleness})")
+
+
+# ---------------------------------------------------------------------------
+# Convex backend
+# ---------------------------------------------------------------------------
+
+class SimWorkers(Topology):
     """The paper's Sec.-4 parameter-server simulation: full-batch gradients
     per convex worker, K rounds of :func:`repro_torch.engine.rounds.
     lag_round` in a host loop.
@@ -64,6 +220,7 @@ class SimWorkers:
     for the device.
     """
     name = "sim"
+    kind = "convex"
 
     def run(self, problem, policy, server: ServerOptimizer,
             lagcfg: lag.LAGConfig, *, K: int, seed: int = 0,
@@ -138,30 +295,108 @@ class SimWorkers:
 # Registry + spec parsing
 # ---------------------------------------------------------------------------
 
+def _make_fleet(population=None, cohort=None, **kw):
+    """Lazy ``repro_torch.fleet`` factory: the fleet imports the engine's
+    round seam, so importing it at module scope would close a cycle."""
+    from repro_torch.fleet.topology import FleetTopology
+    return FleetTopology(population=population, cohort=cohort, **kw)
+
+
+#: the reference's topologies the port does not have yet (ROADMAP queue 1
+#: items 4 and 5) map to None
 TOPOLOGIES = {
     "sim": SimWorkers,
     "shards": BatchShards,
+    "pods": PodMesh,
+    "async": AsyncShards,
+    "devices": None,
+    "fleet": _make_fleet,
+    "graph": None,
 }
 
-#: the reference's other topologies (ROADMAP queue 1 item 4)
-NOT_PORTED = ("pods", "async", "devices", "fleet", "graph")
+_FLEET_GRAMMAR = ("fleet needs BOTH a population and a cohort size — "
+                  "'fleet:<population>@<cohort>', e.g. 'fleet:100000@64' "
+                  "(sample 64 of 100000 clients per round)")
 
 
-def make_topology(spec):
-    """Build a topology from its name (or pass one through): ``"sim"`` or
-    ``"shards"``.  The reference's ``pods``, ``async``, ``devices``,
-    ``fleet`` and ``graph`` raise: they are not ported yet.  The port's
-    topologies take no ``:<units>`` count: the problem or the trainer's
-    config fixes the number of workers.
+def make_topology(spec) -> Topology:
+    """Build a ``Topology`` from a spec string (or pass one through).
+
+    The reference's grammar: ``<name>[:<units>][@<staleness>]`` —
+    ``"sim"``, ``"shards"``, ``"pods:2"`` (two lazy pods),
+    ``"async:4@2"`` (four bounded-staleness workers, the slowest 2 rounds
+    behind; ``"async"`` alone has staleness 1), and
+    ``"fleet:<population>@<cohort>"`` (``"fleet:100000@64"`` samples a
+    64-client cohort per round from 10⁵ clients), with the reference's
+    validation messages.  ``devices`` and ``graph`` raise: not ported yet.
     """
-    if isinstance(spec, tuple(TOPOLOGIES.values())):
+    if isinstance(spec, Topology):
         return spec
-    name = spec.partition("@")[0].partition(":")[0].strip() \
-        if isinstance(spec, str) else None
-    if name in NOT_PORTED:
+    if not isinstance(spec, str) or not spec:
+        raise ValueError(f"topology spec must be a non-empty string or a "
+                         f"Topology, got {spec!r}")
+    head, sep_at, stale_s = spec.partition("@")
+    name, sep, units = head.partition(":")
+    name = name.strip()
+    if name not in TOPOLOGIES:
+        raise ValueError(f"unknown topology {spec!r}; known: "
+                         f"{tuple(TOPOLOGIES)} (optionally ':<units>', "
+                         f"e.g. 'pods:2'; async also takes '@<staleness>'; "
+                         f"fleet needs 'fleet:<population>@<cohort>'; "
+                         f"graph needs 'graph:<nodes>@<family>')")
+    if TOPOLOGIES[name] is None:
         raise ValueError(f"topology {spec!r}: {name!r} is not ported yet; "
-                         f"the port has {tuple(TOPOLOGIES)}")
-    if spec not in TOPOLOGIES:
-        raise ValueError(f"unknown topology {spec!r}; the port has "
-                         f"{tuple(TOPOLOGIES)}, without a unit count")
-    return TOPOLOGIES[spec]()
+                         f"the port has "
+                         f"{tuple(n for n, f in TOPOLOGIES.items() if f)}")
+    if name == "fleet":
+        if not sep or not sep_at:
+            raise ValueError(f"bad topology spec {spec!r}: "
+                             f"{_FLEET_GRAMMAR}")
+        try:
+            population = int(units)
+        except ValueError:
+            raise ValueError(
+                f"bad topology spec {spec!r}: ':{units}' is not an integer "
+                f"population — {_FLEET_GRAMMAR}") from None
+        try:
+            cohort = int(stale_s)
+        except ValueError:
+            raise ValueError(
+                f"bad topology spec {spec!r}: '@{stale_s}' is not an "
+                f"integer cohort size — {_FLEET_GRAMMAR}") from None
+        if population < 1:
+            raise ValueError(f"bad topology spec {spec!r}: population must "
+                             f"be >= 1 — {_FLEET_GRAMMAR}")
+        if not 1 <= cohort <= population:
+            raise ValueError(f"bad topology spec {spec!r}: cohort must be "
+                             f"in [1, population={population}] — "
+                             f"{_FLEET_GRAMMAR}")
+        return TOPOLOGIES["fleet"](population=population, cohort=cohort)
+    kwargs = {}
+    if sep_at:
+        if name != "async":
+            raise ValueError(
+                f"bad topology spec {spec!r}: only 'async', 'fleet' and "
+                f"'graph' take an '@' suffix (e.g. 'async:4@2', "
+                f"'fleet:100000@64', 'graph:9@ring')")
+        try:
+            kwargs["staleness"] = int(stale_s)
+        except ValueError:
+            raise ValueError(
+                f"bad topology spec {spec!r}: '@{stale_s}' is not an "
+                f"integer staleness bound (want e.g. 'async:4@2')") from None
+        if kwargs["staleness"] < 0:
+            raise ValueError(f"bad topology spec {spec!r}: staleness must "
+                             f"be >= 0")
+    n = None
+    if sep:
+        try:
+            n = int(units)
+        except ValueError:
+            raise ValueError(
+                f"bad topology spec {spec!r}: ':{units}' is not an integer "
+                f"unit count (want e.g. 'pods:2')") from None
+        if n < 1:
+            raise ValueError(f"bad topology spec {spec!r}: unit count must "
+                             f"be >= 1")
+    return TOPOLOGIES[name](num_units=n, **kwargs)

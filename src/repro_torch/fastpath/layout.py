@@ -162,3 +162,67 @@ class FlatLayout:
         leaves of ``buf``'s dtype)."""
         W = buf.shape[0]
         return self._unflatten(buf.reshape(W, self.rows * LANES), (W,), like)
+
+    # -- the compact per-client view (the fleet population) -----------------
+    #
+    # ``flatten_stacked`` pads every leaf to whole sub-blocks and the buffer
+    # to whole BLOCK_ROWS blocks, the plane's unit of work; a population
+    # mirror held for EVERY client cannot afford that (a 4-element convex
+    # leaf costs 32,768 elements a client).  The compact view keeps the leaf
+    # order and the buffer dtype, pads each leaf only to whole LANES
+    # vectors and has no tail: one ``(W, packed_cols)`` array, cheap to
+    # gather and scatter along the client dim.
+
+    @property
+    def leaf_lanes(self) -> Tuple[int, ...]:
+        """LANES-vectors per leaf in the compact view (0 for empty leaves)."""
+        return tuple(-(-s // LANES) for s in self.sizes)
+
+    @property
+    def leaf_lane_offsets(self) -> Tuple[int, ...]:
+        offs, acc = [], 0
+        for n in self.leaf_lanes:
+            offs.append(acc)
+            acc += n
+        return tuple(offs)
+
+    @property
+    def packed_cols(self) -> int:
+        """Columns of the compact ``(W, packed_cols)`` per-client view."""
+        return sum(self.leaf_lanes) * LANES
+
+    def packed_segments(self):
+        """``(compact offset, plane offset, size)`` of every non-empty leaf:
+        where it sits in a compact row and in a flat plane buffer."""
+        return [(c * LANES, self.leaf_sub_offsets[i] * SUB, self.sizes[i])
+                for i, c in enumerate(self.leaf_lane_offsets)
+                if self.sizes[i]]
+
+    def pack_stacked(self, tree: Pytree) -> torch.Tensor:
+        """Stacked ``(W, …leaf)`` tree → compact ``(W, packed_cols)`` buffer
+        of the layout's dtype (zero LANES padding)."""
+        leaves = tree_leaves(tree)
+        self._check(leaves)
+        W = leaves[0].shape[0]
+        out = torch.zeros((W, self.packed_cols), dtype=self.dtype,
+                          device=leaves[0].device)
+        offs = self.leaf_lane_offsets
+        for i, l in enumerate(leaves):
+            size = self.sizes[i]
+            if size:
+                c = offs[i] * LANES
+                out[:, c:c + size].copy_(l.reshape(W, size))
+        return out
+
+    def unpack_stacked(self, buf: torch.Tensor, like: Any = None) -> Pytree:
+        """Compact ``(W, packed_cols)`` buffer → stacked template tree
+        (views for leaves of ``buf``'s dtype)."""
+        W = buf.shape[0]
+        dts = self._out_dtypes(like)
+        offs = self.leaf_lane_offsets
+        leaves = []
+        for i, shape in enumerate(self.shapes):
+            off = offs[i] * LANES
+            seg = buf[:, off:off + self.sizes[i]].reshape((W,) + shape)
+            leaves.append(seg.to(dts[i]))
+        return tree_unflatten(self.treedef, leaves)

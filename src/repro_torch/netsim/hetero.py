@@ -18,17 +18,20 @@ Measurables reported into ``RunReport.extras`` by the convex topology
   ``hetero_score`` the fraction of workers whose L_m falls below the
                    trigger-derived skip threshold (:func:`hetero_score`)
 
-The deep half (``shard_noise_levels``, ``hetero_inputs``) is not ported
-yet.
+The deep half, :func:`shard_noise_levels` and :func:`hetero_inputs`, dials
+the token-noise level of each worker's batch shard; its batches are
+bitwise the reference's (the same numpy ``SeedSequence([seed, step,
+worker])`` streams) and land on ``device`` (the card by default).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core import convex
+from repro_torch.device import resolve_device
 
 # h = 1 spread of the smoothness targets: the paper's Fig.-3 ramp
 # L_m = (1.3^{m-1}+1)^2 spans (1.3^8+1)^2 / (1.3^0+1)^2 ≈ 21× over 9 workers.
@@ -103,3 +106,46 @@ def hetero_score(L_m, *, alpha: float, xi: float, D: int,
     M = int(num_workers or L.shape[0])
     thresh = np.sqrt(float(xi) / float(D)) / (float(alpha) * M)
     return float(np.mean(L <= thresh))
+
+
+# ---------------------------------------------------------------------------
+# Deep shards: the predictability-noise dial
+# ---------------------------------------------------------------------------
+
+def shard_noise_levels(num_workers: int, h: float = 1.0,
+                       noise_lo: float = 0.01,
+                       noise_hi: float = 0.4) -> Sequence[float]:
+    """Per-worker token-noise levels at dial position ``h``: h = 1 is the
+    full ramp ``lo + (hi−lo)·m/(W−1)``, h = 0 puts every worker on its
+    midpoint (homogeneous shards, the same total noise budget)."""
+    if not 0.0 <= h <= 1.0:
+        raise ValueError(f"heterogeneity dial h must be in [0, 1], got {h}")
+    W = num_workers
+    center = 0.5 * (noise_lo + noise_hi)
+    levels = []
+    for m in range(W):
+        ramp = noise_lo + (noise_hi - noise_lo) * m / max(W - 1, 1)
+        levels.append((1.0 - h) * center + h * ramp)
+    return levels
+
+
+def hetero_inputs(cfg, stream, step: int, num_workers: int, batch: int,
+                  seq: int, *, h: float = 1.0, fixed: bool = True,
+                  noise_lo: float = 0.01, noise_hi: float = 0.4,
+                  device="cuda") -> dict:
+    """Global LM batch {"tokens", "targets"} (B, seq) int32 on ``device``
+    whose worker shards (rows ``m·B/W:(m+1)·B/W``, as ``engine.topology.
+    split_batch`` cuts them) sit at dial position ``h``: worker m's stream
+    noise is :func:`shard_noise_levels`'s m-th.  More noise ⇒ a rougher
+    per-shard loss ⇒ a larger effective L_m.  ``fixed=True`` reuses step
+    0's data every round (the paper's full-batch regime)."""
+    device = resolve_device(device)
+    W = num_workers
+    per = batch // W
+    eff_step = 0 if fixed else step
+    levels = shard_noise_levels(W, h, noise_lo, noise_hi)
+    shards = [stream.batch(eff_step, m, per, seq + 1, noise=levels[m])
+              for m in range(W)]
+    toks = np.concatenate(shards, axis=0)
+    return {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(device),
+            "targets": torch.from_numpy(toks[:, 1:].copy()).to(device)}

@@ -472,16 +472,16 @@ def test_convex_servers_float64(kw):
 @pytest.mark.parametrize("kw, err, match", [
     ({}, ValueError, "exactly one of"),
     ({"problem": "P", "model": "llama3.2-1b"}, ValueError, "exactly one of"),
-    ({"model": "llama3.2-1b"}, NotImplementedError, "not ported yet"),
+    ({"model": "llama3.2-1b"}, RuntimeError, "device='cpu'"),
     ({"problem": "P", "l1": 0.1, "server": "adam"}, ValueError,
      "conflicting server specs"),
     ({"problem": "P", "l1": 0.1, "algo": "lag-adam"}, ValueError,
      "conflicting server specs"),
     ({"problem": "P", "topology": "shards"}, ValueError, "'sim' topology"),
-    ({"problem": "P", "topology": "pods:2"}, ValueError, "not ported yet"),
+    ({"problem": "P", "topology": "pods:2"}, ValueError, "'sim' topology"),
     ({"problem": "P", "topology": "graph:9@ring"}, ValueError,
      "not ported yet"),
-    ({"problem": "P", "topology": "sim@2"}, ValueError, "unit count"),
+    ({"problem": "P", "topology": "sim@2"}, ValueError, "only 'async'"),
     ({"problem": "P", "topology": "sim:4"}, ValueError, "unit count"),
     ({"problem": "P", "algo": "iag"}, ValueError, "cyc-iag"),
     ({"problem": "P", "server": "sgd@1"}, ValueError, "no '@'"),

@@ -281,7 +281,7 @@ def test_one_round_calls_the_per_leaf_ops_once_per_worker(algo, monkeypatch):
     state = init_state(cfg, tcfg, device="cpu", seed=1)
     step = make_train_step(cfg, tcfg)
     state, m = step(state, make_inputs(cfg, TokenStream(cfg.vocab_size), 0,
-                                       2, 8))
+                                       2, 8, device="cpu"))
     laq = algo.startswith("laq")
     assert calls == {"fused_tree_sqnorm": 0 if laq else 2,
                      "laq_encode": 2 if laq else 0, "plane": 0}

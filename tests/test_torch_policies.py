@@ -191,7 +191,8 @@ def test_trainer_server_matches_live_reference(cfgs, ref_params, algo,
     for k in range(STEPS):
         jstate, jm = jstep(jstate, jmake_inputs(jcfg, jstream, k, BATCH,
                                                 SEQ))
-        state, m = step(state, make_inputs(cfg, stream, k, BATCH, SEQ))
+        state, m = step(state, make_inputs(cfg, stream, k, BATCH, SEQ,
+                                           device="cpu"))
         np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
                                    rtol=1e-4)
         np.testing.assert_array_equal(m["comm_mask"].numpy(),

@@ -137,7 +137,7 @@ def check_against_reference(cfgs, ref_params, algo, lr, xi, loss_rtol,
     masks = []
     for k in range(STEPS):
         jb = jmake_inputs(jcfg, jstream, k, BATCH, SEQ)
-        b = make_inputs(cfg, stream, k, BATCH, SEQ)
+        b = make_inputs(cfg, stream, k, BATCH, SEQ, device="cpu")
         np.testing.assert_array_equal(b["tokens"].numpy(), jb["tokens"])
         gh_before = state["lag"]["grad_hat"].clone()    # updated in place
         jgh_before = jstate["lag"]["grad_hat"]
@@ -219,7 +219,8 @@ def test_legacy_route_matches_the_forced_plane(cfgs, ref_params, algo):
         stream = TokenStream(cfg.vocab_size)
         rounds = []
         for k in range(STEPS):
-            state, m = step(state, make_inputs(cfg, stream, k, BATCH, SEQ))
+            state, m = step(state, make_inputs(cfg, stream, k, BATCH, SEQ,
+                                               device="cpu"))
             rounds.append((float(m["loss"]), m["comm_mask"].tolist()))
         out[tuple(route)] = rounds
     legacy, plane = out[("use_pallas_comm",)], out[("fastpath",)]
