@@ -133,6 +133,32 @@ Phases (any failure raises and the script exits non-zero):
         cluster="hetero:2@10ms/1Gbps")`` against ``launch.train --hetero
         0.8 --cluster …`` on the same rounds: equal masks, losses and
         priced seconds.
+ 14. the serverless gossip graph (``repro_torch.graph``) and the
+     launcher's checkpoints:
+     a. ``launch.train --topology graph:2@ring`` on llama3.2-1b at full
+        width and depth, batch 4, seq 256, 4 rounds of lag-wk and of laq@4
+        on the plane: (4, E = 2) masks, round 0 on every edge, comm_total
+        = Σ masks, finite losses and θ, the plane's exact launches a round,
+        ms a round with fwd/bwd, comm (adapt + edge round) and mix ms, and
+        the peak;
+     b. ``Experiment(model=<llama3.2-1b cut to 2 layers, full width>,
+        topology="graph:4@ring")`` lag-wk: E = 8, launches, peak; the same
+        through the launcher (``--layers 2``) for the round's phases; then
+        the reduced model on the card against the same weights on the CPU
+        (phase 6's pattern; lag-wk and laq@4 at ξ = 10, where edges go
+        quiet): masks equal, losses within rtol 1e-4;
+     c. the convex graph of ``benchmarks/graph_sweep.py`` (linreg, W 9,
+        n_per 20, d 10) on ring and torus:3x3, gd / lag-wk / laq@4, K 400:
+        float64 on the card against the CPU (iterations and uploads to the
+        family's matched ε equal, masks equal through it, losses within
+        rtol 1e-12); float32 on the plane against the CPU's plain kernel
+        versions (masks equal through iters_to(1e-2), the exact launches);
+        the priced seconds on ``hetero:<E>@10ms/1Gbps`` equal to the
+        launcher's pricing (``price_edge_mask``) of the same rounds;
+     d. resume on the card: ``shards`` and ``graph:2@ring`` lag-wk at full
+        width, depth cut to 2 (``--layers 2``), 4 rounds, saved at round 2
+        into a temporary directory the phase deletes: the resumed rounds 3
+        and 4 equal the uninterrupted ones bit for bit (masks, losses, θ).
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Times are CUDA-event times on this card (kernels: the mean of
@@ -298,6 +324,19 @@ CONVEX_FLEET_PLANE = {"delta_sqnorm_blocks": 2, "masked_combine": 1}
 # (kernel 1's partial sums agree with the plain version's within rtol 1e-5,
 # not bitwise), as in 12b past its ε
 CONVEX_FLEET_EPS = 1e-2
+# phase 14a: (algo, the plane's kernels and their exact launches a round)
+# on graph:2@ring at full width
+PHASE14A = (
+    ("lag-wk", {"delta_sqnorm_blocks": 1, "masked_combine": 1}),
+    ("laq@4", {"absmax_blocks": 1, "laq_encode_blocks": 1,
+               "masked_combine": 2}),
+)
+# 14c: benchmarks/graph_sweep.py's problem and algos, and the kernels each
+# float32 algo launches a round on the plane (gd opts out: none)
+GRAPH_PROBLEM = dict(num_workers=9, n_per=20, d=10, seed=0)
+GRAPH_FAMILIES = ("ring", "torus:3x3")
+GRAPH_PLANE = {"gd": {}, "lag-wk": PHASE14A[0][1], "laq@4": PHASE14A[1][1]}
+GRAPH_K = 400
 
 
 def check(cond, msg):
@@ -641,9 +680,11 @@ def trainer_phase(torch, algo, steps=4, use_pallas_comm=False, extra=()):
     steady = rounds[1:]
     summary = {k: sum(r[k] for r in steady) / len(steady)
                for k in ("ms", "grad_ms", "comm_ms", "gather_ms",
-                         "scatter_ms") if k in steady[0]}
+                         "scatter_ms", "mix_ms") if k in steady[0]}
     shown = {**launches, **legacy} if use_pallas_comm else launches
     label = " ".join((algo,) + tuple(extra))
+    if "mix_ms" in summary:
+        label += f" (mix + history {summary['mix_ms']:.1f} ms a round)"
     fleet = "" if rounds[0]["cohort"] is None else (
         f" | cohorts {[r['cohort'] for r in rounds]} | gather "
         f"{summary['gather_ms']:.1f} ms, scatter {summary['scatter_ms']:.1f}"
@@ -1702,6 +1743,272 @@ def experiment_cluster(torch, steps=4):
     return got
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the gossip graph, the launcher's checkpoints
+# ---------------------------------------------------------------------------
+
+def graph_full_width(torch, steps=4):
+    """14a: graph:2@ring through the launcher at full width; returns the
+    plane's launches."""
+    total = {}
+    for algo, want in PHASE14A:
+        run = trainer_phase(torch, algo, steps=steps,
+                            extra=("--topology", "graph:2@ring"))
+        label = f"14a {algo} graph:2@ring"
+        check(all(len(r["mask"]) == 2 for r in run["rounds"]),
+              f"{label}: masks {[r['mask'] for r in run['rounds']]}")
+        for k, v in run["plane"].items():
+            n = want.get(k, 0) * steps
+            check(v == n, f"{label}: {k} launched {v} times in {steps} "
+                          f"rounds, want {n}")
+            total[k] = total.get(k, 0) + v
+        check(run["peak"] < 80.0, f"{label}: peak {run['peak']:.2f} GB")
+        print(f"  {label}: launches a round "
+              f"{ {k: v // steps for k, v in run['plane'].items() if v} }")
+    return total
+
+
+def graph_experiment(torch, dev, steps=4):
+    """14b: Experiment(model=<2 layers, full width>, graph:4@ring) lag-wk,
+    then the reduced model card against CPU; returns the launches."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.engine import Experiment
+
+    cfg = get_config("llama3.2-1b", num_layers=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    rep, ms = timed_run(torch, lambda: Experiment(
+        model=cfg, topology="graph:4@ring", algo="lag-wk", lr=0.3, batch=4,
+        seq=256, steps=steps, device=dev).run())
+    got = counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    E = len(rep.extras["edge_src"])
+    check(E == 8 and rep.comm_mask.shape == (steps, 8),
+          f"14b: E {E}, mask {rep.comm_mask.shape}")
+    check(bool(rep.comm_mask[0].all()), "14b: round 0 must fire every edge")
+    check(bool(np.isfinite(rep.losses).all()), "14b: non-finite loss")
+    for k, v in got.items():
+        n = PHASE14A[0][1].get(k, 0) * steps
+        check(v == n, f"14b: {k} launched {v} times in {steps} rounds, "
+                      f"want {n}")
+    check(peak < 80.0, f"14b: peak {peak:.2f} GB")
+    print(f"  14b Experiment(model=<llama3.2-1b, 2 layers, full width>, "
+          f"topology='graph:4@ring') lag-wk: E {E}, masks "
+          f"{rep.comm_mask.astype(int).tolist()}, losses "
+          f"{[round(float(x), 6) for x in rep.losses]}, launches a round "
+          f"{ {k: v // steps for k, v in got.items() if v} }, peak "
+          f"{peak:.2f} GB, {ms:.1f} ms a round (set-up included)")
+    del rep
+    # the same configuration through the launcher: the round's phases
+    run = trainer_phase(torch, "lag-wk", steps=steps,
+                        extra=("--layers", "2", "--topology", "graph:4@ring"))
+    check(all(len(r["mask"]) == 8 for r in run["rounds"]),
+          f"14b launcher: masks {[r['mask'] for r in run['rounds']]}")
+    for k, v in run["plane"].items():
+        n = PHASE14A[0][1].get(k, 0) * steps
+        check(v == n, f"14b launcher: {k} launched {v} times in {steps} "
+                      f"rounds, want {n}")
+        got[k] = got.get(k, 0) + v
+    check(run["peak"] < 80.0, f"14b launcher: peak {run['peak']:.2f} GB")
+    graph_small_agreement(torch, dev)
+    return got
+
+
+def graph_small_agreement(torch, dev):
+    """14b: the reduced model's graph:4@ring on the card (kernels) and on
+    the CPU (plain versions) from the same weights, ξ = 10 so that edges
+    go quiet."""
+    from repro_torch import graph
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream, make_heterogeneous_inputs
+    from repro_torch.dist.lag_trainer import (TrainerConfig, init_params,
+                                              param_layout)
+    from repro_torch.engine.topology import make_topology
+
+    cfg = get_config("llama3.2-1b").reduced()
+    topo = make_topology("graph:4@ring")
+    params = param_layout(cfg).unflatten(init_params(cfg, device="cpu",
+                                                     seed=5))
+    batch = make_heterogeneous_inputs(cfg, TokenStream(cfg.vocab_size), 0,
+                                      4, 8, 32, device="cpu")
+    for algo in ("lag-wk", "laq@4"):
+        tcfg = TrainerConfig(algo=algo, num_workers=4, lr=0.3, xi=10.0)
+        runs = {}
+        for where, fp in (("cpu", "on"), ("gpu", "auto")):
+            d = "cpu" if where == "cpu" else dev
+            t = tcfg.replace(fastpath=fp)
+            st = graph.init_graph_state(cfg, t, topo, device=d,
+                                        params=params)
+            step = graph.make_graph_step(cfg, t, topo)
+            b = {k: v.to(d) for k, v in batch.items()}
+            losses, masks = [], []
+            for _ in range(3):
+                st, m = step(st, b)
+                losses.append(float(m["loss"]))
+                masks.append(m["comm_mask"].to(torch.int32).tolist())
+            runs[where] = (losses, masks)
+        (lc, mc), (lg, mg) = runs["cpu"], runs["gpu"]
+        check(mc == mg, f"14b small {algo}: masks card {mg} vs CPU {mc}")
+        check(all(abs(x - y) <= 1e-4 * abs(y) for x, y in zip(lg, lc)),
+              f"14b small {algo}: losses card {lg} vs CPU {lc}")
+        print(f"  14b small graph:4@ring {algo} ξ 10: card = CPU masks "
+              f"{mg}, losses within rtol 1e-4 ({[round(x, 6) for x in lg]})")
+
+
+def graph_convex(torch, dev):
+    """14c: the convex graph, float64 card vs CPU, float32 plane card vs
+    CPU, priced; returns the plane's launches."""
+    import numpy as np
+
+    from repro_torch.core import convex
+    from repro_torch.engine import Experiment
+    from repro_torch.netsim import make_cluster, price_edge_mask
+
+    total = {}
+    for dt in (torch.float64, torch.float32):
+        gpu = convex.synthetic("linreg", dtype=dt, device=dev,
+                               **GRAPH_PROBLEM)
+        cpu = on_cpu(gpu)
+        _, opt = cpu.optimum()
+        for fam in GRAPH_FAMILIES:
+            reps = {}
+            for algo in GRAPH_PLANE:
+                kw = dict(algo=algo, steps=GRAPH_K, opt_loss=opt,
+                          topology=f"graph:9@{fam}")
+                reset_counts()
+                g, ms = timed_run(torch, lambda: Experiment(
+                    problem=gpu, **kw).run())
+                got = counts()
+                c, cpu_ms = timed_run(torch, lambda: Experiment(
+                    problem=cpu, fastpath=None if dt == torch.float64
+                    else "on", **kw).run())
+                reps[algo] = (g, c, ms, cpu_ms, got)
+            # the family's matched ε (graph_sweep.py's): the slowest algo's
+            # final gap on the CPU
+            eps = 1.001 * max(float(c.losses[-1] - opt)
+                              for _, c, _, _, _ in reps.values())
+            for algo, (g, c, ms, cpu_ms, got) in reps.items():
+                label = f"14c {str(dt)[6:]} graph:9@{fam} {algo}"
+                E = g.extras["num_edges"]
+                check(g.comm_mask.shape == (GRAPH_K, E),
+                      f"{label}: mask {g.comm_mask.shape}")
+                check(bool(np.isfinite(g.losses).all()),
+                      f"{label}: non-finite loss")
+                if dt == torch.float64:
+                    check(not any(got.values()),
+                          f"{label}: float64 launched {got}")
+                    row, want = (g.iters_to(eps), g.comms_to(eps)), \
+                        (c.iters_to(eps), c.comms_to(eps))
+                    check(row == want, f"{label}: to {eps:.4g} card {row} vs "
+                                       f"CPU {want}")
+                    n, same = masks_through(g, c, eps)
+                    rtol = CONVEX_RTOL64
+                else:
+                    for k, v in got.items():
+                        want_n = GRAPH_PLANE[algo].get(k, 0) * GRAPH_K
+                        check(v == want_n, f"{label}: {k} launched {v} times "
+                                           f"in {GRAPH_K} rounds, want "
+                                           f"{want_n}")
+                        total[k] = total.get(k, 0) + v
+                    n, same = masks_through(g, c, 1e-2)
+                    rtol = 1e-4
+                check(same, f"{label}: masks differ from the CPU's in rounds "
+                            f"0-{n - 1}")
+                err = float(abs(g.losses[:n] / c.losses[:n] - 1.0).max())
+                check(err <= rtol, f"{label}: losses off the CPU's by rtol "
+                                   f"{err:.3e} in rounds 0-{n - 1}")
+                first = (g.comm_mask != c.comm_mask).any(axis=1).nonzero()[0]
+                print(f"  {label}: E {E}, to the matched ε {eps:.4g}: "
+                      f"{g.iters_to(eps)} rounds, {g.comms_to(eps)} uploads "
+                      f"(CPU {c.iters_to(eps)}, {c.comms_to(eps)}); masks "
+                      f"equal through round {n - 1} (first difference "
+                      f"{first[0] if first.size else 'none'}), losses within "
+                      f"rtol {err:.1e}; uploads {g.total_comms} of "
+                      f"{GRAPH_K * E}; consensus "
+                      f"{g.extras['consensus_final']:.3e}; launches a round "
+                      f"{ {k: v // GRAPH_K for k, v in got.items() if v} } | "
+                      f"{ms:.3f} ms a round on the card, {cpu_ms:.3f} on the "
+                      f"CPU")
+            if dt == torch.float64 and fam == "ring":
+                # the Experiment's pricing against the launcher's
+                g = reps["lag-wk"][0]
+                E = g.extras["num_edges"]
+                cluster = f"hetero:{E}@10ms/1Gbps"
+                priced = Experiment(problem=gpu, algo="lag-wk", steps=GRAPH_K,
+                                    opt_loss=opt, topology=f"graph:9@{fam}",
+                                    cluster=cluster).run()
+                dense = float(gpu.dim * gpu.X.element_size())
+                want = price_edge_mask(priced.comm_mask,
+                                       priced.bytes_per_upload,
+                                       make_cluster(cluster, num_workers=E),
+                                       priced.extras["edge_dst"],
+                                       dense_bytes=dense).sum()
+                check(priced.wall_seconds == float(want),
+                      f"14c priced: Experiment {priced.wall_seconds!r} vs "
+                      f"price_edge_mask {want!r}")
+                print(f"  14c priced graph:9@ring lag-wk on '{cluster}': "
+                      f"wall_seconds {priced.wall_seconds!r} = the "
+                      f"launcher's price_edge_mask of the same rounds")
+    return total
+
+
+def graph_resume(torch, steps=4, at=2):
+    """14d: rounds at+1..steps resumed from a checkpoint equal the
+    uninterrupted run's bit for bit (masks, losses, θ)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+
+    base = ["--arch", "llama3.2-1b", "--layers", "2", "--algo", "lag-wk",
+            "--workers", "2", "--batch", "4", "--seq", "256", "--seed", "0"]
+    for topology in ("shards", "graph:2@ring"):
+        runs = {}
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            for name, extra in (
+                    ("whole", ["--steps", str(steps)]),
+                    ("first", ["--steps", str(at), "--ckpt-dir", tmp,
+                               "--ckpt-every", str(at)]),
+                    ("resumed", ["--steps", str(steps), "--ckpt-dir", tmp,
+                                 "--resume"])):
+                rounds = {}
+                gc.collect()
+                torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                state = train.main(
+                    base + ["--topology", topology] + extra,
+                    on_step=lambda k, m, t: rounds.update(
+                        {k: (float(m["loss"]), m["comm_mask"].tolist())}))
+                torch.cuda.synchronize()
+                runs[name] = (rounds, state["theta"].cpu(),
+                              time.perf_counter() - t0)
+                del state
+            ckpt_gb = sum(os.path.getsize(os.path.join(tmp, f))
+                          for f in os.listdir(tmp)) / 1e9
+        finally:
+            shutil.rmtree(tmp)
+        whole, resumed = runs["whole"], runs["resumed"]
+        check(sorted(resumed[0]) == list(range(at, steps)),
+              f"14d {topology}: resumed rounds {sorted(resumed[0])}")
+        same = all(resumed[0][k] == whole[0][k] for k in range(at, steps))
+        check(same, f"14d {topology}: resumed rounds "
+                    f"{resumed[0]} vs uninterrupted {whole[0]}")
+        check(bitwise(torch, resumed[1], whole[1]),
+              f"14d {topology}: resumed θ differs from the uninterrupted")
+        print(f"  14d {topology} lag-wk, 2 layers at full width: rounds "
+              f"{at + 1}-{steps} resumed from step {at} equal the "
+              f"uninterrupted ones bit for bit (losses, masks "
+              f"{[resumed[0][k][1] for k in range(at, steps)]}, θ); "
+              f"checkpoint {ckpt_gb:.2f} GB; runs {whole[2]:.1f} / "
+              f"{runs['first'][2]:.1f} + {resumed[2]:.1f} s (save + restore "
+              f"included)")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1837,6 +2144,18 @@ def main():
     for k, v in p13.items():
         launches[k] += v
     print(f"  phase 13 launches: { {k: v for k, v in p13.items() if v} }")
+
+    print("[14] the gossip graph (a graph:2@ring full width, b "
+          "Experiment(model=) graph:4@ring, c convex), resume (d)",
+          flush=True)
+    p14 = graph_full_width(torch)
+    for part in (graph_experiment(torch, dev), graph_convex(torch, dev)):
+        for k, v in part.items():
+            p14[k] = p14.get(k, 0) + v
+    graph_resume(torch)
+    for k, v in p14.items():
+        launches[k] += v
+    print(f"  phase 14 launches: { {k: v for k, v in p14.items() if v} }")
 
     rows = [dict(name=k, route="cuda", source=SOURCES.get(k, SOURCE),
                  replaces=REPLACES[k], launches=launches[k], **full[k])

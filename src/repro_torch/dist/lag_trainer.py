@@ -241,8 +241,9 @@ def grads_at_hat(policy, theta: torch.Tensor, theta_hat: torch.Tensor,
 def phase_ms(metrics: Dict) -> Dict[str, float]:
     """{"grad_ms", "comm_ms"} from a finished step's CUDA events ({} on
     the CPU): device time of the workers' forward/backward, and of the
-    comm plane + server step; a fleet step adds "gather_ms" and
-    "scatter_ms"."""
+    comm plane + server step (a graph step's adapt + edge round); a fleet
+    step adds "gather_ms" and "scatter_ms", a graph step "mix_ms" (the
+    mixing and the history push)."""
     ev = metrics.get("phase_events")
     if not ev:
         return {}
@@ -254,6 +255,9 @@ def phase_ms(metrics: Dict) -> Dict[str, float]:
         # back (inside the comm phase)
         out.update(gather_ms=fl[0].elapsed_time(fl[1]),
                    scatter_ms=fl[2].elapsed_time(fl[3]))
+    gr = metrics.get("graph_events")
+    if gr:
+        out["mix_ms"] = gr[0].elapsed_time(gr[1])
     return out
 
 

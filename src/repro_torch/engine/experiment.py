@@ -24,14 +24,21 @@ topology as a config — port of ``repro.engine.experiment``.
     Experiment(problem=fleet_problem(num_clients=10_000), steps=300,
                topology="fleet:10000@625").run()
 
+    # the serverless gossip plane: lazy triggers per directed edge, convex
+    # or deep (then the mask is (K, E) and cluster= prices each edge)
+    Experiment(problem=prob, algo="lag-wk", steps=400,
+               topology="graph:9@ring", cluster="hetero:18@10ms/1Gbps").run()
+    Experiment(model="llama3.2-1b", topology="graph:4@ring", steps=4).run()
+
 Every run returns a ``RunReport`` with the same trajectory fields whether
 the units are convex workers, batch shards, pods or cohort slots.  Convex
 defaults follow the paper: α = 1/L (1/(M·L) for the IAG schedules), ξ =
-1/D (10/D for LAG-PS); the comm plane follows the problem's dtype (a
+1/D (10/D for LAG-PS); a gossip graph takes α = 1/(M·max L_m), the
+diffusion-stable default.  The comm plane follows the problem's dtype (a
 float64 problem gets a policy without a plan, the plain route; ``"on"``
 then raises).  Deep defaults follow ``repro_torch.dist.TrainerConfig``;
 deep runs go to ``device`` (the card unless the caller asks for the CPU).
-The reference's ``devices`` and ``graph`` topologies are not ported yet.
+The reference's ``devices`` topology is not ported yet.
 """
 from __future__ import annotations
 
@@ -123,6 +130,11 @@ class Experiment:
                 # fleet runs: price only the k sampled uplinks per round
                 netsim_cluster.price_fleet_report(report, self.cluster,
                                                   dense_bytes=dense)
+            elif "edge_dst" in report.extras:
+                # graph runs: the (K, E) mask is per DIRECTED edge — one
+                # link draw per edge, in-edges drain per destination node
+                netsim_cluster.price_edge_report(report, self.cluster,
+                                                 dense_bytes=dense)
             else:
                 netsim_cluster.price_report(report, self.cluster,
                                             dense_bytes=dense)
@@ -185,7 +197,8 @@ class Experiment:
         M = prob.num_workers
         topo = make_topology(self.topology or "sim")
         fleet = topo.name == "fleet"
-        if not (fleet or isinstance(topo, SimWorkers)):
+        graph = topo.name == "graph"
+        if not (fleet or graph or isinstance(topo, SimWorkers)):
             raise ValueError(
                 f"convex problems run on the 'sim' topology, got "
                 f"{topo.name!r} (deep topologies need model=)")
@@ -196,9 +209,15 @@ class Experiment:
         alpha = self.alpha
         if alpha is None:
             # paper defaults: α = 1/L, except 1/(M·L) for the one-upload-
-            # per-round IAG schedules
-            alpha = 1.0 / (M * prob.L) if "iag" in self.algo \
-                else 1.0 / prob.L
+            # per-round IAG schedules.  A gossip graph takes the diffusion-
+            # stable default: the adapt applies α·W·∇L_i(θ_i) locally, which
+            # is stable only while α·W < 2/max(L_m)
+            if graph:
+                alpha = 1.0 / (M * float(torch.max(prob.L_m)))
+            elif "iag" in self.algo:
+                alpha = 1.0 / (M * prob.L)
+            else:
+                alpha = 1.0 / prob.L
         xi = self.xi
         if xi is None:
             xi = (10.0 / self.D) if self.algo == "lag-ps" else (1.0 / self.D)
@@ -206,22 +225,30 @@ class Experiment:
             num_workers=M, alpha=float(alpha), D=self.D, xi=float(xi),
             rule="ps" if "lag-ps" in self.algo else "wk",
             rhs_floor=self.rhs_floor)
-        # num-IAG samples workers ∝ L_m (paper Sec. 4); the draw is made on
-        # the host
+        # num-IAG samples workers ∝ L_m (paper Sec. 4); on a graph the lazy
+        # units are the E directed edges, each weighted by its SOURCE
+        # node's L_m.  The draw is made on the host
         probs = None
         if self.algo.startswith("num-"):
             L_m = prob.L_m.detach().cpu().double()
+            if graph:
+                L_m = L_m[torch.as_tensor(topo.spec.edge_src,
+                                          dtype=torch.long)]
             probs = L_m / torch.sum(L_m)
         policy = self._resolve_policy(probs=probs)
         server = self._resolve_server()
-        if fleet:
-            # cohort-sampled convex rounds over an N-client population
-            # (function-level import: repro_torch.fleet consumes the engine)
-            from repro_torch import fleet as fleet_lib
-            report = fleet_lib.run_convex(prob, policy, server, cfg, topo,
-                                          K=self.steps, seed=self.seed,
-                                          theta0=self.theta0,
-                                          opt_loss=self.opt_loss)
+        if fleet or graph:
+            # cohort-sampled rounds over an N-client population, or the
+            # serverless gossip rounds (function-level imports: both
+            # packages consume the engine)
+            if fleet:
+                from repro_torch import fleet as lib
+            else:
+                from repro_torch import graph as lib
+            report = lib.run_convex(prob, policy, server, cfg, topo,
+                                    K=self.steps, seed=self.seed,
+                                    theta0=self.theta0,
+                                    opt_loss=self.opt_loss)
         else:
             report = topo.run(prob, policy, server, cfg, K=self.steps,
                               seed=self.seed, theta0=self.theta0,
@@ -233,7 +260,8 @@ class Experiment:
 
     def _run_deep(self):
         """(report, dense bytes of one parameter copy): ``steps`` rounds of
-        the trainer (``shards``, ``pods``, ``async``) or the fleet step."""
+        the trainer (``shards``, ``pods``, ``async``), the fleet step or the
+        graph step."""
         # function-level: repro_torch.dist and repro_torch.fleet consume
         # the engine; importing them at module scope would close a cycle
         from repro_torch.configs import get_config
@@ -264,12 +292,22 @@ class Experiment:
         policy = self._resolve_policy()
         server = self._resolve_server()
         fleet = topo.name == "fleet"
+        graph = topo.name == "graph"
         if fleet:
             from repro_torch import fleet as fleet_lib
             state = fleet_lib.init_fleet_state(
                 cfg, tcfg, topo, device=device, seed=self.seed,
                 policy=policy, server=server)
             step_fn = fleet_lib.make_fleet_step(
+                cfg, tcfg, topo, policy=policy, server=server,
+                schedule_seed=self.seed)
+        elif graph:
+            # stacked per-node iterates, per-edge mirrors
+            from repro_torch import graph as graph_lib
+            state = graph_lib.init_graph_state(
+                cfg, tcfg, topo, device=device, seed=self.seed,
+                policy=policy, server=server)
+            step_fn = graph_lib.make_graph_step(
                 cfg, tcfg, topo, policy=policy, server=server,
                 schedule_seed=self.seed)
         else:
@@ -308,7 +346,18 @@ class Experiment:
             extras["hetero_dial"] = float(self.hetero)
         if "rounds_skipped" in state["lag"]:
             extras["rounds_skipped"] = int(state["lag"]["rounds_skipped"])
-        params = lag_trainer.params_of(state, cfg)
+        if graph:
+            # the stacked (W, …) node iterates: ONE node's iterate moves
+            # per edge, so the bytes are sized from node 0's slice; the
+            # edge map feeds the pricer
+            from repro_torch.graph import node_params
+            params = node_params(state, cfg)
+            extras.update(edge_src=topo.spec.edge_src,
+                          edge_dst=topo.spec.edge_dst,
+                          graph_family=topo.family,
+                          num_nodes=topo.num_nodes)
+        else:
+            params = lag_trainer.params_of(state, cfg)
         dense_bytes = float(sum(l.numel() * l.element_size()
                                 for l in tree_leaves(params)))
         report = RunReport(

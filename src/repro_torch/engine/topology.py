@@ -20,10 +20,13 @@ A topology owns only batching and placement; the round itself is
                ``BatchShards``
   fleet        sampled k-client cohorts over an N-client population
                (``repro_torch.fleet``)
+  graph        the serverless gossip plane: W nodes with their own
+               iterates, a lazy trigger per directed edge, Metropolis
+               mixing (``repro_torch.graph``)
 
 ``make_topology`` takes the reference's grammar (``"pods:2"``,
-``"async:4@2"``, ``"fleet:100000@64"``); ``devices`` and ``graph`` are not
-ported yet and raise.  The deep step functions consume ``units`` /
+``"async:4@2"``, ``"fleet:100000@64"``, ``"graph:9@ring"``); ``devices``
+is not ported yet and raises.  The deep step functions consume ``units`` /
 ``place_batch`` / ``reduce_fn`` / ``extra_state`` / ``worker_views`` /
 ``advance_views``; the convex run ``SimWorkers.run``.  Simulated
 wall-clock for an upload mask comes from ``repro_torch.netsim.cluster``.
@@ -302,8 +305,15 @@ def _make_fleet(population=None, cohort=None, **kw):
     return FleetTopology(population=population, cohort=cohort, **kw)
 
 
-#: the reference's topologies the port does not have yet (ROADMAP queue 1
-#: items 4 and 5) map to None
+def _make_graph(num_nodes=None, family=None, **kw):
+    """Lazy ``repro_torch.graph`` factory (the fleet's cycle-avoidance):
+    the gossip plane consumes the engine's round seam."""
+    from repro_torch.graph.topology import GraphTopology
+    return GraphTopology(num_nodes=num_nodes, family=family, **kw)
+
+
+#: the reference's topology the port does not have yet (ROADMAP queue 1
+#: item 5) maps to None
 TOPOLOGIES = {
     "sim": SimWorkers,
     "shards": BatchShards,
@@ -311,7 +321,7 @@ TOPOLOGIES = {
     "async": AsyncShards,
     "devices": None,
     "fleet": _make_fleet,
-    "graph": None,
+    "graph": _make_graph,
 }
 
 _FLEET_GRAMMAR = ("fleet needs BOTH a population and a cohort size — "
@@ -325,10 +335,14 @@ def make_topology(spec) -> Topology:
     The reference's grammar: ``<name>[:<units>][@<staleness>]`` —
     ``"sim"``, ``"shards"``, ``"pods:2"`` (two lazy pods),
     ``"async:4@2"`` (four bounded-staleness workers, the slowest 2 rounds
-    behind; ``"async"`` alone has staleness 1), and
+    behind; ``"async"`` alone has staleness 1),
     ``"fleet:<population>@<cohort>"`` (``"fleet:100000@64"`` samples a
-    64-client cohort per round from 10⁵ clients), with the reference's
-    validation messages.  ``devices`` and ``graph`` raise: not ported yet.
+    64-client cohort per round from 10⁵ clients) and the gossip plane
+    ``"graph:<nodes>@<family>"`` (``"graph:9@ring"``,
+    ``"graph:12@torus:3x4"``, ``"graph:9@complete"``,
+    ``"graph:16@expander:4"``, ``"graph:16@smallworld:4@0.2"``: the family
+    may itself carry ``:``/``@`` arguments), with the reference's
+    validation messages.  ``devices`` raises: not ported yet.
     """
     if isinstance(spec, Topology):
         return spec
@@ -348,6 +362,21 @@ def make_topology(spec) -> Topology:
         raise ValueError(f"topology {spec!r}: {name!r} is not ported yet; "
                          f"the port has "
                          f"{tuple(n for n, f in TOPOLOGIES.items() if f)}")
+    if name == "graph":
+        # partition("@") split at the FIRST @, so the family half may
+        # itself contain '@' ('smallworld:4@0.2')
+        from repro_torch.graph.spec import GRAPH_GRAMMAR
+        if not sep or not sep_at:
+            raise ValueError(f"bad topology spec {spec!r}: graph needs "
+                             f"BOTH a node count and a family — "
+                             f"{GRAPH_GRAMMAR}")
+        try:
+            n = int(units)
+        except ValueError:
+            raise ValueError(
+                f"bad topology spec {spec!r}: ':{units}' is not an integer "
+                f"node count — {GRAPH_GRAMMAR}") from None
+        return TOPOLOGIES["graph"](num_nodes=n, family=stale_s)
     if name == "fleet":
         if not sep or not sep_at:
             raise ValueError(f"bad topology spec {spec!r}: "

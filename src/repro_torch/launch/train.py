@@ -13,20 +13,33 @@ clock around work that ends in a device synchronise).
 specs): ``shards`` (default), ``pods:2`` (quiet rounds skip the
 reduction), ``async:4@2`` (bounded staleness), or the sampled-cohort fleet
 ``fleet:100000@64`` (``repro_torch.fleet``; ``--fleet-churn`` and
-``--fleet-selection`` dial dropout and lazy client selection).
-``--hetero`` dials the worker shards' data heterogeneity
-(``repro_torch.netsim.hetero``); ``--cluster`` prices the run's uploads
-on a simulated network (``repro_torch.netsim.cluster``: per worker, per
-client for a fleet) and prints the simulated wall-clock against GD's.
+``--fleet-selection`` dial dropout and lazy client selection), or the
+serverless gossip graph ``graph:9@ring`` (``repro_torch.graph``: W is the
+node count, the lazy units are the E directed edges).  ``--hetero`` dials
+the worker shards' data heterogeneity (``repro_torch.netsim.hetero``);
+``--cluster`` prices the run's uploads on a simulated network
+(``repro_torch.netsim.cluster``: per worker, per client for a fleet, per
+directed edge for a graph) and prints the simulated wall-clock against
+GD's.
+
+``--log run.jsonl`` appends a JSON line at every 10th round and the last
+(``repro_torch.metrics.Logger``); ``--ckpt-dir D --ckpt-every n`` saves
+the whole state every n rounds (``repro_torch.checkpoint``), and
+``--resume`` restarts from the newest checkpoint in D.  The data and the
+draws are keyed by the round, so a resumed run is bit for bit the
+uninterrupted one.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
+from repro_torch import metrics as metrics_lib
+from repro_torch.checkpoint import latest_step, restore, save
 from repro_torch.configs import get_config
 from repro_torch.core.tree import tree_leaves
 from repro_torch.data import (TokenStream, make_heterogeneous_inputs,
@@ -51,9 +64,13 @@ def build_argparser():
                         "(sgd, adam, 'momentum@0.9', 'prox-l1@1e-4')")
     p.add_argument("--topology", default=None,
                    help="topology spec ('shards', 'pods:2', 'async:4@2', "
-                        "'fleet:100000@64'); default: flat batch shards.  "
-                        "fleet:N@k samples a k-client cohort per round from "
-                        "N clients (W is then k)")
+                        "'fleet:100000@64', 'graph:9@ring'); default: flat "
+                        "batch shards.  fleet:N@k samples a k-client cohort "
+                        "per round from N clients (W is then k); "
+                        "graph:W@<family> is the serverless gossip plane "
+                        "(families ring, torus:RxC, complete, expander:d, "
+                        "smallworld:k@p; W nodes, a lazy trigger per "
+                        "directed edge)")
     p.add_argument("--fleet-churn", type=float, default=0.0,
                    help="fleet only: per-round client leave probability "
                         "(clients re-join with stale state)")
@@ -75,7 +92,8 @@ def build_argparser():
     p.add_argument("--cluster", default=None,
                    help="price the run on a simulated network, e.g. "
                         "'hetero:2@10ms/1Gbps' (its worker count must be "
-                        "W, the population for a fleet)")
+                        "W, the population for a fleet, the directed edge "
+                        "count E for a graph)")
     p.add_argument("--fastpath", default="auto", choices=["auto", "on"],
                    help="batched flat-buffer comm plane: auto = on for CUDA "
                         "tensors (the per-leaf oracle on the CPU), on = "
@@ -84,7 +102,19 @@ def build_argparser():
                    help="'cuda' (default; raises without a GPU) or 'cpu'")
     p.add_argument("--reduced", action="store_true",
                    help="CPU-sized variant of the arch")
+    p.add_argument("--layers", type=int, default=None,
+                   help="cut the arch to this many layers (its widths "
+                        "kept)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--log", default=None,
+                   help="append a JSON line per logged round (every 10th "
+                        "and the last) to this file")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="directory of step_<n>.npz checkpoints")
+    p.add_argument("--ckpt-every", type=int, default=0,
+                   help="save the state every n rounds (0: never)")
+    p.add_argument("--resume", action="store_true",
+                   help="restart from the newest checkpoint in --ckpt-dir")
     return p
 
 
@@ -96,11 +126,11 @@ def _sync(device: torch.device) -> None:
 def main(argv=None, on_step=None, use_pallas_comm=False):
     """Run the trainer; ``on_step(step, metrics, timing)`` sees every
     round's metrics and its times (``ms`` on the host clock; on the GPU
-    also ``grad_ms``/``comm_ms`` of device time, and a fleet's
-    ``gather_ms``/``scatter_ms``).  ``use_pallas_comm`` selects the legacy
-    per-leaf comm route (``TrainerConfig``): a keyword of the API, not a
-    flag of the command line, as in the reference.  Returns the final
-    state."""
+    also ``grad_ms``/``comm_ms`` of device time, a fleet's
+    ``gather_ms``/``scatter_ms``, a graph's ``mix_ms``).
+    ``use_pallas_comm`` selects the legacy per-leaf comm route
+    (``TrainerConfig``): a keyword of the API, not a flag of the command
+    line, as in the reference.  Returns the final state."""
     args = build_argparser().parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":
@@ -108,6 +138,8 @@ def main(argv=None, on_step=None, use_pallas_comm=False):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if args.reduced:
         cfg = cfg.reduced()
     if args.hetero is not None and cfg.family in ("audio", "vlm"):
@@ -118,19 +150,23 @@ def main(argv=None, on_step=None, use_pallas_comm=False):
         from repro_torch.engine import make_topology
         topo = make_topology(args.topology)
     fleet = getattr(topo, "name", None) == "fleet"
+    graph = getattr(topo, "name", None) == "graph"
     if fleet and (args.fleet_churn or args.fleet_selection != "uniform"):
         from repro_torch.fleet import FleetTopology
         topo = FleetTopology(population=topo.population, cohort=topo.cohort,
                              churn=args.fleet_churn,
                              selection=args.fleet_selection)
-    # W = batch-shard count: the cohort for a fleet, the topology's unit
-    # count otherwise (--workers by default)
+    # W = batch-shard count: the cohort for a fleet, the node count for a
+    # graph, the topology's unit count otherwise (--workers by default)
     W = topo.units(args.workers) if topo is not None else args.workers
+    # the lazy units a round: the E directed edges of a graph, W otherwise
+    units = topo.num_edges if graph else W
     if args.cluster is not None:
         from repro_torch.netsim import make_cluster
-        # a fleet prices per-CLIENT links (population-sized cluster)
+        # a fleet prices per-CLIENT links (population-sized cluster), a
+        # graph per directed edge
         make_cluster(args.cluster,
-                     num_workers=topo.population if fleet else W)
+                     num_workers=topo.population if fleet else units)
     tcfg = TrainerConfig(algo=args.algo, num_workers=W,
                          lr=args.lr, D=args.D, xi=args.xi,
                          fastpath=args.fastpath, server=args.server,
@@ -143,18 +179,32 @@ def main(argv=None, on_step=None, use_pallas_comm=False):
         train_step = fleet_lib.make_fleet_step(cfg, tcfg, topo,
                                                policy=policy,
                                                schedule_seed=args.seed)
+    elif graph:
+        from repro_torch import graph as graph_lib
+        state = graph_lib.init_graph_state(cfg, tcfg, topo, device=device,
+                                           seed=args.seed, policy=policy)
+        train_step = graph_lib.make_graph_step(cfg, tcfg, topo,
+                                               policy=policy,
+                                               schedule_seed=args.seed)
     else:
         state = init_state(cfg, tcfg, device=device, seed=args.seed,
                            policy=policy, topology=topo)
         train_step = make_train_step(cfg, tcfg, policy=policy, topology=topo,
                                      schedule_seed=args.seed)
+    start = 0
+    if args.resume and args.ckpt_dir and latest_step(args.ckpt_dir) \
+            is not None:
+        state, start = restore(args.ckpt_dir, state)
+        print(f"resumed from step {start}")
     stream = TokenStream(vocab=cfg.vocab_size, seed=args.seed)
+    log = metrics_lib.Logger(args.log)
     masks, cohorts, cohort_comm = [], [], []
     t_all = time.perf_counter()
-    for step in range(args.steps):
-        if step == 0 and policy.needs_rng:
-            draws = [policy.draw(k, W, args.seed) for k in range(args.steps)]
-            print(f"{policy.name}: sampled uploaders of rounds 0-"
+    for step in range(start, args.steps):
+        if step == start and policy.needs_rng:
+            draws = [policy.draw(k, units, args.seed)
+                     for k in range(start, args.steps)]
+            print(f"{policy.name}: sampled uploaders of rounds {start}-"
                   f"{args.steps - 1} (seed {args.seed}): {draws}")
         if args.hetero is not None:
             batch = make_heterogeneous_inputs(
@@ -185,14 +235,23 @@ def main(argv=None, on_step=None, use_pallas_comm=False):
               f"{mask.to(torch.int32).tolist()} | comm_total "
               f"{int(m['comm_total'])} | {timing['ms']:.1f} ms{split}",
               flush=True)
+        if step % 10 == 0 or step == args.steps - 1:
+            log.log(step, loss=m["loss"], comm_round=m["comm_this_round"],
+                    comm_total=m["comm_total"])
+        if args.ckpt_every and args.ckpt_dir \
+                and (step + 1) % args.ckpt_every == 0:
+            save(args.ckpt_dir, step + 1, state)
+    log.close()
     dt = time.perf_counter() - t_all
     total = int(state["lag"]["comm_total"])
-    rounds = args.steps
+    rounds = args.steps - start
     # GD baseline: every lazy unit uploads every round — the whole cohort
-    # for a fleet, every worker otherwise
+    # for a fleet, every directed edge for a graph, every worker otherwise
+    # — over all rounds since step 0, as the upload counter runs through a
+    # resume
+    gd = args.steps * units
     print(f"done: {rounds} rounds in {dt:.1f}s | uploads {total} vs GD "
-          f"{rounds * W} ({100.0 * total / max(rounds * W, 1):.1f}% of GD) "
-          f"on {device}")
+          f"{gd} ({100.0 * total / max(gd, 1):.1f}% of GD) on {device}")
     if args.cluster is not None and (masks or cohorts):
         t_run, t_gd = price_run(args.cluster, state, cfg, tcfg, topo, W,
                                 masks, cohorts, cohort_comm)
@@ -205,9 +264,16 @@ def main(argv=None, on_step=None, use_pallas_comm=False):
 def price_run(cluster, state, cfg, tcfg, topo, W, masks, cohorts,
               cohort_comm):
     """(simulated seconds of the run, of GD on the same rounds) on
-    ``cluster``: per client for a fleet, per worker otherwise."""
-    from repro_torch.netsim import make_cluster, price_cohort_mask, price_mask
-    params = params_of(state, cfg)
+    ``cluster``: per client for a fleet, per directed edge for a graph
+    (one node's iterate moves per edge), per worker otherwise."""
+    from repro_torch.netsim import (make_cluster, price_cohort_mask,
+                                    price_edge_mask, price_mask)
+    graph = getattr(topo, "name", None) == "graph"
+    if graph:
+        from repro_torch.graph import node_params
+        params = node_params(state, cfg)
+    else:
+        params = params_of(state, cfg)
     bpu = tcfg.comm_policy().wire_bytes(params)
     dense = float(sum(l.numel() * l.element_size()
                       for l in tree_leaves(params)))
@@ -218,6 +284,12 @@ def price_run(cluster, state, cfg, tcfg, topo, W, masks, cohorts,
         t_run = price_cohort_mask(ids, cm, bpu, cl, dense_bytes=dense).sum()
         t_gd = price_cohort_mask(ids, np.ones_like(cm), dense, cl,
                                  dense_bytes=dense).sum()
+    elif graph:
+        mk, dst = np.stack(masks), topo.spec.edge_dst
+        cl = make_cluster(cluster, num_workers=topo.num_edges)
+        t_run = price_edge_mask(mk, bpu, cl, dst, dense_bytes=dense).sum()
+        t_gd = price_edge_mask(np.ones_like(mk), dense, cl, dst,
+                               dense_bytes=dense).sum()
     else:
         cl = make_cluster(cluster, num_workers=W)
         mk = np.stack(masks)

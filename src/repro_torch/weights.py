@@ -14,14 +14,17 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import tree_flatten, tree_unflatten
+from repro_torch.device import resolve_device
 from repro_torch.models import model
 from repro_torch.models.common import ModelConfig
 
 
 def params_from_reference(tree_of_numpy: Any, cfg: ModelConfig,
-                          device="cpu") -> Dict:
+                          device="cuda") -> Dict:
     """Reference params (nested dicts of numpy arrays) → the port's params
-    (nested dicts of tensors on ``device``, in ``cfg.params_dtype``)."""
+    (nested dicts of tensors on ``device``, in ``cfg.params_dtype``):
+    the card by default (raising without one), the CPU when asked."""
+    device = resolve_device(device)
     leaves, treedef = tree_flatten(tree_of_numpy)
     want, want_def = tree_flatten(model.templates(cfg))
     if treedef != want_def:

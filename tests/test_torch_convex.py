@@ -479,8 +479,11 @@ def test_convex_servers_float64(kw):
      "conflicting server specs"),
     ({"problem": "P", "topology": "shards"}, ValueError, "'sim' topology"),
     ({"problem": "P", "topology": "pods:2"}, ValueError, "'sim' topology"),
-    ({"problem": "P", "topology": "graph:9@ring"}, ValueError,
-     "not ported yet"),
+    # ported since the gossip slice: it runs (err None: the topology the
+    # report names); a node count that is not the worker count raises
+    ({"problem": "P", "topology": "graph:9@ring"}, None, "graph"),
+    ({"problem": "P", "topology": "graph:4@ring"}, ValueError,
+     "worker i's shard"),
     ({"problem": "P", "topology": "sim@2"}, ValueError, "only 'async'"),
     ({"problem": "P", "topology": "sim:4"}, ValueError, "unit count"),
     ({"problem": "P", "algo": "iag"}, ValueError, "cyc-iag"),
@@ -489,6 +492,10 @@ def test_convex_servers_float64(kw):
 def test_experiment_validation(kw, err, match):
     if kw.get("problem") == "P":
         kw = dict(kw, problem=fig3(torch.float64))
+    if err is None:
+        r = Experiment(steps=2, opt_loss=1.0, **kw).run()
+        assert r.topology == match and r.comm_mask.shape == (2, 18)
+        return
     with pytest.raises(err, match=match):
         Experiment(steps=2, opt_loss=1.0, **kw).run()
 

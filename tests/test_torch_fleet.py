@@ -338,7 +338,8 @@ def test_deep_fleet_matches_reference(cfgs, algo, churn, rule):
     jstep = jax.jit(jfleet.make_fleet_step(jcfg, jt, jtopo))
     jb = jmake_hetero(jcfg, JTokenStream(jcfg.vocab_size), 0, k, BATCH, SEQ)
     params = params_from_reference(
-        jax.tree_util.tree_map(np.asarray, jst["params"]), cfg)
+        jax.tree_util.tree_map(np.asarray, jst["params"]), cfg,
+        device="cpu")
     topo = FleetTopology(N, k, churn=churn, selection=rule,
                          draw=deep_draw(0, N))
     tcfg = TrainerConfig(algo=algo, num_workers=k, lr=lr, fastpath="on")

@@ -183,7 +183,8 @@ def test_trainer_server_matches_live_reference(cfgs, ref_params, algo,
     jstep = jax.jit(jmake_train_step(jcfg, jt))
     tcfg = TrainerConfig(**kw)
     state = init_state(cfg, tcfg, device="cpu",
-                       params=params_from_reference(ref_params, cfg))
+                       params=params_from_reference(
+                           ref_params, cfg, device="cpu"))
     assert ("opt" in state) == ("opt" in jstate)
     step = make_train_step(cfg, tcfg)
     jstream, stream = JTokenStream(jcfg.vocab_size), TokenStream(

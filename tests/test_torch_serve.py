@@ -74,7 +74,7 @@ def ref():
 @pytest.fixture(scope="module")
 def port(ref):
     cfg = get_config("llama3.2-1b").reduced()
-    return cfg, params_from_reference(ref["params"], cfg)
+    return cfg, params_from_reference(ref["params"], cfg, device="cpu")
 
 
 def check_cache(cache, jcache):

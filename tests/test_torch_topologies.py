@@ -105,8 +105,22 @@ def test_make_topology_errors_match_reference(spec):
 @pytest.mark.parametrize("spec", ["graph:9@ring", "devices:2", "devices",
                                   "graph"])
 def test_graph_and_devices_are_not_ported_yet(spec):
-    with pytest.raises(ValueError, match="not ported yet"):
-        make_topology(spec)
+    """``devices`` is still not ported; ``graph`` is since the gossip
+    slice: it builds the reference's graph and rejects as the reference
+    does."""
+    if spec.startswith("devices"):
+        with pytest.raises(ValueError, match="not ported yet"):
+            make_topology(spec)
+    elif spec == "graph":
+        with pytest.raises(ValueError) as got:
+            make_topology(spec)
+        with pytest.raises(ValueError) as want:
+            jmake_topology(spec)
+        assert str(got.value) == str(want.value)
+    else:
+        got, want = make_topology(spec), jmake_topology(spec)
+        assert (got.name, got.num_nodes, got.num_edges, got.units(2)) \
+            == (want.name, want.num_nodes, want.num_edges, want.units(2))
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +240,8 @@ def port_run(cfgs, ref_params, batches, topology, algo, lr, **route):
     tcfg = TrainerConfig(algo=algo, num_workers=W, lr=lr, **route)
     topo = make_topology(topology)
     state = init_state(cfg, tcfg, device="cpu", topology=topo,
-                       params=params_from_reference(ref_params, cfg))
+                       params=params_from_reference(
+                           ref_params, cfg, device="cpu"))
     step = make_train_step(cfg, tcfg, topology=topo)
     losses, masks = [], []
     for _ in range(STEPS):
@@ -315,7 +330,8 @@ def test_pod_lag_shim(cfgs, ref_params, batches):
     tcfg = TrainerConfig(algo="lag-wk", num_workers=4, lr=POD_LR,
                          fastpath="on")
     state = pod_lag.init_state(cfg, tcfg, 2, device="cpu",
-                               params=params_from_reference(ref_params, cfg))
+                               params=params_from_reference(
+                                   ref_params, cfg, device="cpu"))
     topo = PodMesh()
     step = pod_lag.make_pod_lag_step(cfg, tcfg, topology=topo)
     masks = []
@@ -351,9 +367,16 @@ def test_async_ring_view_and_push():
 # The front doors
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("topology, extra", [
+# the deep topologies of the reference's matrix the port runs
+# (tests/test_engine.py's DEEP_TOPOLOGY_SPECS without devices:2), each with
+# the extras its report carries
+DEEP_TOPOLOGY_SPECS = [
     ("shards", {}), ("pods:2", {}), ("async:2@1", {}),
-    ("fleet:4@2", {"population": 4, "cohort": 2})])
+    ("fleet:4@2", {"population": 4, "cohort": 2}),
+    ("graph:2@complete", {"num_nodes": 2, "graph_family": "complete"})]
+
+
+@pytest.mark.parametrize("topology, extra", DEEP_TOPOLOGY_SPECS)
 def test_experiment_model_extras(topology, extra):
     r = Experiment(model="llama3.2-1b", algo="lag-wk", topology=topology,
                    steps=3, lr=POD_LR, workers=2, batch=4, seq=16,
@@ -371,6 +394,10 @@ def test_experiment_model_extras(topology, extra):
         assert (r.comms_per_iter <= 2).all()
     else:
         assert "cohort_ids" not in r.extras
+    if topology.startswith("graph"):
+        # the (K, E) mask is per directed edge (E = 2 on two nodes)
+        assert r.extras["edge_src"].tolist() == [0, 1]
+        assert r.extras["edge_dst"].tolist() == [1, 0]
     assert ("rounds_skipped" in r.extras) == topology.startswith("pods")
     if topology.startswith("pods"):
         assert r.extras["rounds_skipped"] == int(
@@ -391,7 +418,9 @@ def test_experiment_model_priced_on_a_cluster():
 
 @pytest.mark.parametrize("kw, match", [
     ({"topology": "sim"}, "'shards' or 'pods:N'"),
-    ({"topology": "graph:9@ring"}, "not ported yet"),
+    # graph:9@ring is ported since the gossip slice (its rejects are in
+    # tests/test_torch_graph.py); devices still is not, at any count
+    ({"topology": "devices:4"}, "not ported yet"),
     ({"topology": "devices:2"}, "not ported yet"),
     ({"model": 3}, "ModelConfig or an arch name"),
 ])

@@ -126,7 +126,8 @@ def check_against_reference(cfgs, ref_params, algo, lr, xi, loss_rtol,
     tcfg = TrainerConfig(algo=algo, num_workers=W, lr=lr, xi=xi, **route)
     policy = port_policy(tcfg)
     state = init_state(cfg, tcfg, device="cpu", policy=policy,
-                       params=params_from_reference(ref_params, cfg))
+                       params=params_from_reference(
+                           ref_params, cfg, device="cpu"))
     step = make_train_step(cfg, tcfg, policy=policy)
     jstream, stream = JTokenStream(jcfg.vocab_size), TokenStream(
         cfg.vocab_size)
@@ -214,7 +215,8 @@ def test_legacy_route_matches_the_forced_plane(cfgs, ref_params, algo):
     for route in ({"use_pallas_comm": True}, {"fastpath": "on"}):
         tcfg = TrainerConfig(algo=algo, num_workers=W, lr=0.3, **route)
         state = init_state(cfg, tcfg, device="cpu",
-                           params=params_from_reference(ref_params, cfg))
+                           params=params_from_reference(
+                               ref_params, cfg, device="cpu"))
         step = make_train_step(cfg, tcfg)
         stream = TokenStream(cfg.vocab_size)
         rounds = []
@@ -231,7 +233,7 @@ def test_legacy_route_matches_the_forced_plane(cfgs, ref_params, algo):
 
 def test_reference_params_keep_jax_leaf_order(cfgs, ref_params):
     _, cfg = cfgs
-    port = params_from_reference(ref_params, cfg)
+    port = params_from_reference(ref_params, cfg, device="cpu")
     paths = [jax.tree_util.keystr(p) for p, _ in
              jax.tree_util.tree_flatten_with_path(ref_params)[0]]
     assert paths[:4] == ["['blocks']['0']['attn']['wk']",
