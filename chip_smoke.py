@@ -9,8 +9,9 @@ Phases (any failure raises and the script exits non-zero):
   2. build: compile the four CUDA sources (the comm plane's, rmsnorm's,
      flash attention's and the legacy per-leaf kernels') with nvcc
      (sm_90a), one process each, all at once; ptxas's registers and spills
-     of every kernel, the flash kernel's shared memory, and a check that the
-     flash kernel does not spill.
+     of every kernel, the flash kernel's shared memory per head_dim, and a
+     check that none of its three instantiations (head_dim 64, 80, 128)
+     spills.
   3. the comm plane's kernels vs plain versions on ragged synthetic
      layouts (leaf sizes {1, 127, 129, 32768, 0}, W ∈ {1, 3}, the
      unstacked operand, LAQ bits {2, 4, 8}, all three masked modes):
@@ -159,6 +160,33 @@ Phases (any failure raises and the script exits non-zero):
         width, depth cut to 2 (``--layers 2``), 4 rounds, saved at round 2
         into a temporary directory the phase deletes: the resumed rounds 3
         and 4 equal the uninterrupted ones bit for bit (masks, losses, θ).
+  15. every architecture of the dense block kind:
+     a. flash attention at head_dim 80 (H 16/16) and 128 (H 24/8) on phase
+        7's ragged set, RMSNorm at d 3072, 3584, 4096, 8192 (rows 1, 7,
+        129, 1000), each within rtol = atol = 1e-5 of its plain version;
+        then the new archs' prefill shapes timed against their bounds, the
+        plain versions and one PyTorch call each: flash (4, 2048, 24/8,
+        128) and (4, 2048, 28/4, 128) causal, (4, 2048, 16/16, 80)
+        non-causal, against their split-TF32 bounds and
+        ``F.scaled_dot_product_attention``; RMSNorm (8192, d) against
+        ``F.rms_norm``.
+     b. ``launch.serve`` as phase 8 (launches exactly 2L + 1 RMSNorm and L
+        flash per prefill, none per decode step; the prefill's kernel
+        route against the plain route within 2e-3; peak under 80 GB) for
+        llama3.2-3b, granite-8b, qwen2-vl-7b and command-r-35b (its depth
+        cut to 12 of 40 layers: 129.5 GB in float32 at 40), batch 4,
+        prompt 2048, 32 tokens, 2 rounds, and llama3.2-1b-sw, batch 2,
+        prompt 6144 (past its 4096 window: the rolling cache wraps).
+     c. hubert-xlarge's forward at full width and depth (4 x 2048 frames):
+        48 flash launches and no RMSNorm (LayerNorm has no kernel), the
+        kernel route against the plain route within 2e-3; ``launch.serve``
+        refuses it with the reference's reason.
+     d. ``launch.train`` in phase 5's configuration on hubert-xlarge (full
+        width and depth) with lag-wk and laq@4, and qwen2-vl-7b (full
+        width, ``--layers 2``) with lag-wk: losses, masks, times, peak
+        under 80 GB, the plane's launches.
+     e. the six reduced archs, 3 rounds of lag-wk on the card and on the
+        CPU from the same weights: equal masks, losses within rtol 1e-4.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Times are CUDA-event times on this card (kernels: the mean of
@@ -182,7 +210,7 @@ TF32_FLOP_PER_S = 495e12         # H100 SXM dense TF32 on the tensor cores
 SUM_RTOL = 1e-5
 RAGGED = (1, 127, 129, 32768, 0)
 MODEL_TOL = 1e-5                 # kernel vs plain: f32, sums reordered
-SERVE_TOL = 2e-3                 # kernel route vs plain route, 16 layers
+SERVE_TOL = 2e-3                 # kernel route vs plain route, all layers
 REPLACES = {
     "delta_sqnorm_blocks": "src/repro/fastpath/kernels.py:130",
     "absmax_blocks": "src/repro/fastpath/kernels.py:142",
@@ -337,6 +365,32 @@ GRAPH_PROBLEM = dict(num_workers=9, n_per=20, d=10, seed=0)
 GRAPH_FAMILIES = ("ring", "torus:3x3")
 GRAPH_PLANE = {"gd": {}, "lag-wk": PHASE14A[0][1], "laq@4": PHASE14A[1][1]}
 GRAPH_K = 400
+
+
+# phase 15: the dense block kind
+DENSE_KIND = ("llama3.2-3b", "llama3.2-1b-sw", "granite-8b", "command-r-35b",
+              "qwen2-vl-7b", "hubert-xlarge")
+# 15a: (head_dim, H, KV) of the ragged set; the new archs' prefill shapes
+# (B, S, H, KV, hd, causal); their RMSNorm widths
+WIDE_RAGGED = ((80, 16, 16), (128, 24, 8))
+ATTN_WIDE = ((4, 2048, 24, 8, 128, True), (4, 2048, 28, 4, 128, True),
+             (4, 2048, 16, 16, 80, False))
+RMS_WIDE = (3072, 3584, 4096, 8192)
+# 15b: (arch, serve flags, layers kept: None = all); command-r-35b's 40
+# layers take 129.5 GB in float32, its 12 with embed and head 50.6 GB
+SERVE_WIDE = (
+    ("llama3.2-3b", SERVE_ARGS[2:], None),
+    ("granite-8b", SERVE_ARGS[2:], None),
+    ("qwen2-vl-7b", SERVE_ARGS[2:], None),
+    ("command-r-35b", SERVE_ARGS[2:], 12),
+    ("llama3.2-1b-sw", ["--batch", "2", "--prompt-len", "6144", "--gen",
+                        "32", "--rounds", "2", "--seed", "0"], None),
+)
+HUBERT_FORWARD = (4, 2048)       # 15c: (batch, frames)
+# 15d: (arch, algo, launcher flags)
+TRAIN_WIDE = (("hubert-xlarge", "lag-wk", ()),
+              ("hubert-xlarge", "laq@4", ()),
+              ("qwen2-vl-7b", "lag-wk", ("--layers", "2")))
 
 
 def check(cond, msg):
@@ -622,9 +676,10 @@ def scheduled_uploaders(algo, steps, workers=2, seed=0):
     return [k % workers for k in range(steps)]
 
 
-def trainer_phase(torch, algo, steps=4, use_pallas_comm=False, extra=()):
-    """Run the launcher at full width (``extra``: more launcher flags, e.g.
-    ``--server``); returns the launches of the batched plane's kernels
+def trainer_phase(torch, algo, steps=4, use_pallas_comm=False, extra=(),
+                  arch="llama3.2-1b"):
+    """Run the launcher on ``arch`` at full width (``extra``: more launcher
+    flags, e.g. ``--server``); returns the launches of the batched plane's kernels
     (``plane``) and of the legacy per-leaf kernels (``legacy``), the
     rounds' losses and masks, and the peak memory.  Round 0 uploads from
     every worker for a triggered policy; a schedule uploads from exactly
@@ -651,7 +706,7 @@ def trainer_phase(torch, algo, steps=4, use_pallas_comm=False, extra=()):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     lt.reset_launches()
-    state = train.main(["--arch", "llama3.2-1b", "--algo", algo,
+    state = train.main(["--arch", arch, "--algo", algo,
                         "--workers", "2", "--batch", "4", "--seq", "256",
                         "--steps", str(steps), "--seed", "0", *extra],
                        on_step=on_step, use_pallas_comm=use_pallas_comm)
@@ -682,7 +737,8 @@ def trainer_phase(torch, algo, steps=4, use_pallas_comm=False, extra=()):
                for k in ("ms", "grad_ms", "comm_ms", "gather_ms",
                          "scatter_ms", "mix_ms") if k in steady[0]}
     shown = {**launches, **legacy} if use_pallas_comm else launches
-    label = " ".join((algo,) + tuple(extra))
+    label = " ".join(((arch,) if arch != "llama3.2-1b" else ())
+                     + (algo,) + tuple(extra))
     if "mix_ms" in summary:
         label += f" (mix + history {summary['mix_ms']:.1f} ms a round)"
     fleet = "" if rounds[0]["cohort"] is None else (
@@ -887,43 +943,54 @@ def model_kernel_phase(torch, dev):
 # Phase 8: the serving path through the entry point
 # ---------------------------------------------------------------------------
 
-def serve_phase(torch, dev):
+def serve_phase(torch, dev, argv=SERVE_ARGS, cfg=None):
+    """``repro_torch.launch.serve`` with ``argv`` (``cfg``: a config that
+    replaces the one ``--arch`` names, e.g. its depth cut), random weights
+    from the seed: the kernels' launches per prefill and per decode step,
+    the generated tokens, the peak memory, and the prefill through the
+    kernels against the plain route on the card.  Returns the launches and
+    round 1's times with the peak."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.rmsnorm import rmsnorm as rms
     from repro_torch.launch import serve
     from repro_torch.models import model
 
-    args = serve.build_argparser().parse_args(SERVE_ARGS)
-    cfg = get_config(args.arch)
-    cfg = (cfg.reduced() if args.reduced else cfg).replace(use_pallas=True)
-    params = model.init(cfg, device=dev, seed=args.seed)
-    rounds = []
+    args = serve.build_argparser().parse_args(argv)
+    if cfg is None:
+        cfg = get_config(args.arch)
+        cfg = cfg.reduced() if args.reduced else cfg
+    cfg = cfg.replace(use_pallas=True)
     gc.collect()
     torch.cuda.empty_cache()
+    params = model.init(cfg, device=dev, seed=args.seed)
+    rounds = []
     torch.cuda.reset_peak_memory_stats()
     rms.reset_launches()
     fa.reset_launches()
-    serve.main(SERVE_ARGS, params=params,
+    serve.main(argv, params=params, cfg=cfg,
                on_round=lambda r, t, toks: rounds.append((t, toks)))
     launches = {"rmsnorm": rms.LAUNCHES["rmsnorm"],
                 "flash_attention": fa.LAUNCHES["flash_attention"]}
     peak = torch.cuda.max_memory_allocated() / 1e9
     n = len(rounds)
-    check(n == args.rounds, f"serve: {n} rounds")
+    check(n == args.rounds, f"serve {cfg.arch_id}: {n} rounds")
     per_prefill = {"rmsnorm": 2 * cfg.num_layers + 1,
                    "flash_attention": cfg.num_layers}
     for k_, want in per_prefill.items():
         check(launches[k_] == n * want,
-              f"serve: {k_} launched {launches[k_]} times in {n} rounds, "
-              f"want {want} per prefill and none per decode step")
+              f"serve {cfg.arch_id}: {k_} launched {launches[k_]} times in "
+              f"{n} rounds, want {want} per prefill and none per decode "
+              f"step")
     for _, toks in rounds:
         check(tuple(toks.shape) == (args.batch, args.gen),
-              f"serve: tokens {tuple(toks.shape)}")
+              f"serve {cfg.arch_id}: tokens {tuple(toks.shape)}")
         check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
-              "serve: token out of the vocabulary")
-    timing = rounds[1][0]
-    print(f"  serve round 1: prefill {timing['prefill_ms']:.1f} ms | decode "
+              f"serve {cfg.arch_id}: token out of the vocabulary")
+    check(peak < 80.0, f"serve {cfg.arch_id}: peak memory {peak:.2f} GB")
+    timing = rounds[-1][0]
+    print(f"  serve {cfg.arch_id} ({cfg.num_layers} layers) round {n - 1}: "
+          f"prefill {timing['prefill_ms']:.1f} ms | decode "
           f"{timing['decode_ms']:.1f} ms for {args.gen - 1} tokens "
           f"({timing['ms_per_token']:.2f} ms/token) | round 0 prefill "
           f"{rounds[0][0]['prefill_ms']:.1f} ms | peak memory {peak:.2f} GB"
@@ -939,6 +1006,7 @@ def serve_phase(torch, dev):
                                         {"tokens": prompts},
                                         max_len=args.prompt_len + args.gen)
             outs[up] = (last, cache["blocks"]["0"])
+            del cache
     (lk, ck), (lp, cp) = outs[True], outs[False]
     check(bool(torch.isfinite(lk).all()), "serve: non-finite logits")
     errs = {"logits": max_abs(lk, lp),
@@ -949,11 +1017,13 @@ def serve_phase(torch, dev):
           f"agreement {agree:.2f} | logits max |x| "
           f"{float(lp.abs().max()):.3f}")
     for what, e in errs.items():
-        check(e <= SERVE_TOL, f"serve: {what} differs by {e} > {SERVE_TOL}")
+        check(e <= SERVE_TOL, f"serve {cfg.arch_id}: {what} differs by {e} "
+                              f"> {SERVE_TOL}")
     del params, outs, lk, lp, ck, cp
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, dict(timing, round0_prefill_ms=rounds[0][0][
+        "prefill_ms"], peak_gb=peak)
 
 
 # ---------------------------------------------------------------------------
@@ -2009,6 +2079,240 @@ def graph_resume(torch, steps=4, at=2):
               f"included)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: every architecture of the dense block kind
+# ---------------------------------------------------------------------------
+
+def wide_kernel_phase(torch, dev):
+    """15a: flash attention at head_dim 80 and 128 on phase 7's ragged set
+    and at the new archs' prefill shapes, RMSNorm at their widths; each
+    against its plain version, the full shapes timed against their bounds
+    and one PyTorch call each."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm as rms
+
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    bad, rows = [], []
+
+    def compare(what, got, want):
+        err = max_abs(got, want)
+        if not (bool(torch.isfinite(got).all()) and torch.allclose(
+                got, want, rtol=MODEL_TOL, atol=MODEL_TOL)):
+            bad.append(f"{what}: {err:.3e}")
+        return err
+
+    cases = [(S, S, c, w) for S in FLASH_S for c, w in FLASH_MASKS]
+    cases += FLASH_CROSS
+    for hd, H, KV in WIDE_RAGGED:
+        worst = 0.0
+        for S, Skv, causal, window in cases:
+            q = torch.randn((1, S, H, hd), device=dev, generator=gen)
+            k = torch.randn((1, Skv, KV, hd), device=dev, generator=gen)
+            v = torch.randn((1, Skv, KV, hd), device=dev, generator=gen)
+            got = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                         window=window)
+            want = fa_ref.attention(q, k, v, causal=causal, window=window)
+            if S > Skv and window is not None:   # rows that see no key
+                live = torch.arange(S, device=dev) - window + 1 < Skv
+                got, want = got[:, live], want[:, live]
+            worst = max(worst, compare(
+                f"flash hd {hd} Sq {S} Skv {Skv} causal {causal} window "
+                f"{window}", got, want))
+        print(f"  flash_attention hd {hd} H {H}/{KV}: {len(cases)} ragged "
+              f"cases, max_abs_err {worst:.3e}")
+    for d in RMS_WIDE:
+        worst = 0.0
+        for r in (1, 7, 129, 1000):
+            x = torch.randn((r, d), device=dev, generator=gen)
+            sc = torch.randn((d,), device=dev, generator=gen)
+            worst = max(worst, compare(f"rmsnorm ({r}, {d})",
+                                       rms.rmsnorm_2d(x, sc),
+                                       rms_ref.rmsnorm(x, sc)))
+        print(f"  rmsnorm d {d}: rows 1, 7, 129, 1000, max_abs_err "
+              f"{worst:.3e}")
+
+    for B, S, H, KV, hd, causal in ATTN_WIDE:
+        q = torch.randn((B, S, H, hd), device=dev, generator=gen)
+        k = torch.randn((B, S, KV, hd), device=dev, generator=gen)
+        v = torch.randn((B, S, KV, hd), device=dev, generator=gen)
+        run = lambda: fa.flash_attention_fwd(q, k, v, causal=causal)
+        err = compare(f"flash full {(B, S, H, KV, hd)}", run(),
+                      fa_ref.attention(q, k, v, causal=causal))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+        flop = 4 * B * H * hd * (S * (S + 1) // 2 if causal else S * S)
+        t_b, by = bound_ms(nbytes, 3 * flop, TF32_FLOP_PER_S)
+        r = dict(what=f"flash_attention ({B}, {S}, {H}/{KV}, {hd}) "
+                      f"{'causal' if causal else 'non-causal'}",
+                 max_abs_err=err, ms=cuda_ms(torch, run, n=10),
+                 plain_ms=cuda_ms(torch, lambda: fa_ref.attention(
+                     q, k, v, causal=causal), n=3),
+                 bound_ms=t_b, bound_by=by, gflop=flop / 1e9,
+                 library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, is_causal=causal, enable_gqa=True), n=10))
+        rows.append(r)
+        del q, k, v, qt, kt, vt
+    R = RMS_FULL[0]
+    for d in RMS_WIDE:
+        x = torch.randn((R, d), device=dev, generator=gen)
+        sc = torch.randn((d,), device=dev, generator=gen)
+        err = compare(f"rmsnorm full ({R}, {d})", rms.rmsnorm_2d(x, sc),
+                      rms_ref.rmsnorm(x, sc))
+        t_b, by = bound_ms(2 * R * d * 4 + d * 4, 4 * R * d)
+        rows.append(dict(
+            what=f"rmsnorm ({R}, {d})", max_abs_err=err,
+            ms=cuda_ms(torch, lambda: rms.rmsnorm_2d(x, sc), n=50),
+            plain_ms=cuda_ms(torch, lambda: rms_ref.rmsnorm(x, sc), n=20),
+            bound_ms=t_b, bound_by=by,
+            library_ms=cuda_ms(torch, lambda: F.rms_norm(x, (d,), sc, 1e-6),
+                               n=20)))
+        del x, sc
+    for r in rows:
+        extra = (f" ({r['gflop']:.1f} GFLOP, 3 TF32 passes at "
+                 f"{TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s)"
+                 if "gflop" in r else "")
+        print(f"  full-shape {r['what']}: max_abs_err {r['max_abs_err']:.3e}"
+              f" | {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}{extra} = "
+              f"{r['bound_ms'] / r['ms']:.1%}, library "
+              f"{r['library_ms']:.4f} ms)")
+    check(not bad, f"kernel vs plain beyond rtol = atol = {MODEL_TOL}: "
+                   f"{bad}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dense_kind_serve(torch, dev):
+    """15b: the five decoder archs through ``launch.serve`` at full width
+    (command-r-35b's depth cut to fit the card)."""
+    from repro_torch.configs import get_config
+
+    total = {}
+    for arch, argv, layers in SERVE_WIDE:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = cfg.replace(num_layers=layers)
+        got, _ = serve_phase(torch, dev, ["--arch", arch, *argv], cfg=cfg)
+        for k_, v in got.items():
+            total[k_] = total.get(k_, 0) + v
+    return total
+
+
+def hubert_forward(torch, dev):
+    """15c: hubert-xlarge's forward at full width, the kernel route against
+    the plain route on the card; ``launch.serve`` refuses it."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream, make_inputs
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.rmsnorm import rmsnorm as rms
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    cfg = get_config("hubert-xlarge")
+    try:
+        serve.main(["--arch", "hubert-xlarge", "--batch", "1",
+                    "--prompt-len", "8", "--gen", "2", "--rounds", "1"])
+    except SystemExit as e:
+        refusal = str(e)
+    else:
+        raise RuntimeError("chip_smoke check failed: launch.serve served "
+                           "hubert-xlarge")
+    check("encoder-only architecture has no decode step" in refusal,
+          f"hubert refusal: {refusal!r}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init(cfg, device=dev, seed=0)
+    B, S = HUBERT_FORWARD
+    batch = make_inputs(cfg, TokenStream(cfg.vocab_size), 0, B, S,
+                        device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    out, ms = {}, {}
+    with torch.inference_mode():
+        for up in (True, False):
+            c = cfg.replace(use_pallas=up)
+            model.forward(params, c, batch)            # warm-up
+            rms.reset_launches()
+            fa.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[up] = model.forward(params, c, batch)
+            torch.cuda.synchronize()
+            ms[up] = (time.perf_counter() - t0) * 1e3
+            if up:
+                launches = {"rmsnorm": rms.LAUNCHES["rmsnorm"],
+                            "flash_attention": fa.LAUNCHES["flash_attention"]}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(tuple(out[True].shape) == (B, S, cfg.vocab_size)
+          and bool(torch.isfinite(out[True]).all()),
+          f"hubert forward: logits {tuple(out[True].shape)}")
+    err = max_abs(out[True], out[False])
+    check(launches == {"rmsnorm": 0, "flash_attention": cfg.num_layers},
+          f"hubert forward launches {launches} (LayerNorm has no kernel)")
+    print(f"  hubert-xlarge forward ({B}, {S}) full width and depth: kernel "
+          f"route {ms[True]:.1f} ms, plain route {ms[False]:.1f} ms | "
+          f"logits max_abs_err {err:.3e} | peak {peak:.2f} GB | launches "
+          f"{launches} | launch.serve refuses: {refusal!r}")
+    check(err <= SERVE_TOL, f"hubert forward differs by {err} > {SERVE_TOL}")
+    del params, batch, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dense_kind_training(torch):
+    """15d: hubert-xlarge (full width and depth) and qwen2-vl-7b (full
+    width, 2 layers) through ``launch.train``, W = 2, batch 4, seq 256."""
+    want = {"lag-wk": ("delta_sqnorm_blocks", "masked_combine"),
+            "laq@4": ("absmax_blocks", "laq_encode_blocks",
+                      "masked_combine")}
+    total = {}
+    for arch, algo, extra in TRAIN_WIDE:
+        run = trainer_phase(torch, algo, extra=extra, arch=arch)
+        for k_ in want[algo]:
+            check(run["plane"][k_] >= 4, f"{arch} {algo}: kernel {k_} "
+                                         f"launched {run['plane'][k_]} times")
+        check(run["peak"] < 80.0, f"{arch} {algo}: peak {run['peak']:.2f} "
+                                  f"GB")
+        for k_, v in run["plane"].items():
+            total[k_] = total.get(k_, 0) + v
+    return total
+
+
+def dense_kind_agreement(torch, dev):
+    """15e: the six reduced archs, 3 rounds of lag-wk on the card (the
+    plane's kernels) and on the CPU (their plain versions) from the same
+    weights: equal masks, losses within rtol 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream, make_inputs
+    from repro_torch.dist.lag_trainer import (TrainerConfig, init_state,
+                                              make_train_step, params_of)
+
+    tcfg = TrainerConfig(algo="lag-wk", num_workers=2, lr=0.3)
+    for arch in DENSE_KIND:
+        cfg = get_config(arch).reduced()
+        cpu = init_state(cfg, tcfg, device="cpu", seed=5)
+        gpu = init_state(cfg, tcfg, device=dev, params=params_of(cpu, cfg))
+        cpu_step = make_train_step(cfg, tcfg.replace(fastpath="on"))
+        gpu_step = make_train_step(cfg, tcfg)
+        stream, masks = TokenStream(cfg.vocab_size, seed=5), []
+        for k in range(3):
+            b = make_inputs(cfg, stream, k, 4, 32, device="cpu")
+            cpu, mc = cpu_step(cpu, b)
+            gpu, mg = gpu_step(gpu, {n: t.to(dev) for n, t in b.items()})
+            lc, lg = float(mc["loss"]), float(mg["loss"])
+            check(abs(lc - lg) <= 1e-4 * abs(lc),
+                  f"small {arch} round {k}: loss cpu {lc} vs gpu {lg}")
+            check(mc["comm_mask"].tolist() == mg["comm_mask"].cpu().tolist(),
+                  f"small {arch} round {k}: masks differ")
+            masks.append(mg["comm_mask"].to(torch.int32).tolist())
+        print(f"  small {arch} lag-wk: 3 rounds, GPU vs CPU losses within "
+              f"rtol 1e-4, masks equal (last loss {lg:.6f}, masks {masks})")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2058,6 +2362,9 @@ def main():
           f"memory a block | {spills or '(cached build: no ptxas report)'}")
     check(all(" 0 bytes spill stores, 0 bytes spill loads" in line
               for line in spills), f"the flash kernel spills: {spills}")
+    check(not spills or len(spills) == len(fa.HEAD_DIMS),
+          f"want one ptxas report per flash instantiation {fa.HEAD_DIMS}: "
+          f"{spills}")
 
     print("[3] kernels vs plain versions, ragged layouts", flush=True)
     ragged_phase(torch, dev)
@@ -2095,7 +2402,7 @@ def main():
     full.update(model_kernel_phase(torch, dev))
     print("[8] serving path: llama3.2-1b full width, batch 4, prompt 2048, "
           "32 tokens", flush=True)
-    serve_launches = serve_phase(torch, dev)
+    serve_launches, _ = serve_phase(torch, dev)
     launches.update(serve_launches)
     for k in serve_launches:
         check(launches[k] > 0, f"kernel {k} never launched on the serving "
@@ -2156,6 +2463,21 @@ def main():
     for k, v in p14.items():
         launches[k] += v
     print(f"  phase 14 launches: { {k: v for k, v in p14.items() if v} }")
+
+    print("[15] the dense block kind: a the kernels at the new shapes, b "
+          "serving five archs, c hubert-xlarge's forward, d training hubert "
+          "and qwen2-vl, e the six reduced archs card = CPU", flush=True)
+    t15 = time.perf_counter()
+    wide_kernel_phase(torch, dev)
+    p15 = dense_kind_serve(torch, dev)
+    for part in (hubert_forward(torch, dev), dense_kind_training(torch)):
+        for k, v in part.items():
+            p15[k] = p15.get(k, 0) + v
+    dense_kind_agreement(torch, dev)
+    for k, v in p15.items():
+        launches[k] += v
+    print(f"  phase 15 launches: { {k: v for k, v in p15.items() if v} } "
+          f"in {time.perf_counter() - t15:.1f} s")
 
     rows = [dict(name=k, route="cuda", source=SOURCES.get(k, SOURCE),
                  replaces=REPLACES[k], launches=launches[k], **full[k])

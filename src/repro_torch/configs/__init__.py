@@ -1,5 +1,6 @@
 """Architecture registry of the port: ``get_config(arch_id, **overrides)``.
-Only the dense llama family is ported."""
+The port has the reference's architectures whose layers are all of the
+``dense`` kind; the MoE, SSM and hybrid ones are not ported."""
 from __future__ import annotations
 
 import importlib
@@ -8,8 +9,17 @@ from typing import Dict
 from repro_torch.models.common import ModelConfig
 
 _MODULES: Dict[str, str] = {
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
+    "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
+    "granite-8b": "repro_torch.configs.granite_8b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
+    "llama3.2-1b-sw": "repro_torch.configs.llama3_2_1b_sw",
+    "command-r-35b": "repro_torch.configs.command_r_35b",
+    "llama3.2-3b": "repro_torch.configs.llama3_2_3b",
 }
+
+#: every architecture the port has
+ALL_ARCHS = list(_MODULES)
 
 
 def get_config(arch_id: str, **overrides) -> ModelConfig:

@@ -1,5 +1,6 @@
-"""The input shapes and their applicability rule — port of
-``repro.configs.shapes`` as far as the launchers need it (``applicable``).
+"""The input shapes, their applicability rule and the VLM's vision prefix —
+port of ``repro.configs.shapes`` as far as the launchers and the data path
+need it (``applicable``, ``vision_prefix``).
 
   train_4k     seq 4,096    global_batch 256   train_step
   prefill_32k  seq 32,768   global_batch 32    forward (prefill)
@@ -52,3 +53,8 @@ def applicable(cfg: ModelConfig, shape_name: str) -> Tuple[bool, str]:
         return False, ("pure full-attention arch; long_500k needs "
                        "sub-quadratic mixer")
     return True, ""
+
+
+def vision_prefix(cfg: ModelConfig, seq_len: int) -> int:
+    """Number of stub vision-patch positions for VLM shapes (S//4)."""
+    return seq_len // 4 if cfg.family == "vlm" else 0

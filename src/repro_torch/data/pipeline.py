@@ -1,7 +1,7 @@
-"""Deterministic synthetic token data — port of ``repro.data.pipeline``
-(LM batches only).
+"""Deterministic synthetic data — port of ``repro.data.pipeline``: LM token
+batches and the audio and VLM variants.
 
-The stream is numpy, seeded per (seed, step, worker) exactly as the
+The draws are numpy, seeded per (seed, step, worker) exactly as the
 reference, so the port's batches equal the reference's bit for bit.  The
 batches land on ``device``: the card unless the caller asks for the CPU.
 Worker-shard heterogeneity is a dial (``repro_torch.netsim.hetero``);
@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.configs.shapes import vision_prefix
 from repro_torch.device import resolve_device
 from repro_torch.models.common import ModelConfig
 
@@ -44,15 +45,40 @@ class TokenStream:
 def make_inputs(cfg: ModelConfig, stream: TokenStream, step: int,
                 batch: int, seq: int, worker: int = 0,
                 device="cuda") -> dict:
-    """One LM training batch: {"tokens", "targets"} (B, seq) int32 on
-    ``device`` ("cuda" by default, which raises without a GPU)."""
+    """One training batch for any family, on ``device`` ("cuda" by
+    default, which raises without a GPU): LM {"tokens", "targets"} (B,
+    seq) int32; audio {"frames" (B, seq, d) float, "mask" (B, seq) bool,
+    "targets"}; VLM {"tokens", "targets"} (B, seq − nv), "vision_embeds"
+    (B, nv, d) and "positions3" (3, B, seq) with nv = seq // 4."""
     device = resolve_device(device)
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} inputs are not "
-                                  f"ported yet")
     toks = stream.batch(step, worker, batch, seq + 1)
-    return {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(device),
-            "targets": torch.from_numpy(toks[:, 1:].copy()).to(device)}
+    tokens, targets = toks[:, :-1], toks[:, 1:]
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    if cfg.family == "audio":
+        rng = np.random.default_rng(
+            np.random.SeedSequence([stream.seed, step, worker, 7]))
+        frames = rng.standard_normal((batch, seq, cfg.d_model)).astype(
+            np.float32)
+        mask = rng.random((batch, seq)) < 0.08
+        return {"frames": put(frames).to(cfg.compute_dtype),
+                "mask": put(mask),
+                "targets": put(targets % cfg.vocab_size)}
+    if cfg.family == "vlm":
+        nv = vision_prefix(cfg, seq)
+        rng = np.random.default_rng(
+            np.random.SeedSequence([stream.seed, step, worker, 9]))
+        ve = rng.standard_normal((batch, nv, cfg.d_model)).astype(
+            np.float32) * 0.02
+        base = np.broadcast_to(np.arange(seq)[None], (batch, seq))
+        return {"tokens": put(tokens[:, :seq - nv]),
+                "vision_embeds": put(ve).to(cfg.compute_dtype),
+                "positions3": put(np.broadcast_to(
+                    base[None], (3, batch, seq)).astype(np.int32)),
+                "targets": put(targets[:, :seq - nv])}
+    return {"tokens": put(tokens), "targets": put(targets)}
 
 
 def make_heterogeneous_inputs(cfg: ModelConfig, stream: TokenStream,

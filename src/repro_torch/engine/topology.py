@@ -49,15 +49,24 @@ from repro_torch.netsim import hetero as netsim_hetero
 
 def split_batch(batch: Dict[str, torch.Tensor], num_workers: int) -> Dict:
     """Reshape every leaf's batch dim into a leading worker dim:
-    ``(B, …) → (W, B/W, …)`` — worker m gets rows ``m·B/W:(m+1)·B/W``."""
+    ``(B, …) → (W, B/W, …)`` — worker m gets rows ``m·B/W:(m+1)·B/W``.
+
+    M-RoPE's ``positions3`` carries a leading 3-axis, so its batch dim is
+    axis 1 and the worker dim still lands in front: ``(3, B, S) → (W, 3,
+    B/W, S)``.  Scalars are broadcast to ``(W,)``."""
     W = num_workers
     out = {}
     for key, x in batch.items():
-        B = x.shape[0]
+        if x.dim() == 0:
+            out[key] = x.expand(W)
+            continue
+        b_ax = 1 if "positions3" in key else 0
+        B = x.shape[b_ax]
         if B % W:
             raise ValueError(f"batch dim {B} not divisible by {W} workers"
                              f" at {key!r}")
-        out[key] = x.reshape((W, B // W) + tuple(x.shape[1:]))
+        shp = tuple(x.shape[:b_ax]) + (W, B // W) + tuple(x.shape[b_ax + 1:])
+        out[key] = torch.movedim(x.reshape(shp), b_ax, 0)
     return out
 
 

@@ -15,6 +15,27 @@
 // causal (q >= k), window (q - k < window), positions counted from 0 for
 // both q and k, as in the reference.
 //
+// One templated source, three instantiations (the C entry point picks one
+// by head_dim; any other head_dim is refused):
+//
+//   hd   stored  keys a tile  q's hi fragments  n tiles a P.V pass  shared
+//   64   64      64           registers         8 (all)            112 KB
+//   80   96      32           registers         12 (all)           96 KB
+//   128  128     16           shared memory     8 (two passes)     112 KB
+//
+// (shared memory a block; two blocks an SM each).  head_dim 80 is stored
+// as 96 (the copy zero-fills columns 80..95 of every K/V row, q's are
+// zero, the output's are not written): the fragment and swizzle arithmetic
+// below wants whole groups of 32 columns, and the padding costs 20 % more
+// tensor-core work.  At 80 and 128 the registers of q's hi fragments, the
+// output accumulator, the fresh P.V accumulator and the scores do not fit
+// 255 a thread at head_dim 64's 64-key tiles: at 80 the tiles are 32 keys (half
+// the scores); at 128 q's hi fragments go to shared memory beside their
+// lo, the tiles are 16 keys and the P.V product runs in two passes of 8 n
+// tiles (half the fresh accumulator; P's split is recomputed per pass).
+// Each shape was the fastest without a spill among those tried on an H100
+// (PERF.md).
+//
 // Bound: operations.  At the serving path's shape (B 4, S 2048, H 32/KV 8,
 // hd 64, causal) the two products take 4*B*H*hd*S(S+1)/2 = 68.7 GFLOP.
 // The kernel runs them as three TF32 products each (below), 206 GFLOP on
@@ -28,34 +49,38 @@
 //     into one float32 accumulator (mma.sync m16n8k8 .tf32, f32 accumulate).
 //     The dropped lo.lo term is below float32's rounding; one TF32 pass
 //     would miss the plain version by ~1e-3 (tests/test_torch_kernels.py
-//     emulates both).  The scale hd^-0.5 = 0.125 is folded into q once: a
-//     power of two, so exact.
+//     emulates both).  At hd 64 the scale hd^-0.5 = 0.125 is folded into q
+//     once: a power of two, so exact.  80^-0.5 and 128^-0.5 are not, so
+//     there the scores are multiplied by the scale after the product, as
+//     the reference does.
 //   * Tiles.  A block of 4 warps takes BQ = 64 query rows of one (b, h),
 //     16 rows per warp (the m16 of the mma); the loop inside the block
-//     (the TPU's sequential kv grid axis) runs over BK = 64 keys per tile.
-//     Each warp keeps its q fragments for the whole loop (hi in registers,
-//     lo in its threads' own slots of shared memory, 16 KB a block, which
-//     keeps the kernel within 255 registers without a spill), its 16 x 64
-//     scores and its 16 x 64 output accumulator in registers, in the mma
-//     accumulator layout.
+//     (the TPU's sequential kv grid axis) runs over BK keys per tile.
+//     Each warp keeps its q fragments for the whole loop (hi in registers
+//     below hd 128, lo in its threads' own slots of shared memory, 16 KB a
+//     block at hd 64, which keeps the kernel within 255 registers without
+//     a spill),
+//     its 16 x BK scores and its 16 x hd output accumulator in registers,
+//     in the mma accumulator layout.
 //   * K and V come through a two-stage cp.async ring in dynamic shared
 //     memory; the copy of tile t + 1 runs under the work on tile t.  Keys
 //     past Skv are zero-filled by the copy itself (src-size 0): no read
 //     leaves the tensors.  Once a tile has landed, the block splits it in
 //     place, once (hi over the copy, lo into one more buffer), so that the
-//     four warps do not each split the same K and V: 2 x 32 KB of ring,
-//     32 KB of lo and q's 16 KB, 112 KB a block, two blocks an SM.
+//     four warps do not each split the same K and V: at hd 64, 2 x 32 KB of
+//     ring, 32 KB of lo and q's 16 KB, 112 KB a block, two blocks an SM.
 //   * 16-byte fragment reads.  Inside every 16 columns of hd the order of
 //     the score product's k steps is relabelled (k step 2m takes columns
 //     16m + 4t and 16m + 4t + 1 as its columns t and t + 4, k step 2m + 1
 //     columns 16m + 4t + 2 and + 3), the same for q and K, so that one
 //     float4 holds a thread's K fragments of two k steps.  The output's hd
-//     columns are relabelled the same way (n tile n, column c is hd 8c +
-//     n), so that one float4 holds a thread's V fragments of four n tiles
-//     and a thread writes 16 consecutive floats of o.  Shared rows are
-//     unpadded, with their 16-byte chunks XOR-swizzled by the key's low
-//     three bits: each quarter warp's reads of K and of V hit all 32 banks
-//     once.
+//     columns are relabelled the same way (with NT = hd / 8 n tiles, n tile
+//     n, column c is hd NT c + n), so that one float4 holds a thread's V
+//     fragments of four n tiles and a thread writes 2 NT consecutive floats
+//     of o.  Shared rows are unpadded, with their 16-byte chunks
+//     XOR-swizzled by the key's low three bits: each quarter warp's reads
+//     of K and of V hit all 32 banks once (at the stored hd 96 one V read
+//     in three is a two-way conflict).
 //   * Online softmax in the accumulator's layout: a thread holds columns
 //     (2t, 2t+1) of rows g and g + 8 of each 8-key slab; the row max takes
 //     two __shfl_xor_sync within the quad, the row sum stays a per-thread
@@ -87,19 +112,41 @@
 
 namespace {
 
-constexpr int HD = 64;                 // head_dim the kernel is built for
 constexpr int WARPS = 4;
 constexpr int BQ = 16 * WARPS;         // query rows per block, 16 per warp
-constexpr int BK = 64;                 // keys per tile
 constexpr int THREADS = 32 * WARPS;
-constexpr int TILE = BK * HD;          // floats of one K or V tile
-constexpr int STAGE = 2 * TILE;        // one ring stage: K tile, V tile
-constexpr int QLO = WARPS * (HD / 8) * 32 * 4;  // floats of q's lo
-// 2 ring stages, the lo of the current tile, q's lo fragments
-constexpr int SMEM_BYTES = (3 * STAGE + QLO) * (int)sizeof(float);
 constexpr int MAX_DEVICES = 64;
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+
+// one instantiation: head_dim HD stored as HDP columns (a multiple of 32),
+// BK keys a tile, the P.V product in passes of OG float4 chunks (4 OG n
+// tiles) of the output, q's hi fragments in shared memory beside its lo
+// (QS) or in registers
+template <int HD_, int HDP_, int BK_, int OG_, bool QS_>
+struct Shape {
+  static constexpr int HD = HD_;
+  static constexpr int HDP = HDP_;
+  static constexpr int BK = BK_;
+  static constexpr int OG = OG_;
+  static constexpr bool QS = QS_;
+  static constexpr int NT = HDP / 8;            // n tiles of the output
+  static constexpr int TILE = BK * HDP;         // floats of one K or V tile
+  static constexpr int STAGE = 2 * TILE;        // one ring stage: K, V
+  static constexpr int QLO = WARPS * NT * 32 * 4;   // floats of q's lo
+  // 2 ring stages, the lo of the current tile, q's lo (and hi) fragments
+  static constexpr int SMEM_BYTES =
+      (3 * STAGE + (QS ? 2 : 1) * QLO) * (int)sizeof(float);
+  // the scale folds into q exactly only where it is a power of two
+  static constexpr bool FOLD = HD == 64;
+  static_assert(HDP % 32 == 0 && HD <= HDP && HD % 4 == 0, "hd");
+  static_assert((NT / 4) % OG == 0, "P.V passes");
+  static_assert(TILE % (4 * THREADS) == 0 && BK % 8 == 0 && BK <= 64, "BK");
+};
+
+using Hd64 = Shape<64, 64, 64, 2, false>;
+using Hd80 = Shape<80, 96, 32, 3, false>;
+using Hd128 = Shape<128, 128, 16, 2, true>;
 
 // 2^x, flushing results below 2^-126 to 0 (a weight that small adds
 // nothing a float32 sum of weights up to 1 and beyond can hold)
@@ -141,11 +188,17 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
   mma_tf32(d, ah, bh0, bh1);
 }
 
-// float offset of the 16-byte chunk c (0..15) of row r of a tile: chunks
-// XOR-swizzled by r's low three bits (see the header)
+// float offset of the 16-byte chunk c of row r of a tile: chunks
+// XOR-swizzled by r's low three bits.  A quarter warp reads K at rows
+// {2i, 2i + 1} and chunks 4m .. 4m + 3, V at the four even (or odd) rows of
+// an 8-key slab and chunks {cc, NT / 4 + cc}; the swizzle spreads both
+// over the 8 chunk slots of 128 bytes (rows are a multiple of 128 bytes)
+template <int HDP>
 __device__ __forceinline__ int chunk_at(int r, int c) {
-  const int sw = (((r ^ (r >> 2)) & 1) << 2) | ((r >> 1) & 1);
-  return r * HD + 4 * (c ^ sw);
+  const int sw = HDP == 128
+      ? (((r & 1) << 2) | ((r >> 1) & 3))
+      : ((((r ^ (r >> 2)) & 1) << 2) | ((r >> 1) & 1));
+  return r * HDP + 4 * (c ^ sw);
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -173,7 +226,7 @@ __device__ __forceinline__ bool visible(int64_t qi, int64_t kp, int64_t Skv,
 // returns the rescale factors alpha of rows r0 and r1.  kMasked: bit
 // 4j + e of vis says whether score sc[j][e] is visible; a tile every score
 // of which is visible skips the bit tests
-template <bool kMasked>
+template <bool kMasked, int BK>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 8][4],
                                              uint32_t vis, float& m0,
                                              float& m1, float& l0, float& l1,
@@ -213,11 +266,14 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 8][4],
   l1 = al1 * l1 + ps1;
 }
 
+template <class S>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  int64_t Sq, int64_t Skv, int64_t H, int64_t KV,
                  float scale, int causal, int64_t window) {
+  constexpr int HD = S::HD, HDP = S::HDP, BK = S::BK, NT = S::NT;
+  constexpr int TILE = S::TILE, STAGE = S::STAGE;
   extern __shared__ __align__(16) float smem[];
   float* const lo_buf = smem + 2 * STAGE;     // lo of the current tile
 
@@ -228,38 +284,45 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t g = h / (H / KV);
   const int64_t q0 = (int64_t)(gridDim.y - 1 - blockIdx.y) * BQ;
   const int64_t r0 = q0 + warp * 16 + gr, r1 = r0 + 8;   // this thread's rows
+  const float qscale = S::FOLD ? scale : 1.f;
 
-  // q * scale as A fragments: [k step][a0..a3], a0 row r0, a1 row r1, a2
-  // row r0, a3 row r1; k step 2m takes hd 16m + 4tq (a0, a1) and + 1 (a2,
-  // a3), k step 2m + 1 hd + 2 and + 3.  hi in registers, lo in this
-  // thread's own slots of shared memory (one 16-byte slot per k step,
-  // consecutive lanes on consecutive slots), which saves 32 registers
-  uint32_t qh[HD / 8][4];
+  // q (* scale where it folds) as A fragments: [k step][a0..a3], a0 row
+  // r0, a1 row r1, a2 row r0, a3 row r1; k step 2m takes hd 16m + 4tq (a0,
+  // a1) and + 1 (a2, a3), k step 2m + 1 hd + 2 and + 3.  hi in registers,
+  // lo in this thread's own slots of shared memory (one 16-byte slot per k
+  // step, consecutive lanes on consecutive slots), which saves NT * 4
+  // registers.  Columns past HD are zero
+  uint32_t qh[NT][4];
   uint4* const qlo = reinterpret_cast<uint4*>(smem + 3 * STAGE)
-                     + warp * (HD / 8) * 32 + lane;
+                     + warp * NT * 32 + lane;
+  uint4* const qhi = qlo + WARPS * NT * 32;     // used under S::QS only
   {
-    uint32_t ql[HD / 8][4];
+    uint32_t ql[NT][4];
     const float4* qr0 = reinterpret_cast<const float4*>(
         q + ((b * Sq + (r0 < Sq ? r0 : 0)) * H + h) * HD);
     const float4* qr1 = reinterpret_cast<const float4*>(
         q + ((b * Sq + (r1 < Sq ? r1 : 0)) * H + h) * HD);
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int m = 0; m < HD / 16; ++m) {
-      const float4 x = r0 < Sq ? qr0[4 * m + tq] : zero;
-      const float4 y = r1 < Sq ? qr1[4 * m + tq] : zero;
-      split(x.x * scale, qh[2 * m][0], ql[2 * m][0]);
-      split(y.x * scale, qh[2 * m][1], ql[2 * m][1]);
-      split(x.y * scale, qh[2 * m][2], ql[2 * m][2]);
-      split(y.y * scale, qh[2 * m][3], ql[2 * m][3]);
-      split(x.z * scale, qh[2 * m + 1][0], ql[2 * m + 1][0]);
-      split(y.z * scale, qh[2 * m + 1][1], ql[2 * m + 1][1]);
-      split(x.w * scale, qh[2 * m + 1][2], ql[2 * m + 1][2]);
-      split(y.w * scale, qh[2 * m + 1][3], ql[2 * m + 1][3]);
+    for (int m = 0; m < HDP / 16; ++m) {
+      const bool col = HD == HDP || 4 * m + tq < HD / 4;
+      const float4 x = r0 < Sq && col ? qr0[4 * m + tq] : zero;
+      const float4 y = r1 < Sq && col ? qr1[4 * m + tq] : zero;
+      split(x.x * qscale, qh[2 * m][0], ql[2 * m][0]);
+      split(y.x * qscale, qh[2 * m][1], ql[2 * m][1]);
+      split(x.y * qscale, qh[2 * m][2], ql[2 * m][2]);
+      split(y.y * qscale, qh[2 * m][3], ql[2 * m][3]);
+      split(x.z * qscale, qh[2 * m + 1][0], ql[2 * m + 1][0]);
+      split(y.z * qscale, qh[2 * m + 1][1], ql[2 * m + 1][1]);
+      split(x.w * qscale, qh[2 * m + 1][2], ql[2 * m + 1][2]);
+      split(y.w * qscale, qh[2 * m + 1][3], ql[2 * m + 1][3]);
     }
 #pragma unroll
-    for (int kk = 0; kk < HD / 8; ++kk)
+    for (int kk = 0; kk < NT; ++kk) {
       qlo[32 * kk] = make_uint4(ql[kk][0], ql[kk][1], ql[kk][2], ql[kk][3]);
+      if (S::QS)
+        qhi[32 * kk] = make_uint4(qh[kk][0], qh[kk][1], qh[kk][2], qh[kk][3]);
+    }
   }
 
   // the keys any valid query of this block can see
@@ -270,27 +333,28 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (window > 0 && q0 - window + 1 > 0) k_begin = q0 - window + 1;
   const int64_t t_begin = k_begin / BK, t_end = (k_end + BK - 1) / BK;
 
-  // one tile of K and V into ring stage s: 16-byte copies, a row of 16
-  // chunks per 16 consecutive threads; keys past Skv are zero-filled
+  // one tile of K and V into ring stage s: 16-byte copies, a row of HDP / 4
+  // chunks per as many consecutive threads; keys past Skv and columns past
+  // HD are zero-filled
   auto load_tile = [&](int64_t t, int s) {
     float* ks = smem + s * STAGE;
     float* vs = ks + TILE;
 #pragma unroll
     for (int it = 0; it < TILE / 4 / THREADS; ++it) {
       const int i = it * THREADS + threadIdx.x;
-      const int r = i / (HD / 4), c = i % (HD / 4);
+      const int r = i / (HDP / 4), c = i % (HDP / 4);
       const int64_t kp = t * BK + r;
-      const bool in = kp < Skv;
+      const bool in = kp < Skv && (HD == HDP || c < HD / 4);
       const int64_t idx = in ? ((b * Skv + kp) * KV + g) * HD + 4 * c : 0;
-      cp_async16(ks + chunk_at(r, c), k + idx, in ? 16 : 0);
-      cp_async16(vs + chunk_at(r, c), v + idx, in ? 16 : 0);
+      cp_async16(ks + chunk_at<HDP>(r, c), k + idx, in ? 16 : 0);
+      cp_async16(vs + chunk_at<HDP>(r, c), v + idx, in ? 16 : 0);
     }
     cp_async_commit();
   };
 
-  float acc[HD / 8][4];                   // O; n tile n, column c: hd 8c + n
+  float acc[NT][4];                       // O; n tile n, column c: hd NT c + n
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   float m0 = NEG, m1 = NEG;               // running max of rows r0, r1
@@ -334,22 +398,35 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-    for (int m = 0; m < HD / 16; ++m) {
-      uint32_t ql[2][4];
+    for (int m = 0; m < HDP / 16; ++m) {
+      uint32_t ql[2][4], qa[2][4];
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const uint4 x = qlo[32 * (2 * m + u)];
         ql[u][0] = x.x; ql[u][1] = x.y; ql[u][2] = x.z; ql[u][3] = x.w;
+        if (S::QS) {
+          const uint4 y = qhi[32 * (2 * m + u)];
+          qa[u][0] = y.x; qa[u][1] = y.y; qa[u][2] = y.z; qa[u][3] = y.w;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[u][e] = qh[2 * m + u][e];
+        }
       }
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
         // B = K^T at key 8j + gr: hd 16m + 4tq .. + 3, two k steps
-        const int off = chunk_at(8 * j + gr, 4 * m + tq);
+        const int off = chunk_at<HDP>(8 * j + gr, 4 * m + tq);
         const float4 bh = *reinterpret_cast<const float4*>(ks + off);
         const float4 bl = *reinterpret_cast<const float4*>(kl + off);
-        mma3(sc[j], qh[2 * m], ql[0], bh.x, bh.y, bl.x, bl.y);
-        mma3(sc[j], qh[2 * m + 1], ql[1], bh.z, bh.w, bl.z, bl.w);
+        mma3(sc[j], qa[0], ql[0], bh.x, bh.y, bl.x, bl.y);
+        mma3(sc[j], qa[1], ql[1], bh.z, bh.w, bl.z, bl.w);
       }
+    }
+    if (!S::FOLD) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] *= scale;
     }
 
     // -- mask: one bit per score, all set unless some query of the block
@@ -370,45 +447,51 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     float al0, al1;
-    if (full) softmax_tile<false>(sc, vis, m0, m1, l0, l1, al0, al1);
-    else softmax_tile<true>(sc, vis, m0, m1, l0, l1, al0, al1);
+    if (full) softmax_tile<false, BK>(sc, vis, m0, m1, l0, l1, al0, al1);
+    else softmax_tile<true, BK>(sc, vis, m0, m1, l0, l1, al0, al1);
 
-    // -- acc = acc * alpha + P . V, P . V into a fresh accumulator
-    float ot[HD / 8][4];
+    // -- acc = acc * alpha + P . V, P . V into a fresh accumulator, in
+    // passes of OG float4 chunks (4 OG n tiles) of the output
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
+    for (int c0 = 0; c0 < NT / 4; c0 += S::OG) {
+      float ot[4 * S::OG][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) ot[n][e] = 0.f;
+      for (int n = 0; n < 4 * S::OG; ++n)
 #pragma unroll
-    for (int js = 0; js < BK / 8; ++js) {
-      // A = P of slab js, keys relabelled: column tq is key 2tq, column
-      // tq + 4 key 2tq + 1
-      uint32_t ph[4], pl[4];
-      split(sc[js][0], ph[0], pl[0]);
-      split(sc[js][2], ph[1], pl[1]);
-      split(sc[js][1], ph[2], pl[2]);
-      split(sc[js][3], ph[3], pl[3]);
+        for (int e = 0; e < 4; ++e) ot[n][e] = 0.f;
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        // B = V at keys 8js + 2tq (b0) and + 1 (b1), hd 8gr + 4hh .. + 3:
-        // n tiles 4hh .. 4hh + 3
-        const int o0 = chunk_at(8 * js + 2 * tq, 2 * gr + hh);
-        const int o1 = chunk_at(8 * js + 2 * tq + 1, 2 * gr + hh);
-        const float4 h0 = *reinterpret_cast<const float4*>(vs + o0);
-        const float4 h1 = *reinterpret_cast<const float4*>(vs + o1);
-        const float4 w0 = *reinterpret_cast<const float4*>(vl + o0);
-        const float4 w1 = *reinterpret_cast<const float4*>(vl + o1);
-        mma3(ot[4 * hh], ph, pl, h0.x, h1.x, w0.x, w1.x);
-        mma3(ot[4 * hh + 1], ph, pl, h0.y, h1.y, w0.y, w1.y);
-        mma3(ot[4 * hh + 2], ph, pl, h0.z, h1.z, w0.z, w1.z);
-        mma3(ot[4 * hh + 3], ph, pl, h0.w, h1.w, w0.w, w1.w);
+      for (int js = 0; js < BK / 8; ++js) {
+        // A = P of slab js, keys relabelled: column tq is key 2tq, column
+        // tq + 4 key 2tq + 1
+        uint32_t ph[4], pl[4];
+        split(sc[js][0], ph[0], pl[0]);
+        split(sc[js][2], ph[1], pl[1]);
+        split(sc[js][1], ph[2], pl[2]);
+        split(sc[js][3], ph[3], pl[3]);
+#pragma unroll
+        for (int cc = 0; cc < S::OG; ++cc) {
+          // B = V at keys 8js + 2tq (b0) and + 1 (b1), hd NT gr + 4(c0 +
+          // cc) .. + 3: n tiles 4(c0 + cc) .. + 3
+          const int o0 = chunk_at<HDP>(8 * js + 2 * tq, NT / 4 * gr + c0 + cc);
+          const int o1 = chunk_at<HDP>(8 * js + 2 * tq + 1,
+                                       NT / 4 * gr + c0 + cc);
+          const float4 h0 = *reinterpret_cast<const float4*>(vs + o0);
+          const float4 h1 = *reinterpret_cast<const float4*>(vs + o1);
+          const float4 w0 = *reinterpret_cast<const float4*>(vl + o0);
+          const float4 w1 = *reinterpret_cast<const float4*>(vl + o1);
+          mma3(ot[4 * cc], ph, pl, h0.x, h1.x, w0.x, w1.x);
+          mma3(ot[4 * cc + 1], ph, pl, h0.y, h1.y, w0.y, w1.y);
+          mma3(ot[4 * cc + 2], ph, pl, h0.z, h1.z, w0.z, w1.z);
+          mma3(ot[4 * cc + 3], ph, pl, h0.w, h1.w, w0.w, w1.w);
+        }
       }
+#pragma unroll
+      for (int n = 0; n < 4 * S::OG; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[4 * c0 + n][e] = fmaf(acc[4 * c0 + n][e], e < 2 ? al0 : al1,
+                                    ot[n][e]);
     }
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[n][e] = fmaf(acc[n][e], e < 2 ? al0 : al1, ot[n][e]);
   }
 
 #pragma unroll
@@ -417,25 +500,54 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
-  // row r0 (r1): hd 16tq + n is acc[n][0] ([2]), hd 16tq + 8 + n acc[n][1]
-  // ([3]): 16 consecutive floats
+  // row r0 (r1): hd NT (2tq + c) + n is acc[n][c] ([2 + c]): 2 NT
+  // consecutive floats from hd 2 NT tq, those below HD stored
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int64_t r = e ? r1 : r0;
     const float den = e ? den1 : den0;
     if (r < Sq) {
-      float4* dst = reinterpret_cast<float4*>(
-          o + ((b * Sq + r) * H + h) * HD + 16 * tq);
+      float* const dst = o + ((b * Sq + r) * H + h) * HD;
 #pragma unroll
       for (int c = 0; c < 2; ++c)
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh)
-          dst[2 * c + hh] = make_float4(
-              acc[4 * hh][2 * e + c] / den, acc[4 * hh + 1][2 * e + c] / den,
-              acc[4 * hh + 2][2 * e + c] / den,
-              acc[4 * hh + 3][2 * e + c] / den);
+        for (int cc = 0; cc < NT / 4; ++cc) {
+          const int col = NT * (2 * tq + c) + 4 * cc;
+          if (HD == HDP || col < HD)
+            *reinterpret_cast<float4*>(dst + col) = make_float4(
+                acc[4 * cc][2 * e + c] / den, acc[4 * cc + 1][2 * e + c] / den,
+                acc[4 * cc + 2][2 * e + c] / den,
+                acc[4 * cc + 3][2 * e + c] / den);
+        }
     }
   }
+}
+
+template <class S>
+int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
+           int64_t Sq, int64_t Skv, int64_t H, int64_t KV, float scale,
+           int causal, int64_t window, cudaStream_t stream) {
+  const int64_t nq = (Sq + BQ - 1) / BQ;
+  if (B * H > 0x7fffffffLL || nq > 65535) return (int)cudaErrorInvalidValue;
+  // above 48 KB of dynamic shared memory a kernel must opt in, once per
+  // device and instantiation
+  static bool opted_in[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
+    err = cudaFuncSetAttribute(flash_fwd_kernel<S>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               S::SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    opted_in[dev] = true;
+  }
+  const dim3 grid((unsigned)(B * H), (unsigned)nq);
+  flash_fwd_kernel<S><<<grid, THREADS, S::SMEM_BYTES, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Skv,
+      H, KV, scale, causal, window);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -443,34 +555,24 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 extern "C" {
 
 // q, o: (B, Sq, H, hd); k, v: (B, Skv, KV, hd); float32, contiguous,
-// 16-byte aligned.  window <= 0: no window.  Only hd == 64 is built.
+// 16-byte aligned.  window <= 0: no window.  hd 64, 80 and 128 are built.
 int lag_flash_attention_f32(const void* q, const void* k, const void* v,
                             void* o, int64_t B, int64_t Sq, int64_t Skv,
                             int64_t H, int64_t KV, int64_t hd, float scale,
                             int causal, int64_t window, void* stream) {
-  if (hd != HD || KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  if (hd != Hd64::HD && hd != Hd80::HD && hd != Hd128::HD)
+    return (int)cudaErrorInvalidValue;
   if (B * H == 0 || Sq == 0) return 0;
-  const int64_t nq = (Sq + BQ - 1) / BQ;
-  if (B * H > 0x7fffffffLL || nq > 65535) return (int)cudaErrorInvalidValue;
-  // above 48 KB of dynamic shared memory a kernel must opt in, once per
-  // device
-  static bool opted_in[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (!opted_in[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    opted_in[dev] = true;
-  }
-  const dim3 grid((unsigned)(B * H), (unsigned)nq);
-  flash_fwd_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Skv,
-      H, KV, scale, causal, window);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (hd == Hd64::HD)
+    return launch<Hd64>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
+                        s);
+  if (hd == Hd80::HD)
+    return launch<Hd80>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
+                        s);
+  return launch<Hd128>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
+                       s);
 }
 
 }  // extern "C"

@@ -3,8 +3,9 @@
 ``repro.kernels.flash_attention.flash_attention.flash_attention_padded``).
 
 The CUDA kernel takes any Sq and Skv (it masks the ragged edges itself, so
-nothing is padded), float32, head_dim 64, contiguous operands in the
-reference's layout.  It runs both products on the tensor cores in split
+nothing is padded), float32, head_dim 64, 80 or 128 (one instantiation of
+the templated source each; any other head_dim raises), contiguous operands
+in the reference's layout.  It runs both products on the tensor cores in split
 TF32 (three TF32 products per float32 product, float32-accurate), with K
 and V coming through a ``cp.async`` ring in shared memory.  It has no
 backward, like the reference's kernel: an input that requires grad raises.
@@ -20,14 +21,21 @@ import torch
 
 from repro_torch.kernels import build
 
-#: the one head_dim the kernel is built for
-HEAD_DIM = 64
+#: head_dim -> (the columns it is stored as, keys a tile, q's hi fragments
+#: in shared memory): the instantiations of the source (``Hd64``, ``Hd80``,
+#: ``Hd128``)
+INSTANCES = {64: (64, 64, False), 80: (96, 32, False), 128: (128, 16, True)}
 
-#: dynamic shared memory a block of the kernel takes (``SMEM_BYTES`` of the
-#: source): two K/V ring stages and the lo of the current tile, 64 keys x
-#: 64 floats each, and the lo of q's fragments (4 warps x 8 k steps x 32
-#: lanes x 4 floats)
-SHARED_BYTES = (3 * 2 * 64 * HEAD_DIM + 4 * (HEAD_DIM // 8) * 32 * 4) * 4
+#: the head_dims the kernel is built for
+HEAD_DIMS = tuple(INSTANCES)
+
+#: dynamic shared memory a block takes per head_dim (``SMEM_BYTES`` of the
+#: source): two K/V ring stages and the lo of the current tile, BK keys x
+#: the stored columns each, and q's lo (and hi) fragments (4 warps x
+#: stored/8 k steps x 32 lanes x 4 floats)
+SHARED_BYTES = {hd: (3 * 2 * bk * hdp + (2 if qs else 1) * 4 * (hdp // 8)
+                     * 32 * 4) * 4
+                for hd, (hdp, bk, qs) in INSTANCES.items()}
 
 #: kernel launches since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
@@ -68,9 +76,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != B or k.shape[3] != hd or KV == 0 or H % KV:
         raise ValueError(f"flash_attention_fwd: q {tuple(q.shape)} and k/v "
                          f"{tuple(k.shape)} do not pair (H % KV == 0)")
-    if hd != HEAD_DIM:
+    if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention_fwd: head_dim {hd} not built "
-                         f"(the kernel takes {HEAD_DIM})")
+                         f"(the kernel takes {HEAD_DIMS})")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention_fwd: window must be >= 1, got "
                          f"{window}")

@@ -23,8 +23,13 @@
 //     shared memory, nothing crosses a row, so the same row gives the same
 //     bits on every launch, whatever the number of rows.
 //   * Any number of rows: the last block's surplus warps leave.  Widths are
-//     multiples of 4 up to 4096 (the wrapper checks it, and 16-byte
-//     alignment), so a row is whole float4s and fits 32 of them per lane.
+//     multiples of 4 (the wrapper checks it, and 16-byte alignment), so a
+//     row is whole float4s; up to 4096 a row fits 32 of them per lane.
+//   * Wider rows (up to 8192: command-r-35b's d) take ONE BLOCK PER ROW:
+//     thread i of the block's 256 holds the float4s i, i + 256, ... (8 at
+//     d 8192) in registers, so x is still read once.  The sum of squares
+//     is each warp's butterfly, then the 8 warp sums added in warp order
+//     by every thread from shared memory: a fixed order again.
 //
 // C interface (loaded with ctypes): launches on the given stream, does not
 // synchronise, allocates nothing, returns cudaGetLastError().
@@ -37,6 +42,7 @@ namespace {
 constexpr int WARP = 32;
 constexpr int WARPS_PER_BLOCK = 8;
 constexpr int THREADS = WARP * WARPS_PER_BLOCK;
+constexpr int MAX_ROW_VPL = 8;       // float4s a thread of a row's block
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -85,6 +91,44 @@ rmsnorm_reg_kernel(const float4* __restrict__ x,
   }
 }
 
+// one block per row: d = 4 * d4 with d4 <= THREADS * VPL
+template <int VPL>
+__global__ void __launch_bounds__(THREADS)
+rmsnorm_row_kernel(const float4* __restrict__ x,
+                   const float4* __restrict__ scale, float4* __restrict__ y,
+                   int d4, float d, float eps) {
+  __shared__ float part[WARPS_PER_BLOCK];
+  const int64_t row = blockIdx.x;
+  const float4* xr = x + row * d4;
+  float4 v[VPL];
+  float acc = 0.f;
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    const int c = threadIdx.x + j * THREADS;
+    v[j] = c < d4 ? xr[c] : make_float4(0.f, 0.f, 0.f, 0.f);
+    acc = sq4(acc, v[j]);
+  }
+  acc = warp_sum(acc);
+  if (threadIdx.x % WARP == 0) part[threadIdx.x / WARP] = acc;
+  __syncthreads();
+  float tot = 0.f;
+#pragma unroll
+  for (int w = 0; w < WARPS_PER_BLOCK; ++w) tot += part[w];
+  const float r = rsqrtf(tot / d + eps);
+  float4* yr = y + row * d4;
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    const int c = threadIdx.x + j * THREADS;
+    if (c < d4) {
+      const float4 s = scale[c];
+      yr[c] = make_float4(__fmul_rn(__fmul_rn(v[j].x, r), s.x),
+                          __fmul_rn(__fmul_rn(v[j].y, r), s.y),
+                          __fmul_rn(__fmul_rn(v[j].z, r), s.z),
+                          __fmul_rn(__fmul_rn(v[j].w, r), s.w));
+    }
+  }
+}
+
 template <int VPL>
 void launch_reg(const void* x, const void* scale, void* y, int64_t rows,
                 int64_t d, float eps, cudaStream_t s, unsigned blocks) {
@@ -98,11 +142,20 @@ void launch_reg(const void* x, const void* scale, void* y, int64_t rows,
 extern "C" {
 
 // x, y: (rows, d) float32, contiguous; scale: (d,) float32; all three
-// 16-byte aligned; d a multiple of 4, at most 4096.
+// 16-byte aligned; d a multiple of 4, at most 8192.
 int lag_rmsnorm_f32(const void* x, const void* scale, void* y, int64_t rows,
                     int64_t d, float eps, void* stream) {
-  if (d % 4 != 0 || d > 4 * 32 * WARP) return (int)cudaErrorInvalidValue;
+  if (d % 4 != 0 || d > 4 * MAX_ROW_VPL * THREADS)
+    return (int)cudaErrorInvalidValue;
   if (rows == 0 || d == 0) return 0;
+  if (d > 4 * 32 * WARP) {                   // one block per row
+    if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    rmsnorm_row_kernel<MAX_ROW_VPL><<<(unsigned)rows, THREADS, 0,
+                                      (cudaStream_t)stream>>>(
+        (const float4*)x, (const float4*)scale, (float4*)y, (int)(d / 4),
+        (float)d, eps);
+    return (int)cudaGetLastError();
+  }
   const int64_t blocks64 = (rows + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
   if (blocks64 > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)blocks64;

@@ -1,9 +1,9 @@
 """Fused RMSNorm on Hopper: the launch of ``csrc/rmsnorm.cu`` (port of the
 Pallas kernel ``repro.kernels.rmsnorm.rmsnorm.rmsnorm_2d``).
 
-The CUDA kernel takes any number of rows (one warp per row, no row
-padding), float32, and widths that are a multiple of 4 up to ``MAX_D`` (a
-row lives in its warp's registers).  ``LAUNCHES`` counts its launches;
+The CUDA kernel takes any number of rows (no row padding), float32, and
+widths that are a multiple of 4 up to ``MAX_D``: a row lives in one warp's
+registers up to 4096 and in one block's (256 threads) up to 8192.  ``LAUNCHES`` counts its launches;
 nothing else increments it.
 """
 from __future__ import annotations
@@ -16,8 +16,8 @@ import torch
 
 from repro_torch.kernels import build
 
-#: the widest row the kernel takes (32 float4s per lane)
-MAX_D = 4096
+#: the widest row the kernel takes (8 float4s a thread of a row's block)
+MAX_D = 8192
 
 #: kernel launches since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {"rmsnorm": 0}

@@ -10,7 +10,11 @@ around work that ends in a device synchronise).  Runs on the GPU
 (``--device cuda``, the default) and raises when there is none;
 ``--device cpu`` asks for the CPU.  The model serves with
 ``use_pallas=True``: on the GPU its prefill runs the hand-written RMSNorm
-and flash-attention kernels, on the CPU their plain versions.
+and flash-attention kernels, on the CPU their plain versions.  Every
+architecture of the port with a decode step serves (the VLM on text
+prompts, its M-RoPE positions the default arange, as the reference
+serves it); the encoder-only hubert-xlarge is refused with the
+reference's reason.
 """
 from __future__ import annotations
 
@@ -55,23 +59,26 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def main(argv=None, on_round=None, params=None):
+def main(argv=None, on_round=None, params=None, cfg=None):
     """Serve ``--rounds`` batches; ``on_round(rnd, timing, tokens)`` sees
     each round's times (``prefill_ms``, ``decode_ms``, ``ms_per_token``)
     and its generated tokens (B, gen).  ``params`` (a parameter tree on
     the device, e.g. from ``repro_torch.weights``) replaces the seeded
-    random weights.  Returns the generated tokens of every round."""
+    random weights; ``cfg`` (a ``ModelConfig``, e.g. an arch with its
+    depth cut) replaces the one ``--arch`` / ``--reduced`` name.  Returns
+    the generated tokens of every round."""
     args = build_argparser().parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
     ok, reason = applicable(cfg, "decode_32k")
     if not ok:
-        raise SystemExit(f"{args.arch}: {reason}")
+        raise SystemExit(f"{cfg.arch_id}: {reason}")
     cfg = cfg.replace(use_pallas=True)
     if params is None:
         params = model.init(cfg, device=device, seed=args.seed)

@@ -4,6 +4,9 @@
       --algo lag-wk --workers 2 --batch 4 --seq 256 --steps 4 \\
       --hetero 0.8 --cluster hetero:2@10ms/1Gbps
 
+``--arch`` takes every architecture of the port (``repro_torch.configs``:
+the dense block kind, with the audio and VLM batches of hubert-xlarge and
+qwen2-vl-7b); ``--layers n`` cuts the depth, ``--reduced`` the widths.
 Runs on the GPU (``--device cuda``, the default) and raises when there is
 none; ``--device cpu`` asks for the CPU.  Prints the loss and the LAG
 communication counters of every round, and the time per round (the host

@@ -1,1 +1,2 @@
-"""Dense llama-family model in plain PyTorch (port of ``repro.models``)."""
+"""The models of the dense block kind in plain PyTorch (port of
+``repro.models``)."""

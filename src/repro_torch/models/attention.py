@@ -8,8 +8,10 @@ q_chunk, S), masks applied with −1e30, softmax in float32), or, under
 flash_attention``: hand-written CUDA for CUDA tensors, its plain version
 for CPU tensors).  No library attention call stands in for either.
 
-The decode cache is the full (non-windowed) one: (B, max_len, KV, hd) per
-layer, filled by prefill and written in place by each decode step.
+The decode cache is (B, L, KV, hd) per layer, filled by prefill and
+written in place by each decode step: L = max_len for full attention, and
+under a sliding window the rolling buffer of L = min(window, max_len)
+slots, position p at slot p % L, as the reference lays it out.
 """
 from __future__ import annotations
 
@@ -24,8 +26,11 @@ from repro_torch.models.common import ModelConfig
 
 def shapes(cfg: ModelConfig) -> dict:
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    return {"wq": (d, H, hd), "wk": (d, KV, hd), "wv": (d, KV, hd),
-            "wo": (H, hd, d)}
+    out = {"wq": (d, H, hd), "wk": (d, KV, hd), "wv": (d, KV, hd),
+           "wo": (H, hd, d)}
+    if cfg.use_bias:
+        out.update(bq=(H, hd), bk=(KV, hd), bv=(KV, hd))
+    return out
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -39,7 +44,14 @@ def _project_qkv(p, x, cfg: ModelConfig, cos, sin):
     q = _proj(x, p["wq"].to(dt))
     k = _proj(x, p["wk"].to(dt))
     v = _proj(x, p["wv"].to(dt))
-    return rope.apply_rotary(q, cos, sin), rope.apply_rotary(k, cos, sin), v
+    if cfg.use_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    if cfg.rope != "none":
+        q = rope.apply_rotary(q, cos, sin)
+        k = rope.apply_rotary(k, cos, sin)
+    return q, k, v
 
 
 def _out_proj(p, out: torch.Tensor, dt) -> torch.Tensor:
@@ -97,6 +109,8 @@ def _chunked_attention(q, k, v, positions, cfg: ModelConfig, q_chunk: int):
                           device=q.device)
         if cfg.causal:
             mask &= qp[:, :, None] >= kpos[:, None, :]
+        if cfg.window is not None:
+            mask &= (qp[:, :, None] - kpos[:, None, :]) < cfg.window
         mask &= qp[:, :, None] >= 0          # padded queries attend nothing
         logits = torch.where(mask[:, None], logits,
                              torch.full((), -1e30, device=q.device))
@@ -109,14 +123,16 @@ def _chunked_attention(q, k, v, positions, cfg: ModelConfig, q_chunk: int):
 # Decode (single token, KV cache)
 # ---------------------------------------------------------------------------
 
+def cache_len(cfg: ModelConfig, max_len: int) -> int:
+    """Slots of a layer's cache: the rolling buffer's min(window, max_len)
+    under a sliding window, else max_len."""
+    return min(cfg.window, max_len) if cfg.window else max_len
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
                dtype=None) -> dict:
-    """Zeroed KV cache for one attention layer (the full cache: the rolling
-    windowed one is not ported)."""
-    if cfg.window:
-        raise NotImplementedError("the rolling (windowed) cache is not "
-                                  "ported yet")
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    """Zeroed KV cache for one attention layer."""
+    shape = (batch, cache_len(cfg, max_len), cfg.num_kv_heads, cfg.head_dim)
     dtype = dtype or cfg.compute_dtype
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -124,48 +140,74 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
 
 def fill_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
                max_len: int) -> dict:
-    """A decode cache holding a freshly prefilled sequence: k/v (B, S, KV,
-    hd) right-padded with zeros to ``max_len``."""
-    if cfg.window:
-        raise NotImplementedError("the rolling (windowed) cache is not "
-                                  "ported yet")
-    pad = max_len - k.shape[1]
-    if pad < 0:
-        raise ValueError(f"prompt of {k.shape[1]} tokens exceeds max_len "
-                         f"{max_len}")
-    return {"k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
-            "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))}
+    """A decode cache holding a freshly prefilled sequence, k/v (B, S, KV,
+    hd): right-padded with zeros to ``max_len``, or under a window the
+    last L = min(window, max_len) rows at slots ``pos % L``."""
+    B, S = k.shape[0], k.shape[1]
+    L = cache_len(cfg, max_len)
+    if not cfg.window:
+        if L < S:
+            raise ValueError(f"prompt of {S} tokens exceeds max_len "
+                             f"{max_len}")
+        return {"k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, L - S)),
+                "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, L - S))}
+    take = min(L, S)
+    slots = torch.arange(S - take, S, device=k.device) % L
+    out = {}
+    for n, t in (("k", k), ("v", v)):
+        buf = torch.zeros((B, L) + tuple(t.shape[2:]), dtype=t.dtype,
+                          device=t.device)
+        buf[:, slots] = t[:, S - take:]
+        out[n] = buf
+    return out
 
 
 def decode_attention(p: dict, x: torch.Tensor, cache: dict, pos: int,
                      cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
     """x (B, 1, d), pos → (y (B, 1, d), cache).
 
-    The new K/V row is written IN PLACE at slot ``pos`` of the
+    The new K/V row is written IN PLACE at slot ``pos % L`` of the
     preallocated cache (the reference's ``dynamic_update_slice`` returns a
-    new cache); the returned cache is the same dict.  Attention reads the
-    written slots 0..pos only, which is the reference's mask of the
-    unwritten ones.  GQA groups the query heads per kv head instead of
-    repeating K/V.
+    new cache); the returned cache is the same dict.  Before the rolling
+    buffer wraps, attention reads the written slots 0..pos only, which is
+    the reference's mask of the unwritten ones; once it has wrapped, every
+    slot, masked by its absolute position and the window as the reference
+    masks it.  The rotary angles are the 1-D ones at ``pos`` whatever
+    ``cfg.rope`` says (under M-RoPE too), as in the reference.  GQA groups
+    the query heads per kv head instead of repeating K/V.
     """
     pos = int(pos)
     B = x.shape[0]
     dt = cfg.compute_dtype
     Lc = cache["k"].shape[1]
-    if not 0 <= pos < Lc:
+    if pos < 0 or (pos >= Lc and not cfg.window):
         raise ValueError(f"decode position {pos} outside the cache (0.."
                          f"{Lc - 1})")
-    posb = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
-    cos, sin = rope.rope_angles(posb, cfg.head_dim, cfg.rope_theta)
+    cos = sin = None
+    if cfg.rope != "none":
+        posb = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+        cos, sin = rope.rope_angles(posb, cfg.head_dim, cfg.rope_theta)
     q, k_new, v_new = _project_qkv(p, x, cfg, cos, sin)
-    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
-    k = cache["k"][:, :pos + 1].to(q.dtype)          # (B, T, KV, hd)
-    v = cache["v"][:, :pos + 1].to(dt)
+    slot = pos % Lc
+    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    wrapped = pos >= Lc
+    T = Lc if wrapped else pos + 1
+    k = cache["k"][:, :T].to(q.dtype)                # (B, T, KV, hd)
+    v = cache["v"][:, :T].to(dt)
     KV, hd = cfg.num_kv_heads, cfg.head_dim
     qg = q.reshape(B, KV, cfg.q_per_kv, hd)          # head h = g·qpk + i
     logits = torch.einsum("bgik,btgk->bgit", qg, k)
     logits = (logits * hd ** -0.5).to(torch.float32)
+    if wrapped:
+        # slot i holds the largest position p <= pos with p % Lc == i
+        idx = torch.arange(Lc, device=x.device)
+        abs_pos = pos - torch.remainder(slot - idx, Lc)
+        valid = abs_pos <= pos
+        if cfg.window is not None:
+            valid &= (pos - abs_pos) < cfg.window
+        logits = torch.where(valid, logits,
+                             torch.full((), -1e30, device=x.device))
     w = torch.softmax(logits, dim=-1).to(dt)
     out = torch.einsum("bgit,btgk->bgik", w, v).reshape(B, 1, -1, hd)
     return _out_proj(p, out, dt), cache

@@ -1,5 +1,6 @@
-"""Shared model machinery: config, initializers, RMSNorm — port of
-``repro.models.common`` for the dense llama family.
+"""Shared model machinery: config, initializers, norms, activations — port
+of ``repro.models.common`` for the architectures whose layers are all of
+the ``dense`` kind.
 
 Models are plain functions over nested dicts of tensors (the reference's
 pytree layout, so the flat-buffer layout and LAQ's per-leaf grid agree).
@@ -19,7 +20,8 @@ from repro_torch.kernels.rmsnorm import ops as rms_ops
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                      # only "dense" is ported
+    family: str                      # dense | vlm | audio (moe, ssm,
+                                     # hybrid: not ported)
     num_layers: int
     d_model: int
     vocab_size: int
@@ -28,13 +30,13 @@ class ModelConfig:
     head_dim: int = 0
     d_ff: int = 0
     causal: bool = True
-    window: Optional[int] = None     # sliding window: not ported yet
-    rope: str = "rope"               # rope | none
+    window: Optional[int] = None     # sliding-window size (local attention)
+    rope: str = "rope"               # rope | mrope | none
     rope_theta: float = 500_000.0
     block_pattern: Tuple[str, ...] = ("attn",)
-    norm: str = "rmsnorm"
-    act: str = "swiglu"
-    use_bias: bool = False           # not ported yet
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
+    act: str = "swiglu"              # swiglu | gelu | geglu
+    use_bias: bool = False
     tie_embeddings: bool = False
     dtype: str = "float32"           # activation/compute dtype
     param_dtype: str = "float32"
@@ -105,14 +107,29 @@ def embed_init_(t: torch.Tensor, gen: torch.Generator) -> None:
 
 def apply_norm(p: dict, x: torch.Tensor, kind: str, eps: float = 1e-6,
                use_pallas: bool = False) -> torch.Tensor:
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
-    if use_pallas:
-        return rms_ops.rmsnorm(x, p["scale"], eps=eps)
+    """RMSNorm (through the kernel under ``use_pallas``) or LayerNorm (no
+    kernel, as in the reference; ``jnp.var`` is the population variance)."""
+    if kind == "rmsnorm":
+        if use_pallas:
+            return rms_ops.rmsnorm(x, p["scale"], eps=eps)
+        xf = x.float()
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"]
+    if kind != "layernorm":
+        raise ValueError(f"unknown norm {kind!r}")
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"]
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * p["scale"] + p["bias"]
 
 
-def swiglu(x_gate: torch.Tensor, x_up: torch.Tensor) -> torch.Tensor:
-    return F.silu(x_gate) * x_up
+def activate(x_gate: torch.Tensor, x_up: Optional[torch.Tensor],
+             act: str) -> torch.Tensor:
+    """swiglu / geglu gate the up projection; gelu takes one input.
+    ``jax.nn.gelu`` defaults to the tanh approximation, and so does this."""
+    if act == "swiglu":
+        return F.silu(x_gate) * x_up
+    if act == "geglu":
+        return F.gelu(x_gate, approximate="tanh") * x_up
+    return F.gelu(x_gate, approximate="tanh")

@@ -1,4 +1,5 @@
-"""Dense SwiGLU feed-forward (the llama family) — port of
+"""Dense feed-forward: SwiGLU (the llama family) or the two-matrix GELU
+(hubert), with ``b_up`` / ``b_down`` under ``use_bias`` — port of
 ``repro.models.mlp``."""
 from __future__ import annotations
 
@@ -8,13 +9,30 @@ from repro_torch.models import common
 from repro_torch.models.common import ModelConfig
 
 
+def gated(cfg: ModelConfig) -> bool:
+    return cfg.act in ("swiglu", "geglu")
+
+
 def shapes(cfg: ModelConfig) -> dict:
     d, ff = cfg.d_model, cfg.d_ff
-    return {"w_up": (d, ff), "w_down": (ff, d), "w_gate": (d, ff)}
+    out = {"w_up": (d, ff), "w_down": (ff, d)}
+    if gated(cfg):
+        out["w_gate"] = (d, ff)
+    if cfg.use_bias:
+        out.update(b_up=(ff,), b_down=(d,))
+    return out
 
 
 def apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = cfg.compute_dtype
     up = x @ p["w_up"].to(dt)
-    h = common.swiglu(x @ p["w_gate"].to(dt), up)
-    return h @ p["w_down"].to(dt)
+    if cfg.use_bias:
+        up = up + p["b_up"].to(dt)
+    if gated(cfg):
+        h = common.activate(x @ p["w_gate"].to(dt), up, cfg.act)
+    else:
+        h = common.activate(up, None, "gelu")
+    y = h @ p["w_down"].to(dt)
+    if cfg.use_bias:
+        y = y + p["b_down"].to(dt)
+    return y

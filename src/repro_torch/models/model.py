@@ -1,15 +1,19 @@
-"""Model assembly for the dense llama family: embeddings → stacked blocks →
-tied head — port of ``repro.models.model``.
+"""Model assembly for the architectures whose layers are all of the
+``dense`` kind (llama3.2-1b/-3b/-1b-sw, granite-8b, command-r-35b,
+qwen2-vl-7b, hubert-xlarge): embeddings (token lookup, the VLM's vision
+prefix, or hubert's audio frames) → stacked blocks → tied or untied head —
+port of ``repro.models.model``.
 
 Parameters keep the reference's tree: ``params["blocks"]["0"]`` holds every
 layer's weights STACKED along a leading (num_layers,) axis (the reference
 scans over it), so the leaf count and LAQ's per-leaf quantizer grid match;
 ``forward`` unbinds the stack once and loops over the layers.  The decode
 cache keeps the reference's tree too: ``cache["blocks"]["0"]["k"]`` is
-(num_layers, B, max_len, KV, hd).
+(num_layers, B, L, KV, hd).
 
-``cfg.use_pallas`` routes as the reference does: the prefill/forward norms
-and attention go through the kernels, the decode step's norms do not.
+``cfg.use_pallas`` routes as the reference does: the prefill/forward
+RMSNorms and attention go through the kernels, the decode step's norms do
+not, and LayerNorm has no kernel.
 """
 from __future__ import annotations
 
@@ -22,32 +26,51 @@ from repro_torch.core.tree import tree_map
 from repro_torch.models import attention, common, mlp, rope
 from repro_torch.models.common import ModelConfig
 
+#: the layer kinds the port has
+PORTED_KINDS = ("dense",)
+
 
 def _check_family(cfg: ModelConfig) -> None:
-    """Only the dense llama family is ported: RMSNorm, RoPE, SwiGLU, no
-    biases, no sliding window, tied embeddings, no unscanned tail."""
-    ok = (cfg.family == "dense" and set(cfg.block_pattern) == {"dense"}
-          and not cfg.tail_layers and cfg.norm == "rmsnorm"
-          and cfg.rope == "rope" and cfg.act == "swiglu"
-          and not cfg.use_bias and cfg.window is None
-          and cfg.tie_embeddings)
-    if not ok:
+    """Every layer kind must be ``dense`` (no MoE, SSD, RG-LRU or local
+    attention layer yet), with no unscanned tail."""
+    missing = sorted(set(cfg.block_pattern) - set(PORTED_KINDS))
+    if missing:
         raise NotImplementedError(
-            f"{cfg.arch_id}: only the dense llama family is ported")
+            f"{cfg.arch_id}: layer kinds {missing} are not ported (the port "
+            f"has {list(PORTED_KINDS)})")
+    if cfg.tail_layers:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: an unscanned tail of {cfg.tail_layers} layers "
+            f"is not ported")
+
+
+def _is_shape(s) -> bool:
+    return isinstance(s, tuple) and all(isinstance(i, int) for i in s)
+
+
+def _norm_shapes(cfg: ModelConfig) -> Dict:
+    d = cfg.d_model
+    if cfg.norm == "layernorm":
+        return {"scale": (d,), "bias": (d,)}
+    return {"scale": (d,)}
 
 
 def param_shapes(cfg: ModelConfig) -> Dict:
     """The parameter tree's leaf shapes (the reference ``init``'s tree)."""
     _check_family(cfg)
     L, d = cfg.num_superblocks, cfg.d_model
-    layer = {"norm1": {"scale": (d,)}, "attn": attention.shapes(cfg),
-             "norm2": {"scale": (d,)}, "mlp": mlp.shapes(cfg)}
-    tree = {"embed": (cfg.vocab_size, d),
-            "blocks": {"0": tree_map(lambda s: (L,) + s, layer,
-                                     is_leaf=lambda s: isinstance(s, tuple)
-                                     and all(isinstance(i, int) for i in s))},
+    layer = {"norm1": _norm_shapes(cfg), "attn": attention.shapes(cfg),
+             "norm2": _norm_shapes(cfg), "mlp": mlp.shapes(cfg)}
+    tree = {"blocks": {"0": tree_map(lambda s: (L,) + s, layer,
+                                     is_leaf=_is_shape)},
             "tail": [],
-            "final_norm": {"scale": (d,)}}
+            "final_norm": _norm_shapes(cfg)}
+    if cfg.family == "audio":
+        tree["mask_emb"] = (d,)
+    else:
+        tree["embed"] = (cfg.vocab_size, d)
+    if not cfg.tie_embeddings:
+        tree["head"] = (d, cfg.vocab_size)
     return tree
 
 
@@ -55,28 +78,37 @@ def templates(cfg: ModelConfig) -> Dict:
     """Shape-only (meta) tensors of the parameter tree."""
     dt = cfg.params_dtype
     return tree_map(lambda s: torch.empty(s, dtype=dt, device="meta"),
-                    param_shapes(cfg),
-                    is_leaf=lambda s: isinstance(s, tuple)
-                    and all(isinstance(i, int) for i in s))
+                    param_shapes(cfg), is_leaf=_is_shape)
 
 
 def init_(params: Dict, cfg: ModelConfig, gen: torch.Generator) -> None:
     """Random init, in place, from ``gen`` (on the params' device): the
     reference's distributions — normal·0.02 embeddings, truncated-normal
-    fan-in projections, unit norm scales."""
+    fan-in projections and head, unit norm scales, zero biases and
+    ``mask_emb``."""
     d = cfg.d_model
-    common.embed_init_(params["embed"], gen)
     blk = params["blocks"]["0"]
     fan_in = {"wq": d, "wk": d, "wv": d,
               "wo": cfg.num_heads * cfg.head_dim,
               "w_up": d, "w_gate": d, "w_down": cfg.d_ff}
+    norms = [blk["norm1"], blk["norm2"], params["final_norm"]]
     with torch.no_grad():
+        if "embed" in params:
+            common.embed_init_(params["embed"], gen)
         for group in ("attn", "mlp"):
             for name, t in blk[group].items():
-                common.dense_init_(t, fan_in[name], gen)
-        for t in (blk["norm1"]["scale"], blk["norm2"]["scale"],
-                  params["final_norm"]["scale"]):
-            t.fill_(1.0)
+                if name in fan_in:
+                    common.dense_init_(t, fan_in[name], gen)
+                else:                                  # a bias
+                    t.zero_()
+        if "head" in params:
+            common.dense_init_(params["head"], d, gen)
+        if "mask_emb" in params:
+            params["mask_emb"].zero_()
+        for p in norms:
+            p["scale"].fill_(1.0)
+            if "bias" in p:
+                p["bias"].zero_()
 
 
 def init(cfg: ModelConfig, *, device, seed: int = 0) -> Dict:
@@ -118,15 +150,43 @@ def layer_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, cos, sin,
     return x + mlp.apply(p["mlp"], h2, cfg), cache
 
 
-def _embed(params: Dict, cfg: ModelConfig, tokens: torch.Tensor):
+def _lookup(params: Dict, cfg: ModelConfig, tokens: torch.Tensor):
     return F.embedding(tokens.long(), params["embed"]).to(cfg.compute_dtype)
 
 
-def _head(params: Dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ params["embed"].t().to(x.dtype)          # tied head
+def _embed(params: Dict, cfg: ModelConfig, inputs: Dict) -> torch.Tensor:
+    """(B, S, d): hubert's frames with ``mask_emb`` where ``mask``; else the
+    token lookup, after the VLM's ``vision_embeds`` prefix when given."""
+    dt = cfg.compute_dtype
+    if cfg.family == "audio":
+        x = inputs["frames"].to(dt)
+        if "mask" in inputs:
+            x = torch.where(inputs["mask"][..., None],
+                            params["mask_emb"].to(dt), x)
+        return x
+    x = _lookup(params, cfg, inputs["tokens"])
+    if cfg.family == "vlm" and "vision_embeds" in inputs:
+        x = torch.cat([inputs["vision_embeds"].to(dt), x], dim=1)
+    return x
+
+
+def _head(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    head = params["embed"].t() if cfg.tie_embeddings else params["head"]
+    return x @ head.to(x.dtype)
 
 
 def _rope(cfg: ModelConfig, inputs: Dict, B: int, S: int, device):
+    """(cos, sin, positions): none under ``rope="none"``; M-RoPE from
+    ``positions3`` (default arange on all three components, positions its
+    first); else RoPE from ``positions`` (default arange)."""
+    if cfg.rope == "none":
+        return None, None, None
+    if cfg.rope == "mrope":
+        pos3 = inputs.get("positions3")
+        if pos3 is None:
+            pos3 = torch.arange(S, device=device)[None, None].expand(3, B, S)
+        cos, sin = rope.mrope_angles(pos3, cfg.head_dim, cfg.rope_theta)
+        return cos, sin, pos3[0]
     positions = inputs.get("positions")
     if positions is None:
         positions = torch.arange(S, device=device)[None].expand(B, S)
@@ -137,14 +197,14 @@ def _rope(cfg: ModelConfig, inputs: Dict, B: int, S: int, device):
 def forward(params: Dict, cfg: ModelConfig, inputs: Dict) -> torch.Tensor:
     """Full-sequence forward → logits (B, S, vocab)."""
     _check_family(cfg)
-    x = _embed(params, cfg, inputs["tokens"])
+    x = _embed(params, cfg, inputs)
     B, S, _ = x.shape
     cos, sin, positions = _rope(cfg, inputs, B, S, x.device)
     for p in _layers(params["blocks"]["0"], cfg.num_superblocks):
         x, _ = layer_apply(p, x, cfg, cos=cos, sin=sin, positions=positions)
     x = common.apply_norm(params["final_norm"], x, cfg.norm,
                           use_pallas=cfg.use_pallas)
-    return _head(params, x)
+    return _head(params, cfg, x)
 
 
 def prefill(params: Dict, cfg: ModelConfig, inputs: Dict, max_len: int
@@ -153,7 +213,7 @@ def prefill(params: Dict, cfg: ModelConfig, inputs: Dict, max_len: int
     decode cache, so decoding continues at pos = S.  → (last-position
     logits (B, vocab), cache)."""
     _check_family(cfg)
-    x = _embed(params, cfg, inputs["tokens"])
+    x = _embed(params, cfg, inputs)
     B, S, _ = x.shape
     cos, sin, positions = _rope(cfg, inputs, B, S, x.device)
     caches = []
@@ -164,7 +224,8 @@ def prefill(params: Dict, cfg: ModelConfig, inputs: Dict, max_len: int
     x = common.apply_norm(params["final_norm"], x, cfg.norm,
                           use_pallas=cfg.use_pallas)
     stacked = {n: torch.stack([c[n] for c in caches]) for n in ("k", "v")}
-    return _head(params, x[:, -1]), {"blocks": {"0": stacked}, "tail": []}
+    return _head(params, cfg, x[:, -1]), {"blocks": {"0": stacked},
+                                          "tail": []}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -193,20 +254,29 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
     """One decode step: tokens (B, 1) at position ``pos`` → (logits (B, 1,
     vocab), cache).  The cache is updated in place and returned."""
     _check_family(cfg)
-    x = _embed(params, cfg, tokens)
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.arch_id}: encoder-only architecture has no "
+                         f"decode step")
+    x = _lookup(params, cfg, tokens)
     blk = cache["blocks"]["0"]
     for i, p in enumerate(_layers(params["blocks"]["0"],
                                   cfg.num_superblocks)):
         x, _ = layer_decode(p, x, {"k": blk["k"][i], "v": blk["v"][i]}, pos,
                             cfg)
     x = common.apply_norm(params["final_norm"], x, cfg.norm)
-    return _head(params, x), cache
+    return _head(params, cfg, x), cache
 
 
 def loss_fn(params: Dict, cfg: ModelConfig, inputs: Dict) -> torch.Tensor:
-    """Mean next-token cross-entropy over targets ≥ 0."""
+    """Mean cross-entropy over targets ≥ 0; a VLM's vision prefix has
+    targets −1."""
     logits = forward(params, cfg, inputs)
     targets = inputs["targets"].long()
+    if cfg.family == "vlm" and "vision_embeds" in inputs:
+        nv = inputs["vision_embeds"].shape[1]
+        pad = torch.full(targets.shape[:1] + (nv,), -1, dtype=targets.dtype,
+                         device=targets.device)
+        targets = torch.cat([pad, targets], dim=1)
     valid = targets >= 0
     tgt = torch.clamp(targets, min=0)
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)

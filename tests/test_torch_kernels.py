@@ -156,15 +156,20 @@ def split_mm(a: torch.Tensor, b: torch.Tensor, passes: int = 3):
 
 
 def emulated_kernel(q, k, v, *, causal, window, passes=3):
-    """The CUDA kernel's attention on numpy inputs: scale folded into q,
-    both products in split TF32, masked scores -1e30 with weight 0, o =
-    acc / max(l, 1e-30) (rows that see no key write 0)."""
+    """The CUDA kernel's attention on numpy inputs: the scale folded into q
+    at head_dim 64 (2^-3, exact) and applied to the scores after the
+    product at 80 and 128 (no power of two), both products in split TF32,
+    masked scores -1e30 with weight 0, o = acc / max(l, 1e-30) (rows that
+    see no key write 0)."""
     q, k, v = (torch.from_numpy(a) for a in (q, k, v))
     B, S, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     k, v = (torch.repeat_interleave(t, H // KV, dim=2) for t in (k, v))
-    qs = (q * hd ** -0.5).permute(0, 2, 1, 3)            # exact: 2^-3
+    fold = hd == 64
+    qs = (q * hd ** -0.5 if fold else q).permute(0, 2, 1, 3)
     s = split_mm(qs, k.permute(0, 2, 3, 1), passes)     # (B, H, S, Skv)
+    if not fold:
+        s = s * hd ** -0.5
     qpos = torch.arange(S)[:, None]
     kpos = torch.arange(Skv)[None, :]
     mask = torch.ones((S, Skv), dtype=torch.bool)
@@ -239,6 +244,53 @@ def test_single_tf32_pass_misses_the_tolerance(S, causal, window):
                              passes=1)
     assert max_err(split, want) < ATTN_TOL
     assert max_err(single, want) > 10 * ATTN_TOL
+
+
+# head_dims 80 (hubert-xlarge) and 128 (llama3.2-3b, granite-8b,
+# command-r-35b, qwen2-vl-7b): the kernel's other two instantiations
+WIDE_HEADS = (80, 128)
+
+
+@pytest.mark.parametrize("hd", WIDE_HEADS)
+@pytest.mark.parametrize("S,Skv,causal,window", ATTN_CASES)
+def test_attention_plain_matches_reference_wide_heads(S, Skv, causal,
+                                                      window, hd):
+    q, k, v = attn_inputs(S, Skv, hd=hd, seed=S * 5 + Skv + hd)
+    got = t_fa_ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                   causal=causal, window=window)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    oracle = fa_ref.attention(jq, jk, jv, causal=causal, window=window)
+    got, oracle = live_rows(S, Skv, window, got, oracle)
+    assert max_err(got, oracle) < ATTN_TOL
+
+
+@pytest.mark.parametrize("hd", WIDE_HEADS)
+@pytest.mark.parametrize("S,Skv,causal,window", [
+    (129, 129, True, None), (72, 40, True, 16), (65, 130, False, None),
+    (130, 65, True, 100)])
+def test_split_tf32_emulation_matches_reference_wide_heads(S, Skv, causal,
+                                                           window, hd):
+    """At head_dims whose scale is no power of two the kernel scales the
+    scores after the product; the emulation does the same."""
+    q, k, v = attn_inputs(S, Skv, hd=hd, seed=S * 3 + Skv + hd)
+    got = emulated_kernel(q, k, v, causal=causal, window=window)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    pallas = fa_ops.flash_attention(jq, jk, jv, causal=causal,
+                                    window=window)            # interpret
+    oracle = fa_ref.attention(jq, jk, jv, causal=causal, window=window)
+    got, pallas, oracle = live_rows(S, Skv, window, got, pallas, oracle)
+    assert max_err(got, pallas) < ATTN_TOL
+    assert max_err(got, oracle) < ATTN_TOL
+
+
+def test_kernel_instantiations_and_their_shared_memory():
+    """One instantiation per served head_dim, each within Hopper's 227 KB
+    a block and small enough for two blocks an SM."""
+    assert t_fa.HEAD_DIMS == (64, 80, 128)
+    assert t_fa.SHARED_BYTES[64] == 114688     # head_dim 64's layout, unchanged
+    for hd, (hdp, bk, _) in t_fa.INSTANCES.items():
+        assert hdp % 32 == 0 and hd <= hdp and bk % 8 == 0
+        assert 2 * t_fa.SHARED_BYTES[hd] <= 232448
 
 
 def test_attention_gqa_reads_kv_head_h_over_q_per_kv():
@@ -328,7 +380,8 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,d", [(1, 2048), (13, 2048), (9, 256),
-                                    (5, 132), (3, 4096)])
+                                    (5, 132), (3, 4096), (7, 3072),
+                                    (4, 3584), (6, 8192), (3, 6000)])
 def test_cuda_rmsnorm_matches_plain(cuda_device, rows, d):
     g = torch.Generator(device=cuda_device).manual_seed(rows * d)
     x = torch.randn((rows, d), device=cuda_device, generator=g)
@@ -352,3 +405,29 @@ def test_cuda_flash_attention_matches_plain(cuda_device, S, Skv, causal,
     torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
     with pytest.raises(RuntimeError, match="no backward"):
         t_fa_ops.flash_attention(q.requires_grad_(), k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", WIDE_HEADS)
+@pytest.mark.parametrize("S,Skv,causal,window", ATTN_CASES)
+def test_cuda_flash_attention_matches_plain_wide_heads(cuda_device, S, Skv,
+                                                       causal, window, hd):
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in attn_inputs(S, Skv, H=8, KV=2, hd=hd))
+    got = t_fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = t_fa_ref.attention(q, k, v, causal=causal, window=window)
+    if S > Skv and window is not None:
+        live = torch.arange(S, device=cuda_device) - window + 1 < Skv
+        got, want = got[:, live], want[:, live]
+    torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_what_no_instantiation_serves(cuda_device):
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in attn_inputs(8, 8, B=1, hd=96))
+    with pytest.raises(ValueError, match="head_dim 96 not built"):
+        t_fa_ops.flash_attention(q, k, v)
+    x = torch.ones((2, 8196), device=cuda_device)
+    with pytest.raises(ValueError, match="not taken"):
+        t_rms_ops.rmsnorm(x, torch.ones(8196, device=cuda_device))

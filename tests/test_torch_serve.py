@@ -218,8 +218,11 @@ def test_cache_shapes_and_limits(port):
     with pytest.raises(ValueError, match="outside the cache"):
         model.decode_step(params, cfg, cache,
                           torch.zeros((3, 1), dtype=torch.int32), 20)
-    with pytest.raises(NotImplementedError):
-        model.init_cache(cfg.replace(window=8), 1, 4, device="cpu")
+    # a sliding window keeps a rolling buffer of min(window, max_len) slots
+    for window, max_len in ((8, 4), (8, 20)):
+        rolled = model.init_cache(cfg.replace(window=window), 1, max_len,
+                                  device="cpu")
+        assert rolled["blocks"]["0"]["k"].shape[2] == min(window, max_len)
 
 
 def test_applicable_matches_reference_rule():
