@@ -10,8 +10,8 @@ Phases (any failure raises and the script exits non-zero):
      flash attention's and the legacy per-leaf kernels') with nvcc
      (sm_90a), one process each, all at once; ptxas's registers and spills
      of every kernel, the flash kernel's shared memory per head_dim, and a
-     check that none of its three instantiations (head_dim 64, 80, 128)
-     spills.
+     check that none of its four instantiations (head_dim 64, 80, 128,
+     256) spills.
   3. the comm plane's kernels vs plain versions on ragged synthetic
      layouts (leaf sizes {1, 127, 129, 32768, 0}, W ∈ {1, 3}, the
      unstacked operand, LAQ bits {2, 4, 8}, all three masked modes):
@@ -187,6 +187,31 @@ Phases (any failure raises and the script exits non-zero):
         under 80 GB, the plane's launches.
      e. the six reduced archs, 3 rounds of lag-wk on the card and on the
         CPU from the same weights: equal masks, losses within rtol 1e-4.
+  16. the recurrent and state-space layer kinds (``rec``, ``lattn``,
+     ``ssd``):
+     a. flash attention at head_dim 256 (H 16/1 and 8/2) on phase 7's
+        ragged set within rtol = atol = 1e-5 of its plain version, then at
+        recurrentgemma's prefill shape (2, 4096, 16/1, 256) causal with
+        window 2048 (its error also against a float64 evaluation of the
+        plain version) timed against its split-TF32 bound over the
+        (query, key) pairs the masks leave, the plain version and
+        ``F.scaled_dot_product_attention`` with the window as a boolean
+        mask;
+     b. ``launch.serve`` as phase 8 on recurrentgemma-9b at full width and
+        depth, batch 2, prompt 4096 (past its 2048 window: the rolling
+        cache wraps), and mamba2-370m, batch 4, prompt 2048 (8 SSD
+        chunks): launches exactly 77 RMSNorm and 12 flash, and 49 RMSNorm
+        and no flash, per prefill, none per decode step; the prefill's
+        kernel route against the plain route within 2e-3 (logits and every
+        cache leaf: K/V, h, conv windows, SSM state);
+     c. ``launch.train`` in phase 5's configuration: mamba2-370m at full
+        width and depth, lag-wk and laq@4 at W = 2; recurrentgemma-9b at
+        full width, its depth and W the first cut whose reckoned peak
+        (tree bytes × trees) is under 75 GB, of ``--layers 5`` at W = 2,
+        ``--layers 5`` at W = 1, ``--layers 3`` at W = 1;
+     d. recurrentgemma-9b at ``reduced(num_layers=8)`` (two superblocks
+        and the tail) and mamba2-370m reduced, 3 rounds of lag-wk on the
+        card and on the CPU: equal masks, losses within rtol 1e-4.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Times are CUDA-event times on this card (kernels: the mean of
@@ -391,6 +416,29 @@ HUBERT_FORWARD = (4, 2048)       # 15c: (batch, frames)
 TRAIN_WIDE = (("hubert-xlarge", "lag-wk", ()),
               ("hubert-xlarge", "laq@4", ()),
               ("qwen2-vl-7b", "lag-wk", ("--layers", "2")))
+
+# phase 16: the recurrent and state-space kinds
+# 16a: (H, KV) of the ragged set at head_dim 256; recurrentgemma's prefill
+# shape (B, S, H, KV, hd, window), causal
+HD256_RAGGED = ((16, 1), (8, 2))
+ATTN_HD256 = (2, 4096, 16, 1, 256, 2048)
+# 16b: (arch, serve flags); 4096 > recurrentgemma's window of 2048, and
+# mamba2's 2048 tokens are 8 chunks of 256
+SERVE_RECURRENT = (
+    ("recurrentgemma-9b", ["--batch", "2", "--prompt-len", "4096", "--gen",
+                           "32", "--rounds", "2", "--seed", "0"]),
+    ("mamba2-370m", SERVE_ARGS[2:]),
+)
+# 16c: PR 19's measured training peak, (arch at 2 layers, GB) on an H100
+# 80GB HBM3 (700 W), phase 15d: 9.01 trees at W = 2.  A worker fewer takes
+# 3 trees off (its mirror, its fresh gradient, the round's payload over
+# it): 16c prints the trees its W = 1 run peaked at (6.01 on an H100 80GB
+# HBM3, 700 W; PERF.md §4).  recurrentgemma's cuts (layers, workers) in
+# order of preference, and the reckoned peak a cut must stay under
+PR19_PEAK = ("qwen2-vl-7b", 56.09)
+TREES_PER_WORKER = 3
+TRAIN_CUTS = ((5, 2), (5, 1), (3, 1))
+TRAIN_RECKON_GB = 75.0
 
 
 def check(cond, msg):
@@ -677,7 +725,7 @@ def scheduled_uploaders(algo, steps, workers=2, seed=0):
 
 
 def trainer_phase(torch, algo, steps=4, use_pallas_comm=False, extra=(),
-                  arch="llama3.2-1b"):
+                  arch="llama3.2-1b", workers=2):
     """Run the launcher on ``arch`` at full width (``extra``: more launcher
     flags, e.g. ``--server``); returns the launches of the batched plane's kernels
     (``plane``) and of the legacy per-leaf kernels (``legacy``), the
@@ -707,7 +755,8 @@ def trainer_phase(torch, algo, steps=4, use_pallas_comm=False, extra=(),
     kernels.reset_launches()
     lt.reset_launches()
     state = train.main(["--arch", arch, "--algo", algo,
-                        "--workers", "2", "--batch", "4", "--seq", "256",
+                        "--workers", str(workers), "--batch", "4",
+                        "--seq", "256",
                         "--steps", str(steps), "--seed", "0", *extra],
                        on_step=on_step, use_pallas_comm=use_pallas_comm)
     launches = dict(kernels.LAUNCHES)
@@ -727,7 +776,7 @@ def trainer_phase(torch, algo, steps=4, use_pallas_comm=False, extra=(),
               f"{algo}: round 0 must upload all")
     else:
         for k, (r, m) in enumerate(zip(rounds, sched)):
-            check(r["mask"] == [int(i == m) for i in range(2)],
+            check(r["mask"] == [int(i == m) for i in range(workers)],
                   f"{algo} round {k}: mask {r['mask']}, scheduled worker {m}")
     del state
     gc.collect()
@@ -738,7 +787,8 @@ def trainer_phase(torch, algo, steps=4, use_pallas_comm=False, extra=(),
                          "scatter_ms", "mix_ms") if k in steady[0]}
     shown = {**launches, **legacy} if use_pallas_comm else launches
     label = " ".join(((arch,) if arch != "llama3.2-1b" else ())
-                     + (algo,) + tuple(extra))
+                     + (algo,) + tuple(extra)
+                     + (() if workers == 2 else (f"W={workers}",)))
     if "mix_ms" in summary:
         label += f" (mix + history {summary['mix_ms']:.1f} ms a round)"
     fleet = "" if rounds[0]["cohort"] is None else (
@@ -943,6 +993,25 @@ def model_kernel_phase(torch, dev):
 # Phase 8: the serving path through the entry point
 # ---------------------------------------------------------------------------
 
+def prefill_launches(cfg):
+    """The kernels' launches per prefill: RMSNorm before every mixer and
+    every MLP (an ssd layer has no MLP) and the final norm; flash attention
+    once per attention layer."""
+    pat = cfg.block_pattern
+    kinds = [pat[i % len(pat)] for i in range(cfg.num_layers)]
+    return {"rmsnorm": sum(1 if k == "ssd" else 2 for k in kinds) + 1,
+            "flash_attention": sum(k in ("dense", "lattn") for k in kinds)}
+
+
+def named_leaves(tree, name=""):
+    """[(the leaf's dict key, tensor)] in JAX's leaf order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in named_leaves(tree[k], k)]
+    if isinstance(tree, (list, tuple)):
+        return [x for c in tree for x in named_leaves(c, name)]
+    return [(name, tree)]
+
+
 def serve_phase(torch, dev, argv=SERVE_ARGS, cfg=None):
     """``repro_torch.launch.serve`` with ``argv`` (``cfg``: a config that
     replaces the one ``--arch`` names, e.g. its depth cut), random weights
@@ -975,8 +1044,7 @@ def serve_phase(torch, dev, argv=SERVE_ARGS, cfg=None):
     peak = torch.cuda.max_memory_allocated() / 1e9
     n = len(rounds)
     check(n == args.rounds, f"serve {cfg.arch_id}: {n} rounds")
-    per_prefill = {"rmsnorm": 2 * cfg.num_layers + 1,
-                   "flash_attention": cfg.num_layers}
+    per_prefill = prefill_launches(cfg)
     for k_, want in per_prefill.items():
         check(launches[k_] == n * want,
               f"serve {cfg.arch_id}: {k_} launched {launches[k_]} times in "
@@ -1005,15 +1073,17 @@ def serve_phase(torch, dev, argv=SERVE_ARGS, cfg=None):
             last, cache = model.prefill(params, cfg.replace(use_pallas=up),
                                         {"tokens": prompts},
                                         max_len=args.prompt_len + args.gen)
-            outs[up] = (last, cache["blocks"]["0"])
+            outs[up] = (last, named_leaves(cache))
             del cache
     (lk, ck), (lp, cp) = outs[True], outs[False]
     check(bool(torch.isfinite(lk).all()), "serve: non-finite logits")
-    errs = {"logits": max_abs(lk, lp),
-            "k cache": max_abs(ck["k"], cp["k"]),
-            "v cache": max_abs(ck["v"], cp["v"])}
+    errs = {"logits": max_abs(lk, lp)}
+    for (name, a), (_, b) in zip(ck, cp):
+        key = f"{name} cache"
+        errs[key] = max(errs.get(key, 0.0), max_abs(a, b))
     agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-    print(f"  prefill kernels vs plain route: max_abs_err {errs} | argmax "
+    print(f"  prefill kernels vs plain route: max_abs_err "
+          f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } | argmax "
           f"agreement {agree:.2f} | logits max |x| "
           f"{float(lp.abs().max()):.3f}")
     for what, e in errs.items():
@@ -2282,18 +2352,17 @@ def dense_kind_training(torch):
     return total
 
 
-def dense_kind_agreement(torch, dev):
-    """15e: the six reduced archs, 3 rounds of lag-wk on the card (the
+def reduced_agreement(torch, dev, cfgs):
+    """15e, 16d: reduced configs, 3 rounds of lag-wk on the card (the
     plane's kernels) and on the CPU (their plain versions) from the same
     weights: equal masks, losses within rtol 1e-4."""
-    from repro_torch.configs import get_config
     from repro_torch.data import TokenStream, make_inputs
     from repro_torch.dist.lag_trainer import (TrainerConfig, init_state,
                                               make_train_step, params_of)
 
     tcfg = TrainerConfig(algo="lag-wk", num_workers=2, lr=0.3)
-    for arch in DENSE_KIND:
-        cfg = get_config(arch).reduced()
+    for cfg in cfgs:
+        arch = f"{cfg.arch_id} ({cfg.num_layers} layers)"
         cpu = init_state(cfg, tcfg, device="cpu", seed=5)
         gpu = init_state(cfg, tcfg, device=dev, params=params_of(cpu, cfg))
         cpu_step = make_train_step(cfg, tcfg.replace(fastpath="on"))
@@ -2313,6 +2382,165 @@ def dense_kind_agreement(torch, dev):
               f"rtol 1e-4, masks equal (last loss {lg:.6f}, masks {masks})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the recurrent and state-space layer kinds
+# ---------------------------------------------------------------------------
+
+def hd256_kernel_phase(torch, dev):
+    """16a: flash attention at head_dim 256 (recurrentgemma's lattn: H 16,
+    one KV head; and GQA 8/2) on phase 7's ragged set, then at the serving
+    shape (2, 4096, 16/1, 256) causal with window 2048, timed against its
+    split-TF32 bound (the (query, key) pairs the masks leave), the plain
+    version and ``F.scaled_dot_product_attention`` (float32, the window as
+    a boolean mask, ``enable_gqa``)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    bad = []
+    cases = [(S, S, c, w) for S in FLASH_S for c, w in FLASH_MASKS]
+    cases += FLASH_CROSS
+    for H, KV in HD256_RAGGED:
+        worst = 0.0
+        for S, Skv, causal, window in cases:
+            q = torch.randn((1, S, H, 256), device=dev, generator=gen)
+            k = torch.randn((1, Skv, KV, 256), device=dev, generator=gen)
+            v = torch.randn((1, Skv, KV, 256), device=dev, generator=gen)
+            got = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                         window=window)
+            want = fa_ref.attention(q, k, v, causal=causal, window=window)
+            if S > Skv and window is not None:   # rows that see no key
+                live = torch.arange(S, device=dev) - window + 1 < Skv
+                got, want = got[:, live], want[:, live]
+            err = max_abs(got, want)
+            worst = max(worst, err)
+            if not (bool(torch.isfinite(got).all()) and torch.allclose(
+                    got, want, rtol=MODEL_TOL, atol=MODEL_TOL)):
+                bad.append(f"H {H}/{KV} Sq {S} Skv {Skv} causal {causal} "
+                           f"window {window}: {err:.3e}")
+        print(f"  flash_attention hd 256 H {H}/{KV}: {len(cases)} ragged "
+              f"cases, max_abs_err {worst:.3e}")
+
+    B, S, H, KV, hd, window = ATTN_HD256
+    q = torch.randn((B, S, H, hd), device=dev, generator=gen)
+    k = torch.randn((B, S, KV, hd), device=dev, generator=gen)
+    v = torch.randn((B, S, KV, hd), device=dev, generator=gen)
+    run = lambda: fa.flash_attention_fwd(q, k, v, window=window)
+    plain = lambda: fa_ref.attention(q, k, v, window=window)
+    got, want = run(), plain()
+    err = max_abs(got, want)
+    if not torch.allclose(got, want, rtol=MODEL_TOL, atol=MODEL_TOL):
+        bad.append(f"full shape: {err:.3e}")
+    # the same against a float64 evaluation of the plain version: which
+    # side the float32 difference sits on
+    want64 = fa_ref.attention(q.double(), k.double(), v.double(),
+                              window=window)
+    err64 = (max_abs(got.double(), want64), max_abs(want.double(), want64))
+    del got, want, want64
+    pos = torch.arange(S, device=dev)
+    mask = (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None] < window)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    # (query, key) pairs the causal window leaves, 4·hd FLOP each, run as
+    # three TF32 products on the tensor cores
+    pairs = B * H * sum(min(i + 1, window) for i in range(S))
+    flop = 4 * hd * pairs
+    nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    t_b, by = bound_ms(nbytes, 3 * flop, TF32_FLOP_PER_S)
+    r = dict(ms=cuda_ms(torch, run, n=10),
+             plain_ms=cuda_ms(torch, plain, n=3), bound_ms=t_b, bound_by=by,
+             fma_bound_ms=bound_ms(nbytes, flop)[0],
+             library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, attn_mask=mask, enable_gqa=True), n=10))
+    print(f"  full-shape flash_attention {ATTN_HD256[:5]} causal window "
+          f"{window}: max_abs_err {err:.3e} (float64 plain: kernel "
+          f"{err64[0]:.3e}, float32 plain {err64[1]:.3e}) | {r['ms']:.4f} ms "
+          f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+          f"{by}: {pairs} pairs, 3 x {flop / 1e9:.1f} GFLOP at "
+          f"{TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s = "
+          f"{r['bound_ms'] / r['ms']:.1%}; FMA units {r['fma_bound_ms']:.4f}"
+          f" ms; library {r['library_ms']:.4f} ms, kernel / library "
+          f"{r['ms'] / r['library_ms']:.3f})")
+    check(not bad, f"flash hd 256 vs plain beyond rtol = atol = {MODEL_TOL}:"
+                   f" {bad}")
+    del q, k, v, qt, kt, vt, mask
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def recurrent_serve(torch, dev):
+    """16b: recurrentgemma-9b (past its window: the rolling cache wraps)
+    and mamba2-370m (8 SSD chunks) through ``launch.serve`` at full width
+    and depth."""
+    total = {}
+    for arch, argv in SERVE_RECURRENT:
+        got, _ = serve_phase(torch, dev, ["--arch", arch, *argv])
+        for k_, v in got.items():
+            total[k_] = total.get(k_, 0) + v
+    return total
+
+
+def reckon_training_cut(cfg):
+    """16c: recurrentgemma's training cut: the first of TRAIN_CUTS whose
+    reckoned peak (tree bytes × copies) is under TRAIN_RECKON_GB.  The
+    copies are PR 19's measured peak over its tree (qwen2-vl-7b, 2 layers,
+    W = 2), less TREES_PER_WORKER for each worker fewer."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import model
+
+    def tree_gb(c):
+        return sum(t.numel() * t.element_size()
+                   for t in tree_leaves(model.templates(c))) / 1e9
+
+    copies2 = PR19_PEAK[1] / tree_gb(get_config(PR19_PEAK[0]).replace(
+        num_layers=2))
+    chosen = None
+    for layers, workers in TRAIN_CUTS:
+        gb = tree_gb(cfg.replace(num_layers=layers))
+        copies = copies2 - TREES_PER_WORKER * (2 - workers)
+        peak = gb * copies
+        print(f"  reckoned {cfg.arch_id} --layers {layers} W={workers}: "
+              f"tree {gb:.3f} GB x {copies:.2f} copies = {peak:.2f} GB")
+        if chosen is None and peak < TRAIN_RECKON_GB:
+            chosen = (layers, workers)
+    check(chosen is not None, f"no training cut of {cfg.arch_id} reckons "
+                              f"under {TRAIN_RECKON_GB} GB")
+    print(f"  chosen: --layers {chosen[0]} at W={chosen[1]}")
+    return chosen, tree_gb(cfg.replace(num_layers=chosen[0]))
+
+
+def recurrent_training(torch):
+    """16c: mamba2-370m (full width and depth) lag-wk and laq@4 at W = 2,
+    recurrentgemma-9b at full width at the reckoned cut, through
+    ``launch.train`` in phase 5's configuration."""
+    from repro_torch.configs import get_config
+
+    want = {"lag-wk": ("delta_sqnorm_blocks", "masked_combine"),
+            "laq@4": ("absmax_blocks", "laq_encode_blocks",
+                      "masked_combine")}
+    (layers, workers), tree = reckon_training_cut(
+        get_config("recurrentgemma-9b"))
+    runs = [("mamba2-370m", "lag-wk", (), 2), ("mamba2-370m", "laq@4", (), 2),
+            ("recurrentgemma-9b", "lag-wk", ("--layers", str(layers)),
+             workers)]
+    total = {}
+    for arch, algo, extra, w in runs:
+        run = trainer_phase(torch, algo, extra=extra, arch=arch, workers=w)
+        for k_ in want[algo]:
+            check(run["plane"][k_] >= 4, f"{arch} {algo}: kernel {k_} "
+                                         f"launched {run['plane'][k_]} times")
+        check(run["peak"] < 80.0, f"{arch} {algo}: peak {run['peak']:.2f} "
+                                  f"GB")
+        for k_, v in run["plane"].items():
+            total[k_] = total.get(k_, 0) + v
+    print(f"  recurrentgemma-9b --layers {layers} W={workers}: peak "
+          f"{run['peak']:.2f} GB = {run['peak'] / tree:.2f} trees of "
+          f"{tree:.3f} GB")
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2324,6 +2552,7 @@ def main():
               f"of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    from repro_torch.configs import get_config
     from repro_torch.device import gpu_name_and_power_limit
     from repro_torch.fastpath import kernels
     from repro_torch.kernels import build
@@ -2473,11 +2702,30 @@ def main():
     for part in (hubert_forward(torch, dev), dense_kind_training(torch)):
         for k, v in part.items():
             p15[k] = p15.get(k, 0) + v
-    dense_kind_agreement(torch, dev)
+    reduced_agreement(torch, dev, [get_config(a).reduced()
+                                   for a in DENSE_KIND])
     for k, v in p15.items():
         launches[k] += v
     print(f"  phase 15 launches: { {k: v for k, v in p15.items() if v} } "
           f"in {time.perf_counter() - t15:.1f} s")
+
+    print("[16] the recurrent and state-space kinds: a flash at head_dim "
+          "256, b serving recurrentgemma-9b and mamba2-370m, c training "
+          "them, d the reduced pair card = CPU", flush=True)
+    t16 = time.perf_counter()
+    hd256_kernel_phase(torch, dev)
+    p16 = recurrent_serve(torch, dev)
+    for k, v in recurrent_training(torch).items():
+        p16[k] = p16.get(k, 0) + v
+    reduced_agreement(torch, dev, [
+        get_config("recurrentgemma-9b").reduced(num_layers=8),
+        get_config("mamba2-370m").reduced()])
+    for k, v in p16.items():
+        launches[k] += v
+    check(p16["flash_attention"] > 0 and p16["rmsnorm"] > 0,
+          f"phase 16 launches {p16}")
+    print(f"  phase 16 launches: { {k: v for k, v in p16.items() if v} } "
+          f"in {time.perf_counter() - t16:.1f} s")
 
     rows = [dict(name=k, route="cuda", source=SOURCES.get(k, SOURCE),
                  replaces=REPLACES[k], launches=launches[k], **full[k])

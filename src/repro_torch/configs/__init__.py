@@ -1,6 +1,6 @@
 """Architecture registry of the port: ``get_config(arch_id, **overrides)``.
-The port has the reference's architectures whose layers are all of the
-``dense`` kind; the MoE, SSM and hybrid ones are not ported."""
+The port has the reference's architectures of the ``dense``, ``lattn``,
+``rec`` and ``ssd`` layer kinds (nine); the two MoE ones are not ported."""
 from __future__ import annotations
 
 import importlib
@@ -9,8 +9,10 @@ from typing import Dict
 from repro_torch.models.common import ModelConfig
 
 _MODULES: Dict[str, str] = {
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
     "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
     "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "granite-8b": "repro_torch.configs.granite_8b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
     "llama3.2-1b-sw": "repro_torch.configs.llama3_2_1b_sw",

@@ -15,15 +15,32 @@
 // causal (q >= k), window (q - k < window), positions counted from 0 for
 // both q and k, as in the reference.
 //
-// One templated source, three instantiations (the C entry point picks one
+// One templated source, four instantiations (the C entry point picks one
 // by head_dim; any other head_dim is refused):
 //
-//   hd   stored  keys a tile  q's hi fragments  n tiles a P.V pass  shared
-//   64   64      64           registers         8 (all)            112 KB
-//   80   96      32           registers         12 (all)           96 KB
-//   128  128     16           shared memory     8 (two passes)     112 KB
+//   hd   stored  keys a tile  q's hi fragments  n tiles a P.V pass  warps  shared
+//   64   64      64           registers         8 (all)            4      112 KB
+//   80   96      32           registers         12 (all)           4      96 KB
+//   128  128     16           shared memory     8 (two passes)     4      112 KB
+//   256  256     16           shared memory     8 (two passes)     8      224 KB
 //
-// (shared memory a block; two blocks an SM each).  head_dim 80 is stored
+// (shared memory a block; two blocks an SM at 64-128, one at 256: eight
+// warps an SM each).  head_dim 256 (recurrentgemma) is head_dim 128's
+// layout twice over: the block has two warps per 16 query rows, the warp
+// of half hh owning columns [128 hh, 128 hh + 128) of q, K, V and the
+// output (each K/V tile is stored as two 128-column sub-tiles, each laid
+// out and swizzled as at 128), so a thread keeps 128's registers.  Each
+// warp of a pair computes the scores over its half of hd; the two partial
+// scores meet in shared memory (in the K-lo buffer, once every warp has
+// read it; a 64-thread named barrier per pair) and each warp adds its
+// partner's to its own: a + b = b + a exactly, so both hold the same bits
+// and run the same online softmax, and each does P.V for its own columns.
+// A warp's score product sums each 16 columns in a fresh accumulator,
+// added to the running scores in float32 (round to nearest): a 256-term
+// dot in one chain of tensor-core accumulations erred 3.2e-6 against a
+// float64 evaluation at the serving shape, the plain float32 version 1.9e-6,
+// this 1.1e-6 (PERF.md).  256 columns of q's hi and lo fill 128 KB of the
+// 227 KB, so a block takes 224 KB and an SM one block of eight warps.  head_dim 80 is stored
 // as 96 (the copy zero-fills columns 80..95 of every K/V row, q's are
 // zero, the output's are not written): the fragment and swizzle arithmetic
 // below wants whole groups of 32 columns, and the padding costs 20 % more
@@ -49,10 +66,10 @@
 //     into one float32 accumulator (mma.sync m16n8k8 .tf32, f32 accumulate).
 //     The dropped lo.lo term is below float32's rounding; one TF32 pass
 //     would miss the plain version by ~1e-3 (tests/test_torch_kernels.py
-//     emulates both).  At hd 64 the scale hd^-0.5 = 0.125 is folded into q
-//     once: a power of two, so exact.  80^-0.5 and 128^-0.5 are not, so
-//     there the scores are multiplied by the scale after the product, as
-//     the reference does.
+//     emulates both).  At hd 64 and 256 the scale hd^-0.5 (2^-3, 2^-4) is
+//     folded into q once: a power of two, so exact.  80^-0.5 and 128^-0.5
+//     are not, so there the scores are multiplied by the scale after the
+//     product, as the reference does.
 //   * Tiles.  A block of 4 warps takes BQ = 64 query rows of one (b, h),
 //     16 rows per warp (the m16 of the mma); the loop inside the block
 //     (the TPU's sequential kv grid axis) runs over BK keys per tile.
@@ -112,41 +129,48 @@
 
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int BQ = 16 * WARPS;         // query rows per block, 16 per warp
-constexpr int THREADS = 32 * WARPS;
+constexpr int WARPS = 4;               // row groups of a block
+constexpr int BQ = 16 * WARPS;         // query rows per block, 16 per group
 constexpr int MAX_DEVICES = 64;
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// one instantiation: head_dim HD stored as HDP columns (a multiple of 32),
-// BK keys a tile, the P.V product in passes of OG float4 chunks (4 OG n
-// tiles) of the output, q's hi fragments in shared memory beside its lo
-// (QS) or in registers
-template <int HD_, int HDP_, int BK_, int OG_, bool QS_>
+// one instantiation: head_dim HD stored as HDP columns, BK keys a tile,
+// the P.V product in passes of OG float4 chunks (4 OG n tiles) of the
+// output, q's hi fragments in shared memory beside its lo (QS) or in
+// registers, HALVES warps per 16 query rows each owning W = HDP / HALVES
+// columns (a multiple of 32)
+template <int HD_, int HDP_, int BK_, int OG_, bool QS_, int HALVES_ = 1>
 struct Shape {
   static constexpr int HD = HD_;
   static constexpr int HDP = HDP_;
   static constexpr int BK = BK_;
   static constexpr int OG = OG_;
   static constexpr bool QS = QS_;
-  static constexpr int NT = HDP / 8;            // n tiles of the output
+  static constexpr int HALVES = HALVES_;
+  static constexpr int THREADS = 32 * WARPS * HALVES;
+  static constexpr int W = HDP / HALVES;        // columns of one warp
+  static constexpr int NT = W / 8;              // n tiles of a warp's output
   static constexpr int TILE = BK * HDP;         // floats of one K or V tile
   static constexpr int STAGE = 2 * TILE;        // one ring stage: K, V
-  static constexpr int QLO = WARPS * NT * 32 * 4;   // floats of q's lo
+  static constexpr int QLO = WARPS * HALVES * NT * 32 * 4;  // floats of q's lo
   // 2 ring stages, the lo of the current tile, q's lo (and hi) fragments
   static constexpr int SMEM_BYTES =
       (3 * STAGE + (QS ? 2 : 1) * QLO) * (int)sizeof(float);
   // the scale folds into q exactly only where it is a power of two
-  static constexpr bool FOLD = HD == 64;
-  static_assert(HDP % 32 == 0 && HD <= HDP && HD % 4 == 0, "hd");
+  static constexpr bool FOLD = HD == 64 || HD == 256;
+  static_assert(W % 32 == 0 && HD <= HDP && HD % 4 == 0, "hd");
+  static_assert(HALVES == 1 || HD == HDP, "split columns are not padded");
   static_assert((NT / 4) % OG == 0, "P.V passes");
   static_assert(TILE % (4 * THREADS) == 0 && BK % 8 == 0 && BK <= 64, "BK");
+  // the partial scores a pair exchanges fit the K-lo buffer
+  static_assert(HALVES == 1 || WARPS * HALVES * BK * 16 <= TILE, "exchange");
 };
 
 using Hd64 = Shape<64, 64, 64, 2, false>;
 using Hd80 = Shape<80, 96, 32, 3, false>;
 using Hd128 = Shape<128, 128, 16, 2, true>;
+using Hd256 = Shape<256, 256, 16, 2, true, 2>;
 
 // 2^x, flushing results below 2^-126 to 0 (a weight that small adds
 // nothing a float32 sum of weights up to 1 and beyond can hold)
@@ -199,6 +223,15 @@ __device__ __forceinline__ int chunk_at(int r, int c) {
       ? (((r & 1) << 2) | ((r >> 1) & 3))
       : ((((r ^ (r >> 2)) & 1) << 2) | ((r >> 1) & 1));
   return r * HDP + 4 * (c ^ sw);
+}
+
+// float offset of chunk c (of the whole row) of row r of a K or V tile:
+// under HALVES > 1 the tile is HALVES sub-tiles of BK rows of W columns,
+// each laid out as chunk_at<W>
+template <class S>
+__device__ __forceinline__ int tile_at(int r, int c) {
+  if (S::HALVES == 1) return chunk_at<S::HDP>(r, c);
+  return (c / (S::W / 4)) * S::BK * S::W + chunk_at<S::W>(r, c % (S::W / 4));
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -267,23 +300,28 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 8][4],
 }
 
 template <class S>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(S::THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  int64_t Sq, int64_t Skv, int64_t H, int64_t KV,
                  float scale, int causal, int64_t window) {
   constexpr int HD = S::HD, HDP = S::HDP, BK = S::BK, NT = S::NT;
+  constexpr int W = S::W, THREADS = S::THREADS;
   constexpr int TILE = S::TILE, STAGE = S::STAGE;
   extern __shared__ __align__(16) float smem[];
   float* const lo_buf = smem + 2 * STAGE;     // lo of the current tile
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // this warp's row group and column half (columns hh W .. hh W + W - 1)
+  const int wr = S::HALVES == 1 ? warp : warp % WARPS;
+  const int hh = S::HALVES == 1 ? 0 : warp / WARPS;
+  const int sub = hh * BK * W;                 // its sub-tile of K and V
   const int gr = lane / 4, tq = lane % 4;      // mma group row, thread in group
   const int64_t bh = blockIdx.x;
   const int64_t b = bh / H, h = bh % H;
   const int64_t g = h / (H / KV);
   const int64_t q0 = (int64_t)(gridDim.y - 1 - blockIdx.y) * BQ;
-  const int64_t r0 = q0 + warp * 16 + gr, r1 = r0 + 8;   // this thread's rows
+  const int64_t r0 = q0 + wr * 16 + gr, r1 = r0 + 8;     // this thread's rows
   const float qscale = S::FOLD ? scale : 1.f;
 
   // q (* scale where it folds) as A fragments: [k step][a0..a3], a0 row
@@ -295,16 +333,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   uint32_t qh[NT][4];
   uint4* const qlo = reinterpret_cast<uint4*>(smem + 3 * STAGE)
                      + warp * NT * 32 + lane;
-  uint4* const qhi = qlo + WARPS * NT * 32;     // used under S::QS only
+  uint4* const qhi = qlo + WARPS * S::HALVES * NT * 32;  // under S::QS only
   {
     uint32_t ql[NT][4];
     const float4* qr0 = reinterpret_cast<const float4*>(
-        q + ((b * Sq + (r0 < Sq ? r0 : 0)) * H + h) * HD);
+        q + ((b * Sq + (r0 < Sq ? r0 : 0)) * H + h) * HD + hh * W);
     const float4* qr1 = reinterpret_cast<const float4*>(
-        q + ((b * Sq + (r1 < Sq ? r1 : 0)) * H + h) * HD);
+        q + ((b * Sq + (r1 < Sq ? r1 : 0)) * H + h) * HD + hh * W);
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int m = 0; m < HDP / 16; ++m) {
+    for (int m = 0; m < W / 16; ++m) {
       const bool col = HD == HDP || 4 * m + tq < HD / 4;
       const float4 x = r0 < Sq && col ? qr0[4 * m + tq] : zero;
       const float4 y = r1 < Sq && col ? qr1[4 * m + tq] : zero;
@@ -346,8 +384,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int64_t kp = t * BK + r;
       const bool in = kp < Skv && (HD == HDP || c < HD / 4);
       const int64_t idx = in ? ((b * Skv + kp) * KV + g) * HD + 4 * c : 0;
-      cp_async16(ks + chunk_at<HDP>(r, c), k + idx, in ? 16 : 0);
-      cp_async16(vs + chunk_at<HDP>(r, c), v + idx, in ? 16 : 0);
+      cp_async16(ks + tile_at<S>(r, c), k + idx, in ? 16 : 0);
+      cp_async16(vs + tile_at<S>(r, c), v + idx, in ? 16 : 0);
     }
     cp_async_commit();
   };
@@ -365,6 +403,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int s = (int)((t - t_begin) & 1);
     float* const ks = smem + s * STAGE;
     float* const vs = ks + TILE;
+    const float* const kh = ks + sub;     // this warp's columns of K, V
+    const float* const vh = vs + sub;
     cp_async_wait_all();                  // tile t has landed
     __syncthreads();                      // ... for every thread, and every
                                           // warp is done with tile t - 1
@@ -387,8 +427,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           __uint_as_float(lw));
     }
     __syncthreads();
-    const float* const kl = lo_buf;
-    const float* const vl = lo_buf + TILE;
+    const float* const kl = lo_buf + sub;
+    const float* const vl = lo_buf + TILE + sub;
     const int64_t k0 = t * BK;
 
     // -- scores: sc[j] holds keys 8j + 2tq (+1) of rows r0 (0, 1), r1 (2, 3)
@@ -398,7 +438,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-    for (int m = 0; m < HDP / 16; ++m) {
+    for (int m = 0; m < W / 16; ++m) {
       uint32_t ql[2][4], qa[2][4];
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
@@ -415,11 +455,21 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
         // B = K^T at key 8j + gr: hd 16m + 4tq .. + 3, two k steps
-        const int off = chunk_at<HDP>(8 * j + gr, 4 * m + tq);
-        const float4 bh = *reinterpret_cast<const float4*>(ks + off);
+        const int off = chunk_at<W>(8 * j + gr, 4 * m + tq);
+        const float4 bh = *reinterpret_cast<const float4*>(kh + off);
         const float4 bl = *reinterpret_cast<const float4*>(kl + off);
-        mma3(sc[j], qa[0], ql[0], bh.x, bh.y, bl.x, bl.y);
-        mma3(sc[j], qa[1], ql[1], bh.z, bh.w, bl.z, bl.w);
+        if (S::HALVES == 1) {
+          mma3(sc[j], qa[0], ql[0], bh.x, bh.y, bl.x, bl.y);
+          mma3(sc[j], qa[1], ql[1], bh.z, bh.w, bl.z, bl.w);
+        } else {
+          // 16 columns into a fresh accumulator, added in float32 (round
+          // to nearest): no chain of 48 tensor-core accumulations
+          float f[4] = {0.f, 0.f, 0.f, 0.f};
+          mma3(f, qa[0], ql[0], bh.x, bh.y, bl.x, bl.y);
+          mma3(f, qa[1], ql[1], bh.z, bh.w, bl.z, bl.w);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] += f[e];
+        }
       }
     }
     if (!S::FOLD) {
@@ -427,6 +477,24 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[j][e] *= scale;
+    }
+    if (S::HALVES == 2) {
+      // the pair's partial scores: each warp publishes its own in the
+      // K-lo buffer (every warp is done reading it) and adds its
+      // partner's; a + b = b + a, so both warps hold the same scores
+      float* const xs = lo_buf + warp * (BK / 8) * 4 * 32 + lane;
+      const float* const xp = lo_buf + (warp ^ WARPS) * (BK / 8) * 4 * 32
+                              + lane;
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xs[32 * (4 * j + e)] = sc[j][e];
+      asm volatile("bar.sync %0, 64;" :: "r"(1 + wr) : "memory");
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] += xp[32 * (4 * j + e)];
     }
 
     // -- mask: one bit per score, all set unless some query of the block
@@ -472,11 +540,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int cc = 0; cc < S::OG; ++cc) {
           // B = V at keys 8js + 2tq (b0) and + 1 (b1), hd NT gr + 4(c0 +
           // cc) .. + 3: n tiles 4(c0 + cc) .. + 3
-          const int o0 = chunk_at<HDP>(8 * js + 2 * tq, NT / 4 * gr + c0 + cc);
-          const int o1 = chunk_at<HDP>(8 * js + 2 * tq + 1,
-                                       NT / 4 * gr + c0 + cc);
-          const float4 h0 = *reinterpret_cast<const float4*>(vs + o0);
-          const float4 h1 = *reinterpret_cast<const float4*>(vs + o1);
+          const int o0 = chunk_at<W>(8 * js + 2 * tq, NT / 4 * gr + c0 + cc);
+          const int o1 = chunk_at<W>(8 * js + 2 * tq + 1,
+                                     NT / 4 * gr + c0 + cc);
+          const float4 h0 = *reinterpret_cast<const float4*>(vh + o0);
+          const float4 h1 = *reinterpret_cast<const float4*>(vh + o1);
           const float4 w0 = *reinterpret_cast<const float4*>(vl + o0);
           const float4 w1 = *reinterpret_cast<const float4*>(vl + o1);
           mma3(ot[4 * cc], ph, pl, h0.x, h1.x, w0.x, w1.x);
@@ -507,7 +575,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int64_t r = e ? r1 : r0;
     const float den = e ? den1 : den0;
     if (r < Sq) {
-      float* const dst = o + ((b * Sq + r) * H + h) * HD;
+      float* const dst = o + ((b * Sq + r) * H + h) * HD + hh * W;
 #pragma unroll
       for (int c = 0; c < 2; ++c)
 #pragma unroll
@@ -544,7 +612,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
     opted_in[dev] = true;
   }
   const dim3 grid((unsigned)(B * H), (unsigned)nq);
-  flash_fwd_kernel<S><<<grid, THREADS, S::SMEM_BYTES, stream>>>(
+  flash_fwd_kernel<S><<<grid, S::THREADS, S::SMEM_BYTES, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Skv,
       H, KV, scale, causal, window);
   return (int)cudaGetLastError();
@@ -555,13 +623,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
 extern "C" {
 
 // q, o: (B, Sq, H, hd); k, v: (B, Skv, KV, hd); float32, contiguous,
-// 16-byte aligned.  window <= 0: no window.  hd 64, 80 and 128 are built.
+// 16-byte aligned.  window <= 0: no window.  hd 64, 80, 128 and 256 are
+// built.
 int lag_flash_attention_f32(const void* q, const void* k, const void* v,
                             void* o, int64_t B, int64_t Sq, int64_t Skv,
                             int64_t H, int64_t KV, int64_t hd, float scale,
                             int causal, int64_t window, void* stream) {
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
-  if (hd != Hd64::HD && hd != Hd80::HD && hd != Hd128::HD)
+  if (hd != Hd64::HD && hd != Hd80::HD && hd != Hd128::HD && hd != Hd256::HD)
     return (int)cudaErrorInvalidValue;
   if (B * H == 0 || Sq == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
@@ -571,7 +640,10 @@ int lag_flash_attention_f32(const void* q, const void* k, const void* v,
   if (hd == Hd80::HD)
     return launch<Hd80>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
                         s);
-  return launch<Hd128>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
+  if (hd == Hd128::HD)
+    return launch<Hd128>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
+                         s);
+  return launch<Hd256>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
                        s);
 }
 

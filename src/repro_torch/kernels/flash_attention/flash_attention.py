@@ -3,9 +3,9 @@
 ``repro.kernels.flash_attention.flash_attention.flash_attention_padded``).
 
 The CUDA kernel takes any Sq and Skv (it masks the ragged edges itself, so
-nothing is padded), float32, head_dim 64, 80 or 128 (one instantiation of
-the templated source each; any other head_dim raises), contiguous operands
-in the reference's layout.  It runs both products on the tensor cores in split
+nothing is padded), float32, head_dim 64, 80, 128 or 256 (one
+instantiation of the templated source each; any other head_dim raises),
+contiguous operands in the reference's layout.  It runs both products on the tensor cores in split
 TF32 (three TF32 products per float32 product, float32-accurate), with K
 and V coming through a ``cp.async`` ring in shared memory.  It has no
 backward, like the reference's kernel: an input that requires grad raises.
@@ -22,20 +22,22 @@ import torch
 from repro_torch.kernels import build
 
 #: head_dim -> (the columns it is stored as, keys a tile, q's hi fragments
-#: in shared memory): the instantiations of the source (``Hd64``, ``Hd80``,
-#: ``Hd128``)
-INSTANCES = {64: (64, 64, False), 80: (96, 32, False), 128: (128, 16, True)}
+#: in shared memory, warps per 16 query rows): the instantiations of the
+#: source (``Hd64``, ``Hd80``, ``Hd128``, ``Hd256``; at 256 two warps
+#: share a row group, 128 columns each)
+INSTANCES = {64: (64, 64, False, 1), 80: (96, 32, False, 1),
+             128: (128, 16, True, 1), 256: (256, 16, True, 2)}
 
 #: the head_dims the kernel is built for
 HEAD_DIMS = tuple(INSTANCES)
 
 #: dynamic shared memory a block takes per head_dim (``SMEM_BYTES`` of the
 #: source): two K/V ring stages and the lo of the current tile, BK keys x
-#: the stored columns each, and q's lo (and hi) fragments (4 warps x
-#: stored/8 k steps x 32 lanes x 4 floats)
+#: the stored columns each, and q's lo (and hi) fragments (4 row groups x
+#: stored/8 k steps x 32 lanes x 4 floats, whatever the warps per group)
 SHARED_BYTES = {hd: (3 * 2 * bk * hdp + (2 if qs else 1) * 4 * (hdp // 8)
                      * 32 * 4) * 4
-                for hd, (hdp, bk, qs) in INSTANCES.items()}
+                for hd, (hdp, bk, qs, _) in INSTANCES.items()}
 
 #: kernel launches since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}

@@ -6,7 +6,9 @@
 
 ``--arch`` takes every architecture of the port (``repro_torch.configs``:
 the dense block kind, with the audio and VLM batches of hubert-xlarge and
-qwen2-vl-7b); ``--layers n`` cuts the depth, ``--reduced`` the widths.
+qwen2-vl-7b, recurrentgemma-9b and mamba2-370m); ``--layers n`` cuts the
+depth (recurrentgemma at 5: one superblock and the two-layer tail),
+``--reduced`` the widths.
 Runs on the GPU (``--device cuda``, the default) and raises when there is
 none; ``--device cpu`` asks for the CPU.  Prints the loss and the LAG
 communication counters of every round, and the time per round (the host

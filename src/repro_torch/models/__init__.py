@@ -1,2 +1,2 @@
-"""The models of the dense block kind in plain PyTorch (port of
-``repro.models``)."""
+"""The models of the dense, lattn, rec and ssd layer kinds in plain
+PyTorch (port of ``repro.models``)."""

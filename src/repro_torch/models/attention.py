@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.models import rope
+from repro_torch.models import common, rope
 from repro_torch.models.common import ModelConfig
 
 
@@ -31,6 +31,14 @@ def shapes(cfg: ModelConfig) -> dict:
     if cfg.use_bias:
         out.update(bq=(H, hd), bk=(KV, hd), bv=(KV, hd))
     return out
+
+
+def init_(p: dict, cfg: ModelConfig, gen: torch.Generator) -> None:
+    """Fan-in truncated-normal projections and zero biases, in place (the
+    leaves may carry a leading stack axis)."""
+    d = cfg.d_model
+    common.projections_init_(p, {"wq": d, "wk": d, "wv": d,
+                                 "wo": cfg.num_heads * cfg.head_dim}, gen)
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Shared model machinery: config, initializers, norms, activations — port
-of ``repro.models.common`` for the architectures whose layers are all of
-the ``dense`` kind.
+of ``repro.models.common`` for the port's layer kinds (``dense``,
+``lattn``, ``rec``, ``ssd``).
 
 Models are plain functions over nested dicts of tensors (the reference's
 pytree layout, so the flat-buffer layout and LAQ's per-leaf grid agree).
@@ -20,8 +20,8 @@ from repro_torch.kernels.rmsnorm import ops as rms_ops
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                      # dense | vlm | audio (moe, ssm,
-                                     # hybrid: not ported)
+    family: str                      # dense | vlm | audio | ssm | hybrid
+                                     # (moe: not ported)
     num_layers: int
     d_model: int
     vocab_size: int
@@ -33,7 +33,17 @@ class ModelConfig:
     window: Optional[int] = None     # sliding-window size (local attention)
     rope: str = "rope"               # rope | mrope | none
     rope_theta: float = 500_000.0
+    # layer kinds of one superblock, e.g. ("rec", "rec", "lattn"); the
+    # remainder of num_layers is an unscanned tail of pattern[j % len]
     block_pattern: Tuple[str, ...] = ("attn",)
+    # Mamba2 / SSD
+    ssm_state: int = 0
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    ssm_conv: int = 4
+    # RG-LRU
+    rglru_expand: int = 1
     norm: str = "rmsnorm"            # rmsnorm | layernorm
     act: str = "swiglu"              # swiglu | gelu | geglu
     use_bias: bool = False
@@ -64,6 +74,14 @@ class ModelConfig:
     def tail_layers(self) -> int:
         return self.num_layers - self.num_superblocks * len(self.block_pattern)
 
+    @property
+    def d_inner(self) -> int:       # mamba2 inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -77,6 +95,8 @@ class ModelConfig:
             head_dim=min(self.head_dim, 64) if self.head_dim else 0,
             d_ff=min(self.d_ff, 512) if self.d_ff else 0,
             vocab_size=min(self.vocab_size, 512),
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_chunk=min(self.ssm_chunk, 32),
             window=min(self.window, 64) if self.window else self.window,
         )
         small.update(kw)
@@ -94,6 +114,17 @@ def dense_init_(t: torch.Tensor, in_dim: int, gen: torch.Generator) -> None:
     with torch.no_grad():
         torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
         t.mul_(1.0 / math.sqrt(in_dim))
+
+
+def projections_init_(p: dict, fan_in: dict, gen: torch.Generator) -> None:
+    """In the leaves' order: a fan-in truncated normal for each name in
+    ``fan_in`` (name → fan-in), zero for the rest (the biases)."""
+    with torch.no_grad():
+        for name, t in p.items():
+            if name in fan_in:
+                dense_init_(t, fan_in[name], gen)
+            else:
+                t.zero_()
 
 
 def embed_init_(t: torch.Tensor, gen: torch.Generator) -> None:
@@ -133,3 +164,28 @@ def activate(x_gate: torch.Tensor, x_up: Optional[torch.Tensor],
     if act == "geglu":
         return F.gelu(x_gate, approximate="tanh") * x_up
     return F.gelu(x_gate, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# The short causal convolution of the recurrent kinds (rec, ssd)
+# ---------------------------------------------------------------------------
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal convolution along S: x (B, S, C), w (K, C) →
+    Σ_i x[t − K + 1 + i] · w[i], zeros before the start, summed in the
+    reference's order."""
+    K, S = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, K - 1, 0))
+    out = pad[:, 0:S] * w[0]
+    for i in range(1, K):
+        out = out + pad[:, i:i + S] * w[i]
+    return out
+
+
+def conv_window(x: torch.Tensor, K: int) -> torch.Tensor:
+    """The last K − 1 rows of x (B, S, C), zero-padded in front when S <
+    K − 1: the convolution's decode cache after the sequence."""
+    S = x.shape[1]
+    if S >= K - 1:
+        return x[:, S - (K - 1):]
+    return F.pad(x, (0, 0, K - 1 - S, 0))

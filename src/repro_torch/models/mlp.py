@@ -1,6 +1,6 @@
-"""Dense feed-forward: SwiGLU (the llama family) or the two-matrix GELU
-(hubert), with ``b_up`` / ``b_down`` under ``use_bias`` — port of
-``repro.models.mlp``."""
+"""Dense feed-forward: SwiGLU (the llama family), GeGLU (recurrentgemma)
+or the two-matrix GELU (hubert), with ``b_up`` / ``b_down`` under
+``use_bias`` — port of ``repro.models.mlp``."""
 from __future__ import annotations
 
 import torch
@@ -21,6 +21,13 @@ def shapes(cfg: ModelConfig) -> dict:
     if cfg.use_bias:
         out.update(b_up=(ff,), b_down=(d,))
     return out
+
+
+def init_(p: dict, cfg: ModelConfig, gen: torch.Generator) -> None:
+    """Fan-in truncated-normal matrices and zero biases, in place (the
+    leaves may carry a leading stack axis)."""
+    common.projections_init_(p, {"w_up": cfg.d_model, "w_gate": cfg.d_model,
+                                 "w_down": cfg.d_ff}, gen)
 
 
 def apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -1,19 +1,29 @@
-"""Model assembly for the architectures whose layers are all of the
-``dense`` kind (llama3.2-1b/-3b/-1b-sw, granite-8b, command-r-35b,
-qwen2-vl-7b, hubert-xlarge): embeddings (token lookup, the VLM's vision
-prefix, or hubert's audio frames) → stacked blocks → tied or untied head —
-port of ``repro.models.model``.
+"""Model assembly: embeddings (token lookup, the VLM's vision prefix, or
+hubert's audio frames) → scanned superblocks → the unscanned tail → tied
+or untied head — port of ``repro.models.model`` for the layer kinds
 
-Parameters keep the reference's tree: ``params["blocks"]["0"]`` holds every
-layer's weights STACKED along a leading (num_layers,) axis (the reference
-scans over it), so the leaf count and LAQ's per-leaf quantizer grid match;
-``forward`` unbinds the stack once and loops over the layers.  The decode
-cache keeps the reference's tree too: ``cache["blocks"]["0"]["k"]`` is
-(num_layers, B, L, KV, hd).
+  dense  — preLN attention + preLN MLP   (llama, granite, command-r,
+                                          qwen2-vl, hubert)
+  lattn  — preLN sliding-window attention + preLN MLP  (recurrentgemma)
+  rec    — preLN RG-LRU block + preLN MLP              (recurrentgemma)
+  ssd    — preLN Mamba-2 SSD mixer                     (mamba2)
+
+(``moe`` is not ported and raises by name).
+
+Parameters keep the reference's tree: ``params["blocks"][str(i)]`` holds
+the weights of pattern position i of every superblock STACKED along a
+leading (num_superblocks,) axis (the reference scans over it), and
+``params["tail"]`` is a list of the ``tail_layers`` per-layer dicts of
+kind ``pattern[j % len(pattern)]`` (recurrentgemma's 38 = 12 · 3 + 2), so
+the leaf count and order, and LAQ's per-leaf quantizer grid, match.
+``forward`` unbinds each stack once and loops over the layers.  The decode
+cache keeps the reference's tree too: ``{"blocks": {str(i): stacked
+per-kind cache}, "tail": [per-layer caches]}`` — K/V for the attention
+kinds, (h, conv window) for ``rec``, (conv window, SSM state) for ``ssd``.
 
 ``cfg.use_pallas`` routes as the reference does: the prefill/forward
 RMSNorms and attention go through the kernels, the decode step's norms do
-not, and LayerNorm has no kernel.
+not, LayerNorm and Mamba-2's gated norm have no kernel.
 """
 from __future__ import annotations
 
@@ -23,25 +33,25 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.tree import tree_map
-from repro_torch.models import attention, common, mlp, rope
+from repro_torch.models import attention, common, mamba2, mlp, rglru, rope
 from repro_torch.models.common import ModelConfig
 
 #: the layer kinds the port has
-PORTED_KINDS = ("dense",)
+PORTED_KINDS = ("dense", "lattn", "rec", "ssd")
+#: the kinds with attention (rotary angles are computed only for these)
+ATTN_KINDS = ("dense", "lattn")
+#: leaves kept in float32 whatever ``cfg.param_dtype`` says
+FLOAT32_LEAVES = rglru.FLOAT32_LEAVES + mamba2.FLOAT32_LEAVES
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """Every layer kind must be ``dense`` (no MoE, SSD, RG-LRU or local
-    attention layer yet), with no unscanned tail."""
+    """Every layer kind of the pattern (and so of the tail) must be
+    ported: an MoE layer is refused by name."""
     missing = sorted(set(cfg.block_pattern) - set(PORTED_KINDS))
     if missing:
         raise NotImplementedError(
             f"{cfg.arch_id}: layer kinds {missing} are not ported (the port "
             f"has {list(PORTED_KINDS)})")
-    if cfg.tail_layers:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: an unscanned tail of {cfg.tail_layers} layers "
-            f"is not ported")
 
 
 def _is_shape(s) -> bool:
@@ -55,15 +65,37 @@ def _norm_shapes(cfg: ModelConfig) -> Dict:
     return {"scale": (d,)}
 
 
+def layer_shapes(kind: str, cfg: ModelConfig) -> Dict:
+    """One layer's leaf shapes (the reference's ``layer_init`` tree)."""
+    if kind == "ssd":
+        return {"norm1": _norm_shapes(cfg), "mixer": mamba2.shapes(cfg)}
+    mixer = ({"rec": rglru.shapes(cfg)} if kind == "rec"
+             else {"attn": attention.shapes(cfg)})
+    return {"norm1": _norm_shapes(cfg), **mixer, "norm2": _norm_shapes(cfg),
+            "mlp": mlp.shapes(cfg)}
+
+
+def _kinds(cfg: ModelConfig):
+    """(kind, where) of every layer in order: the superblocks' ("blocks",
+    str(i), superblock), then the tail's ("tail", j)."""
+    pat = cfg.block_pattern
+    for sb in range(cfg.num_superblocks):
+        for i, kind in enumerate(pat):
+            yield kind, ("blocks", str(i), sb)
+    for j in range(cfg.tail_layers):
+        yield pat[j % len(pat)], ("tail", j)
+
+
 def param_shapes(cfg: ModelConfig) -> Dict:
     """The parameter tree's leaf shapes (the reference ``init``'s tree)."""
     _check_family(cfg)
-    L, d = cfg.num_superblocks, cfg.d_model
-    layer = {"norm1": _norm_shapes(cfg), "attn": attention.shapes(cfg),
-             "norm2": _norm_shapes(cfg), "mlp": mlp.shapes(cfg)}
-    tree = {"blocks": {"0": tree_map(lambda s: (L,) + s, layer,
-                                     is_leaf=_is_shape)},
-            "tail": [],
+    nsb, pat, d = cfg.num_superblocks, cfg.block_pattern, cfg.d_model
+    tree = {"blocks": {str(i): tree_map(lambda s: (nsb,) + s,
+                                        layer_shapes(kind, cfg),
+                                        is_leaf=_is_shape)
+                       for i, kind in enumerate(pat)},
+            "tail": [layer_shapes(pat[j % len(pat)], cfg)
+                     for j in range(cfg.tail_layers)],
             "final_norm": _norm_shapes(cfg)}
     if cfg.family == "audio":
         tree["mask_emb"] = (d,)
@@ -74,41 +106,52 @@ def param_shapes(cfg: ModelConfig) -> Dict:
     return tree
 
 
+def _template(node, name: str, dt: torch.dtype):
+    if _is_shape(node):
+        return torch.empty(node, device="meta", dtype=torch.float32
+                           if name in FLOAT32_LEAVES else dt)
+    if isinstance(node, list):
+        return [_template(c, name, dt) for c in node]
+    return {k: _template(v, k, dt) for k, v in node.items()}
+
+
 def templates(cfg: ModelConfig) -> Dict:
-    """Shape-only (meta) tensors of the parameter tree."""
-    dt = cfg.params_dtype
-    return tree_map(lambda s: torch.empty(s, dtype=dt, device="meta"),
-                    param_shapes(cfg), is_leaf=_is_shape)
+    """Shape-only (meta) tensors of the parameter tree, in
+    ``cfg.params_dtype`` but for the float32 leaves."""
+    return _template(param_shapes(cfg), "", cfg.params_dtype)
+
+
+def _layer_init_(p: dict, cfg: ModelConfig, gen: torch.Generator) -> None:
+    for name, init in (("attn", attention.init_), ("rec", rglru.init_),
+                       ("mlp", mlp.init_), ("mixer", mamba2.init_)):
+        if name in p:
+            init(p[name], cfg, gen)
+    for name in ("norm1", "norm2"):
+        if name in p:
+            p[name]["scale"].fill_(1.0)
+            if "bias" in p[name]:
+                p[name]["bias"].zero_()
 
 
 def init_(params: Dict, cfg: ModelConfig, gen: torch.Generator) -> None:
     """Random init, in place, from ``gen`` (on the params' device): the
     reference's distributions — normal·0.02 embeddings, truncated-normal
-    fan-in projections and head, unit norm scales, zero biases and
-    ``mask_emb``."""
-    d = cfg.d_model
-    blk = params["blocks"]["0"]
-    fan_in = {"wq": d, "wk": d, "wv": d,
-              "wo": cfg.num_heads * cfg.head_dim,
-              "w_up": d, "w_gate": d, "w_down": cfg.d_ff}
-    norms = [blk["norm1"], blk["norm2"], params["final_norm"]]
+    fan-in projections and head, each kind's own leaves (``rglru.init_``,
+    ``mamba2.init_``), unit norm scales, zero biases and ``mask_emb``."""
     with torch.no_grad():
         if "embed" in params:
             common.embed_init_(params["embed"], gen)
-        for group in ("attn", "mlp"):
-            for name, t in blk[group].items():
-                if name in fan_in:
-                    common.dense_init_(t, fan_in[name], gen)
-                else:                                  # a bias
-                    t.zero_()
+        for i in sorted(params["blocks"], key=int):
+            _layer_init_(params["blocks"][i], cfg, gen)
+        for p in params["tail"]:
+            _layer_init_(p, cfg, gen)
         if "head" in params:
-            common.dense_init_(params["head"], d, gen)
+            common.dense_init_(params["head"], cfg.d_model, gen)
         if "mask_emb" in params:
             params["mask_emb"].zero_()
-        for p in norms:
-            p["scale"].fill_(1.0)
-            if "bias" in p:
-                p["bias"].zero_()
+        params["final_norm"]["scale"].fill_(1.0)
+        if "bias" in params["final_norm"]:
+            params["final_norm"]["bias"].zero_()
 
 
 def init(cfg: ModelConfig, *, device, seed: int = 0) -> Dict:
@@ -122,22 +165,40 @@ def init(cfg: ModelConfig, *, device, seed: int = 0) -> Dict:
     return params
 
 
-def _layers(blocks: Dict, n: int):
-    """Per-layer parameter dicts from the stacked tree (one unbind per
-    leaf, so the backward stacks each leaf's gradient once)."""
-    unb = tree_map(lambda t: t.unbind(0), blocks)
+def _unbind(tree, n: int):
+    """Per-superblock slices of a stacked tree (one unbind per leaf, so the
+    backward stacks each leaf's gradient once)."""
+    unb = tree_map(lambda t: t.unbind(0), tree)
     return [tree_map(lambda parts: parts[i], unb,
                      is_leaf=lambda x: isinstance(x, tuple))
             for i in range(n)]
 
 
-def layer_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, cos, sin,
-                positions, cache_len=None):
+def _layers(params: Dict, cfg: ModelConfig):
+    """(layer params, kind, where) of every layer in order."""
+    nsb = cfg.num_superblocks
+    stacks = {i: _unbind(t, nsb) for i, t in params["blocks"].items()}
+    for kind, where in _kinds(cfg):
+        p = (stacks[where[1]][where[2]] if where[0] == "blocks"
+             else params["tail"][where[1]])
+        yield p, kind, where
+
+
+def layer_apply(p: dict, x: torch.Tensor, kind: str, cfg: ModelConfig, *,
+                cos, sin, positions, cache_len=None):
     """→ (x, cache): ``cache_len`` asks for the layer's decode cache filled
     with this sequence (cache-building prefill); else the cache is None."""
     cache = None
+    want = cache_len is not None
     h = common.apply_norm(p["norm1"], x, cfg.norm, use_pallas=cfg.use_pallas)
-    if cache_len is not None:
+    if kind == "ssd":
+        out = mamba2.apply(p["mixer"], h, cfg, return_state=want)
+        y, cache = out if want else (out, None)
+        return x + y, cache
+    if kind == "rec":
+        out = rglru.apply(p["rec"], h, cfg, return_state=want)
+        y, cache = out if want else (out, None)
+    elif want:
         y, (k, v) = attention.full_attention(
             p["attn"], h, cfg, cos=cos, sin=sin, positions=positions,
             return_kv=True)
@@ -148,6 +209,15 @@ def layer_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *, cos, sin,
     x = x + y
     h2 = common.apply_norm(p["norm2"], x, cfg.norm, use_pallas=cfg.use_pallas)
     return x + mlp.apply(p["mlp"], h2, cfg), cache
+
+
+def layer_cache_init(kind: str, cfg: ModelConfig, batch: int, max_len: int,
+                     *, device) -> dict:
+    if kind == "ssd":
+        return mamba2.init_cache(cfg, batch, device=device)
+    if kind == "rec":
+        return rglru.init_cache(cfg, batch, device=device)
+    return attention.init_cache(cfg, batch, max_len, device=device)
 
 
 def _lookup(params: Dict, cfg: ModelConfig, tokens: torch.Tensor):
@@ -194,17 +264,36 @@ def _rope(cfg: ModelConfig, inputs: Dict, B: int, S: int, device):
     return cos, sin, positions
 
 
+def _angles(cfg: ModelConfig, inputs: Dict, B: int, S: int, device):
+    """The rotary angles, only where the pattern has an attention kind."""
+    if any(k in ATTN_KINDS for k in cfg.block_pattern):
+        return _rope(cfg, inputs, B, S, device)
+    return None, None, None
+
+
 def forward(params: Dict, cfg: ModelConfig, inputs: Dict) -> torch.Tensor:
     """Full-sequence forward → logits (B, S, vocab)."""
     _check_family(cfg)
     x = _embed(params, cfg, inputs)
     B, S, _ = x.shape
-    cos, sin, positions = _rope(cfg, inputs, B, S, x.device)
-    for p in _layers(params["blocks"]["0"], cfg.num_superblocks):
-        x, _ = layer_apply(p, x, cfg, cos=cos, sin=sin, positions=positions)
+    cos, sin, positions = _angles(cfg, inputs, B, S, x.device)
+    for p, kind, _ in _layers(params, cfg):
+        x, _ = layer_apply(p, x, kind, cfg, cos=cos, sin=sin,
+                           positions=positions)
     x = common.apply_norm(params["final_norm"], x, cfg.norm,
                           use_pallas=cfg.use_pallas)
     return _head(params, cfg, x)
+
+
+def _stack_caches(per_layer, kind: str, cfg: ModelConfig, batch: int,
+                  max_len: int, device) -> dict:
+    """One pattern position's caches stacked over the superblocks (a
+    zero-length stack when there is no superblock)."""
+    if per_layer:
+        return {n: torch.stack([c[n] for c in per_layer])
+                for n in per_layer[0]}
+    return {n: t[None][:0] for n, t in layer_cache_init(
+        kind, cfg, batch, max_len, device=device).items()}
 
 
 def prefill(params: Dict, cfg: ModelConfig, inputs: Dict, max_len: int
@@ -215,35 +304,49 @@ def prefill(params: Dict, cfg: ModelConfig, inputs: Dict, max_len: int
     _check_family(cfg)
     x = _embed(params, cfg, inputs)
     B, S, _ = x.shape
-    cos, sin, positions = _rope(cfg, inputs, B, S, x.device)
-    caches = []
-    for p in _layers(params["blocks"]["0"], cfg.num_superblocks):
-        x, c = layer_apply(p, x, cfg, cos=cos, sin=sin, positions=positions,
-                           cache_len=max_len)
-        caches.append(c)
+    cos, sin, positions = _angles(cfg, inputs, B, S, x.device)
+    blocks = {str(i): [] for i in range(len(cfg.block_pattern))}
+    tail = []
+    for p, kind, where in _layers(params, cfg):
+        x, c = layer_apply(p, x, kind, cfg, cos=cos, sin=sin,
+                           positions=positions, cache_len=max_len)
+        (blocks[where[1]] if where[0] == "blocks" else tail).append(c)
     x = common.apply_norm(params["final_norm"], x, cfg.norm,
                           use_pallas=cfg.use_pallas)
-    stacked = {n: torch.stack([c[n] for c in caches]) for n in ("k", "v")}
-    return _head(params, cfg, x[:, -1]), {"blocks": {"0": stacked},
-                                          "tail": []}
+    cache = {"blocks": {i: _stack_caches(cs, cfg.block_pattern[int(i)], cfg,
+                                         B, max_len, x.device)
+                        for i, cs in blocks.items()},
+             "tail": tail}
+    return _head(params, cfg, x[:, -1]), cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device) -> Dict:
     """A zeroed decode cache in the reference's tree."""
     _check_family(cfg)
-    one = attention.init_cache(cfg, batch, max_len, device=device)
-    return {"blocks": {"0": {n: torch.stack([t] * cfg.num_superblocks)
-                             for n, t in one.items()}}, "tail": []}
+    nsb, pat = cfg.num_superblocks, cfg.block_pattern
+    blocks = {str(i): {n: t[None].expand((nsb,) + t.shape).clone()
+                       for n, t in layer_cache_init(
+                           kind, cfg, batch, max_len, device=device).items()}
+              for i, kind in enumerate(pat)}
+    tail = [layer_cache_init(kind, cfg, batch, max_len, device=device)
+            for kind, where in _kinds(cfg) if where[0] == "tail"]
+    return {"blocks": blocks, "tail": tail}
 
 
 def layer_decode(p: dict, x: torch.Tensor, cache: dict, pos: int,
-                 cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
-    """One layer of one decode step.  Its norms take the plain route
-    whatever ``cfg.use_pallas`` says: the reference's decode calls
-    ``apply_norm`` without the flag."""
+                 kind: str, cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
+    """One layer of one decode step; the cache is updated in place.  Its
+    norms take the plain route whatever ``cfg.use_pallas`` says: the
+    reference's decode calls ``apply_norm`` without the flag."""
     h = common.apply_norm(p["norm1"], x, cfg.norm)
-    y, cache = attention.decode_attention(p["attn"], h, cache, pos, cfg)
+    if kind == "ssd":
+        y, cache = mamba2.decode(p["mixer"], h, cache, cfg)
+        return x + y, cache
+    if kind == "rec":
+        y, cache = rglru.decode(p["rec"], h, cache, cfg)
+    else:
+        y, cache = attention.decode_attention(p["attn"], h, cache, pos, cfg)
     x = x + y
     h2 = common.apply_norm(p["norm2"], x, cfg.norm)
     return x + mlp.apply(p["mlp"], h2, cfg), cache
@@ -258,11 +361,13 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
         raise ValueError(f"{cfg.arch_id}: encoder-only architecture has no "
                          f"decode step")
     x = _lookup(params, cfg, tokens)
-    blk = cache["blocks"]["0"]
-    for i, p in enumerate(_layers(params["blocks"]["0"],
-                                  cfg.num_superblocks)):
-        x, _ = layer_decode(p, x, {"k": blk["k"][i], "v": blk["v"][i]}, pos,
-                            cfg)
+    for p, kind, where in _layers(params, cfg):
+        if where[0] == "blocks":
+            c = {n: t[where[2]] for n, t in
+                 cache["blocks"][where[1]].items()}
+        else:
+            c = cache["tail"][where[1]]
+        x, _ = layer_decode(p, x, c, pos, kind, cfg)
     x = common.apply_norm(params["final_norm"], x, cfg.norm)
     return _head(params, cfg, x), cache
 

@@ -157,17 +157,22 @@ def split_mm(a: torch.Tensor, b: torch.Tensor, passes: int = 3):
 
 def emulated_kernel(q, k, v, *, causal, window, passes=3):
     """The CUDA kernel's attention on numpy inputs: the scale folded into q
-    at head_dim 64 (2^-3, exact) and applied to the scores after the
-    product at 80 and 128 (no power of two), both products in split TF32,
-    masked scores -1e30 with weight 0, o = acc / max(l, 1e-30) (rows that
-    see no key write 0)."""
+    at head_dim 64 and 256 (2^-3, 2^-4, exact) and applied to the scores
+    after the product at 80 and 128 (no power of two), both products in
+    split TF32 (at 256 the scores as float32 sums of 16-column partial
+    products, as the kernel's pair of warps adds them), masked scores -1e30
+    with weight 0, o = acc / max(l, 1e-30) (rows that see no key write
+    0)."""
     q, k, v = (torch.from_numpy(a) for a in (q, k, v))
     B, S, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     k, v = (torch.repeat_interleave(t, H // KV, dim=2) for t in (k, v))
-    fold = hd == 64
+    fold = hd in (64, 256)
     qs = (q * hd ** -0.5 if fold else q).permute(0, 2, 1, 3)
-    s = split_mm(qs, k.permute(0, 2, 3, 1), passes)     # (B, H, S, Skv)
+    kt = k.permute(0, 2, 3, 1)
+    w = 16 if hd == 256 else hd              # columns of a partial product
+    s = sum(split_mm(qs[..., c:c + w], kt[..., c:c + w, :], passes)
+            for c in range(0, hd, w))                   # (B, H, S, Skv)
     if not fold:
         s = s * hd ** -0.5
     qpos = torch.arange(S)[:, None]
@@ -246,9 +251,10 @@ def test_single_tf32_pass_misses_the_tolerance(S, causal, window):
     assert max_err(single, want) > 10 * ATTN_TOL
 
 
-# head_dims 80 (hubert-xlarge) and 128 (llama3.2-3b, granite-8b,
-# command-r-35b, qwen2-vl-7b): the kernel's other two instantiations
-WIDE_HEADS = (80, 128)
+# head_dims 80 (hubert-xlarge), 128 (llama3.2-3b, granite-8b,
+# command-r-35b, qwen2-vl-7b) and 256 (recurrentgemma-9b): the kernel's
+# other three instantiations
+WIDE_HEADS = (80, 128, 256)
 
 
 @pytest.mark.parametrize("hd", WIDE_HEADS)
@@ -283,14 +289,40 @@ def test_split_tf32_emulation_matches_reference_wide_heads(S, Skv, causal,
     assert max_err(got, oracle) < ATTN_TOL
 
 
+# recurrentgemma's lattn: one KV head, its sliding window (2048 at full
+# size) straddling tiles, the reference's Pallas kernel in interpret mode
+HD256_KV1_CASES = [(72, 72, True, 16), (129, 129, True, 64),
+                   (130, 65, True, 100), (65, 130, True, 40)]
+
+
+@pytest.mark.parametrize("S,Skv,causal,window", HD256_KV1_CASES)
+def test_attention_plain_matches_pallas_at_head_dim_256_one_kv_head(
+        S, Skv, causal, window):
+    q, k, v = attn_inputs(S, Skv, H=4, KV=1, hd=256, seed=S + Skv)
+    got = t_fa_ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                   causal=causal, window=window)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    pallas = fa_ops.flash_attention(jq, jk, jv, causal=causal,
+                                    window=window)            # interpret
+    emulated = emulated_kernel(q, k, v, causal=causal, window=window)
+    got, pallas, emulated = live_rows(S, Skv, window, got, pallas, emulated)
+    assert max_err(got, pallas) < ATTN_TOL
+    assert max_err(emulated, pallas) < ATTN_TOL
+
+
 def test_kernel_instantiations_and_their_shared_memory():
     """One instantiation per served head_dim, each within Hopper's 227 KB
-    a block and small enough for two blocks an SM."""
-    assert t_fa.HEAD_DIMS == (64, 80, 128)
+    a block and keeping eight warps an SM: two blocks of four warps at 64,
+    80 and 128, one block of eight (two warps per 16 query rows, 224 KB)
+    at 256."""
+    assert t_fa.HEAD_DIMS == (64, 80, 128, 256)
     assert t_fa.SHARED_BYTES[64] == 114688     # head_dim 64's layout, unchanged
-    for hd, (hdp, bk, _) in t_fa.INSTANCES.items():
-        assert hdp % 32 == 0 and hd <= hdp and bk % 8 == 0
-        assert 2 * t_fa.SHARED_BYTES[hd] <= 232448
+    assert t_fa.SHARED_BYTES[256] == 229376
+    for hd, (hdp, bk, _, halves) in t_fa.INSTANCES.items():
+        assert (hdp // halves) % 32 == 0 and hd <= hdp and bk % 8 == 0
+        assert t_fa.SHARED_BYTES[hd] <= 232448
+        blocks = 232448 // t_fa.SHARED_BYTES[hd]
+        assert blocks * 4 * halves == 8, hd
 
 
 def test_attention_gqa_reads_kv_head_h_over_q_per_kv():
