@@ -212,6 +212,31 @@ Phases (any failure raises and the script exits non-zero):
      d. recurrentgemma-9b at ``reduced(num_layers=8)`` (two superblocks
         and the tail) and mamba2-370m reduced, 3 rounds of lag-wk on the
         card and on the CPU: equal masks, losses within rtol 1e-4.
+  17. the ``moe`` layer kind (qwen3-moe-30b-a3b, qwen3-moe-235b-a22b):
+     a. flash attention at GQA 32/4 and 64/4 (head_dim 128) on phase 7's
+        ragged set within rtol = atol = 1e-5 of its plain version, then at
+        the MoE prefills' (4, 2048, 32/4, 128) and (4, 2048, 64/4, 128),
+        causal, timed against the split-TF32 bound, the plain version and
+        ``F.scaled_dot_product_attention``;
+     b. ``launch.serve`` as phase 8 on qwen3-moe-30b-a3b at 24 of its 48
+        layers and qwen3-moe-235b-a22b at 5 of its 94 (float32 weights of
+        62.3 and 54.7 GB; all of them would be 122.1 and 940.4 GB), batch
+        4, prompt 2048, 32 tokens, 2 rounds: launches exactly 49 / 11
+        RMSNorm and 24 / 5 flash per prefill, none per decode step; the
+        prefill's kernel route against the plain route within 2e-3 with
+        the kernel route's routing decisions imposed on the plain route,
+        the plain route's own differing decisions each on a near-tie
+        within twice the two routes' probability difference
+        (``MoeRouting``); each prefill's float32 products and rate, and
+        the weight bytes a decode step reads;
+     c. ``launch.train`` in phase 5's configuration on qwen3-moe-30b-a3b
+        at full width, its depth and W the first cut of ``--layers 2`` at
+        W = 2, ``--layers 3`` at W = 1 that reckons under 75 GB; lag-wk
+        and laq@4, the peak in trees;
+     d. both reduced configs from the same weights on the card and on the
+        CPU: one layer's routing decisions equal (2 shards), the forward
+        and the loss with its load-balance term, then 3 rounds of lag-wk:
+        equal masks, losses within rtol 1e-4.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Times are CUDA-event times on this card (kernels: the mean of
@@ -219,6 +244,7 @@ several launches after a warm-up); bounds use the H100 SXM's published
 3.35 TB/s, 67 TFLOP/s float32 (non-tensor) and 495 TFLOP/s dense TF32
 peaks.
 """
+import contextlib
 import gc
 import json
 import math
@@ -439,6 +465,18 @@ PR19_PEAK = ("qwen2-vl-7b", 56.09)
 TREES_PER_WORKER = 3
 TRAIN_CUTS = ((5, 2), (5, 1), (3, 1))
 TRAIN_RECKON_GB = 75.0
+
+# phase 17: the moe kind
+MOE_KIND = ("qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b")
+# 17a: the MoE archs' prefill shapes (B, S, H, KV, hd), causal: each KV
+# head serves 8 and 16 query heads
+ATTN_MOE = ((4, 2048, 32, 4, 128), (4, 2048, 64, 4, 128))
+# 17b: (arch, layers kept of 48 / 94): a layer is 2.49 / 9.95 GB in
+# float32, embed and head 2.49 / 4.98 GB, so 62.3 / 54.7 GB of weights
+SERVE_MOE = (("qwen3-moe-30b-a3b", 24), ("qwen3-moe-235b-a22b", 5))
+# 17c: qwen3-moe-30b-a3b's training cuts (layers, workers) in order of
+# preference: 7.47 GB x 9.01 trees at W = 2; the fallback 6.01 trees at W = 1
+MOE_TRAIN_CUTS = ((2, 2), (3, 1))
 
 
 def check(cond, msg):
@@ -995,12 +1033,13 @@ def model_kernel_phase(torch, dev):
 
 def prefill_launches(cfg):
     """The kernels' launches per prefill: RMSNorm before every mixer and
-    every MLP (an ssd layer has no MLP) and the final norm; flash attention
-    once per attention layer."""
+    every MLP or MoE FFN (an ssd layer has neither) and the final norm;
+    flash attention once per attention layer (dense, lattn, moe)."""
     pat = cfg.block_pattern
     kinds = [pat[i % len(pat)] for i in range(cfg.num_layers)]
     return {"rmsnorm": sum(1 if k == "ssd" else 2 for k in kinds) + 1,
-            "flash_attention": sum(k in ("dense", "lattn") for k in kinds)}
+            "flash_attention": sum(k in ("dense", "lattn", "moe")
+                                   for k in kinds)}
 
 
 def named_leaves(tree, name=""):
@@ -1010,6 +1049,96 @@ def named_leaves(tree, name=""):
     if isinstance(tree, (list, tuple)):
         return [x for c in tree for x in named_leaves(c, name)]
     return [(name, tree)]
+
+
+class MoeRouting:
+    """17b: an MoE prefill's kernel route against its plain route.  A
+    routing decision is discrete: a last-bit difference of a router input
+    that sits on a top-K boundary sends a token to another expert, and its
+    hidden state and every cache entry after it then part by O(1), so the
+    two routes' values cannot be compared as they run free.  So the kernel
+    route's decisions are recorded layer by layer (``recorded``) and
+    imposed on the plain route (``imposed``: the plain route's own
+    probabilities, gated at the kernel route's experts and slots), whose
+    values are then held to the kernel route's within SERVE_TOL as phase 8
+    holds them.  Its own decisions on the same inputs are counted: each
+    one that differs must sit on a near-tie that the two routes'
+    probability difference δ explains (the plain route's gap between the
+    two experts ≤ 2δ)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.route = moe, moe.route
+        self.kernel, self.rows = [], []
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        self.moe.route = fn
+        try:
+            yield
+        finally:
+            self.moe.route = self.route
+
+    def recorded(self):
+        def route(p, xg, cfg):
+            self.kernel.append(self.route(p, xg, cfg))
+            return self.kernel[-1]
+        return self._patched(route)
+
+    def imposed(self):
+        import torch
+        layers = iter(self.kernel)
+
+        def route(p, xg, cfg):
+            want, own = next(layers), self.route(p, xg, cfg)
+            self.rows.append(self._flips(torch, want, own))
+            gates = own.probs.gather(-1, want.experts)
+            gates = gates / torch.sum(gates, -1, keepdim=True)
+            return own._replace(gates=gates, experts=want.experts,
+                                slots=want.slots, kept=want.kept)
+        return self._patched(route)
+
+    @staticmethod
+    def _flips(torch, want, own):
+        """(tokens whose top-K set differs, whose top-1 differs, δ, the
+        largest gap of the plain route's probabilities across a flip)."""
+        p = own.probs
+        delta = float((p - want.probs).abs().max())
+
+        def members(r):
+            return torch.zeros_like(p, dtype=torch.bool).scatter_(
+                -1, r.experts, True)
+
+        mk, mo = members(want), members(own)
+        inf = torch.tensor(float("inf"), device=p.device)
+        set_gap = (torch.where(mo & ~mk, p, -inf).amax(-1)
+                   - torch.where(mk & ~mo, p, inf).amin(-1))
+        set_flip = (mk != mo).any(-1)
+        t1k, t1o = want.experts[..., :1], own.experts[..., :1]
+        top_flip = (t1k != t1o)[..., 0]
+        top_gap = (p.gather(-1, t1o) - p.gather(-1, t1k))[..., 0]
+        gaps = torch.cat([set_gap[set_flip], top_gap[top_flip]])
+        return (int(set_flip.sum()), int(top_flip.sum()), delta,
+                float(gaps.max()) if gaps.numel() else 0.0)
+
+    def report(self, torch, arch):
+        check(len(self.rows) == len(self.kernel),
+              f"{arch}: {len(self.rows)} imposed of {len(self.kernel)} "
+              f"recorded routings")
+        tokens = self.kernel[0].experts.shape[0] * \
+            self.kernel[0].experts.shape[1]
+        sets = [r[0] for r in self.rows]
+        tops = [r[1] for r in self.rows]
+        worst = max(r[3] / (2 * r[2]) if r[2] else (0.0 if r[3] == 0 else
+                                                       math.inf)
+                    for r in self.rows)
+        print(f"  routing: the plain route's own top-K differs from the "
+              f"kernel route's at {sum(sets)} of {tokens * len(self.rows)} "
+              f"(token, layer) pairs ({sets} a layer), its top-1 at "
+              f"{sum(tops)}; δ a layer {max(r[2] for r in self.rows):.2e} "
+              f"at most; the widest flip's gap is {worst:.3f} of its 2δ")
+        check(worst <= 1.0, f"{arch}: a routing flip's gap exceeds twice "
+                            f"the routes' probability difference: {self.rows}")
 
 
 def serve_phase(torch, dev, argv=SERVE_ARGS, cfg=None):
@@ -1068,13 +1197,18 @@ def serve_phase(torch, dev, argv=SERVE_ARGS, cfg=None):
     prompts = torch.from_numpy(serve.make_prompts(
         cfg.vocab_size, args.batch, args.prompt_len, args.seed + 1)).to(dev)
     outs = {}
+    routing = MoeRouting() if "moe" in cfg.block_pattern else None
     with torch.inference_mode():
         for up in (True, False):
-            last, cache = model.prefill(params, cfg.replace(use_pallas=up),
-                                        {"tokens": prompts},
-                                        max_len=args.prompt_len + args.gen)
+            with (routing.recorded() if up else routing.imposed()) \
+                    if routing else contextlib.nullcontext():
+                last, cache = model.prefill(
+                    params, cfg.replace(use_pallas=up), {"tokens": prompts},
+                    max_len=args.prompt_len + args.gen)
             outs[up] = (last, named_leaves(cache))
             del cache
+    if routing:
+        routing.report(torch, cfg.arch_id)
     (lk, ck), (lp, cp) = outs[True], outs[False]
     check(bool(torch.isfinite(lk).all()), "serve: non-finite logits")
     errs = {"logits": max_abs(lk, lp)}
@@ -2153,13 +2287,88 @@ def graph_resume(torch, steps=4, at=2):
 # Phase 15: every architecture of the dense block kind
 # ---------------------------------------------------------------------------
 
+def flash_ragged(torch, dev, gen, hd, H, KV, bad):
+    """Flash attention at (head_dim, H, KV) on phase 7's ragged set against
+    its plain version; a case beyond rtol = atol = MODEL_TOL goes to
+    ``bad``.  Prints the largest error."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    cases = [(S, S, c, w) for S in FLASH_S for c, w in FLASH_MASKS]
+    cases += FLASH_CROSS
+    worst = 0.0
+    for S, Skv, causal, window in cases:
+        q = torch.randn((1, S, H, hd), device=dev, generator=gen)
+        k = torch.randn((1, Skv, KV, hd), device=dev, generator=gen)
+        v = torch.randn((1, Skv, KV, hd), device=dev, generator=gen)
+        got = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        want = fa_ref.attention(q, k, v, causal=causal, window=window)
+        if S > Skv and window is not None:   # rows that see no key
+            live = torch.arange(S, device=dev) - window + 1 < Skv
+            got, want = got[:, live], want[:, live]
+        err = max_abs(got, want)
+        worst = max(worst, err)
+        if not (bool(torch.isfinite(got).all()) and torch.allclose(
+                got, want, rtol=MODEL_TOL, atol=MODEL_TOL)):
+            bad.append(f"flash hd {hd} H {H}/{KV} Sq {S} Skv {Skv} causal "
+                       f"{causal} window {window}: {err:.3e}")
+    print(f"  flash_attention hd {hd} H {H}/{KV}: {len(cases)} ragged cases, "
+          f"max_abs_err {worst:.3e}")
+
+
+def flash_full(torch, dev, gen, shape, causal, bad):
+    """Flash attention at a prefill's (B, S, H, KV, hd) against its plain
+    version, timed beside its split-TF32 bound, the plain version and
+    ``F.scaled_dot_product_attention``: a row for ``print_full_rows``."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    B, S, H, KV, hd = shape
+    q = torch.randn((B, S, H, hd), device=dev, generator=gen)
+    k = torch.randn((B, S, KV, hd), device=dev, generator=gen)
+    v = torch.randn((B, S, KV, hd), device=dev, generator=gen)
+    run = lambda: fa.flash_attention_fwd(q, k, v, causal=causal)
+    plain = lambda: fa_ref.attention(q, k, v, causal=causal)
+    got, want = run(), plain()
+    err = max_abs(got, want)
+    if not (bool(torch.isfinite(got).all()) and torch.allclose(
+            got, want, rtol=MODEL_TOL, atol=MODEL_TOL)):
+        bad.append(f"flash full {shape}: {err:.3e}")
+    del got, want
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    flop = 4 * B * H * hd * (S * (S + 1) // 2 if causal else S * S)
+    t_b, by = bound_ms(nbytes, 3 * flop, TF32_FLOP_PER_S)
+    return dict(what=f"flash_attention ({B}, {S}, {H}/{KV}, {hd}) "
+                     f"{'causal' if causal else 'non-causal'}",
+                max_abs_err=err, ms=cuda_ms(torch, run, n=10),
+                plain_ms=cuda_ms(torch, plain, n=3), bound_ms=t_b,
+                bound_by=by, gflop=flop / 1e9,
+                library_ms=cuda_ms(
+                    torch, lambda: torch.nn.functional.
+                    scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, enable_gqa=True),
+                    n=10))
+
+
+def print_full_rows(rows):
+    for r in rows:
+        extra = (f" ({r['gflop']:.1f} GFLOP, 3 TF32 passes at "
+                 f"{TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s)"
+                 if "gflop" in r else "")
+        print(f"  full-shape {r['what']}: max_abs_err {r['max_abs_err']:.3e}"
+              f" | {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}{extra} = "
+              f"{r['bound_ms'] / r['ms']:.1%}, library "
+              f"{r['library_ms']:.4f} ms, kernel / library "
+              f"{r['ms'] / r['library_ms']:.3f})")
+
+
 def wide_kernel_phase(torch, dev):
     """15a: flash attention at head_dim 80 and 128 on phase 7's ragged set
     and at the new archs' prefill shapes, RMSNorm at their widths; each
     against its plain version, the full shapes timed against their bounds
     and one PyTorch call each."""
-    from repro_torch.kernels.flash_attention import flash_attention as fa
-    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.rmsnorm import ref as rms_ref
     from repro_torch.kernels.rmsnorm import rmsnorm as rms
 
@@ -2175,25 +2384,8 @@ def wide_kernel_phase(torch, dev):
             bad.append(f"{what}: {err:.3e}")
         return err
 
-    cases = [(S, S, c, w) for S in FLASH_S for c, w in FLASH_MASKS]
-    cases += FLASH_CROSS
     for hd, H, KV in WIDE_RAGGED:
-        worst = 0.0
-        for S, Skv, causal, window in cases:
-            q = torch.randn((1, S, H, hd), device=dev, generator=gen)
-            k = torch.randn((1, Skv, KV, hd), device=dev, generator=gen)
-            v = torch.randn((1, Skv, KV, hd), device=dev, generator=gen)
-            got = fa.flash_attention_fwd(q, k, v, causal=causal,
-                                         window=window)
-            want = fa_ref.attention(q, k, v, causal=causal, window=window)
-            if S > Skv and window is not None:   # rows that see no key
-                live = torch.arange(S, device=dev) - window + 1 < Skv
-                got, want = got[:, live], want[:, live]
-            worst = max(worst, compare(
-                f"flash hd {hd} Sq {S} Skv {Skv} causal {causal} window "
-                f"{window}", got, want))
-        print(f"  flash_attention hd {hd} H {H}/{KV}: {len(cases)} ragged "
-              f"cases, max_abs_err {worst:.3e}")
+        flash_ragged(torch, dev, gen, hd, H, KV, bad)
     for d in RMS_WIDE:
         worst = 0.0
         for r in (1, 7, 129, 1000):
@@ -2206,26 +2398,8 @@ def wide_kernel_phase(torch, dev):
               f"{worst:.3e}")
 
     for B, S, H, KV, hd, causal in ATTN_WIDE:
-        q = torch.randn((B, S, H, hd), device=dev, generator=gen)
-        k = torch.randn((B, S, KV, hd), device=dev, generator=gen)
-        v = torch.randn((B, S, KV, hd), device=dev, generator=gen)
-        run = lambda: fa.flash_attention_fwd(q, k, v, causal=causal)
-        err = compare(f"flash full {(B, S, H, KV, hd)}", run(),
-                      fa_ref.attention(q, k, v, causal=causal))
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
-        flop = 4 * B * H * hd * (S * (S + 1) // 2 if causal else S * S)
-        t_b, by = bound_ms(nbytes, 3 * flop, TF32_FLOP_PER_S)
-        r = dict(what=f"flash_attention ({B}, {S}, {H}/{KV}, {hd}) "
-                      f"{'causal' if causal else 'non-causal'}",
-                 max_abs_err=err, ms=cuda_ms(torch, run, n=10),
-                 plain_ms=cuda_ms(torch, lambda: fa_ref.attention(
-                     q, k, v, causal=causal), n=3),
-                 bound_ms=t_b, bound_by=by, gflop=flop / 1e9,
-                 library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                     qt, kt, vt, is_causal=causal, enable_gqa=True), n=10))
-        rows.append(r)
-        del q, k, v, qt, kt, vt
+        rows.append(flash_full(torch, dev, gen, (B, S, H, KV, hd), causal,
+                               bad))
     R = RMS_FULL[0]
     for d in RMS_WIDE:
         x = torch.randn((R, d), device=dev, generator=gen)
@@ -2241,15 +2415,7 @@ def wide_kernel_phase(torch, dev):
             library_ms=cuda_ms(torch, lambda: F.rms_norm(x, (d,), sc, 1e-6),
                                n=20)))
         del x, sc
-    for r in rows:
-        extra = (f" ({r['gflop']:.1f} GFLOP, 3 TF32 passes at "
-                 f"{TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s)"
-                 if "gflop" in r else "")
-        print(f"  full-shape {r['what']}: max_abs_err {r['max_abs_err']:.3e}"
-              f" | {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms by {r['bound_by']}{extra} = "
-              f"{r['bound_ms'] / r['ms']:.1%}, library "
-              f"{r['library_ms']:.4f} ms)")
+    print_full_rows(rows)
     check(not bad, f"kernel vs plain beyond rtol = atol = {MODEL_TOL}: "
                    f"{bad}")
     gc.collect()
@@ -2400,28 +2566,8 @@ def hd256_kernel_phase(torch, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(16)
     bad = []
-    cases = [(S, S, c, w) for S in FLASH_S for c, w in FLASH_MASKS]
-    cases += FLASH_CROSS
     for H, KV in HD256_RAGGED:
-        worst = 0.0
-        for S, Skv, causal, window in cases:
-            q = torch.randn((1, S, H, 256), device=dev, generator=gen)
-            k = torch.randn((1, Skv, KV, 256), device=dev, generator=gen)
-            v = torch.randn((1, Skv, KV, 256), device=dev, generator=gen)
-            got = fa.flash_attention_fwd(q, k, v, causal=causal,
-                                         window=window)
-            want = fa_ref.attention(q, k, v, causal=causal, window=window)
-            if S > Skv and window is not None:   # rows that see no key
-                live = torch.arange(S, device=dev) - window + 1 < Skv
-                got, want = got[:, live], want[:, live]
-            err = max_abs(got, want)
-            worst = max(worst, err)
-            if not (bool(torch.isfinite(got).all()) and torch.allclose(
-                    got, want, rtol=MODEL_TOL, atol=MODEL_TOL)):
-                bad.append(f"H {H}/{KV} Sq {S} Skv {Skv} causal {causal} "
-                           f"window {window}: {err:.3e}")
-        print(f"  flash_attention hd 256 H {H}/{KV}: {len(cases)} ragged "
-              f"cases, max_abs_err {worst:.3e}")
+        flash_ragged(torch, dev, gen, 256, H, KV, bad)
 
     B, S, H, KV, hd, window = ATTN_HD256
     q = torch.randn((B, S, H, hd), device=dev, generator=gen)
@@ -2481,23 +2627,25 @@ def recurrent_serve(torch, dev):
     return total
 
 
-def reckon_training_cut(cfg):
-    """16c: recurrentgemma's training cut: the first of TRAIN_CUTS whose
+def tree_gb(cfg):
+    """The parameter tree's GB (shape-only: no memory is taken)."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import model
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(model.templates(cfg))) / 1e9
+
+
+def reckon_training_cut(cfg, cuts=TRAIN_CUTS):
+    """16c, 17c: the first training cut (layers, workers) of ``cuts`` whose
     reckoned peak (tree bytes × copies) is under TRAIN_RECKON_GB.  The
     copies are PR 19's measured peak over its tree (qwen2-vl-7b, 2 layers,
     W = 2), less TREES_PER_WORKER for each worker fewer."""
     from repro_torch.configs import get_config
-    from repro_torch.core.tree import tree_leaves
-    from repro_torch.models import model
-
-    def tree_gb(c):
-        return sum(t.numel() * t.element_size()
-                   for t in tree_leaves(model.templates(c))) / 1e9
 
     copies2 = PR19_PEAK[1] / tree_gb(get_config(PR19_PEAK[0]).replace(
         num_layers=2))
     chosen = None
-    for layers, workers in TRAIN_CUTS:
+    for layers, workers in cuts:
         gb = tree_gb(cfg.replace(num_layers=layers))
         copies = copies2 - TREES_PER_WORKER * (2 - workers)
         peak = gb * copies
@@ -2539,6 +2687,140 @@ def recurrent_training(torch):
           f"{run['peak']:.2f} GB = {run['peak'] / tree:.2f} trees of "
           f"{tree:.3f} GB")
     return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the moe layer kind
+# ---------------------------------------------------------------------------
+
+def moe_kernel_phase(torch, dev):
+    """17a: flash attention at the MoE archs' head counts (GQA 32/4 and
+    64/4 at head_dim 128) on phase 7's ragged set, then at their prefill
+    shapes timed against the split-TF32 bound, the plain version and
+    ``F.scaled_dot_product_attention``."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    bad = []
+    for _, _, H, KV, hd in ATTN_MOE:
+        flash_ragged(torch, dev, gen, hd, H, KV, bad)
+    print_full_rows([flash_full(torch, dev, gen, shape, True, bad)
+                     for shape in ATTN_MOE])
+    check(not bad, f"flash at the MoE head counts vs plain beyond rtol = "
+                   f"atol = {MODEL_TOL}: {bad}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_serve(torch, dev):
+    """17b: qwen3-moe-30b-a3b at 24 of 48 layers and qwen3-moe-235b-a22b at
+    5 of 94 through ``launch.serve`` at full width (phase 8's run and
+    checks), with the share of the reckoned float32 products."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    total = {}
+    for arch, layers in SERVE_MOE:
+        cfg = get_config(arch).replace(num_layers=layers)
+        got, timing = serve_phase(torch, dev, ["--arch", arch,
+                                               *SERVE_ARGS[2:]], cfg=cfg)
+        B, S = 4, 2048
+        d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+            cfg.head_dim
+        C = moe.capacity(cfg, S)
+        # products a prefill: q/k/v/o, the router, the experts over their
+        # E · B · C capacity slots, the scores (causal) and the last head
+        per_layer = (2 * B * S * d * (2 * H + 2 * KV) * hd
+                     + 2 * B * S * d * cfg.num_experts
+                     + 6 * cfg.num_experts * B * C * d * cfg.d_ff
+                     + 4 * B * H * hd * S * (S + 1) // 2)
+        flop = layers * per_layer + 2 * B * d * cfg.vocab_size
+        weights = tree_gb(cfg)
+        print(f"  {arch} ({layers} layers): prefill {flop / 1e12:.1f} TFLOP"
+              f" of float32 products, {flop / timing['prefill_ms'] / 1e9:.1f}"
+              f" TFLOP/s | decode reads {weights:.1f} GB of weights a step "
+              f"(>= {weights / HBM_BYTES_PER_S * 1e12:.1f} ms at 3.35 TB/s)")
+        for k_, v in got.items():
+            total[k_] = total.get(k_, 0) + v
+    return total
+
+
+def moe_training(torch):
+    """17c: qwen3-moe-30b-a3b at full width, its depth and W the first cut
+    of MOE_TRAIN_CUTS that reckons under 75 GB, lag-wk and laq@4 through
+    ``launch.train`` in phase 5's configuration."""
+    from repro_torch.configs import get_config
+
+    want = {"lag-wk": ("delta_sqnorm_blocks", "masked_combine"),
+            "laq@4": ("absmax_blocks", "laq_encode_blocks",
+                      "masked_combine")}
+    arch = MOE_KIND[0]
+    (layers, workers), tree = reckon_training_cut(get_config(arch),
+                                                  MOE_TRAIN_CUTS)
+    total = {}
+    for algo in ("lag-wk", "laq@4"):
+        run = trainer_phase(torch, algo, extra=("--layers", str(layers)),
+                            arch=arch, workers=workers)
+        for k_ in want[algo]:
+            check(run["plane"][k_] >= 4, f"{arch} {algo}: kernel {k_} "
+                                         f"launched {run['plane'][k_]} times")
+        check(run["peak"] < 80.0, f"{arch} {algo}: peak {run['peak']:.2f} "
+                                  f"GB")
+        print(f"  {arch} --layers {layers} W={workers} {algo}: peak "
+              f"{run['peak']:.2f} GB = {run['peak'] / tree:.2f} trees of "
+              f"{tree:.3f} GB")
+        for k_, v in run["plane"].items():
+            total[k_] = total.get(k_, 0) + v
+    return total
+
+
+def moe_small_agreement(torch, dev):
+    """17d: both reduced MoE configs from the same weights on the card and
+    on the CPU: the first layer's routing decisions on the same input
+    equal, the forward (the kernels on the card) and the loss with its
+    load-balance term within rtol 1e-4; then phase 15e's three lag-wk
+    rounds."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import TokenStream, make_inputs
+    from repro_torch.models import model, moe
+
+    cfgs = [get_config(a).reduced() for a in MOE_KIND]
+    gen = torch.Generator()
+    gen.manual_seed(7)
+    for cfg in cfgs:
+        cpu = model.init(cfg, device="cpu", seed=7)
+        gpu = tree_map(lambda t: t.to(dev), cpu)
+        b = make_inputs(cfg, TokenStream(cfg.vocab_size, seed=7), 0, 4, 64,
+                        device="cpu")
+        bg = {n: t.to(dev) for n, t in b.items()}
+        with torch.no_grad():
+            p0 = {n: t[0] for n, t in cpu["blocks"]["0"]["moe"].items()}
+            h = torch.randn((4, 64, cfg.d_model), generator=gen)
+            r_cpu = moe.route(p0, moe.groups(h, 2), cfg)
+            r_gpu = moe.route(tree_map(lambda t: t.to(dev), p0),
+                              moe.groups(h.to(dev), 2), cfg)
+            for f in ("experts", "slots", "kept"):
+                check(torch.equal(getattr(r_cpu, f),
+                                  getattr(r_gpu, f).cpu()),
+                      f"small {cfg.arch_id}: routing {f} differs")
+            lc, ac = model.forward_with_aux(cpu, cfg, b)
+            lg, ag = model.forward_with_aux(gpu, cfg.replace(use_pallas=True),
+                                            bg)
+            err = max_abs(lg.cpu(), lc)
+            check(err <= SERVE_TOL and abs(float(ag) - float(ac))
+                  <= 1e-4 * float(ac), f"small {cfg.arch_id}: forward "
+                                       f"{err:.3e}, aux {ag} vs {ac}")
+            loss_c = float(model.loss_fn(cpu, cfg, b))
+            loss_g = float(model.loss_fn(gpu, cfg, bg))
+            check(abs(loss_c - loss_g) <= 1e-4 * abs(loss_c),
+                  f"small {cfg.arch_id}: loss cpu {loss_c} vs gpu {loss_g}")
+        print(f"  small {cfg.arch_id}: routing of layer 0 (2 shards, "
+              f"{int((~r_gpu.kept).sum())} of {r_gpu.kept.numel()} "
+              f"assignments dropped) equal on card and CPU | logits "
+              f"max_abs_err {err:.3e} | aux {float(ag):.6f} / {float(ac):.6f}"
+              f" | loss {loss_g:.6f} / {loss_c:.6f}")
+        del cpu, gpu
+    reduced_agreement(torch, dev, cfgs)
 
 
 def main():
@@ -2726,6 +3008,23 @@ def main():
           f"phase 16 launches {p16}")
     print(f"  phase 16 launches: { {k: v for k, v in p16.items() if v} } "
           f"in {time.perf_counter() - t16:.1f} s")
+
+    print("[17] the moe kind: a flash at GQA 32/4 and 64/4, b serving "
+          "qwen3-moe-30b-a3b (24 layers) and qwen3-moe-235b-a22b (5 layers), "
+          "c training qwen3-moe-30b-a3b, d the reduced pair card = CPU",
+          flush=True)
+    t17 = time.perf_counter()
+    moe_kernel_phase(torch, dev)
+    p17 = moe_serve(torch, dev)
+    for k, v in moe_training(torch).items():
+        p17[k] = p17.get(k, 0) + v
+    moe_small_agreement(torch, dev)
+    for k, v in p17.items():
+        launches[k] += v
+    check(p17["flash_attention"] > 0 and p17["rmsnorm"] > 0,
+          f"phase 17 launches {p17}")
+    print(f"  phase 17 launches: { {k: v for k, v in p17.items() if v} } "
+          f"in {time.perf_counter() - t17:.1f} s")
 
     rows = [dict(name=k, route="cuda", source=SOURCES.get(k, SOURCE),
                  replaces=REPLACES[k], launches=launches[k], **full[k])

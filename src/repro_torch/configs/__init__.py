@@ -1,6 +1,6 @@
 """Architecture registry of the port: ``get_config(arch_id, **overrides)``.
-The port has the reference's architectures of the ``dense``, ``lattn``,
-``rec`` and ``ssd`` layer kinds (nine); the two MoE ones are not ported."""
+The port has all eleven of the reference's architectures, of the
+``dense``, ``lattn``, ``rec``, ``ssd`` and ``moe`` layer kinds."""
 from __future__ import annotations
 
 import importlib
@@ -16,8 +16,10 @@ _MODULES: Dict[str, str] = {
     "granite-8b": "repro_torch.configs.granite_8b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
     "llama3.2-1b-sw": "repro_torch.configs.llama3_2_1b_sw",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
     "command-r-35b": "repro_torch.configs.command_r_35b",
     "llama3.2-3b": "repro_torch.configs.llama3_2_3b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
 }
 
 #: every architecture the port has

@@ -13,8 +13,8 @@ around work that ends in a device synchronise).  Runs on the GPU
 and flash-attention kernels, on the CPU their plain versions.  Every
 architecture of the port with a decode step serves (the VLM on text
 prompts, its M-RoPE positions the default arange, as the reference
-serves it); the encoder-only hubert-xlarge is refused with the
-reference's reason.
+serves it; the MoE pair, whose decode step routes each token alone); the
+encoder-only hubert-xlarge is refused with the reference's reason.
 """
 from __future__ import annotations
 

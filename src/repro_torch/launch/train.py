@@ -6,9 +6,10 @@
 
 ``--arch`` takes every architecture of the port (``repro_torch.configs``:
 the dense block kind, with the audio and VLM batches of hubert-xlarge and
-qwen2-vl-7b, recurrentgemma-9b and mamba2-370m); ``--layers n`` cuts the
-depth (recurrentgemma at 5: one superblock and the two-layer tail),
-``--reduced`` the widths.
+qwen2-vl-7b, recurrentgemma-9b, mamba2-370m, and the MoE pair
+qwen3-moe-30b-a3b and qwen3-moe-235b-a22b, whose loss adds 0.01 × the
+load-balance loss); ``--layers n`` cuts the depth (recurrentgemma at 5:
+one superblock and the two-layer tail), ``--reduced`` the widths.
 Runs on the GPU (``--device cuda``, the default) and raises when there is
 none; ``--device cpu`` asks for the CPU.  Prints the loss and the LAG
 communication counters of every round, and the time per round (the host

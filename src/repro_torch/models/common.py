@@ -1,6 +1,6 @@
 """Shared model machinery: config, initializers, norms, activations — port
 of ``repro.models.common`` for the port's layer kinds (``dense``,
-``lattn``, ``rec``, ``ssd``).
+``lattn``, ``rec``, ``ssd``, ``moe``).
 
 Models are plain functions over nested dicts of tensors (the reference's
 pytree layout, so the flat-buffer layout and LAQ's per-leaf grid agree).
@@ -20,8 +20,7 @@ from repro_torch.kernels.rmsnorm import ops as rms_ops
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                      # dense | vlm | audio | ssm | hybrid
-                                     # (moe: not ported)
+    family: str                      # dense | moe | ssm | hybrid | audio | vlm
     num_layers: int
     d_model: int
     vocab_size: int
@@ -36,6 +35,13 @@ class ModelConfig:
     # layer kinds of one superblock, e.g. ("rec", "rec", "lattn"); the
     # remainder of num_layers is an unscanned tail of pattern[j % len]
     block_pattern: Tuple[str, ...] = ("attn",)
+    # MoE: on one device ``moe_seq_shards`` still sets the routing groups
+    # (g = batch · shards of S / shards tokens each), so the capacity and
+    # which tokens are dropped
+    num_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    moe_seq_shards: int = 1
     # Mamba2 / SSD
     ssm_state: int = 0
     ssm_headdim: int = 64
@@ -95,6 +101,8 @@ class ModelConfig:
             head_dim=min(self.head_dim, 64) if self.head_dim else 0,
             d_ff=min(self.d_ff, 512) if self.d_ff else 0,
             vocab_size=min(self.vocab_size, 512),
+            num_experts=min(self.num_experts, 4) if self.num_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
             ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
             ssm_chunk=min(self.ssm_chunk, 32),
             window=min(self.window, 64) if self.window else self.window,

@@ -7,8 +7,9 @@ or untied head — port of ``repro.models.model`` for the layer kinds
   lattn  — preLN sliding-window attention + preLN MLP  (recurrentgemma)
   rec    — preLN RG-LRU block + preLN MLP              (recurrentgemma)
   ssd    — preLN Mamba-2 SSD mixer                     (mamba2)
+  moe    — preLN attention + preLN MoE FFN             (qwen3-moe)
 
-(``moe`` is not ported and raises by name).
+and refuses any other kind by name.
 
 Parameters keep the reference's tree: ``params["blocks"][str(i)]`` holds
 the weights of pattern position i of every superblock STACKED along a
@@ -23,7 +24,10 @@ kinds, (h, conv window) for ``rec``, (conv window, SSM state) for ``ssd``.
 
 ``cfg.use_pallas`` routes as the reference does: the prefill/forward
 RMSNorms and attention go through the kernels, the decode step's norms do
-not, LayerNorm and Mamba-2's gated norm have no kernel.
+not, LayerNorm and Mamba-2's gated norm have no kernel.  The ``moe``
+layers' load-balance losses are summed over the layers and added to the
+cross-entropy by ``loss_fn`` (× 0.01, the reference's weight); ``forward``
+returns the logits alone.
 """
 from __future__ import annotations
 
@@ -33,20 +37,24 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.tree import tree_map
-from repro_torch.models import attention, common, mamba2, mlp, rglru, rope
+from repro_torch.models import (attention, common, mamba2, mlp, moe, rglru,
+                                rope)
 from repro_torch.models.common import ModelConfig
 
 #: the layer kinds the port has
-PORTED_KINDS = ("dense", "lattn", "rec", "ssd")
+PORTED_KINDS = ("dense", "lattn", "rec", "ssd", "moe")
 #: the kinds with attention (rotary angles are computed only for these)
-ATTN_KINDS = ("dense", "lattn")
+ATTN_KINDS = ("dense", "lattn", "moe")
 #: leaves kept in float32 whatever ``cfg.param_dtype`` says
-FLOAT32_LEAVES = rglru.FLOAT32_LEAVES + mamba2.FLOAT32_LEAVES
+FLOAT32_LEAVES = (rglru.FLOAT32_LEAVES + mamba2.FLOAT32_LEAVES
+                  + moe.FLOAT32_LEAVES)
+#: the load-balance loss's weight in ``loss_fn``
+AUX_WEIGHT = 0.01
 
 
 def _check_family(cfg: ModelConfig) -> None:
     """Every layer kind of the pattern (and so of the tail) must be
-    ported: an MoE layer is refused by name."""
+    ported: any other kind is refused by name."""
     missing = sorted(set(cfg.block_pattern) - set(PORTED_KINDS))
     if missing:
         raise NotImplementedError(
@@ -71,8 +79,10 @@ def layer_shapes(kind: str, cfg: ModelConfig) -> Dict:
         return {"norm1": _norm_shapes(cfg), "mixer": mamba2.shapes(cfg)}
     mixer = ({"rec": rglru.shapes(cfg)} if kind == "rec"
              else {"attn": attention.shapes(cfg)})
+    ffn = ({"moe": moe.shapes(cfg)} if kind == "moe"
+           else {"mlp": mlp.shapes(cfg)})
     return {"norm1": _norm_shapes(cfg), **mixer, "norm2": _norm_shapes(cfg),
-            "mlp": mlp.shapes(cfg)}
+            **ffn}
 
 
 def _kinds(cfg: ModelConfig):
@@ -123,7 +133,8 @@ def templates(cfg: ModelConfig) -> Dict:
 
 def _layer_init_(p: dict, cfg: ModelConfig, gen: torch.Generator) -> None:
     for name, init in (("attn", attention.init_), ("rec", rglru.init_),
-                       ("mlp", mlp.init_), ("mixer", mamba2.init_)):
+                       ("mlp", mlp.init_), ("mixer", mamba2.init_),
+                       ("moe", moe.init_)):
         if name in p:
             init(p[name], cfg, gen)
     for name in ("norm1", "norm2"):
@@ -137,7 +148,8 @@ def init_(params: Dict, cfg: ModelConfig, gen: torch.Generator) -> None:
     """Random init, in place, from ``gen`` (on the params' device): the
     reference's distributions — normal·0.02 embeddings, truncated-normal
     fan-in projections and head, each kind's own leaves (``rglru.init_``,
-    ``mamba2.init_``), unit norm scales, zero biases and ``mask_emb``."""
+    ``mamba2.init_``, ``moe.init_``), unit norm scales, zero biases and
+    ``mask_emb``."""
     with torch.no_grad():
         if "embed" in params:
             common.embed_init_(params["embed"], gen)
@@ -184,17 +196,27 @@ def _layers(params: Dict, cfg: ModelConfig):
         yield p, kind, where
 
 
+def _ffn(p: dict, h: torch.Tensor, kind: str, cfg: ModelConfig,
+         seq_shards: int):
+    """→ (the FFN's output, its load-balance loss: None but for ``moe``)."""
+    if kind == "moe":
+        return moe.apply(p["moe"], h, cfg, seq_shards=seq_shards)
+    return mlp.apply(p["mlp"], h, cfg), None
+
+
 def layer_apply(p: dict, x: torch.Tensor, kind: str, cfg: ModelConfig, *,
                 cos, sin, positions, cache_len=None):
-    """→ (x, cache): ``cache_len`` asks for the layer's decode cache filled
-    with this sequence (cache-building prefill); else the cache is None."""
+    """→ (x, aux, cache): ``aux`` is an ``moe`` layer's load-balance loss
+    (None for the other kinds); ``cache_len`` asks for the layer's decode
+    cache filled with this sequence (cache-building prefill), else the
+    cache is None."""
     cache = None
     want = cache_len is not None
     h = common.apply_norm(p["norm1"], x, cfg.norm, use_pallas=cfg.use_pallas)
     if kind == "ssd":
         out = mamba2.apply(p["mixer"], h, cfg, return_state=want)
         y, cache = out if want else (out, None)
-        return x + y, cache
+        return x + y, None, cache
     if kind == "rec":
         out = rglru.apply(p["rec"], h, cfg, return_state=want)
         y, cache = out if want else (out, None)
@@ -208,7 +230,8 @@ def layer_apply(p: dict, x: torch.Tensor, kind: str, cfg: ModelConfig, *,
                                      positions=positions)
     x = x + y
     h2 = common.apply_norm(p["norm2"], x, cfg.norm, use_pallas=cfg.use_pallas)
-    return x + mlp.apply(p["mlp"], h2, cfg), cache
+    y, aux = _ffn(p, h2, kind, cfg, cfg.moe_seq_shards)
+    return x + y, aux, cache
 
 
 def layer_cache_init(kind: str, cfg: ModelConfig, batch: int, max_len: int,
@@ -271,18 +294,28 @@ def _angles(cfg: ModelConfig, inputs: Dict, B: int, S: int, device):
     return None, None, None
 
 
-def forward(params: Dict, cfg: ModelConfig, inputs: Dict) -> torch.Tensor:
-    """Full-sequence forward → logits (B, S, vocab)."""
+def forward_with_aux(params: Dict, cfg: ModelConfig, inputs: Dict
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward → (logits (B, S, vocab), the layers' summed
+    load-balance loss: a float32 zero without an ``moe`` layer)."""
     _check_family(cfg)
     x = _embed(params, cfg, inputs)
     B, S, _ = x.shape
     cos, sin, positions = _angles(cfg, inputs, B, S, x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind, _ in _layers(params, cfg):
-        x, _ = layer_apply(p, x, kind, cfg, cos=cos, sin=sin,
-                           positions=positions)
+        x, a, _ = layer_apply(p, x, kind, cfg, cos=cos, sin=sin,
+                              positions=positions)
+        if a is not None:
+            aux = aux + a
     x = common.apply_norm(params["final_norm"], x, cfg.norm,
                           use_pallas=cfg.use_pallas)
-    return _head(params, cfg, x)
+    return _head(params, cfg, x), aux
+
+
+def forward(params: Dict, cfg: ModelConfig, inputs: Dict) -> torch.Tensor:
+    """Full-sequence forward → logits (B, S, vocab)."""
+    return forward_with_aux(params, cfg, inputs)[0]
 
 
 def _stack_caches(per_layer, kind: str, cfg: ModelConfig, batch: int,
@@ -308,8 +341,8 @@ def prefill(params: Dict, cfg: ModelConfig, inputs: Dict, max_len: int
     blocks = {str(i): [] for i in range(len(cfg.block_pattern))}
     tail = []
     for p, kind, where in _layers(params, cfg):
-        x, c = layer_apply(p, x, kind, cfg, cos=cos, sin=sin,
-                           positions=positions, cache_len=max_len)
+        x, _, c = layer_apply(p, x, kind, cfg, cos=cos, sin=sin,
+                              positions=positions, cache_len=max_len)
         (blocks[where[1]] if where[0] == "blocks" else tail).append(c)
     x = common.apply_norm(params["final_norm"], x, cfg.norm,
                           use_pallas=cfg.use_pallas)
@@ -349,7 +382,8 @@ def layer_decode(p: dict, x: torch.Tensor, cache: dict, pos: int,
         y, cache = attention.decode_attention(p["attn"], h, cache, pos, cfg)
     x = x + y
     h2 = common.apply_norm(p["norm2"], x, cfg.norm)
-    return x + mlp.apply(p["mlp"], h2, cfg), cache
+    # one token: an moe layer routes B groups of one (C = 1)
+    return x + _ffn(p, h2, kind, cfg, 1)[0], cache
 
 
 def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
@@ -373,9 +407,9 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
 
 
 def loss_fn(params: Dict, cfg: ModelConfig, inputs: Dict) -> torch.Tensor:
-    """Mean cross-entropy over targets ≥ 0; a VLM's vision prefix has
-    targets −1."""
-    logits = forward(params, cfg, inputs)
+    """Mean cross-entropy over targets ≥ 0 (a VLM's vision prefix has
+    targets −1) + 0.01 · the MoE layers' load-balance loss."""
+    logits, aux = forward_with_aux(params, cfg, inputs)
     targets = inputs["targets"].long()
     if cfg.family == "vlm" and "vision_embeds" in inputs:
         nv = inputs["vision_embeds"].shape[1]
@@ -387,4 +421,5 @@ def loss_fn(params: Dict, cfg: ModelConfig, inputs: Dict) -> torch.Tensor:
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    return torch.sum(nll) / torch.clamp(torch.sum(valid), min=1)
+    ce = torch.sum(nll) / torch.clamp(torch.sum(valid), min=1)
+    return ce + AUX_WEIGHT * aux

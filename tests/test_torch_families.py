@@ -104,20 +104,16 @@ def test_registry_has_the_dense_kind_and_refuses_the_rest():
                   "window", "rope", "rope_theta", "block_pattern", "norm",
                   "act", "use_bias", "tie_embeddings"):
             assert getattr(got, f) == getattr(want, f), (arch, f)
-    # the nine archs of the dense, lattn, rec and ssd kinds; only the two
-    # MoE archs are missing, and their layer kind is refused by name
-    assert sorted(ALL_ARCHS) == sorted(ARCHS + ["llama3.2-1b",
-                                                "recurrentgemma-9b",
-                                                "mamba2-370m"])
-    missing = sorted(set(J_ALL) - set(ALL_ARCHS))
-    assert missing == ["qwen3-moe-235b-a22b", "qwen3-moe-30b-a3b"]
-    for arch in missing:
-        with pytest.raises(KeyError, match="the port has"):
-            get_config(arch)
-        assert jget_config(arch).block_pattern == ("moe",)
-        cfg = get_config("llama3.2-1b").replace(block_pattern=("moe",))
-        with pytest.raises(NotImplementedError, match="moe"):
-            model.param_shapes(cfg)
+    # the reference's eleven archs, every layer kind of their patterns
+    # ported, and an unknown kind refused by name
+    assert sorted(ALL_ARCHS) == sorted(J_ALL) and len(ALL_ARCHS) == 11
+    kinds = {k for a in J_ALL for k in jget_config(a).block_pattern}
+    assert kinds == set(model.PORTED_KINDS)
+    cfg = get_config("llama3.2-1b").replace(block_pattern=("xyz",))
+    with pytest.raises(NotImplementedError, match="xyz"):
+        model.param_shapes(cfg)
+    with pytest.raises(KeyError, match="the port has"):
+        get_config("xyz")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

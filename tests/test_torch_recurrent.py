@@ -163,9 +163,22 @@ def test_float32_leaves_stay_float32():
 
 
 def test_moe_is_refused_by_name():
-    cfg = get_config("llama3.2-1b").replace(block_pattern=("moe",))
-    with pytest.raises(NotImplementedError, match="moe"):
-        model.param_shapes(cfg)
+    """``PORTED_KINDS`` is every kind the reference's ``layer_init`` takes,
+    each with the reference's layer tree; any other kind is refused by
+    name, as the reference refuses it."""
+    cfg = get_config("llama3.2-1b").reduced(num_experts=4, top_k=2)
+    jcfg = jget_config("llama3.2-1b").reduced(num_experts=4, top_k=2)
+    for kind in model.PORTED_KINDS:
+        want = jax.eval_shape(functools.partial(
+            jmodel.layer_init, kind=kind, cfg=jcfg), jax.random.PRNGKey(0))
+        got = model.layer_shapes(kind, cfg)
+        assert jax.tree_util.tree_map(lambda a: tuple(a.shape), want) == got
+    assert sorted(model.PORTED_KINDS) == ["dense", "lattn", "moe", "rec",
+                                          "ssd"]
+    with pytest.raises(ValueError, match="xyz"):
+        jmodel.layer_init(jax.random.PRNGKey(0), "xyz", jcfg)
+    with pytest.raises(NotImplementedError, match="xyz"):
+        model.param_shapes(cfg.replace(block_pattern=("xyz",)))
 
 
 # ---------------------------------------------------------------------------
