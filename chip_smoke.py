@@ -10,8 +10,8 @@ Phases (any failure raises and the script exits non-zero):
      flash attention's and the legacy per-leaf kernels') with nvcc
      (sm_90a), one process each, all at once; ptxas's registers and spills
      of every kernel, the flash kernel's shared memory per head_dim, and a
-     check that none of its four instantiations (head_dim 64, 80, 128,
-     256) spills.
+     check that none of its eight instantiations (head_dim 64, 80, 128,
+     256, each in float32 and bfloat16) spills.
   3. the comm plane's kernels vs plain versions on ragged synthetic
      layouts (leaf sizes {1, 127, 129, 32768, 0}, W ∈ {1, 3}, the
      unstacked operand, LAQ bits {2, 4, 8}, all three masked modes):
@@ -238,11 +238,52 @@ Phases (any failure raises and the script exits non-zero):
         and the loss with its load-balance term, then 3 rounds of lag-wk:
         equal masks, losses within rtol 1e-4.
 
+  18. bfloat16 serving (``get_config(arch, dtype="bfloat16",
+     param_dtype="bfloat16", use_pallas=True)``, the reference's own
+     bfloat16 config):
+     a. the bfloat16 instantiations of RMSNorm (rows 1, 7, 129, 1000 and
+        8192 at d 1024, 2048, 3072, 3584, 4096, 8192) and flash attention
+        (phase 7's ragged set at head_dim 64, 80, 128, 256 and GQA 64/4,
+        8/2; every registry prefill shape: phase 7's, 15a's, command-r-35b's
+        (4, 2048, 64/8, 128), 16a's window, 17a's): RMSNorm bitwise the
+        float32 kernel's row rounded twice, and within one bfloat16 ulp a
+        rounding of the plain version on the widened inputs; flash within
+        one bfloat16 ulp of the plain version on the widened inputs rounded
+        to bfloat16; both within the reference's bfloat16 tolerances (3e-2,
+        2.5e-2) of the plain bfloat16 versions.  Each full shape timed
+        beside the float32 kernel on the widened inputs, the plain version
+        and the library's bfloat16 call; flash's bound is the FLOP its masks
+        leave at the bfloat16 tensor cores' 989 TFLOP/s, the design's own
+        TF32 work (one product for q·kᵀ, two for P·V) at 495 TFLOP/s beside
+        it; command-r's shape also in float32.
+     b. ``launch.serve`` as phase 8 at bfloat16: llama3.2-1b (the main
+        path), command-r-35b at 40 of 40 layers, qwen3-moe-30b-a3b at 48 of
+        48, qwen3-moe-235b-a22b at the most layers whose reckoned peak
+        (weights + 8 GB) is under 75 GB, batch 4, prompt 2048, 32 tokens,
+        2 rounds; recurrentgemma-9b at 2 × 4096; hubert-xlarge's forward,
+        4 × 2048.  Launches exactly 2L + 1 ``rmsnorm_bf16`` and L
+        ``flash_attention_bf16`` per prefill (hubert: L flash), none of the
+        float32 ones, none per decode step; kernel route against plain route
+        within the arch's BF16_ROUTE_BOUNDS (logits and every cache leaf;
+        the MoE pair with ``MoeRouting``), the plain
+        route's greedy tokens equal to the kernel route's where its top-2
+        margin exceeds 4 × the routes' difference of the prefill logits
+        (teacher-forced); where the float32 model fits
+        (llama3.2-1b, recurrentgemma-9b, hubert), each route's bfloat16
+        logits against the float32 logits on the widened weights, the
+        kernel route's error within 2 × the plain route's.
+     c. phase 5's lag-wk with ``remat=True``: losses and masks bitwise
+        phase 5's (``remat=False``, the port's default), both runs'
+        fwd/bwd and peak.
+     d. every reduced config at bfloat16 from the same weights: forward and
+        prefill on the card (the kernels) and on the CPU (plain), the
+        card's error against the float32 model within 2 × the CPU's.
+
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Times are CUDA-event times on this card (kernels: the mean of
 several launches after a warm-up); bounds use the H100 SXM's published
 3.35 TB/s, 67 TFLOP/s float32 (non-tensor) and 495 TFLOP/s dense TF32
-peaks.
+peaks, and 989 TFLOP/s dense bfloat16.
 """
 import contextlib
 import gc
@@ -278,11 +319,17 @@ REPLACES = {
                             "lag_trigger.py:127",
     "laq_encode_2d": "src/repro/kernels/lag_trigger/lag_trigger.py:161",
 }
+# the bfloat16 instantiations of kernels 6 and 7: rows of their own
+REPLACES.update({"rmsnorm_bf16": REPLACES["rmsnorm"],
+                 "flash_attention_bf16": REPLACES["flash_attention"]})
 LEGACY_SOURCE = "src/repro_torch/kernels/lag_trigger/csrc/lag_trigger.cu"
 SOURCES = {
     "rmsnorm": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/"
                        "flash_attention.cu",
+    "rmsnorm_bf16": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+    "flash_attention_bf16": "src/repro_torch/kernels/flash_attention/csrc/"
+                            "flash_attention.cu",
     **{k: LEGACY_SOURCE for k in ("delta_sqnorm_2d", "sqnorm_2d",
                                   "masked_update_2d", "innovation_absmax_2d",
                                   "laq_encode_2d")},
@@ -477,6 +524,80 @@ SERVE_MOE = (("qwen3-moe-30b-a3b", 24), ("qwen3-moe-235b-a22b", 5))
 # 17c: qwen3-moe-30b-a3b's training cuts (layers, workers) in order of
 # preference: 7.47 GB x 9.01 trees at W = 2; the fallback 6.01 trees at W = 1
 MOE_TRAIN_CUTS = ((2, 2), (3, 1))
+
+# phase 18: bfloat16 serving, ``get_config(arch, **BF16, use_pallas=True)``
+BF16 = dict(dtype="bfloat16", param_dtype="bfloat16")
+BF16_FLOP_PER_S = 989e12         # H100 SXM dense bfloat16 on the tensor cores
+# 18a: RMSNorm's registry widths (mamba2 1024, llama3.2-1b and 30b-a3b 2048,
+# llama3.2-3b 3072, qwen2-vl 3584, granite / recurrentgemma / 235b-a22b
+# 4096, command-r 8192); flash at every registry prefill shape (B, S, H, KV,
+# hd, causal, window): phase 7's, 15a's three, command-r-35b's, 16a's, 17a's
+# two; the ragged set at each head_dim (and GQA 64/4, 8/2)
+BF16_RMS_WIDTHS = (1024, 2048, 3072, 3584, 4096, 8192)
+ATTN_BF16 = ((4, 2048, 32, 8, 64, True, None),
+             (4, 2048, 24, 8, 128, True, None),
+             (4, 2048, 28, 4, 128, True, None),
+             (4, 2048, 16, 16, 80, False, None),
+             (4, 2048, 64, 8, 128, True, None),
+             (2, 4096, 16, 1, 256, True, 2048),
+             (4, 2048, 32, 4, 128, True, None),
+             (4, 2048, 64, 4, 128, True, None))
+BF16_RAGGED = ((64, 32, 8), (80, 16, 16), (128, 24, 8), (128, 64, 4),
+               (256, 16, 1), (256, 8, 2))
+# 18b: (arch, serve flags, layers kept: None = all, "reckon" = the most
+# under SERVE_RECKON_GB; the float32 model fits beside it).  bfloat16
+# weights: command-r-35b 64.76 GB at 40 layers, qwen3-moe-30b-a3b 61.09 at
+# 48, recurrentgemma-9b 19.26
+SERVE_BF16 = (
+    ("llama3.2-1b", SERVE_ARGS[2:], None, True),
+    ("command-r-35b", SERVE_ARGS[2:], 40, False),
+    ("qwen3-moe-30b-a3b", SERVE_ARGS[2:], 48, False),
+    ("qwen3-moe-235b-a22b", SERVE_ARGS[2:], "reckon", False),
+    ("recurrentgemma-9b", SERVE_RECURRENT[0][1], None, True),
+)
+# 18b: a serving peak reckoned as its weights + SERVE_ACT_GB: phase 17b's
+# float32 serving peaks sit 4.3 / 5.6 GB above their weights (H100 80GB
+# HBM3, 700 W), 8 GB is that with room; the reckoned peak must stay under
+# SERVE_RECKON_GB
+SERVE_ACT_GB = 8.0
+SERVE_RECKON_GB = 75.0
+# 18a: the reference's bfloat16 tolerances for its kernels against its plain
+# versions (tests/test_kernels.py: RMSNorm 3e-2, flash 2.5e-2), stated for
+# its test inputs, whose outputs are of order one; here × the output's
+# largest |entry| where that exceeds one (at |x| >= 8 one bfloat16 ulp is
+# 6.25e-2).  The binding checks are the one-ulp ones
+REF_RMS_TOL, REF_FLASH_TOL = 3e-2, 2.5e-2
+# 18b/d: the two routes in bfloat16.  The plain route rounds the attention
+# scores and weights to bfloat16 between its products (as the reference's
+# plain route does), the kernel holds them in float32, so the routes part
+# by bfloat16 rounding carried through every layer.  Against the float32
+# model, where it fits, the kernel route's error must stay within
+# BF16_ERR_RATIO × the plain route's (the CPU tests' ratio).  Between the
+# routes, per arch: logits and each cache leaf within BF16_ROUTE_FACTOR ×
+# that arch's max |kernel − plain| read in this phase (H100 80GB HBM3,
+# 700 W; the routes are deterministic, so a reading moves only when the
+# code does).  Their float32 errors, where float32 fits, are no smaller:
+# llama3.2-1b 0.0658, recurrentgemma-9b 0.279, hubert-xlarge 0.0657.  The
+# plain route's greedy tokens, teacher-forced on the kernel route's, equal
+# wherever its top-2 margin exceeds BF16_MARGIN × the two routes' measured
+# difference of the prefill logits
+BF16_ERR_RATIO = 2.0
+BF16_ROUTE_FACTOR = 2.0
+BF16_ROUTE_READINGS = {
+    "llama3.2-1b": {"logits": 0.0625, "k cache": 0.0625,
+                    "v cache": 0.0625},
+    "command-r-35b": {"logits": 0.07812, "k cache": 0.08594,
+                      "v cache": 0.08594},
+    "qwen3-moe-30b-a3b": {"logits": 0.04688, "k cache": 0.0625,
+                          "v cache": 0.06348},
+    "qwen3-moe-235b-a22b": {"logits": 0.03125, "k cache": 0.04688,
+                            "v cache": 0.04688},
+    "recurrentgemma-9b": {"logits": 0.1719, "conv cache": 0.1631,
+                          "h cache": 0.03729, "k cache": 0.1895,
+                          "v cache": 0.1898},
+    "hubert-xlarge": {"logits": 0.0752},
+}
+BF16_MARGIN = 4.0
 
 
 def check(cond, msg):
@@ -1141,13 +1262,23 @@ class MoeRouting:
                             f"the routes' probability difference: {self.rows}")
 
 
-def serve_phase(torch, dev, argv=SERVE_ARGS, cfg=None):
+def serve_phase(torch, dev, argv=SERVE_ARGS, cfg=None, params=None,
+                f32_logits=None):
     """``repro_torch.launch.serve`` with ``argv`` (``cfg``: a config that
     replaces the one ``--arch`` names, e.g. its depth cut), random weights
-    from the seed: the kernels' launches per prefill and per decode step,
-    the generated tokens, the peak memory, and the prefill through the
-    kernels against the plain route on the card.  Returns the launches and
-    round 1's times with the peak."""
+    from the seed (or ``params``): the kernels' launches per prefill and per
+    decode step, the generated tokens, the peak memory, and the prefill
+    through the kernels against the plain route on the card.  A bfloat16
+    config counts the bfloat16 instantiations (and none of the float32
+    ones), holds the two routes within its arch's bounds
+    (BF16_ROUTE_FACTOR × BF16_ROUTE_READINGS), the plain route's greedy
+    tokens (teacher-forced on the kernel route's) equal to the kernel
+    route's where the plain top-2
+    margin exceeds BF16_MARGIN × the routes' difference of the prefill
+    logits, and, given ``f32_logits``
+    (the float32 model's on the same prompts and widened weights), the
+    kernel route's error against them within BF16_ERR_RATIO × the plain
+    route's.  Returns the launches and round 1's times with the peak."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.rmsnorm import rmsnorm as rms
@@ -1159,26 +1290,30 @@ def serve_phase(torch, dev, argv=SERVE_ARGS, cfg=None):
         cfg = get_config(args.arch)
         cfg = cfg.reduced() if args.reduced else cfg
     cfg = cfg.replace(use_pallas=True)
+    bf16 = cfg.compute_dtype == torch.bfloat16
     gc.collect()
     torch.cuda.empty_cache()
-    params = model.init(cfg, device=dev, seed=args.seed)
+    if params is None:
+        params = model.init(cfg, device=dev, seed=args.seed)
     rounds = []
     torch.cuda.reset_peak_memory_stats()
     rms.reset_launches()
     fa.reset_launches()
     serve.main(argv, params=params, cfg=cfg,
                on_round=lambda r, t, toks: rounds.append((t, toks)))
-    launches = {"rmsnorm": rms.LAUNCHES["rmsnorm"],
-                "flash_attention": fa.LAUNCHES["flash_attention"]}
+    every = {**rms.LAUNCHES, **fa.LAUNCHES}
     peak = torch.cuda.max_memory_allocated() / 1e9
     n = len(rounds)
     check(n == args.rounds, f"serve {cfg.arch_id}: {n} rounds")
-    per_prefill = prefill_launches(cfg)
-    for k_, want in per_prefill.items():
-        check(launches[k_] == n * want,
-              f"serve {cfg.arch_id}: {k_} launched {launches[k_]} times in "
-              f"{n} rounds, want {want} per prefill and none per decode "
-              f"step")
+    # the instantiations of the config's dtype, and none of the other's
+    per_prefill = {k_ + ("_bf16" if bf16 else ""): v
+                   for k_, v in prefill_launches(cfg).items()}
+    for k_, got in every.items():
+        want = per_prefill.get(k_, 0)
+        check(got == n * want,
+              f"serve {cfg.arch_id}: {k_} launched {got} times in {n} "
+              f"rounds, want {want} per prefill and none per decode step")
+    launches = {k_: every[k_] for k_ in per_prefill}
     for _, toks in rounds:
         check(tuple(toks.shape) == (args.batch, args.gen),
               f"serve {cfg.arch_id}: tokens {tuple(toks.shape)}")
@@ -1206,23 +1341,47 @@ def serve_phase(torch, dev, argv=SERVE_ARGS, cfg=None):
                     params, cfg.replace(use_pallas=up), {"tokens": prompts},
                     max_len=args.prompt_len + args.gen)
             outs[up] = (last, named_leaves(cache))
+            if bf16 and not up:
+                plain_cache = cache
             del cache
     if routing:
         routing.report(torch, cfg.arch_id)
     (lk, ck), (lp, cp) = outs[True], outs[False]
     check(bool(torch.isfinite(lk).all()), "serve: non-finite logits")
-    errs = {"logits": max_abs(lk, lp)}
+    errs = {"logits": max_abs(lk.float(), lp.float())}
     for (name, a), (_, b) in zip(ck, cp):
         key = f"{name} cache"
-        errs[key] = max(errs.get(key, 0.0), max_abs(a, b))
+        errs[key] = max(errs.get(key, 0.0), max_abs(a.float(), b.float()))
+    bounds = ({k_: BF16_ROUTE_FACTOR * v for k_, v in
+               BF16_ROUTE_READINGS[cfg.arch_id].items()} if bf16 else
+              dict.fromkeys(errs, SERVE_TOL))
+    check(set(bounds) == set(errs), f"serve {cfg.arch_id}: bounds for "
+                                    f"{sorted(bounds)}, errors {sorted(errs)}")
     agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
     print(f"  prefill kernels vs plain route: max_abs_err "
           f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } | argmax "
           f"agreement {agree:.2f} | logits max |x| "
-          f"{float(lp.abs().max()):.3f}")
+          f"{float(lp.float().abs().max()):.3f}"
+          + (f" | bounds ({BF16_ROUTE_FACTOR} x the arch's readings) "
+             f"{ {k: float(f'{v:.3e}') for k, v in bounds.items()} }"
+             if bf16 else ""))
     for what, e in errs.items():
-        check(e <= SERVE_TOL, f"serve {cfg.arch_id}: {what} differs by {e} "
-                              f"> {SERVE_TOL}")
+        check(e <= bounds[what], f"serve {cfg.arch_id}: {what} differs by "
+                                 f"{e} > {bounds[what]}")
+    if bf16:
+        bf16_greedy(torch, params, cfg, plain_cache, lp, rounds[0][1], args,
+                    BF16_MARGIN * errs["logits"])
+        del plain_cache
+    if f32_logits is not None:
+        e_k = max_abs(lk.float(), f32_logits)
+        e_p = max_abs(lp.float(), f32_logits)
+        print(f"  bfloat16 against float32 logits (same weights, widened): "
+              f"kernel route {e_k:.3e}, plain route {e_p:.3e} (ratio "
+              f"{e_k / e_p:.3f}; logits max |x| "
+              f"{float(f32_logits.abs().max()):.3f})")
+        check(e_k <= BF16_ERR_RATIO * e_p,
+              f"serve {cfg.arch_id}: the kernel route's bfloat16 error "
+              f"{e_k} exceeds {BF16_ERR_RATIO} x the plain route's {e_p}")
     del params, outs, lk, lp, ck, cp
     gc.collect()
     torch.cuda.empty_cache()
@@ -2823,6 +2982,441 @@ def moe_small_agreement(torch, dev):
     reduced_agreement(torch, dev, cfgs)
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: bfloat16 serving
+# ---------------------------------------------------------------------------
+
+def bf16_ulp(torch, x):
+    """One bfloat16 ulp at |x| (8 significant bits), as float32."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def bf16_rms_case(torch, x, sc):
+    """A bfloat16 RMSNorm launch held three ways: bitwise to the float32
+    kernel's y on the widened row (scale 1) rounded twice as the reference
+    kernel rounds; to the plain version on the widened row rounded the same
+    way within one bfloat16 ulp at each rounding, |scale|·ulp(y) + ulp(out)
+    (the mean's sum order may move y across a rounding boundary); to the
+    plain bfloat16 version within the reference's REF_RMS_TOL.  → (output,
+    max |Δ| against the widened plain version, [failures])."""
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm as rms
+
+    got = rms.rmsnorm_2d(x, sc)
+    ones = torch.ones_like(sc, dtype=torch.float32)
+    s32 = sc.float()
+    exact = (rms.rmsnorm_2d(x.float(), ones).bfloat16().float()
+             * s32).bfloat16()
+    y = rms_ref.rmsnorm(x.float(), ones)
+    want = (y.bfloat16().float() * s32).bfloat16()
+    diff = (got.float() - want.float()).abs()
+    bound = s32.abs() * bf16_ulp(torch, y) + bf16_ulp(
+        torch, torch.maximum(got.float().abs(), want.float().abs()))
+    bad = []
+    if not (got.dtype == torch.bfloat16 and torch.equal(got, exact)):
+        bad.append("not bitwise the float32 kernel's row rounded twice")
+    if not bool((diff <= bound).all()):
+        bad.append(f"beyond one ulp a rounding of the widened plain "
+                   f"version: {float(diff.max()):.3e}")
+    plain = rms_ref.rmsnorm(x, sc).float()
+    e = max_abs(got.float(), plain)
+    if e > REF_RMS_TOL * max(1.0, float(plain.abs().max())):
+        bad.append(f"{e:.3e} from the plain bfloat16 version")
+    return got, float(diff.max()), bad
+
+
+def bf16_flash_case(torch, q, k, v, causal=True, window=None):
+    """A bfloat16 flash launch against the plain version on the widened
+    inputs rounded to bfloat16 (the reference kernel's function) within one
+    bfloat16 ulp (+ 1e-6), and against the plain bfloat16 version within
+    the reference's REF_FLASH_TOL.  → (max |Δ|, [failures])."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    got = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    want = fa_ref.attention(q.float(), k.float(), v.float(), causal=causal,
+                            window=window).bfloat16()
+    plain = fa_ref.attention(q, k, v, causal=causal, window=window)
+    S, Skv = q.shape[1], k.shape[1]
+    if S > Skv and window is not None:       # rows that see no key
+        live = torch.arange(S, device=q.device) - window + 1 < Skv
+        got, want, plain = got[:, live], want[:, live], plain[:, live]
+    diff = (got.float() - want.float()).abs()
+    bound = bf16_ulp(torch, torch.maximum(got.float().abs(),
+                                          want.float().abs())) + 1e-6
+    bad = []
+    if not (got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+            and bool((diff <= bound).all())):
+        bad.append(f"beyond one ulp of the widened plain version: "
+                   f"{float(diff.max()):.3e}")
+    e = max_abs(got.float(), plain.float())
+    if e > REF_FLASH_TOL * max(1.0, float(plain.float().abs().max())):
+        bad.append(f"{e:.3e} from the plain bfloat16 version")
+    return float(diff.max()), bad
+
+
+def bf16_kernel_phase(torch, dev):
+    """18a: the bfloat16 instantiations of both kernels on the ragged sets
+    and at every registry prefill shape, each shape timed beside the float32
+    kernel on the widened inputs, the plain bfloat16 version and the
+    library's bfloat16 call; and command-r-35b's (4, 2048, 64/8, 128) in
+    float32.  Returns the kernels line's rows for ``rmsnorm_bf16`` and
+    ``flash_attention_bf16`` (at llama3.2-1b's shapes)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm as rms
+
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    bad, rows, out = [], [], {}
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen).bfloat16()
+
+    for d in BF16_RMS_WIDTHS:
+        worst = 0.0
+        for r in (1, 7, 129, 1000):
+            _, e, b = bf16_rms_case(torch, randn(r, d), randn(d))
+            worst = max(worst, e)
+            bad += [f"rmsnorm bf16 ({r}, {d}): {m}" for m in b]
+        print(f"  rmsnorm bf16 d {d}: rows 1, 7, 129, 1000, max |Δ| "
+              f"{worst:.3e} against the widened plain version")
+    for hd, H, KV in BF16_RAGGED:
+        cases = [(S, S, c, w) for S in FLASH_S for c, w in FLASH_MASKS]
+        cases += FLASH_CROSS
+        worst = 0.0
+        for S, Skv, causal, window in cases:
+            e, b = bf16_flash_case(torch, randn(1, S, H, hd),
+                                   randn(1, Skv, KV, hd),
+                                   randn(1, Skv, KV, hd), causal, window)
+            worst = max(worst, e)
+            bad += [f"flash bf16 hd {hd} H {H}/{KV} Sq {S} Skv {Skv} "
+                    f"causal {causal} window {window}: {m}" for m in b]
+        print(f"  flash_attention bf16 hd {hd} H {H}/{KV}: {len(cases)} "
+              f"ragged cases, max |Δ| {worst:.3e} against the widened plain "
+              f"version")
+
+    R = RMS_FULL[0]
+    for d in BF16_RMS_WIDTHS:
+        x, sc = randn(R, d), randn(d)
+        _, e, b = bf16_rms_case(torch, x, sc)
+        bad += [f"rmsnorm bf16 full ({R}, {d}): {m}" for m in b]
+        x32, s32 = x.float(), sc.float()
+        t_b, by = bound_ms(2 * R * d * 2 + d * 2, 4 * R * d)
+        row = dict(
+            what=f"rmsnorm bf16 ({R}, {d})", max_abs_err=e,
+            ms=cuda_ms(torch, lambda: rms.rmsnorm_2d(x, sc), n=50),
+            f32_ms=cuda_ms(torch, lambda: rms.rmsnorm_2d(x32, s32), n=50),
+            plain_ms=cuda_ms(torch, lambda: rms_ref.rmsnorm(x, sc), n=20),
+            bound_ms=t_b, bound_by=by,
+            library_ms=cuda_ms(torch, lambda: F.rms_norm(x, (d,), sc, 1e-6),
+                               n=20))
+        rows.append(row)
+        if (R, d) == RMS_FULL:
+            out["rmsnorm_bf16"] = row
+        del x, sc, x32, s32
+
+    for B, S, H, KV, hd, causal, window in ATTN_BF16:
+        q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
+        e, b = bf16_flash_case(torch, q, k, v, causal, window)
+        bad += [f"flash bf16 full {(B, S, H, KV, hd)}: {m}" for m in b]
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        pos = torch.arange(S, device=dev)
+        keep = pos[:, None] >= pos[None] if causal else \
+            torch.ones((S, S), dtype=torch.bool, device=dev)
+        if window is not None:
+            keep &= pos[:, None] - pos[None] < window
+        # the (query, key) pairs the masks leave, 4·hd FLOP each, at the
+        # bfloat16 tensor cores' rate; the design's own work (one TF32
+        # product for q·kᵀ, two for P·V) is the second column
+        pairs = B * H * int(keep.sum())
+        flop = 4 * hd * pairs
+        nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+        t_b, by = bound_ms(nbytes, flop, BF16_FLOP_PER_S)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = None if window is None else keep
+        row = dict(
+            what=f"flash_attention bf16 ({B}, {S}, {H}/{KV}, {hd}) "
+                 f"{'causal' if causal else 'non-causal'}"
+                 + (f" window {window}" if window else ""),
+            max_abs_err=e,
+            ms=cuda_ms(torch, lambda: fa.flash_attention_fwd(
+                q, k, v, causal=causal, window=window), n=10),
+            f32_ms=cuda_ms(torch, lambda: fa.flash_attention_fwd(
+                q32, k32, v32, causal=causal, window=window), n=10),
+            plain_ms=cuda_ms(torch, lambda: fa_ref.attention(
+                q, k, v, causal=causal, window=window), n=3),
+            bound_ms=t_b, bound_by=by, gflop=flop / 1e9,
+            design_bound_ms=bound_ms(nbytes, 1.5 * flop,
+                                     TF32_FLOP_PER_S)[0],
+            library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True), n=10))
+        rows.append(row)
+        if (B, S, H, KV, hd) == ATTN_FULL:
+            out["flash_attention_bf16"] = row
+        del q, k, v, q32, k32, v32, qt, kt, vt, keep, mask
+    for r in rows:
+        extra = (f" ({r['gflop']:.1f} GFLOP at the bfloat16 tensor cores' "
+                 f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; the design's 1 + 2 "
+                 f"TF32 products at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s "
+                 f"{r['design_bound_ms']:.4f} ms)" if "gflop" in r else "")
+        print(f"  full-shape {r['what']}: max |Δ| {r['max_abs_err']:.3e} | "
+              f"{r['ms']:.4f} ms (float32 kernel {r['f32_ms']:.4f} ms, plain"
+              f" {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}{extra} = {r['bound_ms'] / r['ms']:.1%}, "
+              f"library {r['library_ms']:.4f} ms, kernel / library "
+              f"{r['ms'] / r['library_ms']:.3f})")
+    # command-r-35b's heads in float32, never timed before
+    print_full_rows([flash_full(torch, dev, gen, ATTN_BF16[4][:5], True,
+                                bad)])
+    check(not bad, f"bfloat16 kernels: {bad}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k_: {f: r[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
+            for k_, r in out.items()}
+
+
+def bf16_greedy(torch, params, cfg, cache, last, tokens, args, margin):
+    """18b: the plain route's greedy tokens from its prefill (``last``, its
+    cache ``cache``), teacher-forced on the kernel route's (``tokens``,
+    round 0 of the serve run, on the same prompts): equal wherever the
+    plain route's top-2 margin exceeds ``margin``."""
+    from repro_torch.models import model
+
+    plain = cfg.replace(use_pallas=False)
+    sure = same = 0
+    logits = last
+    with torch.inference_mode():
+        for t in range(tokens.shape[1]):
+            if t:
+                logits, cache = model.decode_step(
+                    params, plain, cache, tokens[:, t - 1:t],
+                    args.prompt_len + t - 1)
+                logits = logits[:, -1]
+            top2 = torch.topk(logits.float(), 2, dim=-1).values
+            ok = (top2[:, 0] - top2[:, 1]) > margin
+            sure += int(ok.sum())
+            same += int((logits.argmax(-1) == tokens[:, t])[ok].sum())
+    print(f"  greedy: the plain route's tokens (teacher-forced) equal the "
+          f"kernel route's at {same} of the {sure} of {tokens.numel()} "
+          f"steps whose plain top-2 margin exceeds {margin:.3e}")
+    check(same == sure, f"serve {cfg.arch_id}: greedy tokens differ above "
+                        f"the margin {margin}")
+
+
+def reckon_serve_depth(cfg):
+    """18b: the most layers of ``cfg`` whose reckoned serving peak (the
+    weights + SERVE_ACT_GB) stays under SERVE_RECKON_GB."""
+    best = max(n for n in range(1, cfg.num_layers + 1)
+               if tree_gb(cfg.replace(num_layers=n)) + SERVE_ACT_GB
+               < SERVE_RECKON_GB)
+    gb = tree_gb(cfg.replace(num_layers=best))
+    print(f"  reckoned {cfg.arch_id} in bfloat16: {best} of "
+          f"{cfg.num_layers} layers, {gb:.2f} GB of weights + {SERVE_ACT_GB}"
+          f" GB < {SERVE_RECKON_GB} GB ({best + 1}: "
+          f"{tree_gb(cfg.replace(num_layers=best + 1)):.2f} GB)")
+    return best
+
+
+def as_bf16(torch, params32, cfg):
+    """The float32 tree's weights rounded to bfloat16 but for the leaves
+    kept in float32 (``cfg``'s templates say which)."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import model
+    return tree_map(lambda t, want: t.to(want.dtype), params32,
+                    model.templates(cfg))
+
+
+def bf16_serve(torch, dev):
+    """18b: bfloat16 serving through ``launch.serve`` with
+    ``get_config(arch, dtype="bfloat16", param_dtype="bfloat16",
+    use_pallas=True)``: llama3.2-1b (the main path), command-r-35b at 40
+    of 40 layers, qwen3-moe-30b-a3b at 48 of 48, qwen3-moe-235b-a22b at its
+    reckoned depth, recurrentgemma-9b at 2 × 4096; where the float32 model
+    fits beside it, its weights rounded to bfloat16 and its float32 logits
+    on the same prompts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    total = {}
+    for arch, argv, layers, f32_fits in SERVE_BF16:
+        cfg32 = get_config(arch)
+        if layers == "reckon":
+            layers = reckon_serve_depth(get_config(arch, **BF16))
+        if layers is not None:
+            cfg32 = cfg32.replace(num_layers=layers)
+        cfg = cfg32.replace(**BF16)
+        params = f32_logits = None
+        if f32_fits:
+            args = serve.build_argparser().parse_args(["--arch", arch,
+                                                       *argv])
+            gc.collect()
+            torch.cuda.empty_cache()
+            p32 = model.init(cfg32, device=dev, seed=args.seed)
+            prompts = torch.from_numpy(serve.make_prompts(
+                cfg.vocab_size, args.batch, args.prompt_len,
+                args.seed + 1)).to(dev)
+            with torch.inference_mode():
+                f32_logits = model.prefill(
+                    p32, cfg32, {"tokens": prompts},
+                    max_len=args.prompt_len + args.gen)[0].float()
+            params = as_bf16(torch, p32, cfg)
+            del p32
+        got, _ = serve_phase(torch, dev, ["--arch", arch, *argv], cfg=cfg,
+                             params=params, f32_logits=f32_logits)
+        del params, f32_logits
+        for k_, v in got.items():
+            total[k_] = total.get(k_, 0) + v
+    for k_, v in bf16_hubert_forward(torch, dev).items():
+        total[k_] = total.get(k_, 0) + v
+    return total
+
+
+def bf16_hubert_forward(torch, dev):
+    """18b: hubert-xlarge's bfloat16 forward at full width and depth (4 ×
+    2048 frames; head_dim 80, non-causal, LayerNorm: no RMSNorm), the
+    kernel route against the plain route and both against the float32
+    model on the widened weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream, make_inputs
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.rmsnorm import rmsnorm as rms
+    from repro_torch.models import model
+
+    cfg32 = get_config("hubert-xlarge")
+    cfg = cfg32.replace(**BF16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    p32 = model.init(cfg32, device=dev, seed=0)
+    B, S = HUBERT_FORWARD
+    batch = make_inputs(cfg32, TokenStream(cfg.vocab_size), 0, B, S,
+                        device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        ref = model.forward(p32, cfg32, batch).float()
+        params = as_bf16(torch, p32, cfg)
+        del p32
+        out, ms = {}, {}
+        for up in (True, False):
+            c = cfg.replace(use_pallas=up)
+            model.forward(params, c, batch)            # warm-up
+            rms.reset_launches()
+            fa.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[up] = model.forward(params, c, batch).float()
+            torch.cuda.synchronize()
+            ms[up] = (time.perf_counter() - t0) * 1e3
+            if up:
+                launches = {**rms.LAUNCHES, **fa.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(bool(torch.isfinite(out[True]).all()), "hubert bf16: non-finite")
+    want = {"rmsnorm": 0, "rmsnorm_bf16": 0, "flash_attention": 0,
+            "flash_attention_bf16": cfg.num_layers}
+    check(launches == want, f"hubert bf16 forward launches {launches}")
+    err = max_abs(out[True], out[False])
+    bound = BF16_ROUTE_FACTOR * BF16_ROUTE_READINGS[cfg.arch_id]["logits"]
+    e_k, e_p = max_abs(out[True], ref), max_abs(out[False], ref)
+    print(f"  hubert-xlarge bfloat16 forward ({B}, {S}): kernel route "
+          f"{ms[True]:.1f} ms, plain route {ms[False]:.1f} ms | logits "
+          f"kernel vs plain {err:.3e} (bound {bound:.3e}) | against float32:"
+          f" kernel {e_k:.3e}, plain {e_p:.3e} (ratio {e_k / e_p:.3f}) | "
+          f"peak {peak:.2f} GB | launches {launches}")
+    check(err <= bound, f"hubert bf16 forward differs by {err} > {bound}")
+    check(e_k <= BF16_ERR_RATIO * e_p, f"hubert bf16: kernel route's error "
+                                       f"{e_k} > {BF16_ERR_RATIO} x {e_p}")
+    del params, batch, out, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention_bf16": launches["flash_attention_bf16"]}
+
+
+@contextlib.contextmanager
+def remat_on():
+    """``launch.train``'s configs with ``remat=True`` (the launcher, like
+    the reference's, has no flag for it)."""
+    from repro_torch.launch import train
+    get = train.get_config
+    train.get_config = lambda arch, **kw: get(arch, **kw).replace(
+        remat=True)
+    try:
+        yield
+    finally:
+        train.get_config = get
+
+
+def remat_phase(torch, phase5):
+    """18c: phase 5's lag-wk (``remat=False``, the port's default) again
+    with ``remat=True``: losses and masks bitwise equal; both runs' fwd/bwd
+    and peaks."""
+    with remat_on():
+        on = trainer_phase(torch, "lag-wk")
+    run = phase5["lag-wk"]
+    for k_, (a, b) in enumerate(zip(run["rounds"], on["rounds"])):
+        check(a["loss"] == b["loss"] and a["mask"] == b["mask"],
+              f"remat round {k_}: loss {a['loss']!r} / {b['loss']!r}, mask "
+              f"{a['mask']} / {b['mask']}")
+    print(f"  remat: losses and masks of 4 rounds bitwise equal | fwd/bwd "
+          f"{run['summary']['grad_ms']:.1f} ms (remat=False) / "
+          f"{on['summary']['grad_ms']:.1f} ms (remat=True) | peak "
+          f"{run['peak']:.2f} / {on['peak']:.2f} GB")
+    return on["plane"]
+
+
+def bf16_small_agreement(torch, dev):
+    """18d: every reduced config at bfloat16 from the same weights: the
+    forward and the prefill's last logits on the card (the kernels) and on
+    the CPU (their plain versions), each against the float32 model on the
+    widened weights on the CPU: the card's error within BF16_ERR_RATIO ×
+    the CPU's."""
+    from repro_torch.configs import ALL_ARCHS, get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import TokenStream, make_inputs
+    from repro_torch.models import model
+
+    worst = 0.0
+    for arch in ALL_ARCHS:
+        cfg = get_config(arch).reduced(**BF16)
+        if arch == "recurrentgemma-9b":
+            cfg = cfg.replace(num_layers=8)
+        cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+        cpu = model.init(cfg, device="cpu", seed=9)
+        gpu = tree_map(lambda t: t.to(dev), cpu)
+        p32 = tree_map(lambda t: t.float(), cpu)
+        b = make_inputs(cfg32, TokenStream(cfg.vocab_size, seed=9), 0, 2, 64,
+                        device="cpu")
+        bg = {n: t.to(dev) for n, t in b.items()}
+        with torch.inference_mode():
+            runs = [(model.forward(gpu, cfg.replace(use_pallas=True), bg)
+                     .cpu(), model.forward(cpu, cfg, b),
+                     model.forward(p32, cfg32, b))]
+            if cfg.family != "audio":
+                pre = lambda p, c, x: model.prefill(
+                    p, c, {"tokens": x["tokens"]}, max_len=80)[0]
+                runs.append((pre(gpu, cfg.replace(use_pallas=True), bg)
+                             .cpu(), pre(cpu, cfg, b), pre(p32, cfg32, b)))
+        line = []
+        for card, host, ref in runs:
+            e_c, e_h = max_abs(card.float(), ref), max_abs(host.float(), ref)
+            check(bool(torch.isfinite(card).all()) and card.dtype ==
+                  torch.bfloat16 and e_c <= BF16_ERR_RATIO * e_h,
+                  f"small {arch} bf16: card {e_c} vs CPU {e_h}")
+            worst = max(worst, e_c / e_h)
+            line.append(f"{e_c:.3e} / {e_h:.3e}")
+        print(f"  small {arch} bfloat16, card (kernels) / CPU (plain) against"
+              f" float32: forward {line[0]}"
+              + (f", prefill {line[1]}" if len(line) > 1 else ""))
+        del cpu, gpu, p32
+    print(f"  small bfloat16: the card's error at most {worst:.3f} x the "
+          f"CPU's (bound {BF16_ERR_RATIO})")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2846,6 +3440,7 @@ def main():
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     name = torch.cuda.get_device_name(0)
     smi = gpu_name_and_power_limit()
     print(f"[1] device: {name} | count {torch.cuda.device_count()} | "
@@ -2869,13 +3464,14 @@ def main():
     flash_log = build.BUILD_LOG.get(fa.LIBRARY.name, {}).get("ptxas", "")
     spills = [line.strip() for line in flash_log.splitlines()
               if "spill" in line]
-    print(f"  flash_attention: {fa.SHARED_BYTES} bytes of dynamic shared "
-          f"memory a block | {spills or '(cached build: no ptxas report)'}")
+    print(f"  flash_attention: {fa.SHARED_BYTES} (float32), "
+          f"{fa.SHARED_BYTES_BF16} (bfloat16) bytes of dynamic shared memory"
+          f" a block | {spills or '(cached build: no ptxas report)'}")
     check(all(" 0 bytes spill stores, 0 bytes spill loads" in line
               for line in spills), f"the flash kernel spills: {spills}")
-    check(not spills or len(spills) == len(fa.HEAD_DIMS),
-          f"want one ptxas report per flash instantiation {fa.HEAD_DIMS}: "
-          f"{spills}")
+    check(not spills or len(spills) == len(fa.HEAD_DIMS) * len(fa.ENTRIES),
+          f"want one ptxas report per flash instantiation {fa.HEAD_DIMS} x "
+          f"{list(fa.ENTRIES)}: {spills}")
 
     print("[3] kernels vs plain versions, ragged layouts", flush=True)
     ragged_phase(torch, dev)
@@ -2889,11 +3485,11 @@ def main():
     want = {"lag-wk": ("delta_sqnorm_blocks", "masked_combine"),
             "laq@4": ("absmax_blocks", "laq_encode_blocks", "masked_combine")}
     launches = {k: 0 for k in kernels.LAUNCHES}
-    phase5 = {}
+    phase5, phase5_runs = {}, {}
     for algo, names in want.items():
         run = trainer_phase(torch, algo)
         got = run["plane"]
-        phase5[algo] = run["rounds"]
+        phase5[algo], phase5_runs[algo] = run["rounds"], run
         for k in names:
             check(got[k] >= 4, f"{algo}: kernel {k} launched {got[k]} times "
                                f"in 4 rounds")
@@ -3025,6 +3621,24 @@ def main():
           f"phase 17 launches {p17}")
     print(f"  phase 17 launches: { {k: v for k, v in p17.items() if v} } "
           f"in {time.perf_counter() - t17:.1f} s")
+
+    print("[18] bfloat16 serving: a both kernels at bfloat16, b serving "
+          "llama3.2-1b, command-r-35b (40 layers), qwen3-moe-30b-a3b (48), "
+          "qwen3-moe-235b-a22b (reckoned), recurrentgemma-9b, hubert-xlarge's"
+          " forward, c remat, d the reduced configs card = CPU", flush=True)
+    t18 = time.perf_counter()
+    full.update(bf16_kernel_phase(torch, dev))
+    p18 = bf16_serve(torch, dev)
+    for part in (remat_phase(torch, phase5_runs),):
+        for k, v in part.items():
+            p18[k] = p18.get(k, 0) + v
+    bf16_small_agreement(torch, dev)
+    for k, v in p18.items():
+        launches[k] = launches.get(k, 0) + v
+    check(p18["rmsnorm_bf16"] > 0 and p18["flash_attention_bf16"] > 0,
+          f"phase 18 launches {p18}")
+    print(f"  phase 18 launches: { {k: v for k, v in p18.items() if v} } "
+          f"in {time.perf_counter() - t18:.1f} s")
 
     rows = [dict(name=k, route="cuda", source=SOURCES.get(k, SOURCE),
                  replaces=REPLACES[k], launches=launches[k], **full[k])

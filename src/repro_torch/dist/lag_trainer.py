@@ -128,6 +128,20 @@ def param_layout(cfg: ModelConfig) -> FlatLayout:
     return FlatLayout.for_tree(model.templates(cfg))
 
 
+def check_float32(cfg: ModelConfig) -> None:
+    """The deep trainers take float32 models only.  The reference trains a
+    bfloat16 config with bfloat16 parameters and ĝ mirrors (its
+    ``grad_hat_dtype``), rounding θ to bfloat16 every step; the port's
+    flat plane holds θ and ĝ in float32, which would be another
+    computation, so a bfloat16 config is refused (ROADMAP queue 1 item 4)."""
+    if cfg.dtype != "float32" or cfg.param_dtype != "float32":
+        raise NotImplementedError(
+            f"{cfg.arch_id}: training at dtype={cfg.dtype!r}, param_dtype="
+            f"{cfg.param_dtype!r} is not ported: the flat plane is float32, "
+            f"the reference keeps bfloat16 parameters and ĝ mirrors "
+            f"(ROADMAP queue 1 item 4); serving takes bfloat16")
+
+
 # ---------------------------------------------------------------------------
 # State
 # ---------------------------------------------------------------------------
@@ -136,7 +150,8 @@ def init_params(cfg: ModelConfig, *, device, seed: int = 0,
                 params: Optional[Dict] = None) -> torch.Tensor:
     """The flat ``(rows, 128)`` θ buffer on ``device``: ``params`` (a
     parameter tree) copied in, or weights drawn from a ``torch.Generator``
-    seeded with ``seed``."""
+    seeded with ``seed``.  A bfloat16 config raises (:func:`check_float32`)."""
+    check_float32(cfg)
     device = torch.device(device)
     lo = param_layout(cfg)
     theta = lo.empty(device=device)
@@ -273,6 +288,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainerConfig, policy=None,
     events: before the gradients (both passes for LASG-WK), after them,
     after the round (read them with :func:`phase_ms` once the device has
     caught up)."""
+    check_float32(cfg)
     policy = policy if policy is not None else tcfg.comm_policy()
     server = server if server is not None else tcfg.server_optimizer()
     topology = topology if topology is not None else BatchShards()

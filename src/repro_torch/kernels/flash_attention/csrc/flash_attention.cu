@@ -1,5 +1,7 @@
-// Flash attention forward for Hopper (sm_90a), float32 in and out, the two
-// products on the tensor cores in split TF32 ("3xTF32").
+// Flash attention forward for Hopper (sm_90a), float32 or bfloat16 in and
+// out, the two products on the tensor cores in TF32 with float32
+// accumulators: split ("3xTF32") for float32 operands, and for bfloat16 one
+// product for the scores and two for P.V (below).
 //
 // Hand-written CUDA replacement of the Pallas kernel flash_attention_padded
 // (_flash_kernel) of src/repro/kernels/flash_attention/flash_attention.py:
@@ -118,12 +120,28 @@
 //     1, so l and acc would come out of it unchanged.  Rows past Sq are
 //     computed on zeros and not stored: any Sq and Skv, no padding.
 //
+// bfloat16 (the same four instantiations, each at element type bf16): q, k,
+// v and o are bfloat16; m, l and the accumulators float32.  The function is
+// the reference kernel's: float32 attention on the widened inputs, rounded
+// to bfloat16 once, at the store.  A bfloat16 value (8 significant bits) is
+// exact in TF32 (11), and so is q * scale where the scale folds (a power of
+// two; but for float32 subnormals, below 2^-126): the score product q.k^T
+// is ONE TF32 product, exact term by term.  P
+// is float32, V exact, so P.V is two, P_lo.V + P_hi.V.  K and V stay
+// bfloat16 in the cp.async ring (8-byte copies of four elements, the same
+// element layout and swizzle as float32, half the bytes), widened as the
+// fragments are read; there is no lo to split, so no split pass and no lo
+// buffer, and q's fragments are its hi alone.  Where the scale does not fold
+// (80, 128) it multiplies the scores after the product, as in float32.
+// Shared memory a block: 32 / 24 / 48 / 104 KB at 64 / 80 / 128 / 256.
+//
 // No backward: the reference's kernel has none either.
 //
 // C interface (loaded with ctypes): launches on the given stream, does not
 // synchronise, allocates nothing, returns the first CUDA error of the
 // shared-memory attribute call or of the launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -167,6 +185,25 @@ struct Shape {
   static_assert(HALVES == 1 || WARPS * HALVES * BK * 16 <= TILE, "exchange");
 };
 
+// shared memory of instantiation S at element type T, in order: the K/V
+// ring (two stages of T), float32 scratch (float32: the lo of the current
+// K and V tile; bfloat16: only the pair's score exchange, at HALVES 2), and
+// q's fragments (float32: lo, and hi under QS; bfloat16: hi under QS)
+template <class S, typename T>
+struct Layout {
+  static constexpr bool BF = sizeof(T) == 2;
+  static constexpr int RING = 2 * S::STAGE * (int)sizeof(T);      // bytes
+  static constexpr int SCRATCH =
+      BF ? (S::HALVES == 2 ? WARPS * S::HALVES * S::BK * 16 : 0) : S::STAGE;
+  static constexpr int QFRAGS = (BF ? 0 : 1) + (S::QS ? 1 : 0);
+  static constexpr int BYTES =
+      RING + (SCRATCH + QFRAGS * S::QLO) * (int)sizeof(float);
+  static_assert(RING % 16 == 0, "ring");
+  static_assert(BF || BYTES == S::SMEM_BYTES, "float32 layout");
+};
+
+typedef __nv_bfloat16 bf16;
+
 using Hd64 = Shape<64, 64, 64, 2, false>;
 using Hd80 = Shape<80, 96, 32, 3, false>;
 using Hd128 = Shape<128, 128, 16, 2, true>;
@@ -192,6 +229,34 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
+// four consecutive elements, widened to float
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// four values stored at the element type (bfloat16: rounded to nearest)
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&a);
+  u.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          float b0, float b1) {
   asm volatile(
@@ -212,7 +277,17 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
   mma_tf32(d, ah, bh0, bh1);
 }
 
-// float offset of the 16-byte chunk c of row r of a tile: chunks
+// d += a . b with b exact in TF32 (a bfloat16 value): a split, small
+// terms first
+__device__ __forceinline__ void mma2(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  mma_tf32(d, al, b0, b1);
+  mma_tf32(d, ah, b0, b1);
+}
+
+// element offset of the 4-element chunk (16 bytes of float32) c of row r of
+// a tile: chunks
 // XOR-swizzled by r's low three bits.  A quarter warp reads K at rows
 // {2i, 2i + 1} and chunks 4m .. 4m + 3, V at the four even (or odd) rows of
 // an 8-key slab and chunks {cc, NT / 4 + cc}; the swizzle spreads both
@@ -225,7 +300,7 @@ __device__ __forceinline__ int chunk_at(int r, int c) {
   return r * HDP + 4 * (c ^ sw);
 }
 
-// float offset of chunk c (of the whole row) of row r of a K or V tile:
+// element offset of chunk c (of the whole row) of row r of a K or V tile:
 // under HALVES > 1 the tile is HALVES sub-tiles of BK rows of W columns,
 // each laid out as chunk_at<W>
 template <class S>
@@ -234,11 +309,20 @@ __device__ __forceinline__ int tile_at(int r, int c) {
   return (c / (S::W / 4)) * S::BK * S::W + chunk_at<S::W>(r, c % (S::W / 4));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int src_bytes) {
+// four elements into shared memory, zero-filled where src_bytes is 0:
+// 16 bytes of float32 (bypassing L1), or 8 of bfloat16
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
+               :: "r"(d), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(bf16* dst, const bf16* src,
+                                          bool in) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(d), "l"(src), "r"(in ? 8 : 0) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -299,17 +383,21 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 8][4],
   l1 = al1 * l1 + ps1;
 }
 
-template <class S>
+template <class S, typename T>
 __global__ void __launch_bounds__(S::THREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
                  int64_t Sq, int64_t Skv, int64_t H, int64_t KV,
                  float scale, int causal, int64_t window) {
+  using L = Layout<S, T>;
+  constexpr bool BF = L::BF;
   constexpr int HD = S::HD, HDP = S::HDP, BK = S::BK, NT = S::NT;
   constexpr int W = S::W, THREADS = S::THREADS;
   constexpr int TILE = S::TILE, STAGE = S::STAGE;
   extern __shared__ __align__(16) float smem[];
-  float* const lo_buf = smem + 2 * STAGE;     // lo of the current tile
+  T* const ring = reinterpret_cast<T*>(smem);
+  // float32: the lo of the current tile; both: the pair's score exchange
+  float* const lo_buf = reinterpret_cast<float*>(ring + 2 * STAGE);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // this warp's row group and column half (columns hh W .. hh W + W - 1)
@@ -329,23 +417,33 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // a1) and + 1 (a2, a3), k step 2m + 1 hd + 2 and + 3.  hi in registers,
   // lo in this thread's own slots of shared memory (one 16-byte slot per k
   // step, consecutive lanes on consecutive slots), which saves NT * 4
-  // registers.  Columns past HD are zero
+  // registers.  Columns past HD are zero.  bfloat16: hi = q exactly, no lo
   uint32_t qh[NT][4];
-  uint4* const qlo = reinterpret_cast<uint4*>(smem + 3 * STAGE)
-                     + warp * NT * 32 + lane;
-  uint4* const qhi = qlo + WARPS * S::HALVES * NT * 32;  // under S::QS only
+  uint4* const qlo = reinterpret_cast<uint4*>(lo_buf + L::SCRATCH)
+                     + warp * NT * 32 + lane;               // float32 only
+  // under S::QS only
+  uint4* const qhi = BF ? qlo : qlo + WARPS * S::HALVES * NT * 32;
   {
     uint32_t ql[NT][4];
-    const float4* qr0 = reinterpret_cast<const float4*>(
-        q + ((b * Sq + (r0 < Sq ? r0 : 0)) * H + h) * HD + hh * W);
-    const float4* qr1 = reinterpret_cast<const float4*>(
-        q + ((b * Sq + (r1 < Sq ? r1 : 0)) * H + h) * HD + hh * W);
+    const T* qr0 = q + ((b * Sq + (r0 < Sq ? r0 : 0)) * H + h) * HD + hh * W;
+    const T* qr1 = q + ((b * Sq + (r1 < Sq ? r1 : 0)) * H + h) * HD + hh * W;
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int m = 0; m < W / 16; ++m) {
       const bool col = HD == HDP || 4 * m + tq < HD / 4;
-      const float4 x = r0 < Sq && col ? qr0[4 * m + tq] : zero;
-      const float4 y = r1 < Sq && col ? qr1[4 * m + tq] : zero;
+      const float4 x = r0 < Sq && col ? load4(qr0 + 4 * (4 * m + tq)) : zero;
+      const float4 y = r1 < Sq && col ? load4(qr1 + 4 * (4 * m + tq)) : zero;
+      if constexpr (BF) {
+        qh[2 * m][0] = tf32_rna(x.x * qscale);
+        qh[2 * m][1] = tf32_rna(y.x * qscale);
+        qh[2 * m][2] = tf32_rna(x.y * qscale);
+        qh[2 * m][3] = tf32_rna(y.y * qscale);
+        qh[2 * m + 1][0] = tf32_rna(x.z * qscale);
+        qh[2 * m + 1][1] = tf32_rna(y.z * qscale);
+        qh[2 * m + 1][2] = tf32_rna(x.w * qscale);
+        qh[2 * m + 1][3] = tf32_rna(y.w * qscale);
+        continue;
+      }
       split(x.x * qscale, qh[2 * m][0], ql[2 * m][0]);
       split(y.x * qscale, qh[2 * m][1], ql[2 * m][1]);
       split(x.y * qscale, qh[2 * m][2], ql[2 * m][2]);
@@ -357,7 +455,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 #pragma unroll
     for (int kk = 0; kk < NT; ++kk) {
-      qlo[32 * kk] = make_uint4(ql[kk][0], ql[kk][1], ql[kk][2], ql[kk][3]);
+      if (!BF)
+        qlo[32 * kk] = make_uint4(ql[kk][0], ql[kk][1], ql[kk][2], ql[kk][3]);
       if (S::QS)
         qhi[32 * kk] = make_uint4(qh[kk][0], qh[kk][1], qh[kk][2], qh[kk][3]);
     }
@@ -371,12 +470,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (window > 0 && q0 - window + 1 > 0) k_begin = q0 - window + 1;
   const int64_t t_begin = k_begin / BK, t_end = (k_end + BK - 1) / BK;
 
-  // one tile of K and V into ring stage s: 16-byte copies, a row of HDP / 4
-  // chunks per as many consecutive threads; keys past Skv and columns past
-  // HD are zero-filled
+  // one tile of K and V into ring stage s: 4-element copies, a row of HDP /
+  // 4 chunks per as many consecutive threads; keys past Skv and columns
+  // past HD are zero-filled
   auto load_tile = [&](int64_t t, int s) {
-    float* ks = smem + s * STAGE;
-    float* vs = ks + TILE;
+    T* ks = ring + s * STAGE;
+    T* vs = ks + TILE;
 #pragma unroll
     for (int it = 0; it < TILE / 4 / THREADS; ++it) {
       const int i = it * THREADS + threadIdx.x;
@@ -384,8 +483,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int64_t kp = t * BK + r;
       const bool in = kp < Skv && (HD == HDP || c < HD / 4);
       const int64_t idx = in ? ((b * Skv + kp) * KV + g) * HD + 4 * c : 0;
-      cp_async16(ks + tile_at<S>(r, c), k + idx, in ? 16 : 0);
-      cp_async16(vs + tile_at<S>(r, c), v + idx, in ? 16 : 0);
+      cp_async4(ks + tile_at<S>(r, c), k + idx, in);
+      cp_async4(vs + tile_at<S>(r, c), v + idx, in);
     }
     cp_async_commit();
   };
@@ -401,32 +500,34 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (t_begin < t_end) load_tile(t_begin, 0);
   for (int64_t t = t_begin; t < t_end; ++t) {
     const int s = (int)((t - t_begin) & 1);
-    float* const ks = smem + s * STAGE;
-    float* const vs = ks + TILE;
-    const float* const kh = ks + sub;     // this warp's columns of K, V
-    const float* const vh = vs + sub;
+    T* const ks = ring + s * STAGE;
+    T* const vs = ks + TILE;
+    const T* const kh = ks + sub;         // this warp's columns of K, V
+    const T* const vh = vs + sub;
     cp_async_wait_all();                  // tile t has landed
     __syncthreads();                      // ... for every thread, and every
                                           // warp is done with tile t - 1
     if (t + 1 < t_end) load_tile(t + 1, s ^ 1);
-    // split tile t once: hi in place, lo into lo_buf (same offsets)
+    if constexpr (!BF) {
+      // split tile t once: hi in place, lo into lo_buf (same offsets)
 #pragma unroll
-    for (int it = 0; it < STAGE / 4 / THREADS; ++it) {
-      const int i = 4 * (it * THREADS + threadIdx.x);
-      float4 x = *reinterpret_cast<float4*>(ks + i);
-      uint32_t hx, lx, hy, ly, hz, lz, hw, lw;
-      split(x.x, hx, lx);
-      split(x.y, hy, ly);
-      split(x.z, hz, lz);
-      split(x.w, hw, lw);
-      *reinterpret_cast<float4*>(ks + i) = make_float4(
-          __uint_as_float(hx), __uint_as_float(hy), __uint_as_float(hz),
-          __uint_as_float(hw));
-      *reinterpret_cast<float4*>(lo_buf + i) = make_float4(
-          __uint_as_float(lx), __uint_as_float(ly), __uint_as_float(lz),
-          __uint_as_float(lw));
+      for (int it = 0; it < STAGE / 4 / THREADS; ++it) {
+        const int i = 4 * (it * THREADS + threadIdx.x);
+        float4 x = *reinterpret_cast<float4*>(ks + i);
+        uint32_t hx, lx, hy, ly, hz, lz, hw, lw;
+        split(x.x, hx, lx);
+        split(x.y, hy, ly);
+        split(x.z, hz, lz);
+        split(x.w, hw, lw);
+        *reinterpret_cast<float4*>(ks + i) = make_float4(
+            __uint_as_float(hx), __uint_as_float(hy), __uint_as_float(hz),
+            __uint_as_float(hw));
+        *reinterpret_cast<float4*>(lo_buf + i) = make_float4(
+            __uint_as_float(lx), __uint_as_float(ly), __uint_as_float(lz),
+            __uint_as_float(lw));
+      }
+      __syncthreads();
     }
-    __syncthreads();
     const float* const kl = lo_buf + sub;
     const float* const vl = lo_buf + TILE + sub;
     const int64_t k0 = t * BK;
@@ -442,8 +543,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       uint32_t ql[2][4], qa[2][4];
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        const uint4 x = qlo[32 * (2 * m + u)];
-        ql[u][0] = x.x; ql[u][1] = x.y; ql[u][2] = x.z; ql[u][3] = x.w;
+        if (!BF) {
+          const uint4 x = qlo[32 * (2 * m + u)];
+          ql[u][0] = x.x; ql[u][1] = x.y; ql[u][2] = x.z; ql[u][3] = x.w;
+        }
         if (S::QS) {
           const uint4 y = qhi[32 * (2 * m + u)];
           qa[u][0] = y.x; qa[u][1] = y.y; qa[u][2] = y.z; qa[u][3] = y.w;
@@ -456,17 +559,26 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < BK / 8; ++j) {
         // B = K^T at key 8j + gr: hd 16m + 4tq .. + 3, two k steps
         const int off = chunk_at<W>(8 * j + gr, 4 * m + tq);
-        const float4 bh = *reinterpret_cast<const float4*>(kh + off);
-        const float4 bl = *reinterpret_cast<const float4*>(kl + off);
+        const float4 bh = load4(kh + off);
+        // two k steps into d: one exact TF32 product each for bfloat16,
+        // three (split) for float32
+        auto step = [&](float (&d)[4]) {
+          if constexpr (BF) {
+            mma_tf32(d, qa[0], bh.x, bh.y);
+            mma_tf32(d, qa[1], bh.z, bh.w);
+          } else {
+            const float4 bl = load4(kl + off);
+            mma3(d, qa[0], ql[0], bh.x, bh.y, bl.x, bl.y);
+            mma3(d, qa[1], ql[1], bh.z, bh.w, bl.z, bl.w);
+          }
+        };
         if (S::HALVES == 1) {
-          mma3(sc[j], qa[0], ql[0], bh.x, bh.y, bl.x, bl.y);
-          mma3(sc[j], qa[1], ql[1], bh.z, bh.w, bl.z, bl.w);
+          step(sc[j]);
         } else {
           // 16 columns into a fresh accumulator, added in float32 (round
-          // to nearest): no chain of 48 tensor-core accumulations
+          // to nearest): no long chain of tensor-core accumulations
           float f[4] = {0.f, 0.f, 0.f, 0.f};
-          mma3(f, qa[0], ql[0], bh.x, bh.y, bl.x, bl.y);
-          mma3(f, qa[1], ql[1], bh.z, bh.w, bl.z, bl.w);
+          step(f);
 #pragma unroll
           for (int e = 0; e < 4; ++e) sc[j][e] += f[e];
         }
@@ -543,14 +655,21 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const int o0 = chunk_at<W>(8 * js + 2 * tq, NT / 4 * gr + c0 + cc);
           const int o1 = chunk_at<W>(8 * js + 2 * tq + 1,
                                      NT / 4 * gr + c0 + cc);
-          const float4 h0 = *reinterpret_cast<const float4*>(vh + o0);
-          const float4 h1 = *reinterpret_cast<const float4*>(vh + o1);
-          const float4 w0 = *reinterpret_cast<const float4*>(vl + o0);
-          const float4 w1 = *reinterpret_cast<const float4*>(vl + o1);
-          mma3(ot[4 * cc], ph, pl, h0.x, h1.x, w0.x, w1.x);
-          mma3(ot[4 * cc + 1], ph, pl, h0.y, h1.y, w0.y, w1.y);
-          mma3(ot[4 * cc + 2], ph, pl, h0.z, h1.z, w0.z, w1.z);
-          mma3(ot[4 * cc + 3], ph, pl, h0.w, h1.w, w0.w, w1.w);
+          const float4 h0 = load4(vh + o0);
+          const float4 h1 = load4(vh + o1);
+          if constexpr (BF) {
+            mma2(ot[4 * cc], ph, pl, h0.x, h1.x);
+            mma2(ot[4 * cc + 1], ph, pl, h0.y, h1.y);
+            mma2(ot[4 * cc + 2], ph, pl, h0.z, h1.z);
+            mma2(ot[4 * cc + 3], ph, pl, h0.w, h1.w);
+          } else {
+            const float4 w0 = load4(vl + o0);
+            const float4 w1 = load4(vl + o1);
+            mma3(ot[4 * cc], ph, pl, h0.x, h1.x, w0.x, w1.x);
+            mma3(ot[4 * cc + 1], ph, pl, h0.y, h1.y, w0.y, w1.y);
+            mma3(ot[4 * cc + 2], ph, pl, h0.z, h1.z, w0.z, w1.z);
+            mma3(ot[4 * cc + 3], ph, pl, h0.w, h1.w, w0.w, w1.w);
+          }
         }
       }
 #pragma unroll
@@ -575,26 +694,27 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int64_t r = e ? r1 : r0;
     const float den = e ? den1 : den0;
     if (r < Sq) {
-      float* const dst = o + ((b * Sq + r) * H + h) * HD + hh * W;
+      T* const dst = o + ((b * Sq + r) * H + h) * HD + hh * W;
 #pragma unroll
       for (int c = 0; c < 2; ++c)
 #pragma unroll
         for (int cc = 0; cc < NT / 4; ++cc) {
           const int col = NT * (2 * tq + c) + 4 * cc;
           if (HD == HDP || col < HD)
-            *reinterpret_cast<float4*>(dst + col) = make_float4(
+            store4(dst + col, make_float4(
                 acc[4 * cc][2 * e + c] / den, acc[4 * cc + 1][2 * e + c] / den,
                 acc[4 * cc + 2][2 * e + c] / den,
-                acc[4 * cc + 3][2 * e + c] / den);
+                acc[4 * cc + 3][2 * e + c] / den));
         }
     }
   }
 }
 
-template <class S>
+template <class S, typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
            int64_t Sq, int64_t Skv, int64_t H, int64_t KV, float scale,
            int causal, int64_t window, cudaStream_t stream) {
+  constexpr int smem_bytes = Layout<S, T>::BYTES;
   const int64_t nq = (Sq + BQ - 1) / BQ;
   if (B * H > 0x7fffffffLL || nq > 65535) return (int)cudaErrorInvalidValue;
   // above 48 KB of dynamic shared memory a kernel must opt in, once per
@@ -605,17 +725,39 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   if (!opted_in[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<S>,
+    err = cudaFuncSetAttribute(flash_fwd_kernel<S, T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               S::SMEM_BYTES);
+                               smem_bytes);
     if (err != cudaSuccess) return (int)err;
     opted_in[dev] = true;
   }
   const dim3 grid((unsigned)(B * H), (unsigned)nq);
-  flash_fwd_kernel<S><<<grid, S::THREADS, S::SMEM_BYTES, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Skv,
-      H, KV, scale, causal, window);
+  flash_fwd_kernel<S, T><<<grid, S::THREADS, smem_bytes, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Skv, H, KV, scale,
+      causal, window);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* o, int64_t B,
+             int64_t Sq, int64_t Skv, int64_t H, int64_t KV, int64_t hd,
+             float scale, int causal, int64_t window, void* stream) {
+  if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  if (hd != Hd64::HD && hd != Hd80::HD && hd != Hd128::HD && hd != Hd256::HD)
+    return (int)cudaErrorInvalidValue;
+  if (B * H == 0 || Sq == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (hd == Hd64::HD)
+    return launch<Hd64, T>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
+                           window, s);
+  if (hd == Hd80::HD)
+    return launch<Hd80, T>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
+                           window, s);
+  if (hd == Hd128::HD)
+    return launch<Hd128, T>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
+                            window, s);
+  return launch<Hd256, T>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
+                          window, s);
 }
 
 }  // namespace
@@ -629,22 +771,17 @@ int lag_flash_attention_f32(const void* q, const void* k, const void* v,
                             void* o, int64_t B, int64_t Sq, int64_t Skv,
                             int64_t H, int64_t KV, int64_t hd, float scale,
                             int causal, int64_t window, void* stream) {
-  if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
-  if (hd != Hd64::HD && hd != Hd80::HD && hd != Hd128::HD && hd != Hd256::HD)
-    return (int)cudaErrorInvalidValue;
-  if (B * H == 0 || Sq == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (hd == Hd64::HD)
-    return launch<Hd64>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
-                        s);
-  if (hd == Hd80::HD)
-    return launch<Hd80>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
-                        s);
-  if (hd == Hd128::HD)
-    return launch<Hd128>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
-                         s);
-  return launch<Hd256>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
-                       s);
+  return dispatch<float>(q, k, v, o, B, Sq, Skv, H, KV, hd, scale, causal,
+                         window, stream);
+}
+
+// the same in bfloat16: q, k, v, o bfloat16 (8-byte aligned rows)
+int lag_flash_attention_bf16(const void* q, const void* k, const void* v,
+                             void* o, int64_t B, int64_t Sq, int64_t Skv,
+                             int64_t H, int64_t KV, int64_t hd, float scale,
+                             int causal, int64_t window, void* stream) {
+  return dispatch<bf16>(q, k, v, o, B, Sq, Skv, H, KV, hd, scale, causal,
+                        window, stream);
 }
 
 }  // extern "C"

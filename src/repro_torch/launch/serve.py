@@ -70,8 +70,12 @@ def main(argv=None, on_round=None, params=None, cfg=None):
     args = build_argparser().parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":
+        # float32 products in full float32, bfloat16 products accumulated
+        # in float32 (as XLA's are)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     if cfg is None:
         cfg = get_config(args.arch)
         if args.reduced:

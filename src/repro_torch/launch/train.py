@@ -140,9 +140,12 @@ def main(argv=None, on_step=None, use_pallas_comm=False):
     args = build_argparser().parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":
-        # the trigger compares f32 norms: keep matmuls in full float32
+        # the trigger compares f32 norms: keep matmuls in full float32 (and
+        # any bfloat16 product's sums in float32)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     cfg = get_config(args.arch)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)

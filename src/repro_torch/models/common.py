@@ -56,9 +56,30 @@ class ModelConfig:
     tie_embeddings: bool = False
     dtype: str = "float32"           # activation/compute dtype
     param_dtype: str = "float32"
+    # recompute each superblock's layers in the backward instead of keeping
+    # their activations (``torch.utils.checkpoint``, the reference's
+    # ``jax.checkpoint(superblock)``); the unscanned tail is not wrapped,
+    # and a forward without gradients (prefill, decode) runs as it is.  Off
+    # by default, unlike the reference: losses and gradients are bitwise
+    # the same either way, it costs a second forward, and no driven
+    # training shape's peak needs it (trees, not activations, fill it)
+    remat: bool = False
     # the hand-written kernels (rmsnorm, flash attention) on the prefill
     # path; for CPU tensors their plain versions
     use_pallas: bool = False
+    # the reference's mesh and compile knobs, taken for ``get_config``
+    # parity.  act_shard_axes pins activations to mesh axes: () is the
+    # identity, and any other value needs a device mesh, which the port
+    # does not have yet (ROADMAP queue 1 item 5), so ``forward`` raises as
+    # the reference does with no mesh in context; act_shard_seq only
+    # widens that constraint.  scan_unroll (a Python loop instead of
+    # lax.scan) and embed_onehot (the lookup as one_hot @ embed, for a
+    # vocab-sharded table) give the same values in the reference, and the
+    # port runs one program for both: a loop and a gather
+    act_shard_axes: Tuple[str, ...] = ()
+    act_shard_seq: bool = False
+    scan_unroll: bool = False
+    embed_onehot: bool = False
 
     @property
     def compute_dtype(self) -> torch.dtype:

@@ -24,7 +24,11 @@ kinds, (h, conv window) for ``rec``, (conv window, SSM state) for ``ssd``.
 
 ``cfg.use_pallas`` routes as the reference does: the prefill/forward
 RMSNorms and attention go through the kernels, the decode step's norms do
-not, LayerNorm and Mamba-2's gated norm have no kernel.  The ``moe``
+not, LayerNorm and Mamba-2's gated norm have no kernel.  ``cfg.remat``
+(off by default) runs each superblock of a forward that takes gradients
+under ``torch.utils.checkpoint``: its activations are
+recomputed in the backward, by the same ops in the same order, so losses
+and gradients equal those without it bit for bit.  The ``moe``
 layers' load-balance losses are summed over the layers and added to the
 cross-entropy by ``loss_fn`` (× 0.01, the reference's weight); ``forward``
 returns the logits alone.
@@ -35,6 +39,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.tree import tree_map
 from repro_torch.models import (attention, common, mamba2, mlp, moe, rglru,
@@ -294,20 +299,48 @@ def _angles(cfg: ModelConfig, inputs: Dict, B: int, S: int, device):
     return None, None, None
 
 
+def _constrain_act(cfg: ModelConfig) -> None:
+    """The reference's activation sharding constraint: the identity for
+    ``act_shard_axes == ()``; any other value needs a mesh in context, and
+    the reference raises without one, so the port raises."""
+    if cfg.act_shard_axes:
+        raise RuntimeError(
+            f"act_shard_axes={cfg.act_shard_axes!r} pins activations to a "
+            f"device mesh, which the port does not have (ROADMAP queue 1 "
+            f"item 5); the reference's with_sharding_constraint raises "
+            f"without a mesh in context too")
+
+
 def forward_with_aux(params: Dict, cfg: ModelConfig, inputs: Dict
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward → (logits (B, S, vocab), the layers' summed
-    load-balance loss: a float32 zero without an ``moe`` layer)."""
+    load-balance loss: a float32 zero without an ``moe`` layer).  Under
+    ``cfg.remat``, with gradients enabled, each superblock runs under
+    ``torch.utils.checkpoint``; the tail never does."""
     _check_family(cfg)
     x = _embed(params, cfg, inputs)
+    _constrain_act(cfg)
     B, S, _ = x.shape
     cos, sin, positions = _angles(cfg, inputs, B, S, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p, kind, _ in _layers(params, cfg):
-        x, a, _ = layer_apply(p, x, kind, cfg, cos=cos, sin=sin,
-                              positions=positions)
-        if a is not None:
-            aux = aux + a
+
+    def run(layers, x, aux):
+        for p, kind in layers:
+            x, a, _ = layer_apply(p, x, kind, cfg, cos=cos, sin=sin,
+                                  positions=positions)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    width = len(cfg.block_pattern)
+    layers = [(p, kind) for p, kind, _ in _layers(params, cfg)]
+    scanned = cfg.num_superblocks * width
+    for i in range(0, scanned, width):
+        block = layers[i:i + width]
+        x, aux = (checkpoint(run, block, x, aux, use_reentrant=False)
+                  if remat else run(block, x, aux))
+    x, aux = run(layers[scanned:], x, aux)
     x = common.apply_norm(params["final_norm"], x, cfg.norm,
                           use_pallas=cfg.use_pallas)
     return _head(params, cfg, x), aux

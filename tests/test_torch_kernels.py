@@ -454,12 +454,95 @@ def test_cuda_flash_attention_matches_plain_wide_heads(cuda_device, S, Skv,
     torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 ulp at |x| (8 significant bits)."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(1, 2048), (13, 2048), (9, 256),
+                                    (5, 132), (3, 4096), (7, 3072),
+                                    (4, 3584), (6, 8192), (3, 6000)])
+def test_cuda_rmsnorm_bf16_matches_plain(cuda_device, rows, d):
+    """The bfloat16 kernel is the float32 kernel's rsqrt on the widened row
+    (same sum order) rounded twice, as the reference's kernel rounds:
+    bitwise bf16(bf16(y32) · scale) with y32 the float32 kernel's output at
+    scale 1; within the reference's 3e-2 of the plain bfloat16 version
+    (× the output's largest |entry| above one: the reference states it for
+    outputs of order one)."""
+    g = torch.Generator(device=cuda_device).manual_seed(rows * d)
+    x = torch.randn((rows, d), device=cuda_device, generator=g).bfloat16()
+    s = torch.randn((d,), device=cuda_device, generator=g).bfloat16()
+    got = t_rms_ops.rmsnorm(x, s)
+    assert got.dtype == torch.bfloat16
+    y32 = t_rms_ops.rmsnorm(x.float(), torch.ones(d, device=cuda_device))
+    assert torch.equal(got, (y32.bfloat16().float() * s.float()).bfloat16())
+    plain = t_rms_ref.rmsnorm(x, s).float()
+    assert float((got.float() - plain).abs().max()) <= 3e-2 * max(
+        1.0, float(plain.abs().max()))
+    # a float32 scale is cast to x's dtype first, as in the reference
+    assert torch.equal(t_rms_ops.rmsnorm(x, s.float()), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", (64,) + WIDE_HEADS)
+@pytest.mark.parametrize("S,Skv,causal,window", ATTN_CASES)
+def test_cuda_flash_attention_bf16_matches_plain(cuda_device, S, Skv, causal,
+                                                 window, hd):
+    """bfloat16 q, k, v: within one bfloat16 ulp of the plain version on
+    the widened inputs rounded to bfloat16 (the reference kernel's
+    function), and within the reference's 2.5e-2 of the plain bfloat16
+    version (× the output's largest |entry| above one)."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device).bfloat16()
+               for a in attn_inputs(S, Skv, H=8, KV=2, hd=hd))
+    got = t_fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    want = t_fa_ref.attention(q.float(), k.float(), v.float(),
+                              causal=causal, window=window).bfloat16()
+    plain = t_fa_ref.attention(q, k, v, causal=causal, window=window)
+    if S > Skv and window is not None:
+        live = torch.arange(S, device=cuda_device) - window + 1 < Skv
+        got, want, plain = got[:, live], want[:, live], plain[:, live]
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= bf16_ulp(torch.maximum(got.float().abs(),
+                                                want.float().abs()))
+                 + 1e-6).all())
+    assert float((got.float() - plain.float()).abs().max()) <= 2.5e-2 * max(
+        1.0, float(plain.float().abs().max()))
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_what_no_instantiation_serves(cuda_device):
+    """float32 and bfloat16 are taken; a head_dim without an instantiation,
+    a width that is not whole groups of four (float32 or bfloat16), another
+    dtype and mixed dtypes are refused."""
     q, k, v = (torch.from_numpy(a).to(cuda_device)
                for a in attn_inputs(8, 8, B=1, hd=96))
     with pytest.raises(ValueError, match="head_dim 96 not built"):
         t_fa_ops.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="head_dim 96 not built"):
+        t_fa_ops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in attn_inputs(8, 8, B=1))
+    assert t_fa_ops.flash_attention(q.bfloat16(), k.bfloat16(),
+                                    v.bfloat16()).dtype == torch.bfloat16
+    with pytest.raises(TypeError, match="bfloat16"):
+        t_fa_ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="one dtype"):
+        t_fa_ops.flash_attention(q.bfloat16(), k, v)
     x = torch.ones((2, 8196), device=cuda_device)
     with pytest.raises(ValueError, match="not taken"):
         t_rms_ops.rmsnorm(x, torch.ones(8196, device=cuda_device))
+    for d in (1027, 8196):
+        x = torch.ones((2, d), device=cuda_device, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="not taken"):
+            t_rms_ops.rmsnorm(x, torch.ones(d, device=cuda_device,
+                                            dtype=torch.bfloat16))
+    x = torch.ones((2, 1024), device=cuda_device, dtype=torch.bfloat16)
+    assert t_rms_ops.rmsnorm(x, torch.ones(1024, device=cuda_device,
+                                           dtype=torch.bfloat16)).dtype \
+        == torch.bfloat16
+    with pytest.raises(TypeError, match="bfloat16"):
+        t_rms_ops.rmsnorm(x.half(), torch.ones(1024, device=cuda_device,
+                                               dtype=torch.half))
