@@ -6,12 +6,14 @@
 Phases (any failure raises and the script exits non-zero):
 
   1. device: the card's name, count and ``nvidia-smi`` name/power limit.
-  2. build: compile the four CUDA sources (the comm plane's, rmsnorm's,
-     flash attention's and the legacy per-leaf kernels') with nvcc
-     (sm_90a), one process each, all at once; ptxas's registers and spills
-     of every kernel, the flash kernel's shared memory per head_dim, and a
-     check that none of its eight instantiations (head_dim 64, 80, 128,
-     256, each in float32 and bfloat16) spills.
+  2. build: compile the five CUDA sources (the comm plane's, rmsnorm's,
+     flash attention's float32 and bfloat16 kernels' and the legacy
+     per-leaf kernels') with nvcc (sm_90a), one process each, all at once;
+     ptxas's registers and spills of every kernel, the flash kernels' shared
+     memory per head_dim, a check that none of the float32 flash kernel's
+     four instantiations (head_dim 64, 80, 128, 256) spills, and the count
+     of ``HGMMA`` instructions (wgmma) in the bfloat16 flash library's SASS
+     (``cuobjdump -sass``), which must not be 0.
   3. the comm plane's kernels vs plain versions on ragged synthetic
      layouts (leaf sizes {1, 127, 129, 32768, 0}, W ∈ {1, 3}, the
      unstacked operand, LAQ bits {2, 4, 8}, all three masked modes):
@@ -243,8 +245,9 @@ Phases (any failure raises and the script exits non-zero):
      bfloat16 config):
      a. the bfloat16 instantiations of RMSNorm (rows 1, 7, 129, 1000 and
         8192 at d 1024, 2048, 3072, 3584, 4096, 8192) and flash attention
-        (phase 7's ragged set at head_dim 64, 80, 128, 256 and GQA 64/4,
-        8/2; every registry prefill shape: phase 7's, 15a's, command-r-35b's
+        (phase 7's ragged set at head_dim 16, 32 (zero-padded to 64), 64,
+        80, 128, 256 and GQA 64/4, 8/2, and at head_dim 16 and 32 in float32
+        too; every registry prefill shape: phase 7's, 15a's, command-r-35b's
         (4, 2048, 64/8, 128), 16a's window, 17a's): RMSNorm bitwise the
         float32 kernel's row rounded twice, and within one bfloat16 ulp a
         rounding of the plain version on the widened inputs; flash within
@@ -252,10 +255,13 @@ Phases (any failure raises and the script exits non-zero):
         to bfloat16; both within the reference's bfloat16 tolerances (3e-2,
         2.5e-2) of the plain bfloat16 versions.  Each full shape timed
         beside the float32 kernel on the widened inputs, the plain version
-        and the library's bfloat16 call; flash's bound is the FLOP its masks
-        leave at the bfloat16 tensor cores' 989 TFLOP/s, the design's own
-        TF32 work (one product for q·kᵀ, two for P·V) at 495 TFLOP/s beside
-        it; command-r's shape also in float32.
+        and the library's bfloat16 call (RMSNorm's three on a rotation of
+        inputs and outputs larger than the 50 MB L2, so that every launch
+        reads cold data; the times on one reused input beside them); flash's
+        bound is the FLOP its masks leave at the bfloat16 tensor cores' 989
+        TFLOP/s, the design's own work (one bfloat16 product for q·kᵀ,
+        three for P·V) at the same rate beside it; command-r's shape also in
+        float32.
      b. ``launch.serve`` as phase 8 at bfloat16: llama3.2-1b (the main
         path), command-r-35b at 40 of 40 layers, qwen3-moe-30b-a3b at 48 of
         48, qwen3-moe-235b-a22b at the most layers whose reckoned peak
@@ -329,7 +335,7 @@ SOURCES = {
                        "flash_attention.cu",
     "rmsnorm_bf16": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
     "flash_attention_bf16": "src/repro_torch/kernels/flash_attention/csrc/"
-                            "flash_attention.cu",
+                            "flash_attention_bf16.cu",
     **{k: LEGACY_SOURCE for k in ("delta_sqnorm_2d", "sqnorm_2d",
                                   "masked_update_2d", "innovation_absmax_2d",
                                   "laq_encode_2d")},
@@ -542,8 +548,14 @@ ATTN_BF16 = ((4, 2048, 32, 8, 64, True, None),
              (2, 4096, 16, 1, 256, True, 2048),
              (4, 2048, 32, 4, 128, True, None),
              (4, 2048, 64, 4, 128, True, None))
-BF16_RAGGED = ((64, 32, 8), (80, 16, 16), (128, 24, 8), (128, 64, 4),
-               (256, 16, 1), (256, 8, 2))
+BF16_RAGGED = ((16, 8, 2), (32, 8, 2), (64, 32, 8), (80, 16, 16),
+               (128, 24, 8), (128, 64, 4), (256, 16, 1), (256, 8, 2))
+# 18a: head_dims below every instantiation (the reference's own test cases
+# run 16 and 32), zero-padded to 64: (head_dim, H, KV) in float32
+PADDED_RAGGED = ((16, 8, 2), (32, 8, 2))
+# 18a: RMSNorm's timed launches rotate through inputs and outputs of at
+# least this many bytes together, 4 x the H100's 50 MB L2
+COLD_BYTES = 200e6
 # 18b: (arch, serve flags, layers kept: None = all, "reckon" = the most
 # under SERVE_RECKON_GB; the float32 model fits beside it).  bfloat16
 # weights: command-r-35b 64.76 GB at 40 layers, qwen3-moe-30b-a3b 61.09 at
@@ -620,6 +632,25 @@ def cuda_ms(torch, fn, n=5, warmup=1):
     return start.elapsed_time(end) / n
 
 
+def cold_ms(torch, fn, inputs, n=50):
+    """Mean CUDA-event time of ``fn`` over ``n`` launches that rotate
+    through ``inputs`` (each launch's output kept until its slot comes
+    round again), after a warm-up round: with the rotation's bytes above
+    the L2 cache, every launch reads data that no recent launch left
+    there."""
+    outs = [fn(*x) for x in inputs]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(n):
+        j = i % len(inputs)
+        outs[j] = fn(*inputs[j])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def bound_ms(nbytes, nops, flop_per_s=F32_FLOP_PER_S):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_o = nops / flop_per_s * 1e3
@@ -639,6 +670,26 @@ def bitwise(torch, x, y):
 # ---------------------------------------------------------------------------
 # Phase 3: ragged synthetic layouts
 # ---------------------------------------------------------------------------
+
+def sass_of(path):
+    """The SASS of a built library, by ``cuobjdump -sass`` of the toolkit
+    that built it, or of the copy in Triton's package."""
+    import subprocess
+
+    from repro_torch.kernels import build
+    tools = [os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")]
+    try:
+        import triton
+        tools.append(os.path.join(os.path.dirname(triton.__file__),
+                                  "backends", "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    for tool in tools:
+        if os.path.exists(tool):
+            return subprocess.run([tool, "-sass", str(path)], check=True,
+                                  capture_output=True, text=True).stdout
+    raise RuntimeError(f"no cuobjdump among {tools}")
+
 
 def ragged_phase(torch, dev):
     from repro_torch.fastpath import kernels, kernels_ref
@@ -3098,26 +3149,37 @@ def bf16_kernel_phase(torch, dev):
         print(f"  flash_attention bf16 hd {hd} H {H}/{KV}: {len(cases)} "
               f"ragged cases, max |Δ| {worst:.3e} against the widened plain "
               f"version")
+    for hd, H, KV in PADDED_RAGGED:        # the float32 kernel, zero-padded
+        flash_ragged(torch, dev, gen, hd, H, KV, bad)
 
     R = RMS_FULL[0]
     for d in BF16_RMS_WIDTHS:
         x, sc = randn(R, d), randn(d)
         _, e, b = bf16_rms_case(torch, x, sc)
         bad += [f"rmsnorm bf16 full ({R}, {d}): {m}" for m in b]
-        x32, s32 = x.float(), sc.float()
+        s32 = sc.float()
+        # cold: a rotation of inputs whose bytes with the outputs exceed
+        # COLD_BYTES (bfloat16 and float32 apart)
+        xs = [(randn(R, d), sc)
+              for _ in range(max(2, math.ceil(COLD_BYTES / (4 * R * d))))]
+        x32s = [(t.float(), s32)
+                for t, _ in xs[:max(2, math.ceil(COLD_BYTES / (8 * R * d)))]]
+        lib = lambda t, w: F.rms_norm(t, (d,), w, 1e-6)
         t_b, by = bound_ms(2 * R * d * 2 + d * 2, 4 * R * d)
         row = dict(
             what=f"rmsnorm bf16 ({R}, {d})", max_abs_err=e,
-            ms=cuda_ms(torch, lambda: rms.rmsnorm_2d(x, sc), n=50),
-            f32_ms=cuda_ms(torch, lambda: rms.rmsnorm_2d(x32, s32), n=50),
+            ms=cold_ms(torch, rms.rmsnorm_2d, xs),
+            f32_ms=cold_ms(torch, rms.rmsnorm_2d, x32s),
             plain_ms=cuda_ms(torch, lambda: rms_ref.rmsnorm(x, sc), n=20),
             bound_ms=t_b, bound_by=by,
-            library_ms=cuda_ms(torch, lambda: F.rms_norm(x, (d,), sc, 1e-6),
-                               n=20))
+            library_ms=cold_ms(torch, lib, xs),
+            hot_ms=cuda_ms(torch, lambda: rms.rmsnorm_2d(x, sc), n=50),
+            hot_library_ms=cuda_ms(torch, lambda: lib(x, sc), n=50),
+            rotation=len(xs))
         rows.append(row)
         if (R, d) == RMS_FULL:
             out["rmsnorm_bf16"] = row
-        del x, sc, x32, s32
+        del x, sc, s32, xs, x32s
 
     for B, S, H, KV, hd, causal, window in ATTN_BF16:
         q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
@@ -3130,8 +3192,8 @@ def bf16_kernel_phase(torch, dev):
         if window is not None:
             keep &= pos[:, None] - pos[None] < window
         # the (query, key) pairs the masks leave, 4·hd FLOP each, at the
-        # bfloat16 tensor cores' rate; the design's own work (one TF32
-        # product for q·kᵀ, two for P·V) is the second column
+        # bfloat16 tensor cores' rate; the design's own work (one bfloat16
+        # product for q·kᵀ, three for P·V: twice that) is the second column
         pairs = B * H * int(keep.sum())
         flop = 4 * hd * pairs
         nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
@@ -3150,8 +3212,7 @@ def bf16_kernel_phase(torch, dev):
             plain_ms=cuda_ms(torch, lambda: fa_ref.attention(
                 q, k, v, causal=causal, window=window), n=3),
             bound_ms=t_b, bound_by=by, gflop=flop / 1e9,
-            design_bound_ms=bound_ms(nbytes, 1.5 * flop,
-                                     TF32_FLOP_PER_S)[0],
+            design_bound_ms=bound_ms(nbytes, 2 * flop, BF16_FLOP_PER_S)[0],
             library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask,
                 is_causal=causal and mask is None, enable_gqa=True), n=10))
@@ -3161,15 +3222,20 @@ def bf16_kernel_phase(torch, dev):
         del q, k, v, q32, k32, v32, qt, kt, vt, keep, mask
     for r in rows:
         extra = (f" ({r['gflop']:.1f} GFLOP at the bfloat16 tensor cores' "
-                 f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; the design's 1 + 2 "
-                 f"TF32 products at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s "
+                 f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; the design's 1 + 3 "
+                 f"bfloat16 products at the same rate "
                  f"{r['design_bound_ms']:.4f} ms)" if "gflop" in r else "")
+        cold = (f"; cold L2, a rotation of {r['rotation']}; one reused "
+                f"input: kernel {r['hot_ms']:.4f} ms, library "
+                f"{r['hot_library_ms']:.4f} ms, kernel / library "
+                f"{r['hot_ms'] / r['hot_library_ms']:.3f}"
+                if "rotation" in r else "")
         print(f"  full-shape {r['what']}: max |Δ| {r['max_abs_err']:.3e} | "
               f"{r['ms']:.4f} ms (float32 kernel {r['f32_ms']:.4f} ms, plain"
               f" {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']}{extra} = {r['bound_ms'] / r['ms']:.1%}, "
               f"library {r['library_ms']:.4f} ms, kernel / library "
-              f"{r['ms'] / r['library_ms']:.3f})")
+              f"{r['ms'] / r['library_ms']:.3f}{cold})")
     # command-r-35b's heads in float32, never timed before
     print_full_rows([flash_full(torch, dev, gen, ATTN_BF16[4][:5], True,
                                 bad)])
@@ -3448,7 +3514,8 @@ def main():
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    libs = [kernels.LIBRARY, rms.LIBRARY, fa.LIBRARY, lt.LIBRARY]
+    libs = [kernels.LIBRARY, rms.LIBRARY, fa.LIBRARY, fa.LIBRARY_BF16,
+            lt.LIBRARY]
     build.build(libs)                  # one nvcc per source, all at once
     for lib in libs:
         build.load(lib)
@@ -3461,17 +3528,28 @@ def main():
         for line in log.get("ptxas", "").splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"    {line.strip()}")
+            elif lib is fa.LIBRARY_BF16 and "entry function" in line:
+                print(f"    {line.strip()[:140]}")
     flash_log = build.BUILD_LOG.get(fa.LIBRARY.name, {}).get("ptxas", "")
     spills = [line.strip() for line in flash_log.splitlines()
               if "spill" in line]
+    bf16_log = build.BUILD_LOG.get(fa.LIBRARY_BF16.name, {}).get("ptxas", "")
+    bf16_spills = [line.strip() for line in bf16_log.splitlines()
+                   if "spill" in line]
     print(f"  flash_attention: {fa.SHARED_BYTES} (float32), "
           f"{fa.SHARED_BYTES_BF16} (bfloat16) bytes of dynamic shared memory"
-          f" a block | {spills or '(cached build: no ptxas report)'}")
+          f" a block | float32 {spills or '(cached build: no ptxas report)'}"
+          f" | bfloat16 {bf16_spills or '(cached build)'}")
     check(all(" 0 bytes spill stores, 0 bytes spill loads" in line
               for line in spills), f"the flash kernel spills: {spills}")
-    check(not spills or len(spills) == len(fa.HEAD_DIMS) * len(fa.ENTRIES),
-          f"want one ptxas report per flash instantiation {fa.HEAD_DIMS} x "
-          f"{list(fa.ENTRIES)}: {spills}")
+    check(not spills or len(spills) == len(fa.HEAD_DIMS),
+          f"want one ptxas report per float32 flash instantiation "
+          f"{fa.HEAD_DIMS}: {spills}")
+    sass = sass_of(fa.LIBRARY_BF16.path())
+    hgmma = sass.count("HGMMA")
+    print(f"  {fa.LIBRARY_BF16.source.name}: {hgmma} HGMMA (wgmma) and "
+          f"{sass.count('HMMA')} HMMA (mma.sync) instructions in its SASS")
+    check(hgmma > 0, "the bfloat16 flash kernel has no wgmma")
 
     print("[3] kernels vs plain versions, ragged layouts", flush=True)
     ragged_phase(torch, dev)

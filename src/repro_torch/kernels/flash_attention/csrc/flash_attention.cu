@@ -1,7 +1,7 @@
-// Flash attention forward for Hopper (sm_90a), float32 or bfloat16 in and
-// out, the two products on the tensor cores in TF32 with float32
-// accumulators: split ("3xTF32") for float32 operands, and for bfloat16 one
-// product for the scores and two for P.V (below).
+// Flash attention forward for Hopper (sm_90a), float32 in and out, the two
+// products on the tensor cores in split TF32 ("3xTF32") with float32
+// accumulators (below).  bfloat16 operands have their own kernel,
+// csrc/flash_attention_bf16.cu.
 //
 // Hand-written CUDA replacement of the Pallas kernel flash_attention_padded
 // (_flash_kernel) of src/repro/kernels/flash_attention/flash_attention.py:
@@ -18,7 +18,8 @@
 // both q and k, as in the reference.
 //
 // One templated source, four instantiations (the C entry point picks one
-// by head_dim; any other head_dim is refused):
+// by head_dim; any other head_dim is refused; the wrapper zero-pads a
+// head_dim between to the next of them):
 //
 //   hd   stored  keys a tile  q's hi fragments  n tiles a P.V pass  warps  shared
 //   64   64      64           registers         8 (all)            4      112 KB
@@ -68,10 +69,11 @@
 //     into one float32 accumulator (mma.sync m16n8k8 .tf32, f32 accumulate).
 //     The dropped lo.lo term is below float32's rounding; one TF32 pass
 //     would miss the plain version by ~1e-3 (tests/test_torch_kernels.py
-//     emulates both).  At hd 64 and 256 the scale hd^-0.5 (2^-3, 2^-4) is
-//     folded into q once: a power of two, so exact.  80^-0.5 and 128^-0.5
-//     are not, so there the scores are multiplied by the scale after the
-//     product, as the reference does.
+//     emulates both).  Where the scale is a power of two (a run-time test:
+//     hd 64 and 256 at their own scale hd^-0.5, 2^-3 and 2^-4) it is folded
+//     into q once, exactly.  Elsewhere (80^-0.5, 128^-0.5, and the true
+//     scale of a smaller head_dim zero-padded to a built one) the scores
+//     are multiplied by the scale after the product, as the reference does.
 //   * Tiles.  A block of 4 warps takes BQ = 64 query rows of one (b, h),
 //     16 rows per warp (the m16 of the mma); the loop inside the block
 //     (the TPU's sequential kv grid axis) runs over BK keys per tile.
@@ -120,28 +122,12 @@
 //     1, so l and acc would come out of it unchanged.  Rows past Sq are
 //     computed on zeros and not stored: any Sq and Skv, no padding.
 //
-// bfloat16 (the same four instantiations, each at element type bf16): q, k,
-// v and o are bfloat16; m, l and the accumulators float32.  The function is
-// the reference kernel's: float32 attention on the widened inputs, rounded
-// to bfloat16 once, at the store.  A bfloat16 value (8 significant bits) is
-// exact in TF32 (11), and so is q * scale where the scale folds (a power of
-// two; but for float32 subnormals, below 2^-126): the score product q.k^T
-// is ONE TF32 product, exact term by term.  P
-// is float32, V exact, so P.V is two, P_lo.V + P_hi.V.  K and V stay
-// bfloat16 in the cp.async ring (8-byte copies of four elements, the same
-// element layout and swizzle as float32, half the bytes), widened as the
-// fragments are read; there is no lo to split, so no split pass and no lo
-// buffer, and q's fragments are its hi alone.  Where the scale does not fold
-// (80, 128) it multiplies the scores after the product, as in float32.
-// Shared memory a block: 32 / 24 / 48 / 104 KB at 64 / 80 / 128 / 256.
-//
 // No backward: the reference's kernel has none either.
 //
 // C interface (loaded with ctypes): launches on the given stream, does not
 // synchronise, allocates nothing, returns the first CUDA error of the
 // shared-memory attribute call or of the launch.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -175,8 +161,6 @@ struct Shape {
   // 2 ring stages, the lo of the current tile, q's lo (and hi) fragments
   static constexpr int SMEM_BYTES =
       (3 * STAGE + (QS ? 2 : 1) * QLO) * (int)sizeof(float);
-  // the scale folds into q exactly only where it is a power of two
-  static constexpr bool FOLD = HD == 64 || HD == 256;
   static_assert(W % 32 == 0 && HD <= HDP && HD % 4 == 0, "hd");
   static_assert(HALVES == 1 || HD == HDP, "split columns are not padded");
   static_assert((NT / 4) % OG == 0, "P.V passes");
@@ -184,25 +168,6 @@ struct Shape {
   // the partial scores a pair exchanges fit the K-lo buffer
   static_assert(HALVES == 1 || WARPS * HALVES * BK * 16 <= TILE, "exchange");
 };
-
-// shared memory of instantiation S at element type T, in order: the K/V
-// ring (two stages of T), float32 scratch (float32: the lo of the current
-// K and V tile; bfloat16: only the pair's score exchange, at HALVES 2), and
-// q's fragments (float32: lo, and hi under QS; bfloat16: hi under QS)
-template <class S, typename T>
-struct Layout {
-  static constexpr bool BF = sizeof(T) == 2;
-  static constexpr int RING = 2 * S::STAGE * (int)sizeof(T);      // bytes
-  static constexpr int SCRATCH =
-      BF ? (S::HALVES == 2 ? WARPS * S::HALVES * S::BK * 16 : 0) : S::STAGE;
-  static constexpr int QFRAGS = (BF ? 0 : 1) + (S::QS ? 1 : 0);
-  static constexpr int BYTES =
-      RING + (SCRATCH + QFRAGS * S::QLO) * (int)sizeof(float);
-  static_assert(RING % 16 == 0, "ring");
-  static_assert(BF || BYTES == S::SMEM_BYTES, "float32 layout");
-};
-
-typedef __nv_bfloat16 bf16;
 
 using Hd64 = Shape<64, 64, 64, 2, false>;
 using Hd80 = Shape<80, 96, 32, 3, false>;
@@ -229,32 +194,8 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
-// four consecutive elements, widened to float
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// four values stored at the element type (bfloat16: rounded to nearest)
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(bf16* p, float4 v) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&a);
-  u.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -275,15 +216,6 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
   mma_tf32(d, al, bh0, bh1);
   mma_tf32(d, ah, bl0, bl1);
   mma_tf32(d, ah, bh0, bh1);
-}
-
-// d += a . b with b exact in TF32 (a bfloat16 value): a split, small
-// terms first
-__device__ __forceinline__ void mma2(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], float b0,
-                                     float b1) {
-  mma_tf32(d, al, b0, b1);
-  mma_tf32(d, ah, b0, b1);
 }
 
 // element offset of the 4-element chunk (16 bytes of float32) c of row r of
@@ -309,20 +241,13 @@ __device__ __forceinline__ int tile_at(int r, int c) {
   return (c / (S::W / 4)) * S::BK * S::W + chunk_at<S::W>(r, c % (S::W / 4));
 }
 
-// four elements into shared memory, zero-filled where src_bytes is 0:
-// 16 bytes of float32 (bypassing L1), or 8 of bfloat16
+// four floats (16 bytes, bypassing L1) into shared memory, zero-filled
+// where `in` is false
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool in) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(d), "l"(src), "r"(in ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(bf16* dst, const bf16* src,
-                                          bool in) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-               :: "r"(d), "l"(src), "r"(in ? 8 : 0) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -383,21 +308,19 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 8][4],
   l1 = al1 * l1 + ps1;
 }
 
-template <class S, typename T>
+template <class S>
 __global__ void __launch_bounds__(S::THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  int64_t Sq, int64_t Skv, int64_t H, int64_t KV,
                  float scale, int causal, int64_t window) {
-  using L = Layout<S, T>;
-  constexpr bool BF = L::BF;
   constexpr int HD = S::HD, HDP = S::HDP, BK = S::BK, NT = S::NT;
   constexpr int W = S::W, THREADS = S::THREADS;
   constexpr int TILE = S::TILE, STAGE = S::STAGE;
   extern __shared__ __align__(16) float smem[];
-  T* const ring = reinterpret_cast<T*>(smem);
-  // float32: the lo of the current tile; both: the pair's score exchange
-  float* const lo_buf = reinterpret_cast<float*>(ring + 2 * STAGE);
+  float* const ring = smem;
+  // the lo of the current tile (and, at HALVES 2, the pair's score exchange)
+  float* const lo_buf = ring + 2 * STAGE;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // this warp's row group and column half (columns hh W .. hh W + W - 1)
@@ -410,40 +333,34 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t g = h / (H / KV);
   const int64_t q0 = (int64_t)(gridDim.y - 1 - blockIdx.y) * BQ;
   const int64_t r0 = q0 + wr * 16 + gr, r1 = r0 + 8;     // this thread's rows
-  const float qscale = S::FOLD ? scale : 1.f;
+  // the scale folds into q exactly only where it is a power of two
+  const uint32_t sbits = __float_as_uint(scale);
+  const bool fold = (sbits & 0x7fffffu) == 0 && (sbits >> 23) != 0;
+  const float qscale = fold ? scale : 1.f;
 
   // q (* scale where it folds) as A fragments: [k step][a0..a3], a0 row
   // r0, a1 row r1, a2 row r0, a3 row r1; k step 2m takes hd 16m + 4tq (a0,
   // a1) and + 1 (a2, a3), k step 2m + 1 hd + 2 and + 3.  hi in registers,
   // lo in this thread's own slots of shared memory (one 16-byte slot per k
   // step, consecutive lanes on consecutive slots), which saves NT * 4
-  // registers.  Columns past HD are zero.  bfloat16: hi = q exactly, no lo
+  // registers.  Columns past HD are zero
   uint32_t qh[NT][4];
-  uint4* const qlo = reinterpret_cast<uint4*>(lo_buf + L::SCRATCH)
-                     + warp * NT * 32 + lane;               // float32 only
+  uint4* const qlo = reinterpret_cast<uint4*>(lo_buf + STAGE)
+                     + warp * NT * 32 + lane;
   // under S::QS only
-  uint4* const qhi = BF ? qlo : qlo + WARPS * S::HALVES * NT * 32;
+  uint4* const qhi = qlo + WARPS * S::HALVES * NT * 32;
   {
     uint32_t ql[NT][4];
-    const T* qr0 = q + ((b * Sq + (r0 < Sq ? r0 : 0)) * H + h) * HD + hh * W;
-    const T* qr1 = q + ((b * Sq + (r1 < Sq ? r1 : 0)) * H + h) * HD + hh * W;
+    const float* qr0 =
+        q + ((b * Sq + (r0 < Sq ? r0 : 0)) * H + h) * HD + hh * W;
+    const float* qr1 =
+        q + ((b * Sq + (r1 < Sq ? r1 : 0)) * H + h) * HD + hh * W;
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int m = 0; m < W / 16; ++m) {
       const bool col = HD == HDP || 4 * m + tq < HD / 4;
       const float4 x = r0 < Sq && col ? load4(qr0 + 4 * (4 * m + tq)) : zero;
       const float4 y = r1 < Sq && col ? load4(qr1 + 4 * (4 * m + tq)) : zero;
-      if constexpr (BF) {
-        qh[2 * m][0] = tf32_rna(x.x * qscale);
-        qh[2 * m][1] = tf32_rna(y.x * qscale);
-        qh[2 * m][2] = tf32_rna(x.y * qscale);
-        qh[2 * m][3] = tf32_rna(y.y * qscale);
-        qh[2 * m + 1][0] = tf32_rna(x.z * qscale);
-        qh[2 * m + 1][1] = tf32_rna(y.z * qscale);
-        qh[2 * m + 1][2] = tf32_rna(x.w * qscale);
-        qh[2 * m + 1][3] = tf32_rna(y.w * qscale);
-        continue;
-      }
       split(x.x * qscale, qh[2 * m][0], ql[2 * m][0]);
       split(y.x * qscale, qh[2 * m][1], ql[2 * m][1]);
       split(x.y * qscale, qh[2 * m][2], ql[2 * m][2]);
@@ -455,8 +372,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int kk = 0; kk < NT; ++kk) {
-      if (!BF)
-        qlo[32 * kk] = make_uint4(ql[kk][0], ql[kk][1], ql[kk][2], ql[kk][3]);
+      qlo[32 * kk] = make_uint4(ql[kk][0], ql[kk][1], ql[kk][2], ql[kk][3]);
       if (S::QS)
         qhi[32 * kk] = make_uint4(qh[kk][0], qh[kk][1], qh[kk][2], qh[kk][3]);
     }
@@ -474,8 +390,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // 4 chunks per as many consecutive threads; keys past Skv and columns
   // past HD are zero-filled
   auto load_tile = [&](int64_t t, int s) {
-    T* ks = ring + s * STAGE;
-    T* vs = ks + TILE;
+    float* ks = ring + s * STAGE;
+    float* vs = ks + TILE;
 #pragma unroll
     for (int it = 0; it < TILE / 4 / THREADS; ++it) {
       const int i = it * THREADS + threadIdx.x;
@@ -500,34 +416,32 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (t_begin < t_end) load_tile(t_begin, 0);
   for (int64_t t = t_begin; t < t_end; ++t) {
     const int s = (int)((t - t_begin) & 1);
-    T* const ks = ring + s * STAGE;
-    T* const vs = ks + TILE;
-    const T* const kh = ks + sub;         // this warp's columns of K, V
-    const T* const vh = vs + sub;
+    float* const ks = ring + s * STAGE;
+    float* const vs = ks + TILE;
+    const float* const kh = ks + sub;     // this warp's columns of K, V
+    const float* const vh = vs + sub;
     cp_async_wait_all();                  // tile t has landed
     __syncthreads();                      // ... for every thread, and every
                                           // warp is done with tile t - 1
     if (t + 1 < t_end) load_tile(t + 1, s ^ 1);
-    if constexpr (!BF) {
-      // split tile t once: hi in place, lo into lo_buf (same offsets)
+    // split tile t once: hi in place, lo into lo_buf (same offsets)
 #pragma unroll
-      for (int it = 0; it < STAGE / 4 / THREADS; ++it) {
-        const int i = 4 * (it * THREADS + threadIdx.x);
-        float4 x = *reinterpret_cast<float4*>(ks + i);
-        uint32_t hx, lx, hy, ly, hz, lz, hw, lw;
-        split(x.x, hx, lx);
-        split(x.y, hy, ly);
-        split(x.z, hz, lz);
-        split(x.w, hw, lw);
-        *reinterpret_cast<float4*>(ks + i) = make_float4(
-            __uint_as_float(hx), __uint_as_float(hy), __uint_as_float(hz),
-            __uint_as_float(hw));
-        *reinterpret_cast<float4*>(lo_buf + i) = make_float4(
-            __uint_as_float(lx), __uint_as_float(ly), __uint_as_float(lz),
-            __uint_as_float(lw));
-      }
-      __syncthreads();
+    for (int it = 0; it < STAGE / 4 / THREADS; ++it) {
+      const int i = 4 * (it * THREADS + threadIdx.x);
+      float4 x = *reinterpret_cast<float4*>(ks + i);
+      uint32_t hx, lx, hy, ly, hz, lz, hw, lw;
+      split(x.x, hx, lx);
+      split(x.y, hy, ly);
+      split(x.z, hz, lz);
+      split(x.w, hw, lw);
+      *reinterpret_cast<float4*>(ks + i) = make_float4(
+          __uint_as_float(hx), __uint_as_float(hy), __uint_as_float(hz),
+          __uint_as_float(hw));
+      *reinterpret_cast<float4*>(lo_buf + i) = make_float4(
+          __uint_as_float(lx), __uint_as_float(ly), __uint_as_float(lz),
+          __uint_as_float(lw));
     }
+    __syncthreads();
     const float* const kl = lo_buf + sub;
     const float* const vl = lo_buf + TILE + sub;
     const int64_t k0 = t * BK;
@@ -543,10 +457,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       uint32_t ql[2][4], qa[2][4];
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        if (!BF) {
-          const uint4 x = qlo[32 * (2 * m + u)];
-          ql[u][0] = x.x; ql[u][1] = x.y; ql[u][2] = x.z; ql[u][3] = x.w;
-        }
+        const uint4 x = qlo[32 * (2 * m + u)];
+        ql[u][0] = x.x; ql[u][1] = x.y; ql[u][2] = x.z; ql[u][3] = x.w;
         if (S::QS) {
           const uint4 y = qhi[32 * (2 * m + u)];
           qa[u][0] = y.x; qa[u][1] = y.y; qa[u][2] = y.z; qa[u][3] = y.w;
@@ -560,17 +472,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         // B = K^T at key 8j + gr: hd 16m + 4tq .. + 3, two k steps
         const int off = chunk_at<W>(8 * j + gr, 4 * m + tq);
         const float4 bh = load4(kh + off);
-        // two k steps into d: one exact TF32 product each for bfloat16,
-        // three (split) for float32
+        // two k steps into d, three (split) TF32 products each
         auto step = [&](float (&d)[4]) {
-          if constexpr (BF) {
-            mma_tf32(d, qa[0], bh.x, bh.y);
-            mma_tf32(d, qa[1], bh.z, bh.w);
-          } else {
-            const float4 bl = load4(kl + off);
-            mma3(d, qa[0], ql[0], bh.x, bh.y, bl.x, bl.y);
-            mma3(d, qa[1], ql[1], bh.z, bh.w, bl.z, bl.w);
-          }
+          const float4 bl = load4(kl + off);
+          mma3(d, qa[0], ql[0], bh.x, bh.y, bl.x, bl.y);
+          mma3(d, qa[1], ql[1], bh.z, bh.w, bl.z, bl.w);
         };
         if (S::HALVES == 1) {
           step(sc[j]);
@@ -584,7 +490,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
     }
-    if (!S::FOLD) {
+    if (!fold) {
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
@@ -657,19 +563,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                      NT / 4 * gr + c0 + cc);
           const float4 h0 = load4(vh + o0);
           const float4 h1 = load4(vh + o1);
-          if constexpr (BF) {
-            mma2(ot[4 * cc], ph, pl, h0.x, h1.x);
-            mma2(ot[4 * cc + 1], ph, pl, h0.y, h1.y);
-            mma2(ot[4 * cc + 2], ph, pl, h0.z, h1.z);
-            mma2(ot[4 * cc + 3], ph, pl, h0.w, h1.w);
-          } else {
-            const float4 w0 = load4(vl + o0);
-            const float4 w1 = load4(vl + o1);
-            mma3(ot[4 * cc], ph, pl, h0.x, h1.x, w0.x, w1.x);
-            mma3(ot[4 * cc + 1], ph, pl, h0.y, h1.y, w0.y, w1.y);
-            mma3(ot[4 * cc + 2], ph, pl, h0.z, h1.z, w0.z, w1.z);
-            mma3(ot[4 * cc + 3], ph, pl, h0.w, h1.w, w0.w, w1.w);
-          }
+          const float4 w0 = load4(vl + o0);
+          const float4 w1 = load4(vl + o1);
+          mma3(ot[4 * cc], ph, pl, h0.x, h1.x, w0.x, w1.x);
+          mma3(ot[4 * cc + 1], ph, pl, h0.y, h1.y, w0.y, w1.y);
+          mma3(ot[4 * cc + 2], ph, pl, h0.z, h1.z, w0.z, w1.z);
+          mma3(ot[4 * cc + 3], ph, pl, h0.w, h1.w, w0.w, w1.w);
         }
       }
 #pragma unroll
@@ -694,27 +593,27 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t r = e ? r1 : r0;
     const float den = e ? den1 : den0;
     if (r < Sq) {
-      T* const dst = o + ((b * Sq + r) * H + h) * HD + hh * W;
+      float* const dst = o + ((b * Sq + r) * H + h) * HD + hh * W;
 #pragma unroll
       for (int c = 0; c < 2; ++c)
 #pragma unroll
         for (int cc = 0; cc < NT / 4; ++cc) {
           const int col = NT * (2 * tq + c) + 4 * cc;
           if (HD == HDP || col < HD)
-            store4(dst + col, make_float4(
+            *reinterpret_cast<float4*>(dst + col) = make_float4(
                 acc[4 * cc][2 * e + c] / den, acc[4 * cc + 1][2 * e + c] / den,
                 acc[4 * cc + 2][2 * e + c] / den,
-                acc[4 * cc + 3][2 * e + c] / den));
+                acc[4 * cc + 3][2 * e + c] / den);
         }
     }
   }
 }
 
-template <class S, typename T>
+template <class S>
 int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
            int64_t Sq, int64_t Skv, int64_t H, int64_t KV, float scale,
            int causal, int64_t window, cudaStream_t stream) {
-  constexpr int smem_bytes = Layout<S, T>::BYTES;
+  constexpr int smem_bytes = S::SMEM_BYTES;
   const int64_t nq = (Sq + BQ - 1) / BQ;
   if (B * H > 0x7fffffffLL || nq > 65535) return (int)cudaErrorInvalidValue;
   // above 48 KB of dynamic shared memory a kernel must opt in, once per
@@ -725,39 +624,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   if (!opted_in[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<S, T>,
+    err = cudaFuncSetAttribute(flash_fwd_kernel<S>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_bytes);
     if (err != cudaSuccess) return (int)err;
     opted_in[dev] = true;
   }
   const dim3 grid((unsigned)(B * H), (unsigned)nq);
-  flash_fwd_kernel<S, T><<<grid, S::THREADS, smem_bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Skv, H, KV, scale,
-      causal, window);
+  flash_fwd_kernel<S><<<grid, S::THREADS, smem_bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Skv,
+      H, KV, scale, causal, window);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int64_t B,
-             int64_t Sq, int64_t Skv, int64_t H, int64_t KV, int64_t hd,
-             float scale, int causal, int64_t window, void* stream) {
-  if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
-  if (hd != Hd64::HD && hd != Hd80::HD && hd != Hd128::HD && hd != Hd256::HD)
-    return (int)cudaErrorInvalidValue;
-  if (B * H == 0 || Sq == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (hd == Hd64::HD)
-    return launch<Hd64, T>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
-                           window, s);
-  if (hd == Hd80::HD)
-    return launch<Hd80, T>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
-                           window, s);
-  if (hd == Hd128::HD)
-    return launch<Hd128, T>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
-                            window, s);
-  return launch<Hd256, T>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
-                          window, s);
 }
 
 }  // namespace
@@ -771,17 +648,22 @@ int lag_flash_attention_f32(const void* q, const void* k, const void* v,
                             void* o, int64_t B, int64_t Sq, int64_t Skv,
                             int64_t H, int64_t KV, int64_t hd, float scale,
                             int causal, int64_t window, void* stream) {
-  return dispatch<float>(q, k, v, o, B, Sq, Skv, H, KV, hd, scale, causal,
-                         window, stream);
-}
-
-// the same in bfloat16: q, k, v, o bfloat16 (8-byte aligned rows)
-int lag_flash_attention_bf16(const void* q, const void* k, const void* v,
-                             void* o, int64_t B, int64_t Sq, int64_t Skv,
-                             int64_t H, int64_t KV, int64_t hd, float scale,
-                             int causal, int64_t window, void* stream) {
-  return dispatch<bf16>(q, k, v, o, B, Sq, Skv, H, KV, hd, scale, causal,
-                        window, stream);
+  if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  if (hd != Hd64::HD && hd != Hd80::HD && hd != Hd128::HD && hd != Hd256::HD)
+    return (int)cudaErrorInvalidValue;
+  if (B * H == 0 || Sq == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (hd == Hd64::HD)
+    return launch<Hd64>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
+                        s);
+  if (hd == Hd80::HD)
+    return launch<Hd80>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
+                        s);
+  if (hd == Hd128::HD)
+    return launch<Hd128>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
+                         window, s);
+  return launch<Hd256>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
+                       s);
 }
 
 }  // extern "C"

@@ -1,0 +1,844 @@
+// Flash attention forward for Hopper (sm_90a) in bfloat16: q, k, v and o
+// bfloat16, both products on the bfloat16 tensor cores (wgmma) with float32
+// accumulators, K and V brought by the Tensor Memory Accelerator (TMA).
+//
+// Hand-written CUDA replacement of the Pallas kernel flash_attention_padded
+// (src/repro/kernels/flash_attention/flash_attention.py:68; its body is
+// _flash_kernel at :28) for bfloat16 operands: online-softmax GQA
+// attention, forward only,
+//
+//   q (B, Sq, H, hd), k/v (B, Skv, KV, hd) -> o (B, Sq, H, hd),
+//
+// query head h reads kv head h / (H / KV).  It computes what the reference
+// kernel computes on bfloat16 inputs: float32 attention on the widened
+// values, rounded to bfloat16 once, at the store.  Per kv tile s = (q . k)
+// * scale; masked entries are NEG = -1e30; m_new = max(m, rowmax s); p =
+// exp(s - m_new) where unmasked, else 0; l = exp(m - m_new) * l + rowsum p;
+// acc = acc * exp(m - m_new) + p . v; at the end o = acc / max(l, 1e-30)
+// (a row that sees no key gives 0).  Masks: query < Sq, key < Skv, causal
+// (q >= k), window (q - k < window), positions from 0 for q and k.  The
+// float32 kernel is csrc/flash_attention.cu.
+//
+// Bound: operations.  At the serving path's shape (B 4, S 2048, H 32/KV 8,
+// hd 64, causal) the two products take 4*B*H*hd*S(S+1)/2 = 68.7 GFLOP:
+// 0.0695 ms at the H100's 989 TFLOP/s of dense bfloat16; the 84 MB of
+// q/k/v/o take 0.025 ms.  This design does four bfloat16 products of that
+// size (one for q.k^T, three for P.V, below): 0.139 ms.  The design:
+//
+//   * wgmma.mma_async m64nNk16 .f32.bf16.bf16.  A block has two consumer
+//     warpgroups of 64 query rows each (BQ 128) and one producer
+//     warpgroup; a consumer warpgroup keeps its scores, its output
+//     accumulator and a fresh P.V accumulator in registers, in wgmma's
+//     accumulator layout.  The producer hands its registers to the
+//     consumers (setmaxnreg: 24 a producer thread, 240 a consumer thread).
+//   * Scores: ONE bfloat16 product.  A product of two bfloat16 values (8
+//     significant bits each) is exact in float32; the tensor cores sum the
+//     exact products into the float32 accumulator.  q goes into shared
+//     memory once (TMA, 128-byte swizzle, the layout wgmma reads as its A
+//     operand); K is the B operand, K-major.  Where the scale is a power of
+//     two (a run-time test: head_dim 64 and 256 at their own scale), it is
+//     folded into q in shared memory once, exactly (but for values below
+//     2^-126 of the widened q); elsewhere the scores are multiplied by it
+//     after the product, as the reference does.
+//   * P.V: P (float32, in [0, 1]) split into three bfloat16 terms, hi the
+//     top 8 significant bits of p (its float's high half), mid those of p
+//     - hi, lo those of p - hi - mid: p = hi + mid + lo exactly, float32's
+//     24 bits (two terms leave up to 2^-15 p, which moves outputs near 0
+//     past one bfloat16 ulp + 1e-6; tests/test_torch_kernels.py emulates
+//     one, two and three).  P feeds wgmma from registers 16 keys at a
+//     time (the float32 accumulator's layout is the A fragment's layout for
+//     16-bit types); V is the B operand, MN-major (the transpose bit).  Per 16 keys the products run lo, mid, hi,
+//     smallest first, into a fresh accumulator per tile, which is added to
+//     the running one in float32 (round to nearest) after the rescale.
+//   * K and V come through TMA (cp.async.bulk.tensor.4d over the (hd, KV,
+//     Skv, B) tensors; GQA is the kv-head coordinate, K/V are never
+//     repeated in memory) into a ring of two stages, each guarded by
+//     mbarriers: K full, V full (the producer's expect-tx and the copy's
+//     bytes), empty (every consumer thread's arrival).  One thread of the
+//     producer issues every copy; the scores of tile t need only K, so
+//     they start while V is still landing.  TMA's out-of-bounds fill zeroes
+//     the keys past Skv and the query rows past Sq.
+//   * Shared memory is 64-column chunks (128 bytes a row, 128-byte
+//     swizzle; one TMA box each).  head_dim 80 (160 bytes a row) is one
+//     64-column chunk and a 16-column chunk with the 32-byte swizzle (two
+//     boxes, 64 + 16: no padding, no wasted products); its products run
+//     over both chunks (m64n64 + m64n16 for P.V).
+//   * Online softmax in the accumulator's layout: a thread holds columns
+//     (2t, 2t+1) of rows g and g + 8 of each 8-key slab of its warp's 16
+//     rows; the row max takes two __shfl_xor_sync within the quad, the row
+//     sum stays a per-thread partial until the end.  exp(x) is exp2(x *
+//     log2(e)) on the SFU.  Only tiles that some query of the warpgroup
+//     sees only in part evaluate the mask per entry.
+//   * The heaviest query tiles (last under causal) are launched first;
+//     tiles that every query of the block has masked are never loaded, and
+//     a warpgroup skips the products of tiles that every query of its own
+//     has masked (p = 0 and alpha = 1 there: l and acc would come out
+//     unchanged).  Positions in 32 bits (the launch refuses Sq or Skv
+//     above 2^31 - 129), offsets in 64; any Sq and Skv, no padding.
+//   * No inter-warpgroup ping-pong and no overlap of the softmax with the
+//     next tile's products yet: each warpgroup waits for its products.
+//
+// Instantiations (the C entry point picks one by head_dim):
+//
+//   hd   chunks   keys a tile  P.V passes          shared memory a block
+//   64   64       128          1                   83,008 bytes
+//   80   64 + 16  128          1                   103,488
+//   128  64 x 2   64           1                   99,392
+//   256  64 x 4   64           4 (64 columns each) 197,696
+//
+// One block an SM (3 x 128 threads at 168 registers each at launch).  At
+// head_dim 128 a tile is 64 keys, and head_dim 256's P.V runs in four
+// passes of 64 output columns (a fresh accumulator of 32 registers each,
+// P's terms kept), so that the running output (64 / 128 registers), the
+// fresh accumulator and P's three terms fit 240 registers: without a spill
+// at 64, 80 and 128; at 256 ptxas spills about 200 bytes a thread, and 64
+// keys a tile still ran faster on an H100 than 32 (PERF.md §6).
+//
+// No backward: the reference's kernel has none either.
+//
+// C interface (loaded with ctypes): launches on the given stream, does not
+// synchronise, allocates nothing, returns the first CUDA error of the
+// tensor-map encoding, the shared-memory attribute call or the launch.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int NC = 2;                  // consumer warpgroups a block
+constexpr int ROWS = 64;               // query rows of a warpgroup (m64)
+constexpr int BQ = NC * ROWS;          // query rows of a block
+constexpr int THREADS = 128 * (NC + 1);
+constexpr int STAGES = 2;              // the K/V ring
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int MAX_DEVICES = 64;
+constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// one instantiation: head_dim HD as NCH 64-column chunks and a TAIL-column
+// chunk (0 or 16), BK keys a tile, P.V in passes of PASS 64-column chunks
+template <int HD_, int NCH_, int TAIL_, int BK_, int PASS_>
+struct Shape {
+  static constexpr int HD = HD_;
+  static constexpr int NCH = NCH_;
+  static constexpr int TAIL = TAIL_;
+  static constexpr int BK = BK_;
+  static constexpr int PASS = PASS_;
+  static constexpr int HDP = 64 * NCH + TAIL;        // columns stored
+  static constexpr int Q_BYTES = ROWS * HDP * 2;     // a warpgroup's q
+  static constexpr int KV_BYTES = BK * HDP * 2;      // one K or V tile
+  // 1 KB to align the base (the swizzle repeats every 1024 bytes), the
+  // q tiles, the ring, 7 mbarriers (q; K full, V full, empty a stage)
+  static constexpr int SMEM_BYTES =
+      1024 + NC * Q_BYTES + STAGES * 2 * KV_BYTES + 64;
+  static_assert(HD == HDP && (TAIL == 0 || TAIL == 16), "chunks");
+  static_assert(BK % 16 == 0 && BK <= 128 && NCH % PASS == 0, "tiles");
+  static_assert(SMEM_BYTES <= 232448, "shared memory");
+};
+
+using Hd64 = Shape<64, 1, 0, 128, 1>;
+using Hd80 = Shape<80, 1, 16, 128, 1>;
+using Hd128 = Shape<128, 2, 0, 64, 2>;
+using Hd256 = Shape<256, 4, 0, 64, 1>;
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n"
+      :: "r"(bar) : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one TMA box of a 4-D map (coordinates innermost first) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// a wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets, swizzle (1: 128 bytes, 3: 32 bytes)
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo, uint32_t swizzle) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+         | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16)
+         | ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32)
+         | ((uint64_t)swizzle << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across its issue or its wait
+template <int N>
+__device__ __forceinline__ void own(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void own(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+// d (+)= a . b, m64n32k16: a and b K-major in shared memory
+__device__ __forceinline__ void mma_ss32(float (&d)[16], uint64_t a,
+                                        uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (+)= a . b, m64n64k16: a and b K-major in shared memory
+__device__ __forceinline__ void mma_ss64(float (&d)[32], uint64_t a,
+                                        uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (+)= a . b, m64n128k16: a and b K-major in shared memory
+__device__ __forceinline__ void mma_ss128(float (&d)[64], uint64_t a,
+                                        uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (+)= a . b, m64n16k16: a in registers, b MN-major in shared memory
+__device__ __forceinline__ void mma_rs16(float (&d)[8],
+                                        const uint32_t (&a)[4], uint64_t b,
+                                        int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// d (+)= a . b, m64n64k16: a in registers, b MN-major in shared memory
+__device__ __forceinline__ void mma_rs64(float (&d)[32],
+                                        const uint32_t (&a)[4], uint64_t b,
+                                        int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ bool visible(int qi, int kp, int Skv, int causal,
+                                        int window) {
+  return kp < Skv && (!causal || qi >= kp)
+         && (window <= 0 || qi - kp < window);
+}
+
+// online softmax of one tile's scores in place (scores -> weights p): sc[4j
+// + e] is key k0 + 8j + 2tq + (e & 1) of row r0 (e < 2) or r1; returns the
+// rescale factors alpha of rows r0 and r1.  kMasked: the mask is evaluated
+// per entry (bit 4j + e of vis)
+template <bool kMasked, int BK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2],
+                                             uint64_t vis, float& m0,
+                                             float& m1, float& l0, float& l1,
+                                             float& al0, float& al1) {
+  float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    if (kMasked && !((vis >> i) & 1u)) sc[i] = NEG;
+    if (i & 2) mx1 = fmaxf(mx1, sc[i]);
+    else mx0 = fmaxf(mx0, sc[i]);
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  al0 = exp2_ftz((m0 - mn0) * LOG2E);
+  al1 = exp2_ftz((m1 - mn1) * LOG2E);
+  m0 = mn0;
+  m1 = mn1;
+  const float ml0 = mn0 * LOG2E, ml1 = mn1 * LOG2E;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    float p = exp2_ftz(fmaf(sc[i], LOG2E, -((i & 2) ? ml1 : ml0)));
+    if (kMasked && !((vis >> i) & 1u)) p = 0.f;
+    sc[i] = p;
+    if (i & 2) ps1 += p;
+    else ps0 += p;
+  }
+  l0 = al0 * l0 + ps0;
+  l1 = al1 * l1 + ps1;
+}
+
+// the top 8 significant bits of x (a bfloat16 value, truncated)
+__device__ __forceinline__ float top8(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xffff0000u);
+}
+
+// x = hi + mid + lo exactly, for x0 and x1 as bfloat16 pairs (x0 the low
+// half): each term the top 8 significant bits of what the terms before it
+// leave (x - hi and x - hi - mid are exact in float32), so three cover
+// float32's 24
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const float r0 = x0 - top8(x0), r1 = x1 - top8(x1);
+  const float s0 = r0 - top8(r0), s1 = r1 - top8(r1);
+  hi = __byte_perm(__float_as_uint(x0), __float_as_uint(x1), 0x7632);
+  mid = __byte_perm(__float_as_uint(r0), __float_as_uint(r1), 0x7632);
+  lo = __byte_perm(__float_as_uint(s0), __float_as_uint(s1), 0x7632);
+}
+
+// the shared address `a` anew, where it stands: the compiler cannot
+// compute descriptors from it ahead of the wgmmas issued before, which
+// would hold registers the accumulators need
+__device__ __forceinline__ uint32_t anew(uint32_t a) {
+  asm volatile("" : "+r"(a));
+  return a;
+}
+
+// scores of one warpgroup: d = q . k^T over every 16-column k step (the
+// 64-column chunks, then the tail chunk); q and K are K-major
+template <class S>
+__device__ __forceinline__ void scores(float (&d)[S::BK / 2], uint32_t qw,
+                                       uint32_t ks) {
+#pragma unroll
+  for (int c = 0; c < S::NCH; ++c) {
+    qw = anew(qw);
+    ks = anew(ks);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint64_t a = desc(qw + c * ROWS * 128 + 32 * j, 16, 1024, 1);
+      const uint64_t b = desc(ks + c * S::BK * 128 + 32 * j, 16, 1024, 1);
+      const int acc = c > 0 || j > 0;
+      if constexpr (S::BK == 32) mma_ss32(d, a, b, acc);
+      else if constexpr (S::BK == 64) mma_ss64(d, a, b, acc);
+      else mma_ss128(d, a, b, acc);
+    }
+  }
+  if constexpr (S::TAIL) {
+    const uint64_t a = desc(qw + S::NCH * ROWS * 128, 16, 256, 3);
+    const uint64_t b = desc(ks + S::NCH * S::BK * 128, 16, 256, 3);
+    if constexpr (S::BK == 32) mma_ss32(d, a, b, 1);
+    else if constexpr (S::BK == 64) mma_ss64(d, a, b, 1);
+    else mma_ss128(d, a, b, 1);
+  }
+}
+
+template <class S>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap qm,
+                  const __grid_constant__ CUtensorMap km,
+                  const __grid_constant__ CUtensorMap vm,
+                  const __grid_constant__ CUtensorMap qtm,
+                  const __grid_constant__ CUtensorMap ktm,
+                  const __grid_constant__ CUtensorMap vtm,
+                  bf16* __restrict__ o, int Sq, int Skv, int H, int KV,
+                  float scale, int causal, int window) {
+  constexpr int BK = S::BK, NCH = S::NCH, TAIL = S::TAIL, PASS = S::PASS;
+  constexpr int KV_BYTES = S::KV_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t q_s = (raw + 1023u) & ~1023u;      // NC q tiles
+  const uint32_t ring = q_s + NC * S::Q_BYTES;      // STAGES x (K, V)
+  const uint32_t q_full = ring + STAGES * 2 * KV_BYTES;
+  // per stage s: K full, V full, empty
+  auto k_full = [&](int s) { return q_full + 8u * (1 + s); };
+  auto v_full = [&](int s) { return q_full + 8u * (1 + STAGES + s); };
+  auto empty = [&](int s) { return q_full + 8u * (1 + 2 * STAGES + s); };
+
+  // positions in 32 bits (the launch bounds Sq and Skv below 2^31 - 128),
+  // the output's offsets in 64
+  const int b = (int)blockIdx.x / H, h = (int)blockIdx.x % H;
+  const int g = h / (H / KV);
+  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * BQ;
+
+  // the keys any valid query of this block can see
+  const int q_last = (q0 + BQ < Sq ? q0 + BQ : Sq) - 1;
+  int k_end = Skv;
+  if (causal && q_last + 1 < k_end) k_end = q_last + 1;
+  int k_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) k_begin = q0 - window + 1;
+  const int t_begin = k_begin / BK;
+  const int tiles = (k_end + BK - 1) / BK - t_begin;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), NC * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // -- the producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, NC * S::Q_BYTES);
+#pragma unroll
+      for (int w = 0; w < NC; ++w) {
+        const uint32_t dst = q_s + w * S::Q_BYTES;
+        const int row = q0 + w * ROWS;
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+          tma_load(dst + c * ROWS * 128, &qm, q_full, 64 * c, h, row, b);
+        if (TAIL)
+          tma_load(dst + NCH * ROWS * 128, &qtm, q_full, 64 * NCH, h, row,
+                   b);
+      }
+      for (int i = 0; i < tiles; ++i) {
+        const int s = i % STAGES;
+        const uint32_t ph = (uint32_t)(i / STAGES) & 1u;
+        if (i >= STAGES) mbar_wait(empty(s), ph ^ 1u);   // round i/S - 1 done
+        const int row = (t_begin + i) * BK;
+        const uint32_t ks = ring + s * 2 * KV_BYTES, vs = ks + KV_BYTES;
+        mbar_expect_tx(k_full(s), KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+          tma_load(ks + c * BK * 128, &km, k_full(s), 64 * c, g, row, b);
+        if (TAIL)
+          tma_load(ks + NCH * BK * 128, &ktm, k_full(s), 64 * NCH, g, row,
+                   b);
+        mbar_expect_tx(v_full(s), KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+          tma_load(vs + c * BK * 128, &vm, v_full(s), 64 * c, g, row, b);
+        if (TAIL)
+          tma_load(vs + NCH * BK * 128, &vtm, v_full(s), 64 * NCH, g, row,
+                   b);
+      }
+    }
+    return;
+  }
+
+  // -- a consumer warpgroup: 64 query rows
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(CONSUMER_REGS));
+  const int cw = threadIdx.x / 128 - 1;            // which consumer
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int gr = lane / 4, tq = lane % 4;          // accumulator row, pair
+  const uint32_t qw = q_s + cw * S::Q_BYTES;
+  const int wq0 = q0 + cw * ROWS;
+  const int r0 = wq0 + 16 * warp + gr, r1 = r0 + 8;   // this thread's rows
+  // the keys any valid query of this warpgroup can see
+  const int wq_last = (wq0 + ROWS < Sq ? wq0 + ROWS : Sq) - 1;
+  int wk_end = wq0 < Sq ? Skv : 0;
+  if (causal && wq_last + 1 < wk_end) wk_end = wq_last + 1;
+  int wk_begin = 0;
+  if (window > 0 && wq0 - window + 1 > 0) wk_begin = wq0 - window + 1;
+
+  mbar_wait(q_full, 0);
+  // the scale folds into q exactly only where it is a power of two
+  const uint32_t sbits = __float_as_uint(scale);
+  const bool fold = (sbits & 0x7fffffu) == 0 && (sbits >> 23) != 0;
+  if (fold) {
+    uint32_t* const qp = reinterpret_cast<uint32_t*>(smem_raw + (qw - raw));
+    for (int i = t; i < S::Q_BYTES / 4; i += 128) {
+      const float2 x = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(qp + i));
+      const __nv_bfloat162 y = __floats2bfloat162_rn(x.x * scale,
+                                                     x.y * scale);
+      qp[i] = *reinterpret_cast<const uint32_t*>(&y);
+    }
+    // the generic-proxy writes, visible to wgmma (the async proxy) of the
+    // whole warpgroup
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" :: "r"(1 + cw) : "memory");
+  }
+
+  constexpr int TN = TAIL ? TAIL / 2 : 1;
+  float acc[NCH][32];             // O; chunk c, [4j + e]: column 64c + 8j +
+  float acct[TN];                 // 2tq + (e & 1) of row r0 (e < 2) or r1
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < TN; ++i) acct[i] = 0.f;
+  float m0 = NEG, m1 = NEG;       // running max of rows r0, r1
+  float l0 = 0.f, l1 = 0.f;       // this thread's part of the sums
+
+  for (int i = 0; i < tiles; ++i) {
+    const int s = i % STAGES;
+    const uint32_t ph = (uint32_t)(i / STAGES) & 1u;
+    const int k0 = (t_begin + i) * BK;
+    const bool active = k0 < wk_end && k0 + BK > wk_begin;
+    const uint32_t ks = ring + s * 2 * KV_BYTES, vs = ks + KV_BYTES;
+    float al0 = 1.f, al1 = 1.f;
+    // P's three bfloat16 terms as A fragments, per 16 keys: lo, mid, hi
+    uint32_t pf[BK / 16][3][4];
+    mbar_wait(k_full(s), ph);
+    if (active) {
+      float sc[BK / 2];
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) sc[e] = 0.f;
+      own(sc);
+      wgmma_fence();
+      scores<S>(sc, qw, ks);
+      wgmma_commit_and_wait();
+      own(sc);
+      if (!fold) {
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) sc[e] *= scale;
+      }
+      // the mask: evaluated per entry only where some query of the
+      // warpgroup sees this tile in part
+      const bool full = k0 + BK <= Skv && (!causal || k0 + BK - 1 <= wq0)
+                        && (window <= 0 || wq0 + ROWS - 1 - k0 < window);
+      if (full) {
+        softmax_tile<false, BK>(sc, 0, m0, m1, l0, l1, al0, al1);
+      } else {
+        uint64_t vis = 0;
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) {
+          const int kp = k0 + 8 * (e / 4) + 2 * tq + (e & 1);
+          if (visible((e & 2) ? r1 : r0, kp, Skv, causal, window))
+            vis |= 1ull << e;
+        }
+        softmax_tile<true, BK>(sc, vis, m0, m1, l0, l1, al0, al1);
+      }
+      // A fragment of keys 16kk .. + 15: register r holds entries 8kk + 2r
+      // and + 1 (rows g, g + 8, g, g + 8; keys 2tq, 2tq, 2tq + 8, 2tq + 8)
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          split3(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], pf[kk][2][r],
+                 pf[kk][1][r], pf[kk][0][r]);
+    }
+    mbar_wait(v_full(s), ph);
+    if (active) {
+      // acc = acc * alpha + P . V, P . V into a fresh accumulator, in
+      // passes of PASS 64-column chunks (the tail chunk with the last)
+#pragma unroll
+      for (int p0 = 0; p0 < NCH; p0 += PASS) {
+        constexpr bool kTail = TAIL != 0;
+        const bool tail = kTail && p0 + PASS == NCH;
+        const uint32_t vp = anew(vs);
+        float f[PASS][32];
+        float ft[TN];
+#pragma unroll
+        for (int c = 0; c < PASS; ++c) {
+#pragma unroll
+          for (int e = 0; e < 32; ++e) f[c][e] = 0.f;
+          own(f[c]);
+        }
+#pragma unroll
+        for (int e = 0; e < TN; ++e) ft[e] = 0.f;
+        own(ft);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int term = 0; term < 3; ++term) {
+            const int accum = kk > 0 || term > 0;
+#pragma unroll
+            for (int c = 0; c < PASS; ++c)
+              mma_rs64(f[c], pf[kk][term],
+                       desc(vp + (p0 + c) * BK * 128 + kk * 16 * 128,
+                            BK * 128, 1024, 1),
+                       accum);
+            if constexpr (kTail) {
+              if (tail)
+                mma_rs16(ft, pf[kk][term],
+                         desc(vp + NCH * BK * 128 + kk * 16 * 32, 16, 256, 3),
+                         accum);
+            }
+          }
+        wgmma_commit_and_wait();
+#pragma unroll
+        for (int c = 0; c < PASS; ++c) own(f[c]);
+        own(ft);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int term = 0; term < 3; ++term) own(pf[kk][term]);
+#pragma unroll
+        for (int c = 0; c < PASS; ++c)
+#pragma unroll
+          for (int e = 0; e < 32; ++e)
+            acc[p0 + c][e] = fmaf(acc[p0 + c][e], (e & 2) ? al1 : al0,
+                                  f[c][e]);
+        if (tail) {
+#pragma unroll
+          for (int e = 0; e < TN; ++e)
+            acct[e] = fmaf(acct[e], (e & 2) ? al1 : al0, ft[e]);
+        }
+      }
+    }
+    mbar_arrive(empty(s));
+  }
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  // row r0 (r1): columns 8j + 2tq and + 1 of each chunk are [4j] and [4j +
+  // 1] ([4j + 2], [4j + 3])
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = e ? r1 : r0;
+    const float den = e ? den1 : den0;
+    if (r < Sq) {
+      bf16* const dst = o + (((int64_t)b * Sq + r) * H + h) * S::HD + 2 * tq;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const __nv_bfloat162 y = __floats2bfloat162_rn(
+              acc[c][4 * j + 2 * e] / den, acc[c][4 * j + 2 * e + 1] / den);
+          *reinterpret_cast<__nv_bfloat162*>(dst + 64 * c + 8 * j) = y;
+        }
+      if (TAIL) {
+#pragma unroll
+        for (int j = 0; j < TAIL / 8; ++j) {
+          const __nv_bfloat162 y = __floats2bfloat162_rn(
+              acct[4 * j + 2 * e] / den, acct[4 * j + 2 * e + 1] / den);
+          *reinterpret_cast<__nv_bfloat162*>(dst + 64 * NCH + 8 * j) = y;
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link
+// against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 4-D map over a contiguous bfloat16 (batch, rows, heads, hd) tensor:
+// boxes of `cols` columns (from any column) of one head, `box_rows` rows
+bool encode(EncodeTiled enc, CUtensorMap* map, const void* base, int64_t hd,
+            int64_t heads, int64_t rows, int64_t batch, uint32_t cols,
+            uint32_t box_rows, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)(hd * 2),
+                                 (cuuint64_t)(heads * hd * 2),
+                                 (cuuint64_t)(rows * heads * hd * 2)};
+  const cuuint32_t box[4] = {cols, 1, box_rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <class S>
+int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
+           int64_t Sq, int64_t Skv, int64_t H, int64_t KV, float scale,
+           int causal, int64_t window, cudaStream_t stream) {
+  const int64_t nq = (Sq + BQ - 1) / BQ;
+  if (B * H > 0x7fffffffLL || nq > 65535 || Sq > 0x7fffffffLL - BQ
+      || Skv > 0x7fffffffLL - 128)
+    return (int)cudaErrorInvalidValue;
+  const EncodeTiled enc = encoder();
+  if (!enc) return (int)cudaErrorNotSupported;
+  // keys: with no key at all no tile is loaded; the maps stay valid
+  const void* kb = Skv > 0 ? k : q;
+  const void* vb = Skv > 0 ? v : q;
+  const int64_t kv_heads = Skv > 0 ? KV : H, kv_rows = Skv > 0 ? Skv : Sq;
+  CUtensorMap qm, km, vm, qtm, ktm, vtm;
+  bool ok = encode(enc, &qm, q, S::HD, H, Sq, B, 64, ROWS,
+                   CU_TENSOR_MAP_SWIZZLE_128B)
+            && encode(enc, &km, kb, S::HD, kv_heads, kv_rows, B, 64, S::BK,
+                      CU_TENSOR_MAP_SWIZZLE_128B)
+            && encode(enc, &vm, vb, S::HD, kv_heads, kv_rows, B, 64, S::BK,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
+  qtm = qm;
+  ktm = km;
+  vtm = vm;
+  if (S::TAIL)
+    ok = ok && encode(enc, &qtm, q, S::HD, H, Sq, B, S::TAIL, ROWS,
+                      CU_TENSOR_MAP_SWIZZLE_32B)
+         && encode(enc, &ktm, kb, S::HD, kv_heads, kv_rows, B, S::TAIL, S::BK,
+                   CU_TENSOR_MAP_SWIZZLE_32B)
+         && encode(enc, &vtm, vb, S::HD, kv_heads, kv_rows, B, S::TAIL, S::BK,
+                   CU_TENSOR_MAP_SWIZZLE_32B);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  // above 48 KB of dynamic shared memory a kernel must opt in, once per
+  // device and instantiation
+  static bool opted_in[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
+    err = cudaFuncSetAttribute(flash_bf16_kernel<S>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               S::SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    opted_in[dev] = true;
+  }
+  const dim3 grid((unsigned)(B * H), (unsigned)nq);
+  // a window of 2^31 - 1 or more masks nothing a query can see
+  const int win = window >= 0x7fffffffLL ? 0x7fffffff : (int)window;
+  flash_bf16_kernel<S><<<grid, THREADS, S::SMEM_BYTES, stream>>>(
+      qm, km, vm, qtm, ktm, vtm, (bf16*)o, (int)Sq, (int)Skv, (int)H,
+      (int)KV, scale, causal, win);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, o: (B, Sq, H, hd); k, v: (B, Skv, KV, hd); bfloat16, contiguous,
+// 16-byte aligned.  window <= 0: no window.  hd 64, 80, 128 and 256 are
+// built.
+int lag_flash_attention_bf16(const void* q, const void* k, const void* v,
+                             void* o, int64_t B, int64_t Sq, int64_t Skv,
+                             int64_t H, int64_t KV, int64_t hd, float scale,
+                             int causal, int64_t window, void* stream) {
+  if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  if (hd != Hd64::HD && hd != Hd80::HD && hd != Hd128::HD && hd != Hd256::HD)
+    return (int)cudaErrorInvalidValue;
+  if (B * H == 0 || Sq == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (hd == Hd64::HD)
+    return launch<Hd64>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
+                        s);
+  if (hd == Hd80::HD)
+    return launch<Hd80>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
+                        s);
+  if (hd == Hd128::HD)
+    return launch<Hd128>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal,
+                         window, s);
+  return launch<Hd256>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
+                       s);
+}
+
+}  // extern "C"

@@ -1,21 +1,26 @@
 """Flash attention forward on Hopper: the launch of
-``csrc/flash_attention.cu`` (port of the Pallas kernel
-``repro.kernels.flash_attention.flash_attention.flash_attention_padded``).
+``csrc/flash_attention.cu`` (float32) and ``csrc/flash_attention_bf16.cu``
+(bfloat16), ports of the Pallas kernel
+``repro.kernels.flash_attention.flash_attention.flash_attention_padded``.
 
-The CUDA kernel takes any Sq and Skv (it masks the ragged edges itself, so
-nothing is padded), float32 or bfloat16, head_dim 64, 80, 128 or 256 (one
-instantiation of the templated source each per dtype; any other head_dim
-or dtype raises), contiguous operands in the reference's layout.  It runs
-both products on the tensor cores with float32 accumulators: in float32 in
-split TF32 (three TF32 products per float32 product, float32-accurate); in
-bfloat16, whose values TF32 holds exactly, one TF32 product for the scores
-and two for P·V, the output rounded to bfloat16 once (the reference
-kernel's float32 attention on the widened inputs).  K and V come through a
-``cp.async`` ring in shared memory.  It has no backward, like the
+The CUDA kernels take any Sq and Skv (they mask the ragged edges
+themselves, so no length is padded), contiguous operands in the reference's
+layout, and are built for head_dim 64, 80, 128 and 256 (one instantiation
+each per dtype).  Any head_dim from 1 to 256 is served: a smaller one is
+zero-padded to the next built head_dim (``pad_head_dim``; zero columns add
+exactly 0 to q·kᵀ and give zero output columns, which are sliced off) and
+keeps its true scale hd ** -0.5.  Both run their products on the tensor
+cores with float32 accumulators: float32 in split TF32 (three TF32
+products per float32 product, float32-accurate, ``mma.sync``, K and V
+through a ``cp.async`` ring); bfloat16 on the bfloat16 tensor cores
+(``wgmma``; one product for the scores, whose bfloat16 terms are exact,
+three for P·V with P split into three bfloat16 terms; K and V through
+TMA), the output rounded to bfloat16 once (the reference kernel's float32
+attention on the widened inputs).  They have no backward, like the
 reference's kernel: an input that requires grad raises.  ``LAUNCHES``
-counts the launches of each dtype's instantiations (``flash_attention``
-for float32, ``flash_attention_bf16`` for bfloat16); nothing else
-increments it.
+counts the launches of each dtype's kernel (``flash_attention`` for
+float32, ``flash_attention_bf16`` for bfloat16); nothing else increments
+it.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from pathlib import Path
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
@@ -34,7 +40,7 @@ from repro_torch.kernels import build
 INSTANCES = {64: (64, 64, False, 1), 80: (96, 32, False, 1),
              128: (128, 16, True, 1), 256: (256, 16, True, 2)}
 
-#: the head_dims the kernel is built for
+#: the head_dims the kernels are built for (both dtypes)
 HEAD_DIMS = tuple(INSTANCES)
 
 #: dynamic shared memory a float32 block takes per head_dim (``SMEM_BYTES``
@@ -46,16 +52,19 @@ SHARED_BYTES = {hd: (3 * 2 * bk * hdp + (2 if qs else 1) * 4 * (hdp // 8)
                      * 32 * 4) * 4
                 for hd, (hdp, bk, qs, _) in INSTANCES.items()}
 
-#: the same for bfloat16 (``Layout<S, bf16>::BYTES``): the two ring stages
-#: of bfloat16 K and V, the pair's score exchange at head_dim 256 (4 row
-#: groups x 2 warps x BK x 16 floats), and q's hi fragments where they live
-#: in shared memory (no lo: q is exact in TF32)
-SHARED_BYTES_BF16 = {hd: 2 * 2 * bk * hdp * 2
-                     + (4 * halves * bk * 16 if halves == 2 else 0) * 4
-                     + (4 * (hdp // 8) * 32 * 4 * 4 if qs else 0)
-                     for hd, (hdp, bk, qs, halves) in INSTANCES.items()}
+#: the bfloat16 kernel's instantiations (``Hd64`` .. ``Hd256`` of
+#: ``flash_attention_bf16.cu``): head_dim -> (keys a tile, consumer
+#: warpgroups of 64 query rows a block); every head_dim is stored as 64-column
+#: chunks (80: 64 + 16), no padding
+INSTANCES_BF16 = {64: (128, 2), 80: (128, 2), 128: (64, 2), 256: (64, 2)}
 
-#: the instantiations of each dtype: (their name in ``LAUNCHES``, entry point)
+#: dynamic shared memory a bfloat16 block takes (``Shape::SMEM_BYTES``): 1 KB
+#: to align the swizzled tiles, each warpgroup's 64 rows of q, two ring
+#: stages of K and V (BK keys each), 64 bytes of mbarriers
+SHARED_BYTES_BF16 = {hd: 1024 + wgs * 64 * hd * 2 + 2 * 2 * bk * hd * 2 + 64
+                     for hd, (bk, wgs) in INSTANCES_BF16.items()}
+
+#: each dtype's kernel: (its name in ``LAUNCHES``, entry point)
 ENTRIES = {torch.float32: ("flash_attention", "lag_flash_attention_f32"),
            torch.bfloat16: ("flash_attention_bf16",
                             "lag_flash_attention_bf16")}
@@ -66,15 +75,41 @@ LAUNCHES: Dict[str, int] = {name: 0 for name, _ in ENTRIES.values()}
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 _ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, ctypes.c_float,
          ctypes.c_int, _I64)
+_CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARY = build.CudaLibrary(
-    "flash_attention",
-    Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
-    {entry: _ARGS for _, entry in ENTRIES.values()})
+    "flash_attention", _CSRC / "flash_attention.cu",
+    {ENTRIES[torch.float32][1]: _ARGS})
+LIBRARY_BF16 = build.CudaLibrary(
+    "flash_attention_bf16", _CSRC / "flash_attention_bf16.cu",
+    {ENTRIES[torch.bfloat16][1]: _ARGS})
+#: each dtype's library
+LIBRARIES = {torch.float32: LIBRARY, torch.bfloat16: LIBRARY_BF16}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def padded_head_dim(hd: int) -> int:
+    """The smallest built head_dim at or above ``hd`` (1 to 256)."""
+    for built in HEAD_DIMS:
+        if 1 <= hd <= built:
+            return built
+    raise ValueError(f"flash_attention_fwd: head_dim {hd} not served (the "
+                     f"kernels take 1 to {HEAD_DIMS[-1]}, built for "
+                     f"{HEAD_DIMS})")
+
+
+def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q, k, v zero-padded along head_dim to ``padded_head_dim``: zero
+    columns add exactly 0 to every q·k and give zero output columns, so
+    attention with the true scale on the padded operands, cut back to hd
+    columns, is attention on the operands."""
+    pad = padded_head_dim(q.shape[-1]) - q.shape[-1]
+    if not pad:
+        return q, k, v
+    return tuple(F.pad(t, (0, pad)) for t in (q, k, v))
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -101,9 +136,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != B or k.shape[3] != hd or KV == 0 or H % KV:
         raise ValueError(f"flash_attention_fwd: q {tuple(q.shape)} and k/v "
                          f"{tuple(k.shape)} do not pair (H % KV == 0)")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head_dim {hd} not built "
-                         f"(the kernel takes {HEAD_DIMS})")
+    padded_head_dim(hd)                        # 1 to 256, or raises
     if window is not None and window < 1:
         raise ValueError(f"flash_attention_fwd: window must be >= 1, got "
                          f"{window}")
@@ -112,10 +145,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_fwd: operands must be contiguous "
                          "and 16-byte aligned")
     name, entry = ENTRIES[q.dtype]
+    q, k, v = pad_head_dim(q, k, v)
     o = torch.empty_like(q)
-    build.launch(getattr(build.load(LIBRARY), entry), q.data_ptr(),
-                 k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Skv, H, KV,
-                 hd, float(hd ** -0.5), int(causal),
+    build.launch(getattr(build.load(LIBRARIES[o.dtype]), entry),
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
+                 Sq, Skv, H, KV, o.shape[-1], float(hd ** -0.5), int(causal),
                  0 if window is None else int(window), device=q.device)
     LAUNCHES[name] += 1
-    return o
+    return o if o.shape[-1] == hd else o[..., :hd].contiguous()

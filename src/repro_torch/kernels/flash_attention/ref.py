@@ -10,8 +10,10 @@ import torch
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window=None) -> torch.Tensor:
-    """q (B,S,H,hd); k,v (B,Skv,KV,hd); returns (B,S,H,hd)."""
+              causal: bool = True, window=None, scale=None) -> torch.Tensor:
+    """q (B,S,H,hd); k,v (B,Skv,KV,hd); returns (B,S,H,hd).  ``scale``
+    defaults to hd ** -0.5 (operands zero-padded along hd keep their true
+    one)."""
     B, S, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     qpk = H // KV
@@ -19,7 +21,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         k = torch.repeat_interleave(k, qpk, dim=2)
         v = torch.repeat_interleave(v, qpk, dim=2)
     logits = torch.einsum("bqhk,bshk->bhqs", q, k).to(torch.float32)
-    logits = logits * hd ** -0.5
+    logits = logits * (hd ** -0.5 if scale is None else scale)
     qpos = torch.arange(S, device=q.device)[:, None]
     kpos = torch.arange(Skv, device=q.device)[None, :]
     mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)

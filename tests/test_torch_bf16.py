@@ -16,10 +16,13 @@ bfloat16 bits, only to its error.
 
 The kernels' bfloat16 arithmetic on the CPU: the port's plain RMSNorm
 against the reference's ``rmsnorm_2d`` in interpret mode (its two
-roundings to bfloat16), and the fact that the flash kernel's bfloat16
-design rests on: every bfloat16 value, and its product with the power-two
-scales 1/8 and 1/16, is unchanged by TF32 rounding (``cvt.rna.tf32``), so
-q·kᵀ is one exact TF32 product.
+roundings to bfloat16), and the facts that the flash kernel's bfloat16
+designs rest on: a product of two bfloat16 values is exact in float32 (so
+q·kᵀ is one bfloat16 product on the tensor cores), and every bfloat16
+value is unchanged by TF32 rounding (``cvt.rna.tf32``), as is its product
+with the power-two scales 1/8 and 1/16 (so a TF32 product of bfloat16
+operands is exact too).  The ``wgmma`` kernel's own arithmetic is emulated
+in ``tests/test_torch_kernels.py``.
 
 ``ModelConfig``: the five fields build for every arch, with the
 reference's defaults but for ``remat`` (off in the port); ``remat`` gives
@@ -247,11 +250,12 @@ def tf32_rna(x: torch.Tensor) -> torch.Tensor:
 
 def test_bfloat16_values_are_exact_in_tf32():
     """Every finite bfloat16 value, and its product with the flash
-    kernel's folded scales 64^-1/2 = 1/8 and 256^-1/2 = 1/16, is unchanged
+    kernels' folded scales 64^-1/2 = 1/8 and 256^-1/2 = 1/16, is unchanged
     by TF32 rounding, but for float32 subnormals (below 2^-126, where a
     scaled value's last bits leave TF32's 10); a product of two bfloat16
-    values is exact in float32.  So the bfloat16 kernel's q·kᵀ needs one
-    TF32 product where float32 needs three, and P·V (P float32) two."""
+    values is exact in float32.  So q·kᵀ on bfloat16 operands is one exact
+    product, in TF32 as on the bfloat16 tensor cores (where the ``wgmma``
+    kernel's products rest on the last fact alone)."""
     every = torch.arange(-32768, 32768, dtype=torch.int32).to(
         torch.int16).view(torch.bfloat16).float()
     every = every[torch.isfinite(every)]
@@ -273,20 +277,24 @@ def test_bfloat16_values_are_exact_in_tf32():
 
 def test_bf16_instantiations_and_their_shared_memory():
     """Both kernels take bfloat16 beside float32, launches counted apart;
-    the flash kernel's bfloat16 blocks hold their K/V ring in bfloat16 with
-    no lo buffer (q's hi fragments in shared memory at 128 and 256, the
-    pair's score exchange at 256), each under the float32 block."""
+    RMSNorm's two dtypes share one source, flash attention's bfloat16
+    kernel has its own (``flash_attention_bf16.cu``: q and a two-stage
+    K/V ring of bfloat16 tiles, no lo buffer), each block within Hopper's
+    227 KB."""
     from repro_torch.kernels.flash_attention import flash_attention as t_fa
     from repro_torch.kernels.rmsnorm import rmsnorm as t_rms
     for mod, name in ((t_rms, "rmsnorm"), (t_fa, "flash_attention")):
         assert set(mod.ENTRIES) == {torch.float32, torch.bfloat16}
         assert set(mod.LAUNCHES) == {name, name + "_bf16"}
-        assert set(mod.LIBRARY.entry_points) == {e for _, e in
-                                                 mod.ENTRIES.values()}
-    assert t_fa.SHARED_BYTES_BF16 == {64: 32768, 80: 24576, 128: 49152,
-                                      256: 106496}
+    assert set(t_rms.LIBRARY.entry_points) == {
+        e for _, e in t_rms.ENTRIES.values()}
+    for dtype, (_, entry) in t_fa.ENTRIES.items():
+        assert set(t_fa.LIBRARIES[dtype].entry_points) == {entry}
+    assert t_fa.LIBRARY_BF16.source.name == "flash_attention_bf16.cu"
+    assert t_fa.SHARED_BYTES_BF16 == {64: 83008, 80: 103488, 128: 99392,
+                                      256: 197696}
     for hd, nbytes in t_fa.SHARED_BYTES_BF16.items():
-        assert nbytes < t_fa.SHARED_BYTES[hd] and nbytes <= 232448
+        assert nbytes <= 232448
 
 
 # ---------------------------------------------------------------------------

@@ -14,12 +14,20 @@ order — f32 rounding of a few ulp per term, ~1e-6 measured.
 
 The CUDA kernels themselves run only on the card: the ``cuda``-marked
 tests skip here, and ``chip_smoke.py`` holds them against the plain
-versions on an H100.  What the CPU can hold is the flash kernel's
-arithmetic: both of its products run on the tensor cores in split TF32
-(each operand x as hi = tf32(x) and lo = tf32(x − hi), a product as
-lo·hi + hi·lo + hi·hi with float32 sums).  A test-local emulation of that
-arithmetic is held to ``ATTN_TOL`` against the reference, and a single
-TF32 pass is shown to miss it.
+versions on an H100.  What the CPU can hold is the flash kernels'
+arithmetic.  The float32 kernel runs both products on the tensor cores in
+split TF32 (each operand x as hi = tf32(x) and lo = tf32(x − hi), a
+product as lo·hi + hi·lo + hi·hi with float32 sums): a test-local
+emulation of it is held to ``ATTN_TOL`` against the reference, and a
+single TF32 pass is shown to miss it.  The bfloat16 kernel runs them on
+the bfloat16 tensor cores (exact products, float32 sums of 16-column k
+steps), with P split into three bfloat16 terms: its emulation is held
+within one bfloat16 ulp (+ 1e-6) of the reference's kernel on the widened
+inputs, rounded to bfloat16, and the library's arithmetic (P rounded to
+one bfloat16 term) is shown to miss that.  Head_dims without an
+instantiation are zero-padded to one, with their true scale: the padded
+problem is held against the reference's kernel at its own head_dim 16 and
+32 cases.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -251,6 +259,258 @@ def test_single_tf32_pass_misses_the_tolerance(S, causal, window):
     assert max_err(single, want) > 10 * ATTN_TOL
 
 
+# ---------------------------------------------------------------------------
+# The bfloat16 kernel's arithmetic, emulated: wgmma on bfloat16 operands
+# ---------------------------------------------------------------------------
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to bfloat16 (to nearest even), kept as float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def bf16_inputs(q, k, v):
+    """numpy float32 inputs rounded to bfloat16 values (still float32: the
+    widened inputs both kernels see)."""
+    return tuple(bf16_round(torch.from_numpy(a)).numpy() for a in (q, k, v))
+
+
+def top8(x: torch.Tensor) -> torch.Tensor:
+    """The top 8 significant bits of float32 x, truncated: a bfloat16
+    value (the kernel keeps the high 16 bits of the float)."""
+    return (x.contiguous().view(torch.int32) & -0x10000).view(torch.float32)
+
+
+def p_terms(p: torch.Tensor, terms: int = 3):
+    """P as the kernel splits it, largest term first: each term the top 8
+    bits of what the terms before it leave; three hold float32's 24 bits,
+    so they sum to p exactly."""
+    out = []
+    for _ in range(terms):
+        out.append(top8(p))
+        p = p - out[-1]
+    return out
+
+
+def k16_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The 16-column k steps of a @ b as wgmma runs them on bfloat16
+    operands: each step's products exact (16 significant bits) and summed
+    in float64, rounded once to float32 → (K/16, ..., M, N); the caller adds
+    the steps in float32, in k order."""
+    K = a.shape[-1]
+    a4 = a.reshape(*a.shape[:-1], K // 16, 16).double()
+    b4 = b.reshape(*b.shape[:-2], K // 16, 16, b.shape[-1]).double()
+    return torch.einsum("...mkc,...kcn->...kmn", a4, b4).movedim(-3, 0) \
+        .float()
+
+
+def float32_sum(parts):
+    """Parts added in float32, in order."""
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = acc + part
+    return acc
+
+
+def emulated_bf16_kernel(q, k, v, *, causal, window, scale=None, terms=3,
+                         rounded=False):
+    """The bfloat16 kernel's attention on numpy inputs that hold bfloat16
+    values: scores in one bfloat16 product (the scale folded into q where
+    it is a power of two, exact; applied to the scores after the product
+    elsewhere), masked scores -1e30 with weight 0, P split into ``terms``
+    bfloat16 terms (``rounded``: P rounded to one bfloat16 term, the
+    library's arithmetic), each 16 keys' products of the terms added
+    smallest first into one float32 accumulator, o = acc / max(l, 1e-30)
+    rounded to bfloat16 once.  ``scale`` defaults to head_dim ** -0.5 (a
+    zero-padded head_dim keeps its true one)."""
+    q, k, v = (torch.from_numpy(a) for a in (q, k, v))
+    B, S, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    k, v = (torch.repeat_interleave(t, H // KV, dim=2) for t in (k, v))
+    scale = torch.tensor(hd ** -0.5 if scale is None else scale,
+                         dtype=torch.float32)
+    mant, _ = torch.frexp(scale)
+    fold = bool(mant == 0.5)                  # a power of two
+    qs = (q * scale if fold else q).permute(0, 2, 1, 3)
+    s = float32_sum(list(k16_products(qs, k.permute(0, 2, 3, 1))))
+    if not fold:
+        s = s * scale
+    qpos = torch.arange(S)[:, None]
+    kpos = torch.arange(Skv)[None, :]
+    mask = torch.ones((S, Skv), dtype=torch.bool)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    s = torch.where(mask, s, torch.tensor(-1e30))
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)),
+                    torch.tensor(0.0))
+    pad = -Skv % 16                            # keys past Skv: p 0, v 0
+    ps = [bf16_round(p)] if rounded else p_terms(p, terms)
+    ps = [torch.nn.functional.pad(t, (0, pad)) for t in ps]
+    vh = torch.nn.functional.pad(v.permute(0, 2, 1, 3), (0, 0, 0, pad))
+    steps = [k16_products(t, vh) for t in reversed(ps)]   # smallest first
+    o = float32_sum([st[kk] for kk in range(steps[0].shape[0])
+                     for st in steps])
+    o = o / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    return bf16_round(o).permute(0, 2, 1, 3).numpy()
+
+
+def within_one_bf16_ulp(got, want) -> bool:
+    """|got − want| ≤ one bfloat16 ulp of the larger + 1e-6, everywhere:
+    the contract of the bfloat16 kernel against the reference's kernel on
+    the widened inputs, rounded to bfloat16."""
+    got, want = torch.from_numpy(np.asarray(got, np.float32)), \
+        torch.from_numpy(np.asarray(want, np.float32))
+    bound = bf16_ulp(torch.maximum(got.abs(), want.abs())) + 1e-6
+    return bool(((got - want).abs() <= bound).all())
+
+
+def pallas_bf16(q, k, v, *, causal, window):
+    """The reference's Pallas kernel (interpret mode) on the widened
+    inputs, rounded to bfloat16."""
+    out = fa_ops.flash_attention(*map(jnp.asarray, (q, k, v)),
+                                 causal=causal, window=window)
+    return bf16_round(torch.from_numpy(np.array(out))).numpy()
+
+
+def test_bf16_split_is_exact():
+    """Three truncated bfloat16 terms sum to float32 p exactly (24 = 3 x 8
+    bits), each term a bfloat16 value; two leave up to 2^-15 of p."""
+    p = torch.from_numpy(np.random.default_rng(5).random(4096)
+                         .astype(np.float32))
+    p = torch.cat([p, p * 1e-20, torch.tensor([0.0, 1.0, 2 ** -126])])
+    hi, mid, lo = p_terms(p)
+    for t in (hi, mid, lo):
+        assert torch.equal(bf16_round(t), t)
+    assert torch.equal((hi.double() + mid.double() + lo.double()).float(),
+                       p)
+    assert torch.equal(hi + mid + lo, p)
+    two = p - (p_terms(p, 2)[0] + p_terms(p, 2)[1])
+    assert float((two / p.clamp(min=1e-38)).max()) < 2.0 ** -15
+    assert float(two.abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("S,Skv,causal,window", ATTN_CASES)
+def test_bf16_emulation_within_one_ulp_of_reference(S, Skv, causal, window):
+    q, k, v = bf16_inputs(*attn_inputs(S, Skv, seed=S * 11 + Skv))
+    got = emulated_bf16_kernel(q, k, v, causal=causal, window=window)
+    want = pallas_bf16(q, k, v, causal=causal, window=window)
+    got, want = live_rows(S, Skv, window, got, want)
+    assert within_one_bf16_ulp(got, want)
+
+
+def test_bf16_emulation_within_one_ulp_of_reference_at_2048():
+    q, k, v = bf16_inputs(*long_row_inputs())
+    got = emulated_bf16_kernel(q, k, v, causal=True, window=None)
+    assert within_one_bf16_ulp(got, pallas_bf16(q, k, v, causal=True,
+                                                window=None))
+
+
+@pytest.mark.parametrize("hd", (80, 128, 256))
+@pytest.mark.parametrize("S,Skv,causal,window", [
+    (129, 129, True, None), (72, 40, True, 16), (65, 130, False, None)])
+def test_bf16_emulation_within_one_ulp_of_reference_wide_heads(
+        S, Skv, causal, window, hd):
+    """80^-0.5 and 128^-0.5 are no powers of two: the scores are scaled
+    after the product; 256^-0.5 = 1/16 folds into q."""
+    q, k, v = bf16_inputs(*attn_inputs(S, Skv, hd=hd, seed=S + Skv + hd))
+    got = emulated_bf16_kernel(q, k, v, causal=causal, window=window)
+    want = pallas_bf16(q, k, v, causal=causal, window=window)
+    got, want = live_rows(S, Skv, window, got, want)
+    assert within_one_bf16_ulp(got, want)
+
+
+@pytest.mark.parametrize("S,causal,window", [(2048, True, None),
+                                             (129, True, 100),
+                                             (72, False, None)])
+def test_one_bf16_term_of_p_misses_the_tolerance(S, causal, window):
+    """Why P is split: the library's arithmetic, P rounded to one bfloat16
+    term (8 bits) before P·V, misses the one-ulp contract on the same
+    inputs on which the three-term split holds it."""
+    q, k, v = bf16_inputs(*(long_row_inputs() if S == 2048
+                            else attn_inputs(S, S, seed=S * 13)))
+    want = pallas_bf16(q, k, v, causal=causal, window=window)
+    split = emulated_bf16_kernel(q, k, v, causal=causal, window=window)
+    single = emulated_bf16_kernel(q, k, v, causal=causal, window=window,
+                                  rounded=True)
+    assert within_one_bf16_ulp(split, want)
+    assert not within_one_bf16_ulp(single, want)
+
+
+@pytest.mark.parametrize("S,causal,window", [(2048, True, None),
+                                             (129, True, 100),
+                                             (72, False, None)])
+def test_two_bf16_terms_of_p_miss_the_tolerance(S, causal, window):
+    """Why three terms: two (16 of p's 24 bits) leave up to 2^-15 of each
+    weight, which moves outputs near 0 past one bfloat16 ulp + 1e-6."""
+    q, k, v = bf16_inputs(*(long_row_inputs() if S == 2048
+                            else attn_inputs(S, S, seed=S * 13)))
+    want = pallas_bf16(q, k, v, causal=causal, window=window)
+    two = emulated_bf16_kernel(q, k, v, causal=causal, window=window,
+                               terms=2)
+    assert not within_one_bf16_ulp(two, want)
+
+
+# ---------------------------------------------------------------------------
+# Any head_dim from 1 to 256: zero-padded to a built one, true scale
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hd,built", [(1, 64), (16, 64), (32, 64), (64, 64),
+                                      (65, 80), (80, 80), (96, 128),
+                                      (129, 256), (256, 256)])
+def test_pad_head_dim_to_the_next_built_one(hd, built):
+    q, k, v = map(torch.from_numpy, attn_inputs(5, 7, B=1, hd=hd))
+    assert t_fa.padded_head_dim(hd) == built
+    qp, kp, vp = t_fa.pad_head_dim(q, k, v)
+    for a, ap in ((q, qp), (k, kp), (v, vp)):
+        assert ap.shape == a.shape[:-1] + (built,)
+        assert torch.equal(ap[..., :hd], a)
+        assert not ap[..., hd:].any()
+    if hd == built:
+        assert qp is q and kp is k and vp is v
+
+
+@pytest.mark.parametrize("hd", [0, 257, 512])
+def test_pad_head_dim_refuses_what_no_instantiation_covers(hd):
+    with pytest.raises(ValueError, match=f"head_dim {hd} not served"):
+        t_fa.padded_head_dim(hd)
+
+
+# tests/test_kernels.py's flash cases at head_dim 32 and 16 (B, S, H, KV,
+# hd, causal, window)
+REF_SMALL_HEADS = [(2, 128, 4, 2, 32, True, None), (2, 128, 4, 4, 32, True, 32),
+                   (1, 96, 2, 2, 16, False, None)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", REF_SMALL_HEADS)
+def test_zero_padded_head_dim_is_the_reference_function(B, S, H, KV, hd,
+                                                        causal, window):
+    """What the kernels run at a head_dim below 64: the plain attention on
+    operands zero-padded to 64 with the true scale hd^-0.5, cut back to hd
+    columns, against the reference's Pallas kernel (interpret mode) on the
+    operands; and the bfloat16 kernel's arithmetic on the padded bfloat16
+    operands (32^-0.5 is no power of two: no fold at 64) within one
+    bfloat16 ulp of it."""
+    q, k, v = attn_inputs(S, S, B=B, H=H, KV=KV, hd=hd, seed=hd * 7 + S)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    pallas = fa_ops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                    bq=64, bk=64)             # interpret
+    padded = t_fa.pad_head_dim(*map(torch.from_numpy, (q, k, v)))
+    assert padded[0].shape[-1] == 64
+    got = t_fa_ref.attention(*padded, causal=causal, window=window,
+                             scale=hd ** -0.5)
+    assert torch.equal(got[..., hd:], torch.zeros_like(got[..., hd:]))
+    assert max_err(got[..., :hd], pallas) < ATTN_TOL
+    qb, kb, vb = bf16_inputs(q, k, v)
+    emulated = emulated_bf16_kernel(
+        *(t.numpy() for t in t_fa.pad_head_dim(
+            *map(torch.from_numpy, (qb, kb, vb)))),
+        causal=causal, window=window, scale=hd ** -0.5)
+    assert within_one_bf16_ulp(emulated[..., :hd],
+                               pallas_bf16(qb, kb, vb, causal=causal,
+                                           window=window))
+
+
 # head_dims 80 (hubert-xlarge), 128 (llama3.2-3b, granite-8b,
 # command-r-35b, qwen2-vl-7b) and 256 (recurrentgemma-9b): the kernel's
 # other three instantiations
@@ -311,10 +571,13 @@ def test_attention_plain_matches_pallas_at_head_dim_256_one_kv_head(
 
 
 def test_kernel_instantiations_and_their_shared_memory():
-    """One instantiation per served head_dim, each within Hopper's 227 KB
-    a block and keeping eight warps an SM: two blocks of four warps at 64,
-    80 and 128, one block of eight (two warps per 16 query rows, 224 KB)
-    at 256."""
+    """One instantiation per built head_dim in each dtype, each within
+    Hopper's 227 KB a block.  float32: eight warps an SM, two blocks of
+    four warps at 64, 80 and 128, one block of eight (two warps per 16
+    query rows, 224 KB) at 256.  bfloat16: one block an SM of two consumer
+    warpgroups (64 query rows each) and a producer warpgroup, every
+    head_dim stored unpadded in 64-column chunks (80: 64 + 16), tiles of
+    16-key multiples."""
     assert t_fa.HEAD_DIMS == (64, 80, 128, 256)
     assert t_fa.SHARED_BYTES[64] == 114688     # head_dim 64's layout, unchanged
     assert t_fa.SHARED_BYTES[256] == 229376
@@ -323,6 +586,13 @@ def test_kernel_instantiations_and_their_shared_memory():
         assert t_fa.SHARED_BYTES[hd] <= 232448
         blocks = 232448 // t_fa.SHARED_BYTES[hd]
         assert blocks * 4 * halves == 8, hd
+    assert tuple(t_fa.INSTANCES_BF16) == t_fa.HEAD_DIMS
+    assert t_fa.SHARED_BYTES_BF16 == {64: 83008, 80: 103488, 128: 99392,
+                                      256: 197696}
+    for hd, (bk, wgs) in t_fa.INSTANCES_BF16.items():
+        assert wgs == 2 and bk % 16 == 0 and bk <= 128
+        assert hd % 64 in (0, 16)              # 64-column chunks + a tail
+        assert t_fa.SHARED_BYTES_BF16[hd] <= 232448
 
 
 def test_attention_gqa_reads_kv_head_h_over_q_per_kv():
@@ -389,8 +659,9 @@ def test_builder_caches_by_source_and_flags(tmp_path, monkeypatch):
 def test_kernel_libraries_share_one_builder():
     from repro_torch.fastpath import kernels as fp
     from repro_torch.kernels.lag_trigger import lag_trigger as lt
-    libs = [fp.LIBRARY, t_rms.LIBRARY, t_fa.LIBRARY, lt.LIBRARY]
-    assert len({lib.name for lib in libs}) == 4
+    libs = [fp.LIBRARY, t_rms.LIBRARY, t_fa.LIBRARY, t_fa.LIBRARY_BF16,
+            lt.LIBRARY]
+    assert len({lib.name for lib in libs}) == 5
     assert {lib.path().parent for lib in libs} == {build.build_dir()}
     assert build.build_dir().parts[-2:] == ("build", "torch_ext")
     assert all(lib.source.exists() and "sm_90a" in " ".join(lib.flags)
@@ -513,15 +784,51 @@ def test_cuda_flash_attention_bf16_matches_plain(cuda_device, S, Skv, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("hd", (16, 32))
+@pytest.mark.parametrize("S,Skv,causal,window", ATTN_CASES)
+def test_cuda_flash_attention_at_zero_padded_head_dims(cuda_device, S, Skv,
+                                                       causal, window, hd,
+                                                       dtype):
+    """head_dim 16 and 32 (the reference's own test cases) run the
+    head_dim-64 instantiations on zero-padded operands with their true
+    scale: float32 within ``ATTN_TOL`` of the plain version, bfloat16
+    within one bfloat16 ulp (+ 1e-6) of it on the widened inputs."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device).to(getattr(torch, dtype))
+               for a in attn_inputs(S, Skv, H=8, KV=2, hd=hd))
+    got = t_fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert got.shape == q.shape and got.dtype == q.dtype
+    want = t_fa_ref.attention(q.float(), k.float(), v.float(),
+                              causal=causal, window=window)
+    if S > Skv and window is not None:
+        live = torch.arange(S, device=cuda_device) - window + 1 < Skv
+        got, want = got[:, live], want[:, live]
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+    else:
+        assert within_one_bf16_ulp(got.float().cpu(),
+                                   want.bfloat16().float().cpu())
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_refuse_what_no_instantiation_serves(cuda_device):
-    """float32 and bfloat16 are taken; a head_dim without an instantiation,
-    a width that is not whole groups of four (float32 or bfloat16), another
+    """float32 and bfloat16 are taken at any head_dim from 1 to 256 (96 is
+    zero-padded to 128, its output the plain version's); head_dim 257, a
+    width that is not whole groups of four (float32 or bfloat16), another
     dtype and mixed dtypes are refused."""
     q, k, v = (torch.from_numpy(a).to(cuda_device)
                for a in attn_inputs(8, 8, B=1, hd=96))
-    with pytest.raises(ValueError, match="head_dim 96 not built"):
+    got = t_fa_ops.flash_attention(q, k, v)
+    assert got.shape == q.shape and got.is_contiguous()
+    torch.testing.assert_close(got, t_fa_ref.attention(q, k, v),
+                               rtol=ATTN_TOL, atol=ATTN_TOL)
+    assert t_fa_ops.flash_attention(q.bfloat16(), k.bfloat16(),
+                                    v.bfloat16()).shape == q.shape
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in attn_inputs(8, 8, B=1, hd=257))
+    with pytest.raises(ValueError, match="head_dim 257 not served"):
         t_fa_ops.flash_attention(q, k, v)
-    with pytest.raises(ValueError, match="head_dim 96 not built"):
+    with pytest.raises(ValueError, match="head_dim 257 not served"):
         t_fa_ops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
     q, k, v = (torch.from_numpy(a).to(cuda_device)
                for a in attn_inputs(8, 8, B=1))
