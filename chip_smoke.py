@@ -42,6 +42,12 @@ Phases (any failure raises and the script exits non-zero):
      at the serving path's shapes (rmsnorm (8192, 2048); attention (4,
      2048, 32/8, 64) causal), within rtol = atol = 1e-5, with their times
      against their bounds, the plain versions and one PyTorch call each.
+     RMSNorm's times are its three readings (``rms_readings``), the
+     kernel's and ``F.rms_norm``'s alike: back to back on a rotation of
+     inputs larger than the L2 (cold), device-only (the same launches
+     queued behind ``torch.cuda._sleep``, ``Event.query()`` confirming the
+     host had enqueued them all first), and the host's µs a call; the
+     kernels line takes the device-only times.
      The flash kernel's bound is its split-TF32 work on the tensor cores;
      the float32 FMA units' bound and the kernel-to-library ratio are
      printed beside it.
@@ -171,7 +177,7 @@ Phases (any failure raises and the script exits non-zero):
         128) and (4, 2048, 28/4, 128) causal, (4, 2048, 16/16, 80)
         non-causal, against their split-TF32 bounds and
         ``F.scaled_dot_product_attention``; RMSNorm (8192, d) against
-        ``F.rms_norm``.
+        ``F.rms_norm`` by its three readings (phase 7).
      b. ``launch.serve`` as phase 8 (launches exactly 2L + 1 RMSNorm and L
         flash per prefill, none per decode step; the prefill's kernel
         route against the plain route within 2e-3; peak under 80 GB) for
@@ -255,9 +261,10 @@ Phases (any failure raises and the script exits non-zero):
         to bfloat16; both within the reference's bfloat16 tolerances (3e-2,
         2.5e-2) of the plain bfloat16 versions.  Each full shape timed
         beside the float32 kernel on the widened inputs, the plain version
-        and the library's bfloat16 call (RMSNorm's three on a rotation of
-        inputs and outputs larger than the 50 MB L2, so that every launch
-        reads cold data; the times on one reused input beside them); flash's
+        and the library's bfloat16 call (RMSNorm in both dtypes by its three
+        readings on a rotation of inputs and outputs larger than the 50 MB
+        L2, so that every launch reads cold data, as phase 7; the times on
+        one reused input beside them); flash's
         bound is the FLOP its masks leave at the bfloat16 tensor cores' 989
         TFLOP/s, the design's own work (one bfloat16 product for q·kᵀ,
         three for P·V) at the same rate beside it; command-r's shape also in
@@ -556,6 +563,11 @@ PADDED_RAGGED = ((16, 8, 2), (32, 8, 2))
 # 18a: RMSNorm's timed launches rotate through inputs and outputs of at
 # least this many bytes together, 4 x the H100's 50 MB L2
 COLD_BYTES = 200e6
+# RMSNorm's device-only reading (phases 7, 15a, 18a): the sleep ahead of a
+# timed loop lasts this many times the loop's host time, counted at a clock
+# no H100 exceeds (its boost clock is 1.98 GHz), so it is never shorter
+HOLD_FACTOR = 3
+HOLD_CLOCK_HZ = 2.0e9
 # 18b: (arch, serve flags, layers kept: None = all, "reckon" = the most
 # under SERVE_RECKON_GB; the float32 model fits beside it).  bfloat16
 # weights: command-r-35b 64.76 GB at 40 layers, qwen3-moe-30b-a3b 61.09 at
@@ -649,6 +661,80 @@ def cold_ms(torch, fn, inputs, n=50):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def held_ms(torch, fn, inputs, n=50):
+    """Device-only and host readings of ``cold_ms``'s loop.  The ``n``
+    launches are queued behind ``torch.cuda._sleep``, which lasts
+    HOLD_FACTOR × the loop's own host time (at HOLD_CLOCK_HZ, at least the
+    card's clock, so never shorter): the host has enqueued every launch
+    before the device reaches the first, which ``query()`` on the start
+    event confirms, and the two events time device work alone.  The
+    loop's ``time.perf_counter`` time while the device sleeps is the host's
+    µs per call.  → (device ms per call, host µs per call)."""
+    outs = [fn(*x) for x in inputs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        j = i % len(inputs)
+        outs[j] = fn(*inputs[j])
+    loop_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(4):
+        torch.cuda._sleep(int(HOLD_FACTOR * loop_s * HOLD_CLOCK_HZ) + 100000)
+        start.record()
+        t0 = time.perf_counter()
+        for i in range(n):
+            j = i % len(inputs)
+            outs[j] = fn(*inputs[j])
+        host_s = time.perf_counter() - t0
+        held = not start.query()       # still sleeping: all n were queued
+        end.record()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / n, host_s / n * 1e6
+        loop_s = max(2 * loop_s, host_s)
+    raise RuntimeError("chip_smoke check failed: the sleep never outlasted "
+                       "the host's enqueue loop")
+
+
+def rms_readings(torch, xs):
+    """RMSNorm's three readings on the rotation ``xs`` of (x, scale), the
+    kernel's and ``F.rms_norm``'s alike: (a) ``cold_ms`` back to back, (b)
+    device-only ms and (c) host µs per call (``held_ms``)."""
+    from repro_torch.kernels.rmsnorm import rmsnorm as rms
+
+    d = xs[0][0].shape[1]
+    lib = lambda t, w: torch.nn.functional.rms_norm(t, (d,), w, 1e-6)
+    out = {}
+    for who, fn in (("kernel", rms.rmsnorm_2d), ("library", lib)):
+        dev_ms, host_us = held_ms(torch, fn, xs)
+        out[who] = dict(cold_ms=cold_ms(torch, fn, xs), device_ms=dev_ms,
+                        host_us=host_us)
+    return out
+
+
+def rms_rotation(torch, gen, x, sc):
+    """x, and more normal inputs of its shape and dtype with the same
+    scale, until the launches' inputs and outputs together exceed
+    COLD_BYTES (at least two)."""
+    k = max(2, math.ceil(COLD_BYTES / (2 * x.numel() * x.element_size())))
+    return [(x, sc)] + [(torch.randn(x.shape, device=x.device, generator=gen)
+                         .to(x.dtype), sc) for _ in range(k - 1)]
+
+
+def rms_reading_line(what, r, bound):
+    """One printed line of ``rms_readings``' numbers beside the bound."""
+    def part(p):
+        return (f"cold {p['cold_ms']:.4f} ms, device {p['device_ms']:.4f} "
+                f"ms, host {p['host_us']:.1f} µs a call")
+    k, lib = r["kernel"], r["library"]
+    return (f"  {what}: kernel {part(k)} | F.rms_norm {part(lib)} | bound "
+            f"{bound:.4f} ms; device kernel / library "
+            f"{k['device_ms'] / lib['device_ms']:.3f}, bound / kernel "
+            f"{bound / k['device_ms']:.1%}")
 
 
 def bound_ms(nbytes, nops, flop_per_s=F32_FLOP_PER_S):
@@ -1149,13 +1235,12 @@ def model_kernel_phase(torch, dev):
     err = compare("rmsnorm full", rms.rmsnorm_2d(x, sc),
                   rms_ref.rmsnorm(x, sc))
     t_b, by = bound_ms(2 * R * d * 4 + d * 4, 4 * R * d)
+    rd = rms_readings(torch, rms_rotation(torch, gen, x, sc))
+    print(rms_reading_line(f"rmsnorm ({R}, {d})", rd, t_b))
     results["rmsnorm"] = dict(
-        max_abs_err=err, ms=cuda_ms(torch, lambda: rms.rmsnorm_2d(x, sc),
-                                    n=50),
+        max_abs_err=err, ms=rd["kernel"]["device_ms"],
         plain_ms=cuda_ms(torch, lambda: rms_ref.rmsnorm(x, sc), n=20),
-        bound_ms=t_b, bound_by=by,
-        library_ms=cuda_ms(torch, lambda: F.rms_norm(x, (d,), sc, 1e-6),
-                           n=20))
+        bound_ms=t_b, bound_by=by, library_ms=rd["library"]["device_ms"])
     del x, sc
 
     # -- flash attention at prefill: (4, 2048, 32/8, 64), causal -------------
@@ -2582,7 +2667,6 @@ def wide_kernel_phase(torch, dev):
     from repro_torch.kernels.rmsnorm import ref as rms_ref
     from repro_torch.kernels.rmsnorm import rmsnorm as rms
 
-    F = torch.nn.functional
     gen = torch.Generator(device=dev)
     gen.manual_seed(15)
     bad, rows = [], []
@@ -2617,13 +2701,14 @@ def wide_kernel_phase(torch, dev):
         err = compare(f"rmsnorm full ({R}, {d})", rms.rmsnorm_2d(x, sc),
                       rms_ref.rmsnorm(x, sc))
         t_b, by = bound_ms(2 * R * d * 4 + d * 4, 4 * R * d)
+        rd = rms_readings(torch, rms_rotation(torch, gen, x, sc))
+        print(rms_reading_line(f"rmsnorm ({R}, {d})", rd, t_b))
         rows.append(dict(
-            what=f"rmsnorm ({R}, {d})", max_abs_err=err,
-            ms=cuda_ms(torch, lambda: rms.rmsnorm_2d(x, sc), n=50),
+            what=f"rmsnorm ({R}, {d}), device-only", max_abs_err=err,
+            ms=rd["kernel"]["device_ms"],
             plain_ms=cuda_ms(torch, lambda: rms_ref.rmsnorm(x, sc), n=20),
             bound_ms=t_b, bound_by=by,
-            library_ms=cuda_ms(torch, lambda: F.rms_norm(x, (d,), sc, 1e-6),
-                               n=20)))
+            library_ms=rd["library"]["device_ms"]))
         del x, sc
     print_full_rows(rows)
     check(not bad, f"kernel vs plain beyond rtol = atol = {MODEL_TOL}: "
@@ -3077,6 +3162,43 @@ def bf16_rms_case(torch, x, sc):
     return got, float(diff.max()), bad
 
 
+def rms_timing(torch, dev, gen, bad, widths=BF16_RMS_WIDTHS):
+    """18a's RMSNorm at (8192, d) for each d of ``widths``: the bfloat16
+    launch held as ``bf16_rms_case``; ``rms_readings`` of both dtypes (the
+    float32 rotation starts with the widened input), the plain bfloat16
+    version's time and both dtypes' times on one reused input.  → {d: the
+    bfloat16 row of the kernels line}."""
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm as rms
+
+    R, out = RMS_FULL[0], {}
+    for d in widths:
+        x = torch.randn((R, d), device=dev, generator=gen).bfloat16()
+        sc = torch.randn((d,), device=dev, generator=gen).bfloat16()
+        _, e, b = bf16_rms_case(torch, x, sc)
+        bad += [f"rmsnorm bf16 full ({R}, {d}): {m}" for m in b]
+        xs = rms_rotation(torch, gen, x, sc)
+        x32s = rms_rotation(torch, gen, x.float(), sc.float())
+        t_b, by = bound_ms(2 * R * d * 2 + d * 2, 4 * R * d)
+        t_b32 = bound_ms(2 * R * d * 4 + d * 4, 4 * R * d)[0]
+        r16, r32 = rms_readings(torch, xs), rms_readings(torch, x32s)
+        lib = lambda t, w: torch.nn.functional.rms_norm(t, (d,), w, 1e-6)
+        plain = cuda_ms(torch, lambda: rms_ref.rmsnorm(x, sc), n=20)
+        hot = [cuda_ms(torch, lambda: f(*xw), n=50)
+               for f in (rms.rmsnorm_2d, lib) for xw in (xs[0], x32s[0])]
+        print(rms_reading_line(f"rmsnorm bf16 ({R}, {d})", r16, t_b))
+        print(rms_reading_line(f"rmsnorm float32 ({R}, {d})", r32, t_b32))
+        print(f"    max |Δ| {e:.3e} against the widened plain version; plain "
+              f"bf16 {plain:.4f} ms; rotations of {len(xs)} / {len(x32s)}; "
+              f"one reused input: kernel {hot[0]:.4f} / {hot[1]:.4f} ms, "
+              f"library {hot[2]:.4f} / {hot[3]:.4f} ms (bf16 / float32)")
+        out[d] = dict(max_abs_err=e, ms=r16["kernel"]["device_ms"],
+                      plain_ms=plain, bound_ms=t_b, bound_by=by,
+                      library_ms=r16["library"]["device_ms"])
+        del x, sc, xs, x32s
+    return out
+
+
 def bf16_flash_case(torch, q, k, v, causal=True, window=None):
     """A bfloat16 flash launch against the plain version on the widened
     inputs rounded to bfloat16 (the reference kernel's function) within one
@@ -3116,8 +3238,6 @@ def bf16_kernel_phase(torch, dev):
     ``flash_attention_bf16`` (at llama3.2-1b's shapes)."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.kernels.rmsnorm import ref as rms_ref
-    from repro_torch.kernels.rmsnorm import rmsnorm as rms
 
     F = torch.nn.functional
     gen = torch.Generator(device=dev)
@@ -3152,34 +3272,7 @@ def bf16_kernel_phase(torch, dev):
     for hd, H, KV in PADDED_RAGGED:        # the float32 kernel, zero-padded
         flash_ragged(torch, dev, gen, hd, H, KV, bad)
 
-    R = RMS_FULL[0]
-    for d in BF16_RMS_WIDTHS:
-        x, sc = randn(R, d), randn(d)
-        _, e, b = bf16_rms_case(torch, x, sc)
-        bad += [f"rmsnorm bf16 full ({R}, {d}): {m}" for m in b]
-        s32 = sc.float()
-        # cold: a rotation of inputs whose bytes with the outputs exceed
-        # COLD_BYTES (bfloat16 and float32 apart)
-        xs = [(randn(R, d), sc)
-              for _ in range(max(2, math.ceil(COLD_BYTES / (4 * R * d))))]
-        x32s = [(t.float(), s32)
-                for t, _ in xs[:max(2, math.ceil(COLD_BYTES / (8 * R * d)))]]
-        lib = lambda t, w: F.rms_norm(t, (d,), w, 1e-6)
-        t_b, by = bound_ms(2 * R * d * 2 + d * 2, 4 * R * d)
-        row = dict(
-            what=f"rmsnorm bf16 ({R}, {d})", max_abs_err=e,
-            ms=cold_ms(torch, rms.rmsnorm_2d, xs),
-            f32_ms=cold_ms(torch, rms.rmsnorm_2d, x32s),
-            plain_ms=cuda_ms(torch, lambda: rms_ref.rmsnorm(x, sc), n=20),
-            bound_ms=t_b, bound_by=by,
-            library_ms=cold_ms(torch, lib, xs),
-            hot_ms=cuda_ms(torch, lambda: rms.rmsnorm_2d(x, sc), n=50),
-            hot_library_ms=cuda_ms(torch, lambda: lib(x, sc), n=50),
-            rotation=len(xs))
-        rows.append(row)
-        if (R, d) == RMS_FULL:
-            out["rmsnorm_bf16"] = row
-        del x, sc, s32, xs, x32s
+    out["rmsnorm_bf16"] = rms_timing(torch, dev, gen, bad)[RMS_FULL[1]]
 
     for B, S, H, KV, hd, causal, window in ATTN_BF16:
         q, k, v = randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)
@@ -3225,17 +3318,12 @@ def bf16_kernel_phase(torch, dev):
                  f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; the design's 1 + 3 "
                  f"bfloat16 products at the same rate "
                  f"{r['design_bound_ms']:.4f} ms)" if "gflop" in r else "")
-        cold = (f"; cold L2, a rotation of {r['rotation']}; one reused "
-                f"input: kernel {r['hot_ms']:.4f} ms, library "
-                f"{r['hot_library_ms']:.4f} ms, kernel / library "
-                f"{r['hot_ms'] / r['hot_library_ms']:.3f}"
-                if "rotation" in r else "")
         print(f"  full-shape {r['what']}: max |Δ| {r['max_abs_err']:.3e} | "
               f"{r['ms']:.4f} ms (float32 kernel {r['f32_ms']:.4f} ms, plain"
               f" {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']}{extra} = {r['bound_ms'] / r['ms']:.1%}, "
               f"library {r['library_ms']:.4f} ms, kernel / library "
-              f"{r['ms'] / r['library_ms']:.3f}{cold})")
+              f"{r['ms'] / r['library_ms']:.3f})")
     # command-r-35b's heads in float32, never timed before
     print_full_rows([flash_full(torch, dev, gen, ATTN_BF16[4][:5], True,
                                 bad)])
@@ -3528,7 +3616,8 @@ def main():
         for line in log.get("ptxas", "").splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"    {line.strip()}")
-            elif lib is fa.LIBRARY_BF16 and "entry function" in line:
+            elif lib in (fa.LIBRARY_BF16, rms.LIBRARY) and \
+                    "entry function" in line:
                 print(f"    {line.strip()[:140]}")
     flash_log = build.BUILD_LOG.get(fa.LIBRARY.name, {}).get("ptxas", "")
     spills = [line.strip() for line in flash_log.splitlines()

@@ -127,9 +127,14 @@ def load(lib: CudaLibrary) -> ctypes.CDLL:
 def launch(fn, *args, device: torch.device) -> None:
     """Call a C entry point on ``device``'s current stream; raise on the
     CUDA error it returns (a refused launch never runs, and a later
-    synchronise would not report it)."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+    synchronise would not report it).  The current device is switched
+    only when it is not ``device`` already."""
+    raw_stream = torch._C._cuda_getCurrentRawStream
+    index, current = device.index, torch.cuda.current_device()
+    if index is None or index == current:
+        err = fn(*args, raw_stream(current))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, raw_stream(index))
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")

@@ -2,25 +2,27 @@
 Pallas kernel ``repro.kernels.rmsnorm.rmsnorm.rmsnorm_2d``).
 
 The CUDA kernel takes any number of rows (no row padding), float32 or
-bfloat16, and widths that are a multiple of 4 up to ``MAX_D``: a row lives
-in one warp's registers up to 4096 and in one block's (256 threads) up to
-8192.  The output is at x's dtype and the scale is cast to it first, as in
-the reference's kernel (so a bfloat16 x with a float32 scale writes
-bfloat16, where the plain version promotes to float32).  ``LAUNCHES``
-counts the launches of each instantiation (``rmsnorm`` for float32,
-``rmsnorm_bf16`` for bfloat16); nothing else increments it.
+bfloat16, and widths that are a multiple of 4 up to ``MAX_D``: a persistent
+grid streams tiles of rows through shared memory by TMA, and a team of 1 to
+8 warps (by d alone) folds each row.  The output is at x's dtype and the
+scale is cast to it first, as in the reference's kernel (so a bfloat16 x
+with a float32 scale writes bfloat16, where the plain version promotes to
+float32).  ``LAUNCHES`` counts the launches of each instantiation
+(``rmsnorm`` for float32, ``rmsnorm_bf16`` for bfloat16); nothing else
+increments it.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
-#: the widest row the kernel takes (8 groups of 4 a thread of a row's block)
+#: the widest row the kernel takes (a team of 8 warps, four chunks of 8
+#: elements a thread)
 MAX_D = 8192
 
 #: the instantiation of each dtype: (its name in ``LAUNCHES``, entry point)
@@ -35,6 +37,8 @@ _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
 LIBRARY = build.CudaLibrary(
     "rmsnorm", Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu",
     {entry: _ARGS for _, entry in ENTRIES.values()})
+#: dtype → (its name in ``LAUNCHES``, the C function), at first launch
+_ENTRY: Dict[torch.dtype, Tuple[str, object]] = {}
 
 
 def reset_launches() -> None:
@@ -42,10 +46,8 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def rmsnorm_2d(x: torch.Tensor, scale: torch.Tensor, *,
-               eps: float = 1e-6) -> torch.Tensor:
-    """x (R, d) float32 or bfloat16, scale (d,) at x's dtype or float32,
-    on one CUDA device → (R, d) at x's dtype."""
+def _refuse(x: torch.Tensor, scale: torch.Tensor) -> None:
+    """Raise on what the kernel does not take, first failure first."""
     if not (x.is_cuda and scale.device == x.device):
         raise ValueError(f"rmsnorm_2d: CUDA operands on one device "
                          f"required, got {x.device} and {scale.device}")
@@ -64,10 +66,48 @@ def rmsnorm_2d(x: torch.Tensor, scale: torch.Tensor, *,
                for t in (x, scale)):
         raise ValueError("rmsnorm_2d: operands must be contiguous and "
                          "16-byte aligned")
-    name, entry = ENTRIES[x.dtype]
+
+
+def rmsnorm_2d(x: torch.Tensor, scale: torch.Tensor, *,
+               eps: float = 1e-6) -> torch.Tensor:
+    """x (R, d) float32 or bfloat16, scale (d,) at x's dtype or float32,
+    on one CUDA device → (R, d) at x's dtype."""
+    dtype = x.dtype
+    # every condition of ``_refuse`` at once, read as few times as can be
+    if not (x.is_cuda and x.dim() == 2 and dtype in ENTRIES
+            and scale.get_device() == x.get_device()
+            and scale.dtype is dtype and scale.shape == x.shape[1:]
+            and x.shape[1] % 4 == 0 and x.shape[1] <= MAX_D
+            and x.is_contiguous() and scale.is_contiguous()
+            and x.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0):
+        _refuse(x, scale)            # raises, or passes a float32 scale
+        scale = scale.to(dtype)
+    name, fn = _ENTRY.get(dtype) or _resolve(dtype)
     y = torch.empty_like(x)
-    build.launch(getattr(build.load(LIBRARY), entry), x.data_ptr(),
-                 scale.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1],
+    rows, d = x.shape
+    build.launch(fn, x.data_ptr(), scale.data_ptr(), y.data_ptr(), rows, d,
                  float(eps), device=x.device)
     LAUNCHES[name] += 1
     return y
+
+
+def _resolve(dtype: torch.dtype):
+    """(name, C entry point) of ``dtype``'s instantiation, resolved once."""
+    name, entry = ENTRIES[dtype]
+    _ENTRY[dtype] = name, getattr(build.load(LIBRARY), entry)
+    return _ENTRY[dtype]
+
+
+def plan(d: int, dtype: torch.dtype) -> Tuple[int, int, int, int]:
+    """The tiling a launch of rows of width ``d`` at ``dtype`` picks, from
+    the library itself (built if needed): (warps a row, rows a tile,
+    stages a ring, blocks a SM)."""
+    fn = build.load(LIBRARY).lag_rmsnorm_plan
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int64,
+                   ctypes.POINTER(ctypes.c_int64)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int64 * 4)()
+    err = fn(d, dtype.itemsize, out)
+    if err != 0:
+        raise ValueError(f"rmsnorm plan: no plan for d {d} at {dtype}")
+    return tuple(out)

@@ -47,6 +47,8 @@ from repro_torch.kernels.rmsnorm import ops as t_rms_ops
 from repro_torch.kernels.rmsnorm import ref as t_rms_ref
 from repro_torch.kernels.rmsnorm import rmsnorm as t_rms
 
+from rmsnorm_fold import RMS_WIDTHS, kernel_rmsnorm, kernel_rsqrt
+
 RMS_TOL = 1e-5
 ATTN_TOL = 1e-5
 
@@ -105,6 +107,39 @@ def test_rmsnorm_eps_and_zero_rows():
         want = rms_ops.rmsnorm(jnp.asarray(x), jnp.asarray(s), eps=eps)
         assert max_err(got, want) < RMS_TOL
         assert float(got[0].abs().max()) == 0.0
+
+
+# The CUDA kernel's fold order (tests/rmsnorm_fold.py) against the
+# reference: the card holds the kernel to the same emulation bit for bit
+# (tests/test_torch_rmsnorm_cuda.py).
+def rms_case(d, dtype, rows=5):
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.standard_normal((rows, d)).astype(np.float32))
+    s = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+    return x.to(dtype), s.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("d", RMS_WIDTHS)
+def test_kernel_fold_matches_reference(d, dtype):
+    """The kernel's fold order against the reference's Pallas kernel in
+    interpret mode and its oracle, on the same inputs: float32 within
+    RMS_TOL; bfloat16 within one bfloat16 ulp a rounding, |scale|·ulp(y) +
+    ulp(out) (a reordered mean may move y across a rounding boundary)."""
+    x, s = rms_case(d, getattr(torch, dtype))
+    got = kernel_rmsnorm(x, s, kernel_rsqrt(x)).float().numpy()
+    jx = jnp.asarray(x.float().numpy()).astype(dtype)
+    js = jnp.asarray(s.float().numpy()).astype(dtype)
+    for want in (rms_ops.rmsnorm(jx, js), rms_ref.rmsnorm(jx, js)):
+        want = np.asarray(want.astype(jnp.float32))
+        if dtype == "float32":
+            assert max_err(got, want) < RMS_TOL
+            continue
+        y = torch.from_numpy(np.array(
+            rms_ref.rmsnorm(jx.astype(jnp.float32), jnp.ones(d))))
+        bound = (s.float().abs() * bf16_ulp(y) + bf16_ulp(torch.maximum(
+            torch.from_numpy(got).abs(), torch.from_numpy(want).abs())))
+        assert bool((torch.from_numpy(np.abs(got - want)) <= bound).all())
 
 
 # ---------------------------------------------------------------------------
