@@ -214,8 +214,9 @@ Phases (any failure raises and the script exits non-zero):
         cache leaf: K/V, h, conv windows, SSM state);
      c. ``launch.train`` in phase 5's configuration: mamba2-370m at full
         width and depth, lag-wk and laq@4 at W = 2; recurrentgemma-9b at
-        full width, its depth and W the first cut whose reckoned peak
-        (tree bytes × trees) is under 75 GB, of ``--layers 5`` at W = 2,
+        full width, its depth and W the first cut whose peak the dry-run
+        (``repro_torch.launch.dryrun``) reckons under 75 GB, of
+        ``--layers 5`` at W = 2,
         ``--layers 5`` at W = 1, ``--layers 3`` at W = 1;
      d. recurrentgemma-9b at ``reduced(num_layers=8)`` (two superblocks
         and the tail) and mamba2-370m reduced, 3 rounds of lag-wk on the
@@ -239,8 +240,8 @@ Phases (any failure raises and the script exits non-zero):
         the weight bytes a decode step reads;
      c. ``launch.train`` in phase 5's configuration on qwen3-moe-30b-a3b
         at full width, its depth and W the first cut of ``--layers 2`` at
-        W = 2, ``--layers 3`` at W = 1 that reckons under 75 GB; lag-wk
-        and laq@4, the peak in trees;
+        W = 2, ``--layers 3`` at W = 1 whose peak the dry-run reckons
+        under 75 GB; lag-wk and laq@4, the peak in trees;
      d. both reduced configs from the same weights on the card and on the
         CPU: one layer's routing decisions equal (2 shards), the forward
         and the loss with its load-balance term, then 3 rounds of lag-wk:
@@ -292,6 +293,27 @@ Phases (any failure raises and the script exits non-zero):
         prefill on the card (the kernels) and on the CPU (plain), the
         card's error against the float32 model within 2 × the CPU's.
 
+ 19. bfloat16 training on the comm plane:
+     a. kernels 1-4's bfloat16 instantiations (``kernels.ENTRIES``:
+        (bf16, bf16) and (f32, bf16) operands) at phase 4's shapes, bitwise
+        their plain versions (sums within 1e-5) and bitwise the float32
+        kernels on the widened operands; ms, plain ms, byte bound, library
+        call (``torch.addcmul`` for kernel 4);
+     b. llama3.2-1b at bfloat16 (lag-wk, laq@4) and the float32 model with
+        ``grad_hat_dtype="bfloat16"`` (lag-wk, laq@4) through ``init_state`` /
+        ``make_train_step`` at full width and depth, W = 2, batch 4, seq
+        256, 4 rounds, on the plane and on the card's plain route: masks
+        equal, losses within 2 × BF16_ROUTE_LOSS_READINGS; ms, fwd/bwd,
+        comm, peak
+        and launches a round;
+     c. command-r-35b at bfloat16, full width, at the depth
+        ``repro_torch.launch.dryrun`` reckons under 75 GB (at W = 2, else
+        W = 1: its untied head makes a one-layer tree 9.8 GB), 4 rounds of
+        lag-wk;
+     d. the dry-run's reckoned peak beside ``max_memory_allocated`` for
+        19b, 19c and phase 5's float32 runs, the ratio within
+        PEAK_RATIO_BAND.
+
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Times are CUDA-event times on this card (kernels: the mean of
 several launches after a warm-up); bounds use the H100 SXM's published
@@ -335,6 +357,11 @@ REPLACES = {
 # the bfloat16 instantiations of kernels 6 and 7: rows of their own
 REPLACES.update({"rmsnorm_bf16": REPLACES["rmsnorm"],
                  "flash_attention_bf16": REPLACES["flash_attention"]})
+# kernels 1-4's instantiations with a bfloat16 operand, named as in
+# ``kernels.LAUNCHES``: (bf16, bf16) "_bb", (f32, bf16) "_fb"
+REPLACES.update({k + sfx: REPLACES[k] for k in (
+    "delta_sqnorm_blocks", "absmax_blocks", "laq_encode_blocks",
+    "masked_combine") for sfx in ("_bb", "_fb")})
 LEGACY_SOURCE = "src/repro_torch/kernels/lag_trigger/csrc/lag_trigger.cu"
 SOURCES = {
     "rmsnorm": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
@@ -515,14 +542,9 @@ SERVE_RECURRENT = (
                            "32", "--rounds", "2", "--seed", "0"]),
     ("mamba2-370m", SERVE_ARGS[2:]),
 )
-# 16c: PR 19's measured training peak, (arch at 2 layers, GB) on an H100
-# 80GB HBM3 (700 W), phase 15d: 9.01 trees at W = 2.  A worker fewer takes
-# 3 trees off (its mirror, its fresh gradient, the round's payload over
-# it): 16c prints the trees its W = 1 run peaked at (6.01 on an H100 80GB
-# HBM3, 700 W; PERF.md §4).  recurrentgemma's cuts (layers, workers) in
-# order of preference, and the reckoned peak a cut must stay under
-PR19_PEAK = ("qwen2-vl-7b", 56.09)
-TREES_PER_WORKER = 3
+# 16c: recurrentgemma's training cuts (layers, workers) in order of
+# preference, and the peak the dry-run (``repro_torch.launch.dryrun``)
+# must reckon a cut under
 TRAIN_CUTS = ((5, 2), (5, 1), (3, 1))
 TRAIN_RECKON_GB = 75.0
 
@@ -535,7 +557,7 @@ ATTN_MOE = ((4, 2048, 32, 4, 128), (4, 2048, 64, 4, 128))
 # float32, embed and head 2.49 / 4.98 GB, so 62.3 / 54.7 GB of weights
 SERVE_MOE = (("qwen3-moe-30b-a3b", 24), ("qwen3-moe-235b-a22b", 5))
 # 17c: qwen3-moe-30b-a3b's training cuts (layers, workers) in order of
-# preference: 7.47 GB x 9.01 trees at W = 2; the fallback 6.01 trees at W = 1
+# preference, each reckoned by the dry-run
 MOE_TRAIN_CUTS = ((2, 2), (3, 1))
 
 # phase 18: bfloat16 serving, ``get_config(arch, **BF16, use_pallas=True)``
@@ -622,6 +644,36 @@ BF16_ROUTE_READINGS = {
     "hubert-xlarge": {"logits": 0.0752},
 }
 BF16_MARGIN = 4.0
+
+# phase 19: bfloat16 training on the comm plane
+# 19a: each bfloat16 instantiation of kernels 1-4 at phase 4's shapes; the
+# combinations are the plane's (``kernels.ENTRIES``): (bf16, bf16) a
+# bfloat16 model's buffers, (f32, bf16) a float32 model's gradients against
+# bfloat16 ĝ; each its own row of the kernels line (its ``LAUNCHES`` name)
+BF16_COMBOS = {"bf16-bf16": "_bb", "f32-bf16": "_fb"}
+# 19b/19c: the trainings (cfg kwargs, TrainerConfig kwargs) on llama3.2-1b
+# at full width and depth (W = 2, batch 4, seq 256, 4 rounds), each against
+# the same run on the card's plain route (``make_policy(fastpath=None)``)
+BF16_TRAIN = (("llama3.2-1b", BF16, dict(algo="lag-wk")),
+              ("llama3.2-1b", BF16, dict(algo="laq@4")),
+              ("llama3.2-1b", {}, dict(algo="lag-wk",
+                                        grad_hat_dtype="bfloat16")),
+              ("llama3.2-1b", {}, dict(algo="laq@4",
+                                        grad_hat_dtype="bfloat16")))
+BF16_TRAIN_RECKON_GB = 75.0
+# 19b: plane against plain route on the card, masks equal and the largest
+# |Δ loss| over 4 rounds within BF16_ROUTE_FACTOR × its reading (H100 80GB
+# HBM3, 700 W; 0: bitwise).  lag-wk does the same arithmetic on both
+# routes; a float32 payload folds into a bfloat16 ĝ with one rounding on
+# the plane, two on the plain route (the reference's two routes alike,
+# ROADMAP queue 3), and the trajectories part from round 1
+BF16_ROUTE_LOSS_READINGS = {"lag-wk": 0.0, "laq@4": 8.869e-05,
+                            "lag-wk grad_hat_dtype=bfloat16": 2.861e-06,
+                            "laq@4 grad_hat_dtype=bfloat16": 3.91e-05}
+# 19d: measured peak (torch.cuda.max_memory_allocated) over the dry-run's
+# reckoned peak; the band from the first reading (H100 80GB HBM3, 700 W:
+# 1.0009-1.0031 over 19b, 19c and phase 5)
+PEAK_RATIO_BAND = (0.98, 1.02)
 
 
 def check(cond, msg):
@@ -2930,24 +2982,24 @@ def tree_gb(cfg):
                for t in tree_leaves(model.templates(cfg))) / 1e9
 
 
-def reckon_training_cut(cfg, cuts=TRAIN_CUTS):
+def reckon_training_cut(cfg, cuts=TRAIN_CUTS, algos=("lag-wk",)):
     """16c, 17c: the first training cut (layers, workers) of ``cuts`` whose
-    reckoned peak (tree bytes × copies) is under TRAIN_RECKON_GB.  The
-    copies are PR 19's measured peak over its tree (qwen2-vl-7b, 2 layers,
-    W = 2), less TREES_PER_WORKER for each worker fewer."""
-    from repro_torch.configs import get_config
+    peak, reckoned by ``repro_torch.launch.dryrun`` for each of ``algos``
+    in phase 5's configuration, is under TRAIN_RECKON_GB (the dry-run's
+    peaks were within 0.1 % of the measured ones, PERF.md §5)."""
+    from repro_torch.dist.lag_trainer import TrainerConfig
 
-    copies2 = PR19_PEAK[1] / tree_gb(get_config(PR19_PEAK[0]).replace(
-        num_layers=2))
     chosen = None
     for layers, workers in cuts:
-        gb = tree_gb(cfg.replace(num_layers=layers))
-        copies = copies2 - TREES_PER_WORKER * (2 - workers)
-        peak = gb * copies
+        cut = cfg.replace(num_layers=layers)
+        peak = max(reckoned_peak_gb(cut, TrainerConfig(
+            algo=algo, num_workers=workers, lr=0.3)) for algo in algos)
         print(f"  reckoned {cfg.arch_id} --layers {layers} W={workers}: "
-              f"tree {gb:.3f} GB x {copies:.2f} copies = {peak:.2f} GB")
-        if chosen is None and peak < TRAIN_RECKON_GB:
+              f"peak {peak:.2f} GB ({', '.join(algos)}; the dry-run) = "
+              f"{peak / tree_gb(cut):.2f} trees of {tree_gb(cut):.3f} GB")
+        if peak < TRAIN_RECKON_GB:
             chosen = (layers, workers)
+            break
     check(chosen is not None, f"no training cut of {cfg.arch_id} reckons "
                               f"under {TRAIN_RECKON_GB} GB")
     print(f"  chosen: --layers {chosen[0]} at W={chosen[1]}")
@@ -3049,8 +3101,8 @@ def moe_training(torch):
             "laq@4": ("absmax_blocks", "laq_encode_blocks",
                       "masked_combine")}
     arch = MOE_KIND[0]
-    (layers, workers), tree = reckon_training_cut(get_config(arch),
-                                                  MOE_TRAIN_CUTS)
+    (layers, workers), tree = reckon_training_cut(
+        get_config(arch), MOE_TRAIN_CUTS, algos=("lag-wk", "laq@4"))
     total = {}
     for algo in ("lag-wk", "laq@4"):
         run = trainer_phase(torch, algo, extra=("--layers", str(layers)),
@@ -3571,6 +3623,324 @@ def bf16_small_agreement(torch, dev):
           f"CPU's (bound {BF16_ERR_RATIO})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: bfloat16 training on the comm plane, the one-card dry-run
+# ---------------------------------------------------------------------------
+
+def bf16_plane_kernel_phase(torch, dev):
+    """19a: kernels 1-4's bfloat16 instantiations at llama3.2-1b's
+    full-width W = 2 buffers (2.47e9 elements an operand): bitwise their
+    plain versions (sums within SUM_RTOL, as phase 4), and bitwise the
+    float32 kernel on the widened operands (partials and sums too: the same
+    element-to-lane map and order); ms, plain ms, byte bound and library
+    call.  → the kernels line's rows of the bfloat16 instantiations."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.lag_trainer import param_layout
+    from repro_torch.fastpath import kernels, kernels_ref
+    from repro_torch.fastpath.plan import FastPathPlan
+
+    lo = param_layout(get_config("llama3.2-1b"))
+    W, R = 2, lo.rows
+    N, S = W * R * 128, W * R // 8
+    step_rows = 1 << 19
+    f32, bf = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1919)
+    mask = torch.tensor([True, False], device=dev)
+    m3 = mask.to(f32).view(W, 1, 1)
+    plan = FastPathPlan("auto")
+    rows = {}
+
+    def rand(dtype, scale=1.0):
+        x = torch.randn((W, R, 128), device=dev, generator=gen, dtype=f32)
+        return (x.mul_(scale) if scale != 1.0 else x).to(dtype)
+
+    def wide(x, r0, r1):
+        """Rows r0:r1 widened to float32, contiguous (a kernel operand)."""
+        return x[:, r0:r1].float().contiguous()
+
+    def chunks():
+        for r0 in range(0, R, step_rows):
+            r1 = min(r0 + step_rows, R)
+            yield r0, r1, slice(r0 // 8, r1 // 8)
+
+    def plain_ms(fn):
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for r0, r1, _ in chunks():
+            fn(r0, r1)
+        t1.record()
+        t1.synchronize()
+        return t0.elapsed_time(t1)
+
+    for combo, sfx in BF16_COMBOS.items():
+        da = bf if combo.startswith("bf16") else f32
+        a, b, e = rand(da), rand(bf, 0.5), rand(f32, 0.01)
+        isz = a.element_size() + b.element_size()
+        out = {}
+        # -- delta_sqnorm_blocks ----------------------------------------
+        got = kernels.delta_sqnorm_blocks(a, b)
+        err = 0.0
+        for r0, r1, sr in chunks():
+            w32 = kernels.delta_sqnorm_blocks(wide(a, r0, r1),
+                                              wide(b, r0, r1))
+            check(bitwise(torch, got[:, sr], w32),
+                  f"{combo} delta_sqnorm_blocks: not the float32 kernel's "
+                  f"on the widened operands")
+            want = kernels_ref.delta_sqnorm_blocks(a[:, r0:r1], b[:, r0:r1])
+            torch.testing.assert_close(got[:, sr], want, rtol=SUM_RTOL,
+                                       atol=0)
+            err = max(err, max_abs(got[:, sr], want))
+        t_b, by = bound_ms(N * isz + S * 4, 3 * N)
+        out["delta_sqnorm_blocks"] = dict(
+            max_abs_err=err,
+            ms=cuda_ms(torch, lambda: kernels.delta_sqnorm_blocks(a, b)),
+            plain_ms=plain_ms(lambda r0, r1: kernels_ref.delta_sqnorm_blocks(
+                a[:, r0:r1], b[:, r0:r1])),
+            bound_ms=t_b, bound_by=by, library_ms=None)
+        del got
+        # -- absmax_blocks ----------------------------------------------
+        parts = kernels.absmax_blocks(a, b, e)
+        for r0, r1, sr in chunks():
+            check(bitwise(torch, parts[:, sr], kernels_ref.absmax_blocks(
+                a[:, r0:r1], b[:, r0:r1], e[:, r0:r1])) and bitwise(
+                torch, parts[:, sr], kernels.absmax_blocks(
+                    wide(a, r0, r1), wide(b, r0, r1),
+                    wide(e, r0, r1))),
+                f"{combo} absmax_blocks not bitwise")
+        t_b, by = bound_ms(N * (isz + 4) + S * 4, 4 * N)
+        out["absmax_blocks"] = dict(
+            max_abs_err=0.0,
+            ms=cuda_ms(torch, lambda: kernels.absmax_blocks(a, b, e)),
+            plain_ms=plain_ms(lambda r0, r1: kernels_ref.absmax_blocks(
+                a[:, r0:r1], b[:, r0:r1], e[:, r0:r1])),
+            bound_ms=t_b, bound_by=by, library_ms=None)
+        # -- laq_encode_blocks (bits 4) ---------------------------------
+        steps = plan._per_leaf(parts, lo, "max")
+        steps = steps / torch.full_like(steps, 7.0)
+        subs = steps[:, plan.sub_leaf(lo, dev)].contiguous()
+        del parts
+        p, r, sq = kernels.laq_encode_blocks(a, b, e, subs, 4)
+        err = 0.0
+        for r0, r1, sr in chunks():
+            wp, wr, wsq = kernels_ref.laq_encode_blocks(
+                a[:, r0:r1], b[:, r0:r1], e[:, r0:r1], subs[:, sr], 4)
+            check(bitwise(torch, p[:, r0:r1], wp)
+                  and bitwise(torch, r[:, r0:r1], wr),
+                  f"{combo} laq_encode_blocks: payload/residual not bitwise")
+            torch.testing.assert_close(sq[:, sr], wsq, rtol=SUM_RTOL, atol=0)
+            err = max(err, max_abs(sq[:, sr], wsq))
+            xp, xr, xsq = kernels.laq_encode_blocks(
+                wide(a, r0, r1), wide(b, r0, r1),
+                wide(e, r0, r1), subs[:, sr], 4)
+            check(bitwise(torch, p[:, r0:r1], xp)
+                  and bitwise(torch, r[:, r0:r1], xr)
+                  and bitwise(torch, sq[:, sr], xsq),
+                  f"{combo} laq_encode_blocks: not the float32 kernel's")
+            del wp, wr, wsq, xp, xr, xsq
+        t_b, by = bound_ms(N * (isz + 4 + 8) + 2 * S * 4, 10 * N)
+        out["laq_encode_blocks"] = dict(
+            max_abs_err=err,
+            ms=cuda_ms(torch, lambda: kernels.laq_encode_blocks(
+                a, b, e, subs, 4, payload_out=p), n=3),
+            plain_ms=plain_ms(lambda r0, r1: kernels_ref.laq_encode_blocks(
+                a[:, r0:r1], b[:, r0:r1], e[:, r0:r1],
+                subs[:, slice(r0 // 8, r1 // 8)], 4)),
+            bound_ms=t_b, bound_by=by, library_ms=None)
+        del p, r, sq, subs, steps
+        # -- masked_combine (add: the ĝ fold into b's dtype) -------------
+        for mode in ("add", "select"):
+            got = kernels.masked_combine(a, b, mask, mode)
+            for r0, r1, _ in chunks():
+                check(bitwise(torch, got[:, r0:r1], kernels_ref.masked_combine(
+                    a[:, r0:r1], b[:, r0:r1], mask, mode)) and bitwise(
+                    torch, got[:, r0:r1], kernels.masked_combine(
+                        wide(a, r0, r1), wide(b, r0, r1), mask,
+                        mode).to(bf)),
+                    f"{combo} masked_combine {mode} not bitwise")
+            del got
+        t_b, by = bound_ms(N * (isz + 2) + W * 4, 2 * N)
+        out["masked_combine"] = dict(
+            max_abs_err=0.0,
+            ms=cuda_ms(torch, lambda: kernels.masked_combine(a, b, mask,
+                                                             "add")),
+            plain_ms=plain_ms(lambda r0, r1: kernels_ref.masked_combine(
+                a[:, r0:r1], b[:, r0:r1], mask, "add")),
+            bound_ms=t_b, bound_by=by,
+            library_ms=cuda_ms(torch, lambda: torch.addcmul(b, a, m3))
+            if a.dtype == b.dtype else None)
+        for k, v in out.items():
+            print(f"  19a {k}[{combo}]: max_abs_err {v['max_abs_err']:.3e} "
+                  f"| {v['ms']:.3f} ms (plain {v['plain_ms']:.3f} ms, bound "
+                  f"{v['bound_ms']:.3f} ms by {v['bound_by']}, library "
+                  f"{v['library_ms']}) | bound / kernel "
+                  f"{v['bound_ms'] / v['ms']:.1%}")
+        rows.update({k + sfx: v for k, v in out.items()})
+        del a, b, e
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def bf16_train_run(torch, cfg, tcfg, plain=False, steps=4, workers=2):
+    """``steps`` rounds of ``make_train_step(cfg, tcfg)`` on the card (W =
+    ``workers``, batch 4, seq 256, weights from seed 0), on the plane or, with
+    ``plain``, the plain route (``make_policy(fastpath=None)``): losses,
+    masks, ms a round with the device's fwd/bwd and comm ms, the peak and
+    the launches of the plane's kernels (float32 and bfloat16
+    instantiations)."""
+    from repro_torch import comm
+    from repro_torch.data import TokenStream, make_inputs
+    from repro_torch.dist import lag_trainer as lt
+    from repro_torch.fastpath import kernels
+
+    policy = comm.make_policy(tcfg.algo, bits=tcfg.laq_bits,
+                              fastpath=None) if plain else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    state = lt.init_state(cfg, tcfg, device="cuda", seed=0, policy=policy)
+    step = lt.make_train_step(cfg, tcfg, policy=policy)
+    stream = TokenStream(cfg.vocab_size)
+    rounds = []
+    for k in range(steps):
+        batch = make_inputs(cfg, stream, k, 4, 256, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        rounds.append(dict(loss=float(m["loss"]),
+                           mask=m["comm_mask"].to(torch.int32).tolist(),
+                           ms=(time.perf_counter() - t0) * 1e3,
+                           **lt.phase_ms(m)))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = dict(kernels.LAUNCHES)
+    check(all(math.isfinite(r["loss"]) for r in rounds),
+          f"{cfg.arch_id} {tcfg.algo}: non-finite loss")
+    check(bool(torch.isfinite(state["theta"]).all()),
+          f"{cfg.arch_id} {tcfg.algo}: non-finite parameters")
+    check(state["theta"].dtype == cfg.params_dtype
+          and state["lag"]["grad_hat"].dtype == (
+              getattr(torch, tcfg.grad_hat_dtype) if tcfg.grad_hat_dtype
+              else cfg.params_dtype), "state dtypes")
+    check(all(rounds[0]["mask"]) and len(rounds[0]["mask"]) == workers,
+          "round 0 must upload all")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    steady = rounds[1:]
+    mean = {k: sum(r[k] for r in steady) / len(steady)
+            for k in ("ms", "grad_ms", "comm_ms")}
+    return dict(rounds=rounds, peak=peak, launches=launches, mean=mean)
+
+
+def run_line(label, run, steps=4):
+    mean = run["mean"]
+    used = {k: v for k, v in run["launches"].items() if v}
+    return (f"  {label}: losses {[round(r['loss'], 6) for r in run['rounds']]}"
+            f" | masks {[r['mask'] for r in run['rounds']]} | rounds 1-"
+            f"{steps - 1} mean {mean['ms']:.1f} ms (device: fwd/bwd "
+            f"{mean['grad_ms']:.1f} ms, comm plane + server "
+            f"{mean['comm_ms']:.1f} ms) | peak {run['peak']:.2f} GB | "
+            f"launches a round "
+            f"{ {k: v / steps for k, v in used.items()} }")
+
+
+def reckoned_peak_gb(cfg, tcfg):
+    """The dry-run's reckoned peak of one training step at ``tcfg``'s W,
+    batch 4, seq 256 (``repro_torch.launch.dryrun``, on the meta device)."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.reckon(cfg, "train_4k", tcfg.num_workers, batch=4,
+                        seq=256, tcfg=tcfg)
+    return rec["memory"]["peak_bytes"] / 1e9
+
+
+def bf16_training_phase(torch, phase5_runs):
+    """19b-19d: bfloat16 training through ``init_state`` /
+    ``make_train_step`` (the launcher has no dtype flag, as the
+    reference's has none): 19b llama3.2-1b at bfloat16 (lag-wk, laq@4) and
+    the float32 model with ``grad_hat_dtype="bfloat16"`` (lag-wk), each
+    on the plane and on the card's plain route; 19c command-r-35b at full
+    width and the depth the dry-run reckons under BF16_TRAIN_RECKON_GB;
+    19d each reckoned peak beside the measured one.  → the plane's
+    launches of these runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.lag_trainer import TrainerConfig
+    from repro_torch.launch import dryrun
+
+    total, peaks = {}, []
+    for arch, ckw, tkw in BF16_TRAIN:
+        cfg = get_config(arch, **ckw)
+        tcfg = TrainerConfig(num_workers=2, lr=0.3, **tkw)
+        plane = bf16_train_run(torch, cfg, tcfg)
+        plain = bf16_train_run(torch, cfg, tcfg, plain=True)
+        label = f"{arch} {'bfloat16' if ckw else 'float32'} {tkw['algo']}" \
+            + (" grad_hat_dtype=bfloat16" if "grad_hat_dtype" in tkw else "")
+        print(run_line(label + " plane", plane))
+        print(run_line(label + " plain route", plain))
+        masks = [r["mask"] for r in plane["rounds"]]
+        check(masks == [r["mask"] for r in plain["rounds"]],
+              f"{label}: plane and plain route masks differ")
+        dl = max(abs(a["loss"] - b["loss"]) for a, b in
+                 zip(plane["rounds"], plain["rounds"]))
+        bound = BF16_ROUTE_FACTOR * BF16_ROUTE_LOSS_READINGS[" ".join(
+            [tkw["algo"]] + [f"{k}={v}" for k, v in tkw.items()
+                             if k != "algo"])]
+        print(f"  {label}: plane vs plain route max |Δ loss| {dl:.3e} "
+              f"(bound {bound:.3e}), masks equal")
+        check(dl <= bound, f"{label}: |Δ loss| {dl}")
+        bf16_k = [k for k, v in plane["launches"].items()
+                  if k.endswith(("_bb", "_fb")) and v]
+        check(bf16_k, f"{label}: no bfloat16 instantiation launched")
+        for k, v in plane["launches"].items():
+            total[k] = total.get(k, 0) + v
+        peaks.append((label, plane["peak"], reckoned_peak_gb(cfg, tcfg)))
+
+    # 19c: command-r-35b, all-bfloat16 dense, at the reckoned depth: W = 2
+    # first, W = 1 when no depth of W = 2 reckons under the budget
+    cfg = get_config("command-r-35b", **BF16)
+    for workers in (2, 1):
+        tcfg = TrainerConfig(algo="lag-wk", num_workers=workers, lr=0.3)
+        t0 = time.perf_counter()
+        layers = dryrun.max_layers(cfg, "train_4k", workers,
+                                   budget=BF16_TRAIN_RECKON_GB * 1e9,
+                                   batch=4, seq=256, tcfg=tcfg)
+        print(f"  19c dry-run: command-r-35b bfloat16 W={workers} batch 4 "
+              f"seq 256: {layers} of {cfg.num_layers} layers reckon under "
+              f"{BF16_TRAIN_RECKON_GB} GB ({time.perf_counter() - t0:.1f} s)")
+        if layers:
+            break
+    check(layers > 0, "command-r-35b: no depth reckons under the budget")
+    cut = cfg.replace(num_layers=layers)
+    label = f"command-r-35b bfloat16 lag-wk --layers {layers} W={workers}"
+    run = bf16_train_run(torch, cut, tcfg, workers=workers)
+    print(run_line(label, run))
+    check(run["peak"] < 80.0, f"command-r-35b: peak {run['peak']:.2f} GB")
+    for k, v in run["launches"].items():
+        total[k] = total.get(k, 0) + v
+    peaks.append((label, run["peak"], reckoned_peak_gb(cut, tcfg)))
+
+    # 19d: phase 5's float32 runs beside their reckonings too
+    cfg32 = get_config("llama3.2-1b")
+    for algo in ("lag-wk", "laq@4"):
+        peaks.append((f"phase 5 llama3.2-1b float32 {algo}",
+                      phase5_runs[algo]["peak"], reckoned_peak_gb(
+                          cfg32, TrainerConfig(algo=algo, num_workers=2,
+                                               lr=0.3))))
+    lo, hi = PEAK_RATIO_BAND
+    for label, measured, reckoned in peaks:
+        ratio = measured / reckoned
+        print(f"  19d {label}: reckoned {reckoned:.2f} GB, measured "
+              f"(max_memory_allocated) {measured:.2f} GB, ratio {ratio:.4f} "
+              f"(band {lo}-{hi})")
+        check(lo <= ratio <= hi, f"{label}: measured / reckoned peak "
+                                 f"{ratio:.4f} outside {PEAK_RATIO_BAND}")
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3662,7 +4032,7 @@ def main():
                                f"in 4 rounds")
         for k, v in got.items():
             launches[k] += v
-    for k in kernels.LAUNCHES:
+    for k in kernels.ENTRIES:              # the float32 instantiations
         if k in OFF_PATH:
             print(f"  {k}: {launches[k]} launches, exempt: {OFF_PATH[k]}")
             continue
@@ -3806,6 +4176,21 @@ def main():
           f"phase 18 launches {p18}")
     print(f"  phase 18 launches: { {k: v for k, v in p18.items() if v} } "
           f"in {time.perf_counter() - t18:.1f} s")
+
+    print("[19] bfloat16 training on the comm plane: a kernels 1-4 at "
+          "bfloat16 operands, b llama3.2-1b at bfloat16 and with bfloat16 "
+          "ĝ, c command-r-35b at the dry-run's depth, d reckoned vs "
+          "measured peaks", flush=True)
+    t19 = time.perf_counter()
+    full.update(bf16_plane_kernel_phase(torch, dev))
+    p19 = bf16_training_phase(torch, phase5_runs)
+    for k, v in p19.items():
+        launches[k] = launches.get(k, 0) + v
+    for k in kernels.LAUNCHES:
+        if k.endswith(("_bb", "_fb")):
+            check(p19.get(k, 0) > 0, f"phase 19: {k} never launched")
+    print(f"  phase 19 launches: { {k: v for k, v in p19.items() if v} } "
+          f"in {time.perf_counter() - t19:.1f} s")
 
     rows = [dict(name=k, route="cuda", source=SOURCES.get(k, SOURCE),
                  replaces=REPLACES[k], launches=launches[k], **full[k])

@@ -50,6 +50,10 @@ def _paths(tree: Pytree, prefix: str = "") -> List[str]:
 
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "checkpoint: a bfloat16 leaf is not saved: numpy has no "
+                "bfloat16 (ROADMAP queue 1 item 8)")
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 

@@ -49,6 +49,14 @@ class CommRound:
     draw: Optional[int] = None   # the worker a sampled schedule drew
 
 
+def _innovation(g: torch.Tensor, gh: torch.Tensor) -> torch.Tensor:
+    """g − ĝ at g's dtype: ĝ cast to it first when it is wider (the
+    reference's ``g - gh.astype(g.dtype)``)."""
+    if torch.promote_types(g.dtype, gh.dtype) == g.dtype:
+        return g - gh
+    return g - gh.to(g.dtype)
+
+
 def _mask_like(comm: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """Broadcast a () or (W,) mask against a payload leaf."""
     m = comm.to(p.dtype)
@@ -95,9 +103,10 @@ class CommPolicy:
     # -- the four protocol methods ------------------------------------------
     def encode(self, ctx: CommRound, st: PolicyState
                ) -> Tuple[Pytree, Dict[str, Any]]:
-        """Candidate upload: the gradient innovation g − ĝ."""
-        payload = tree_map(lambda g, gh: g - gh.to(g.dtype), ctx.grad_new,
-                           st["grad_hat"])
+        """Candidate upload: the gradient innovation g − ĝ, at g's dtype.
+        Bfloat16 ĝ mirrors of float32 gradients are widened inside the
+        subtraction (no float32 copy of ĝ: exact either way)."""
+        payload = tree_map(_innovation, ctx.grad_new, st["grad_hat"])
         return payload, {}
 
     def should_upload(self, ctx: CommRound, st: PolicyState, payload: Pytree,

@@ -10,8 +10,8 @@ Per-worker round (server mirror q̂_m = ``grad_hat``, worker residual e_m):
   on upload: q̂_m ← q̂_m + p_m, e_m ← v_m − p_m; on skip: unchanged
 
 The fast route is two kernel launches for all workers (absmax sweep, then
-the fused quantize/residual/‖p‖² sweep) and writes the payload over the
-consumed gradient buffer.  Off the plane, ``encode`` runs the per-leaf
+the fused quantize/residual/‖p‖² sweep) and writes the float32 payload
+over the consumed gradient buffer when that is float32.  Off the plane, ``encode`` runs the per-leaf
 encode of ``repro_torch.kernels.lag_trigger.ops``: the per-leaf kernels
 under ``use_pallas`` (two launches per leaf), else the plain version.  The
 packed wire format (``pack_codes``/``wire_*``) waits for the device plane.
@@ -75,10 +75,12 @@ class LAQPolicy(CommPolicy):
 
     def fast_precompute(self, plan, grads, st, *, theta, layout,
                         grad_at_hat=None):
-        # two launches for all workers; the payload overwrites ``grads``
+        # two launches for all workers; the float32 payload overwrites
+        # float32 ``grads`` (bfloat16 gradients are half its size: the
+        # payload takes a buffer of its own)
         payload, resid_new, lhs, steps = plan.laq_encode(
             grads, st["grad_hat"], st["resid"], layout, bits=self.bits,
-            payload_out=grads)
+            payload_out=grads if grads.dtype == torch.float32 else None)
         return {"payload": payload, "resid_new": resid_new, "lhs_sq": lhs,
                 "wire_steps": steps}
 

@@ -22,6 +22,8 @@ _MODULES: Dict[str, str] = {
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
 }
 
+#: the assignment's architectures (all but the sliding-window variant)
+ASSIGNED = [a for a in _MODULES if a != "llama3.2-1b-sw"]
 #: every architecture the port has
 ALL_ARCHS = list(_MODULES)
 

@@ -1,6 +1,7 @@
-"""The input shapes, their applicability rule and the VLM's vision prefix —
-port of ``repro.configs.shapes`` as far as the launchers and the data path
-need it (``applicable``, ``vision_prefix``).
+"""The input shapes, their applicability rule, the VLM's vision prefix and
+the inputs' stand-ins — port of ``repro.configs.shapes`` as far as the
+launchers, the data path and the dry-run need it (``applicable``,
+``vision_prefix``, ``input_specs``: meta tensors, no allocation).
 
   train_4k     seq 4,096    global_batch 256   train_step
   prefill_32k  seq 32,768   global_batch 32    forward (prefill)
@@ -13,7 +14,9 @@ sequence mixer (ssd / rec layers or a sliding window).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
+
+import torch
 
 from repro_torch.models.common import ModelConfig
 
@@ -58,3 +61,38 @@ def applicable(cfg: ModelConfig, shape_name: str) -> Tuple[bool, str]:
 def vision_prefix(cfg: ModelConfig, seq_len: int) -> int:
     """Number of stub vision-patch positions for VLM shapes (S//4)."""
     return seq_len // 4 if cfg.family == "vlm" else 0
+
+
+def input_specs(cfg: ModelConfig, shape_name: str,
+                batch: Optional[int] = None, seq: Optional[int] = None
+                ) -> Dict[str, torch.Tensor]:
+    """Meta-tensor stand-ins for every model input of ``shape_name`` (no
+    allocation), in the data path's dtypes: the reference's
+    ``input_specs``.  ``batch`` / ``seq`` override the shape's global
+    batch and sequence length.  A decode shape's ``pos`` is a Python int,
+    as ``model.decode_step`` takes it."""
+    shp = SHAPES[shape_name]
+    B, S = batch or shp.global_batch, seq or shp.seq_len
+    meta = lambda shape, dtype: torch.empty(shape, dtype=dtype,
+                                            device="meta")
+    i32, f = torch.int32, cfg.compute_dtype
+    if shp.kind == "decode":
+        return {"tokens": meta((B, 1), i32), "pos": S - 1}
+    if cfg.family == "audio":
+        specs = {"frames": meta((B, S, cfg.d_model), f),
+                 "mask": meta((B, S), torch.bool)}
+        if shp.kind == "train":
+            specs["targets"] = meta((B, S), i32)
+        return specs
+    if cfg.family == "vlm":
+        nv = vision_prefix(cfg, S)
+        specs = {"tokens": meta((B, S - nv), i32),
+                 "vision_embeds": meta((B, nv, cfg.d_model), f),
+                 "positions3": meta((3, B, S), i32)}
+        if shp.kind == "train":
+            specs["targets"] = meta((B, S - nv), i32)
+        return specs
+    specs = {"tokens": meta((B, S), i32)}
+    if shp.kind == "train":
+        specs["targets"] = meta((B, S), i32)
+    return specs

@@ -42,7 +42,7 @@ class LAGConfig:
 # Pytree helpers
 # ---------------------------------------------------------------------------
 
-def _acc(dtype: torch.dtype) -> torch.dtype:
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     """The accumulation dtype of a leaf: at least float32, float64 kept."""
     return torch.promote_types(dtype, torch.float32)
 
@@ -52,7 +52,7 @@ def tree_sqnorm(tree: Pytree) -> torch.Tensor:
     in ``promote_types(leaf dtype, float32)``."""
     total = None
     for leaf in tree_leaves(tree):
-        x = leaf.to(_acc(leaf.dtype))
+        x = leaf.to(acc_dtype(leaf.dtype))
         s = torch.sum(x * x)
         total = s if total is None else total + s
     return total if total is not None else torch.zeros((), dtype=torch.float32)
@@ -64,7 +64,7 @@ def tree_sqdist(a: Pytree, b: Pytree) -> torch.Tensor:
     :func:`tree_sqnorm`)."""
     total = None
     for x, y in zip(tree_leaves(a), tree_leaves(b)):
-        acc = _acc(torch.promote_types(x.dtype, y.dtype))
+        acc = acc_dtype(torch.promote_types(x.dtype, y.dtype))
         d = x.to(acc) - y.to(acc)
         s = torch.sum(d * d)
         total = s if total is None else total + s
@@ -75,8 +75,21 @@ def tree_sub(a: Pytree, b: Pytree) -> Pytree:
     return tree_map(lambda x, y: x - y, a, b)
 
 
+def weak(s: float, dtype: torch.dtype) -> float:
+    """A Python scalar as JAX's weakly typed scalar meets an array of
+    ``dtype``: rounded to that dtype first (to bfloat16 for a bfloat16
+    leaf; PyTorch would multiply by it in float32).  Unchanged for a
+    leaf of 32 or more bits, whose arithmetic rounds it the same way."""
+    if dtype.itemsize >= 4:
+        return s
+    return float(torch.tensor(s, dtype=dtype))
+
+
 def tree_scale(a: Pytree, s) -> Pytree:
-    return tree_map(lambda x: x * s, a)
+    """Each leaf times ``s``; a Python scalar is :func:`weak`."""
+    if isinstance(s, torch.Tensor):
+        return tree_map(lambda x: x * s, a)
+    return tree_map(lambda x: x * weak(s, x.dtype), a)
 
 
 def tree_select(pred: torch.Tensor, on_true: Pytree, on_false: Pytree

@@ -17,15 +17,22 @@ server step with any ``repro_torch.engine.server`` spec
 (``"prox-l1@1e-4"``, ``"momentum@0.9"``).
 
 Memory at full width: the parameters live in ONE flat ``(rows, 128)``
-float32 buffer ``theta`` whose leaves are views (so the comm plane's θ
+buffer ``theta`` (float32, or bfloat16 for a bfloat16 config) whose leaves
+are views (so the comm plane's θ
 operand and the server step need no copy), and the per-worker mirror state
 (``grad_hat``, LAQ's ``resid``, LAG-PS's and LASG-WK's ``theta_hat``) is
 kept natively as flat ``(W, rows, 128)`` buffers, updated in place on the
 fast route, and so is the server's state (momentum's ``m``, Adam's
 ``mu``/``nu``: flat ``(rows, 128)`` buffers).  For
 llama3.2-1b at W = 2 that is θ 4.9 GB + ∇ 4.9 GB + 9.9 GB per stacked
-buffer, instead of the several W-fold copies a flatten/unflatten per call
-would hold.
+buffer in float32 (half each in bfloat16), instead of the several W-fold
+copies a flatten/unflatten per call would hold.
+
+bfloat16 (the reference's bfloat16 training): a config whose leaves are
+all bfloat16 keeps θ, ∇, the gradients, ĝ and θ̂ in bfloat16 buffers (LAQ's
+residual stays float32, as the reference's); ``TrainerConfig.
+grad_hat_dtype="bfloat16"`` keeps ĝ alone in bfloat16.  A config that
+mixes bfloat16 and float32 leaves is refused (:func:`check_trainable`).
 """
 from __future__ import annotations
 
@@ -41,12 +48,13 @@ from repro_torch.engine import rounds as engine_rounds
 from repro_torch.engine import server as server_lib
 from repro_torch.engine.topology import BatchShards
 from repro_torch.fastpath import plan as plan_lib
-from repro_torch.fastpath.layout import FlatLayout
+from repro_torch.fastpath.layout import FlatLayout, mixed_leaves
 from repro_torch.kernels.lag_trigger import ops as lag_ops
 from repro_torch.models import model
 from repro_torch.models.common import ModelConfig
 
 ALGOS = ("gd", "lag-wk", "lag-ps", "laq", "lasg-wk", "adam", "lag-adam")
+GRAD_HAT_DTYPES = (None, "bfloat16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,13 +72,15 @@ class TrainerConfig:
     ``use_pallas_comm`` selects the legacy per-leaf route instead of the
     plane: the per-leaf kernels' ``fused_tree_sqnorm`` as the triggers'
     norm and LAQ's per-leaf kernel encode; combined with ``fastpath="on"``
-    it raises.  The reference's ``grad_hat_dtype`` (bfloat16 mirrors) is
-    not ported."""
+    it raises.  ``grad_hat_dtype`` (None or "bfloat16", the reference's field) is
+    the dtype of the ĝ mirrors, the parameters' dtype when None:
+    "bfloat16" halves their bytes on a float32 model."""
     algo: str = "lag-wk"
     num_workers: int = 4
     lr: float = 0.05
     D: int = 10
     xi: float = 0.1
+    grad_hat_dtype: Optional[str] = None
     momentum: float = 0.0
     adam_b1: float = 0.9
     adam_b2: float = 0.999
@@ -82,6 +92,9 @@ class TrainerConfig:
 
     def __post_init__(self):
         self.comm_policy()      # raises on a bad spec, mode or combination
+        if self.grad_hat_dtype not in GRAD_HAT_DTYPES:
+            raise ValueError(f"grad_hat_dtype must be one of "
+                             f"{GRAD_HAT_DTYPES}, got {self.grad_hat_dtype!r}")
         if self.server is not None:
             server_lib.make_server(self.server)   # validate the spec early
 
@@ -128,18 +141,40 @@ def param_layout(cfg: ModelConfig) -> FlatLayout:
     return FlatLayout.for_tree(model.templates(cfg))
 
 
-def check_float32(cfg: ModelConfig) -> None:
-    """The deep trainers take float32 models only.  The reference trains a
-    bfloat16 config with bfloat16 parameters and ĝ mirrors (its
-    ``grad_hat_dtype``), rounding θ to bfloat16 every step; the port's
-    flat plane holds θ and ĝ in float32, which would be another
-    computation, so a bfloat16 config is refused (ROADMAP queue 1 item 4)."""
-    if cfg.dtype != "float32" or cfg.param_dtype != "float32":
+def check_trainable(cfg: ModelConfig, tcfg: Optional[TrainerConfig] = None,
+                    topology=None) -> None:
+    """Refuse, by name, the bfloat16 trainings the port does not run.
+
+    A bfloat16 config whose tree keeps float32 leaves (the MoE router,
+    mamba2's ``A_log``/``dt_bias``/``D``, RG-LRU's ``b_a``/``b_i``) has no
+    one buffer dtype: widening it to a float32 plane would be another
+    computation than the reference's (ROADMAP queue 1 item 7).  At
+    bfloat16 (the parameters' or ``grad_hat_dtype``'s) the legacy per-leaf
+    route's kernels are float32 (ROADMAP queue 2 item 4), and only the
+    ``shards`` topology is held to the reference (queue 1 item 8)."""
+    lo = param_layout(cfg)
+    if mixed_leaves(lo.dtypes):
+        n = sum(d != torch.bfloat16 for d in lo.dtypes)
         raise NotImplementedError(
-            f"{cfg.arch_id}: training at dtype={cfg.dtype!r}, param_dtype="
-            f"{cfg.param_dtype!r} is not ported: the flat plane is float32, "
-            f"the reference keeps bfloat16 parameters and ĝ mirrors "
-            f"(ROADMAP queue 1 item 4); serving takes bfloat16")
+            f"{cfg.arch_id}: training a bfloat16 config whose tree mixes "
+            f"bfloat16 and float32 leaves ({n} of {lo.num_leaves}: the MoE "
+            f"router, mamba2's A_log/dt_bias/D, RG-LRU's b_a/b_i) is not "
+            f"ported: the flat plane holds one dtype (ROADMAP queue 1 item "
+            f"7); serving takes it, and the float32 config trains")
+    bf16 = lo.dtype == torch.bfloat16 or (
+        tcfg is not None and tcfg.grad_hat_dtype == "bfloat16")
+    if not bf16:
+        return
+    if tcfg is not None and tcfg.use_pallas_comm:
+        raise NotImplementedError(
+            "use_pallas_comm at bfloat16 is not ported: the legacy per-leaf "
+            "kernels take float32 operands (ROADMAP queue 2 item 4); the "
+            "batched plane takes bfloat16")
+    if topology is not None and not isinstance(topology, BatchShards):
+        raise NotImplementedError(
+            f"the {type(topology).__name__} topology at bfloat16 is not "
+            f"ported (ROADMAP queue 1 item 8): bfloat16 training runs the "
+            f"shards topology")
 
 
 # ---------------------------------------------------------------------------
@@ -148,10 +183,11 @@ def check_float32(cfg: ModelConfig) -> None:
 
 def init_params(cfg: ModelConfig, *, device, seed: int = 0,
                 params: Optional[Dict] = None) -> torch.Tensor:
-    """The flat ``(rows, 128)`` θ buffer on ``device``: ``params`` (a
-    parameter tree) copied in, or weights drawn from a ``torch.Generator``
-    seeded with ``seed``.  A bfloat16 config raises (:func:`check_float32`)."""
-    check_float32(cfg)
+    """The flat ``(rows, 128)`` θ buffer on ``device``, at the layout's
+    dtype: ``params`` (a parameter tree) copied in, or weights drawn from a
+    ``torch.Generator`` seeded with ``seed``.  A tree of mixed dtypes
+    raises (:func:`check_trainable`)."""
+    check_trainable(cfg)
     device = torch.device(device)
     lo = param_layout(cfg)
     theta = lo.empty(device=device)
@@ -175,8 +211,11 @@ def init_state(cfg: ModelConfig, tcfg: TrainerConfig, *, device,
     at zero with an empty history, so round 0 triggers every worker.  A
     stateful server's state (``opt``) is flat, beside θ; a topology's
     extra state (the pods' skip counter, the async ring) joins the lag
-    group.
+    group.  Dtypes as the reference's ``init_state``: θ, θ̂ and ∇ at the
+    parameters' dtype, ĝ at ``tcfg.grad_hat_dtype`` (default: the
+    parameters'), LAQ's residual float32.
     """
+    check_trainable(cfg, tcfg, topology)
     device = torch.device(device)
     W = tcfg.num_workers
     policy = policy if policy is not None else tcfg.comm_policy()
@@ -184,7 +223,10 @@ def init_state(cfg: ModelConfig, tcfg: TrainerConfig, *, device,
     lo = param_layout(cfg)
     theta = init_params(cfg, device=device, seed=seed, params=params)
     theta0 = lo.empty((W,), device) if policy.needs_theta_hat else None
-    lag_state = dict(policy.init_state(lo.empty((W,), device), theta0))
+    gh_dtype = getattr(torch, tcfg.grad_hat_dtype) if tcfg.grad_hat_dtype \
+        else None
+    lag_state = dict(policy.init_state(lo.empty((W,), device, gh_dtype),
+                                       theta0))
     lag_state.update({
         "nabla": lo.empty(device=device),
         "hist": lag.hist_init(tcfg.D, device),
@@ -288,7 +330,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainerConfig, policy=None,
     events: before the gradients (both passes for LASG-WK), after them,
     after the round (read them with :func:`phase_ms` once the device has
     caught up)."""
-    check_float32(cfg)
+    check_trainable(cfg, tcfg, topology)
     policy = policy if policy is not None else tcfg.comm_policy()
     server = server if server is not None else tcfg.server_optimizer()
     topology = topology if topology is not None else BatchShards()

@@ -174,11 +174,15 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
 
 
 def sum_reduce(comm: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
-    """Σ over the worker dim, in worker order."""
-    out = delta[0].clone()
+    """Σ over the worker dim, in worker order.  A bfloat16 delta of more
+    than two workers is summed in float32 and rounded once, as XLA reduces
+    a bfloat16 array (two workers' sum is one rounding either way, so it
+    takes no float32 buffer)."""
+    acc = lag.acc_dtype(delta.dtype) if delta.shape[0] > 2 else delta.dtype
+    out = delta[0].to(acc, copy=True)
     for m in range(1, delta.shape[0]):
         out.add_(delta[m])
-    return out
+    return out.to(delta.dtype)
 
 
 def lag_round(policy: CommPolicy, server: ServerOptimizer,

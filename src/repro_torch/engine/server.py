@@ -121,7 +121,8 @@ class ProxL1Server(ServerOptimizer):
         def shrink(t):
             # sign(t)·max(|t| − thr, 0), in the stepped buffer itself
             s = torch.sign(t)
-            return t.abs_().sub_(thr).clamp_(min=0.0).mul_(s)
+            return t.abs_().sub_(lag.weak(thr, t.dtype)).clamp_(
+                min=0.0).mul_(s)
 
         return tree_map(shrink, stepped), opt_state
 

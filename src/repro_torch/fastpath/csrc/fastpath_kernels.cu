@@ -9,21 +9,36 @@
 //   lag_laq_encode_blocks <- laq_encode_blocks   (_laq_kernel)
 //   lag_masked_combine    <- masked_combine      (_masked_kernel)
 //
-// Operands are the (W, R, 128) float32 flat buffers of
-// repro_torch/fastpath/layout.py; a "sub-block" is 8 x 128 = 1024
-// contiguous floats and never straddles two leaves.  Every kernel is one
+// Operands are the (W, R, 128) flat buffers of
+// repro_torch/fastpath/layout.py, float32 or (for a bfloat16 model, or
+// bfloat16 grad_hat mirrors) bfloat16; a "sub-block" is 8 x 128 = 1024
+// contiguous elements and never straddles two leaves.  Every kernel is one
 // streaming sweep over device memory with a few flops per element, so all
 // five are bound by HBM bytes, not by arithmetic: the design is coalesced
-// 16-byte (float4) loads and stores, no shared memory, no atomics.
+// loads and stores of four elements a thread (16 bytes of float32, 8 of
+// bfloat16), no shared memory, no atomics.
+//
+//   * Operand dtypes: kernels 1-4 are templated on each operand's type.
+//     An element is read at its own dtype and widened to float32 (exact);
+//     all arithmetic is float32, in the order of the float32 kernel, and
+//     a thread owns the same four-element groups in both dtypes, so a
+//     bfloat16-operand kernel is bitwise the float32 kernel on the widened
+//     operands.  An output is written at its destination's dtype with one
+//     round-to-nearest-even (kernel 4's result at b's dtype; kernel 3's
+//     payload and residual stay float32).  The instantiations built are
+//     the ones the comm paths use (the *_bb / *_fb entries below); the
+//     Python wrappers raise for any other combination.
 //
 //   * Per-sub-block reductions: ONE WARP PER SUB-BLOCK.  Lane l reads the
-//     float4s l, l+32, ..., l+224 of its sub-block (each step of the warp
-//     reads 512 contiguous bytes), folds them in a fixed sequential order,
+//     four-element groups l, l+32, ..., l+224 of its sub-block (each step
+//     of the warp reads 512 contiguous bytes of float32, 256 of bfloat16:
+//     8-byte loads keep the float32 kernel's element-to-lane map, and so
+//     its sum order), folds them in a fixed sequential order,
 //     and a fixed xor-butterfly of shuffles finishes the sub-block.  No
 //     partial crosses a sub-block and nothing crosses a block, so the same
 //     inputs give the same bits on every launch (the fixed-order contract
 //     of the reference plan) and no cross-block pass or atomic is needed.
-//   * Elementwise folds: one float4 per thread, grid-stride.
+//   * Elementwise folds: four elements per thread, grid-stride.
 //   * Offsets are int64 throughout: at full width a (2, 9.66M, 128) operand
 //     holds 2.47e9 elements, above 2^31.
 //   * A worker stride of 0 broadcasts an unstacked (R, 128) operand (the
@@ -34,21 +49,62 @@
 //     1/step is an IEEE division and rounding is half-to-even (rintf), as
 //     jnp.round.
 //
+// Strides and vector counts below are in units of four elements (a float4
+// of float32, eight bytes of bfloat16).
+//
 // C interface (loaded with ctypes): each entry point launches on the given
 // stream, does not synchronise, allocates nothing, and returns
 // cudaGetLastError() so the caller raises on a refused launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int SUB_VEC = 1024 / 4;            // float4s per sub-block
+typedef __nv_bfloat16 bf16;
+
+constexpr int SUB_VEC = 1024 / 4;            // four-element groups a sub-block
 constexpr int WARP = 32;
 constexpr int VEC_PER_LANE = SUB_VEC / WARP; // 8
 constexpr int WARPS_PER_BLOCK = 8;
 constexpr int THREADS = WARP * WARPS_PER_BLOCK;
 constexpr int64_t MAX_GRID = 132 * 64;       // grid-stride cap (132 SMs)
+
+// Four consecutive elements of a T buffer, as float32: group i is elements
+// 4i..4i+3 (one float4 of float32, one 8-byte word of bfloat16).
+template <typename T> struct Quad;
+
+template <> struct Quad<float> {
+  __device__ __forceinline__ static float4 load(const void* p, int64_t i) {
+    return reinterpret_cast<const float4*>(p)[i];
+  }
+  __device__ __forceinline__ static void store(void* p, int64_t i,
+                                               float4 v) {
+    reinterpret_cast<float4*>(p)[i] = v;
+  }
+};
+
+template <> struct Quad<bf16> {
+  // widening is exact: a bfloat16 is the high half of its float32
+  __device__ __forceinline__ static float4 load(const void* p, int64_t i) {
+    const uint2 u = reinterpret_cast<const uint2*>(p)[i];
+    return make_float4(__uint_as_float(u.x << 16),
+                       __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16),
+                       __uint_as_float(u.y & 0xffff0000u));
+  }
+  // one round-to-nearest-even per element (NaN stays NaN)
+  __device__ __forceinline__ static void store(void* p, int64_t i,
+                                               float4 v) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    uint2 u;
+    u.x = *reinterpret_cast<const unsigned*>(&lo);
+    u.y = *reinterpret_cast<const unsigned*>(&hi);
+    reinterpret_cast<uint2*>(p)[i] = u;
+  }
+};
 
 __device__ __forceinline__ float max_nan(float a, float b) {
   // NaN-propagating max (jnp.max / torch.amax semantics; fmaxf drops NaN)
@@ -73,7 +129,8 @@ __device__ __forceinline__ float sq_diff_acc(float acc, float x, float y) {
 }
 
 // per-(worker, sub-block) sum (a - b)^2; b may be broadcast (b_ws == 0)
-__global__ void delta_sq_kernel(const float4* a, const float4* b, float* out,
+template <typename TA, typename TB>
+__global__ void delta_sq_kernel(const void* a, const void* b, float* out,
                                 int64_t total_subs, int64_t nsubs,
                                 int64_t a_ws, int64_t b_ws) {
   const int64_t sub = (int64_t)blockIdx.x * WARPS_PER_BLOCK
@@ -82,13 +139,13 @@ __global__ void delta_sq_kernel(const float4* a, const float4* b, float* out,
   const int lane = threadIdx.x % WARP;
   const int64_t w = sub / nsubs;
   const int64_t s = sub - w * nsubs;
-  const float4* pa = a + w * a_ws + s * SUB_VEC;
-  const float4* pb = b + w * b_ws + s * SUB_VEC;
+  const int64_t pa = w * a_ws + s * SUB_VEC;
+  const int64_t pb = w * b_ws + s * SUB_VEC;
   float acc = 0.f;
 #pragma unroll
   for (int j = 0; j < VEC_PER_LANE; ++j) {
-    const float4 x = pa[lane + j * WARP];
-    const float4 y = pb[lane + j * WARP];
+    const float4 x = Quad<TA>::load(a, pa + lane + j * WARP);
+    const float4 y = Quad<TB>::load(b, pb + lane + j * WARP);
     acc = sq_diff_acc(acc, x.x, y.x);
     acc = sq_diff_acc(acc, x.y, y.y);
     acc = sq_diff_acc(acc, x.z, y.z);
@@ -122,10 +179,11 @@ __device__ __forceinline__ float innovation(float g, float q, float e) {
   return __fadd_rn(__fsub_rn(g, q), e);      // (g - q) + e, in that order
 }
 
-// per-(worker, sub-block) max |(g - q) + e|; all operands stacked
-__global__ void absmax_kernel(const float4* g, const float4* q,
-                              const float4* e, float* out,
-                              int64_t total_subs) {
+// per-(worker, sub-block) max |(g - q) + e|; all operands stacked, the
+// residual e always float32
+template <typename TG, typename TQ>
+__global__ void absmax_kernel(const void* g, const void* q, const float* e,
+                              float* out, int64_t total_subs) {
   const int64_t sub = (int64_t)blockIdx.x * WARPS_PER_BLOCK
                       + threadIdx.x / WARP;
   if (sub >= total_subs) return;
@@ -135,7 +193,8 @@ __global__ void absmax_kernel(const float4* g, const float4* q,
 #pragma unroll
   for (int j = 0; j < VEC_PER_LANE; ++j) {
     const int64_t k = base + lane + j * WARP;
-    const float4 a = g[k], b = q[k], c = e[k];
+    const float4 a = Quad<TG>::load(g, k), b = Quad<TQ>::load(q, k),
+                 c = Quad<float>::load(e, k);
     m = max_nan(m, fabsf(innovation(a.x, b.x, c.x)));
     m = max_nan(m, fabsf(innovation(a.y, b.y, c.y)));
     m = max_nan(m, fabsf(innovation(a.z, b.z, c.z)));
@@ -157,11 +216,12 @@ __device__ __forceinline__ LaqOut laq_one(float g, float q, float e,
   return {p, __fsub_rn(v, p)};
 }
 
-// fused LAQ encode: payload, residual and per-sub-block sum payload^2.
-// ``p`` may alias ``g`` (the payload overwrites the consumed gradient):
-// every element is read and written by the same thread.
-__global__ void laq_encode_kernel(const float4* g, const float4* q,
-                                  const float4* e, const float* steps,
+// fused LAQ encode: payload, residual (both float32) and per-sub-block sum
+// payload^2.  ``p`` may alias a float32 ``g`` (the payload overwrites the
+// consumed gradient): every element is read and written by the same thread.
+template <typename TG, typename TQ>
+__global__ void laq_encode_kernel(const void* g, const void* q,
+                                  const float* e, const float* steps,
                                   float4* p, float4* r, float* sq,
                                   int64_t total_subs, float qmax) {
   const int64_t sub = (int64_t)blockIdx.x * WARPS_PER_BLOCK
@@ -175,7 +235,8 @@ __global__ void laq_encode_kernel(const float4* g, const float4* q,
 #pragma unroll
   for (int j = 0; j < VEC_PER_LANE; ++j) {
     const int64_t k = base + lane + j * WARP;
-    const float4 a = g[k], b = q[k], c = e[k];
+    const float4 a = Quad<TG>::load(g, k), b = Quad<TQ>::load(q, k),
+                 c = Quad<float>::load(e, k);
     const LaqOut ox = laq_one(a.x, b.x, c.x, step, inv, qmax);
     const LaqOut oy = laq_one(a.y, b.y, c.y, step, inv, qmax);
     const LaqOut oz = laq_one(a.z, b.z, c.z, step, inv, qmax);
@@ -193,8 +254,10 @@ __global__ void laq_encode_kernel(const float4* g, const float4* q,
 
 // masked folds of candidate a into state b under a per-worker mask m:
 //   MODE 0 add: b + m*a   MODE 1 update: b + m*(a - b)
-//   MODE 2 select: m != 0 ? a : b (copies bits, no arithmetic)
-// ``out`` may alias ``b`` (in-place state update).
+//   MODE 2 select: m != 0 ? a : b (no arithmetic; bit-exact when a and b
+//   share a dtype)
+// computed in float32 and written at b's dtype.  ``out`` may alias ``b``
+// (in-place state update).
 template <int MODE>
 __device__ __forceinline__ float fold(float x, float y, float m) {
   if (MODE == 0) return __fadd_rn(y, __fmul_rn(m, x));
@@ -202,9 +265,9 @@ __device__ __forceinline__ float fold(float x, float y, float m) {
   return m != 0.f ? x : y;
 }
 
-template <int MODE>
-__global__ void masked_kernel(const float4* a, const float4* b,
-                              const float* mask, float4* out,
+template <typename TA, typename TB, int MODE>
+__global__ void masked_kernel(const void* a, const void* b,
+                              const float* mask, void* out,
                               int64_t total_vec, int64_t vec_per_w,
                               int64_t a_ws) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
@@ -212,10 +275,11 @@ __global__ void masked_kernel(const float4* a, const float4* b,
        i < total_vec; i += stride) {
     const int64_t w = i / vec_per_w;
     const float m = mask[w];
-    const float4 x = a[w * a_ws + (i - w * vec_per_w)];
-    const float4 y = b[i];
-    out[i] = make_float4(fold<MODE>(x.x, y.x, m), fold<MODE>(x.y, y.y, m),
-                         fold<MODE>(x.z, y.z, m), fold<MODE>(x.w, y.w, m));
+    const float4 x = Quad<TA>::load(a, w * a_ws + (i - w * vec_per_w));
+    const float4 y = Quad<TB>::load(b, i);
+    Quad<TB>::store(out, i, make_float4(
+        fold<MODE>(x.x, y.x, m), fold<MODE>(x.y, y.y, m),
+        fold<MODE>(x.z, y.z, m), fold<MODE>(x.w, y.w, m)));
   }
 }
 
@@ -223,21 +287,87 @@ inline unsigned sub_grid(int64_t total_subs) {
   return (unsigned)((total_subs + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK);
 }
 
+template <typename TA, typename TB>
+int delta_sq(const void* a, const void* b, void* out, int64_t W,
+             int64_t nsubs, int64_t a_ws, int64_t b_ws, void* stream) {
+  const int64_t total = W * nsubs;
+  if (total == 0) return 0;
+  delta_sq_kernel<TA, TB><<<sub_grid(total), THREADS, 0,
+                            (cudaStream_t)stream>>>(
+      a, b, (float*)out, total, nsubs, a_ws, b_ws);
+  return (int)cudaGetLastError();
+}
+
+template <typename TG, typename TQ>
+int absmax(const void* g, const void* q, const void* e, void* out,
+           int64_t total_subs, void* stream) {
+  if (total_subs == 0) return 0;
+  absmax_kernel<TG, TQ><<<sub_grid(total_subs), THREADS, 0,
+                          (cudaStream_t)stream>>>(
+      g, q, (const float*)e, (float*)out, total_subs);
+  return (int)cudaGetLastError();
+}
+
+template <typename TG, typename TQ>
+int laq_encode(const void* g, const void* q, const void* e,
+               const void* steps, void* p, void* r, void* sq,
+               int64_t total_subs, float qmax, void* stream) {
+  if (total_subs == 0) return 0;
+  laq_encode_kernel<TG, TQ><<<sub_grid(total_subs), THREADS, 0,
+                              (cudaStream_t)stream>>>(
+      g, q, (const float*)e, (const float*)steps, (float4*)p, (float4*)r,
+      (float*)sq, total_subs, qmax);
+  return (int)cudaGetLastError();
+}
+
+template <typename TA, typename TB>
+int masked_combine(const void* a, const void* b, const void* mask,
+                   void* out, int64_t W, int64_t vec_per_w, int64_t a_ws,
+                   int mode, void* stream) {
+  const int64_t total = W * vec_per_w;
+  if (total == 0) return 0;
+  int64_t blocks = (total + THREADS - 1) / THREADS;
+  if (blocks > MAX_GRID) blocks = MAX_GRID;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* pm = (const float*)mask;
+  if (mode == 0)
+    masked_kernel<TA, TB, 0><<<(unsigned)blocks, THREADS, 0, s>>>(
+        a, b, pm, out, total, vec_per_w, a_ws);
+  else if (mode == 1)
+    masked_kernel<TA, TB, 1><<<(unsigned)blocks, THREADS, 0, s>>>(
+        a, b, pm, out, total, vec_per_w, a_ws);
+  else if (mode == 2)
+    masked_kernel<TA, TB, 2><<<(unsigned)blocks, THREADS, 0, s>>>(
+        a, b, pm, out, total, vec_per_w, a_ws);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// a, b: (W, R, 128) float32 (b may be (R, 128): b_ws = 0); strides are in
-// float4 units; out: (W, R/8) float32.
+// a, b: (W, R, 128) (b may be (R, 128): b_ws = 0); strides are in
+// four-element units; out: (W, R/8) float32.  Suffix: the dtypes of a
+// and b (none: float32, float32; _bb: bfloat16, bfloat16; _fb: float32,
+// bfloat16).
 int lag_delta_sq_blocks(const void* a, const void* b, void* out, int64_t W,
                         int64_t nsubs, int64_t a_ws, int64_t b_ws,
                         void* stream) {
-  const int64_t total = W * nsubs;
-  if (total == 0) return 0;
-  delta_sq_kernel<<<sub_grid(total), THREADS, 0, (cudaStream_t)stream>>>(
-      (const float4*)a, (const float4*)b, (float*)out, total, nsubs, a_ws,
-      b_ws);
-  return (int)cudaGetLastError();
+  return delta_sq<float, float>(a, b, out, W, nsubs, a_ws, b_ws, stream);
+}
+
+int lag_delta_sq_blocks_bb(const void* a, const void* b, void* out,
+                           int64_t W, int64_t nsubs, int64_t a_ws,
+                           int64_t b_ws, void* stream) {
+  return delta_sq<bf16, bf16>(a, b, out, W, nsubs, a_ws, b_ws, stream);
+}
+
+int lag_delta_sq_blocks_fb(const void* a, const void* b, void* out,
+                           int64_t W, int64_t nsubs, int64_t a_ws,
+                           int64_t b_ws, void* stream) {
+  return delta_sq<float, bf16>(a, b, out, W, nsubs, a_ws, b_ws, stream);
 }
 
 // a: (W, R, 128) float32; out: (W, R/8) float32
@@ -249,56 +379,66 @@ int lag_sq_blocks(const void* a, void* out, int64_t total_subs,
   return (int)cudaGetLastError();
 }
 
+// g, q: (W, R, 128) at the suffix's dtypes (g, q); e: float32
 int lag_absmax_blocks(const void* g, const void* q, const void* e, void* out,
                       int64_t total_subs, void* stream) {
-  if (total_subs == 0) return 0;
-  absmax_kernel<<<sub_grid(total_subs), THREADS, 0, (cudaStream_t)stream>>>(
-      (const float4*)g, (const float4*)q, (const float4*)e, (float*)out,
-      total_subs);
-  return (int)cudaGetLastError();
+  return absmax<float, float>(g, q, e, out, total_subs, stream);
 }
 
+int lag_absmax_blocks_bb(const void* g, const void* q, const void* e,
+                         void* out, int64_t total_subs, void* stream) {
+  return absmax<bf16, bf16>(g, q, e, out, total_subs, stream);
+}
+
+int lag_absmax_blocks_fb(const void* g, const void* q, const void* e,
+                         void* out, int64_t total_subs, void* stream) {
+  return absmax<float, bf16>(g, q, e, out, total_subs, stream);
+}
+
+// g, q at the suffix's dtypes; e, steps, p, r, sq float32
 int lag_laq_encode_blocks(const void* g, const void* q, const void* e,
                           const void* steps, void* p, void* r, void* sq,
                           int64_t total_subs, float qmax, void* stream) {
-  if (total_subs == 0) return 0;
-  laq_encode_kernel<<<sub_grid(total_subs), THREADS, 0,
-                      (cudaStream_t)stream>>>(
-      (const float4*)g, (const float4*)q, (const float4*)e,
-      (const float*)steps, (float4*)p, (float4*)r, (float*)sq, total_subs,
-      qmax);
-  return (int)cudaGetLastError();
+  return laq_encode<float, float>(g, q, e, steps, p, r, sq, total_subs,
+                                  qmax, stream);
+}
+
+int lag_laq_encode_blocks_bb(const void* g, const void* q, const void* e,
+                             const void* steps, void* p, void* r, void* sq,
+                             int64_t total_subs, float qmax, void* stream) {
+  return laq_encode<bf16, bf16>(g, q, e, steps, p, r, sq, total_subs, qmax,
+                                stream);
+}
+
+int lag_laq_encode_blocks_fb(const void* g, const void* q, const void* e,
+                             const void* steps, void* p, void* r, void* sq,
+                             int64_t total_subs, float qmax, void* stream) {
+  return laq_encode<float, bf16>(g, q, e, steps, p, r, sq, total_subs,
+                                 qmax, stream);
 }
 
 // mode: 0 add, 1 update, 2 select.  vec_per_w = R*128/4; a_ws = vec_per_w
-// for a stacked candidate, 0 for an unstacked (R, 128) one.
+// for a stacked candidate, 0 for an unstacked (R, 128) one.  a and b (=
+// out) at the suffix's dtypes.
 int lag_masked_combine(const void* a, const void* b, const void* mask,
                        void* out, int64_t W, int64_t vec_per_w, int64_t a_ws,
                        int mode, void* stream) {
-  const int64_t total = W * vec_per_w;
-  if (total == 0) return 0;
-  int64_t blocks = (total + THREADS - 1) / THREADS;
-  if (blocks > MAX_GRID) blocks = MAX_GRID;
-  cudaStream_t s = (cudaStream_t)stream;
-  const float4* pa = (const float4*)a;
-  const float4* pb = (const float4*)b;
-  const float* pm = (const float*)mask;
-  float4* po = (float4*)out;
-  if (mode == 0)
-    masked_kernel<0><<<(unsigned)blocks, THREADS, 0, s>>>(pa, pb, pm, po,
-                                                           total, vec_per_w,
-                                                           a_ws);
-  else if (mode == 1)
-    masked_kernel<1><<<(unsigned)blocks, THREADS, 0, s>>>(pa, pb, pm, po,
-                                                           total, vec_per_w,
-                                                           a_ws);
-  else if (mode == 2)
-    masked_kernel<2><<<(unsigned)blocks, THREADS, 0, s>>>(pa, pb, pm, po,
-                                                           total, vec_per_w,
-                                                           a_ws);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return masked_combine<float, float>(a, b, mask, out, W, vec_per_w, a_ws,
+                                      mode, stream);
+}
+
+int lag_masked_combine_bb(const void* a, const void* b, const void* mask,
+                          void* out, int64_t W, int64_t vec_per_w,
+                          int64_t a_ws, int mode, void* stream) {
+  return masked_combine<bf16, bf16>(a, b, mask, out, W, vec_per_w, a_ws,
+                                    mode, stream);
+}
+
+int lag_masked_combine_fb(const void* a, const void* b, const void* mask,
+                          void* out, int64_t W, int64_t vec_per_w,
+                          int64_t a_ws, int mode, void* stream) {
+  return masked_combine<float, bf16>(a, b, mask, out, W, vec_per_w, a_ws,
+                                     mode, stream);
 }
 
 }  // extern "C"

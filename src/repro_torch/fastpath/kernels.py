@@ -1,20 +1,26 @@
 """The comm plane's five kernels: dispatch to CUDA (Hopper) or the plain
 version — port of ``repro.fastpath.kernels``.
 
-Each wrapper takes the layout's float32 flat buffers.  For tensors on the
-CPU it runs the plain PyTorch version (``kernels_ref``); for CUDA tensors
-it launches the hand-written kernel of ``csrc/fastpath_kernels.cu`` or
-raises — there is no fallback.  The kernels are compiled with ``nvcc`` for
-``sm_90a`` at first use by the port's shared builder
-(``repro_torch.kernels.build``) and bound through a plain C interface with
-``ctypes``.  ``LAUNCHES`` counts the kernel launches per kernel; nothing
-else increments it.
+Each wrapper takes the layout's flat buffers, float32 or bfloat16 as
+``ENTRIES`` lists per kernel: the operand combinations the comm paths use
+(a bfloat16 model's buffers; a float32 model's gradients against bfloat16
+ĝ mirrors; LAQ's float32 residual).  Any other combination raises, on
+every device.  For tensors on the CPU a wrapper runs the plain PyTorch
+version (``kernels_ref``); for CUDA tensors it launches the hand-written
+kernel of ``csrc/fastpath_kernels.cu`` or raises — there is no fallback;
+for meta tensors it allocates the kernel's outputs and launches nothing
+(``launch.dryrun`` reckons the card's memory so).  The kernels are
+compiled with ``nvcc`` for ``sm_90a`` at first use by the port's shared
+builder (``repro_torch.kernels.build``) and bound through a plain C
+interface with ``ctypes``.  ``LAUNCHES`` counts the launches of each
+instantiation (``masked_combine``, ``masked_combine_bb``,
+``masked_combine_fb``); nothing else increments it.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -24,23 +30,47 @@ from repro_torch.kernels import build
 
 MASK_MODES = kernels_ref.MASK_MODES
 
-#: kernel launches since the last ``reset_launches()``, per kernel
-LAUNCHES: Dict[str, int] = {"delta_sqnorm_blocks": 0, "sqnorm_blocks": 0,
-                            "absmax_blocks": 0, "laq_encode_blocks": 0,
-                            "masked_combine": 0}
+_F32, _BF16 = torch.float32, torch.bfloat16
+#: the instantiations ``csrc/fastpath_kernels.cu`` builds, per kernel:
+#: operand dtypes → C entry (delta_sqnorm (a, b); absmax and laq_encode
+#: (g, q), their residual float32; masked_combine (a, b), written at b's)
+ENTRIES: Dict[str, Dict[Tuple[torch.dtype, ...], str]] = {
+    "delta_sqnorm_blocks": {(_F32, _F32): "lag_delta_sq_blocks",
+                            (_BF16, _BF16): "lag_delta_sq_blocks_bb",
+                            (_F32, _BF16): "lag_delta_sq_blocks_fb"},
+    "sqnorm_blocks": {(_F32,): "lag_sq_blocks"},
+    "absmax_blocks": {(_F32, _F32): "lag_absmax_blocks",
+                      (_BF16, _BF16): "lag_absmax_blocks_bb",
+                      (_F32, _BF16): "lag_absmax_blocks_fb"},
+    "laq_encode_blocks": {(_F32, _F32): "lag_laq_encode_blocks",
+                          (_BF16, _BF16): "lag_laq_encode_blocks_bb",
+                          (_F32, _BF16): "lag_laq_encode_blocks_fb"},
+    "masked_combine": {(_F32, _F32): "lag_masked_combine",
+                       (_BF16, _BF16): "lag_masked_combine_bb",
+                       (_F32, _BF16): "lag_masked_combine_fb"},
+}
+#: an instantiation's name in ``LAUNCHES``: its wrapper's name, with its C
+#: entry's suffix for a bfloat16 operand
+SUFFIX = {(_F32,): "", (_F32, _F32): "", (_BF16, _BF16): "_bb",
+          (_F32, _BF16): "_fb"}
+
+#: launches of each instantiation since the last ``reset_launches()``
+LAUNCHES: Dict[str, int] = {k + SUFFIX[dts]: 0
+                            for k, v in ENTRIES.items() for dts in v}
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
+_ARGS = {"delta_sqnorm_blocks": (_P, _P, _P, _I64, _I64, _I64, _I64),
+         "sqnorm_blocks": (_P, _P, _I64),
+         "absmax_blocks": (_P, _P, _P, _P, _I64),
+         "laq_encode_blocks": (_P, _P, _P, _P, _P, _P, _P, _I64,
+                               ctypes.c_float),
+         "masked_combine": (_P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int)}
 #: ``--fmad=false``: ``v - codes*step`` must never become an FMA, so the LAQ
 #: payload/residual equal the plain version bit for bit
 LIBRARY = build.CudaLibrary(
     "fastpath", Path(__file__).resolve().parent / "csrc"
     / "fastpath_kernels.cu",
-    {"lag_delta_sq_blocks": (_P, _P, _P, _I64, _I64, _I64, _I64),
-     "lag_sq_blocks": (_P, _P, _I64),
-     "lag_absmax_blocks": (_P, _P, _P, _P, _I64),
-     "lag_laq_encode_blocks": (_P, _P, _P, _P, _P, _P, _P, _I64,
-                               ctypes.c_float),
-     "lag_masked_combine": (_P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_int)},
+    {entry: _ARGS[k] for k, v in ENTRIES.items() for entry in v.values()},
     extra_flags=("--fmad=false",))
 
 
@@ -49,13 +79,36 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def _entry(kernel: str, *dtypes: torch.dtype) -> str:
+    """The C entry of ``kernel`` for these operand dtypes; raises for a
+    combination with no instantiation (there is no widening fallback)."""
+    entry = ENTRIES[kernel].get(dtypes)
+    if entry is None:
+        raise TypeError(f"{kernel}: no instantiation for operand dtypes "
+                        f"{tuple(str(d) for d in dtypes)}; built: "
+                        f"{[tuple(str(d) for d in k) for k in ENTRIES[kernel]]}")
+    return entry
+
+
+def _launch(kernel: str, dtypes, *args, device) -> None:
+    """Launch ``kernel``'s instantiation for ``dtypes``, counted in
+    ``LAUNCHES`` under its name."""
+    entry = _entry(kernel, *dtypes)
+    if device.type == "meta":
+        return
+    build.launch(getattr(build.load(LIBRARY), entry), *args, device=device)
+    LAUNCHES[kernel + SUFFIX[dtypes]] += 1
+
+
 # ---------------------------------------------------------------------------
 # Argument checks
 # ---------------------------------------------------------------------------
 
-def _check(name: str, x: torch.Tensor, ndims=(3,)) -> None:
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: float32 required, got {x.dtype}")
+def _check(name: str, x: torch.Tensor, ndims=(3,),
+           dtypes=(_F32, _BF16)) -> None:
+    if x.dtype not in dtypes:
+        raise TypeError(f"{name}: one of {[str(d) for d in dtypes]} "
+                        f"required, got {x.dtype}")
     if x.dim() not in ndims or x.shape[-1] != LANES \
             or x.shape[-2] % SUB_ROWS:
         raise ValueError(f"{name}: want (W, R, {LANES}) with R % {SUB_ROWS}"
@@ -66,11 +119,15 @@ def _check(name: str, x: torch.Tensor, ndims=(3,)) -> None:
 
 
 def _same_device(*xs: torch.Tensor) -> bool:
+    """True where the wrapper takes its kernel's route: CUDA tensors, and
+    meta tensors (outputs allocated, nothing launched: the dry-run's
+    reckoning of the card's memory); False on the CPU (the plain
+    version)."""
     dev = xs[0].device
     if any(x.device != dev for x in xs):
         raise ValueError(f"operands on different devices: "
                          f"{[str(x.device) for x in xs]}")
-    return xs[0].is_cuda
+    return dev.type in ("cuda", "meta")
 
 
 # ---------------------------------------------------------------------------
@@ -79,56 +136,63 @@ def _same_device(*xs: torch.Tensor) -> bool:
 
 def delta_sqnorm_blocks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Per-sub-block partials of ‖a − b‖²: (W, R, L) × (W|·, R, L) →
-    (W, R/8).  ``b`` may be the unstacked (R, L) shared tree."""
+    (W, R/8) float32.  ``b`` may be the unstacked (R, L) shared tree."""
     _check("a", a)
     _check("b", b, (2, 3))
     if b.shape[-2:] != a.shape[-2:] or (b.dim() == 3
                                          and b.shape[0] != a.shape[0]):
         raise ValueError(f"shape mismatch {tuple(a.shape)} vs "
                          f"{tuple(b.shape)}")
+    dts = (a.dtype, b.dtype)
+    _entry("delta_sqnorm_blocks", *dts)
     if not _same_device(a, b):
         return kernels_ref.delta_sqnorm_blocks(a, b)
     W, R = a.shape[0], a.shape[1]
     out = torch.empty((W, R // SUB_ROWS), dtype=torch.float32,
                       device=a.device)
     vec = R * LANES // 4
-    build.launch(build.load(LIBRARY).lag_delta_sq_blocks, a.data_ptr(),
-                 b.data_ptr(), out.data_ptr(), W, R // SUB_ROWS, vec,
-                 vec if b.dim() == 3 else 0, device=a.device)
-    LAUNCHES["delta_sqnorm_blocks"] += 1
+    _launch("delta_sqnorm_blocks", dts, a.data_ptr(), b.data_ptr(),
+            out.data_ptr(), W, R // SUB_ROWS, vec,
+            vec if b.dim() == 3 else 0, device=a.device)
     return out
 
 
 def sqnorm_blocks(a: torch.Tensor) -> torch.Tensor:
-    """Per-sub-block partials of ‖a‖²: (W, R, L) → (W, R/8)."""
-    _check("a", a)
-    if not a.is_cuda:
+    """Per-sub-block partials of ‖a‖²: (W, R, L) float32 → (W, R/8)."""
+    _check("a", a, dtypes=(_F32,))
+    if not _same_device(a):
         return kernels_ref.sqnorm_blocks(a)
     W, R = a.shape[0], a.shape[1]
     out = torch.empty((W, R // SUB_ROWS), dtype=torch.float32,
                       device=a.device)
-    build.launch(build.load(LIBRARY).lag_sq_blocks, a.data_ptr(),
-                 out.data_ptr(), W * (R // SUB_ROWS), device=a.device)
-    LAUNCHES["sqnorm_blocks"] += 1
+    _launch("sqnorm_blocks", (a.dtype,), a.data_ptr(), out.data_ptr(),
+            W * (R // SUB_ROWS), device=a.device)
     return out
+
+
+def _check_laq(g, q, e) -> Tuple[torch.dtype, torch.dtype]:
+    for n, x in (("g", g), ("q", q)):
+        _check(n, x)
+    _check("e", e, dtypes=(_F32,))
+    if not (g.shape == q.shape == e.shape):
+        raise ValueError("LAQ operand shapes differ: "
+                         f"{[tuple(x.shape) for x in (g, q, e)]}")
+    return g.dtype, q.dtype
 
 
 def absmax_blocks(g: torch.Tensor, q: torch.Tensor,
                   e: torch.Tensor) -> torch.Tensor:
-    """Per-sub-block max|(g − q) + e| — the LAQ quantizer-scale sweep."""
-    for n, x in (("g", g), ("q", q), ("e", e)):
-        _check(n, x)
-    if not (g.shape == q.shape == e.shape):
-        raise ValueError("absmax_blocks: operand shapes differ")
+    """Per-sub-block max|(g − q) + e| — the LAQ quantizer-scale sweep; the
+    residual ``e`` is float32."""
+    dts = _check_laq(g, q, e)
+    _entry("absmax_blocks", *dts)
     if not _same_device(g, q, e):
         return kernels_ref.absmax_blocks(g, q, e)
     W, R = g.shape[0], g.shape[1]
     out = torch.empty((W, R // SUB_ROWS), dtype=torch.float32,
                       device=g.device)
-    build.launch(build.load(LIBRARY).lag_absmax_blocks, g.data_ptr(),
-                 q.data_ptr(), e.data_ptr(), out.data_ptr(),
-                 W * (R // SUB_ROWS), device=g.device)
-    LAUNCHES["absmax_blocks"] += 1
+    _launch("absmax_blocks", dts, g.data_ptr(), q.data_ptr(), e.data_ptr(),
+            out.data_ptr(), W * (R // SUB_ROWS), device=g.device)
     return out
 
 
@@ -136,23 +200,21 @@ def laq_encode_blocks(g: torch.Tensor, q: torch.Tensor, e: torch.Tensor,
                       steps_subs: torch.Tensor, bits: int,
                       payload_out: Optional[torch.Tensor] = None):
     """Fused b-bit encode over the batched flat buffer → (payload (W, R, L),
-    residual (W, R, L), Σ payload² per sub-block (W, R/8)).
+    residual (W, R, L), Σ payload² per sub-block (W, R/8)), all float32.
 
     ``steps_subs`` is the (W, R/8) per-sub-block quantizer step, already
-    divided by qmax.  ``payload_out`` (may be ``g`` itself) receives the
-    payload instead of a new buffer.
+    divided by qmax.  ``payload_out`` (a float32 buffer; may be a float32
+    ``g`` itself) receives the payload instead of a new buffer.
     """
-    for n, x in (("g", g), ("q", q), ("e", e)):
-        _check(n, x)
-    if not (g.shape == q.shape == e.shape):
-        raise ValueError("laq_encode_blocks: operand shapes differ")
+    dts = _check_laq(g, q, e)
+    _entry("laq_encode_blocks", *dts)
     W, R = g.shape[0], g.shape[1]
     if steps_subs.shape != (W, R // SUB_ROWS) \
             or steps_subs.dtype != torch.float32:
         raise ValueError(f"steps_subs: want float32 {(W, R // SUB_ROWS)}, "
                          f"got {steps_subs.dtype} {tuple(steps_subs.shape)}")
     if payload_out is not None:
-        _check("payload_out", payload_out)
+        _check("payload_out", payload_out, dtypes=(_F32,))
         if payload_out.shape != g.shape:
             raise ValueError("payload_out: shape differs from g")
     if not _same_device(g, q, e, steps_subs):
@@ -161,27 +223,27 @@ def laq_encode_blocks(g: torch.Tensor, q: torch.Tensor, e: torch.Tensor,
             p = payload_out.copy_(p)
         return p, r, sq
     steps_subs = steps_subs.contiguous()
-    p = torch.empty_like(g) if payload_out is None else payload_out
-    r = torch.empty_like(g)
+    p = torch.empty_like(e) if payload_out is None else payload_out
+    r = torch.empty_like(e)
     sq = torch.empty((W, R // SUB_ROWS), dtype=torch.float32,
                      device=g.device)
-    build.launch(build.load(LIBRARY).lag_laq_encode_blocks, g.data_ptr(),
-                 q.data_ptr(), e.data_ptr(), steps_subs.data_ptr(),
-                 p.data_ptr(), r.data_ptr(), sq.data_ptr(),
-                 W * (R // SUB_ROWS), float(2 ** (bits - 1) - 1),
-                 device=g.device)
-    LAUNCHES["laq_encode_blocks"] += 1
+    _launch("laq_encode_blocks", dts, g.data_ptr(), q.data_ptr(),
+            e.data_ptr(), steps_subs.data_ptr(), p.data_ptr(), r.data_ptr(),
+            sq.data_ptr(), W * (R // SUB_ROWS), float(2 ** (bits - 1) - 1),
+            device=g.device)
     return p, r, sq
 
 
 def masked_combine(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
                    mode: str, out: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
-    """Per-worker masked fold of candidate ``a`` into state ``b``.
+    """Per-worker masked fold of candidate ``a`` into state ``b``, computed
+    in float32 and written at ``b``'s dtype.
 
     ``mask`` is (W,) bool/float; ``mode`` ∈ ``MASK_MODES``.  ``select``
-    copies bit-exactly.  ``a`` may be unstacked (R, L).  ``out`` (may be
-    ``b`` itself, for an in-place state update) receives the result.
+    copies bit-exactly (``a`` and ``b`` of one dtype).  ``a`` may be
+    unstacked (R, L).  ``out`` (may be ``b`` itself, for an in-place state
+    update) receives the result.
     """
     if mode not in MASK_MODES:
         raise ValueError(f"mode must be one of {MASK_MODES}, got {mode!r}")
@@ -194,18 +256,18 @@ def masked_combine(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
     if mask.shape != (W,):
         raise ValueError(f"mask: want shape ({W},), got {tuple(mask.shape)}")
     if out is not None:
-        _check("out", out)
+        _check("out", out, dtypes=(b.dtype,))
         if out.shape != b.shape:
             raise ValueError("out: shape differs from b")
+    dts = (a.dtype, b.dtype)
+    _entry("masked_combine", *dts)
     if not _same_device(a, b, mask):
         res = kernels_ref.masked_combine(a, b, mask, mode)
         return res if out is None else out.copy_(res)
     m = mask.to(torch.float32).contiguous()
     res = torch.empty_like(b) if out is None else out
     vec = R * LANES // 4
-    build.launch(build.load(LIBRARY).lag_masked_combine, a.data_ptr(),
-                 b.data_ptr(), m.data_ptr(), res.data_ptr(), W, vec,
-                 vec if a.dim() == 3 else 0, MASK_MODES.index(mode),
-                 device=b.device)
-    LAUNCHES["masked_combine"] += 1
+    _launch("masked_combine", dts, a.data_ptr(), b.data_ptr(), m.data_ptr(),
+            res.data_ptr(), W, vec, vec if a.dim() == 3 else 0,
+            MASK_MODES.index(mode), device=b.device)
     return res

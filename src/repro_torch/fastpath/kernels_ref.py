@@ -7,6 +7,10 @@ kernels in ``csrc/fastpath_kernels.cu`` (and the Pallas kernels of
 tests and ``chip_smoke.py`` hold the kernels against them.  Every op is
 local to a sub-block, so a caller may apply them to any run of whole
 sub-blocks (rows a multiple of ``SUB_ROWS``) and concatenate.
+
+Operands may be float32 or bfloat16 (``kernels.ENTRIES``): each is widened
+to float32 first (exact), every op is float32 as in the kernels, and
+``masked_combine`` rounds its result once to ``b``'s dtype.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ def sqnorm_blocks(a: torch.Tensor) -> torch.Tensor:
 def absmax_blocks(g: torch.Tensor, q: torch.Tensor,
                   e: torch.Tensor) -> torch.Tensor:
     """Per-sub-block max|(g − q) + e| — the LAQ quantizer-scale sweep."""
-    v = (g - q) + e
+    v = (g.float() - q.float()) + e.float()
     return torch.amax(torch.abs(_subs(v)), dim=-1)
 
 
@@ -52,7 +56,7 @@ def laq_encode_blocks(g: torch.Tensor, q: torch.Tensor, e: torch.Tensor,
     half-to-even (``torch.round``), as the reference kernel.
     """
     qmax = float(2 ** (bits - 1) - 1)
-    v = _subs((g - q) + e)
+    v = _subs((g.float() - q.float()) + e.float())
     step = steps_subs.float()[..., None]
     pos = step > 0.0
     inv = torch.where(pos, 1.0 / torch.where(pos, step, torch.ones_like(step)),
@@ -67,13 +71,16 @@ def laq_encode_blocks(g: torch.Tensor, q: torch.Tensor, e: torch.Tensor,
 def masked_combine(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
                    mode: str) -> torch.Tensor:
     """Per-worker masked fold of candidate ``a`` (W, R, L) or (R, L) into
-    state ``b`` (W, R, L): add b + m·a, update b + m·(a − b), select
-    where(m, a, b) — an exact copy."""
+    state ``b`` (W, R, L), in float32, at ``b``'s dtype: add b + m·a,
+    update b + m·(a − b), select where(m, a, b) — an exact copy."""
     if mode not in MASK_MODES:
         raise ValueError(f"mode must be one of {MASK_MODES}, got {mode!r}")
     m = mask.to(torch.float32).reshape(-1, 1, 1)
+    x, y = a.float(), b.float()
     if mode == "add":
-        return b + m * a
-    if mode == "update":
-        return b + m * (a - b)
-    return torch.where(m != 0.0, a, b)
+        out = y + m * x
+    elif mode == "update":
+        out = y + m * (x - y)
+    else:
+        out = torch.where(m != 0.0, x, y)
+    return out.to(b.dtype)

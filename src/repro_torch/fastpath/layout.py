@@ -2,10 +2,10 @@
 port of ``repro.fastpath.layout``.
 
 Each leaf is flattened, cast to the buffer's dtype (:func:`buffer_dtype`:
-float64 for a tree with a float64 leaf, else float32) and padded up to
-whole sub-blocks (``SUB_ROWS`` × ``LANES`` = 1024 elements), so a sub-block
-never straddles
-two leaves and per-leaf quantities (LAQ's quantizer scale, the fixed-order
+float64 for a tree with a float64 leaf, bfloat16 for a tree of bfloat16
+leaves only, else float32) and padded up to whole sub-blocks (``SUB_ROWS``
+× ``LANES`` = 1024 elements), so a sub-block never straddles two leaves
+and per-leaf quantities (LAQ's quantizer scale, the fixed-order
 per-(worker, leaf) partial sums) survive batching.  The buffer tail is
 padded to whole ``BLOCK_ROWS`` blocks; ``sub_leaf`` maps every sub-block to
 its leaf (tail sub-blocks map to leaf 0 — they are all-zero, absorbing for
@@ -42,8 +42,25 @@ SUPPORTED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 def buffer_dtype(dtypes) -> torch.dtype:
     """The flat buffers' dtype for leaves of ``dtypes``: float64 when one
     of them is float64 (the x64 convex runs, which the plane refuses), so
-    that flattening rounds nothing; float32 otherwise."""
-    return torch.float64 if torch.float64 in tuple(dtypes) else torch.float32
+    that flattening rounds nothing; bfloat16 when every leaf is bfloat16
+    (a bfloat16 model: its leaves stay views of a bfloat16 buffer, half
+    the bytes); float32 otherwise.  A tree that mixes bfloat16 and float32
+    leaves gets float32 here (:func:`mixed_leaves`); the trainer refuses
+    to train it."""
+    dts = tuple(dtypes)
+    if torch.float64 in dts:
+        return torch.float64
+    if dts and all(d == torch.bfloat16 for d in dts):
+        return torch.bfloat16
+    return torch.float32
+
+
+def mixed_leaves(dtypes) -> bool:
+    """True for a tree that mixes bfloat16 leaves with leaves of another
+    dtype: a bfloat16 config that keeps float32 leaves (the MoE router,
+    mamba2's ``A_log``/``dt_bias``/``D``, RG-LRU's ``b_a``/``b_i``)."""
+    dts = set(dtypes)
+    return torch.bfloat16 in dts and len(dts) > 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,10 +117,12 @@ class FlatLayout:
             raise ValueError(f"tree has {len(leaves)} leaves, layout expects "
                              f"{self.num_leaves}")
 
-    def empty(self, lead: Tuple[int, ...] = (), device=None) -> torch.Tensor:
-        """A zero ``lead + (rows, LANES)`` buffer of the layout's dtype."""
-        return torch.zeros(lead + (self.rows, LANES), dtype=self.dtype,
-                           device=device)
+    def empty(self, lead: Tuple[int, ...] = (), device=None,
+              dtype: torch.dtype = None) -> torch.Tensor:
+        """A zero ``lead + (rows, LANES)`` buffer of ``dtype`` (default:
+        the layout's)."""
+        return torch.zeros(lead + (self.rows, LANES),
+                           dtype=dtype or self.dtype, device=device)
 
     def flatten(self, tree: Pytree, out: torch.Tensor = None) -> torch.Tensor:
         """Template-shaped tree → ``(rows, LANES)`` buffer."""

@@ -162,6 +162,7 @@ def init_fleet_state(cfg, tcfg, topology, *, device, seed: int = 0,
     mirrors (zero: first contact uploads) and a per-CLIENT (N,)
     ``comm_per_worker``."""
     from repro_torch.dist import lag_trainer
+    lag_trainer.check_trainable(cfg, tcfg, topology)
     policy = policy if policy is not None else tcfg.comm_policy()
     server = server if server is not None else tcfg.server_optimizer()
     device = torch.device(device)

@@ -321,6 +321,7 @@ def init_graph_state(cfg, tcfg, topology, *, device, seed: int = 0,
     per-EDGE (E,) ``comm_per_worker``; a stateful server's state is
     stacked per node."""
     from repro_torch.dist import lag_trainer
+    lag_trainer.check_trainable(cfg, tcfg, topology)
     policy = policy if policy is not None else tcfg.comm_policy()
     server = server if server is not None else tcfg.server_optimizer()
     _check_policy(policy)

@@ -25,6 +25,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.core import lag
 from repro_torch.core.tree import (tree_flatten, tree_leaves, tree_map,
                                    tree_unflatten)
 
@@ -57,8 +58,20 @@ def _sqrt_(x: torch.Tensor) -> torch.Tensor:
 def sub_scaled(p: torch.Tensor, a, x: torch.Tensor) -> torch.Tensor:
     """p − a·x with the product rounded first, as the reference computes
     it, into ONE new buffer (the difference overwrites the product): at
-    full width a second parameter-sized temporary would raise the peak."""
-    d = x * a
+    full width a second parameter-sized temporary would raise the peak.
+
+    The product's precision is the reference's: a Python ``a`` is weakly
+    typed (rounded to x's dtype: ``t − α·g`` on bfloat16 leaves rounds α
+    to bfloat16), a tensor ``a`` promotes (a float32 stepsize times a
+    bfloat16 ``x`` is a float32 product), and the product is rounded once
+    to p's dtype before the difference."""
+    if isinstance(a, torch.Tensor):
+        ct = torch.promote_types(a.dtype, x.dtype)
+        d = x.to(ct) * a
+    else:
+        d = x * lag.weak(a, x.dtype)
+    if d.dtype != p.dtype:
+        d = d.to(p.dtype)
     return torch.sub(p, d, out=d)
 
 
@@ -120,8 +133,9 @@ def sgd(lr, momentum: float = 0.0) -> Optimizer:
             new_params = tree_map(lambda p, g: sub_scaled(p, a, g),
                                   params, grads)
             return new_params, state
-        new_state = tree_map(lambda m, g: m.mul_(momentum).add_(g), state,
-                             grads)
+        new_state = tree_map(
+            lambda m, g: m.mul_(lag.weak(momentum, m.dtype)).add_(g), state,
+            grads)
         new_params = tree_map(lambda p, m: sub_scaled(p, a, m), params,
                               new_state)
         return new_params, new_state

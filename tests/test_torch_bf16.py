@@ -30,7 +30,9 @@ losses and gradients equal to ``remat=False`` bit for bit on every layer
 kind and saves fewer tensors for the backward; ``embed_onehot`` against
 the reference's; ``scan_unroll`` is the same program; ``act_shard_axes``
 raises with no mesh on both sides.  Training a
-bfloat16 config is refused (ROADMAP queue 1 item 4).
+bfloat16 config whose tree mixes bfloat16 and float32 leaves is refused
+(ROADMAP queue 1 item 7); an all-bfloat16 one trains
+(``tests/test_torch_bf16_train.py``).
 
 The CUDA kernels' bfloat16 instantiations run only on the card
 (``tests/test_torch_kernels.py``'s ``cuda`` cases, ``chip_smoke.py`` phase
@@ -442,12 +444,19 @@ def test_act_shard_axes_raise_without_a_mesh_as_the_reference_does():
 
 
 def test_training_a_bfloat16_config_is_refused():
-    """The reference trains a bfloat16 config with bfloat16 θ and ĝ; the
-    port's flat plane is float32, so it refuses rather than compute
-    another trajectory (ROADMAP queue 1 item 4)."""
-    cfg = get_config("llama3.2-1b").reduced(**BF16)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    """A bfloat16 config trains when every leaf is bfloat16
+    (``tests/test_torch_bf16_train.py``); one whose tree keeps float32
+    leaves (the MoE router here) is refused by name rather than widened to
+    a float32 plane, another computation (ROADMAP queue 1 item 7)."""
+    cfg = get_config("qwen3-moe-30b-a3b").reduced(**BF16)
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         init_state(cfg, TrainerConfig(algo="lag-wk", num_workers=2),
                    device="cpu")
     leaves = tree_leaves(model.templates(cfg))
-    assert {t.dtype for t in leaves} == {torch.bfloat16}
+    assert {t.dtype for t in leaves} == {torch.bfloat16, torch.float32}
+    dense = get_config("llama3.2-1b").reduced(**BF16)
+    assert {t.dtype for t in tree_leaves(model.templates(dense))} \
+        == {torch.bfloat16}
+    st = init_state(dense, TrainerConfig(algo="lag-wk", num_workers=2),
+                    device="cpu")
+    assert st["theta"].dtype == st["lag"]["grad_hat"].dtype == torch.bfloat16

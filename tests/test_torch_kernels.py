@@ -27,7 +27,9 @@ inputs, rounded to bfloat16, and the library's arithmetic (P rounded to
 one bfloat16 term) is shown to miss that.  Head_dims without an
 instantiation are zero-padded to one, with their true scale: the padded
 problem is held against the reference's kernel at its own head_dim 16 and
-32 cases.
+32 cases.  The comm plane's kernels 1–4 at bfloat16 operands have
+``cuda`` cases here: bitwise their plain versions and the float32 kernels
+on the widened operands.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -39,6 +41,8 @@ from repro.kernels.flash_attention import ref as fa_ref
 from repro.kernels.rmsnorm import ops as rms_ops
 from repro.kernels.rmsnorm import ref as rms_ref
 
+from repro_torch.fastpath import kernels as fp_kernels
+from repro_torch.fastpath import kernels_ref as fp_ref
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attention as t_fa
 from repro_torch.kernels.flash_attention import ops as t_fa_ops
@@ -888,3 +892,71 @@ def test_cuda_wrappers_refuse_what_no_instantiation_serves(cuda_device):
     with pytest.raises(TypeError, match="bfloat16"):
         t_rms_ops.rmsnorm(x.half(), torch.ones(1024, device=cuda_device,
                                                dtype=torch.half))
+
+
+# ---------------------------------------------------------------------------
+# The comm plane's kernels 1–4 at bfloat16 operands, on the card: bitwise
+# their plain versions, and the partials bitwise the float32 kernel's on the
+# widened operands (same element-to-lane map and sum order)
+# ---------------------------------------------------------------------------
+
+PLANE_COMBOS = [(k, dts) for k, table in fp_kernels.ENTRIES.items()
+                for dts in table if torch.bfloat16 in dts]
+
+
+def plane_operand(dev, gen, W, R, dtype, scale=1.0):
+    x = torch.randn((W, R, 128), device=dev, generator=gen) * scale
+    return x.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,R", [(1, 8), (3, 264), (2, 2048)])
+@pytest.mark.parametrize("kernel,dts", PLANE_COMBOS,
+                         ids=lambda v: v if isinstance(v, str) else
+                         "-".join(str(d).split(".")[-1] for d in v))
+def test_cuda_plane_kernel_bf16_instantiations(cuda_device, kernel, dts, W,
+                                               R):
+    gen = torch.Generator(device=cuda_device).manual_seed(W * R)
+    a = plane_operand(cuda_device, gen, W, R, dts[0])
+    b = plane_operand(cuda_device, gen, W, R, dts[1], 0.5)
+    e = plane_operand(cuda_device, gen, W, R, torch.float32, 0.01)
+    fp_kernels.reset_launches()
+    if kernel == "delta_sqnorm_blocks":
+        for bb in (b, b[0]):                  # stacked and broadcast b
+            got = fp_kernels.delta_sqnorm_blocks(a, bb)
+            assert torch.equal(got, fp_kernels.delta_sqnorm_blocks(
+                a.float(), bb.float()))
+            assert torch.equal(got.cpu(), fp_ref.delta_sqnorm_blocks(
+                a.cpu(), bb.cpu()))
+    elif kernel == "absmax_blocks":
+        got = fp_kernels.absmax_blocks(a, b, e)
+        assert torch.equal(got, fp_kernels.absmax_blocks(a.float(),
+                                                         b.float(), e))
+        assert torch.equal(got.cpu(), fp_ref.absmax_blocks(
+            a.cpu(), b.cpu(), e.cpu()))
+    elif kernel == "laq_encode_blocks":
+        steps = fp_kernels.absmax_blocks(a, b, e) / torch.full(
+            (W, R // 8), 7.0, device=cuda_device)
+        got = fp_kernels.laq_encode_blocks(a, b, e, steps, 4)
+        want = fp_ref.laq_encode_blocks(a.cpu(), b.cpu(), e.cpu(),
+                                        steps.cpu(), 4)
+        wide = fp_kernels.laq_encode_blocks(a.float(), b.float(), e, steps, 4)
+        for x, y, z in zip(got, want, wide):
+            assert x.dtype == torch.float32
+            assert torch.equal(x.cpu(), y) and torch.equal(x, z)
+    else:
+        mask = torch.tensor([True, False, True][:W], device=cuda_device)
+        for mode in fp_kernels.MASK_MODES:
+            for aa in (a, a[0]):
+                got = fp_kernels.masked_combine(aa, b, mask, mode)
+                assert got.dtype == b.dtype
+                assert torch.equal(got.cpu(), fp_ref.masked_combine(
+                    aa.cpu(), b.cpu(), mask.cpu(), mode))
+                # the float32 fold on the widened operands, rounded once
+                assert torch.equal(got, fp_kernels.masked_combine(
+                    aa.float(), b.float(), mask, mode).to(b.dtype))
+        out = b.clone()
+        assert fp_kernels.masked_combine(a, out, mask, "add",
+                                         out=out).data_ptr() \
+            == out.data_ptr()
+    assert fp_kernels.LAUNCHES[kernel + fp_kernels.SUFFIX[dts]] > 0

@@ -272,7 +272,7 @@ def test_one_round_calls_the_per_leaf_ops_once_per_worker(algo, monkeypatch):
 
     for name in ("fused_tree_sqnorm", "laq_encode"):
         monkeypatch.setattr(ops, name, counting(name, getattr(ops, name)))
-    for name in plane_kernels.LAUNCHES:
+    for name in plane_kernels.ENTRIES:
         monkeypatch.setattr(plane_kernels, name,
                             counting("plane", getattr(plane_kernels, name)))
     cfg = get_config("llama3.2-1b").reduced().replace(num_layers=1)
