@@ -314,6 +314,32 @@ Phases (any failure raises and the script exits non-zero):
         19b, 19c and phase 5's float32 runs, the ratio within
         PEAK_RATIO_BAND.
 
+ 20. bfloat16 training of the mixed trees and the legacy route at bfloat16:
+     a. the legacy kernels 8-12 at each new operand combination
+        (``lag_trigger.ENTRIES``: (bf16, bf16), (f32, bf16), LAQ's residual
+        float32; ``sqnorm_2d`` at bfloat16) at phase 9's shapes in bfloat16
+        (llama3.2-1b's 11 full-width leaves, W = 2: one round's launches):
+        bitwise their plain versions (sums within 1e-5) and bitwise the
+        float32 kernel on the widened operands, sums included; ms, plain
+        ms, byte bound and library call;
+     b. the trees that keep float32 leaves, in bfloat16 at full width
+        (mamba2-370m whole at W = 2, qwen3-moe-30b-a3b and
+        recurrentgemma-9b at the depth and W the dry-run reckons under 75
+        GB on every route, qwen3-moe-235b-a22b at one layer, W = 1, where
+        the dry-run reckons it under 75 GB): lag-wk and laq@4 on the plane,
+        on the legacy route and on the plain route, MIXED_STEPS rounds each,
+        state in two parts; masks equal across the routes, |Δ loss| of each
+        route against the plain route within 2 × MIXED_ROUTE_LOSS_READINGS,
+        each route's measured peak over its reckoned one within
+        PEAK_RATIO_BAND,
+        and the launches a round by instantiation (plane lag-wk:
+        ``delta_sqnorm_blocks_bb`` 1 + ``delta_sqnorm_blocks`` 1,
+        ``masked_combine_bb`` 1 + ``masked_combine`` 1);
+     c. llama3.2-1b at full width on the legacy route: bfloat16 lag-wk and
+        laq@4, and the float32 model with ``grad_hat_dtype="bfloat16"``
+        (lag-wk, laq@4): masks equal to 19b's plane runs, the new
+        instantiations launched once a leaf a worker.
+
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Times are CUDA-event times on this card (kernels: the mean of
 several launches after a warm-up); bounds use the H100 SXM's published
@@ -363,6 +389,12 @@ REPLACES.update({k + sfx: REPLACES[k] for k in (
     "delta_sqnorm_blocks", "absmax_blocks", "laq_encode_blocks",
     "masked_combine") for sfx in ("_bb", "_fb")})
 LEGACY_SOURCE = "src/repro_torch/kernels/lag_trigger/csrc/lag_trigger.cu"
+# the legacy kernels' instantiations with a bfloat16 operand, named as in
+# ``lag_trigger.LAUNCHES``
+LEGACY_BF16 = tuple(k + sfx for k in (
+    "delta_sqnorm_2d", "masked_update_2d", "innovation_absmax_2d",
+    "laq_encode_2d") for sfx in ("_bb", "_fb")) + ("sqnorm_2d_bf16",)
+REPLACES.update({k: REPLACES[k.rsplit("_", 1)[0]] for k in LEGACY_BF16})
 SOURCES = {
     "rmsnorm": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -372,7 +404,7 @@ SOURCES = {
                             "flash_attention_bf16.cu",
     **{k: LEGACY_SOURCE for k in ("delta_sqnorm_2d", "sqnorm_2d",
                                   "masked_update_2d", "innovation_absmax_2d",
-                                  "laq_encode_2d")},
+                                  "laq_encode_2d") + LEGACY_BF16},
 }
 #: kernels that no path of the reference runs: their main-path launches
 #: are 0, and the "never launched" checks exempt them by name
@@ -385,6 +417,8 @@ OFF_PATH = {
     "masked_update_2d": "src/repro calls lag_trigger.ops."
                         "masked_lazy_update nowhere; its tests do",
 }
+OFF_PATH.update({k: OFF_PATH[k.rsplit("_", 1)[0]] for k in LEGACY_BF16
+                 if k.rsplit("_", 1)[0] in OFF_PATH})
 LEGACY_SIZES = (1, 3, 127, 129, 1000, 257 * 33, 32768, 32769)
 SOURCE = "src/repro_torch/fastpath/csrc/fastpath_kernels.cu"
 SERVE_ARGS = ["--arch", "llama3.2-1b", "--batch", "4", "--prompt-len", "2048",
@@ -674,6 +708,38 @@ BF16_ROUTE_LOSS_READINGS = {"lag-wk": 0.0, "laq@4": 8.869e-05,
 # reckoned peak; the band from the first reading (H100 80GB HBM3, 700 W:
 # 1.0009-1.0031 over 19b, 19c and phase 5)
 PEAK_RATIO_BAND = (0.98, 1.02)
+
+# phase 20: bfloat16 training of the mixed trees and the legacy route at
+# bfloat16
+# 20a: the legacy kernels' new instantiations, named as in
+# ``lag_trigger.LAUNCHES``: (bf16, bf16) "_bb", (f32, bf16) "_fb", one
+# bfloat16 operand "_bf16"
+LEGACY_COMBOS = {"bf16-bf16": "_bb", "f32-bf16": "_fb"}
+# 20b: the mixed trees: (arch, fixed (layers, workers), or None for the
+# depth and W the dry-run reckons under MIXED_RECKON_GB, W = 2 first)
+MIXED_TRAIN = (("mamba2-370m", (48, 2)), ("qwen3-moe-30b-a3b", None),
+               ("recurrentgemma-9b", None), ("qwen3-moe-235b-a22b", (1, 1)))
+MIXED_RECKON_GB = 75.0
+# 20b: laq@4's plain and legacy routes hold float32 trees the plane folds in
+# place: their peak is about 1.28× the plane's (19b, llama3.2-1b bfloat16:
+# 56.92 against 44.60 GB, H100 80GB HBM3, 700 W).  laq@4's first depth is
+# the one whose reckoned plane peak is under MIXED_RECKON_GB /
+# MIXED_LAQ_ROUTE_RATIO; then the dry-run reckons every route at it, one
+# layer fewer while one of them is not under MIXED_RECKON_GB
+MIXED_LAQ_ROUTE_RATIO = 1.28
+MIXED_STEPS = 3
+ROUTES = ("plane", "legacy", "plain")
+# 20b: each route against the plain route on the card, masks equal and the
+# largest |Δ loss| over MIXED_STEPS rounds within BF16_ROUTE_FACTOR × its
+# reading (0: bitwise; H100 80GB HBM3, 700 W).  lag-wk does the same
+# arithmetic on every route; the legacy kernels are bitwise their plain
+# versions, so the legacy route is the plain route's arithmetic.  laq@4's
+# float32 payload folds into the bfloat16 ĝ with one rounding on the plane,
+# two on the plain route (ROADMAP queue 3 (e)); the first ĝ that differs is
+# round 1's fold, which enters round 2's payload and round 3's loss, so in
+# three rounds the losses are bitwise too
+MIXED_ROUTE_LOSS_READINGS = {"lag-wk plane": 0.0, "lag-wk legacy": 0.0,
+                             "laq@4 plane": 0.0, "laq@4 legacy": 0.0}
 
 
 def check(cond, msg):
@@ -3849,12 +3915,18 @@ def run_line(label, run, steps=4):
             f"{ {k: v / steps for k, v in used.items()} }")
 
 
-def reckoned_peak_gb(cfg, tcfg):
+def reckoned_peak_gb(cfg, tcfg, route="plane"):
     """The dry-run's reckoned peak of one training step at ``tcfg``'s W,
-    batch 4, seq 256 (``repro_torch.launch.dryrun``, on the meta device)."""
+    batch 4, seq 256 (``repro_torch.launch.dryrun``, on the meta device),
+    on ``route``: "plane", "legacy" or "plain" (as ``mixed_route_run``)."""
+    from repro_torch import comm
     from repro_torch.launch import dryrun
+    if route == "legacy":
+        tcfg = tcfg.replace(use_pallas_comm=True)
+    policy = comm.make_policy(tcfg.algo, bits=tcfg.laq_bits,
+                              fastpath=None) if route == "plain" else None
     rec = dryrun.reckon(cfg, "train_4k", tcfg.num_workers, batch=4,
-                        seq=256, tcfg=tcfg)
+                        seq=256, tcfg=tcfg, policy=policy)
     return rec["memory"]["peak_bytes"] / 1e9
 
 
@@ -3866,12 +3938,13 @@ def bf16_training_phase(torch, phase5_runs):
     on the plane and on the card's plain route; 19c command-r-35b at full
     width and the depth the dry-run reckons under BF16_TRAIN_RECKON_GB;
     19d each reckoned peak beside the measured one.  → the plane's
-    launches of these runs."""
+    launches of these runs, and 19b's plane masks by label (20c's
+    reference)."""
     from repro_torch.configs import get_config
     from repro_torch.dist.lag_trainer import TrainerConfig
     from repro_torch.launch import dryrun
 
-    total, peaks = {}, []
+    total, peaks, masks19 = {}, [], {}
     for arch, ckw, tkw in BF16_TRAIN:
         cfg = get_config(arch, **ckw)
         tcfg = TrainerConfig(num_workers=2, lr=0.3, **tkw)
@@ -3881,7 +3954,7 @@ def bf16_training_phase(torch, phase5_runs):
             + (" grad_hat_dtype=bfloat16" if "grad_hat_dtype" in tkw else "")
         print(run_line(label + " plane", plane))
         print(run_line(label + " plain route", plain))
-        masks = [r["mask"] for r in plane["rounds"]]
+        masks = masks19[label] = [r["mask"] for r in plane["rounds"]]
         check(masks == [r["mask"] for r in plain["rounds"]],
               f"{label}: plane and plain route masks differ")
         dl = max(abs(a["loss"] - b["loss"]) for a, b in
@@ -3938,6 +4011,371 @@ def bf16_training_phase(torch, phase5_runs):
               f"(band {lo}-{hi})")
         check(lo <= ratio <= hi, f"{label}: measured / reckoned peak "
                                  f"{ratio:.4f} outside {PEAK_RATIO_BAND}")
+    return total, masks19
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: bfloat16 training of the mixed trees, and the legacy route at
+# bfloat16
+# ---------------------------------------------------------------------------
+
+def legacy_bf16_kernel_phase(torch, dev):
+    """20a: the legacy kernels' bfloat16 instantiations at llama3.2-1b's 11
+    full-width leaves, W = 2 (one round's 22 launches of each): bitwise
+    their plain versions (sums within SUM_RTOL) and bitwise the float32
+    kernel on the operands widened to float32 (sums too: the same
+    element-to-thread map and fold order); ms, plain ms, byte bound and
+    library call.  → the kernels line's rows of these instantiations."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.dist.lag_trainer import param_layout
+    from repro_torch.kernels.lag_trigger import lag_trigger as lt
+    from repro_torch.kernels.lag_trigger import ref
+
+    f32, bf = torch.float32, torch.bfloat16
+    lo = param_layout(get_config("llama3.2-1b"))
+    W = 2
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2020)
+    pairs = [(i, m) for m in range(W) for i in range(lo.num_leaves)]
+    n_el = W * sum(lo.sizes)
+    half = torch.tensor(0.5, device=dev)
+    rows = {}
+
+    def leaves(dtype, scale):
+        x = torch.randn((W, lo.rows, 128), device=dev, generator=gen)
+        x = (x.mul_(scale) if scale != 1.0 else x).to(dtype)
+        return tree_leaves(lo.unflatten_stacked(x, like=dtype))
+
+    def each(fn):
+        def go():
+            for i, m in pairs:
+                fn(i, m)
+        return go
+
+    for combo, sfx in LEGACY_COMBOS.items():
+        da = bf if combo.startswith("bf16") else f32
+        A, B, C = leaves(da, 1.0), leaves(bf, 0.5), leaves(f32, 0.01)
+        errs = {}
+
+        def close(name, got, want):
+            torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=0)
+            errs[name] = max(errs.get(name, 0.0), max_abs(got, want))
+
+        for i in range(lo.num_leaves):
+            a, b, c = A[i][0], B[i][0], C[i][0]
+            wa, wb = a.float(), b.float()
+            what = f"{combo} leaf {tuple(a.shape)}"
+            got = lt.delta_sqnorm_2d(a, b)
+            close("delta_sqnorm_2d", got, ref.delta_sqnorm(a, b))
+            check(bitwise(torch, got, lt.delta_sqnorm_2d(wa, wb)),
+                  f"delta_sqnorm_2d {what}: not the float32 kernel's")
+            if da == bf:
+                got = lt.sqnorm_2d(a)
+                close("sqnorm_2d", got, ref.sqnorm(a))
+                check(bitwise(torch, got, lt.sqnorm_2d(wa)),
+                      f"sqnorm_2d {what}: not the float32 kernel's")
+            got = lt.masked_update_2d(a, b, half)
+            check(bitwise(torch, got, ref.masked_lazy_update(a, b, half))
+                  and bitwise(torch, got, lt.masked_update_2d(
+                      wa, wb, half).to(bf)),
+                  f"masked_update_2d {what} not bitwise")
+            scale = lt.innovation_absmax_2d(a, b, c)
+            check(bitwise(torch, scale, ref.innovation_absmax(a, b, c))
+                  and bitwise(torch, scale, lt.innovation_absmax_2d(
+                      wa, wb, c)), f"innovation_absmax_2d {what} not bitwise")
+            p, r, sq = lt.laq_encode_2d(a, b, c, scale, 4)
+            wp, wr, wsq = ref.laq_encode(a, b, c, scale, 4)
+            check(bitwise(torch, p, wp) and bitwise(torch, r, wr),
+                  f"laq_encode_2d {what}: payload/residual not bitwise")
+            close("laq_encode_2d", sq, wsq)
+            xp, xr, xsq = lt.laq_encode_2d(wa, wb, c, scale, 4)
+            check(bitwise(torch, p, xp) and bitwise(torch, r, xr)
+                  and bitwise(torch, sq, xsq),
+                  f"laq_encode_2d {what}: not the float32 kernel's")
+            del wa, wb, p, r, wp, wr, xp, xr
+        sa = A[0].element_size()
+        kern = {
+            "delta_sqnorm_2d": lambda i, m: lt.delta_sqnorm_2d(A[i][m],
+                                                               B[i][m]),
+            "masked_update_2d": lambda i, m: lt.masked_update_2d(
+                A[i][m], B[i][m], half),
+            "innovation_absmax_2d": lambda i, m: lt.innovation_absmax_2d(
+                A[i][m], B[i][m], C[i][m]),
+            "laq_encode_2d": lambda i, m: lt.laq_encode_2d(
+                A[i][m], B[i][m], C[i][m], half, 4),
+        }
+        plain = {
+            "delta_sqnorm_2d": lambda i, m: ref.delta_sqnorm(A[i][m],
+                                                             B[i][m]),
+            "masked_update_2d": lambda i, m: ref.masked_lazy_update(
+                A[i][m], B[i][m], half),
+            "innovation_absmax_2d": lambda i, m: ref.innovation_absmax(
+                A[i][m], B[i][m], C[i][m]),
+            "laq_encode_2d": lambda i, m: ref.laq_encode(
+                A[i][m], B[i][m], C[i][m], half, 4),
+        }
+        hb = half.to(bf)
+        library = {}
+        if da == bf:       # one PyTorch call at one dtype
+            library = {
+                "delta_sqnorm_2d": lambda i, m: torch.dist(A[i][m], B[i][m]),
+                "masked_update_2d": lambda i, m: torch.lerp(B[i][m], A[i][m],
+                                                            hb)}
+            kern["sqnorm_2d"] = lambda i, m: lt.sqnorm_2d(A[i][m])
+            plain["sqnorm_2d"] = lambda i, m: ref.sqnorm(A[i][m])
+            library["sqnorm_2d"] = lambda i, m: torch.dot(
+                A[i][m].view(-1), A[i][m].view(-1))
+        # bytes: each input read once, each output written once
+        work = {"delta_sqnorm_2d": ((sa + 2) * n_el, 3 * n_el),
+                "sqnorm_2d": (2 * n_el, 2 * n_el),
+                "masked_update_2d": ((sa + 4) * n_el, 3 * n_el),
+                "innovation_absmax_2d": ((sa + 6) * n_el, 4 * n_el),
+                "laq_encode_2d": ((sa + 14) * n_el, 10 * n_el)}
+        for k, fn in kern.items():
+            nbytes, nops = work[k]
+            t_b, by = bound_ms(nbytes + len(pairs) * 4, nops)
+            lib = library.get(k)
+            name = k + ("_bf16" if k == "sqnorm_2d" else sfx)
+            r = rows[name] = dict(
+                max_abs_err=errs.get(k, 0.0), ms=cuda_ms(torch, each(fn),
+                                                         n=3),
+                plain_ms=cuda_ms(torch, each(plain[k]), n=2),
+                bound_ms=t_b, bound_by=by,
+                library_ms=None if lib is None else cuda_ms(
+                    torch, each(lib), n=3))
+            print(f"  20a {name}: max_abs_err {r['max_abs_err']:.3e} | "
+                  f"round ({len(pairs)} launches) {r['ms']:.3f} ms (plain "
+                  f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms by "
+                  f"{r['bound_by']}, library {r['library_ms']}) | bound / "
+                  f"kernel {r['bound_ms'] / r['ms']:.1%}")
+        del A, B, C
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  {lo.num_leaves} full-width leaves, combinations "
+          f"{list(LEGACY_COMBOS)}: masked update, absmax, LAQ payload and "
+          f"residual bitwise the plain versions, sums within rtol "
+          f"{SUM_RTOL}; every output bitwise the float32 kernel's on the "
+          f"widened operands")
+    return rows
+
+
+def mixed_route_run(torch, cfg, tcfg, route, steps, workers):
+    """``steps`` rounds of ``make_train_step(cfg, tcfg)`` on the card (W =
+    ``workers``, batch 4, seq 256, weights from seed 0) on ``route``:
+    "plane", "legacy" (``use_pallas_comm=True``) or "plain"
+    (``make_policy(fastpath=None)``): losses, masks, ms a round with the
+    device's fwd/bwd and comm ms, the peak and the launches of the plane's
+    and of the legacy route's instantiations."""
+    from repro_torch import comm
+    from repro_torch.data import TokenStream, make_inputs
+    from repro_torch.dist import lag_trainer as lt
+    from repro_torch.fastpath import kernels
+    from repro_torch.kernels.lag_trigger import lag_trigger as legacy
+
+    if route == "legacy":
+        tcfg = tcfg.replace(use_pallas_comm=True)
+    policy = comm.make_policy(tcfg.algo, bits=tcfg.laq_bits,
+                              fastpath=None) if route == "plain" else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    legacy.reset_launches()
+    state = lt.init_state(cfg, tcfg, device="cuda", seed=0, policy=policy)
+    step = lt.make_train_step(cfg, tcfg, policy=policy)
+    stream = TokenStream(cfg.vocab_size)
+    rounds = []
+    for k in range(steps):
+        batch = make_inputs(cfg, stream, k, 4, 256, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        rounds.append(dict(loss=float(m["loss"]),
+                           mask=m["comm_mask"].to(torch.int32).tolist(),
+                           ms=(time.perf_counter() - t0) * 1e3,
+                           **lt.phase_ms(m)))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {**kernels.LAUNCHES, **legacy.LAUNCHES}
+    theta = state["theta"]
+    check(all(math.isfinite(r["loss"]) for r in rounds),
+          f"{cfg.arch_id} {tcfg.algo} {route}: non-finite loss")
+    parts = tuple(theta) if isinstance(theta, tuple) else (theta,)
+    check(all(bool(torch.isfinite(t).all()) for t in parts),
+          f"{cfg.arch_id} {tcfg.algo} {route}: non-finite parameters")
+    check(all(rounds[0]["mask"]) and len(rounds[0]["mask"]) == workers,
+          "round 0 must upload all")
+    dtypes = [t.dtype for t in parts]
+    del state, step, theta, parts
+    gc.collect()
+    torch.cuda.empty_cache()
+    steady = rounds[1:]
+    mean = {k: sum(r[k] for r in steady) / len(steady)
+            for k in ("ms", "grad_ms", "comm_ms")}
+    return dict(rounds=rounds, peak=peak, launches=launches, mean=mean,
+                dtypes=dtypes)
+
+
+def mixed_training_phase(torch):
+    """20b: each tree that keeps float32 leaves at bfloat16, full width,
+    lag-wk and laq@4 on the plane, the legacy route and the plain route;
+    → the launches of these runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.lag_trainer import TrainerConfig, param_layout
+    from repro_torch.launch import dryrun
+
+    total, peaks = {}, []
+    for arch, fixed in MIXED_TRAIN:
+        cfg = get_config(arch, **BF16)
+        for algo in ("lag-wk", "laq@4"):
+            budget = MIXED_RECKON_GB / (
+                MIXED_LAQ_ROUTE_RATIO if algo == "laq@4" else 1.0)
+            if fixed is None:
+                t0 = time.perf_counter()
+                for workers in (2, 1):
+                    layers = dryrun.max_layers(
+                        cfg, "train_4k", workers,
+                        budget=budget * 1e9, batch=4, seq=256,
+                        tcfg=TrainerConfig(algo=algo, num_workers=workers,
+                                           lr=0.3))
+                    if layers:
+                        break
+                print(f"  20b dry-run: {arch} bfloat16 {algo} W={workers}: "
+                      f"{layers} of {cfg.num_layers} layers reckon the "
+                      f"plane under {budget:.2f} GB "
+                      f"({time.perf_counter() - t0:.1f} s)")
+            else:
+                layers, workers = fixed
+            check(layers > 0, f"{arch} {algo}: no depth reckons under the "
+                              f"budget")
+            tcfg = TrainerConfig(algo=algo, num_workers=workers, lr=0.3)
+            cut = cfg.replace(num_layers=layers)
+            # the plain route holds the legacy route's trees (its plain
+            # versions' outputs are the kernels'): one reckoning serves both
+            # (equal to the byte in every case reckoned apart, H100 80GB
+            # HBM3, 700 W).  A route whose reckoned peak is not under the
+            # budget is not run (laq@4's legacy and plain routes hold
+            # float32 trees that the plane folds in place); the plane is
+            reckoned = {r: reckoned_peak_gb(cut, tcfg, r)
+                        for r in ("plane", "legacy")}
+            reckoned["plain"] = reckoned["legacy"]
+            routes = [r for r in ROUTES if reckoned[r] < MIXED_RECKON_GB]
+            print(f"  20b dry-run: {arch} {algo} --layers {layers} "
+                  f"W={workers}: reckoned peaks "
+                  f"{ {r: round(v, 2) for r, v in reckoned.items()} } GB; "
+                  f"routes run: {routes}")
+            if fixed == (1, 1) and "plane" not in routes:
+                print(f"  20b {arch} {algo} --layers 1 W=1: not under "
+                      f"{MIXED_RECKON_GB} GB: not run")
+                continue
+            check("plane" in routes, f"{arch} {algo}: reckoned {reckoned}")
+            lo = param_layout(cut)
+            n_b, n_f = (p.num_leaves for p in lo.parts)
+            print(f"  {arch} --layers {layers} W={workers}: {n_b} bfloat16 "
+                  f"leaves in {lo.parts[0].rows} rows, {n_f} float32 leaves "
+                  f"in {lo.parts[1].rows} rows; bfloat16 tree "
+                  f"{tree_gb(cut):.3f} GB")
+            runs = {r: mixed_route_run(torch, cut, tcfg, r, MIXED_STEPS,
+                                       workers) for r in routes}
+            label = f"{arch} bfloat16 {algo} --layers {layers} W={workers}"
+            for r, run in runs.items():
+                check(run["dtypes"] == [torch.bfloat16, torch.float32],
+                      f"{label} {r}: θ parts {run['dtypes']}")
+                print(run_line(f"20b {label} {r}", run, MIXED_STEPS))
+                for k, v in run["launches"].items():
+                    total[k] = total.get(k, 0) + v
+            # each route against the plain route, or the plane where the
+            # plain route does not fit (the legacy route is the plain
+            # route's arithmetic)
+            base = "plain" if "plain" in runs else "plane"
+            masks = [r["mask"] for r in runs[base]["rounds"]]
+            for r in runs:
+                if r == base:
+                    continue
+                check([x["mask"] for x in runs[r]["rounds"]] == masks,
+                      f"{label}: {r} and {base} route masks differ")
+                dl = max(abs(a["loss"] - b["loss"]) for a, b in
+                         zip(runs[r]["rounds"], runs[base]["rounds"]))
+                bound = BF16_ROUTE_FACTOR \
+                    * MIXED_ROUTE_LOSS_READINGS[f"{algo} {r}"]
+                print(f"  20b {label}: {r} vs {base} route max |Δ loss| "
+                      f"{dl:.3e} (bound {bound}), masks equal")
+                check(dl <= bound, f"{label} {r}: |Δ loss| {dl}")
+            # the launches a round by instantiation
+            pl = runs["plane"]["launches"]
+            want_plane = {"lag-wk": {"delta_sqnorm_blocks_bb": 1,
+                                     "delta_sqnorm_blocks": 1,
+                                     "masked_combine_bb": 1,
+                                     "masked_combine": 1},
+                          "laq@4": {"absmax_blocks_bb": 1,
+                                    "absmax_blocks": 1,
+                                    "laq_encode_blocks_bb": 1,
+                                    "laq_encode_blocks": 1,
+                                    "masked_combine_fb": 1,
+                                    "masked_combine": 3}}[algo]
+            got_plane = {k: v / MIXED_STEPS for k, v in pl.items() if v}
+            check(got_plane == want_plane, f"{label}: the plane launched "
+                  f"{got_plane} a round, want {want_plane}")
+            want_legacy = {"lag-wk": {"sqnorm_2d_bf16": n_b * workers,
+                                      "sqnorm_2d": n_f * workers},
+                           "laq@4": {"innovation_absmax_2d_bb": n_b * workers,
+                                     "laq_encode_2d_bb": n_b * workers,
+                                     "innovation_absmax_2d": n_f * workers,
+                                     "laq_encode_2d": n_f * workers}}[algo]
+            got_legacy = {k: v / MIXED_STEPS for k, v in runs[
+                "legacy"]["launches"].items() if v} if "legacy" in runs \
+                else None
+            check(got_legacy in (None, want_legacy), f"{label}: the legacy "
+                  f"route launched {got_legacy} a round, want {want_legacy}")
+            check("plain" not in runs
+                  or not any(runs["plain"]["launches"].values()),
+                  f"{label}: the plain route launched a kernel")
+            print(f"  20b {label}: launches a round: plane {got_plane} | "
+                  f"legacy {got_legacy}")
+            peaks += [(f"{label} {r}", runs[r]["peak"], reckoned[r])
+                      for r in runs]
+    lo_, hi_ = PEAK_RATIO_BAND
+    for label, measured, reckoned in peaks:
+        ratio = measured / reckoned
+        print(f"  20b {label}: reckoned {reckoned:.2f} GB, measured "
+              f"(max_memory_allocated) {measured:.2f} GB, ratio {ratio:.4f} "
+              f"(band {lo_}-{hi_})")
+        check(lo_ <= ratio <= hi_, f"{label}: measured / reckoned peak "
+                                   f"{ratio:.4f} outside {PEAK_RATIO_BAND}")
+    return total
+
+
+def legacy_bf16_route_phase(torch, p19_masks):
+    """20c: llama3.2-1b at full width on the legacy route at bfloat16 (the
+    19b trainings with ``use_pallas_comm=True``): masks equal to 19b's
+    plane runs; → their launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.lag_trainer import TrainerConfig, param_layout
+
+    per = 2 * param_layout(get_config("llama3.2-1b")).num_leaves
+    total = {}
+    for arch, ckw, tkw in BF16_TRAIN:
+        cfg = get_config(arch, **ckw)
+        tcfg = TrainerConfig(num_workers=2, lr=0.3, **tkw)
+        run = mixed_route_run(torch, cfg, tcfg, "legacy", 4, 2)
+        label = f"{arch} {'bfloat16' if ckw else 'float32'} {tkw['algo']}" \
+            + (" grad_hat_dtype=bfloat16" if "grad_hat_dtype" in tkw else "")
+        print(run_line(f"20c {label} legacy route", run))
+        masks = [r["mask"] for r in run["rounds"]]
+        check(masks == p19_masks[label], f"{label}: legacy masks {masks} vs "
+                                         f"19b's plane {p19_masks[label]}")
+        sfx = "_bb" if ckw else "_fb"
+        want = {"lag-wk": {("sqnorm_2d_bf16" if ckw else "sqnorm_2d"): per},
+                "laq@4": {"innovation_absmax_2d" + sfx: per,
+                          "laq_encode_2d" + sfx: per}}[tkw["algo"]]
+        got = {k: v / 4 for k, v in run["launches"].items() if v}
+        check(got == want, f"{label}: legacy launches {got} a round, want "
+                           f"{want}")
+        print(f"  20c {label}: masks equal to 19b's plane run; launches a "
+              f"round {got}")
+        for k, v in run["launches"].items():
+            total[k] = total.get(k, 0) + v
     return total
 
 
@@ -4060,6 +4498,8 @@ def main():
     legacy_launches = legacy_route_phase(torch, phase5)
     launches.update(legacy_launches)
     for k, v in legacy_launches.items():
+        if k in LEGACY_BF16:           # the bfloat16 ones: phase 20
+            continue
         if k in OFF_PATH:
             print(f"  {k}: {v} launches, exempt: {OFF_PATH[k]}")
             continue
@@ -4183,7 +4623,7 @@ def main():
           "measured peaks", flush=True)
     t19 = time.perf_counter()
     full.update(bf16_plane_kernel_phase(torch, dev))
-    p19 = bf16_training_phase(torch, phase5_runs)
+    p19, masks19 = bf16_training_phase(torch, phase5_runs)
     for k, v in p19.items():
         launches[k] = launches.get(k, 0) + v
     for k in kernels.LAUNCHES:
@@ -4191,6 +4631,31 @@ def main():
             check(p19.get(k, 0) > 0, f"phase 19: {k} never launched")
     print(f"  phase 19 launches: { {k: v for k, v in p19.items() if v} } "
           f"in {time.perf_counter() - t19:.1f} s")
+
+    print("[20] bfloat16 training of the mixed trees and the legacy route "
+          "at bfloat16: a the legacy kernels' bfloat16 instantiations, b "
+          "mamba2-370m, qwen3-moe-30b-a3b, recurrentgemma-9b and "
+          "qwen3-moe-235b-a22b on the plane, the legacy and the plain route, "
+          "c llama3.2-1b on the legacy route", flush=True)
+    t20 = time.perf_counter()
+    full.update(legacy_bf16_kernel_phase(torch, dev))
+    p20 = mixed_training_phase(torch)
+    for k, v in legacy_bf16_route_phase(torch, masks19).items():
+        p20[k] = p20.get(k, 0) + v
+    for k, v in p20.items():
+        launches[k] = launches.get(k, 0) + v
+    for k in LEGACY_BF16:
+        if k in OFF_PATH:
+            print(f"  {k}: {launches.get(k, 0)} launches, exempt: "
+                  f"{OFF_PATH[k]}")
+            continue
+        check(p20.get(k, 0) > 0, f"phase 20: {k} never launched")
+    for k in ("delta_sqnorm_blocks_bb", "delta_sqnorm_blocks",
+              "masked_combine_bb", "masked_combine"):
+        check(p20.get(k, 0) > 0, f"phase 20: the plane's {k} never "
+                                 f"launched on a mixed tree")
+    print(f"  phase 20 launches: { {k: v for k, v in p20.items() if v} } "
+          f"in {time.perf_counter() - t20:.1f} s")
 
     rows = [dict(name=k, route="cuda", source=SOURCES.get(k, SOURCE),
                  replaces=REPLACES[k], launches=launches[k], **full[k])

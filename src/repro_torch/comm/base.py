@@ -15,7 +15,9 @@ stacked buffers with the worker dim written out (the reference vmaps them).
 The fast route works in place to fit full-width models on one card:
 ``fast_decode`` folds the payload into ``grad_hat`` (and ``theta_hat``) in
 place and turns the payload buffer into the masked delta in place.  The
-plain route is functional.
+plain route is functional.  A tree of bfloat16 and float32 leaves keeps
+each state as a ``fastpath.layout.Parts`` pair, a node of two leaves:
+the fast route's ``tree_map``s step each part.
 """
 from __future__ import annotations
 
@@ -156,7 +158,7 @@ class CommPolicy:
         if "theta_hat" in st:
             new_st["theta_hat"] = plan.masked_select(
                 theta, st["theta_hat"], comm, out=st["theta_hat"])
-        delta = payload.mul_(_mask_like(comm, payload))
+        delta = tree_map(lambda p: p.mul_(_mask_like(comm, p)), payload)
         return delta, new_st
 
     def wire_bytes(self, grad_like: Pytree) -> float:

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.comm.base import CommPolicy, CommRound, PolicyState, Pytree
 from repro_torch.core import lag
-from repro_torch.core.tree import tree_leaves
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels.lag_trigger import ops as lag_ops
 
 
@@ -45,8 +45,8 @@ class LAQPolicy(CommPolicy):
         self.use_pallas = use_pallas
 
     def init_state(self, grad0, theta0=None) -> PolicyState:
-        return {"grad_hat": grad0, "resid": torch.zeros_like(
-            grad0, dtype=torch.float32)}
+        return {"grad_hat": grad0, "resid": tree_map(
+            lambda g: torch.zeros_like(g, dtype=torch.float32), grad0)}
 
     def encode(self, ctx: CommRound, st: PolicyState
                ) -> Tuple[Pytree, Dict[str, Any]]:
@@ -75,12 +75,13 @@ class LAQPolicy(CommPolicy):
 
     def fast_precompute(self, plan, grads, st, *, theta, layout,
                         grad_at_hat=None):
-        # two launches for all workers; the float32 payload overwrites
-        # float32 ``grads`` (bfloat16 gradients are half its size: the
-        # payload takes a buffer of its own)
+        # two launches for all workers (per part of a mixed tree); the
+        # float32 payload overwrites float32 ``grads`` (bfloat16 gradients
+        # are half its size: the payload takes a buffer of its own)
         payload, resid_new, lhs, steps = plan.laq_encode(
             grads, st["grad_hat"], st["resid"], layout, bits=self.bits,
-            payload_out=grads if grads.dtype == torch.float32 else None)
+            payload_out=tree_map(
+                lambda g: g if g.dtype == torch.float32 else None, grads))
         return {"payload": payload, "resid_new": resid_new, "lhs_sq": lhs,
                 "wire_steps": steps}
 

@@ -4,8 +4,9 @@
 in SORTED key order.  The flat-buffer layout (``repro_torch.fastpath.
 layout``) and LAQ's per-leaf quantizer scales depend on the leaf order, so
 the port flattens with JAX's rules: dict children by sorted key, list and
-tuple children in order, ``None`` as an empty node, anything else (a tensor,
-a numpy array, a scalar) as a leaf.
+tuple children in order (a ``NamedTuple`` by field, rebuilt as its own
+type), ``None`` as an empty node, anything else (a tensor, a numpy array, a
+scalar) as a leaf.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ from typing import Any, Callable, List, Optional, Tuple
 Pytree = Any
 
 # treedef nodes: ("leaf",) | ("none",) | ("dict", keys, children) |
-#                ("list", children) | ("tuple", children)
+#                ("list", children) | ("tuple", children) |
+#                ("named", type, children)
 TreeDef = Tuple
 
 
@@ -28,6 +30,9 @@ def _flatten(t, leaves: List[Any], is_leaf) -> TreeDef:
         keys = tuple(sorted(t))
         return ("dict", keys, tuple(_flatten(t[k], leaves, is_leaf)
                                     for k in keys))
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return ("named", type(t), tuple(_flatten(c, leaves, is_leaf)
+                                        for c in t))
     if isinstance(t, (list, tuple)):
         kind = "list" if isinstance(t, list) else "tuple"
         return (kind, tuple(_flatten(c, leaves, is_leaf) for c in t))
@@ -56,6 +61,8 @@ def _unflatten(d: TreeDef, it) -> Pytree:
         return None
     if kind == "dict":
         return {k: _unflatten(c, it) for k, c in zip(d[1], d[2])}
+    if kind == "named":
+        return d[1](*[_unflatten(c, it) for c in d[2]])
     children = [_unflatten(c, it) for c in d[1]]
     return children if kind == "list" else tuple(children)
 

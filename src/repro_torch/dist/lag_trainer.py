@@ -32,7 +32,14 @@ bfloat16 (the reference's bfloat16 training): a config whose leaves are
 all bfloat16 keeps θ, ∇, the gradients, ĝ and θ̂ in bfloat16 buffers (LAQ's
 residual stays float32, as the reference's); ``TrainerConfig.
 grad_hat_dtype="bfloat16"`` keeps ĝ alone in bfloat16.  A config that
-mixes bfloat16 and float32 leaves is refused (:func:`check_trainable`).
+mixes bfloat16 and float32 leaves (the MoE router, mamba2's ``A_log``/
+``dt_bias``/``D``, RG-LRU's ``b_a``/``b_i``) keeps each of these states as
+a ``fastpath.layout.Parts`` pair, a bfloat16 buffer over its bfloat16
+leaves and a float32 one over its float32 leaves
+(``fastpath.layout.MixedLayout``), so every leaf trains at its own dtype,
+as in the reference; the plane launches each kernel once per part.  Both
+comm routes train at bfloat16; the topologies other than ``shards`` refuse
+it by name (:func:`check_trainable`).
 """
 from __future__ import annotations
 
@@ -48,7 +55,7 @@ from repro_torch.engine import rounds as engine_rounds
 from repro_torch.engine import server as server_lib
 from repro_torch.engine.topology import BatchShards
 from repro_torch.fastpath import plan as plan_lib
-from repro_torch.fastpath.layout import FlatLayout, mixed_leaves
+from repro_torch.fastpath.layout import Layout, layout_for, parts_of, row
 from repro_torch.kernels.lag_trigger import ops as lag_ops
 from repro_torch.models import model
 from repro_torch.models.common import ModelConfig
@@ -136,40 +143,23 @@ class TrainerConfig:
         return dataclasses.replace(self, **kw)
 
 
-def param_layout(cfg: ModelConfig) -> FlatLayout:
-    """The flat layout of the model's parameter tree."""
-    return FlatLayout.for_tree(model.templates(cfg))
+def param_layout(cfg: ModelConfig) -> Layout:
+    """The flat layout of the model's parameter tree: one ``FlatLayout``,
+    or a ``MixedLayout`` of two parts for a tree that mixes bfloat16 and
+    float32 leaves."""
+    return layout_for(model.templates(cfg))
 
 
 def check_trainable(cfg: ModelConfig, tcfg: Optional[TrainerConfig] = None,
                     topology=None) -> None:
-    """Refuse, by name, the bfloat16 trainings the port does not run.
-
-    A bfloat16 config whose tree keeps float32 leaves (the MoE router,
-    mamba2's ``A_log``/``dt_bias``/``D``, RG-LRU's ``b_a``/``b_i``) has no
-    one buffer dtype: widening it to a float32 plane would be another
-    computation than the reference's (ROADMAP queue 1 item 7).  At
-    bfloat16 (the parameters' or ``grad_hat_dtype``'s) the legacy per-leaf
-    route's kernels are float32 (ROADMAP queue 2 item 4), and only the
-    ``shards`` topology is held to the reference (queue 1 item 8)."""
-    lo = param_layout(cfg)
-    if mixed_leaves(lo.dtypes):
-        n = sum(d != torch.bfloat16 for d in lo.dtypes)
-        raise NotImplementedError(
-            f"{cfg.arch_id}: training a bfloat16 config whose tree mixes "
-            f"bfloat16 and float32 leaves ({n} of {lo.num_leaves}: the MoE "
-            f"router, mamba2's A_log/dt_bias/D, RG-LRU's b_a/b_i) is not "
-            f"ported: the flat plane holds one dtype (ROADMAP queue 1 item "
-            f"7); serving takes it, and the float32 config trains")
-    bf16 = lo.dtype == torch.bfloat16 or (
+    """Refuse, by name, the bfloat16 trainings the port does not run: at
+    bfloat16 (some of the parameters' leaves, or ``grad_hat_dtype``) only
+    the ``shards`` topology is held to the reference (ROADMAP queue 1 item
+    8).  Both comm routes train every tree, mixed ones included."""
+    bf16 = torch.bfloat16 in param_layout(cfg).dtypes or (
         tcfg is not None and tcfg.grad_hat_dtype == "bfloat16")
     if not bf16:
         return
-    if tcfg is not None and tcfg.use_pallas_comm:
-        raise NotImplementedError(
-            "use_pallas_comm at bfloat16 is not ported: the legacy per-leaf "
-            "kernels take float32 operands (ROADMAP queue 2 item 4); the "
-            "batched plane takes bfloat16")
     if topology is not None and not isinstance(topology, BatchShards):
         raise NotImplementedError(
             f"the {type(topology).__name__} topology at bfloat16 is not "
@@ -184,10 +174,9 @@ def check_trainable(cfg: ModelConfig, tcfg: Optional[TrainerConfig] = None,
 def init_params(cfg: ModelConfig, *, device, seed: int = 0,
                 params: Optional[Dict] = None) -> torch.Tensor:
     """The flat ``(rows, 128)`` θ buffer on ``device``, at the layout's
-    dtype: ``params`` (a parameter tree) copied in, or weights drawn from a
-    ``torch.Generator`` seeded with ``seed``.  A tree of mixed dtypes
-    raises (:func:`check_trainable`)."""
-    check_trainable(cfg)
+    dtype (a ``Parts`` pair for a tree of two dtypes): ``params`` (a
+    parameter tree) copied in, or weights drawn from a ``torch.Generator``
+    seeded with ``seed``."""
     device = torch.device(device)
     lo = param_layout(cfg)
     theta = lo.empty(device=device)
@@ -256,7 +245,7 @@ def params_of(state: Dict, cfg: ModelConfig) -> Dict:
 # Train step
 # ---------------------------------------------------------------------------
 
-def worker_grads(theta: torch.Tensor, lo: FlatLayout, cfg: ModelConfig,
+def worker_grads(theta, lo: Layout, cfg: ModelConfig,
                  shards: Dict, out=None) -> Tuple[torch.Tensor, object]:
     """Every worker's (loss, gradient): losses (W,), gradient m written into
     ``out[m]`` — by default one zeroed (W, rows, 128) buffer; a list of W
@@ -264,33 +253,37 @@ def worker_grads(theta: torch.Tensor, lo: FlatLayout, cfg: ModelConfig,
     is the shared (rows, 128) iterate, or one iterate per worker (W, rows,
     128): LASG-WK's θ̂_m, whose leaves are views of row m."""
     W = next(iter(shards.values())).shape[0]
-    grads = lo.empty((W,), theta.device) if out is None else out
-    shared = theta.dim() == 2
+    first = parts_of(theta)[0]
+    grads = lo.empty((W,), first.device) if out is None else out
+    shared = first.dim() == 2
     losses = []
     for m in range(W):
         leaves, treedef = tree_flatten(lo.unflatten(
-            theta if shared else theta[m]))
+            theta if shared else row(theta, m)))
         req = [l.detach().requires_grad_() for l in leaves]
         shard = {k: v[m] for k, v in shards.items()}
         loss = model.loss_fn(tree_unflatten(treedef, req), cfg, shard)
-        g = torch.autograd.grad(loss, req)
-        lo.flatten(tree_unflatten(treedef, list(g)), out=grads[m])
+        # a stack of no superblock (recurrentgemma cut to its tail) has
+        # empty leaves the loss never reads: their gradients are empty
+        g = torch.autograd.grad(loss, req, allow_unused=True,
+                                materialize_grads=True)
+        lo.flatten(tree_unflatten(treedef, list(g)), out=row(grads, m))
         losses.append(loss.detach())
         del g, req, leaves
     return torch.stack(losses), grads
 
 
 def grads_at_hat(policy, theta: torch.Tensor, theta_hat: torch.Tensor,
-                 lo: FlatLayout, cfg: ModelConfig, shards: Dict) -> List:
+                 lo: Layout, cfg: ModelConfig, shards: Dict) -> List:
     """LASG-WK's ∇ℓ_m(θ̂_m; ξ^k): each worker's gradient at its own θ̂_m on
     the current shard, in the form the round consumes
     (``engine.rounds.policy_rounds``): ``[one (W, rows, 128) buffer]`` for
     the plane, W separate (rows, 128) buffers for the plain route, so
     each worker's row is freed once its trigger has read it."""
-    W = theta_hat.shape[0]
+    W = parts_of(theta_hat)[0].shape[0]
     if plan_lib.active_plan(policy, theta) is not None:
         return [worker_grads(theta_hat, lo, cfg, shards)[1]]
-    rows = [lo.empty(device=theta.device) for _ in range(W)]
+    rows = [lo.empty(device=parts_of(theta)[0].device) for _ in range(W)]
     worker_grads(theta_hat, lo, cfg, shards, out=rows)
     return rows
 
@@ -345,7 +338,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainerConfig, policy=None,
         # on the GPU, events split the round's device time into the
         # workers' forward/backward and the comm plane + server step
         events = [torch.cuda.Event(enable_timing=True) for _ in range(3)] \
-            if theta.is_cuda else None
+            if parts_of(theta)[0].is_cuda else None
         if events:
             events[0].record()
         # an async topology hands each worker the parameters it last saw

@@ -17,6 +17,11 @@ State contract (the trainer's ``lag`` group):
   L_m                   (W,) smoothness (PS-rule policies)
   rounds_skipped        optional () int32, advanced when no worker uploads
                         (the pod topology's all-quiet counter)
+
+A tree of bfloat16 and float32 leaves (``fastpath.layout.MixedLayout``)
+holds every buffer above as a ``Parts`` pair: the plane runs each op per
+part, the plain route unflattens and flattens each worker's row of both
+parts, and the worker sum, ∇'s update and the server step run per part.
 """
 from __future__ import annotations
 
@@ -26,10 +31,11 @@ import torch
 
 from repro_torch.comm import CommPolicy, CommRound
 from repro_torch.core import lag
-from repro_torch.core.tree import tree_leaves
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.engine.server import ServerOptimizer
 from repro_torch.fastpath import plan as plan_lib
-from repro_torch.fastpath.layout import FlatLayout, buffer_dtype
+from repro_torch.fastpath.layout import (Layout, buffer_dtype, dtype_of,
+                                         like_parts, parts_of, row)
 
 
 def _take_stacked(grad_at_hat: Optional[List[torch.Tensor]]
@@ -38,10 +44,11 @@ def _take_stacked(grad_at_hat: Optional[List[torch.Tensor]]
     taken out of the caller's list."""
     if grad_at_hat is None:
         return None
-    if len(grad_at_hat) != 1 or grad_at_hat[0].dim() != 3:
+    if len(grad_at_hat) != 1 or any(t.dim() != 3
+                                    for t in parts_of(grad_at_hat[0])):
         raise ValueError("on the batched plane grad_at_hat must be [one "
                          "stacked (W, rows, 128) buffer], got "
-                         f"{[tuple(t.shape) for t in grad_at_hat]}")
+                         f"{[tuple(_first(t).shape) for t in grad_at_hat]}")
     return grad_at_hat.pop()
 
 
@@ -51,18 +58,23 @@ def _take_rows(grad_at_hat: Optional[List[torch.Tensor]], W: int
     taken out of the caller's list."""
     if grad_at_hat is None:
         return None
-    if len(grad_at_hat) != W or any(t.dim() != 2 for t in grad_at_hat):
+    if len(grad_at_hat) != W or any(_first(t).dim() != 2
+                                    for t in grad_at_hat):
         raise ValueError(f"on the plain route grad_at_hat must be {W} "
                          f"(rows, 128) buffers, got "
-                         f"{[tuple(t.shape) for t in grad_at_hat]}")
+                         f"{[tuple(_first(t).shape) for t in grad_at_hat]}")
     rows = list(grad_at_hat)
     grad_at_hat.clear()
     return rows
 
 
+def _first(buf) -> torch.Tensor:
+    """A buffer's first (or only) part: its worker count and device."""
+    return parts_of(buf)[0]
+
+
 def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
-                  theta: torch.Tensor, grads: torch.Tensor, lag_state: Dict,
-                  layout: FlatLayout,
+                  theta, grads, lag_state: Dict, layout: Layout,
                   grad_at_hat: Optional[List[torch.Tensor]] = None,
                   step: Optional[int] = None, draw: Optional[int] = None,
                   theta_view: Optional[torch.Tensor] = None):
@@ -96,7 +108,7 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
     buffer of its own when its dtype differs), the state over its
     buffers, in place.
     """
-    W = grads.shape[0]
+    W = _first(grads).shape[0]
     pst = {k: lag_state[k] for k in policy.state_keys}
     L_arr = lag_state["L_m"] if policy.needs_L_m else None
     hist = lag_state["hist"]
@@ -111,7 +123,8 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
         # an active plan never steps aside: the rounds would leave the
         # kernels without a word
         raise ValueError(f"fastpath={plan.mode!r} is active for tensors on "
-                         f"{grads.device}, but the tree has leaf dtypes the "
+                         f"{_first(grads).device}, but the tree has leaf "
+                         f"dtypes the "
                          f"float32 comm plane cannot serve: "
                          f"{sorted({str(d) for d in layout.dtypes})}")
     fast = None
@@ -124,7 +137,7 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
         ctx = CommRound(theta=theta_arg, grad_new=grads, hist=hist,
                         cfg=lagcfg, L_m=L_arr, fast=fast, k=step, draw=draw,
                         worker_id=torch.arange(W, dtype=torch.int32,
-                                               device=grads.device))
+                                               device=_first(grads).device))
         payload, aux = policy.encode(ctx, pst)
         comm = policy.should_upload(ctx, pst, payload, aux)
         delta, new_pst = policy.fast_decode(plan, pst, payload, aux, comm,
@@ -134,10 +147,10 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
     # worker m's round returns new trees; its delta then goes over its
     # consumed gradient row and its state over its own state rows, in
     # place (only worker m reads row m), so no (W, rows, 128) buffer is
-    # added: at full width the route has to fit one card.  A delta whose
-    # buffer dtype is not the gradients' (LAQ's float32 payload of a
-    # float64 tree) gets a buffer of its own, so that the worker sum adds
-    # in the payload's dtype, as the reference's does
+    # added: at full width the route has to fit one card.  A delta part
+    # whose dtype is not the gradients' (LAQ's float32 payload of a float64
+    # tree, or of a bfloat16 part) gets a buffer of its own, so that the
+    # worker sum adds in the payload's dtype, as the reference's does
     gah_rows = _take_rows(grad_at_hat, W)
     theta_t = layout.unflatten(theta)
     comms = []
@@ -145,13 +158,14 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
     for m in range(W):
         if theta_view is not None:
             theta_t = layout.unflatten(theta_view[m])
-        ctx = CommRound(theta=theta_t, grad_new=layout.unflatten(grads[m]),
+        ctx = CommRound(theta=theta_t,
+                        grad_new=layout.unflatten(row(grads, m)),
                         hist=hist, cfg=lagcfg,
                         L_m=None if L_arr is None else L_arr[m],
                         grad_at_hat=None if gah_rows is None
                         else layout.unflatten(gah_rows[m]),
                         k=step, worker_id=m, draw=draw)
-        st_m = {k: layout.unflatten(v[m], like=v.dtype)
+        st_m = {k: layout.unflatten(row(v, m), like=dtype_of(v))
                 for k, v in pst.items()}
         # encode → trigger → decode, worker m's ∇ℓ_m(θ̂_m) freed once its
         # trigger has read it
@@ -162,22 +176,20 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
         delta_m, new_st = policy.decode(ctx, st_m, payload, aux, comm_m)
         comms.append(comm_m.reshape(()))
         if m == 0:
-            dt = buffer_dtype(l.dtype for l in tree_leaves(delta_m))
-            if dt != grads.dtype:
-                delta = torch.zeros(grads.shape, dtype=dt,
-                                    device=grads.device)
-        layout.flatten(delta_m, out=delta[m])
+            dts = [buffer_dtype(l.dtype for l in ls)
+                   for ls in layout.split(tree_leaves(delta_m))]
+            delta = like_parts(grads, [
+                g if dt == g.dtype else torch.zeros(g.shape, dtype=dt,
+                                                    device=g.device)
+                for g, dt in zip(parts_of(grads), dts)])
+        layout.flatten(delta_m, out=row(delta, m))
         for k in pst:
-            layout.flatten(new_st[k], out=pst[k][m])
+            layout.flatten(new_st[k], out=row(pst[k], m))
         del ctx, st_m, payload, aux, delta_m, new_st
     return torch.stack(comms), delta, pst
 
 
-def sum_reduce(comm: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
-    """Σ over the worker dim, in worker order.  A bfloat16 delta of more
-    than two workers is summed in float32 and rounded once, as XLA reduces
-    a bfloat16 array (two workers' sum is one rounding either way, so it
-    takes no float32 buffer)."""
+def _worker_sum(delta: torch.Tensor) -> torch.Tensor:
     acc = lag.acc_dtype(delta.dtype) if delta.shape[0] > 2 else delta.dtype
     out = delta[0].to(acc, copy=True)
     for m in range(1, delta.shape[0]):
@@ -185,10 +197,17 @@ def sum_reduce(comm: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     return out.to(delta.dtype)
 
 
+def sum_reduce(comm: torch.Tensor, delta):
+    """Σ over the worker dim, in worker order (per part of a pair).  A
+    bfloat16 delta of more than two workers is summed in float32 and
+    rounded once, as XLA reduces a bfloat16 array (two workers' sum is one
+    rounding either way, so it takes no float32 buffer)."""
+    return tree_map(_worker_sum, delta)
+
+
 def lag_round(policy: CommPolicy, server: ServerOptimizer,
-              lagcfg: lag.LAGConfig, *, theta: torch.Tensor,
-              layout: FlatLayout, opt_state, lag_state: Dict,
-              grads: torch.Tensor, step: int,
+              lagcfg: lag.LAGConfig, *, theta, layout: Layout, opt_state,
+              lag_state: Dict, grads, step: int,
               grad_at_hat: Optional[List[torch.Tensor]] = None,
               draw: Optional[int] = None,
               reduce_fn: Optional[Callable] = None,
@@ -215,16 +234,17 @@ def lag_round(policy: CommPolicy, server: ServerOptimizer,
 
 
 def finish_round(policy: CommPolicy, server: ServerOptimizer,
-                 lagcfg: lag.LAGConfig, *, theta: torch.Tensor,
-                 layout: FlatLayout, opt_state, lag_state: Dict,
-                 comm: torch.Tensor, sum_delta: torch.Tensor, new_pst: Dict,
+                 lagcfg: lag.LAGConfig, *, theta, layout: Layout, opt_state,
+                 lag_state: Dict, comm: torch.Tensor, sum_delta,
+                 new_pst: Dict,
                  step: int, index: Optional[torch.Tensor] = None):
     """The server half of :func:`lag_round`: aggregate recursion, server
     step (``opt_state`` is the server's flat state, None for a stateless
     one), history push, counters, metrics.  ``index`` maps each mask slot
     to its row of ``comm_per_worker`` when the two differ — the fleet's
     (k,) cohort mask against its per-client (N,) counter."""
-    nabla = lag_state["nabla"].add_(sum_delta)       # ∇^k = ∇^{k-1} + Σ δ∇
+    # ∇^k = ∇^{k-1} + Σ δ∇
+    nabla = tree_map(lambda n, s: n.add_(s), lag_state["nabla"], sum_delta)
     del sum_delta
     # every server is elementwise: it steps the flat buffers (one-leaf
     # trees; the zero padding stays zero) and keeps its state flat
@@ -233,7 +253,7 @@ def finish_round(policy: CommPolicy, server: ServerOptimizer,
     # iterate-lag entry from the ACTUAL movement, summed leaf by leaf
     hist_new = lag.hist_push(lag_state["hist"], lag.tree_sqdist(
         layout.unflatten(new_theta), params))
-    theta.copy_(new_theta)
+    tree_map(lambda t, n: t.copy_(n), theta, new_theta)
     del new_theta
 
     comm_i = comm.to(torch.int32)

@@ -15,16 +15,26 @@ and LAQ's per-leaf grid depend on them.
 The port keeps per-worker state natively in these buffers.  ``unflatten``
 returns VIEWS (no copy) for leaves of the buffer's own dtype, so a tree of
 model parameters or mirror state can live inside one flat buffer.
+
+A tree that mixes bfloat16 and float32 leaves (a bfloat16 config's MoE
+router, mamba2's ``A_log``/``dt_bias``/``D``, RG-LRU's ``b_a``/``b_i``) has
+no one buffer dtype that rounds nothing and widens nothing:
+:class:`MixedLayout` gives it two parts, a :class:`FlatLayout` over its
+bfloat16 leaves and one over its float32 leaves, each in tree order, and
+its state buffers are :class:`Parts` pairs.  The reference casts every
+leaf to float32 for its plane and scatters each back at the leaf's dtype;
+here every leaf stays at its own dtype between operations.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core.tree import tree_flatten, tree_leaves, tree_unflatten
+from repro_torch.core.tree import (tree_flatten, tree_leaves, tree_map,
+                                   tree_unflatten)
 
 Pytree = Any
 
@@ -45,8 +55,8 @@ def buffer_dtype(dtypes) -> torch.dtype:
     that flattening rounds nothing; bfloat16 when every leaf is bfloat16
     (a bfloat16 model: its leaves stay views of a bfloat16 buffer, half
     the bytes); float32 otherwise.  A tree that mixes bfloat16 and float32
-    leaves gets float32 here (:func:`mixed_leaves`); the trainer refuses
-    to train it."""
+    leaves gets float32 here (:func:`mixed_leaves`); it trains in a
+    :class:`MixedLayout`, whose parts have one dtype each."""
     dts = tuple(dtypes)
     if torch.float64 in dts:
         return torch.float64
@@ -109,6 +119,16 @@ class FlatLayout:
                    sizes=sizes, leaf_subs=subs,
                    leaf_sub_offsets=tuple(offsets), nsubs=acc,
                    nblocks=nblocks, sub_leaf=sub_leaf)
+
+    @property
+    def parts(self) -> Tuple["FlatLayout"]:
+        """The layout's parts (as :class:`MixedLayout`'s): itself."""
+        return (self,)
+
+    def split(self, leaves):
+        """The tree's leaves → one list per part: here the one part."""
+        self._check(leaves)
+        return (list(leaves),)
 
     # -- flatten ------------------------------------------------------------
 
@@ -245,3 +265,148 @@ class FlatLayout:
             seg = buf[:, off:off + self.sizes[i]].reshape((W,) + shape)
             leaves.append(seg.to(dts[i]))
         return tree_unflatten(self.treedef, leaves)
+
+
+# ---------------------------------------------------------------------------
+# Trees of two dtypes
+# ---------------------------------------------------------------------------
+
+class Parts(NamedTuple):
+    """The state buffer of a :class:`MixedLayout` tree: ``b`` over its
+    bfloat16 leaves, ``f`` over its float32 leaves, each a flat ``(…,
+    rows, 128)`` buffer of its own part's rows.  A part's dtype is the
+    state's: the leaves' own for θ, ∇, the gradients and θ̂ (``b``
+    bfloat16, ``f`` float32), bfloat16 in both for a bfloat16 ĝ, float32
+    in both for LAQ's residual.  ``repro_torch.core.tree`` sees a node of
+    two leaves, so ``tree_map`` steps each part at its own dtype."""
+    b: torch.Tensor
+    f: torch.Tensor
+
+
+Buffer = Union[torch.Tensor, Parts]
+
+
+def parts_of(buf) -> Tuple:
+    """The tensors of a state buffer: a :class:`Parts`' two, else the one
+    buffer itself."""
+    return tuple(buf) if isinstance(buf, Parts) else (buf,)
+
+
+def like_parts(buf, items) -> Buffer:
+    """``items`` (one per part of ``buf``) in ``buf``'s form."""
+    return Parts(*items) if isinstance(buf, Parts) else items[0]
+
+
+def row(buf, m: int) -> Buffer:
+    """Worker ``m``'s slot of a stacked buffer (of each part)."""
+    return Parts(buf.b[m], buf.f[m]) if isinstance(buf, Parts) else buf[m]
+
+
+def dtype_of(buf):
+    """A buffer's dtype: a :class:`Parts` of the parts' dtypes for a
+    pair (what :meth:`MixedLayout.unflatten`'s ``like`` takes)."""
+    return tree_map(lambda t: t.dtype, buf)
+
+
+@dataclasses.dataclass(frozen=True)
+class MixedLayout:
+    """The layout of a tree of bfloat16 and float32 leaves: ``parts`` is
+    (the :class:`FlatLayout` of its bfloat16 leaves, that of its float32
+    leaves), each in tree order; leaf i is leaf ``leaf_index[i]`` of part
+    ``leaf_part[i]``.  Its buffers are :class:`Parts`; its methods are
+    :class:`FlatLayout`'s, taking and giving pairs."""
+    treedef: Any
+    shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[torch.dtype, ...]
+    sizes: Tuple[int, ...]
+    parts: Tuple[FlatLayout, FlatLayout]
+    leaf_part: Tuple[int, ...]
+    leaf_index: Tuple[int, ...]
+
+    #: the parts' leaf dtypes, in part order
+    PART_DTYPES = (torch.bfloat16, torch.float32)
+
+    @classmethod
+    def for_tree(cls, tree: Pytree) -> "MixedLayout":
+        leaves, treedef = tree_flatten(tree)
+        dtypes = tuple(l.dtype for l in leaves)
+        if not set(dtypes) <= set(cls.PART_DTYPES):
+            raise TypeError(f"a mixed layout holds bfloat16 and float32 "
+                            f"leaves, got {sorted({str(d) for d in dtypes})}")
+        part = tuple(cls.PART_DTYPES.index(d) for d in dtypes)
+        index, count = [], [0, 0]
+        for p in part:
+            index.append(count[p])
+            count[p] += 1
+        return cls(treedef=treedef,
+                   shapes=tuple(tuple(int(d) for d in l.shape)
+                                for l in leaves),
+                   dtypes=dtypes,
+                   sizes=tuple(int(np.prod(l.shape, dtype=np.int64))
+                               for l in leaves),
+                   parts=tuple(FlatLayout.for_tree(
+                       [l for l, q in zip(leaves, part) if q == p])
+                       for p in (0, 1)),
+                   leaf_part=part, leaf_index=tuple(index))
+
+    @property
+    def num_leaves(self) -> int:
+        return len(self.shapes)
+
+    def split(self, leaves):
+        """The tree's leaves (in tree order) → one list per part."""
+        if len(leaves) != self.num_leaves:
+            raise ValueError(f"tree has {len(leaves)} leaves, layout "
+                             f"expects {self.num_leaves}")
+        return tuple([l for l, q in zip(leaves, self.leaf_part) if q == p]
+                     for p in (0, 1))
+
+    def _join(self, per_part) -> Pytree:
+        leaves = [per_part[p][i]
+                  for p, i in zip(self.leaf_part, self.leaf_index)]
+        return tree_unflatten(self.treedef, leaves)
+
+    def empty(self, lead: Tuple[int, ...] = (), device=None,
+              dtype: torch.dtype = None) -> Parts:
+        """Zero ``lead + (rows, LANES)`` parts, each at ``dtype`` (default:
+        its leaves')."""
+        return Parts(*(p.empty(lead, device, dtype) for p in self.parts))
+
+    def flatten(self, tree: Pytree, out: Parts = None) -> Parts:
+        outs = parts_of(out) if out is not None else (None, None)
+        return Parts(*(p.flatten(ls, out=o) for p, ls, o in zip(
+            self.parts, self.split(tree_leaves(tree)), outs)))
+
+    def flatten_stacked(self, tree: Pytree) -> Parts:
+        return Parts(*(p.flatten_stacked(ls) for p, ls in zip(
+            self.parts, self.split(tree_leaves(tree)))))
+
+    def _likes(self, like):
+        if like is None or isinstance(like, torch.dtype):
+            return (like, like)
+        if isinstance(like, Parts):
+            return tuple(like)
+        return self.split(tree_leaves(like))
+
+    def unflatten(self, buf: Parts, like: Any = None) -> Pytree:
+        """Pair → template tree: each leaf a view of its part's buffer
+        where the part holds its dtype.  ``like`` as
+        :meth:`FlatLayout.unflatten`'s, or a :class:`Parts` of dtypes."""
+        return self._join([tree_leaves(p.unflatten(x, like=lk)) for p, x, lk
+                           in zip(self.parts, buf, self._likes(like))])
+
+    def unflatten_stacked(self, buf: Parts, like: Any = None) -> Pytree:
+        return self._join([tree_leaves(p.unflatten_stacked(x, like=lk))
+                           for p, x, lk in zip(self.parts, buf,
+                                               self._likes(like))])
+
+
+Layout = Union[FlatLayout, MixedLayout]
+
+
+def layout_for(tree: Pytree) -> Layout:
+    """The layout a tree trains in: :class:`MixedLayout` for a tree that
+    mixes bfloat16 and float32 leaves, else one :class:`FlatLayout`."""
+    if mixed_leaves(l.dtype for l in tree_leaves(tree)):
+        return MixedLayout.for_tree(tree)
+    return FlatLayout.for_tree(tree)

@@ -16,6 +16,13 @@ Reduction-order contract (the reference's): partials are reduced per
 (worker, leaf) over the leaf's contiguous sub-block range, then across
 leaves in leaf order — the same inputs give bit-identical results on every
 call.  No ``index_add_``/``scatter_add_``: they are atomic on CUDA.
+
+A tree of bfloat16 and float32 leaves (``layout.MixedLayout``) has two
+buffers a state (``layout.Parts``): every op launches its kernel once per
+part, at that part's dtypes (``kernels.ENTRIES``), builds the ``(W,
+num_leaves)`` per-leaf partials of both parts in the tree's leaf order and
+only then reduces across leaves, so the sums are the reference's.  Each
+part's zero tail folds into that part's first leaf.
 """
 from __future__ import annotations
 
@@ -24,7 +31,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.fastpath import kernels
-from repro_torch.fastpath.layout import SUPPORTED_DTYPES, FlatLayout
+from repro_torch.fastpath.layout import (SUPPORTED_DTYPES, FlatLayout,
+                                         MixedLayout, like_parts, parts_of)
 
 MODES = ("auto", "on")
 
@@ -38,6 +46,7 @@ class FastPathPlan:
                              f"{mode!r}")
         self.mode = mode
         self._sub_leaf: Dict[Tuple, torch.Tensor] = {}
+        self._order: Dict[Tuple, torch.Tensor] = {}
 
     def enabled_for(self, x: torch.Tensor) -> bool:
         """Auto plans activate for CUDA tensors; forced plans always."""
@@ -88,52 +97,92 @@ class FastPathPlan:
         # per-(worker, leaf) partial sums first, leaves last
         return torch.sum(self._per_leaf(partials, lo, "sum"), dim=1)
 
-    # -- buffer-level ops (one kernel launch each) ---------------------------
+    def _leaf_order(self, per_part, lo) -> torch.Tensor:
+        """Per-part (W, n_p) per-leaf columns → (W, num_leaves) in the
+        tree's leaf order (a gather: the values move unchanged)."""
+        if not isinstance(lo, MixedLayout):
+            return per_part[0]
+        dev = per_part[0].device
+        key = (lo.leaf_part, str(dev))
+        order = self._order.get(key)
+        if order is None:
+            n_b = lo.parts[0].num_leaves
+            order = torch.as_tensor([i + n_b * p for p, i in zip(
+                lo.leaf_part, lo.leaf_index)], dtype=torch.long, device=dev)
+            self._order[key] = order
+        return torch.cat(per_part, dim=1).index_select(1, order)
 
-    def delta_sqnorm(self, a: torch.Tensor, b: torch.Tensor,
-                     lo: FlatLayout) -> torch.Tensor:
+    def _leaf_sums(self, partials, lo) -> torch.Tensor:
+        """Per-part per-sub-block partials → (W,): per (worker, leaf) over
+        each part, then across all leaves in the tree's order."""
+        per = [self._per_leaf(x, p, "sum")
+               for x, p in zip(partials, lo.parts)]
+        return torch.sum(self._leaf_order(per, lo), dim=1)
+
+    # -- buffer-level ops (one kernel launch per part each) ------------------
+
+    def delta_sqnorm(self, a, b, lo) -> torch.Tensor:
         """Per-worker ‖a − b‖² over (W, rows, 128) buffers → (W,) float32.
         ``b`` may be the unstacked (rows, 128) shared buffer."""
-        parts = kernels.delta_sqnorm_blocks(a, b)
-        return self._total(parts, lo)
+        return self._leaf_sums([kernels.delta_sqnorm_blocks(x, y) for x, y
+                                in zip(parts_of(a), parts_of(b))], lo)
 
     def sqnorm(self, t: torch.Tensor, lo: FlatLayout) -> torch.Tensor:
         """Per-worker ‖t‖² over a (W, rows, 128) buffer → (W,) float32."""
         return self._total(kernels.sqnorm_blocks(t), lo)
 
-    def laq_encode(self, g: torch.Tensor, q: torch.Tensor, e: torch.Tensor,
-                   lo: FlatLayout, *, bits: int,
-                   payload_out: Optional[torch.Tensor] = None):
+    def laq_encode(self, g, q, e, lo, *, bits: int, payload_out=None):
         """Batched LAQ encode with per-(worker, leaf) quantizer scales.
 
         Returns (payload (W, rows, 128), residual (W, rows, 128), trigger
-        LHS ‖payload‖² (W,), quantizer steps (W, num_leaves)).  The
-        scale/qmax division happens once, here: the encode kernel gets the
-        already-divided steps.  It is an IEEE division on every device: the
-        divisor is a tensor on the scales' own device, because PyTorch's
-        CUDA division by a Python scalar (or by a CPU 0-d tensor, which it
-        treats as one) multiplies by the reciprocal, which differs in the
-        last bit for about half the scales.  ``payload_out`` (may be
-        ``g``) receives the payload in place.
+        LHS ‖payload‖² (W,), quantizer steps (W, num_leaves) in leaf
+        order); payload and residual are float32 (pairs of a mixed tree).
+        The scale/qmax division happens once, here: the encode kernel gets
+        the already-divided steps.  It is an IEEE division on every device:
+        the divisor is a tensor on the scales' own device, because
+        PyTorch's CUDA division by a Python scalar (or by a CPU 0-d tensor,
+        which it treats as one) multiplies by the reciprocal, which differs
+        in the last bit for about half the scales.  ``payload_out`` (may be
+        ``g``; of a pair, per part, None where a part takes a new buffer)
+        receives the payload in place.
         """
-        parts = kernels.absmax_blocks(g, q, e)
-        scales = self._per_leaf(parts, lo, "max")          # (W, num_leaves)
-        steps = scales / torch.full_like(scales, float(2 ** (bits - 1) - 1))
-        steps_subs = steps[:, self.sub_leaf(lo, g.device)]
-        payload, resid, sq = kernels.laq_encode_blocks(
-            g, q, e, steps_subs, bits, payload_out=payload_out)
-        return payload, resid, self._total(sq, lo), steps
+        pays, resids, sqs, steps = [], [], [], []
+        for p, x, y, z, o in zip(lo.parts, parts_of(g), parts_of(q),
+                                 parts_of(e), _outs(payload_out, g)):
+            scales = self._per_leaf(kernels.absmax_blocks(x, y, z), p,
+                                    "max")                # (W, leaves of p)
+            st = scales / torch.full_like(scales,
+                                          float(2 ** (bits - 1) - 1))
+            pay, res, sq = kernels.laq_encode_blocks(
+                x, y, z, st[:, self.sub_leaf(p, x.device)], bits,
+                payload_out=o)
+            pays.append(pay)
+            resids.append(res)
+            sqs.append(sq)
+            steps.append(st)
+        return (like_parts(g, pays), like_parts(g, resids),
+                self._leaf_sums(sqs, lo), self._leaf_order(steps, lo))
+
+    def _masked(self, a, b, mask, mode, out):
+        return like_parts(b, [kernels.masked_combine(x, y, mask, mode, out=o)
+                              for x, y, o in zip(parts_of(a), parts_of(b),
+                                                 _outs(out, b))])
 
     def masked_add(self, a, b, mask, out=None):
         """b + mask·a per worker (fold a masked payload into a mirror)."""
-        return kernels.masked_combine(a, b, mask, "add", out=out)
+        return self._masked(a, b, mask, "add", out)
 
     def masked_select(self, a, b, mask, out=None):
         """where(mask, a, b) per worker — an exact copy on upload."""
-        return kernels.masked_combine(a, b, mask, "select", out=out)
+        return self._masked(a, b, mask, "select", out)
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return f"FastPathPlan(mode={self.mode!r})"
+
+
+def _outs(out, like):
+    """``out``'s parts, or None for each part of ``like``."""
+    return parts_of(out) if out is not None else (None,) * len(parts_of(like))
 
 
 def make_plan(spec) -> FastPathPlan:
@@ -143,9 +192,10 @@ def make_plan(spec) -> FastPathPlan:
     return FastPathPlan(spec)
 
 
-def active_plan(policy, x: torch.Tensor) -> Optional[FastPathPlan]:
+def active_plan(policy, x) -> Optional[FastPathPlan]:
     """The policy's plan iff it is active for tensors like ``x`` (on CUDA,
     or forced); None for a policy without a plan (the per-leaf kernels
     selected by ``make_policy(use_pallas=True)``)."""
     plan = policy.fastpath
-    return plan if plan is not None and plan.enabled_for(x) else None
+    return plan if plan is not None and plan.enabled_for(parts_of(x)[0]) \
+        else None

@@ -41,10 +41,21 @@
 //     PyTorch version bit for bit.
 //   * Offsets are int64: the largest leaf of llama3.2-1b holds 268,435,456
 //     elements (1.07 GB), and the loops must not wrap near 2^31.
-//   * Operand types: float32 or bfloat16 for the two sums and the masked
-//     update (bfloat16 widened exactly, the update's result rounded with
-//     __float2bfloat16_rn), float32 for absmax and encode; everything is
-//     computed in float32.
+//   * Operand types: each kernel is a template on its operands' types and
+//     every operand is loaded at its own type, bfloat16 widened exactly, so
+//     an instantiation with a bfloat16 operand is bit for bit the float32
+//     kernel on the widened operands (the same element-to-thread map, the
+//     same fold order).  Everything is computed in float32, as the Pallas
+//     kernels cast every operand to float32.  The instantiations, one entry
+//     point each (suffix: none for float32 operands, _bb both bfloat16,
+//     _fb a float32 first operand against a bfloat16 second; LAQ's residual
+//     e is float32 in all three):
+//       lag_sq_2d{,_bb,_fb}              (a, b)      b NULL: sum a^2
+//       lag_masked_update_2d{,_bb,_fb}   (a, b)      written at b's type,
+//                                                    one rounding
+//       lag_absmax_2d{,_bb,_fb}          (g, q, e)
+//       lag_laq_encode_2d{,_bb,_fb}      (g, q, e)   payload and residual
+//                                                    float32
 //
 // C interface (loaded with ctypes): each entry point launches on the given
 // stream, does not synchronise, allocates nothing (the caller passes the
@@ -174,9 +185,9 @@ __device__ __forceinline__ float sq_acc(float acc, float x) {
 }
 
 // per-block partials of sum (a - b)^2, or of sum a^2 when b is NULL
-template <typename T>
+template <typename TA, typename TB>
 __global__ void __launch_bounds__(THREADS)
-sq_partials(const T* __restrict__ a, const T* __restrict__ b,
+sq_partials(const TA* __restrict__ a, const TB* __restrict__ b,
             float* __restrict__ part, int64_t n, int vec) {
   const int64_t tid = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * THREADS;
@@ -212,8 +223,9 @@ __device__ __forceinline__ float innovation(float g, float q, float e) {
   return __fadd_rn(__fsub_rn(g, q), e);      // (g - q) + e, in that order
 }
 
+template <typename TG, typename TQ>
 __global__ void __launch_bounds__(THREADS)
-absmax_partials(const float* __restrict__ g, const float* __restrict__ q,
+absmax_partials(const TG* __restrict__ g, const TQ* __restrict__ q,
                 const float* __restrict__ e, float* __restrict__ part,
                 int64_t n, int vec) {
   const int64_t tid = (int64_t)blockIdx.x * THREADS + threadIdx.x;
@@ -233,7 +245,7 @@ absmax_partials(const float* __restrict__ g, const float* __restrict__ q,
   }
   const Scalars sc = scalars(n, vec, tid, stride, k0);
   for (int64_t k = sc.first; k < n; k += sc.step)
-    m.x = max_nan(m.x, fabsf(innovation(g[k], q[k], e[k])));
+    m.x = max_nan(m.x, fabsf(innovation(load1(g, k), load1(q, k), e[k])));
   const float r = block_reduce<OP_MAX>(combine4<OP_MAX>(m));
   if (threadIdx.x == 0) part[blockIdx.x] = r;
 }
@@ -252,8 +264,9 @@ __device__ __forceinline__ LaqOut laq_one(float g, float q, float e,
 
 // payload p, residual r, and per-block partials of sum p^2; the step is
 // divided here from the device scale, as in the Pallas kernel
+template <typename TG, typename TQ>
 __global__ void __launch_bounds__(THREADS)
-laq_encode_partials(const float* __restrict__ g, const float* __restrict__ q,
+laq_encode_partials(const TG* __restrict__ g, const TQ* __restrict__ q,
                     const float* __restrict__ e,
                     const float* __restrict__ scale, float* __restrict__ p,
                     float* __restrict__ r, float* __restrict__ part,
@@ -281,7 +294,8 @@ laq_encode_partials(const float* __restrict__ g, const float* __restrict__ q,
   }
   const Scalars sc = scalars(n, vec, tid, stride, k0);
   for (int64_t k = sc.first; k < n; k += sc.step) {
-    const LaqOut o = laq_one(g[k], q[k], e[k], step, inv, qmax);
+    const LaqOut o = laq_one(load1(g, k), load1(q, k), e[k], step, inv,
+                             qmax);
     acc.x = sq_acc(acc.x, o.p);
     p[k] = o.p;
     r[k] = o.r;
@@ -296,10 +310,10 @@ __device__ __forceinline__ float update(float x, float y, float m) {
   return __fadd_rn(y, __fmul_rn(m, __fsub_rn(x, y)));   // b + m*(a - b)
 }
 
-template <typename T>
+template <typename TA, typename TB>
 __global__ void __launch_bounds__(THREADS)
-masked_update_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                     const float* __restrict__ mask, T* __restrict__ out,
+masked_update_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
+                     const float* __restrict__ mask, TB* __restrict__ out,
                      int64_t n, int vec) {
   const float m = mask[0];
   const int64_t tid = (int64_t)blockIdx.x * THREADS + threadIdx.x;
@@ -329,76 +343,92 @@ inline unsigned grid_for(int64_t n, int vec, int64_t cap) {
   return (unsigned)blocks;
 }
 
-}  // namespace
-
-extern "C" {
-
-// sum (a - b)^2 (b != NULL) or sum a^2 (b == NULL) over n elements into the
-// 0-d out; dtype 0 float32, 1 bfloat16; part holds cap floats.
-int lag_sq_2d(const void* a, const void* b, void* part, void* out,
-              int64_t n, int dtype, int vec, int64_t cap, void* stream) {
-  if (cap < 1 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
+// the entry points of one operand-type instantiation (suffix SFX: TA the
+// first operand's type, TB the second's)
+template <typename TA, typename TB>
+int sq_2d(const void* a, const void* b, void* part, void* out, int64_t n,
+          int vec, int64_t cap, cudaStream_t s) {
+  if (cap < 1) return (int)cudaErrorInvalidValue;
   const unsigned grid = grid_for(n, vec, cap);
-  if (dtype == 0)
-    sq_partials<float><<<grid, THREADS, 0, s>>>(
-        (const float*)a, (const float*)b, (float*)part, n, vec);
-  else
-    sq_partials<bf16_t><<<grid, THREADS, 0, s>>>(
-        (const bf16_t*)a, (const bf16_t*)b, (float*)part, n, vec);
+  sq_partials<TA, TB><<<grid, THREADS, 0, s>>>(
+      (const TA*)a, (const TB*)b, (float*)part, n, vec);
   finish_kernel<OP_SUM><<<1, THREADS, 0, s>>>((const float*)part, grid,
                                            (float*)out);
   return (int)cudaGetLastError();
 }
 
-// out = b + mask[0]*(a - b) over n elements; dtype 0 float32, 1 bfloat16
-int lag_masked_update_2d(const void* a, const void* b, const void* mask,
-                         void* out, int64_t n, int dtype, int vec,
-                         void* stream) {
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+template <typename TA, typename TB>
+int masked_update_2d(const void* a, const void* b, const void* mask,
+                     void* out, int64_t n, int vec, cudaStream_t s) {
   if (n == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
   const unsigned grid = grid_for(n, vec, MAX_GRID);
-  if (dtype == 0)
-    masked_update_kernel<float><<<grid, THREADS, 0, s>>>(
-        (const float*)a, (const float*)b, (const float*)mask, (float*)out,
-        n, vec);
-  else
-    masked_update_kernel<bf16_t><<<grid, THREADS, 0, s>>>(
-        (const bf16_t*)a, (const bf16_t*)b, (const float*)mask,
-        (bf16_t*)out, n, vec);
+  masked_update_kernel<TA, TB><<<grid, THREADS, 0, s>>>(
+      (const TA*)a, (const TB*)b, (const float*)mask, (TB*)out, n, vec);
   return (int)cudaGetLastError();
 }
 
-// max |(g - q) + e| over n float32 elements into the 0-d out
-int lag_absmax_2d(const void* g, const void* q, const void* e, void* part,
-                  void* out, int64_t n, int vec, int64_t cap, void* stream) {
+template <typename TG, typename TQ>
+int absmax_2d(const void* g, const void* q, const void* e, void* part,
+              void* out, int64_t n, int vec, int64_t cap, cudaStream_t s) {
   if (cap < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
   const unsigned grid = grid_for(n, vec, cap);
-  absmax_partials<<<grid, THREADS, 0, s>>>(
-      (const float*)g, (const float*)q, (const float*)e, (float*)part, n,
-      vec);
+  absmax_partials<TG, TQ><<<grid, THREADS, 0, s>>>(
+      (const TG*)g, (const TQ*)q, (const float*)e, (float*)part, n, vec);
   finish_kernel<OP_MAX><<<1, THREADS, 0, s>>>((const float*)part, grid,
                                            (float*)out);
   return (int)cudaGetLastError();
 }
 
-// payload p and residual r (n float32 each) and sum p^2 into the 0-d sq;
-// scale is the 0-d device absmax, qmax = 2^(bits-1) - 1
-int lag_laq_encode_2d(const void* g, const void* q, const void* e,
-                      const void* scale, void* p, void* r, void* part,
-                      void* sq, int64_t n, float qmax, int vec, int64_t cap,
-                      void* stream) {
+template <typename TG, typename TQ>
+int laq_encode_2d(const void* g, const void* q, const void* e,
+                  const void* scale, void* p, void* r, void* part, void* sq,
+                  int64_t n, float qmax, int vec, int64_t cap,
+                  cudaStream_t s) {
   if (cap < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
   const unsigned grid = grid_for(n, vec, cap);
-  laq_encode_partials<<<grid, THREADS, 0, s>>>(
-      (const float*)g, (const float*)q, (const float*)e,
-      (const float*)scale, (float*)p, (float*)r, (float*)part, n, qmax, vec);
+  laq_encode_partials<TG, TQ><<<grid, THREADS, 0, s>>>(
+      (const TG*)g, (const TQ*)q, (const float*)e, (const float*)scale,
+      (float*)p, (float*)r, (float*)part, n, qmax, vec);
   finish_kernel<OP_SUM><<<1, THREADS, 0, s>>>((const float*)part, grid,
                                            (float*)sq);
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+// sum (a - b)^2 (b != NULL) or sum a^2 (b == NULL) over n elements into the
+// 0-d out; part holds cap floats.  out = b + mask[0]*(a - b) over n
+// elements.  max |(g - q) + e| over n elements into the 0-d out.  Payload p
+// and residual r (n float32 each) and sum p^2 into the 0-d sq; scale is the
+// 0-d device absmax, qmax = 2^(bits-1) - 1.
+#define LAG_TRIGGER_ENTRIES(SFX, TA, TB)                                     \
+  int lag_sq_2d##SFX(const void* a, const void* b, void* part, void* out,   \
+                     int64_t n, int vec, int64_t cap, void* stream) {       \
+    return sq_2d<TA, TB>(a, b, part, out, n, vec, cap,                      \
+                         (cudaStream_t)stream);                             \
+  }                                                                         \
+  int lag_masked_update_2d##SFX(const void* a, const void* b,               \
+                                const void* mask, void* out, int64_t n,     \
+                                int vec, void* stream) {                    \
+    return masked_update_2d<TA, TB>(a, b, mask, out, n, vec,                \
+                                    (cudaStream_t)stream);                  \
+  }                                                                         \
+  int lag_absmax_2d##SFX(const void* g, const void* q, const void* e,       \
+                         void* part, void* out, int64_t n, int vec,         \
+                         int64_t cap, void* stream) {                       \
+    return absmax_2d<TA, TB>(g, q, e, part, out, n, vec, cap,               \
+                             (cudaStream_t)stream);                         \
+  }                                                                         \
+  int lag_laq_encode_2d##SFX(const void* g, const void* q, const void* e,   \
+                             const void* scale, void* p, void* r,           \
+                             void* part, void* sq, int64_t n, float qmax,   \
+                             int vec, int64_t cap, void* stream) {          \
+    return laq_encode_2d<TA, TB>(g, q, e, scale, p, r, part, sq, n, qmax,   \
+                                 vec, cap, (cudaStream_t)stream);           \
+  }
+
+extern "C" {
+LAG_TRIGGER_ENTRIES(, float, float)
+LAG_TRIGGER_ENTRIES(_bb, bf16_t, bf16_t)
+LAG_TRIGGER_ENTRIES(_fb, float, bf16_t)
 }  // extern "C"

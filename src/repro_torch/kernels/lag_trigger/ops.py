@@ -2,10 +2,14 @@
 ``repro.kernels.lag_trigger.ops``.
 
 Each function visits the leaves in pytree order and launches one kernel
-per leaf (two for the LAQ encode).  CPU tensors take the plain version
-(``ref``), and so does ``use_ref=True``; CUDA tensors launch the
-hand-written kernel of ``lag_trigger`` or raise.  Per-leaf sums are added
-in leaf order on the device: nothing here waits for the device.
+per leaf (two for the LAQ encode), at that leaf's own operand dtypes (a
+tree of bfloat16 and float32 leaves launches each leaf's instantiation).
+CPU tensors take the plain version (``ref``), and so does
+``use_ref=True``; CUDA tensors launch the hand-written kernel of
+``lag_trigger`` or raise.  Off ``use_ref`` an operand combination that
+``lag_trigger.ENTRIES`` does not build raises ``TypeError`` on the CPU as
+on the card.  Per-leaf sums are added in leaf order on the device: nothing
+here waits for the device.
 
 This is the trainer's route under ``TrainerConfig(use_pallas_comm=True)``
 (``fused_tree_sqnorm`` as the triggers' ``sqnorm_fn``, ``laq_encode`` as
@@ -24,14 +28,19 @@ from repro_torch.core.tree import tree_flatten, tree_leaves, tree_map, \
 from repro_torch.kernels import on_cuda
 from repro_torch.kernels.lag_trigger import ref
 from repro_torch.kernels.lag_trigger.lag_trigger import (
-    delta_sqnorm_2d, innovation_absmax_2d, laq_encode_2d, masked_update_2d,
-    sqnorm_2d)
+    check_dtypes, delta_sqnorm_2d, innovation_absmax_2d, laq_encode_2d,
+    masked_update_2d, sqnorm_2d)
 
 Pytree = Any
 
 
-def _kernel(x: torch.Tensor, use_ref: bool) -> bool:
-    return not use_ref and on_cuda(x)
+def _kernel(name: str, use_ref: bool, *xs: torch.Tensor) -> bool:
+    """True where the leaf takes ``name``'s kernel; off ``use_ref`` its
+    operand dtypes must be an instantiation's on every device."""
+    if use_ref:
+        return False
+    check_dtypes(name, *xs)
+    return on_cuda(xs[0])
 
 
 def _add_in_order(parts, like) -> torch.Tensor:
@@ -51,7 +60,8 @@ def delta_sqnorm(g_new: Pytree, g_old: Pytree, *,
     a_l, b_l = tree_leaves(g_new), tree_leaves(g_old)
     return _add_in_order(
         (delta_sqnorm_2d(a.contiguous(), b.contiguous())
-         if _kernel(a, use_ref) else ref.delta_sqnorm(a, b)
+         if _kernel("delta_sqnorm_2d", use_ref, a, b)
+         else ref.delta_sqnorm(a, b)
          for a, b in zip(a_l, b_l)), a_l)
 
 
@@ -60,7 +70,7 @@ def masked_lazy_update(g_new: Pytree, g_old: Pytree, mask, *,
     """g_hat ← g_old + mask·(g_new − g_old) over a pytree (leaves in
     ``g_old``'s dtypes); ``mask`` is one bool/float value."""
     def upd(a, b):
-        if _kernel(b, use_ref):
+        if _kernel("masked_update_2d", use_ref, a, b):
             return masked_update_2d(a.contiguous(), b.contiguous(),
                                     torch.as_tensor(mask, device=b.device))
         return ref.masked_lazy_update(a, b, mask)
@@ -75,8 +85,8 @@ def fused_tree_sqnorm(tree: Pytree, *, use_ref: bool = False
     ``sqnorm_fn`` injection point."""
     leaves = tree_leaves(tree)
     return _add_in_order(
-        (sqnorm_2d(l.contiguous()) if _kernel(l, use_ref) else ref.sqnorm(l)
-         for l in leaves), leaves)
+        (sqnorm_2d(l.contiguous()) if _kernel("sqnorm_2d", use_ref, l)
+         else ref.sqnorm(l) for l in leaves), leaves)
 
 
 def laq_encode(g_new: Pytree, q_hat: Pytree, resid: Pytree, *,
@@ -97,7 +107,7 @@ def laq_encode(g_new: Pytree, q_hat: Pytree, resid: Pytree, *,
     lhs = torch.zeros((), dtype=torch.float32,
                       device=g_leaves[0].device if g_leaves else None)
     for g, q, e in zip(g_leaves, tree_leaves(q_hat), tree_leaves(resid)):
-        if _kernel(g, use_ref):
+        if _kernel("laq_encode_2d", use_ref, g, q, e):
             g, q, e = g.contiguous(), q.contiguous(), e.contiguous()
             scale = innovation_absmax_2d(g, q, e)
             p, enew, sq = laq_encode_2d(g, q, e, scale, bits)

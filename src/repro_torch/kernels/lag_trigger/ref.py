@@ -1,7 +1,11 @@
 """Plain PyTorch versions of the legacy per-leaf LAG-trigger kernels: the
 oracle of ``csrc/lag_trigger.cu`` and its route for CPU tensors (port of
-``repro.kernels.lag_trigger.ref``).  Every function casts to float32 and
-returns what the reference's function returns.
+``repro.kernels.lag_trigger.ref``).  Every function casts each operand to
+float32 inside, as the reference's Pallas kernels do, so it takes every
+operand combination the kernels take (``lag_trigger.ENTRIES``: bfloat16
+beside float32 too), and returns what the reference's function returns:
+the sums and the LAQ payload and residual in float32, the masked update at
+the old value's dtype, rounded once.
 """
 import torch
 

@@ -30,8 +30,10 @@ the reference's record keys where their meaning carries over
 ``memory.temp_size_in_bytes``: the transient peak; ``cost.flops``;
 ``status``; ``workers``) and ``mesh: "one_card"``.  ``--mesh`` and the
 collectives wait for the device plane (ROADMAP queue 1 item 5).  A
-training shape of a bfloat16 config that mixes float32 leaves is
-``skipped`` with the trainer's refusal.
+bfloat16 config that keeps float32 leaves (the MoE router, mamba2's and
+RG-LRU's float32 leaves) reckons its training state as the trainer holds
+it: two parts a tree (``fastpath.layout.Parts``), each at its leaves'
+dtype, and each plane op launched once per part.
 """
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ from repro_torch.configs.shapes import SHAPES, applicable, input_specs
 from repro_torch.core.tree import tree_leaves
 from repro_torch.dist.lag_trainer import (TrainerConfig, init_state,
                                           make_train_step)
+from repro_torch.fastpath.layout import Parts
 from repro_torch.models import model
 from repro_torch.models.common import ModelConfig
 
@@ -174,20 +177,26 @@ def _measure(fn, external, *, grad: bool):
     return live.peak, saved.total, flops.get_total_flops()
 
 
-def reckon_train(cfg: ModelConfig, tcfg: TrainerConfig, batch: Dict
-                 ) -> Dict:
-    """One training step of ``make_train_step(cfg, tcfg)`` on the batched
-    plane, on meta tensors: the state's bytes per tree, the inputs', the
-    saved activations, the FLOPs and the peak."""
-    tcfg = tcfg.replace(fastpath="on")
+def reckon_train(cfg: ModelConfig, tcfg: TrainerConfig, batch: Dict,
+                 policy=None) -> Dict:
+    """One training step of ``make_train_step(cfg, tcfg)`` on meta
+    tensors: the state's bytes per tree, the inputs', the saved
+    activations, the FLOPs and the peak.  The step runs on the batched
+    plane; on the legacy per-leaf route under ``tcfg.use_pallas_comm``
+    (each leaf's plain version on meta tensors, the kernels' outputs), and
+    on the plain route for a ``policy`` without a plan
+    (``comm.make_policy(fastpath=None)``)."""
+    if policy is None and not tcfg.use_pallas_comm:
+        tcfg = tcfg.replace(fastpath="on")
     params = model.templates(cfg)
-    state = init_state(cfg, tcfg, device="meta", params=params)
+    state = init_state(cfg, tcfg, device="meta", params=params,
+                       policy=policy)
     trees = {"theta": _nbytes(state["theta"])}
     trees.update({f"lag.{k}": _nbytes(v) for k, v in state["lag"].items()
-                  if isinstance(v, torch.Tensor)})
+                  if isinstance(v, (torch.Tensor, Parts))})
     if "opt" in state:
         trees["opt"] = _nbytes(state["opt"])
-    step = make_train_step(cfg, tcfg)
+    step = make_train_step(cfg, tcfg, policy=policy)
     external = tree_leaves(state) + tree_leaves(batch)
     temp, saved, flops = _measure(lambda: step(state, batch), external,
                                   grad=True)
@@ -228,17 +237,18 @@ def _record(trees, input_bytes, temp, saved, flops) -> Dict:
 
 def reckon(cfg: ModelConfig, shape_name: str, workers: int,
            batch: Optional[int] = None, seq: Optional[int] = None,
-           tcfg: Optional[TrainerConfig] = None) -> Dict:
+           tcfg: Optional[TrainerConfig] = None, policy=None) -> Dict:
     """The reckoning of ``cfg`` at ``shape_name`` (``batch`` / ``seq``
     override the shape's): a training step at ``workers`` with ``tcfg``
-    (default: the reference's dry-run trainer, lag-wk with bfloat16 ĝ),
-    else the serving step."""
+    (default: the reference's dry-run trainer, lag-wk with bfloat16 ĝ) and
+    ``policy`` (:func:`reckon_train`), else the serving step."""
     shp = SHAPES[shape_name]
     inputs = input_specs(cfg, shape_name, batch, seq)
     if shp.kind == "train":
         tcfg = tcfg or TrainerConfig(algo="lag-wk", num_workers=workers,
                                      lr=1e-3, grad_hat_dtype="bfloat16")
-        return reckon_train(cfg, tcfg.replace(num_workers=workers), inputs)
+        return reckon_train(cfg, tcfg.replace(num_workers=workers), inputs,
+                            policy)
     return reckon_serve(cfg, shp.kind, inputs, seq or shp.seq_len)
 
 

@@ -22,7 +22,9 @@ from repro_torch.models.common import ModelConfig
 def params_from_reference(tree_of_numpy: Any, cfg: ModelConfig,
                           device="cuda") -> Dict:
     """Reference params (nested dicts of numpy arrays) → the port's params
-    (nested dicts of tensors on ``device``, in ``cfg.params_dtype``):
+    (nested dicts of tensors on ``device``, each leaf at its template's
+    dtype: a bfloat16 config's float32 leaves stay float32, and
+    ``lag_trainer.init_params`` copies them into the float32 part of θ):
     the card by default (raising without one), the CPU when asked."""
     device = resolve_device(device)
     leaves, treedef = tree_flatten(tree_of_numpy)

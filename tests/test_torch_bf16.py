@@ -29,10 +29,10 @@ reference's defaults but for ``remat`` (off in the port); ``remat`` gives
 losses and gradients equal to ``remat=False`` bit for bit on every layer
 kind and saves fewer tensors for the backward; ``embed_onehot`` against
 the reference's; ``scan_unroll`` is the same program; ``act_shard_axes``
-raises with no mesh on both sides.  Training a
-bfloat16 config whose tree mixes bfloat16 and float32 leaves is refused
-(ROADMAP queue 1 item 7); an all-bfloat16 one trains
-(``tests/test_torch_bf16_train.py``).
+raises with no mesh on both sides.  Every bfloat16 config
+trains: an all-bfloat16 one (``tests/test_torch_bf16_train.py``) and one
+whose tree mixes bfloat16 and float32 leaves, in two parts
+(``tests/test_torch_mixed_train.py``).
 
 The CUDA kernels' bfloat16 instantiations run only on the card
 (``tests/test_torch_kernels.py``'s ``cuda`` cases, ``chip_smoke.py`` phase
@@ -444,16 +444,20 @@ def test_act_shard_axes_raise_without_a_mesh_as_the_reference_does():
 
 
 def test_training_a_bfloat16_config_is_refused():
-    """A bfloat16 config trains when every leaf is bfloat16
-    (``tests/test_torch_bf16_train.py``); one whose tree keeps float32
-    leaves (the MoE router here) is refused by name rather than widened to
-    a float32 plane, another computation (ROADMAP queue 1 item 7)."""
+    """Every bfloat16 config trains: one of bfloat16 leaves only in one
+    bfloat16 buffer (``tests/test_torch_bf16_train.py``), one whose tree
+    keeps float32 leaves (the MoE router here) in two, each leaf at its own
+    dtype, never widened to a float32 plane
+    (``tests/test_torch_mixed_train.py``)."""
     cfg = get_config("qwen3-moe-30b-a3b").reduced(**BF16)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        init_state(cfg, TrainerConfig(algo="lag-wk", num_workers=2),
-                   device="cpu")
+    st = init_state(cfg, TrainerConfig(algo="lag-wk", num_workers=2),
+                    device="cpu")
     leaves = tree_leaves(model.templates(cfg))
     assert {t.dtype for t in leaves} == {torch.bfloat16, torch.float32}
+    assert (st["theta"].b.dtype, st["theta"].f.dtype) == (torch.bfloat16,
+                                                          torch.float32)
+    router = [t for t in leaves if t.dtype == torch.float32]
+    assert st["theta"].f.numel() >= sum(t.numel() for t in router)
     dense = get_config("llama3.2-1b").reduced(**BF16)
     assert {t.dtype for t in tree_leaves(model.templates(dense))} \
         == {torch.bfloat16}

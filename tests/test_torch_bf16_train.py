@@ -33,7 +33,8 @@ against its float32 run on the widened weights (the largest over the
 rounds, as ``test_torch_bf16.py`` holds serving), float32 losses within
 rtol 1e-4.  The state's buffers are
 bfloat16 views at half the float32 bytes; a tree that mixes bfloat16 and
-float32 leaves, and the paths not ported at bfloat16, raise by name.
+float32 leaves initialises into two parts and takes a step; the paths not
+ported at bfloat16 raise by name.
 """
 import jax
 import jax.numpy as jnp
@@ -482,26 +483,34 @@ def test_bf16_state_is_half_the_float32_bytes():
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mamba2-370m",
                                   "recurrentgemma-9b"])
 def test_mixed_tree_is_refused_by_name(arch):
+    """A tree that mixes bfloat16 and float32 leaves is no longer refused:
+    it initialises into two parts (``fastpath.layout.Parts``: a bfloat16
+    buffer over its bfloat16 leaves, a float32 one over the rest) and
+    takes a step on the plane, each leaf at its own dtype
+    (``tests/test_torch_mixed_train.py`` holds it to the reference)."""
     cfg = get_config(arch).reduced(**BF16)
     assert {t.dtype for t in tree_leaves(model.templates(cfg))} == {
         torch.bfloat16, torch.float32}
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        init_state(cfg, TrainerConfig(algo="lag-wk", num_workers=2),
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="mixes bfloat16"):
-        make_train_step(cfg, TrainerConfig(algo="lag-wk", num_workers=2))
+    tcfg = TrainerConfig(algo="lag-wk", num_workers=2, fastpath="on")
+    st = init_state(cfg, tcfg, device="cpu")
+    theta = st["theta"]
+    assert (theta.b.dtype, theta.f.dtype) == (torch.bfloat16, torch.float32)
+    lo = param_layout(cfg)
+    assert [p.num_leaves for p in lo.parts] == [
+        sum(d == torch.bfloat16 for d in lo.dtypes),
+        sum(d == torch.float32 for d in lo.dtypes)]
+    st, m = make_train_step(cfg, tcfg)(st, make_inputs(
+        cfg, TokenStream(cfg.vocab_size), 0, BATCH, SEQ, device="cpu"))
+    assert np.isfinite(float(m["loss"])) and m["comm_mask"].tolist() == [
+        True, True]
+    assert all(bool(torch.isfinite(t).all()) for t in st["theta"])
 
 
 def test_paths_not_ported_at_bf16_raise_by_name(tmp_path):
+    """The topologies other than shards and the checkpoint refuse bfloat16
+    by name (ROADMAP queue 1 item 8); the legacy per-leaf route trains it
+    (``tests/test_torch_mixed_round.py``, ``test_torch_mixed_train.py``)."""
     cfg = get_config("llama3.2-1b").reduced(**BF16)
-    with pytest.raises(NotImplementedError, match="queue 2 item 4"):
-        init_state(cfg, TrainerConfig(algo="lag-wk", num_workers=2,
-                                      use_pallas_comm=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 2 item 4"):
-        make_train_step(cfg.replace(dtype="float32", param_dtype="float32"),
-                        TrainerConfig(algo="lag-wk", num_workers=2,
-                                      use_pallas_comm=True,
-                                      grad_hat_dtype="bfloat16"))
     for spec in ("pods:2", "async:2@1"):
         with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             make_train_step(cfg, TrainerConfig(algo="lag-wk",

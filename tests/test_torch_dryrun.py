@@ -156,13 +156,14 @@ def test_cli_lines_and_json_records(tmp_path, capsys):
             assert ("workers" in rec) == (shape == "train_4k")
         else:
             assert rec["reason"]
-    # the mixed trees' training is skipped with the trainer's refusal
+    # the mixed trees' training is reckoned, its state in two parts
     for arch in ("mamba2-370m", "recurrentgemma-9b", "qwen3-moe-30b-a3b",
                  "qwen3-moe-235b-a22b"):
         rec = json.loads((tmp_path / f"{arch}_train_4k_one_card.json")
                          .read_text())
-        assert rec["status"] == "skipped" and "queue 1 item 7" \
-            in rec["reason"]
+        assert rec["status"] == "ok" and rec["max_layers"] \
+            == rec["num_layers"], rec.get("reason")
+        assert rec["memory"]["state_bytes"]["theta"] > 0
 
 
 # ---------------------------------------------------------------------------
