@@ -340,6 +340,26 @@ Phases (any failure raises and the script exits non-zero):
         (lag-wk, laq@4): masks equal to 19b's plane runs, the new
         instantiations launched once a leaf a worker.
 
+ 21. bfloat16 training on the pods, async and fleet topologies, through
+     ``init_state`` / ``make_train_step`` and ``fleet.init_fleet_state`` /
+     ``make_fleet_step`` at full width and depth, batch 4, seq 256, 4
+     rounds, weights from seed 0 (PHASE21): llama3.2-1b at bfloat16 on
+     ``async:2@1`` (lag-wk, lag-ps; the float32 model with
+     ``grad_hat_dtype="bfloat16"``, lag-wk), ``pods:2`` (lag-wk on the
+     plane and the legacy route, laq@4 on the legacy route), ``fleet:4@2``
+     (lag-wk, uniform and ``innovation`` with churn 0.25), ``fleet:2@1``
+     (laq@4) and ``fleet:2@2`` (lag-wk, the full cohort); mamba2-370m
+     whole at bfloat16 (its float32 leaves a part of their own) lag-wk on
+     each topology.  Each run's exact launches a round per instantiation
+     (``_bb``, ``_fb``, the float32 part; the legacy route's per leaf and
+     worker), ms, device fwd/bwd and comm ms, state dtypes (a bfloat16 or
+     ``Parts`` ring, float32 fleet rows) and peak (under 80 GB); the pods'
+     and the full-cohort fleet's masks and losses bitwise 19b's shards runs;
+     a checkpoint of mamba2-370m's async run (both parts) at round 2 saved,
+     restored into a fresh state (other weights) and run to round 4,
+     bitwise the uninterrupted run (masks, losses, θ), with save and
+     restore seconds.
+
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Times are CUDA-event times on this card (kernels: the mean of
 several launches after a warm-up); bounds use the H100 SXM's published
@@ -740,6 +760,58 @@ ROUTES = ("plane", "legacy", "plain")
 # three rounds the losses are bitwise too
 MIXED_ROUTE_LOSS_READINGS = {"lag-wk plane": 0.0, "lag-wk legacy": 0.0,
                              "laq@4 plane": 0.0, "laq@4 legacy": 0.0}
+
+# phase 21: bfloat16 training on the topologies: (arch, cfg kwargs,
+# TrainerConfig kwargs, topology, fleet churn, fleet selection, route, the
+# launches a round by instantiation, the 19b plane run whose masks (and, at
+# "bitwise", losses) the run reproduces).  The legacy route launches its
+# kernels once a leaf a worker (llama3.2-1b: 11 leaves, W = 2); a fleet adds
+# kernel 1 once a part for the cohort's innovation ‖∇L_m − ĝ_m‖²
+_L22 = 22
+PHASE21 = (
+    ("llama3.2-1b", BF16, dict(algo="lag-wk"), "async:2@1", 0.0, "uniform",
+     "plane", {"delta_sqnorm_blocks_bb": 1, "masked_combine_bb": 1}, None),
+    ("llama3.2-1b", BF16, dict(algo="lag-ps"), "async:2@1", 0.0, "uniform",
+     "plane", {"delta_sqnorm_blocks_bb": 1, "masked_combine_bb": 2}, None),
+    ("llama3.2-1b", {}, dict(algo="lag-wk", grad_hat_dtype="bfloat16"),
+     "async:2@1", 0.0, "uniform", "plane",
+     {"delta_sqnorm_blocks_fb": 1, "masked_combine_fb": 1}, None),
+    ("llama3.2-1b", BF16, dict(algo="lag-wk"), "pods:2", 0.0, "uniform",
+     "plane", {"delta_sqnorm_blocks_bb": 1, "masked_combine_bb": 1},
+     ("llama3.2-1b bfloat16 lag-wk", "bitwise")),
+    ("llama3.2-1b", BF16, dict(algo="lag-wk"), "pods:2", 0.0, "uniform",
+     "legacy", {"sqnorm_2d_bf16": _L22},
+     ("llama3.2-1b bfloat16 lag-wk", "bitwise")),
+    ("llama3.2-1b", BF16, dict(algo="laq@4"), "pods:2", 0.0, "uniform",
+     "legacy", {"innovation_absmax_2d_bb": _L22, "laq_encode_2d_bb": _L22},
+     ("llama3.2-1b bfloat16 laq@4", "masks")),
+    ("llama3.2-1b", BF16, dict(algo="lag-wk"), "fleet:4@2", 0.0, "uniform",
+     "plane", {"delta_sqnorm_blocks_bb": 2, "masked_combine_bb": 1}, None),
+    ("llama3.2-1b", BF16, dict(algo="lag-wk"), "fleet:4@2", 0.25,
+     "innovation", "plane",
+     {"delta_sqnorm_blocks_bb": 2, "masked_combine_bb": 1}, None),
+    ("llama3.2-1b", BF16, dict(algo="laq@4"), "fleet:2@1", 0.0, "uniform",
+     "plane", {"delta_sqnorm_blocks_bb": 1, "absmax_blocks_bb": 1,
+               "laq_encode_blocks_bb": 1, "masked_combine_fb": 1,
+               "masked_combine": 1}, None),
+    ("llama3.2-1b", BF16, dict(algo="lag-wk"), "fleet:2@2", 0.0, "uniform",
+     "plane", {"delta_sqnorm_blocks_bb": 2, "masked_combine_bb": 1},
+     ("llama3.2-1b bfloat16 lag-wk", "bitwise")),
+    ("mamba2-370m", BF16, dict(algo="lag-wk"), "pods:2", 0.0, "uniform",
+     "plane", {"delta_sqnorm_blocks_bb": 1, "delta_sqnorm_blocks": 1,
+               "masked_combine_bb": 1, "masked_combine": 1}, None),
+    ("mamba2-370m", BF16, dict(algo="lag-wk"), "async:2@1", 0.0, "uniform",
+     "plane", {"delta_sqnorm_blocks_bb": 1, "delta_sqnorm_blocks": 1,
+               "masked_combine_bb": 1, "masked_combine": 1}, None),
+    ("mamba2-370m", BF16, dict(algo="lag-wk"), "fleet:4@2", 0.0, "uniform",
+     "plane", {"delta_sqnorm_blocks_bb": 2, "delta_sqnorm_blocks": 2,
+               "masked_combine_bb": 1, "masked_combine": 1}, None),
+)
+# 21: the run checkpointed at round PHASE21_CKPT_AT and resumed: mamba2's
+# async run, a state of both parts (about 4.4 GB; llama3.2-1b's async state
+# is 14.83 GB, 54 s to save and restore on an H100 80GB HBM3, 700 W)
+PHASE21_CKPT = ("mamba2-370m", "async:2@1")
+PHASE21_CKPT_AT = 2
 
 
 def check(cond, msg):
@@ -3944,7 +4016,7 @@ def bf16_training_phase(torch, phase5_runs):
     from repro_torch.dist.lag_trainer import TrainerConfig
     from repro_torch.launch import dryrun
 
-    total, peaks, masks19 = {}, [], {}
+    total, peaks, masks19, runs19 = {}, [], {}, {}
     for arch, ckw, tkw in BF16_TRAIN:
         cfg = get_config(arch, **ckw)
         tcfg = TrainerConfig(num_workers=2, lr=0.3, **tkw)
@@ -3955,6 +4027,7 @@ def bf16_training_phase(torch, phase5_runs):
         print(run_line(label + " plane", plane))
         print(run_line(label + " plain route", plain))
         masks = masks19[label] = [r["mask"] for r in plane["rounds"]]
+        runs19[label] = plane["rounds"]
         check(masks == [r["mask"] for r in plain["rounds"]],
               f"{label}: plane and plain route masks differ")
         dl = max(abs(a["loss"] - b["loss"]) for a, b in
@@ -4011,7 +4084,7 @@ def bf16_training_phase(torch, phase5_runs):
               f"(band {lo}-{hi})")
         check(lo <= ratio <= hi, f"{label}: measured / reckoned peak "
                                  f"{ratio:.4f} outside {PEAK_RATIO_BAND}")
-    return total, masks19
+    return total, masks19, runs19
 
 
 # ---------------------------------------------------------------------------
@@ -4379,6 +4452,206 @@ def legacy_bf16_route_phase(torch, p19_masks):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: bfloat16 training on the pods, async and fleet topologies
+# ---------------------------------------------------------------------------
+
+def topology_run(torch, cfg, tcfg, spec, churn=0.0, selection="uniform",
+                 steps=4, seed=0, ckpt_at=None):
+    """``steps`` rounds of ``spec``'s step on the card (batch 4, seq 256,
+    weights from ``seed``): the trainer's for pods and async, the fleet's
+    for ``fleet:N@k`` (its default host draws).  Returns the rounds'
+    losses, masks (the cohort's for a fleet), cohorts and timings, the
+    peak, every instantiation's launches, the state's dtypes and, with
+    ``ckpt_at``, the state saved after that round, restored into a fresh
+    state (weights from another seed) and run on to ``steps``: its rounds,
+    θ against the uninterrupted θ, save and restore seconds."""
+    import shutil
+    import tempfile
+
+    from repro_torch import fleet
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.data import TokenStream, make_inputs
+    from repro_torch.dist import lag_trainer as lt
+    from repro_torch.engine import make_topology
+    from repro_torch.fastpath import kernels
+    from repro_torch.fastpath.layout import parts_of
+    from repro_torch.fleet.population import MIRROR_PREFIX
+    from repro_torch.kernels.lag_trigger import lag_trigger as legacy
+
+    def fresh(seed):
+        topo = make_topology(spec)
+        if topo.name == "fleet":
+            topo = fleet.FleetTopology(topo.population, topo.cohort,
+                                       churn=churn, selection=selection)
+            return (fleet.init_fleet_state(cfg, tcfg, topo, device="cuda",
+                                           seed=seed),
+                    fleet.make_fleet_step(cfg, tcfg, topo))
+        return (lt.init_state(cfg, tcfg, device="cuda", seed=seed,
+                              topology=topo),
+                lt.make_train_step(cfg, tcfg, topology=topo))
+
+    def rounds_of(state, step, k0, k1, out):
+        stream = TokenStream(cfg.vocab_size)
+        for k in range(k0, k1):
+            batch = make_inputs(cfg, stream, k, 4, 256, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            mask = m.get("cohort_comm", m["comm_mask"])
+            out.append(dict(loss=float(m["loss"]),
+                            mask=mask.to(torch.int32).tolist(),
+                            cohort=m["cohort_ids"].tolist()
+                            if "cohort_ids" in m else None,
+                            skipped=int(m["skipped_round"]),
+                            ms=(time.perf_counter() - t0) * 1e3,
+                            **lt.phase_ms(m)))
+            if ckpt_at is not None and k + 1 == ckpt_at and k1 == steps \
+                    and k0 == 0:
+                t0 = time.perf_counter()
+                save(tmp, ckpt_at, state)
+                res["save_s"] = time.perf_counter() - t0
+        return state
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    legacy.reset_launches()
+    res, rounds = {}, []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bf16_ckpt_") \
+        if ckpt_at is not None else None
+    try:
+        state, step = fresh(seed)
+        state = rounds_of(state, step, 0, steps, rounds)
+        res.update(rounds=rounds, peak=torch.cuda.max_memory_allocated() / 1e9,
+                   launches={**kernels.LAUNCHES, **legacy.LAUNCHES})
+        theta = [t.clone() for t in parts_of(state["theta"])]
+        res["theta_dtypes"] = [t.dtype for t in theta]
+        lag = state["lag"]
+        if "theta_ring" in lag:
+            res["ring"] = [(t.dtype, tuple(t.shape))
+                           for t in parts_of(lag["theta_ring"])]
+        res["rows"] = sorted({str(v.dtype) for k, v in lag.items()
+                              if k.startswith(MIRROR_PREFIX)})
+        check(all(bool(torch.isfinite(t).all()) for t in theta),
+              f"{spec}: non-finite parameters")
+        del state, step, lag
+        if ckpt_at is not None:
+            gc.collect()
+            torch.cuda.empty_cache()
+            res["ckpt_gb"] = sum(os.path.getsize(os.path.join(tmp, f))
+                                 for f in os.listdir(tmp)) / 1e9
+            state, step = fresh(seed + 1)
+            t0 = time.perf_counter()
+            state, k = restore(tmp, state)
+            torch.cuda.synchronize()
+            res["restore_s"] = time.perf_counter() - t0
+            check(k == ckpt_at, f"{spec}: restored step {k}")
+            resumed = []
+            state = rounds_of(state, step, ckpt_at, steps, resumed)
+            res["resumed"] = resumed
+            res["resumed_bitwise"] = all(
+                bitwise(torch, a, b)
+                for a, b in zip(parts_of(state["theta"]), theta))
+            del state, step
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp)
+    del theta
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(r["loss"]) for r in rounds),
+          f"{spec}: non-finite loss")
+    steady = rounds[1:]
+    res["mean"] = {k: sum(r[k] for r in steady) / len(steady)
+                   for k in ("ms", "grad_ms", "comm_ms")}
+    return res
+
+
+def bf16_topology_phase(torch, runs19):
+    """21: PHASE21's runs, each with its exact launches a round; the pods'
+    and the full-cohort fleet's trajectories against 19b's shards runs;
+    PHASE21_CKPT's run checkpointed at PHASE21_CKPT_AT and resumed;
+    → their launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.lag_trainer import TrainerConfig
+
+    total, resumed = {}, False
+    for arch, ckw, tkw, spec, churn, sel, route, want, ref in PHASE21:
+        cfg = get_config(arch, **ckw)
+        units = int(spec.split("@")[1]) if spec.startswith("fleet") else 2
+        tcfg = TrainerConfig(num_workers=units, lr=0.3,
+                             use_pallas_comm=route == "legacy", **tkw)
+        ckpt = PHASE21_CKPT_AT if (arch, spec) == PHASE21_CKPT else None
+        resumed = resumed or ckpt is not None
+        run = topology_run(torch, cfg, tcfg, spec, churn, sel, ckpt_at=ckpt)
+        label = (f"21 {arch} {'bfloat16' if ckw else 'float32'} "
+                 + " ".join(f"{k}={v}" if k != "algo" else v
+                            for k, v in tkw.items())
+                 + f" {spec}" + (f" churn {churn} {sel}" if churn else "")
+                 + f" {route}")
+        print(run_line(label, run))
+        got = {k: v / 4 for k, v in run["launches"].items() if v}
+        check(got == want, f"{label}: launched {got} a round, want {want}")
+        check(run["peak"] < 80.0, f"{label}: peak {run['peak']:.2f} GB")
+        wide = cfg.params_dtype == torch.float32
+        check(run["theta_dtypes"] == ([torch.float32] if wide else
+                                      [torch.bfloat16, torch.float32]
+                                      if arch == "mamba2-370m"
+                                      else [torch.bfloat16]),
+              f"{label}: θ dtypes {run['theta_dtypes']}")
+        if "ring" in run:
+            check([d for d, _ in run["ring"]] == run["theta_dtypes"],
+                  f"{label}: ring {run['ring']}")
+        if spec.startswith("fleet"):
+            check(run["rows"] == ["torch.float32"],
+                  f"{label}: compact rows {run['rows']}")
+            k = int(spec.split("@")[1])
+            check(all(len(r["cohort"]) == k for r in run["rounds"]),
+                  f"{label}: cohorts {[r['cohort'] for r in run['rounds']]}")
+        extra = ""
+        if "ring" in run:
+            extra += f" | ring {run['ring']}"
+        if spec.startswith("fleet"):
+            extra += (f" | cohorts {[r['cohort'] for r in run['rounds']]} "
+                      f"| compact rows {run['rows']}")
+        if spec.startswith("pods"):
+            extra += (f" | rounds skipped "
+                      f"{sum(r['skipped'] for r in run['rounds'])}")
+        print(f"  {label}: launches a round {got}{extra}")
+        if ref is not None:
+            base, how = ref
+            want_r = runs19[base]
+            check([r["mask"] for r in run["rounds"]]
+                  == [r["mask"] for r in want_r],
+                  f"{label}: masks differ from 19b's {base}")
+            if how == "bitwise":
+                check([r["loss"] for r in run["rounds"]]
+                      == [r["loss"] for r in want_r],
+                      f"{label}: losses differ from 19b's {base}")
+            what = "masks and losses bitwise" if how == "bitwise" \
+                else "masks equal to"
+            print(f"  {label}: {what} 19b's {base} (shards)")
+        if ckpt is not None:
+            whole = run["rounds"][ckpt:]
+            same = [(r["loss"], r["mask"]) for r in run["resumed"]] \
+                == [(r["loss"], r["mask"]) for r in whole]
+            check(same and run["resumed_bitwise"],
+                  f"{label}: rounds {ckpt + 1}-4 resumed from round {ckpt} "
+                  f"differ from the uninterrupted run")
+            print(f"  {label}: checkpoint at round {ckpt} "
+                  f"({run['ckpt_gb']:.2f} GB) saved in {run['save_s']:.1f} s,"
+                  f" restored into a fresh state in {run['restore_s']:.1f} s;"
+                  f" rounds {ckpt + 1}-4 bitwise the uninterrupted run "
+                  f"(losses, masks, θ)")
+        for k, v in run["launches"].items():
+            total[k] = total.get(k, 0) + v
+    check(resumed, f"21: {PHASE21_CKPT} was not checkpointed")
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4623,7 +4896,7 @@ def main():
           "measured peaks", flush=True)
     t19 = time.perf_counter()
     full.update(bf16_plane_kernel_phase(torch, dev))
-    p19, masks19 = bf16_training_phase(torch, phase5_runs)
+    p19, masks19, runs19 = bf16_training_phase(torch, phase5_runs)
     for k, v in p19.items():
         launches[k] = launches.get(k, 0) + v
     for k in kernels.LAUNCHES:
@@ -4656,6 +4929,19 @@ def main():
                                  f"launched on a mixed tree")
     print(f"  phase 20 launches: { {k: v for k, v in p20.items() if v} } "
           f"in {time.perf_counter() - t20:.1f} s")
+
+    print("[21] bfloat16 training on the topologies: llama3.2-1b on "
+          "async:2@1, pods:2, fleet:4@2, fleet:2@1, fleet:2@2; mamba2-370m "
+          "on pods:2, async:2@1 (checkpointed and resumed), fleet:4@2",
+          flush=True)
+    t21 = time.perf_counter()
+    p21 = bf16_topology_phase(torch, runs19)
+    for k, v in p21.items():
+        launches[k] = launches.get(k, 0) + v
+    for k in sorted({k for *_, want, _ in PHASE21 for k in want}):
+        check(p21.get(k, 0) > 0, f"phase 21: {k} never launched")
+    print(f"  phase 21 launches: { {k: v for k, v in p21.items() if v} } "
+          f"in {time.perf_counter() - t21:.1f} s")
 
     rows = [dict(name=k, route="cuda", source=SOURCES.get(k, SOURCE),
                  replaces=REPLACES[k], launches=launches[k], **full[k])

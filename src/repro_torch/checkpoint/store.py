@@ -12,17 +12,27 @@ node iterates and per-edge mirrors, the server's state — is algorithm
 state (losing the mirrors would silently reset every unit's trigger), so
 all of it is saved.
 
+A bfloat16 tensor is written in the reference's bytes: numpy has no
+bfloat16, so the entry holds the raw 2-byte words under the header the
+reference's ``ml_dtypes`` array gets (descr ``'<V2'``; numpy reads it back
+as ``|V2``), and the manifest names it ``"bfloat16"``.  A ``Parts`` pair
+(a tree of bfloat16 and float32 leaves) is a node of two leaves, ``.b``
+and ``.f`` in the paths, as JAX names a NamedTuple's fields.
+
 ``restore(dir, like)`` checks the checkpoint's paths and shapes against
 ``like`` and writes each array IN PLACE into ``like``'s tensor, on that
 tensor's device, one leaf at a time: a full-width restore holds no second
-copy of the state on the card.  Python scalars (the step counter) come
-back as the same Python type.
+copy of the state on the card.  An entry the manifest calls
+``"bfloat16"`` (the port's or the reference's) is read back as bfloat16
+bit for bit.  Python scalars (the step counter) come back as the same
+Python type.
 """
 from __future__ import annotations
 
 import json
 import os
 import re
+import zipfile
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
@@ -35,6 +45,12 @@ Pytree = Any
 _CKPT_RE = re.compile(r"^step_(\d+)\.npz$")
 
 
+_BF16 = "bfloat16"
+#: the header descr of the reference's bfloat16 entries (``ml_dtypes``'
+#: dtype string); numpy itself writes a void dtype as ``'|V2'``
+_BF16_DESCR = "<V2"
+
+
 def _paths(tree: Pytree, prefix: str = "") -> List[str]:
     """Leaf paths in ``tree_flatten``'s order (sorted dict keys)."""
     if tree is None:
@@ -42,20 +58,42 @@ def _paths(tree: Pytree, prefix: str = "") -> List[str]:
     if isinstance(tree, dict):
         return [p for k in sorted(tree)
                 for p in _paths(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [p for k, c in zip(tree._fields, tree)
+                for p in _paths(c, f"{prefix}.{k}")]
     if isinstance(tree, (list, tuple)):
         return [p for i, c in enumerate(tree)
                 for p in _paths(c, f"{prefix}[{i}]")]
     return [prefix]
 
 
-def _to_numpy(leaf) -> np.ndarray:
+def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
+    """(the entry's array, the manifest's dtype name)."""
     if isinstance(leaf, torch.Tensor):
-        if leaf.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "checkpoint: a bfloat16 leaf is not saved: numpy has no "
-                "bfloat16 (ROADMAP queue 1 item 8)")
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).cpu().numpy().view("V2"), _BF16
+        arr = t.cpu().numpy()
+    else:
+        arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def _savez(path: str, arrays) -> None:
+    """``np.savez``'s archive (stored members ``<key>.npy``), with a
+    bfloat16 entry's header descr the reference's."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, (arr, dt) in arrays.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as fid:
+                if dt == _BF16:
+                    np.lib.format.write_array_header_1_0(fid, {
+                        "descr": _BF16_DESCR, "fortran_order": False,
+                        "shape": arr.shape})
+                    fid.write(np.ascontiguousarray(arr).reshape(-1)
+                              .view(np.uint8))
+                else:
+                    np.lib.format.write_array(fid, arr, allow_pickle=False)
 
 
 def save(ckpt_dir: str, step: int, tree: Pytree) -> str:
@@ -67,12 +105,11 @@ def save(ckpt_dir: str, step: int, tree: Pytree) -> str:
     for i, (path, leaf) in enumerate(zip(_paths(tree), leaves)):
         key = f"a{i}"
         arrays[key] = _to_numpy(leaf)
-        manifest.append({"key": key, "path": path,
-                         "dtype": str(arrays[key].dtype)})
+        manifest.append({"key": key, "path": path, "dtype": arrays[key][1]})
     path = os.path.join(ckpt_dir, f"step_{step}.npz")
     tmp = path + ".tmp.npz"
-    np.savez(tmp, __manifest__=np.frombuffer(
-        json.dumps(manifest).encode(), dtype=np.uint8), **arrays)
+    _savez(tmp, dict(__manifest__=(np.frombuffer(
+        json.dumps(manifest).encode(), dtype=np.uint8), "uint8"), **arrays))
     os.replace(tmp, path)
     return path
 
@@ -104,6 +141,7 @@ def restore(ckpt_dir: str, like: Pytree, step: Optional[int] = None
     with np.load(os.path.join(ckpt_dir, f"step_{step}.npz")) as z:
         manifest = json.loads(bytes(z["__manifest__"]).decode())
         keys = {m["path"]: m["key"] for m in manifest}
+        bf16 = {m["key"] for m in manifest if m["dtype"] == _BF16}
         missing = [p for p in paths if p not in keys]
         if missing:
             raise KeyError(f"checkpoint missing leaf {missing[0]} "
@@ -121,7 +159,10 @@ def restore(ckpt_dir: str, like: Pytree, step: Optional[int] = None
                 raise ValueError(f"shape mismatch at {path}: "
                                  f"{arr.shape} vs {shape}")
             if isinstance(leaf, torch.Tensor):
-                leaf.copy_(torch.from_numpy(np.asarray(arr, order="C")))
+                src = torch.from_numpy(np.asarray(arr, order="C").view(
+                    np.int16)).view(torch.bfloat16) if keys[path] in bf16 \
+                    else torch.from_numpy(np.asarray(arr, order="C"))
+                leaf.copy_(src)
                 out.append(leaf)
             else:
                 out.append(type(leaf)(arr.item()))

@@ -38,8 +38,8 @@ a ``fastpath.layout.Parts`` pair, a bfloat16 buffer over its bfloat16
 leaves and a float32 one over its float32 leaves
 (``fastpath.layout.MixedLayout``), so every leaf trains at its own dtype,
 as in the reference; the plane launches each kernel once per part.  Both
-comm routes train at bfloat16; the topologies other than ``shards`` refuse
-it by name (:func:`check_trainable`).
+comm routes train at bfloat16 on every topology but the gossip graph,
+which refuses it by name (:func:`check_trainable`).
 """
 from __future__ import annotations
 
@@ -152,19 +152,24 @@ def param_layout(cfg: ModelConfig) -> Layout:
 
 def check_trainable(cfg: ModelConfig, tcfg: Optional[TrainerConfig] = None,
                     topology=None) -> None:
-    """Refuse, by name, the bfloat16 trainings the port does not run: at
-    bfloat16 (some of the parameters' leaves, or ``grad_hat_dtype``) only
-    the ``shards`` topology is held to the reference (ROADMAP queue 1 item
-    8).  Both comm routes train every tree, mixed ones included."""
-    bf16 = torch.bfloat16 in param_layout(cfg).dtypes or (
-        tcfg is not None and tcfg.grad_hat_dtype == "bfloat16")
-    if not bf16:
+    """Refuse, by name, the one bfloat16 training the port does not run:
+    the gossip graph at bfloat16 (some of the parameters' leaves, or
+    ``grad_hat_dtype``).  The reference's deep graph step does not trace a
+    bfloat16 tree (its mixing weights are float32,
+    ``src/repro/graph/rounds.py:299``: the scan carry changes dtype), so
+    it defines no bfloat16 graph arithmetic to hold a port to.  Every other
+    topology, both comm routes and mixed trees train at bfloat16."""
+    from repro_torch.graph.topology import GraphTopology
+    if not isinstance(topology, GraphTopology):
         return
-    if topology is not None and not isinstance(topology, BatchShards):
+    if torch.bfloat16 in param_layout(cfg).dtypes or (
+            tcfg is not None and tcfg.grad_hat_dtype == "bfloat16"):
         raise NotImplementedError(
-            f"the {type(topology).__name__} topology at bfloat16 is not "
-            f"ported (ROADMAP queue 1 item 8): bfloat16 training runs the "
-            f"shards topology")
+            "the graph topology at bfloat16 is not ported: the reference's "
+            "deep graph step does not trace a bfloat16 tree (its float32 "
+            "mixing weights change the scan carry's dtype, "
+            "src/repro/graph/rounds.py:299), so it defines no bfloat16 "
+            "graph round to hold the port to")
 
 
 # ---------------------------------------------------------------------------

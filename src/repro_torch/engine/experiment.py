@@ -202,10 +202,6 @@ class Experiment:
             raise ValueError(
                 f"convex problems run on the 'sim' topology, got "
                 f"{topo.name!r} (deep topologies need model=)")
-        if isinstance(topo, SimWorkers) and topo.num_units not in (None, M):
-            raise ValueError(
-                f"topology {self.topology!r}: the unit count "
-                f"{topo.num_units} is not the problem's {M} workers")
         alpha = self.alpha
         if alpha is None:
             # paper defaults: α = 1/L, except 1/(M·L) for the one-upload-

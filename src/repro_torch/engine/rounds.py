@@ -82,10 +82,11 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
     128), new policy-state dict).
 
     ``theta_view`` (W, rows, 128) is the bounded-staleness hook: each
-    worker's own iterate θ^{k−s_m} (the async topology's ring), against
-    which the triggers and the θ̂ refresh are evaluated — on the plane the
-    kernels take the stacked operand, on the plain route worker m's
-    ``CommRound.theta`` is row m.  None: every worker sees ``theta``.
+    worker's own iterate θ^{k−s_m} (the async topology's ring; a ``Parts``
+    of stacked views for a pair), against which the triggers and the θ̂
+    refresh are evaluated — on the plane the kernels take the stacked
+    operand of each part, on the plain route worker m's ``CommRound.theta``
+    is row m of each part.  None: every worker sees ``theta``.
 
     Every ``CommRound`` carries the round index ``step`` (``k``), the
     worker id (the (W,) ids on the device on the fast route, ``m`` on the
@@ -113,10 +114,12 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
     L_arr = lag_state["L_m"] if policy.needs_L_m else None
     hist = lag_state["hist"]
 
-    if theta_view is not None and theta_view.shape != grads.shape:
+    if theta_view is not None and [t.shape for t in parts_of(theta_view)] \
+            != [g.shape for g in parts_of(grads)]:
         raise ValueError(f"theta_view must be the stacked (W, rows, 128) "
-                         f"view {tuple(grads.shape)}, got "
-                         f"{tuple(theta_view.shape)}")
+                         f"view {[tuple(g.shape) for g in parts_of(grads)]}"
+                         f", got "
+                         f"{[tuple(t.shape) for t in parts_of(theta_view)]}")
     theta_arg = theta if theta_view is None else theta_view
     plan = plan_lib.active_plan(policy, grads)
     if plan is not None and not plan.supports(layout):
@@ -157,7 +160,7 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
     delta = grads
     for m in range(W):
         if theta_view is not None:
-            theta_t = layout.unflatten(theta_view[m])
+            theta_t = layout.unflatten(row(theta_view, m))
         ctx = CommRound(theta=theta_t,
                         grad_new=layout.unflatten(row(grads, m)),
                         hist=hist, cfg=lagcfg,

@@ -12,7 +12,7 @@ A topology owns only batching and placement; the round itself is
   PodMesh      whole pods as lazy units: the cross-pod reduction runs only
                when some pod uploads (a host branch on ``any(comm)``, one
                device sync a round); a quiet round's sum is zeros of the
-               delta's dtype, made on the delta's device
+               delta's dtype (each part's, of a pair), on its device
   AsyncShards  bounded-staleness batch shards: worker m computes its
                gradient and evaluates its trigger at θ^{k−s_m}, the
                parameters it last saw, kept in a (τ+1)-deep ring of flat
@@ -39,11 +39,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import lag
+from repro_torch.core.tree import tree_map
 from repro_torch.engine import rounds
 from repro_torch.engine.report import RunReport
 from repro_torch.engine.server import ServerOptimizer
 from repro_torch.fastpath import plan as plan_lib
-from repro_torch.fastpath.layout import FlatLayout
+from repro_torch.fastpath.layout import FlatLayout, parts_of
 from repro_torch.netsim import hetero as netsim_hetero
 
 
@@ -141,15 +142,16 @@ class PodMesh(Topology):
                 self.branches["sum"] += 1
                 return rounds.sum_reduce(comm, delta)
             # zeros of the summed DELTA's dtype (LAQ's payload is float32
-            # whatever the parameters' dtype), on its device
+            # whatever the parameters' dtype), on its device, part by part
+            # of a pair
             self.branches["zero"] += 1
-            return torch.zeros(delta.shape[1:], dtype=delta.dtype,
-                               device=delta.device)
+            return tree_map(lambda d: torch.zeros(
+                d.shape[1:], dtype=d.dtype, device=d.device), delta)
 
         return cond_sum
 
     def extra_state(self, theta=None) -> Dict:
-        dev = None if theta is None else theta.device
+        dev = None if theta is None else parts_of(theta)[0].device
         return {"rounds_skipped": torch.zeros((), dtype=torch.int32,
                                               device=dev)}
 
@@ -160,14 +162,16 @@ class AsyncShards(Topology):
     from 0 (the fastest worker) to the bound τ (``staleness``).
 
     The lag state carries ``theta_ring``, ONE ``(τ+1, rows, 128)`` buffer
-    of the last τ+1 iterates (slot i holds θ^{k−i}), shifted in place after
-    every server step (slot by slot from the end: an overlapping copy is
-    undefined).  When ``s = arange(W)`` (W = τ+1) the ring itself is the
-    stacked view and nothing is gathered; otherwise ``index_select``
-    copies W rows.  The server side — ∇, the server step, the iterate-lag
-    history — measures the shared θ, so at τ = 0 the trajectory is
-    bitwise ``BatchShards``'s.  Memory: τ+1 parameter copies (9.9 GB for
-    llama3.2-1b at τ = 1), plus W copies for a gathered view.
+    of the last τ+1 iterates (slot i holds θ^{k−i}) at θ's dtype, shifted
+    in place after every server step (slot by slot from the end: an
+    overlapping copy is undefined).  A ``Parts`` θ (a tree of bfloat16
+    and float32 leaves) gets a ``Parts`` of rings, one per part.  When
+    ``s = arange(W)`` (W = τ+1) the ring itself is the stacked view and
+    nothing is gathered; otherwise ``index_select`` copies W rows.  The
+    server side — ∇, the server step, the iterate-lag history — measures
+    the shared θ, so at τ = 0 the trajectory is bitwise ``BatchShards``'s.
+    Memory: τ+1 parameter copies (9.9 GB for llama3.2-1b at τ = 1 in
+    float32, half that in bfloat16), plus W copies for a gathered view.
     """
     name = "async"
 
@@ -190,22 +194,26 @@ class AsyncShards(Topology):
             raise ValueError("AsyncShards.extra_state needs params to size "
                              "the staleness ring")
         depth = self.staleness + 1
-        ring = theta.unsqueeze(0).repeat((depth,) + (1,) * theta.dim())
+        ring = tree_map(lambda t: t.unsqueeze(0).repeat(
+            (depth,) + (1,) * t.dim()), theta)
         return {"theta_ring": ring}
 
     def worker_views(self, theta, lag_state, num_units):
         ring = lag_state["theta_ring"]
         s = self.stale_steps(num_units)
-        if len(s) == ring.shape[0] and np.array_equal(s, np.arange(len(s))):
+        if len(s) == parts_of(ring)[0].shape[0] \
+                and np.array_equal(s, np.arange(len(s))):
             return ring
-        return ring.index_select(0, torch.as_tensor(s, dtype=torch.long,
-                                                    device=ring.device))
+        idx = torch.as_tensor(s, dtype=torch.long,
+                              device=parts_of(ring)[0].device)
+        return tree_map(lambda r: r.index_select(0, idx), ring)
 
     def advance_views(self, lag_state, new_theta) -> Dict:
         ring = lag_state["theta_ring"]
-        for i in range(ring.shape[0] - 1, 0, -1):
-            ring[i].copy_(ring[i - 1])
-        ring[0].copy_(new_theta)
+        for r, t in zip(parts_of(ring), parts_of(new_theta)):
+            for i in range(r.shape[0] - 1, 0, -1):
+                r[i].copy_(r[i - 1])
+            r[0].copy_(t)
         return {"theta_ring": ring}
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid

@@ -231,9 +231,10 @@ class FlatLayout:
         return sum(self.leaf_lanes) * LANES
 
     def packed_segments(self):
-        """``(compact offset, plane offset, size)`` of every non-empty leaf:
-        where it sits in a compact row and in a flat plane buffer."""
-        return [(c * LANES, self.leaf_sub_offsets[i] * SUB, self.sizes[i])
+        """``(compact offset, part, plane offset, size)`` of every non-empty
+        leaf: where it sits in a compact row and in the flat plane buffer
+        of its part (here the one part, 0)."""
+        return [(c * LANES, 0, self.leaf_sub_offsets[i] * SUB, self.sizes[i])
                 for i, c in enumerate(self.leaf_lane_offsets)
                 if self.sizes[i]]
 
@@ -399,6 +400,26 @@ class MixedLayout:
         return self._join([tree_leaves(p.unflatten_stacked(x, like=lk))
                            for p, x, lk in zip(self.parts, buf,
                                                self._likes(like))])
+
+    # -- the compact per-client view: ONE row over all leaves in tree order
+    # (the two parts interleave by leaf), as ``FlatLayout.for_tree`` of
+    # the whole tree packs it
+
+    @property
+    def packed_cols(self) -> int:
+        return sum(-(-s // LANES) for s in self.sizes) * LANES
+
+    def packed_segments(self):
+        """``(compact offset, part, plane offset, size)`` of every non-empty
+        leaf, in tree order: where it sits in a compact row and in the flat
+        plane buffer of its part."""
+        out, c = [], 0
+        for n, p, i in zip(self.sizes, self.leaf_part, self.leaf_index):
+            if n:
+                out.append((c, p, self.parts[p].leaf_sub_offsets[i] * SUB,
+                            n))
+            c += -(-n // LANES) * LANES
+        return out
 
 
 Layout = Union[FlatLayout, MixedLayout]

@@ -35,29 +35,32 @@ import numpy as np
 import torch
 
 from repro_torch.core import lag
+from repro_torch.core.tree import tree_map
 from repro_torch.engine import rounds as engine_rounds
 from repro_torch.engine.report import RunReport
 from repro_torch.fastpath import plan as plan_lib
-from repro_torch.fastpath.layout import FlatLayout
+from repro_torch.fastpath.layout import FlatLayout, Layout, parts_of
 from repro_torch.fleet import sampling
 from repro_torch.fleet.population import MIRROR_PREFIX, Population
 from repro_torch.fleet.selection import make_selection
 
 
-def _innovation(policy, grads: torch.Tensor, grad_hat: torch.Tensor,
-                layout: FlatLayout) -> torch.Tensor:
+def _innovation(policy, grads, grad_hat, layout: Layout) -> torch.Tensor:
     """(k,) float32 ‖∇L_m − ĝ_m‖² per cohort client — the LAG trigger LHS,
     carried forward as the client's lazy-selection score.  On an active
-    plane one ``delta_sqnorm_blocks`` launch; otherwise leaf by leaf in
-    float32, as the reference."""
+    plane one ``delta_sqnorm_blocks`` launch per part; otherwise leaf by
+    leaf in float32, the leaves' sums added in tree order, as the
+    reference."""
     plan = plan_lib.active_plan(policy, grads)
     if plan is not None and plan.supports(layout):
         return plan.delta_sqnorm(grads, grad_hat, layout)
-    k = grads.shape[0]
-    g, gh = grads.view(k, -1), grad_hat.view(k, -1)
-    out = torch.zeros((k,), dtype=torch.float32, device=grads.device)
-    for _, p, n in layout.packed_segments():
-        d = g[:, p:p + n].to(torch.float32) - gh[:, p:p + n].to(torch.float32)
+    k = parts_of(grads)[0].shape[0]
+    g = [t.view(k, -1) for t in parts_of(grads)]
+    gh = [t.view(k, -1) for t in parts_of(grad_hat)]
+    out = torch.zeros((k,), dtype=torch.float32, device=g[0].device)
+    for _, part, p, n in layout.packed_segments():
+        d = g[part][:, p:p + n].to(torch.float32) \
+            - gh[part][:, p:p + n].to(torch.float32)
         out = out + torch.sum(d * d, dim=1)
     return out
 
@@ -85,11 +88,10 @@ def sample_cohort(topology, lag_state: Dict, step: int, seed: int = 0,
 
 
 def fleet_round(policy, server, lagcfg: lag.LAGConfig, *, topology,
-                population: Population, theta: torch.Tensor,
-                layout: FlatLayout, opt_state, lag_state: Dict,
-                alive: torch.Tensor, cohort: torch.Tensor,
-                active: torch.Tensor, cohort_pst: Dict[str, torch.Tensor],
-                grads: torch.Tensor, step: int, grad_at_hat=None,
+                population: Population, theta, layout: Layout, opt_state,
+                lag_state: Dict, alive: torch.Tensor, cohort: torch.Tensor,
+                active: torch.Tensor, cohort_pst: Dict, grads, step: int,
+                grad_at_hat=None,
                 draw: Optional[int] = None,
                 L_cohort: Optional[torch.Tensor] = None,
                 scatter_events=None) -> Tuple[torch.Tensor, object, Dict,
@@ -118,7 +120,8 @@ def fleet_round(policy, server, lagcfg: lag.LAGConfig, *, topology,
         # mid-round dropouts: the upload never lands and the delta is
         # zeroed; their mirrors revert on the scatter
         comm = comm & active
-        delta = delta.masked_fill_(~active.view(k, 1, 1), 0.0)
+        delta = tree_map(lambda d: d.masked_fill_(~active.view(k, 1, 1),
+                                                  0.0), delta)
     sums = [engine_rounds.sum_reduce(comm, delta)]
     del delta
     theta, new_opt, new_lag, metrics = engine_rounds.finish_round(
@@ -159,8 +162,9 @@ def init_fleet_state(cfg, tcfg, topology, *, device, seed: int = 0,
                      params=None, policy=None, server=None) -> Dict:
     """Fresh fleet trainer state on ``device``: the trainer's ``{theta,
     lag, step[, opt]}`` with the lag group holding the compact population
-    mirrors (zero: first contact uploads) and a per-CLIENT (N,)
-    ``comm_per_worker``."""
+    mirrors (zero: first contact uploads; float32 rows, ĝ gathered at the
+    parameters' dtypes whatever ``tcfg.grad_hat_dtype``, as the
+    reference's fleet) and a per-CLIENT (N,) ``comm_per_worker``."""
     from repro_torch.dist import lag_trainer
     lag_trainer.check_trainable(cfg, tcfg, topology)
     policy = policy if policy is not None else tcfg.comm_policy()
@@ -205,8 +209,9 @@ def make_fleet_step(cfg, tcfg, topology, policy=None, server=None,
 
     def fleet_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
         theta, lag_state, step = state["theta"], state["lag"], state["step"]
+        dev = parts_of(theta)[0].device
         events = [torch.cuda.Event(enable_timing=True) for _ in range(6)] \
-            if theta.is_cuda else None
+            if dev.type == "cuda" else None
         alive, cohort, active = sample_cohort(topology, lag_state, step,
                                               seed=schedule_seed)
         shards = topology.place_batch(batch, k)
@@ -227,7 +232,7 @@ def make_fleet_step(cfg, tcfg, topology, policy=None, server=None,
             else None
         # deep runs have no oracle L_m: the sync trainer's 1/α heuristic
         L_cohort = torch.full((k,), 1.0 / tcfg.lr, dtype=torch.float32,
-                              device=theta.device) \
+                              device=dev) \
             if policy.needs_L_m else None
         if events:
             events[2].record()

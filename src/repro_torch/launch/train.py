@@ -256,9 +256,9 @@ def main(argv=None, on_step=None, use_pallas_comm=False):
     rounds = args.steps - start
     # GD baseline: every lazy unit uploads every round — the whole cohort
     # for a fleet, every directed edge for a graph, every worker otherwise
-    # — over all rounds since step 0, as the upload counter runs through a
-    # resume
-    gd = args.steps * units
+    # — over this run's rounds (the reference's figure: after a resume the
+    # upload counter still counts from step 0)
+    gd = rounds * units
     print(f"done: {rounds} rounds in {dt:.1f}s | uploads {total} vs GD "
           f"{gd} ({100.0 * total / max(gd, 1):.1f}% of GD) on {device}")
     if args.cluster is not None and (masks or cohorts):

@@ -33,8 +33,8 @@ against its float32 run on the widened weights (the largest over the
 rounds, as ``test_torch_bf16.py`` holds serving), float32 losses within
 rtol 1e-4.  The state's buffers are
 bfloat16 views at half the float32 bytes; a tree that mixes bfloat16 and
-float32 leaves initialises into two parts and takes a step; the paths not
-ported at bfloat16 raise by name.
+float32 leaves initialises into two parts and takes a step; of the training
+paths only the gossip graph refuses bfloat16, by name.
 """
 import jax
 import jax.numpy as jnp
@@ -507,22 +507,31 @@ def test_mixed_tree_is_refused_by_name(arch):
 
 
 def test_paths_not_ported_at_bf16_raise_by_name(tmp_path):
-    """The topologies other than shards and the checkpoint refuse bfloat16
-    by name (ROADMAP queue 1 item 8); the legacy per-leaf route trains it
-    (``tests/test_torch_mixed_round.py``, ``test_torch_mixed_train.py``)."""
+    """Of the training paths only the gossip graph refuses bfloat16, by
+    name (the reference's deep graph step does not trace a bfloat16
+    tree); pods, async and the checkpoint's ``save`` take it
+    (``tests/test_torch_bf16_topologies.py``,
+    ``test_torch_bf16_checkpoint.py``); the legacy per-leaf route trains
+    it (``tests/test_torch_mixed_round.py``, ``test_torch_mixed_train.py``)."""
     cfg = get_config("llama3.2-1b").reduced(**BF16)
+    tcfg = TrainerConfig(algo="lag-wk", num_workers=2)
+    with pytest.raises(NotImplementedError, match="graph topology"):
+        lag_trainer.check_trainable(cfg, tcfg, make_topology("graph:2@ring"))
     for spec in ("pods:2", "async:2@1"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            make_train_step(cfg, TrainerConfig(algo="lag-wk",
-                                               num_workers=2),
-                            topology=make_topology(spec))
-    st = init_state(cfg, TrainerConfig(algo="lag-wk", num_workers=2),
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        store.save(str(tmp_path), 0, {"theta": st["theta"]})
+        topo = make_topology(spec)
+        st = init_state(cfg, tcfg, device="cpu", topology=topo)
+        st, m = make_train_step(cfg, tcfg, topology=topo)(st, make_inputs(
+            cfg, TokenStream(cfg.vocab_size), 0, BATCH, SEQ, device="cpu"))
+        assert np.isfinite(float(m["loss"]))
+        assert st["theta"].dtype == torch.bfloat16
+    path = store.save(str(tmp_path), 0, {"theta": st["theta"]})
+    like = {"theta": torch.zeros_like(st["theta"])}
+    assert torch.equal(store.restore(str(tmp_path), like)[0]["theta"],
+                       st["theta"])
     for bad in ("float16", "float32"):      # None or "bfloat16" only
         with pytest.raises(ValueError, match="grad_hat_dtype"):
             TrainerConfig(grad_hat_dtype=bad)
+    assert path.endswith("step_0.npz")
 
 
 def test_wrappers_raise_for_unbuilt_dtype_combinations():

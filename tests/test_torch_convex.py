@@ -488,7 +488,9 @@ def test_convex_servers_float64(kw):
     ({"problem": "P", "topology": "graph:4@ring"}, ValueError,
      "worker i's shard"),
     ({"problem": "P", "topology": "sim@2"}, ValueError, "only 'async'"),
-    ({"problem": "P", "topology": "sim:4"}, ValueError, "unit count"),
+    # the unit count of 'sim:N' is ignored, as the reference ignores it:
+    # the run is the 'sim' run
+    ({"problem": "P", "topology": "sim:4"}, None, "sim"),
     ({"problem": "P", "algo": "iag"}, ValueError, "cyc-iag"),
     ({"problem": "P", "server": "sgd@1"}, ValueError, "no '@'"),
 ], ids=lambda v: str(v) if isinstance(v, dict) else "")
@@ -497,6 +499,13 @@ def test_experiment_validation(kw, err, match):
         kw = dict(kw, problem=fig3(torch.float64))
     if err is None:
         r = Experiment(steps=2, opt_loss=1.0, **kw).run()
+        if match == "sim":
+            want = Experiment(steps=2, opt_loss=1.0,
+                              **dict(kw, topology="sim")).run()
+            assert r.topology == want.topology == "sim"
+            assert np.array_equal(r.comm_mask, want.comm_mask)
+            assert np.array_equal(r.losses, want.losses)
+            return
         assert r.topology == match and r.comm_mask.shape == (2, 18)
         return
     with pytest.raises(err, match=match):
