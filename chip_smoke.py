@@ -6,14 +6,16 @@
 Phases (any failure raises and the script exits non-zero):
 
   1. device: the card's name, count and ``nvidia-smi`` name/power limit.
-  2. build: compile the five CUDA sources (the comm plane's, rmsnorm's,
-     flash attention's float32 and bfloat16 kernels' and the legacy
-     per-leaf kernels') with nvcc (sm_90a), one process each, all at once;
+  2. build: compile the six CUDA sources into seven libraries (the comm
+     plane's, rmsnorm's, flash attention's float32 kernel, its bfloat16
+     kernel and, from the same source with -DLAG_FLASH_F16, its float16
+     kernel, its wide kernel, and the legacy per-leaf kernels) with nvcc
+     (sm_90a), one process each, all at once;
      ptxas's registers and spills of every kernel, the flash kernels' shared
      memory per head_dim, a check that none of the float32 flash kernel's
      four instantiations (head_dim 64, 80, 128, 256) spills, and the count
-     of ``HGMMA`` instructions (wgmma) in the bfloat16 flash library's SASS
-     (``cuobjdump -sass``), which must not be 0.
+     of ``HGMMA`` instructions (wgmma) in the bfloat16 and float16 flash
+     libraries' SASS (``cuobjdump -sass``), which must not be 0.
   3. the comm plane's kernels vs plain versions on ragged synthetic
      layouts (leaf sizes {1, 127, 129, 32768, 0}, W ∈ {1, 3}, the
      unstacked operand, LAQ bits {2, 4, 8}, all three masked modes):
@@ -104,9 +106,10 @@ Phases (any failure raises and the script exits non-zero):
         run with ``fastpath="on"`` (the kernels' plain versions) through
         the ε the float32 runs reach;
      c. Gisette at the paper's own shape (``gisette_standin(n=2000,
-        d=4837)``, float64): ``optimum()`` timed, gd and lag-wk at K =
-        3000 with iterations and uploads to 1e-8, the first 20 rounds'
-        masks and losses against a CPU run;
+        d=4837)``, float64, its data made in a CPU-only process of its own,
+        ``cpu_child``, beside phases 3-12): ``optimum()`` timed, gd and
+        lag-wk at K = 3000 with iterations and uploads to 1e-8, the first
+        20 rounds' masks and losses against a CPU run;
      d. ``Experiment(problem=hetero_problem("linreg", h=0.8, float64),
         algo="lag-wk", steps=600, cluster="hetero:9@10ms/1Gbps")``:
         ``seconds_to(1e-8)``, and every round's masks and seconds through
@@ -135,9 +138,10 @@ Phases (any failure raises and the script exits non-zero):
         625, K 300, lag-wk) priced on ``fleet:10000@50ms/20Mbps``: the
         kernels at the cohort's (625, 256, 128) shape vs their plain
         versions; the card's plane against the CPU's plain kernel versions
-        on the port's own draws: equal cohorts, masks equal through
-        iters_to(1e-2) (1e-4 is not reached in 300 rounds), losses within
-        rtol 1e-5, ms a round on each;
+        on the port's own draws (the CPU run in a CPU-only process of its
+        own, ``cpu_child``, beside phases 3-13): equal cohorts, masks equal
+        through iters_to(1e-2) (1e-4 is not reached in 300 rounds), losses
+        within rtol 1e-5, ms a round on each;
      e. ``Experiment(model="llama3.2-1b", reduced=False, hetero=0.8,
         cluster="hetero:2@10ms/1Gbps")`` against ``launch.train --hetero
         0.8 --cluster …`` on the same rounds: equal masks, losses and
@@ -360,6 +364,41 @@ Phases (any failure raises and the script exits non-zero):
      bitwise the uninterrupted run (masks, losses, θ), with save and
      restore seconds.
 
+ 22. float16 training and serving, and kernels 6-7 at every width and
+     head_dim:
+     a. the float16 instantiations of kernels 1-4 and 8-12 ((f16, f16)
+        ``_hh``, (f32, f16) ``_fh``, ``sqnorm_2d_f16``) and kernel 5 at
+        bfloat16 and float16, at phases 19a and 20a's shapes, on inputs
+        that reach float16's subnormals and ±65504 (``f16_edges``):
+        bitwise their plain versions (sums within 1e-5) and the float32
+        kernels on the widened operands; the float16 RMSNorm stream at d
+        1024-8192 (bitwise the float32 kernel's row rounded twice) and
+        timed at the prefill's shape; the rows RMSNorm kernel at
+        RMS_ROWS_WIDTHS in all three dtypes (aligned, and contiguous rows
+        one element off an aligned base, which the stream's rule refuses
+        and the rows kernel loads by element), timed at (8192, d) for
+        RMS_ROWS_TIMED; the float16
+        flash kernel on the ragged sets at head_dim 64 and 256, on the
+        dominant-key rows and at phase 18a's eight shapes (within one
+        float16 ulp + 1e-6 of the widened plain version, rounded), timed
+        at the prefill's shape; the wide flash kernel at head_dim 320 and
+        512 in all three dtypes on a ragged set and at ATTN_WIDE_HD; each
+        timed beside its bound, plain version and library call;
+     b. llama3.2-1b float16 through ``launch.serve`` with ``use_pallas=
+        True`` (batch 4, prompt 2048, 32 tokens, 2 rounds): 33 RMSNorm and
+        16 flash launches a prefill; kernel route vs plain route within 2 ×
+        F16_ROUTE_READINGS, each against the float32 logits on the widened
+        weights (the kernel route's error within 2 × the plain route's),
+        greedy tokens;
+     c. F16_TRAIN: llama3.2-1b float16 lag-wk and laq@4 on the plane, the
+        legacy and the plain route, the float32 model with
+        ``grad_hat_dtype="float16"`` (lag-wk, laq@4), mamba2-370m float16
+        (float16 + float32 parts) whole, pods:2 and fleet:2@2: masks equal
+        to the plane run's, |Δ loss| within 2 × F16_ROUTE_LOSS_READINGS
+        (pods and fleet bitwise), finite losses, exact launches a round
+        by instantiation, each peak within PEAK_RATIO_BAND of the
+        dry-run's reckoning.
+
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Times are CUDA-event times on this card (kernels: the mean of
 several launches after a warm-up); bounds use the H100 SXM's published
@@ -439,6 +478,39 @@ OFF_PATH = {
 }
 OFF_PATH.update({k: OFF_PATH[k.rsplit("_", 1)[0]] for k in LEGACY_BF16
                  if k.rsplit("_", 1)[0] in OFF_PATH})
+# phase 22: the float16 instantiations of kernels 1-5 and 8-12 (kernel 5 at
+# bfloat16 too), kernel 6's float16 stream and its rows kernel in all three
+# dtypes, kernel 7's float16 tensor-core kernel and its wide kernel in all
+# three dtypes, each a row of its own, named as in the ``LAUNCHES`` tables
+PLANE_F16 = tuple(k + sfx for k in (
+    "delta_sqnorm_blocks", "absmax_blocks", "laq_encode_blocks",
+    "masked_combine") for sfx in ("_hh", "_fh")) + (
+    "sqnorm_blocks_bf16", "sqnorm_blocks_f16")
+LEGACY_F16 = tuple(k + sfx for k in (
+    "delta_sqnorm_2d", "masked_update_2d", "innovation_absmax_2d",
+    "laq_encode_2d") for sfx in ("_hh", "_fh")) + ("sqnorm_2d_f16",)
+RMS_ROWS = ("rmsnorm_rows", "rmsnorm_rows_bf16", "rmsnorm_rows_f16")
+FLASH_WIDE = ("flash_attention_wide", "flash_attention_wide_bf16",
+              "flash_attention_wide_f16")
+REPLACES.update({k: REPLACES[k.rsplit("_", 1)[0]]
+                 for k in PLANE_F16 + LEGACY_F16})
+REPLACES.update({k: REPLACES["rmsnorm"] for k in ("rmsnorm_f16",)
+                 + RMS_ROWS})
+REPLACES.update({k: REPLACES["flash_attention"]
+                 for k in ("flash_attention_f16",) + FLASH_WIDE})
+SOURCES.update({k: LEGACY_SOURCE for k in LEGACY_F16})
+SOURCES.update({k: SOURCES["rmsnorm"] for k in ("rmsnorm_f16",) + RMS_ROWS})
+SOURCES.update({"flash_attention_f16": SOURCES["flash_attention_bf16"],
+                **{k: "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention_wide.cu" for k in FLASH_WIDE}})
+OFF_PATH.update({k: OFF_PATH[k.rsplit("_", 1)[0]]
+                 for k in PLANE_F16 + LEGACY_F16
+                 if k.rsplit("_", 1)[0] in OFF_PATH})
+OFF_PATH.update({k: "no configuration of the repo has a row the stream "
+                    "kernel does not take (every d a multiple of 4, at most "
+                    "8192): phase 22a drives it" for k in RMS_ROWS})
+OFF_PATH.update({k: "no configuration of the repo has a head_dim above "
+                    "256: phase 22a drives it" for k in FLASH_WIDE})
 LEGACY_SIZES = (1, 3, 127, 129, 1000, 257 * 33, 32768, 32769)
 SOURCE = "src/repro_torch/fastpath/csrc/fastpath_kernels.cu"
 SERVE_ARGS = ["--arch", "llama3.2-1b", "--batch", "4", "--prompt-len", "2048",
@@ -544,6 +616,12 @@ CONVEX_FLEET_PLANE = {"delta_sqnorm_blocks": 2, "masked_combine": 1}
 # (kernel 1's partial sums agree with the plain version's within rtol 1e-5,
 # not bitwise), as in 12b past its ε
 CONVEX_FLEET_EPS = 1e-2
+# 12c's Gisette data (10 eigvalsh of 4837 x 4837, 26-32 s) and 13d's CPU run
+# (300 rounds at 226-321 ms) need no card: each runs in a CPU-only process
+# of its own (``cpu_child``), started after the build, beside phases 3-13,
+# with this many threads; what it returns is pickled back
+CPU_CHILD_THREADS = 3
+GISETTE = dict(n=2000, d=4837, lam=1e-3)
 # phase 14a: (algo, the plane's kernels and their exact launches a round)
 # on graph:2@ring at full width
 PHASE14A = (
@@ -812,6 +890,81 @@ PHASE21 = (
 # is 14.83 GB, 54 s to save and restore on an H100 80GB HBM3, 700 W)
 PHASE21_CKPT = ("mamba2-370m", "async:2@1")
 PHASE21_CKPT_AT = 2
+
+# phase 22: float16 training and serving, kernels 6 and 7 at every width and
+# head_dim (``get_config(arch, **F16)``)
+F16 = dict(dtype="float16", param_dtype="float16")
+# 22a: the float16 instantiations of kernels 1-4 and 8-12, named as in
+# ``kernels.LAUNCHES`` / ``lag_trigger.LAUNCHES``: (f16, f16) "_hh", (f32,
+# f16) "_fh"
+F16_COMBOS = {"f16-f16": "_hh", "f32-f16": "_fh"}
+# 22a: the rows RMSNorm kernel's widths (not 8-byte rows, and wider than the
+# stream's 8192), the two timed at (8192, d), the first in the kernels line
+RMS_ROWS_WIDTHS = (1, 3, 17, 4099, 8200, 16384, 20000)
+RMS_ROWS_TIMED = (4099, 20000)
+# 22a: the wide flash kernel's timed shapes (B, S, H, KV, hd, causal,
+# window), the first in the kernels line
+ATTN_WIDE_HD = ((2, 2048, 16, 4, 320, True, None),
+                (2, 2048, 16, 4, 512, True, None))
+# 22b: the two routes in float16, held as BF16_ROUTE_READINGS holds them
+# (the kernel route's error against the float32 logits within
+# BF16_ERR_RATIO × the plain route's; logits and cache within
+# BF16_ROUTE_FACTOR × these readings: H100 80GB HBM3, 700 W, the first
+# phase 22 run; the routes are deterministic)
+F16_ROUTE_READINGS = {
+    "llama3.2-1b": {"logits": 0.007812, "k cache": 0.007812,
+                    "v cache": 0.007812},
+}
+# 22c: (arch, cfg kwargs, TrainerConfig kwargs, route or topology, the
+# launches a round by instantiation) on llama3.2-1b at full width and depth
+# and mamba2-370m whole, W = 2, batch 4, seq 256, 4 rounds.  The first run
+# of a label is its plane run; the others are held to it: masks equal, the
+# largest |Δ loss| within BF16_ROUTE_FACTOR × F16_ROUTE_LOSS_READINGS, or
+# bit for bit on pods:2 and fleet:2@2
+_LW, _LQ = dict(algo="lag-wk"), dict(algo="laq@4")
+_GW = dict(algo="lag-wk", grad_hat_dtype="float16")
+_GQ = dict(algo="laq@4", grad_hat_dtype="float16")
+F16_TRAIN = (
+    ("llama3.2-1b", F16, _LW, "plane",
+     {"delta_sqnorm_blocks_hh": 1, "masked_combine_hh": 1}),
+    ("llama3.2-1b", F16, _LW, "legacy", {"sqnorm_2d_f16": _L22}),
+    ("llama3.2-1b", F16, _LW, "plain", {}),
+    ("llama3.2-1b", F16, _LW, "pods:2",
+     {"delta_sqnorm_blocks_hh": 1, "masked_combine_hh": 1}),
+    ("llama3.2-1b", F16, _LW, "fleet:2@2",
+     {"delta_sqnorm_blocks_hh": 2, "masked_combine_hh": 1}),
+    ("llama3.2-1b", F16, _LQ, "plane",
+     {"absmax_blocks_hh": 1, "laq_encode_blocks_hh": 1,
+      "masked_combine_fh": 1, "masked_combine": 1}),
+    ("llama3.2-1b", F16, _LQ, "legacy",
+     {"innovation_absmax_2d_hh": _L22, "laq_encode_2d_hh": _L22}),
+    ("llama3.2-1b", F16, _LQ, "plain", {}),
+    ("llama3.2-1b", {}, _GW, "plane",
+     {"delta_sqnorm_blocks_fh": 1, "masked_combine_fh": 1}),
+    ("llama3.2-1b", {}, _GW, "plain", {}),
+    ("llama3.2-1b", {}, _GQ, "plane",
+     {"absmax_blocks_fh": 1, "laq_encode_blocks_fh": 1,
+      "masked_combine_fh": 1, "masked_combine": 1}),
+    ("llama3.2-1b", {}, _GQ, "legacy",
+     {"innovation_absmax_2d_fh": _L22, "laq_encode_2d_fh": _L22}),
+    ("mamba2-370m", F16, _LW, "plane",
+     {"delta_sqnorm_blocks_hh": 1, "delta_sqnorm_blocks": 1,
+      "masked_combine_hh": 1, "masked_combine": 1}),
+)
+# 22c: each route's largest |Δ loss| against its label's plane run over 4
+# rounds (H100 80GB HBM3, 700 W, the first phase 22 run; 0: bitwise).
+# lag-wk does the same arithmetic on every route; LAQ's float32 payload
+# folds into the float16 ĝ with one rounding on the plane, two on the
+# legacy and plain routes (as in bfloat16, 19b), and the trajectories part
+# from round 1's fold
+F16_ROUTE_LOSS_READINGS = {
+    "llama3.2-1b float16 lag-wk legacy": 0.0,
+    "llama3.2-1b float16 lag-wk plain": 0.0,
+    "llama3.2-1b float16 laq@4 legacy": 1.431e-05,
+    "llama3.2-1b float16 laq@4 plain": 1.431e-05,
+    "llama3.2-1b float32 lag-wk grad_hat_dtype=float16 plain": 1.907e-06,
+    "llama3.2-1b float32 laq@4 grad_hat_dtype=float16 legacy": 3.91e-05,
+}
 
 
 def check(cond, msg):
@@ -1616,7 +1769,9 @@ def serve_phase(torch, dev, argv=SERVE_ARGS, cfg=None, params=None,
         cfg = get_config(args.arch)
         cfg = cfg.reduced() if args.reduced else cfg
     cfg = cfg.replace(use_pallas=True)
-    bf16 = cfg.compute_dtype == torch.bfloat16
+    bf16 = cfg.compute_dtype in (torch.bfloat16, torch.float16)   # 2-byte
+    sfx = {torch.bfloat16: "_bf16", torch.float16: "_f16"}.get(
+        cfg.compute_dtype, "")
     gc.collect()
     torch.cuda.empty_cache()
     if params is None:
@@ -1632,8 +1787,7 @@ def serve_phase(torch, dev, argv=SERVE_ARGS, cfg=None, params=None,
     n = len(rounds)
     check(n == args.rounds, f"serve {cfg.arch_id}: {n} rounds")
     # the instantiations of the config's dtype, and none of the other's
-    per_prefill = {k_ + ("_bf16" if bf16 else ""): v
-                   for k_, v in prefill_launches(cfg).items()}
+    per_prefill = {k_ + sfx: v for k_, v in prefill_launches(cfg).items()}
     for k_, got in every.items():
         want = per_prefill.get(k_, 0)
         check(got == n * want,
@@ -1678,8 +1832,10 @@ def serve_phase(torch, dev, argv=SERVE_ARGS, cfg=None, params=None,
     for (name, a), (_, b) in zip(ck, cp):
         key = f"{name} cache"
         errs[key] = max(errs.get(key, 0.0), max_abs(a.float(), b.float()))
+    readings = (F16_ROUTE_READINGS if sfx == "_f16"
+                else BF16_ROUTE_READINGS)
     bounds = ({k_: BF16_ROUTE_FACTOR * v for k_, v in
-               BF16_ROUTE_READINGS[cfg.arch_id].items()} if bf16 else
+               readings[cfg.arch_id].items()} if bf16 else
               dict.fromkeys(errs, SERVE_TOL))
     check(set(bounds) == set(errs), f"serve {cfg.arch_id}: bounds for "
                                     f"{sorted(bounds)}, errors {sorted(errs)}")
@@ -1701,12 +1857,12 @@ def serve_phase(torch, dev, argv=SERVE_ARGS, cfg=None, params=None,
     if f32_logits is not None:
         e_k = max_abs(lk.float(), f32_logits)
         e_p = max_abs(lp.float(), f32_logits)
-        print(f"  bfloat16 against float32 logits (same weights, widened): "
+        print(f"  {cfg.dtype} against float32 logits (same weights, widened): "
               f"kernel route {e_k:.3e}, plain route {e_p:.3e} (ratio "
               f"{e_k / e_p:.3f}; logits max |x| "
               f"{float(f32_logits.abs().max()):.3f})")
         check(e_k <= BF16_ERR_RATIO * e_p,
-              f"serve {cfg.arch_id}: the kernel route's bfloat16 error "
+              f"serve {cfg.arch_id}: the kernel route's {cfg.dtype} error "
               f"{e_k} exceeds {BF16_ERR_RATIO} x the plain route's {e_p}")
     del params, outs, lk, lp, ck, cp
     gc.collect()
@@ -1992,12 +2148,82 @@ def traced_rounds(torch, run):
     return n / K, busy / K, idle
 
 
-def on_cpu(problem):
-    """The same problem (bitwise the same tensors) on the CPU."""
+def on_cpu(problem, device="cpu"):
+    """The same problem (bitwise the same tensors) on the CPU, or on
+    ``device``."""
     from repro_torch.core.convex import Problem
-    return Problem(name=problem.name, kind=problem.kind, X=problem.X.cpu(),
-                   y=problem.y.cpu(), L_m=problem.L_m.cpu(), L=problem.L,
-                   lam=problem.lam)
+    return Problem(name=problem.name, kind=problem.kind,
+                   X=problem.X.to(device), y=problem.y.to(device),
+                   L_m=problem.L_m.to(device), L=problem.L, lam=problem.lam)
+
+
+# a CPU-only child's program: ``body`` binds ``result`` (and may restart
+# the clock ``t0``); (result, its seconds) go back pickled on stdout, and
+# everything the body prints goes to stderr
+CHILD_MAIN = """
+import pickle, sys, time
+out, sys.stdout = sys.stdout.buffer, sys.stderr
+import torch
+torch.set_num_threads({threads})
+t0 = time.perf_counter()
+{body}
+pickle.dump((result, time.perf_counter() - t0), out)
+out.flush()
+"""
+GISETTE_CHILD = f"""
+from repro_torch.core import convex
+result = convex.gisette_standin(**{GISETTE!r}, dtype=torch.float64,
+                                device="cpu")
+"""
+FLEET_CHILD = """
+from repro_torch.engine import Experiment
+from repro_torch.fleet import fleet_problem
+N, k, K = {FLEET_SCALE!r}
+cpu = fleet_problem("linreg", num_clients=N, n_per=2, d=4,
+                    dtype=torch.float32, device="cpu")
+_, opt = cpu.optimum()
+t0 = time.perf_counter()
+result = (Experiment(problem=cpu, fastpath="on", algo="lag-wk", steps=K,
+                     opt_loss=opt, topology=f"fleet:{{N}}@{{k}}",
+                     cluster=f"fleet:{{N}}@50ms/20Mbps").run(), opt)
+""".format(FLEET_SCALE=FLEET_SCALE)
+CHILDREN = []
+
+
+class cpu_child:
+    """Runs ``body`` (see CHILD_MAIN) in a Python process of its own that
+    sees no card, with CPU_CHILD_THREADS threads, from the start;
+    ``result()`` waits for it and returns (result, seconds).  The process
+    is stopped by ``stop_children`` if it is still running at the end."""
+
+    def __init__(self, body):
+        import subprocess
+        threads = str(CPU_CHILD_THREADS)
+        path = os.environ.get("PYTHONPATH")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS=
+                   threads, OPENBLAS_NUM_THREADS=threads, MKL_NUM_THREADS=
+                   threads, PYTHONPATH=SRC + (os.pathsep + path if path
+                                              else ""))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c",
+             CHILD_MAIN.format(threads=threads, body=body)],
+            env=env, cwd=HERE, stdin=subprocess.DEVNULL,
+            stdout=subprocess.PIPE)
+        CHILDREN.append(self.proc)
+
+    def result(self):
+        import pickle
+        out, _ = self.proc.communicate()
+        check(self.proc.returncode == 0,
+              f"a CPU-only child exited with {self.proc.returncode}")
+        return pickle.loads(out)
+
+
+def stop_children():
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def to_eps(rep, eps):
@@ -2178,15 +2404,15 @@ def convex_plane_float32(torch, dev):
     return total
 
 
-def convex_gisette(torch, dev):
-    """12c: Gisette at the paper's shape, float64."""
-    from repro_torch.core import convex, simulate
+def convex_gisette(torch, dev, child):
+    """12c: Gisette at the paper's shape, float64; its data from ``child``
+    (``cpu_child`` of GISETTE_CHILD)."""
+    from repro_torch.core import simulate
 
     t0 = time.perf_counter()
-    gpu = convex.gisette_standin(n=2000, d=4837, lam=1e-3,
-                                 dtype=torch.float64, device=dev)
-    gen_s = time.perf_counter() - t0
-    cpu = on_cpu(gpu)
+    cpu, gen_s = child.result()
+    wait_s = time.perf_counter() - t0
+    gpu = on_cpu(cpu, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, opt = gpu.optimum()
@@ -2194,8 +2420,10 @@ def convex_gisette(torch, dev):
     opt_s = time.perf_counter() - t0
     check(math.isfinite(opt), f"12c optimum {opt}")
     print(f"  12c gisette (9 workers x {gpu.X.shape[1]} x {gpu.dim}, "
-          f"float64): generated on the host in {gen_s:.1f} s; optimum() "
-          f"(200,000 GD steps) {opt_s:.1f} s on the card, loss {opt!r}")
+          f"float64): generated on the host in {gen_s:.1f} s (a CPU-only "
+          f"process, {CPU_CHILD_THREADS} threads; waited {wait_s:.1f} s for "
+          f"it); optimum() (200,000 GD steps) {opt_s:.1f} s on the card, "
+          f"loss {opt!r}")
     for algo in ("gd", "lag-wk"):
         reset_counts()
         g, ms = timed_run(torch, lambda: simulate.run(gpu, algo, K=3000,
@@ -2389,10 +2617,10 @@ def convex_fleet_kernels(torch, dev, k=625):
           f"(comparison launches, not counted: {counts()})")
 
 
-def convex_fleet(torch, dev):
+def convex_fleet(torch, dev, child):
     """13d: the reference benchmark's scale row on the plane, card against
-    CPU (the kernels' plain versions), the port's own draws; returns the
-    plane's launches."""
+    CPU (the kernels' plain versions, run by ``child``: ``cpu_child`` of
+    FLEET_CHILD), the port's own draws; returns the plane's launches."""
     import numpy as np
 
     from repro_torch.engine import Experiment
@@ -2401,19 +2629,20 @@ def convex_fleet(torch, dev):
     N, k, K = FLEET_SCALE
     gpu = fleet_problem("linreg", num_clients=N, n_per=2, d=4,
                         dtype=torch.float32, device=dev)
-    cpu = on_cpu(gpu)
-    _, opt = cpu.optimum()
+    t0 = time.perf_counter()
+    (c, opt), cpu_s = child.result()
+    wait_s = time.perf_counter() - t0
+    cpu_ms = cpu_s * 1e3 / len(c.losses)
     kw = dict(algo="lag-wk", steps=K, opt_loss=opt,
               topology=f"fleet:{N}@{k}", cluster=f"fleet:{N}@50ms/20Mbps")
     reset_counts()
     g, ms = timed_run(torch, lambda: Experiment(problem=gpu, **kw).run())
     got = counts()
-    c, cpu_ms = timed_run(torch, lambda: Experiment(
-        problem=cpu, fastpath="on", **kw).run())
     for name, v in got.items():
         n = CONVEX_FLEET_PLANE.get(name, 0) * K
         check(v == n, f"13d: {name} launched {v} times in {K} rounds, "
                       f"want {n}")
+    check(len(c.losses) == K, f"13d: the CPU ran {len(c.losses)} rounds")
     check(np.array_equal(g.extras["cohort_ids"], c.extras["cohort_ids"]),
           "13d: the card drew other cohorts than the CPU")
     n, same = masks_through(g, c, CONVEX_FLEET_EPS)
@@ -2439,7 +2668,9 @@ def convex_fleet(torch, dev):
           f"{K * k}, most in a round {int(g.comms_per_iter.max())}; priced "
           f"on fleet:{N}@50ms/20Mbps: wall_seconds card {g.wall_seconds!r}, "
           f"CPU {c.wall_seconds!r} | {ms:.3f} ms a round on the card, "
-          f"{cpu_ms:.3f} on the CPU; traced: {ops:.0f} device kernels a "
+          f"{cpu_ms:.3f} on the CPU (a CPU-only process, "
+          f"{CPU_CHILD_THREADS} threads, beside phases 3-13; waited "
+          f"{wait_s:.1f} s for it); traced: {ops:.0f} device kernels a "
           f"round busy {busy:.3f} ms, device idle {idle}")
     return got
 
@@ -3312,35 +3543,49 @@ def moe_small_agreement(torch, dev):
 # Phase 18: bfloat16 serving
 # ---------------------------------------------------------------------------
 
-def bf16_ulp(torch, x):
-    """One bfloat16 ulp at |x| (8 significant bits), as float32."""
+def bf16_ulp(torch, x, dtype=None):
+    """One ulp of ``dtype`` (bfloat16 by default: 8 significant bits;
+    float16: 11, its subnormals' spacing 2^-24 below 2^-14) at |x|, as
+    float32."""
     _, e = torch.frexp(x.float().abs())
+    if dtype == torch.float16:
+        return torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                           torch.clamp(e, min=-13) - 11)
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
 
 
 def bf16_rms_case(torch, x, sc):
-    """A bfloat16 RMSNorm launch held three ways: bitwise to the float32
-    kernel's y on the widened row (scale 1) rounded twice as the reference
-    kernel rounds; to the plain version on the widened row rounded the same
-    way within one bfloat16 ulp at each rounding, |scale|·ulp(y) + ulp(out)
-    (the mean's sum order may move y across a rounding boundary); to the
-    plain bfloat16 version within the reference's REF_RMS_TOL.  → (output,
-    max |Δ| against the widened plain version, [failures])."""
+    """A 2-byte (bfloat16 or float16) RMSNorm launch held three ways:
+    bitwise to the float32 kernel's y on the widened row (scale 1, both
+    placed at x's and sc's element offsets, so that the float32 launch
+    takes the same kernel and loads, hence the same fold) rounded twice as
+    the reference kernel rounds; to the plain version on the
+    widened row rounded the same way within one ulp at each rounding,
+    |scale|·ulp(y) + ulp(out) (the mean's sum order may move y across a
+    rounding boundary); to the plain 2-byte version within the reference's
+    REF_RMS_TOL.  → (output, max |Δ| against the widened plain version,
+    [failures])."""
     from repro_torch.kernels.rmsnorm import ref as rms_ref
     from repro_torch.kernels.rmsnorm import rmsnorm as rms
 
+    def placed(t, like):
+        """``t`` at ``like``'s element offset in a buffer of its own."""
+        k = like.storage_offset() if like.is_contiguous() else 0
+        return t.new_empty(t.numel() + k)[k:].view_as(t).copy_(t)
+
+    dt = x.dtype
     got = rms.rmsnorm_2d(x, sc)
     ones = torch.ones_like(sc, dtype=torch.float32)
     s32 = sc.float()
-    exact = (rms.rmsnorm_2d(x.float(), ones).bfloat16().float()
-             * s32).bfloat16()
+    exact = (rms.rmsnorm_2d(placed(x.float(), x), placed(ones, sc)).to(
+        dt).float() * s32).to(dt)
     y = rms_ref.rmsnorm(x.float(), ones)
-    want = (y.bfloat16().float() * s32).bfloat16()
+    want = (y.to(dt).float() * s32).to(dt)
     diff = (got.float() - want.float()).abs()
-    bound = s32.abs() * bf16_ulp(torch, y) + bf16_ulp(
-        torch, torch.maximum(got.float().abs(), want.float().abs()))
+    bound = s32.abs() * bf16_ulp(torch, y, dt) + bf16_ulp(
+        torch, torch.maximum(got.float().abs(), want.float().abs()), dt)
     bad = []
-    if not (got.dtype == torch.bfloat16 and torch.equal(got, exact)):
+    if not (got.dtype == dt and torch.equal(got, exact)):
         bad.append("not bitwise the float32 kernel's row rounded twice")
     if not bool((diff <= bound).all()):
         bad.append(f"beyond one ulp a rounding of the widened plain "
@@ -3352,21 +3597,24 @@ def bf16_rms_case(torch, x, sc):
     return got, float(diff.max()), bad
 
 
-def rms_timing(torch, dev, gen, bad, widths=BF16_RMS_WIDTHS):
-    """18a's RMSNorm at (8192, d) for each d of ``widths``: the bfloat16
-    launch held as ``bf16_rms_case``; ``rms_readings`` of both dtypes (the
-    float32 rotation starts with the widened input), the plain bfloat16
-    version's time and both dtypes' times on one reused input.  → {d: the
-    bfloat16 row of the kernels line}."""
+def rms_timing(torch, dev, gen, bad, widths=BF16_RMS_WIDTHS,
+               dtype=None):
+    """18a's RMSNorm at (8192, d) for each d of ``widths`` (22a's at
+    float16, ``dtype``): the 2-byte launch held as ``bf16_rms_case``;
+    ``rms_readings`` of both dtypes (the float32 rotation starts with the
+    widened input), the plain 2-byte version's time and both dtypes' times
+    on one reused input.  → {d: the 2-byte row of the kernels line}."""
     from repro_torch.kernels.rmsnorm import ref as rms_ref
     from repro_torch.kernels.rmsnorm import rmsnorm as rms
 
     R, out = RMS_FULL[0], {}
+    dtype = dtype or torch.bfloat16
+    tag = "f16" if dtype == torch.float16 else "bf16"
     for d in widths:
-        x = torch.randn((R, d), device=dev, generator=gen).bfloat16()
-        sc = torch.randn((d,), device=dev, generator=gen).bfloat16()
+        x = torch.randn((R, d), device=dev, generator=gen).to(dtype)
+        sc = torch.randn((d,), device=dev, generator=gen).to(dtype)
         _, e, b = bf16_rms_case(torch, x, sc)
-        bad += [f"rmsnorm bf16 full ({R}, {d}): {m}" for m in b]
+        bad += [f"rmsnorm {tag} full ({R}, {d}): {m}" for m in b]
         xs = rms_rotation(torch, gen, x, sc)
         x32s = rms_rotation(torch, gen, x.float(), sc.float())
         t_b, by = bound_ms(2 * R * d * 2 + d * 2, 4 * R * d)
@@ -3376,12 +3624,12 @@ def rms_timing(torch, dev, gen, bad, widths=BF16_RMS_WIDTHS):
         plain = cuda_ms(torch, lambda: rms_ref.rmsnorm(x, sc), n=20)
         hot = [cuda_ms(torch, lambda: f(*xw), n=50)
                for f in (rms.rmsnorm_2d, lib) for xw in (xs[0], x32s[0])]
-        print(rms_reading_line(f"rmsnorm bf16 ({R}, {d})", r16, t_b))
+        print(rms_reading_line(f"rmsnorm {tag} ({R}, {d})", r16, t_b))
         print(rms_reading_line(f"rmsnorm float32 ({R}, {d})", r32, t_b32))
         print(f"    max |Δ| {e:.3e} against the widened plain version; plain "
-              f"bf16 {plain:.4f} ms; rotations of {len(xs)} / {len(x32s)}; "
+              f"{tag} {plain:.4f} ms; rotations of {len(xs)} / {len(x32s)}; "
               f"one reused input: kernel {hot[0]:.4f} / {hot[1]:.4f} ms, "
-              f"library {hot[2]:.4f} / {hot[3]:.4f} ms (bf16 / float32)")
+              f"library {hot[2]:.4f} / {hot[3]:.4f} ms ({tag} / float32)")
         out[d] = dict(max_abs_err=e, ms=r16["kernel"]["device_ms"],
                       plain_ms=plain, bound_ms=t_b, bound_by=by,
                       library_ms=r16["library"]["device_ms"])
@@ -3390,16 +3638,18 @@ def rms_timing(torch, dev, gen, bad, widths=BF16_RMS_WIDTHS):
 
 
 def bf16_flash_case(torch, q, k, v, causal=True, window=None):
-    """A bfloat16 flash launch against the plain version on the widened
-    inputs rounded to bfloat16 (the reference kernel's function) within one
-    bfloat16 ulp (+ 1e-6), and against the plain bfloat16 version within
-    the reference's REF_FLASH_TOL.  → (max |Δ|, [failures])."""
+    """A 2-byte (bfloat16 or float16) flash launch against the plain
+    version on the widened inputs rounded to q's dtype (the reference
+    kernel's function) within one ulp (+ 1e-6), and against the plain
+    2-byte version within the reference's REF_FLASH_TOL.  → (max |Δ|,
+    [failures])."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
+    dt = q.dtype
     got = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
     want = fa_ref.attention(q.float(), k.float(), v.float(), causal=causal,
-                            window=window).bfloat16()
+                            window=window).to(dt)
     plain = fa_ref.attention(q, k, v, causal=causal, window=window)
     S, Skv = q.shape[1], k.shape[1]
     if S > Skv and window is not None:       # rows that see no key
@@ -3407,15 +3657,15 @@ def bf16_flash_case(torch, q, k, v, causal=True, window=None):
         got, want, plain = got[:, live], want[:, live], plain[:, live]
     diff = (got.float() - want.float()).abs()
     bound = bf16_ulp(torch, torch.maximum(got.float().abs(),
-                                          want.float().abs())) + 1e-6
+                                          want.float().abs()), dt) + 1e-6
     bad = []
-    if not (got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    if not (got.dtype == dt and bool(torch.isfinite(got).all())
             and bool((diff <= bound).all())):
         bad.append(f"beyond one ulp of the widened plain version: "
                    f"{float(diff.max()):.3e}")
     e = max_abs(got.float(), plain.float())
     if e > REF_FLASH_TOL * max(1.0, float(plain.float().abs().max())):
-        bad.append(f"{e:.3e} from the plain bfloat16 version")
+        bad.append(f"{e:.3e} from the plain {dt} version")
     return float(diff.max()), bad
 
 
@@ -3658,11 +3908,11 @@ def bf16_hubert_forward(torch, dev):
             torch.cuda.synchronize()
             ms[up] = (time.perf_counter() - t0) * 1e3
             if up:
-                launches = {**rms.LAUNCHES, **fa.LAUNCHES}
+                launches = {k: v for k, v in {**rms.LAUNCHES,
+                                              **fa.LAUNCHES}.items() if v}
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(bool(torch.isfinite(out[True]).all()), "hubert bf16: non-finite")
-    want = {"rmsnorm": 0, "rmsnorm_bf16": 0, "flash_attention": 0,
-            "flash_attention_bf16": cfg.num_layers}
+    want = {"flash_attention_bf16": cfg.num_layers}
     check(launches == want, f"hubert bf16 forward launches {launches}")
     err = max_abs(out[True], out[False])
     bound = BF16_ROUTE_FACTOR * BF16_ROUTE_READINGS[cfg.arch_id]["logits"]
@@ -3765,13 +4015,16 @@ def bf16_small_agreement(torch, dev):
 # Phase 19: bfloat16 training on the comm plane, the one-card dry-run
 # ---------------------------------------------------------------------------
 
-def bf16_plane_kernel_phase(torch, dev):
-    """19a: kernels 1-4's bfloat16 instantiations at llama3.2-1b's
-    full-width W = 2 buffers (2.47e9 elements an operand): bitwise their
-    plain versions (sums within SUM_RTOL, as phase 4), and bitwise the
-    float32 kernel on the widened operands (partials and sums too: the same
-    element-to-lane map and order); ms, plain ms, byte bound and library
-    call.  → the kernels line's rows of the bfloat16 instantiations."""
+def bf16_plane_kernel_phase(torch, dev, half_dtype=None,
+                            combos=BF16_COMBOS, tag="19a"):
+    """19a (22a for ``half_dtype`` float16): kernels 1-4's 2-byte
+    instantiations at llama3.2-1b's full-width W = 2 buffers (2.47e9 elements an operand):
+    bitwise their plain versions (sums within SUM_RTOL, as phase 4), and
+    bitwise the float32 kernel on the widened operands (partials and sums
+    too: the same element-to-lane map and order); ms, plain ms, byte bound
+    and library call.  In float16 the operands reach its subnormals and
+    ±65504 (``f16_edges``).  → the kernels line's rows of these
+    instantiations."""
     from repro_torch.configs import get_config
     from repro_torch.dist.lag_trainer import param_layout
     from repro_torch.fastpath import kernels, kernels_ref
@@ -3781,7 +4034,7 @@ def bf16_plane_kernel_phase(torch, dev):
     W, R = 2, lo.rows
     N, S = W * R * 128, W * R // 8
     step_rows = 1 << 19
-    f32, bf = torch.float32, torch.bfloat16
+    f32, bf = torch.float32, half_dtype or torch.bfloat16
     gen = torch.Generator(device=dev)
     gen.manual_seed(1919)
     mask = torch.tensor([True, False], device=dev)
@@ -3791,7 +4044,8 @@ def bf16_plane_kernel_phase(torch, dev):
 
     def rand(dtype, scale=1.0):
         x = torch.randn((W, R, 128), device=dev, generator=gen, dtype=f32)
-        return (x.mul_(scale) if scale != 1.0 else x).to(dtype)
+        x = x.mul_(scale) if scale != 1.0 else x
+        return (f16_edges(x) if bf == torch.float16 else x).to(dtype)
 
     def wide(x, r0, r1):
         """Rows r0:r1 widened to float32, contiguous (a kernel operand)."""
@@ -3813,8 +4067,8 @@ def bf16_plane_kernel_phase(torch, dev):
         t1.synchronize()
         return t0.elapsed_time(t1)
 
-    for combo, sfx in BF16_COMBOS.items():
-        da = bf if combo.startswith("bf16") else f32
+    for combo, sfx in combos.items():
+        da = f32 if combo.startswith("f32") else bf
         a, b, e = rand(da), rand(bf, 0.5), rand(f32, 0.01)
         isz = a.element_size() + b.element_size()
         out = {}
@@ -3910,7 +4164,7 @@ def bf16_plane_kernel_phase(torch, dev):
             library_ms=cuda_ms(torch, lambda: torch.addcmul(b, a, m3))
             if a.dtype == b.dtype else None)
         for k, v in out.items():
-            print(f"  19a {k}[{combo}]: max_abs_err {v['max_abs_err']:.3e} "
+            print(f"  {tag} {k}[{combo}]: max_abs_err {v['max_abs_err']:.3e} "
                   f"| {v['ms']:.3f} ms (plain {v['plain_ms']:.3f} ms, bound "
                   f"{v['bound_ms']:.3f} ms by {v['bound_by']}, library "
                   f"{v['library_ms']}) | bound / kernel "
@@ -4092,20 +4346,24 @@ def bf16_training_phase(torch, phase5_runs):
 # bfloat16
 # ---------------------------------------------------------------------------
 
-def legacy_bf16_kernel_phase(torch, dev):
-    """20a: the legacy kernels' bfloat16 instantiations at llama3.2-1b's 11
-    full-width leaves, W = 2 (one round's 22 launches of each): bitwise
-    their plain versions (sums within SUM_RTOL) and bitwise the float32
-    kernel on the operands widened to float32 (sums too: the same
-    element-to-thread map and fold order); ms, plain ms, byte bound and
-    library call.  → the kernels line's rows of these instantiations."""
+def legacy_bf16_kernel_phase(torch, dev, half_dtype=None,
+                             combos=LEGACY_COMBOS, tag="20a"):
+    """20a (22a for ``half_dtype`` float16): the legacy kernels' 2-byte
+    instantiations at llama3.2-1b's 11 full-width leaves, W = 2 (one
+    round's 22 launches of each): bitwise their plain versions (sums within
+    SUM_RTOL) and bitwise the float32 kernel on the operands widened to
+    float32 (sums too: the same element-to-thread map and fold order); ms,
+    plain ms, byte bound and library call.  In float16 the operands reach
+    its subnormals and ±65504 (``f16_edges``).  → the kernels line's rows
+    of these instantiations."""
     from repro_torch.configs import get_config
     from repro_torch.core.tree import tree_leaves
     from repro_torch.dist.lag_trainer import param_layout
     from repro_torch.kernels.lag_trigger import lag_trigger as lt
     from repro_torch.kernels.lag_trigger import ref
 
-    f32, bf = torch.float32, torch.bfloat16
+    f32, bf = torch.float32, half_dtype or torch.bfloat16
+    one = "_f16" if bf == torch.float16 else "_bf16"
     lo = param_layout(get_config("llama3.2-1b"))
     W = 2
     gen = torch.Generator(device=dev)
@@ -4117,7 +4375,8 @@ def legacy_bf16_kernel_phase(torch, dev):
 
     def leaves(dtype, scale):
         x = torch.randn((W, lo.rows, 128), device=dev, generator=gen)
-        x = (x.mul_(scale) if scale != 1.0 else x).to(dtype)
+        x = x.mul_(scale) if scale != 1.0 else x
+        x = (f16_edges(x) if bf == torch.float16 else x).to(dtype)
         return tree_leaves(lo.unflatten_stacked(x, like=dtype))
 
     def each(fn):
@@ -4126,8 +4385,8 @@ def legacy_bf16_kernel_phase(torch, dev):
                 fn(i, m)
         return go
 
-    for combo, sfx in LEGACY_COMBOS.items():
-        da = bf if combo.startswith("bf16") else f32
+    for combo, sfx in combos.items():
+        da = f32 if combo.startswith("f32") else bf
         A, B, C = leaves(da, 1.0), leaves(bf, 0.5), leaves(f32, 0.01)
         errs = {}
 
@@ -4209,7 +4468,7 @@ def legacy_bf16_kernel_phase(torch, dev):
             nbytes, nops = work[k]
             t_b, by = bound_ms(nbytes + len(pairs) * 4, nops)
             lib = library.get(k)
-            name = k + ("_bf16" if k == "sqnorm_2d" else sfx)
+            name = k + (one if k == "sqnorm_2d" else sfx)
             r = rows[name] = dict(
                 max_abs_err=errs.get(k, 0.0), ms=cuda_ms(torch, each(fn),
                                                          n=3),
@@ -4217,7 +4476,7 @@ def legacy_bf16_kernel_phase(torch, dev):
                 bound_ms=t_b, bound_by=by,
                 library_ms=None if lib is None else cuda_ms(
                     torch, each(lib), n=3))
-            print(f"  20a {name}: max_abs_err {r['max_abs_err']:.3e} | "
+            print(f"  {tag} {name}: max_abs_err {r['max_abs_err']:.3e} | "
                   f"round ({len(pairs)} launches) {r['ms']:.3f} ms (plain "
                   f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms by "
                   f"{r['bound_by']}, library {r['library_ms']}) | bound / "
@@ -4226,7 +4485,7 @@ def legacy_bf16_kernel_phase(torch, dev):
         gc.collect()
         torch.cuda.empty_cache()
     print(f"  {lo.num_leaves} full-width leaves, combinations "
-          f"{list(LEGACY_COMBOS)}: masked update, absmax, LAQ payload and "
+          f"{list(combos)}: masked update, absmax, LAQ payload and "
           f"residual bitwise the plain versions, sums within rtol "
           f"{SUM_RTOL}; every output bitwise the float32 kernel's on the "
           f"widened operands")
@@ -4652,6 +4911,458 @@ def bf16_topology_phase(torch, runs19):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: float16 training and serving; kernels 6 and 7 at every width and
+# head_dim
+# ---------------------------------------------------------------------------
+
+def f16_edges(x):
+    """A float32 ``x`` with entries at float16's edges, in place: every
+    997th times 1e-5 (into float16's subnormals, below 2^-14), every 1009th
+    3e-8 (about its smallest subnormal 2^-24: rounds to it or to 0), every
+    1013th +65504 and every 2027th -65504 (its largest finite values: sums
+    of two overflow to ±inf on the write)."""
+    v = x.view(-1)
+    v[::997] *= 1e-5
+    v[5::1009] = 3e-8
+    v[7::1013] = 65504.0
+    v[11::2027] = -65504.0
+    return x
+
+
+def sqnorm_blocks_half(torch, dev):
+    """22a: kernel 5 (``sqnorm_blocks``, on no path) at bfloat16 and
+    float16 at phase 4's shape (W = 2, full width): bitwise the float32
+    kernel on the widened operand, the partials within SUM_RTOL of the plain
+    version; → its rows of the kernels line."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.lag_trainer import param_layout
+    from repro_torch.fastpath import kernels, kernels_ref
+
+    R = param_layout(get_config("llama3.2-1b")).rows
+    W, step = 2, 1 << 19
+    N, S = W * R * 128, W * R // 8
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(225)
+    rows = {}
+    for dt, sfx in ((torch.bfloat16, "_bf16"), (torch.float16, "_f16")):
+        x = torch.randn((W, R, 128), device=dev, generator=gen)
+        a = (f16_edges(x) if dt == torch.float16 else x).to(dt)
+        del x
+        got = kernels.sqnorm_blocks(a)
+        err = 0.0
+        for r0 in range(0, R, step):
+            r1 = min(r0 + step, R)
+            sr = slice(r0 // 8, r1 // 8)
+            check(bitwise(torch, got[:, sr], kernels.sqnorm_blocks(
+                a[:, r0:r1].float().contiguous())),
+                f"sqnorm_blocks{sfx}: not the float32 kernel's")
+            want = kernels_ref.sqnorm_blocks(a[:, r0:r1])
+            torch.testing.assert_close(got[:, sr], want, rtol=SUM_RTOL,
+                                       atol=0)
+            err = max(err, max_abs(got[:, sr], want))
+        t_b, by = bound_ms(N * 2 + S * 4, 2 * N)
+        flat = a.view(-1)
+        r = rows["sqnorm_blocks" + sfx] = dict(
+            max_abs_err=err, ms=cuda_ms(torch, lambda: kernels.sqnorm_blocks(
+                a)),
+            plain_ms=cuda_ms(torch, lambda: [kernels_ref.sqnorm_blocks(
+                a[:, r0:r0 + step]) for r0 in range(0, R, step)], n=2),
+            bound_ms=t_b, bound_by=by,
+            library_ms=cuda_ms(torch, lambda: torch.linalg.vector_norm(
+                flat)))
+        print(f"  22a sqnorm_blocks{sfx}: max_abs_err {err:.3e} | "
+              f"{r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, bound "
+              f"{t_b:.3f} ms by {by}, library {r['library_ms']:.3f} ms) | "
+              f"bound / kernel {t_b / r['ms']:.1%}")
+        del a, got, flat
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def rms_rows_kernel_phase(torch, dev, gen, bad):
+    """22a: the rows kernel (what the TMA stream does not take) at
+    RMS_ROWS_WIDTHS in all three dtypes, rows 1, 7 and 1000, and 9
+    contiguous rows one element off an aligned base: float32 within MODEL_TOL of the plain version, a 2-byte
+    dtype as ``bf16_rms_case`` holds it; every launch counted on the rows
+    kernel's instantiation, and by vector or by element as the rule says
+    (``rms.rows_counts``); then (8192, d) timed at RMS_ROWS_TIMED.  → its
+    rows of the kernels line (at d RMS_ROWS_TIMED[0])."""
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.kernels.rmsnorm import rmsnorm as rms
+
+    F = torch.nn.functional
+    names = {dt: name for dt, (name, _) in rms.ROWS_ENTRIES.items()}
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        worst = 0.0
+        for d in RMS_ROWS_WIDTHS:
+            for r in (1, 7, 1000, "off"):
+                n = 9 if r == "off" else r
+                # "off": contiguous rows one element (2 or 4 bytes) past an
+                # aligned base, and the scale likewise
+                off = int(r == "off")
+                x = torch.randn((n * d + off,), device=dev,
+                                generator=gen).to(dt)[off:].view(n, d)
+                sc = torch.randn((d + off,), device=dev,
+                                 generator=gen).to(dt)[off:]
+                if off and rms.stream_takes(x, sc):
+                    bad.append(f"rmsnorm {dt} ({n}, {d}) off: the stream "
+                               f"kernel's rule takes it")
+                before = rms.LAUNCHES[names[dt]]
+                loads = rms.rows_counts()[dt]
+                if dt == torch.float32:
+                    got = rms.rmsnorm_2d(x, sc)
+                    e = max_abs(got, rms_ref.rmsnorm(x, sc))
+                    if not e <= MODEL_TOL * max(1.0, float(got.abs().max())):
+                        bad.append(f"rmsnorm rows f32 ({n}, {d}) {r}: {e}")
+                else:
+                    _, e, b = bf16_rms_case(torch, x, sc)
+                    bad += [f"rmsnorm rows {dt} ({n}, {d}) {r}: {m}"
+                            for m in b]
+                worst = max(worst, e)
+                # the 2-byte case launches the float32 rows kernel too
+                if rms.LAUNCHES[names[dt]] == before:
+                    bad.append(f"rmsnorm {dt} ({n}, {d}) {r}: not the rows "
+                               f"kernel")
+                # one launch at dt, by element where unaligned or d % 4
+                vec = not off and d % 4 == 0
+                now = rms.rows_counts()[dt]
+                if now[vec] != loads[vec] + 1 or now[not vec] != loads[
+                        not vec]:
+                    bad.append(f"rmsnorm {dt} ({n}, {d}) {r}: rows kernel "
+                               f"loads {loads} -> {now}, want one "
+                               f"{'by vector' if vec else 'by element'}")
+        print(f"  22a rmsnorm rows kernel {dt}: d {RMS_ROWS_WIDTHS}, rows 1,"
+              f" 7, 1000 and contiguous rows one element off an aligned "
+              f"base (loads by element), max |Δ| {worst:.3e} "
+              f"against the {'plain' if dt == torch.float32 else 'widened plain'}"
+              f" version")
+        for d in RMS_ROWS_TIMED:
+            R = RMS_FULL[0]
+            x = torch.randn((R, d), device=dev, generator=gen).to(dt)
+            sc = torch.randn((d,), device=dev, generator=gen).to(dt)
+            size = x.element_size()
+            t_b, by = bound_ms(2 * R * d * size + d * size, 4 * R * d)
+            r_ = dict(
+                max_abs_err=worst,
+                ms=cuda_ms(torch, lambda: rms.rmsnorm_2d(x, sc), n=20),
+                plain_ms=cuda_ms(torch, lambda: rms_ref.rmsnorm(x, sc), n=5),
+                bound_ms=t_b, bound_by=by,
+                library_ms=cuda_ms(torch, lambda: F.rms_norm(x, (d,), sc,
+                                                            1e-6), n=20))
+            print(f"  22a rmsnorm rows {dt} ({R}, {d}): {r_['ms']:.4f} ms "
+                  f"(plain {r_['plain_ms']:.4f}, bound {t_b:.4f} ms by {by}"
+                  f" = {t_b / r_['ms']:.1%}, F.rms_norm "
+                  f"{r_['library_ms']:.4f} ms)")
+            if d == RMS_ROWS_TIMED[0]:
+                rows[names[dt]] = r_
+            del x, sc
+    return rows
+
+
+def flash_wide_case(torch, q, k, v, causal, window, bad, what):
+    """A wide-kernel launch (head_dim above 256) against the plain version:
+    float32 within MODEL_TOL, a 2-byte dtype as ``bf16_flash_case``.  →
+    max |Δ|."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    if q.dtype != torch.float32:
+        e, b = bf16_flash_case(torch, q, k, v, causal, window)
+        bad += [f"{what}: {m}" for m in b]
+        return e
+    got = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    want = fa_ref.attention(q, k, v, causal=causal, window=window)
+    S, Skv = q.shape[1], k.shape[1]
+    if S > Skv and window is not None:
+        live = torch.arange(S, device=q.device) - window + 1 < Skv
+        got, want = got[:, live], want[:, live]
+    e = max_abs(got, want)
+    if not (bool(torch.isfinite(got).all()) and e <= MODEL_TOL):
+        bad.append(f"{what}: {e:.3e}")
+    return e
+
+
+def flash_f16_and_wide_phase(torch, dev, gen, bad):
+    """22a: the float16 flash kernel on the ragged set at head_dim 64 and
+    256, phase 18a's eight shapes and the dominant-key row (one key per row
+    ahead by 18, the rest's weights about 1.5e-8: the float16 P split's
+    trouble), each within one float16 ulp (+ 1e-6) of the widened plain
+    version rounded; the wide kernel (head_dim above 256) on a ragged set
+    and at ATTN_WIDE_HD in all three dtypes.  → the kernels line's rows of
+    ``flash_attention_f16`` (at ATTN_FULL) and the wide kernel's (at
+    ATTN_WIDE_HD[0])."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    F = torch.nn.functional
+    h16 = torch.float16
+    rows = {}
+
+    def randn(dt, *shape):
+        return torch.randn(shape, device=dev, generator=gen).to(dt)
+
+    for hd, H, KV in ((64, 32, 8), (256, 16, 1)):
+        cases = [(S, S, c, w) for S in FLASH_S for c, w in FLASH_MASKS]
+        cases += FLASH_CROSS
+        worst = 0.0
+        for S, Skv, causal, window in cases:
+            e, b = bf16_flash_case(torch, randn(h16, 1, S, H, hd),
+                                   randn(h16, 1, Skv, KV, hd),
+                                   randn(h16, 1, Skv, KV, hd), causal, window)
+            worst = max(worst, e)
+            bad += [f"flash f16 hd {hd} Sq {S} Skv {Skv} causal {causal} "
+                    f"window {window}: {m}" for m in b]
+        print(f"  22a flash_attention f16 hd {hd} H {H}/{KV}: {len(cases)} "
+              f"ragged cases, max |Δ| {worst:.3e} against the widened plain "
+              f"version rounded")
+    # the dominant-key rows: key 0 ahead of the others by 18 in every row,
+    # their weights about e^-18 = 1.5e-8 (below float16's 2^-24), v 0 at
+    # key 0: the output is theirs alone
+    S, hd = 2048, 64
+    q = torch.zeros((1, S, 2, hd), device=dev)
+    q[..., 0] = 6.0
+    k = randn(torch.float32, 1, S, 1, hd) * 0.01
+    k[:, 0, :, 0] = 24.0              # 6 · 24 · 64^-0.5 = 18
+    v = torch.rand((1, S, 1, hd), device=dev, generator=gen)
+    v[:, 0] = 0.0
+    e, b = bf16_flash_case(torch, q.to(h16), k.to(h16), v.to(h16), True,
+                           None)
+    bad += [f"flash f16 dominant-key row: {m}" for m in b]
+    print(f"  22a flash_attention f16 dominant-key rows (S {S}): max |Δ| "
+          f"{e:.3e} against the widened plain version rounded")
+    for B, S, H, KV, hd, causal, window in ATTN_BF16:
+        q, k, v = (randn(h16, B, S, H, hd), randn(h16, B, S, KV, hd),
+                   randn(h16, B, S, KV, hd))
+        e, b = bf16_flash_case(torch, q, k, v, causal, window)
+        bad += [f"flash f16 full {(B, S, H, KV, hd)}: {m}" for m in b]
+        ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(
+            q, k, v, causal=causal, window=window), n=5)
+        line = (f"  22a flash_attention f16 ({B}, {S}, {H}/{KV}, {hd}) "
+                f"{'causal' if causal else 'non-causal'}"
+                + (f" window {window}" if window else "")
+                + f": max |Δ| {e:.3e} | {ms:.4f} ms")
+        if (B, S, H, KV, hd) == ATTN_FULL:
+            pos = torch.arange(S, device=dev)
+            pairs = B * H * int((pos[:, None] >= pos[None]).sum())
+            flop = 4 * hd * pairs
+            nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+            t_b, by = bound_ms(nbytes, flop, BF16_FLOP_PER_S)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            r = rows["flash_attention_f16"] = dict(
+                max_abs_err=e, ms=ms,
+                plain_ms=cuda_ms(torch, lambda: fa_ref.attention(
+                    q, k, v, causal=causal), n=3),
+                bound_ms=t_b, bound_by=by,
+                library_ms=cuda_ms(torch, lambda: F.
+                                   scaled_dot_product_attention(
+                                       qt, kt, vt, is_causal=causal,
+                                       enable_gqa=True), n=10))
+            line += (f" (plain {r['plain_ms']:.4f} ms, bound {t_b:.4f} ms by"
+                     f" {by} = {t_b / ms:.1%}, the design's 1 + 2 float16 "
+                     f"products {1.5 * t_b:.4f} ms, library "
+                     f"{r['library_ms']:.4f} ms, kernel / library "
+                     f"{ms / r['library_ms']:.3f})")
+            del qt, kt, vt
+        print(line)
+        del q, k, v
+    # the wide kernel: ragged, then the timed shapes, in all three dtypes
+    for dt in (torch.float32, torch.bfloat16, h16):
+        worst = 0.0
+        for hd in (320, 512):
+            for S, Skv, causal, window in ((1, 1, True, None),
+                                           (65, 65, True, 16),
+                                           (129, 129, True, None),
+                                           (129, 1000, False, None),
+                                           (1000, 129, True, 64),
+                                           (200, 200, False, None)):
+                worst = max(worst, flash_wide_case(
+                    torch, randn(dt, 1, S, 4, hd), randn(dt, 1, Skv, 2, hd),
+                    randn(dt, 1, Skv, 2, hd), causal, window, bad,
+                    f"flash wide {dt} hd {hd} Sq {S} Skv {Skv} causal "
+                    f"{causal} window {window}"))
+        for B, S, H, KV, hd, causal, window in ATTN_WIDE_HD:
+            q, k, v = (randn(dt, B, S, H, hd), randn(dt, B, S, KV, hd),
+                       randn(dt, B, S, KV, hd))
+            e = flash_wide_case(torch, q, k, v, causal, window, bad,
+                                f"flash wide {dt} {(B, S, H, KV, hd)}")
+            worst = max(worst, e)
+            flop = 4 * B * H * hd * (S * (S + 1) // 2)
+            size = q.element_size()
+            nbytes = size * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+            rate = F32_FLOP_PER_S if dt == torch.float32 else BF16_FLOP_PER_S
+            t_b, by = bound_ms(nbytes, flop, rate)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            try:
+                lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True), n=3)
+            except RuntimeError:
+                lib = None
+            r = dict(max_abs_err=e, ms=cuda_ms(
+                torch, lambda: fa.flash_attention_fwd(q, k, v,
+                                                      causal=causal), n=3),
+                plain_ms=cuda_ms(torch, lambda: fa_ref.attention(
+                    q, k, v, causal=causal), n=2),
+                bound_ms=t_b, bound_by=by, library_ms=lib)
+            print(f"  22a flash_attention wide {dt} ({B}, {S}, {H}/{KV}, "
+                  f"{hd}) causal: max |Δ| {e:.3e} | {r['ms']:.3f} ms (plain "
+                  f"{r['plain_ms']:.3f} ms, bound {t_b:.4f} ms by {by} = "
+                  f"{t_b / r['ms']:.2%}, library {lib})")
+            if hd == ATTN_WIDE_HD[0][4]:
+                rows[fa.WIDE_ENTRIES[dt][0]] = r
+            del q, k, v, qt, kt, vt
+        print(f"  22a flash_attention wide {dt}: ragged and full cases at hd "
+              f"320 and 512, max |Δ| {worst:.3e}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def f16_kernel_phase(torch, dev):
+    """22a: every float16 instantiation of kernels 1-12 against its plain
+    version, kernel 5 at bfloat16 too, the rows RMSNorm kernel and the wide
+    flash kernel in all three dtypes; → the kernels line's rows of them."""
+    rows = dict(bf16_plane_kernel_phase(torch, dev, torch.float16,
+                                        F16_COMBOS, "22a"))
+    rows.update(sqnorm_blocks_half(torch, dev))
+    rows.update(legacy_bf16_kernel_phase(torch, dev, torch.float16,
+                                         F16_COMBOS, "22a"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    bad = []
+    for d in BF16_RMS_WIDTHS:
+        worst = 0.0
+        for r in (1, 7, 129, 1000):
+            x = torch.randn((r, d), device=dev, generator=gen)
+            _, e, b = bf16_rms_case(torch, f16_edges(x).half(), torch.randn(
+                (d,), device=dev, generator=gen).half())
+            worst = max(worst, e)
+            bad += [f"rmsnorm f16 ({r}, {d}): {m}" for m in b]
+        print(f"  22a rmsnorm f16 d {d}: rows 1, 7, 129, 1000, max |Δ| "
+              f"{worst:.3e} against the widened plain version")
+    rows["rmsnorm_f16"] = rms_timing(torch, dev, gen, bad, (RMS_FULL[1],),
+                                     torch.float16)[RMS_FULL[1]]
+    rows.update(rms_rows_kernel_phase(torch, dev, gen, bad))
+    rows.update(flash_f16_and_wide_phase(torch, dev, gen, bad))
+    check(not bad, f"22a: {bad[:10]} ({len(bad)} failures)")
+    return rows
+
+
+def f16_serve(torch, dev):
+    """22b: llama3.2-1b float16 through ``launch.serve`` with
+    ``use_pallas=True`` (batch 4, prompt 2048, 32 greedy tokens), its
+    weights the float32 model's rounded to float16: the kernel route
+    against the plain route and each against the float32 logits, as 18b;
+    33 RMSNorm and 16 flash launches a prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    cfg32 = get_config("llama3.2-1b")
+    cfg = cfg32.replace(**F16)
+    args = serve.build_argparser().parse_args(SERVE_ARGS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    p32 = model.init(cfg32, device=dev, seed=args.seed)
+    prompts = torch.from_numpy(serve.make_prompts(
+        cfg.vocab_size, args.batch, args.prompt_len, args.seed + 1)).to(dev)
+    with torch.inference_mode():
+        f32_logits = model.prefill(p32, cfg32, {"tokens": prompts},
+                                   max_len=args.prompt_len + args.gen)[0]
+    params = as_bf16(torch, p32, cfg)
+    del p32
+    got, _ = serve_phase(torch, dev, SERVE_ARGS, cfg=cfg, params=params,
+                         f32_logits=f32_logits.float())
+    want = {k + "_f16": v for k, v in prefill_launches(cfg).items()}
+    check(got == {k: 2 * v for k, v in want.items()},
+          f"22b launches {got}, want {want} a prefill")
+    print(f"  22b launches a prefill: { {k: v // 2 for k, v in got.items()} }")
+    return got
+
+
+def f16_training_phase(torch):
+    """22c: F16_TRAIN's runs, each route of a label against its first
+    (the plane) with equal masks and |Δ loss| within BF16_ROUTE_FACTOR ×
+    F16_ROUTE_LOSS_READINGS; exact launches a round; each peak within
+    PEAK_RATIO_BAND of the dry-run's reckoning; pods:2 and fleet:2@2
+    against the shards run bit for bit; → the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.lag_trainer import TrainerConfig
+
+    total, base = {}, {}
+    lo, hi = PEAK_RATIO_BAND
+    for arch, ckw, tkw, route, want in F16_TRAIN:
+        cfg = get_config(arch, **ckw)
+        tcfg = TrainerConfig(num_workers=2, lr=0.3, **tkw)
+        label = (f"22c {arch} {'float16' if ckw else 'float32'} "
+                 + " ".join(f"{k}={v}" if k != "algo" else v
+                            for k, v in tkw.items()))
+        if route.startswith(("pods", "fleet")):
+            units = int(route.split("@")[1]) if "@" in route else 2
+            run = topology_run(torch, cfg, tcfg.replace(num_workers=units),
+                               route)
+        else:
+            run = mixed_route_run(torch, cfg, tcfg, route, 4, 2)
+        print(run_line(f"{label} {route}", run))
+        got = {k: v / 4 for k, v in run["launches"].items() if v}
+        check(got == want, f"{label} {route}: launched {got} a round, want "
+                           f"{want}")
+        check(run["peak"] < 80.0, f"{label}: peak {run['peak']:.2f} GB")
+        for k, v in run["launches"].items():
+            total[k] = total.get(k, 0) + v
+        losses = [r["loss"] for r in run["rounds"]]
+        masks = [r["mask"] for r in run["rounds"]]
+        if route in ("plane", "legacy", "plain"):
+            reckoned = reckoned_peak_gb(cfg, tcfg, route)
+            ratio = run["peak"] / reckoned
+            print(f"  {label} {route}: reckoned {reckoned:.2f} GB, measured "
+                  f"{run['peak']:.2f} GB, ratio {ratio:.4f} (band {lo}-{hi})"
+                  f" | launches a round {got}")
+            check(lo <= ratio <= hi, f"{label} {route}: peak ratio {ratio}")
+        if label not in base:
+            base[label] = (losses, masks)
+            continue
+        bl, bm = base[label]
+        check(masks == bm, f"{label} {route}: masks differ from the plane's")
+        dl = max(abs(a - b) for a, b in zip(losses, bl))
+        key = f"{label[4:]} {route}"
+        if route.startswith(("pods", "fleet")):
+            check(dl == 0.0, f"{label} {route}: losses differ from shards")
+            print(f"  {label} {route}: masks and losses bitwise the shards "
+                  f"run")
+            continue
+        bound = BF16_ROUTE_FACTOR * F16_ROUTE_LOSS_READINGS[key]
+        print(f"  {label} {route} vs plane: max |Δ loss| {dl:.3e} (bound "
+              f"{bound:.3e}), masks equal")
+        check(dl <= bound, f"{key}: |Δ loss| {dl}")
+    return total
+
+
+def phase22(torch, dev, full, launches):
+    """Phase 22: 22a's kernel rows into ``full``, 22b's and 22c's launches
+    into ``launches``; every float16 instantiation on a path launched."""
+    t22 = time.perf_counter()
+    full.update(f16_kernel_phase(torch, dev))
+    p22 = f16_serve(torch, dev)
+    for k, v in f16_training_phase(torch).items():
+        p22[k] = p22.get(k, 0) + v
+    for k, v in p22.items():
+        launches[k] = launches.get(k, 0) + v
+    for k in PLANE_F16 + LEGACY_F16 + ("rmsnorm_f16", "flash_attention_f16"):
+        if k in OFF_PATH:
+            print(f"  {k}: {launches.get(k, 0)} launches, exempt: "
+                  f"{OFF_PATH[k]}")
+            continue
+        check(p22.get(k, 0) > 0, f"phase 22: {k} never launched")
+    for k in RMS_ROWS + FLASH_WIDE:
+        print(f"  {k}: {launches.get(k, 0)} launches, exempt: "
+              f"{OFF_PATH[k]}")
+    print(f"  phase 22 launches: { {k: v for k, v in p22.items() if v} } "
+          f"in {time.perf_counter() - t22:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4672,6 +5383,10 @@ def main():
     from repro_torch.kernels.rmsnorm import rmsnorm as rms
 
     t_start = time.perf_counter()
+
+    def say(*a, **kw):
+        """A phase's header, after the seconds since the start."""
+        print(f"({time.perf_counter() - t_start:.0f} s)", *a, **kw)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4684,7 +5399,7 @@ def main():
 
     t0 = time.perf_counter()
     libs = [kernels.LIBRARY, rms.LIBRARY, fa.LIBRARY, fa.LIBRARY_BF16,
-            lt.LIBRARY]
+            fa.LIBRARY_F16, fa.LIBRARY_WIDE, lt.LIBRARY]
     build.build(libs)                  # one nvcc per source, all at once
     for lib in libs:
         build.load(lib)
@@ -4697,7 +5412,7 @@ def main():
         for line in log.get("ptxas", "").splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"    {line.strip()}")
-            elif lib in (fa.LIBRARY_BF16, rms.LIBRARY) and \
+            elif lib in (fa.LIBRARY_BF16, fa.LIBRARY_F16, rms.LIBRARY) and \
                     "entry function" in line:
                 print(f"    {line.strip()[:140]}")
     flash_log = build.BUILD_LOG.get(fa.LIBRARY.name, {}).get("ptxas", "")
@@ -4715,19 +5430,23 @@ def main():
     check(not spills or len(spills) == len(fa.HEAD_DIMS),
           f"want one ptxas report per float32 flash instantiation "
           f"{fa.HEAD_DIMS}: {spills}")
-    sass = sass_of(fa.LIBRARY_BF16.path())
-    hgmma = sass.count("HGMMA")
-    print(f"  {fa.LIBRARY_BF16.source.name}: {hgmma} HGMMA (wgmma) and "
-          f"{sass.count('HMMA')} HMMA (mma.sync) instructions in its SASS")
-    check(hgmma > 0, "the bfloat16 flash kernel has no wgmma")
+    for lib in (fa.LIBRARY_BF16, fa.LIBRARY_F16):
+        sass = sass_of(lib.path())
+        hgmma = sass.count("HGMMA")
+        print(f"  {lib.name} ({lib.source.name}): {hgmma} HGMMA (wgmma) and "
+              f"{sass.count('HMMA')} HMMA (mma.sync) instructions in its "
+              f"SASS")
+        check(hgmma > 0, f"the {lib.name} kernel has no wgmma")
+    # 12c's data and 13d's CPU run, made beside phases 3-13
+    gisette, fleet = cpu_child(GISETTE_CHILD), cpu_child(FLEET_CHILD)
 
-    print("[3] kernels vs plain versions, ragged layouts", flush=True)
+    say("[3] kernels vs plain versions, ragged layouts", flush=True)
     ragged_phase(torch, dev)
-    print("[4] kernels vs plain versions at the main path's shapes",
+    say("[4] kernels vs plain versions at the main path's shapes",
           flush=True)
     full = full_shape_phase(torch, dev)
 
-    print("[5] main path: llama3.2-1b full width, W=2, batch 4, seq 256",
+    say("[5] main path: llama3.2-1b full width, W=2, batch 4, seq 256",
           flush=True)
     # the kernels each policy's fast route must launch every round
     want = {"lag-wk": ("delta_sqnorm_blocks", "masked_combine"),
@@ -4749,13 +5468,13 @@ def main():
             continue
         check(launches[k] > 0, f"kernel {k} never launched on the main path")
 
-    print("[6] GPU vs CPU on the reduced model", flush=True)
+    say("[6] GPU vs CPU on the reduced model", flush=True)
     small_agreement_phase(torch, dev)
 
-    print("[7] model kernels vs plain versions, ragged and full shapes",
+    say("[7] model kernels vs plain versions, ragged and full shapes",
           flush=True)
     full.update(model_kernel_phase(torch, dev))
-    print("[8] serving path: llama3.2-1b full width, batch 4, prompt 2048, "
+    say("[8] serving path: llama3.2-1b full width, batch 4, prompt 2048, "
           "32 tokens", flush=True)
     serve_launches, _ = serve_phase(torch, dev)
     launches.update(serve_launches)
@@ -4763,29 +5482,29 @@ def main():
         check(launches[k] > 0, f"kernel {k} never launched on the serving "
                                f"path")
 
-    print("[9] legacy per-leaf kernels vs plain versions, ragged and full "
+    say("[9] legacy per-leaf kernels vs plain versions, ragged and full "
           "shapes", flush=True)
     full.update(legacy_kernel_phase(torch, dev))
-    print("[10] legacy per-leaf route (use_pallas_comm=True): llama3.2-1b "
+    say("[10] legacy per-leaf route (use_pallas_comm=True): llama3.2-1b "
           "full width, W=2, batch 4, seq 256", flush=True)
     legacy_launches = legacy_route_phase(torch, phase5)
     launches.update(legacy_launches)
     for k, v in legacy_launches.items():
-        if k in LEGACY_BF16:           # the bfloat16 ones: phase 20
+        if k in LEGACY_BF16 + LEGACY_F16:     # 2-byte: phases 20, 22
             continue
         if k in OFF_PATH:
             print(f"  {k}: {v} launches, exempt: {OFF_PATH[k]}")
             continue
         check(v > 0, f"kernel {k} never launched on the legacy route")
 
-    print("[11] lasg-wk, the schedules and the server steps: llama3.2-1b "
+    say("[11] lasg-wk, the schedules and the server steps: llama3.2-1b "
           "full width, W=2, batch 4, seq 256", flush=True)
     p11_plane, p11_legacy = policies_phase(torch)
     for k, v in {**p11_plane, **p11_legacy}.items():
         launches[k] += v
     print(f"  phase 11 launches: plane {p11_plane} | legacy {p11_legacy}")
 
-    print("[12] the convex simulation: Fig. 3 float64 (a), the float32 "
+    say("[12] the convex simulation: Fig. 3 float64 (a), the float32 "
           "plane (b), Gisette d=4837 (c), netsim pricing (d)", flush=True)
     convex_fig3_float64(torch, dev)
     convex_plane_kernels(torch, dev)
@@ -4793,23 +5512,24 @@ def main():
     for k, v in p12.items():
         launches[k] += v
     print(f"  phase 12b launches: {p12}")
-    convex_gisette(torch, dev)
+    convex_gisette(torch, dev, gisette)
     convex_cluster(torch, dev)
 
-    print("[13] the deep topologies (a async, b pods), the fleet (c deep, d "
+    say("[13] the deep topologies (a async, b pods), the fleet (c deep, d "
           "convex), the deep front door (e): llama3.2-1b full width, W=2, "
           "batch 4, seq 256", flush=True)
     p13 = phase13_deep(torch, phase5)
     small_topologies(torch, dev)
     convex_fleet_kernels(torch, dev)
-    for part in (convex_fleet(torch, dev), experiment_cluster(torch)):
+    for part in (convex_fleet(torch, dev, fleet),
+                 experiment_cluster(torch)):
         for k, v in part.items():
             p13[k] = p13.get(k, 0) + v
     for k, v in p13.items():
         launches[k] += v
     print(f"  phase 13 launches: { {k: v for k, v in p13.items() if v} }")
 
-    print("[14] the gossip graph (a graph:2@ring full width, b "
+    say("[14] the gossip graph (a graph:2@ring full width, b "
           "Experiment(model=) graph:4@ring, c convex), resume (d)",
           flush=True)
     p14 = graph_full_width(torch)
@@ -4821,7 +5541,7 @@ def main():
         launches[k] += v
     print(f"  phase 14 launches: { {k: v for k, v in p14.items() if v} }")
 
-    print("[15] the dense block kind: a the kernels at the new shapes, b "
+    say("[15] the dense block kind: a the kernels at the new shapes, b "
           "serving five archs, c hubert-xlarge's forward, d training hubert "
           "and qwen2-vl, e the six reduced archs card = CPU", flush=True)
     t15 = time.perf_counter()
@@ -4837,7 +5557,7 @@ def main():
     print(f"  phase 15 launches: { {k: v for k, v in p15.items() if v} } "
           f"in {time.perf_counter() - t15:.1f} s")
 
-    print("[16] the recurrent and state-space kinds: a flash at head_dim "
+    say("[16] the recurrent and state-space kinds: a flash at head_dim "
           "256, b serving recurrentgemma-9b and mamba2-370m, c training "
           "them, d the reduced pair card = CPU", flush=True)
     t16 = time.perf_counter()
@@ -4855,7 +5575,7 @@ def main():
     print(f"  phase 16 launches: { {k: v for k, v in p16.items() if v} } "
           f"in {time.perf_counter() - t16:.1f} s")
 
-    print("[17] the moe kind: a flash at GQA 32/4 and 64/4, b serving "
+    say("[17] the moe kind: a flash at GQA 32/4 and 64/4, b serving "
           "qwen3-moe-30b-a3b (24 layers) and qwen3-moe-235b-a22b (5 layers), "
           "c training qwen3-moe-30b-a3b, d the reduced pair card = CPU",
           flush=True)
@@ -4872,7 +5592,7 @@ def main():
     print(f"  phase 17 launches: { {k: v for k, v in p17.items() if v} } "
           f"in {time.perf_counter() - t17:.1f} s")
 
-    print("[18] bfloat16 serving: a both kernels at bfloat16, b serving "
+    say("[18] bfloat16 serving: a both kernels at bfloat16, b serving "
           "llama3.2-1b, command-r-35b (40 layers), qwen3-moe-30b-a3b (48), "
           "qwen3-moe-235b-a22b (reckoned), recurrentgemma-9b, hubert-xlarge's"
           " forward, c remat, d the reduced configs card = CPU", flush=True)
@@ -4890,7 +5610,7 @@ def main():
     print(f"  phase 18 launches: { {k: v for k, v in p18.items() if v} } "
           f"in {time.perf_counter() - t18:.1f} s")
 
-    print("[19] bfloat16 training on the comm plane: a kernels 1-4 at "
+    say("[19] bfloat16 training on the comm plane: a kernels 1-4 at "
           "bfloat16 operands, b llama3.2-1b at bfloat16 and with bfloat16 "
           "ĝ, c command-r-35b at the dry-run's depth, d reckoned vs "
           "measured peaks", flush=True)
@@ -4905,7 +5625,7 @@ def main():
     print(f"  phase 19 launches: { {k: v for k, v in p19.items() if v} } "
           f"in {time.perf_counter() - t19:.1f} s")
 
-    print("[20] bfloat16 training of the mixed trees and the legacy route "
+    say("[20] bfloat16 training of the mixed trees and the legacy route "
           "at bfloat16: a the legacy kernels' bfloat16 instantiations, b "
           "mamba2-370m, qwen3-moe-30b-a3b, recurrentgemma-9b and "
           "qwen3-moe-235b-a22b on the plane, the legacy and the plain route, "
@@ -4930,7 +5650,7 @@ def main():
     print(f"  phase 20 launches: { {k: v for k, v in p20.items() if v} } "
           f"in {time.perf_counter() - t20:.1f} s")
 
-    print("[21] bfloat16 training on the topologies: llama3.2-1b on "
+    say("[21] bfloat16 training on the topologies: llama3.2-1b on "
           "async:2@1, pods:2, fleet:4@2, fleet:2@1, fleet:2@2; mamba2-370m "
           "on pods:2, async:2@1 (checkpointed and resumed), fleet:4@2",
           flush=True)
@@ -4943,8 +5663,15 @@ def main():
     print(f"  phase 21 launches: { {k: v for k, v in p21.items() if v} } "
           f"in {time.perf_counter() - t21:.1f} s")
 
+    say("[22] float16: a kernels 1-12 at float16, the rows RMSNorm kernel "
+          "and the wide flash kernel in all three dtypes, b serving "
+          "llama3.2-1b float16, c training llama3.2-1b and mamba2-370m at "
+          "float16 (plane, legacy, plain; pods:2, fleet:2@2)", flush=True)
+    phase22(torch, dev, full, launches)
+
     rows = [dict(name=k, route="cuda", source=SOURCES.get(k, SOURCE),
-                 replaces=REPLACES[k], launches=launches[k], **full[k])
+                 replaces=REPLACES[k], launches=launches.get(k, 0),
+                 **full[k])
             for k in REPLACES]
     print(json.dumps({"kernels": rows}))
     print(f"chip_smoke: all phases passed in "
@@ -4957,4 +5684,7 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_children()

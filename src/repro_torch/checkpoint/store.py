@@ -16,8 +16,9 @@ A bfloat16 tensor is written in the reference's bytes: numpy has no
 bfloat16, so the entry holds the raw 2-byte words under the header the
 reference's ``ml_dtypes`` array gets (descr ``'<V2'``; numpy reads it back
 as ``|V2``), and the manifest names it ``"bfloat16"``.  A ``Parts`` pair
-(a tree of bfloat16 and float32 leaves) is a node of two leaves, ``.b``
-and ``.f`` in the paths, as JAX names a NamedTuple's fields.
+(a tree of 2-byte and float32 leaves) is a node of two leaves, ``.b``
+and ``.f`` in the paths, as JAX names a NamedTuple's fields.  A float16
+tensor is numpy's own float16 entry, which the reference reads back.
 
 ``restore(dir, like)`` checks the checkpoint's paths and shapes against
 ``like`` and writes each array IN PLACE into ``like``'s tensor, on that

@@ -17,7 +17,8 @@ server step with any ``repro_torch.engine.server`` spec
 (``"prox-l1@1e-4"``, ``"momentum@0.9"``).
 
 Memory at full width: the parameters live in ONE flat ``(rows, 128)``
-buffer ``theta`` (float32, or bfloat16 for a bfloat16 config) whose leaves
+buffer ``theta`` (float32, or the config's dtype for a bfloat16 or
+float16 config) whose leaves
 are views (so the comm plane's θ
 operand and the server step need no copy), and the per-worker mirror state
 (``grad_hat``, LAQ's ``resid``, LAG-PS's and LASG-WK's ``theta_hat``) is
@@ -28,18 +29,19 @@ llama3.2-1b at W = 2 that is θ 4.9 GB + ∇ 4.9 GB + 9.9 GB per stacked
 buffer in float32 (half each in bfloat16), instead of the several W-fold
 copies a flatten/unflatten per call would hold.
 
-bfloat16 (the reference's bfloat16 training): a config whose leaves are
-all bfloat16 keeps θ, ∇, the gradients, ĝ and θ̂ in bfloat16 buffers (LAQ's
-residual stays float32, as the reference's); ``TrainerConfig.
-grad_hat_dtype="bfloat16"`` keeps ĝ alone in bfloat16.  A config that
-mixes bfloat16 and float32 leaves (the MoE router, mamba2's ``A_log``/
+bfloat16 and float16 (the reference's 2-byte training): a config whose
+leaves are all bfloat16 (float16) keeps θ, ∇, the gradients, ĝ and θ̂ in
+bfloat16 (float16) buffers (LAQ's residual stays float32, as the
+reference's); ``TrainerConfig.grad_hat_dtype="bfloat16"`` (or
+``"float16"``) keeps ĝ alone in that dtype.  A config that mixes a 2-byte
+dtype and float32 leaves (the MoE router, mamba2's ``A_log``/
 ``dt_bias``/``D``, RG-LRU's ``b_a``/``b_i``) keeps each of these states as
-a ``fastpath.layout.Parts`` pair, a bfloat16 buffer over its bfloat16
-leaves and a float32 one over its float32 leaves
+a ``fastpath.layout.Parts`` pair, a 2-byte buffer over its 2-byte leaves
+and a float32 one over its float32 leaves
 (``fastpath.layout.MixedLayout``), so every leaf trains at its own dtype,
 as in the reference; the plane launches each kernel once per part.  Both
-comm routes train at bfloat16 on every topology but the gossip graph,
-which refuses it by name (:func:`check_trainable`).
+comm routes train at bfloat16 and float16 on every topology but the gossip
+graph, which refuses it by name (:func:`check_trainable`).
 """
 from __future__ import annotations
 
@@ -61,7 +63,7 @@ from repro_torch.models import model
 from repro_torch.models.common import ModelConfig
 
 ALGOS = ("gd", "lag-wk", "lag-ps", "laq", "lasg-wk", "adam", "lag-adam")
-GRAD_HAT_DTYPES = (None, "bfloat16")
+GRAD_HAT_DTYPES = (None, "bfloat16", "float16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,9 +81,9 @@ class TrainerConfig:
     ``use_pallas_comm`` selects the legacy per-leaf route instead of the
     plane: the per-leaf kernels' ``fused_tree_sqnorm`` as the triggers'
     norm and LAQ's per-leaf kernel encode; combined with ``fastpath="on"``
-    it raises.  ``grad_hat_dtype`` (None or "bfloat16", the reference's field) is
-    the dtype of the ĝ mirrors, the parameters' dtype when None:
-    "bfloat16" halves their bytes on a float32 model."""
+    it raises.  ``grad_hat_dtype`` (None, "bfloat16" or "float16", the
+    reference's field) is the dtype of the ĝ mirrors, the parameters' dtype
+    when None: a 2-byte dtype halves their bytes on a float32 model."""
     algo: str = "lag-wk"
     num_workers: int = 4
     lr: float = 0.05
@@ -152,24 +154,30 @@ def param_layout(cfg: ModelConfig) -> Layout:
 
 def check_trainable(cfg: ModelConfig, tcfg: Optional[TrainerConfig] = None,
                     topology=None) -> None:
-    """Refuse, by name, the one bfloat16 training the port does not run:
-    the gossip graph at bfloat16 (some of the parameters' leaves, or
-    ``grad_hat_dtype``).  The reference's deep graph step does not trace a
-    bfloat16 tree (its mixing weights are float32,
-    ``src/repro/graph/rounds.py:299``: the scan carry changes dtype), so
-    it defines no bfloat16 graph arithmetic to hold a port to.  Every other
-    topology, both comm routes and mixed trees train at bfloat16."""
+    """Refuse, by name, the 2-byte training the port does not run: the
+    gossip graph on a bfloat16 or float16 tree (some of the parameters'
+    leaves) or with a 2-byte ``grad_hat_dtype`` ("bfloat16" or "float16"
+    alike).  The reference's deep graph step does not train a 2-byte tree:
+    its float32 mixing weights promote the parameters to float32 in round 0
+    and change the scan carry's dtype in round 1
+    (``src/repro/graph/rounds.py:299``), so it defines no 2-byte graph
+    arithmetic to hold a port to; and its edge mirrors stay float32
+    whatever ``grad_hat_dtype`` says, so a 2-byte ĝ is a setting its graph
+    does not honour, which the port refuses rather than ignore.  Every
+    other topology, both comm routes and mixed trees train at bfloat16 and
+    float16."""
     from repro_torch.graph.topology import GraphTopology
     if not isinstance(topology, GraphTopology):
         return
-    if torch.bfloat16 in param_layout(cfg).dtypes or (
-            tcfg is not None and tcfg.grad_hat_dtype == "bfloat16"):
+    if set(param_layout(cfg).dtypes) & {torch.bfloat16, torch.float16} or (
+            tcfg is not None and tcfg.grad_hat_dtype is not None):
         raise NotImplementedError(
-            "the graph topology at bfloat16 is not ported: the reference's "
-            "deep graph step does not trace a bfloat16 tree (its float32 "
-            "mixing weights change the scan carry's dtype, "
-            "src/repro/graph/rounds.py:299), so it defines no bfloat16 "
-            "graph round to hold the port to")
+            "the graph topology at bfloat16 or float16 (parameters or "
+            "grad_hat_dtype) is not ported: the reference's deep graph "
+            "step does not train a 2-byte tree, nor honour grad_hat_dtype (its "
+            "float32 mixing weights promote it in round 0 and change the "
+            "scan carry's dtype in round 1, src/repro/graph/rounds.py:299), "
+            "so it defines no 2-byte graph round to hold the port to")
 
 
 # ---------------------------------------------------------------------------

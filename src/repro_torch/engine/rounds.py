@@ -202,9 +202,9 @@ def _worker_sum(delta: torch.Tensor) -> torch.Tensor:
 
 def sum_reduce(comm: torch.Tensor, delta):
     """Σ over the worker dim, in worker order (per part of a pair).  A
-    bfloat16 delta of more than two workers is summed in float32 and
-    rounded once, as XLA reduces a bfloat16 array (two workers' sum is one
-    rounding either way, so it takes no float32 buffer)."""
+    bfloat16 or float16 delta of more than two workers is summed in float32
+    and rounded once, as XLA reduces a 2-byte array (two workers' sum is
+    one rounding either way, so it takes no float32 buffer)."""
     return tree_map(_worker_sum, delta)
 
 

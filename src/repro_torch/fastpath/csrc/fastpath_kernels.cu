@@ -10,13 +10,13 @@
 //   lag_masked_combine    <- masked_combine      (_masked_kernel)
 //
 // Operands are the (W, R, 128) flat buffers of
-// repro_torch/fastpath/layout.py, float32 or (for a bfloat16 model, or
-// bfloat16 grad_hat mirrors) bfloat16; a "sub-block" is 8 x 128 = 1024
-// contiguous elements and never straddles two leaves.  Every kernel is one
-// streaming sweep over device memory with a few flops per element, so all
-// five are bound by HBM bytes, not by arithmetic: the design is coalesced
-// loads and stores of four elements a thread (16 bytes of float32, 8 of
-// bfloat16), no shared memory, no atomics.
+// repro_torch/fastpath/layout.py, float32 or (for a bfloat16 or float16
+// model, or 2-byte grad_hat mirrors) bfloat16 or float16; a "sub-block" is
+// 8 x 128 = 1024 contiguous elements and never straddles two leaves.  Every
+// kernel is one streaming sweep over device memory with a few flops per
+// element, so all five are bound by HBM bytes, not by arithmetic: the
+// design is coalesced loads and stores of four elements a thread (16 bytes
+// of float32, 8 of a 2-byte type), no shared memory, no atomics.
 //
 //   * Operand dtypes: kernels 1-4 are templated on each operand's type.
 //     An element is read at its own dtype and widened to float32 (exact);
@@ -26,8 +26,16 @@
 //     operands.  An output is written at its destination's dtype with one
 //     round-to-nearest-even (kernel 4's result at b's dtype; kernel 3's
 //     payload and residual stay float32).  The instantiations built are
-//     the ones the comm paths use (the *_bb / *_fb entries below); the
-//     Python wrappers raise for any other combination.
+//     the ones the comm paths use (the *_bb / *_fb entries below for
+//     bfloat16, *_hh / *_fh for float16); the Python wrappers raise for
+//     any other combination.
+//   * float16 is not bfloat16 in two places: its subnormals start at
+//     2^-14 (gradients and mirrors of 1e-5 to 1e-8 live there) and it
+//     overflows at 65504.  Widening a float16 (subnormals included) is
+//     exact; the one rounding on a write is __float22half2_rn, IEEE
+//     round-to-nearest-even into the subnormals and to +-inf past 65504,
+//     as numpy and XLA round.  Nothing is built with -ftz or
+//     --use_fast_math.
 //
 //   * Per-sub-block reductions: ONE WARP PER SUB-BLOCK.  Lane l reads the
 //     four-element groups l, l+32, ..., l+224 of its sub-block (each step
@@ -50,13 +58,14 @@
 //     jnp.round.
 //
 // Strides and vector counts below are in units of four elements (a float4
-// of float32, eight bytes of bfloat16).
+// of float32, eight bytes of bfloat16 or float16).
 //
 // C interface (loaded with ctypes): each entry point launches on the given
 // stream, does not synchronise, allocates nothing, and returns
 // cudaGetLastError() so the caller raises on a refused launch.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -99,6 +108,27 @@ template <> struct Quad<bf16> {
                                                float4 v) {
     const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
     const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    uint2 u;
+    u.x = *reinterpret_cast<const unsigned*>(&lo);
+    u.y = *reinterpret_cast<const unsigned*>(&hi);
+    reinterpret_cast<uint2*>(p)[i] = u;
+  }
+};
+
+template <> struct Quad<__half> {
+  // widening is exact, subnormals included
+  __device__ __forceinline__ static float4 load(const void* p, int64_t i) {
+    const uint2 u = reinterpret_cast<const uint2*>(p)[i];
+    const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+    const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  // one round-to-nearest-even per element, into the subnormals and to
+  // +-inf past 65504 (NaN stays NaN)
+  __device__ __forceinline__ static void store(void* p, int64_t i,
+                                               float4 v) {
+    const __half2 lo = __float22half2_rn(make_float2(v.x, v.y));
+    const __half2 hi = __float22half2_rn(make_float2(v.z, v.w));
     uint2 u;
     u.x = *reinterpret_cast<const unsigned*>(&lo);
     u.y = *reinterpret_cast<const unsigned*>(&hi);
@@ -156,16 +186,17 @@ __global__ void delta_sq_kernel(const void* a, const void* b, float* out,
 }
 
 // per-(worker, sub-block) sum a^2: delta_sq_kernel with one operand
-__global__ void sq_kernel(const float4* a, float* out, int64_t total_subs) {
+template <typename TA>
+__global__ void sq_kernel(const void* a, float* out, int64_t total_subs) {
   const int64_t sub = (int64_t)blockIdx.x * WARPS_PER_BLOCK
                       + threadIdx.x / WARP;
   if (sub >= total_subs) return;
   const int lane = threadIdx.x % WARP;
-  const float4* pa = a + sub * SUB_VEC;
+  const int64_t pa = sub * SUB_VEC;
   float acc = 0.f;
 #pragma unroll
   for (int j = 0; j < VEC_PER_LANE; ++j) {
-    const float4 x = pa[lane + j * WARP];
+    const float4 x = Quad<TA>::load(a, pa + lane + j * WARP);
     acc = __fadd_rn(acc, __fmul_rn(x.x, x.x));
     acc = __fadd_rn(acc, __fmul_rn(x.y, x.y));
     acc = __fadd_rn(acc, __fmul_rn(x.z, x.z));
@@ -298,6 +329,14 @@ int delta_sq(const void* a, const void* b, void* out, int64_t W,
   return (int)cudaGetLastError();
 }
 
+template <typename TA>
+int sq(const void* a, void* out, int64_t total_subs, void* stream) {
+  if (total_subs == 0) return 0;
+  sq_kernel<TA><<<sub_grid(total_subs), THREADS, 0, (cudaStream_t)stream>>>(
+      a, (float*)out, total_subs);
+  return (int)cudaGetLastError();
+}
+
 template <typename TG, typename TQ>
 int absmax(const void* g, const void* q, const void* e, void* out,
            int64_t total_subs, void* stream) {
@@ -346,99 +385,64 @@ int masked_combine(const void* a, const void* b, const void* mask,
 
 }  // namespace
 
+// One operand-type instantiation (suffix SFX; TA, TB the first and
+// second operands' types: none float32, float32; _bb / _hh both bfloat16
+// / float16; _fb / _fh a float32 first operand against a bfloat16 /
+// float16 second; LAQ's residual e float32 in every one).
+//
+// delta_sq: a, b (W, R, 128) (b may be (R, 128): b_ws = 0); strides in
+// four-element units; out (W, R/8) float32.  absmax: g, q (W, R, 128); e
+// float32.  laq_encode: g, q; e, steps, p, r, sq float32.  masked_combine:
+// mode 0 add, 1 update, 2 select; vec_per_w = R*128/4; a_ws = vec_per_w for
+// a stacked candidate, 0 for an unstacked (R, 128) one; a and b (= out).
+#define LAG_PLANE_ENTRIES(SFX, TA, TB)                                       \
+  int lag_delta_sq_blocks##SFX(const void* a, const void* b, void* out,     \
+                               int64_t W, int64_t nsubs, int64_t a_ws,      \
+                               int64_t b_ws, void* stream) {                \
+    return delta_sq<TA, TB>(a, b, out, W, nsubs, a_ws, b_ws, stream);       \
+  }                                                                         \
+  int lag_absmax_blocks##SFX(const void* g, const void* q, const void* e,   \
+                             void* out, int64_t total_subs, void* stream) { \
+    return absmax<TA, TB>(g, q, e, out, total_subs, stream);                \
+  }                                                                         \
+  int lag_laq_encode_blocks##SFX(const void* g, const void* q,              \
+                                 const void* e, const void* steps, void* p, \
+                                 void* r, void* sq, int64_t total_subs,     \
+                                 float qmax, void* stream) {                \
+    return laq_encode<TA, TB>(g, q, e, steps, p, r, sq, total_subs, qmax,   \
+                              stream);                                      \
+  }                                                                         \
+  int lag_masked_combine##SFX(const void* a, const void* b,                 \
+                              const void* mask, void* out, int64_t W,       \
+                              int64_t vec_per_w, int64_t a_ws, int mode,    \
+                              void* stream) {                               \
+    return masked_combine<TA, TB>(a, b, mask, out, W, vec_per_w, a_ws,      \
+                                  mode, stream);                            \
+  }
+
 extern "C" {
 
-// a, b: (W, R, 128) (b may be (R, 128): b_ws = 0); strides are in
-// four-element units; out: (W, R/8) float32.  Suffix: the dtypes of a
-// and b (none: float32, float32; _bb: bfloat16, bfloat16; _fb: float32,
-// bfloat16).
-int lag_delta_sq_blocks(const void* a, const void* b, void* out, int64_t W,
-                        int64_t nsubs, int64_t a_ws, int64_t b_ws,
-                        void* stream) {
-  return delta_sq<float, float>(a, b, out, W, nsubs, a_ws, b_ws, stream);
-}
+LAG_PLANE_ENTRIES(, float, float)
+LAG_PLANE_ENTRIES(_bb, bf16, bf16)
+LAG_PLANE_ENTRIES(_fb, float, bf16)
+LAG_PLANE_ENTRIES(_hh, __half, __half)
+LAG_PLANE_ENTRIES(_fh, float, __half)
 
-int lag_delta_sq_blocks_bb(const void* a, const void* b, void* out,
-                           int64_t W, int64_t nsubs, int64_t a_ws,
-                           int64_t b_ws, void* stream) {
-  return delta_sq<bf16, bf16>(a, b, out, W, nsubs, a_ws, b_ws, stream);
-}
-
-int lag_delta_sq_blocks_fb(const void* a, const void* b, void* out,
-                           int64_t W, int64_t nsubs, int64_t a_ws,
-                           int64_t b_ws, void* stream) {
-  return delta_sq<float, bf16>(a, b, out, W, nsubs, a_ws, b_ws, stream);
-}
-
-// a: (W, R, 128) float32; out: (W, R/8) float32
+// a: (W, R, 128) at the suffix's dtype (none float32, _bf16, _f16); out:
+// (W, R/8) float32
 int lag_sq_blocks(const void* a, void* out, int64_t total_subs,
                   void* stream) {
-  if (total_subs == 0) return 0;
-  sq_kernel<<<sub_grid(total_subs), THREADS, 0, (cudaStream_t)stream>>>(
-      (const float4*)a, (float*)out, total_subs);
-  return (int)cudaGetLastError();
+  return sq<float>(a, out, total_subs, stream);
 }
 
-// g, q: (W, R, 128) at the suffix's dtypes (g, q); e: float32
-int lag_absmax_blocks(const void* g, const void* q, const void* e, void* out,
-                      int64_t total_subs, void* stream) {
-  return absmax<float, float>(g, q, e, out, total_subs, stream);
+int lag_sq_blocks_bf16(const void* a, void* out, int64_t total_subs,
+                       void* stream) {
+  return sq<bf16>(a, out, total_subs, stream);
 }
 
-int lag_absmax_blocks_bb(const void* g, const void* q, const void* e,
-                         void* out, int64_t total_subs, void* stream) {
-  return absmax<bf16, bf16>(g, q, e, out, total_subs, stream);
-}
-
-int lag_absmax_blocks_fb(const void* g, const void* q, const void* e,
-                         void* out, int64_t total_subs, void* stream) {
-  return absmax<float, bf16>(g, q, e, out, total_subs, stream);
-}
-
-// g, q at the suffix's dtypes; e, steps, p, r, sq float32
-int lag_laq_encode_blocks(const void* g, const void* q, const void* e,
-                          const void* steps, void* p, void* r, void* sq,
-                          int64_t total_subs, float qmax, void* stream) {
-  return laq_encode<float, float>(g, q, e, steps, p, r, sq, total_subs,
-                                  qmax, stream);
-}
-
-int lag_laq_encode_blocks_bb(const void* g, const void* q, const void* e,
-                             const void* steps, void* p, void* r, void* sq,
-                             int64_t total_subs, float qmax, void* stream) {
-  return laq_encode<bf16, bf16>(g, q, e, steps, p, r, sq, total_subs, qmax,
-                                stream);
-}
-
-int lag_laq_encode_blocks_fb(const void* g, const void* q, const void* e,
-                             const void* steps, void* p, void* r, void* sq,
-                             int64_t total_subs, float qmax, void* stream) {
-  return laq_encode<float, bf16>(g, q, e, steps, p, r, sq, total_subs,
-                                 qmax, stream);
-}
-
-// mode: 0 add, 1 update, 2 select.  vec_per_w = R*128/4; a_ws = vec_per_w
-// for a stacked candidate, 0 for an unstacked (R, 128) one.  a and b (=
-// out) at the suffix's dtypes.
-int lag_masked_combine(const void* a, const void* b, const void* mask,
-                       void* out, int64_t W, int64_t vec_per_w, int64_t a_ws,
-                       int mode, void* stream) {
-  return masked_combine<float, float>(a, b, mask, out, W, vec_per_w, a_ws,
-                                      mode, stream);
-}
-
-int lag_masked_combine_bb(const void* a, const void* b, const void* mask,
-                          void* out, int64_t W, int64_t vec_per_w,
-                          int64_t a_ws, int mode, void* stream) {
-  return masked_combine<bf16, bf16>(a, b, mask, out, W, vec_per_w, a_ws,
-                                    mode, stream);
-}
-
-int lag_masked_combine_fb(const void* a, const void* b, const void* mask,
-                          void* out, int64_t W, int64_t vec_per_w,
-                          int64_t a_ws, int mode, void* stream) {
-  return masked_combine<float, bf16>(a, b, mask, out, W, vec_per_w, a_ws,
-                                     mode, stream);
+int lag_sq_blocks_f16(const void* a, void* out, int64_t total_subs,
+                      void* stream) {
+  return sq<__half>(a, out, total_subs, stream);
 }
 
 }  // extern "C"

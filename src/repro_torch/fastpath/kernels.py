@@ -1,11 +1,12 @@
 """The comm plane's five kernels: dispatch to CUDA (Hopper) or the plain
 version — port of ``repro.fastpath.kernels``.
 
-Each wrapper takes the layout's flat buffers, float32 or bfloat16 as
-``ENTRIES`` lists per kernel: the operand combinations the comm paths use
-(a bfloat16 model's buffers; a float32 model's gradients against bfloat16
-ĝ mirrors; LAQ's float32 residual).  Any other combination raises, on
-every device.  For tensors on the CPU a wrapper runs the plain PyTorch
+Each wrapper takes the layout's flat buffers, float32, bfloat16 or
+float16 as ``ENTRIES`` lists per kernel: the operand combinations the comm
+paths use (a bfloat16 or float16 model's buffers; a float32 model's
+gradients against bfloat16 or float16 ĝ mirrors; LAQ's float32
+residual).  Any other combination raises, on every device.  For tensors
+on the CPU a wrapper runs the plain PyTorch
 version (``kernels_ref``); for CUDA tensors it launches the hand-written
 kernel of ``csrc/fastpath_kernels.cu`` or raises — there is no fallback;
 for meta tensors it allocates the kernel's outputs and launches nothing
@@ -14,7 +15,8 @@ compiled with ``nvcc`` for ``sm_90a`` at first use by the port's shared
 builder (``repro_torch.kernels.build``) and bound through a plain C
 interface with ``ctypes``.  ``LAUNCHES`` counts the launches of each
 instantiation (``masked_combine``, ``masked_combine_bb``,
-``masked_combine_fb``); nothing else increments it.
+``masked_combine_fh``, ``sqnorm_blocks_f16``, …); nothing else increments
+it.
 """
 from __future__ import annotations
 
@@ -30,29 +32,29 @@ from repro_torch.kernels import build
 
 MASK_MODES = kernels_ref.MASK_MODES
 
-_F32, _BF16 = torch.float32, torch.bfloat16
+_F32, _BF16, _F16 = torch.float32, torch.bfloat16, torch.float16
+#: the two-operand instantiations: operand dtypes → C entry suffix (a
+#: bfloat16 or float16 model's buffers; a float32 model's gradients
+#: against bfloat16 or float16 ĝ mirrors)
+_PAIRS = {(_F32, _F32): "", (_BF16, _BF16): "_bb", (_F32, _BF16): "_fb",
+          (_F16, _F16): "_hh", (_F32, _F16): "_fh"}
 #: the instantiations ``csrc/fastpath_kernels.cu`` builds, per kernel:
 #: operand dtypes → C entry (delta_sqnorm (a, b); absmax and laq_encode
-#: (g, q), their residual float32; masked_combine (a, b), written at b's)
+#: (g, q), their residual float32; masked_combine (a, b), written at b's;
+#: sqnorm (a,))
 ENTRIES: Dict[str, Dict[Tuple[torch.dtype, ...], str]] = {
-    "delta_sqnorm_blocks": {(_F32, _F32): "lag_delta_sq_blocks",
-                            (_BF16, _BF16): "lag_delta_sq_blocks_bb",
-                            (_F32, _BF16): "lag_delta_sq_blocks_fb"},
-    "sqnorm_blocks": {(_F32,): "lag_sq_blocks"},
-    "absmax_blocks": {(_F32, _F32): "lag_absmax_blocks",
-                      (_BF16, _BF16): "lag_absmax_blocks_bb",
-                      (_F32, _BF16): "lag_absmax_blocks_fb"},
-    "laq_encode_blocks": {(_F32, _F32): "lag_laq_encode_blocks",
-                          (_BF16, _BF16): "lag_laq_encode_blocks_bb",
-                          (_F32, _BF16): "lag_laq_encode_blocks_fb"},
-    "masked_combine": {(_F32, _F32): "lag_masked_combine",
-                       (_BF16, _BF16): "lag_masked_combine_bb",
-                       (_F32, _BF16): "lag_masked_combine_fb"},
+    **{k: {dts: entry + sfx for dts, sfx in _PAIRS.items()}
+       for k, entry in (("delta_sqnorm_blocks", "lag_delta_sq_blocks"),
+                        ("absmax_blocks", "lag_absmax_blocks"),
+                        ("laq_encode_blocks", "lag_laq_encode_blocks"),
+                        ("masked_combine", "lag_masked_combine"))},
+    "sqnorm_blocks": {(_F32,): "lag_sq_blocks",
+                      (_BF16,): "lag_sq_blocks_bf16",
+                      (_F16,): "lag_sq_blocks_f16"},
 }
 #: an instantiation's name in ``LAUNCHES``: its wrapper's name, with its C
-#: entry's suffix for a bfloat16 operand
-SUFFIX = {(_F32,): "", (_F32, _F32): "", (_BF16, _BF16): "_bb",
-          (_F32, _BF16): "_fb"}
+#: entry's suffix for a 2-byte operand
+SUFFIX = {(_F32,): "", (_BF16,): "_bf16", (_F16,): "_f16", **_PAIRS}
 
 #: launches of each instantiation since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {k + SUFFIX[dts]: 0
@@ -105,7 +107,7 @@ def _launch(kernel: str, dtypes, *args, device) -> None:
 # ---------------------------------------------------------------------------
 
 def _check(name: str, x: torch.Tensor, ndims=(3,),
-           dtypes=(_F32, _BF16)) -> None:
+           dtypes=(_F32, _BF16, _F16)) -> None:
     if x.dtype not in dtypes:
         raise TypeError(f"{name}: one of {[str(d) for d in dtypes]} "
                         f"required, got {x.dtype}")
@@ -158,8 +160,9 @@ def delta_sqnorm_blocks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def sqnorm_blocks(a: torch.Tensor) -> torch.Tensor:
-    """Per-sub-block partials of ‖a‖²: (W, R, L) float32 → (W, R/8)."""
-    _check("a", a, dtypes=(_F32,))
+    """Per-sub-block partials of ‖a‖²: (W, R, L) float32, bfloat16 or
+    float16 → (W, R/8) float32."""
+    _check("a", a)
     if not _same_device(a):
         return kernels_ref.sqnorm_blocks(a)
     W, R = a.shape[0], a.shape[1]

@@ -8,9 +8,9 @@ tests and ``chip_smoke.py`` hold the kernels against them.  Every op is
 local to a sub-block, so a caller may apply them to any run of whole
 sub-blocks (rows a multiple of ``SUB_ROWS``) and concatenate.
 
-Operands may be float32 or bfloat16 (``kernels.ENTRIES``): each is widened
-to float32 first (exact), every op is float32 as in the kernels, and
-``masked_combine`` rounds its result once to ``b``'s dtype.
+Operands may be float32, bfloat16 or float16 (``kernels.ENTRIES``): each
+is widened to float32 first (exact), every op is float32 as in the kernels,
+and ``masked_combine`` rounds its result once to ``b``'s dtype.
 """
 from __future__ import annotations
 

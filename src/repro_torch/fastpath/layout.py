@@ -2,11 +2,11 @@
 port of ``repro.fastpath.layout``.
 
 Each leaf is flattened, cast to the buffer's dtype (:func:`buffer_dtype`:
-float64 for a tree with a float64 leaf, bfloat16 for a tree of bfloat16
-leaves only, else float32) and padded up to whole sub-blocks (``SUB_ROWS``
-× ``LANES`` = 1024 elements), so a sub-block never straddles two leaves
-and per-leaf quantities (LAQ's quantizer scale, the fixed-order
-per-(worker, leaf) partial sums) survive batching.  The buffer tail is
+float64 for a tree with a float64 leaf, bfloat16 (float16) for a tree of
+bfloat16 (float16) leaves only, else float32) and padded up to whole
+sub-blocks (``SUB_ROWS`` × ``LANES`` = 1024 elements), so a sub-block
+never straddles two leaves and per-leaf quantities (LAQ's quantizer scale,
+the fixed-order per-(worker, leaf) partial sums) survive batching.  The buffer tail is
 padded to whole ``BLOCK_ROWS`` blocks; ``sub_leaf`` maps every sub-block to
 its leaf (tail sub-blocks map to leaf 0 — they are all-zero, absorbing for
 every plane op).  The constants are the reference's: ``rows``, ``sub_leaf``
@@ -16,12 +16,14 @@ The port keeps per-worker state natively in these buffers.  ``unflatten``
 returns VIEWS (no copy) for leaves of the buffer's own dtype, so a tree of
 model parameters or mirror state can live inside one flat buffer.
 
-A tree that mixes bfloat16 and float32 leaves (a bfloat16 config's MoE
-router, mamba2's ``A_log``/``dt_bias``/``D``, RG-LRU's ``b_a``/``b_i``) has
-no one buffer dtype that rounds nothing and widens nothing:
-:class:`MixedLayout` gives it two parts, a :class:`FlatLayout` over its
-bfloat16 leaves and one over its float32 leaves, each in tree order, and
-its state buffers are :class:`Parts` pairs.  The reference casts every
+A tree that mixes one 2-byte float dtype (bfloat16 or float16) with
+float32 leaves (a bfloat16 or float16 config's MoE router, mamba2's
+``A_log``/``dt_bias``/``D``, RG-LRU's ``b_a``/``b_i``) has no one buffer
+dtype that rounds nothing and widens nothing: :class:`MixedLayout` gives it
+two parts, a :class:`FlatLayout` over its 2-byte leaves and one over its
+float32 leaves, each in tree order, and its state buffers are
+:class:`Parts` pairs.  A tree that mixes bfloat16 with float16 raises (no
+config of the reference has one).  The reference casts every
 leaf to float32 for its plane and scatters each back at the leaf's dtype;
 here every leaf stays at its own dtype between operations.
 """
@@ -48,29 +50,45 @@ BLOCK = BLOCK_ROWS * LANES
 #: leaf dtypes the flat plane serves; everything is computed in float32
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
+#: the 2-byte float dtypes a buffer (or a mixed tree's first part) holds
+HALF_DTYPES = (torch.bfloat16, torch.float16)
+
 
 def buffer_dtype(dtypes) -> torch.dtype:
     """The flat buffers' dtype for leaves of ``dtypes``: float64 when one
     of them is float64 (the x64 convex runs, which the plane refuses), so
-    that flattening rounds nothing; bfloat16 when every leaf is bfloat16
-    (a bfloat16 model: its leaves stay views of a bfloat16 buffer, half
-    the bytes); float32 otherwise.  A tree that mixes bfloat16 and float32
-    leaves gets float32 here (:func:`mixed_leaves`); it trains in a
-    :class:`MixedLayout`, whose parts have one dtype each."""
+    that flattening rounds nothing; bfloat16 (float16) when every leaf is
+    bfloat16 (float16): a 2-byte model's leaves stay views of a buffer of
+    their dtype, half the bytes; float32 otherwise.  A tree that mixes a
+    2-byte dtype with float32 leaves gets float32 here
+    (:func:`mixed_leaves`); it trains in a :class:`MixedLayout`, whose
+    parts have one dtype each."""
     dts = tuple(dtypes)
     if torch.float64 in dts:
         return torch.float64
-    if dts and all(d == torch.bfloat16 for d in dts):
-        return torch.bfloat16
+    for half in HALF_DTYPES:
+        if dts and all(d == half for d in dts):
+            return half
     return torch.float32
 
 
+def half_dtype(dtypes):
+    """The one 2-byte float dtype among ``dtypes`` (None for none);
+    raises for bfloat16 beside float16."""
+    found = set(dtypes) & set(HALF_DTYPES)
+    if len(found) > 1:
+        raise TypeError("a tree of bfloat16 and float16 leaves has no "
+                        "layout (no config of the reference mixes them)")
+    return found.pop() if found else None
+
+
 def mixed_leaves(dtypes) -> bool:
-    """True for a tree that mixes bfloat16 leaves with leaves of another
-    dtype: a bfloat16 config that keeps float32 leaves (the MoE router,
-    mamba2's ``A_log``/``dt_bias``/``D``, RG-LRU's ``b_a``/``b_i``)."""
+    """True for a tree that mixes 2-byte float leaves (bfloat16 or
+    float16) with leaves of another dtype: a bfloat16 or float16 config
+    that keeps float32 leaves (the MoE router, mamba2's
+    ``A_log``/``dt_bias``/``D``, RG-LRU's ``b_a``/``b_i``)."""
     dts = set(dtypes)
-    return torch.bfloat16 in dts and len(dts) > 1
+    return half_dtype(dts) is not None and len(dts) > 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,12 +292,13 @@ class FlatLayout:
 
 class Parts(NamedTuple):
     """The state buffer of a :class:`MixedLayout` tree: ``b`` over its
-    bfloat16 leaves, ``f`` over its float32 leaves, each a flat ``(…,
-    rows, 128)`` buffer of its own part's rows.  A part's dtype is the
-    state's: the leaves' own for θ, ∇, the gradients and θ̂ (``b``
-    bfloat16, ``f`` float32), bfloat16 in both for a bfloat16 ĝ, float32
-    in both for LAQ's residual.  ``repro_torch.core.tree`` sees a node of
-    two leaves, so ``tree_map`` steps each part at its own dtype."""
+    2-byte leaves (bfloat16 or float16), ``f`` over its float32 leaves,
+    each a flat ``(…, rows, 128)`` buffer of its own part's rows.  A
+    part's dtype is the state's: the leaves' own for θ, ∇, the gradients
+    and θ̂ (``b`` bfloat16 or float16, ``f`` float32), the 2-byte dtype in
+    both for a 2-byte ĝ, float32 in both for LAQ's residual.
+    ``repro_torch.core.tree`` sees a node of two leaves, so ``tree_map``
+    steps each part at its own dtype."""
     b: torch.Tensor
     f: torch.Tensor
 
@@ -311,11 +330,12 @@ def dtype_of(buf):
 
 @dataclasses.dataclass(frozen=True)
 class MixedLayout:
-    """The layout of a tree of bfloat16 and float32 leaves: ``parts`` is
-    (the :class:`FlatLayout` of its bfloat16 leaves, that of its float32
-    leaves), each in tree order; leaf i is leaf ``leaf_index[i]`` of part
-    ``leaf_part[i]``.  Its buffers are :class:`Parts`; its methods are
-    :class:`FlatLayout`'s, taking and giving pairs."""
+    """The layout of a tree of 2-byte float (bfloat16 or float16) and
+    float32 leaves: ``parts`` is (the :class:`FlatLayout` of its 2-byte
+    leaves, that of its float32 leaves), each in tree order; leaf i is
+    leaf ``leaf_index[i]`` of part ``leaf_part[i]``.  Its buffers are
+    :class:`Parts`; its methods are :class:`FlatLayout`'s, taking and
+    giving pairs."""
     treedef: Any
     shapes: Tuple[Tuple[int, ...], ...]
     dtypes: Tuple[torch.dtype, ...]
@@ -324,17 +344,16 @@ class MixedLayout:
     leaf_part: Tuple[int, ...]
     leaf_index: Tuple[int, ...]
 
-    #: the parts' leaf dtypes, in part order
-    PART_DTYPES = (torch.bfloat16, torch.float32)
-
     @classmethod
     def for_tree(cls, tree: Pytree) -> "MixedLayout":
         leaves, treedef = tree_flatten(tree)
         dtypes = tuple(l.dtype for l in leaves)
-        if not set(dtypes) <= set(cls.PART_DTYPES):
-            raise TypeError(f"a mixed layout holds bfloat16 and float32 "
-                            f"leaves, got {sorted({str(d) for d in dtypes})}")
-        part = tuple(cls.PART_DTYPES.index(d) for d in dtypes)
+        half = half_dtype(dtypes)
+        if half is None or not set(dtypes) <= {half, torch.float32}:
+            raise TypeError(f"a mixed layout holds bfloat16 or float16 "
+                            f"and float32 leaves, got "
+                            f"{sorted({str(d) for d in dtypes})}")
+        part = tuple(int(d == torch.float32) for d in dtypes)
         index, count = [], [0, 0]
         for p in part:
             index.append(count[p])
@@ -427,7 +446,8 @@ Layout = Union[FlatLayout, MixedLayout]
 
 def layout_for(tree: Pytree) -> Layout:
     """The layout a tree trains in: :class:`MixedLayout` for a tree that
-    mixes bfloat16 and float32 leaves, else one :class:`FlatLayout`."""
+    mixes a 2-byte float dtype with float32 leaves, else one
+    :class:`FlatLayout`."""
     if mixed_leaves(l.dtype for l in tree_leaves(tree)):
         return MixedLayout.for_tree(tree)
     return FlatLayout.for_tree(tree)

@@ -17,12 +17,13 @@ Reduction-order contract (the reference's): partials are reduced per
 leaves in leaf order — the same inputs give bit-identical results on every
 call.  No ``index_add_``/``scatter_add_``: they are atomic on CUDA.
 
-A tree of bfloat16 and float32 leaves (``layout.MixedLayout``) has two
-buffers a state (``layout.Parts``): every op launches its kernel once per
-part, at that part's dtypes (``kernels.ENTRIES``), builds the ``(W,
-num_leaves)`` per-leaf partials of both parts in the tree's leaf order and
-only then reduces across leaves, so the sums are the reference's.  Each
-part's zero tail folds into that part's first leaf.
+A tree of 2-byte (bfloat16 or float16) and float32 leaves
+(``layout.MixedLayout``) has two buffers a state (``layout.Parts``): every
+op launches its kernel once per part, at that part's dtypes
+(``kernels.ENTRIES``), builds the ``(W, num_leaves)`` per-leaf partials
+of both parts in the tree's leaf order and only then reduces across
+leaves, so the sums are the reference's.  Each part's zero tail folds into
+that part's first leaf.
 """
 from __future__ import annotations
 

@@ -96,16 +96,64 @@
 //
 // No backward: the reference's kernel has none either.
 //
+// FLOAT16 (the same source built again with -DLAG_FLASH_F16: entry point
+// lag_flash_attention_f16).  The design above on wgmma's .f16 operand type,
+// which has the same instruction shapes and float32 accumulators; q, k, v
+// and o float16, the output rounded to float16 once.
+//   * Scores: one float16 product (11 x 11 significant bits: exact in
+//     float32).  The scale is never folded into q (a power of two would
+//     push q's small values into float16's subnormals): the scores are
+//     multiplied by it after the product, as the reference does.
+//   * P.V: float16's exponent floor is the trouble.  Its subnormals start
+//     at 2^-14 and it flushes below 2^-24, so P split as bfloat16's is
+//     would lose every weight below 2^-24 (a causal row of 2048 keys with
+//     one dominant score loses up to about 1e-4 of l) and the lower terms'
+//     bits.  So each term is scaled by an exact power of two: x = p * 2^14
+//     (at most 16384), hi = f16(x) rounded to nearest, lo = f16((x - hi) *
+//     2^12) (x - hi is exact; |lo| < 2^15); hi + lo * 2^-12 holds x to about
+//     2^-23 of x for p >= 2^-28, and to 2^-51 absolute below.  The products
+//     run in two phases into one fresh float32 accumulator: lo . V, the
+//     accumulator times 2^-12 (exact), then + hi . V, times 2^-14 (exact).
+//     Two terms are enough (one misses by 2^-12 of p; the error against
+//     the float32 plain version is float32's own, about 1e-6 on outputs of
+//     size 1: tests/test_torch_f16.py emulates the design, one term and
+//     the unscaled split).
+//
 // C interface (loaded with ctypes): launches on the given stream, does not
 // synchronise, allocates nothing, returns the first CUDA error of the
 // tensor-map encoding, the shared-memory attribute call or the launch.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// the operand type: wgmma's type string, the element, its tensor-map type
+#ifdef LAG_FLASH_F16
+#define WG_T "f16"
+#define LAG_FLASH_ENTRY lag_flash_attention_f16
+#else
+#define WG_T "bf16"
+#define LAG_FLASH_ENTRY lag_flash_attention_bf16
+#endif
+
 namespace {
+
+#ifdef LAG_FLASH_F16
+typedef __half elem;
+constexpr bool kF16 = true;
+constexpr CUtensorMapDataType MAP_TYPE = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+#else
+typedef __nv_bfloat16 elem;
+constexpr bool kF16 = false;
+constexpr CUtensorMapDataType MAP_TYPE = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+#endif
+// P's terms, and what one P.V pass multiplies its accumulator by: bfloat16
+// three unscaled terms; float16 two, the lo term scaled by 2^12 more
+constexpr int TERMS = kF16 ? 2 : 3;
+constexpr float X_SCALE = kF16 ? 16384.f : 1.f;          // x = p * 2^14
+constexpr float LO_SCALE = 4096.f;                      // lo's extra 2^12
 
 constexpr int NC = 2;                  // consumer warpgroups a block
 constexpr int ROWS = 64;               // query rows of a warpgroup (m64)
@@ -143,7 +191,6 @@ using Hd80 = Shape<80, 1, 16, 128, 1>;
 using Hd128 = Shape<128, 2, 0, 64, 2>;
 using Hd256 = Shape<256, 4, 0, 64, 1>;
 
-typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -227,7 +274,7 @@ __device__ __forceinline__ void mma_ss32(float (&d)[16], uint64_t a,
                                         uint64_t b, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." WG_T "." WG_T " {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15"
       "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
@@ -243,7 +290,7 @@ __device__ __forceinline__ void mma_ss64(float (&d)[32], uint64_t a,
                                         uint64_t b, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." WG_T "." WG_T " {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
@@ -263,7 +310,7 @@ __device__ __forceinline__ void mma_ss128(float (&d)[64], uint64_t a,
                                         uint64_t b, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." WG_T "." WG_T " {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
@@ -293,7 +340,7 @@ __device__ __forceinline__ void mma_rs16(float (&d)[8],
                                         int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." WG_T "." WG_T " {"
       "%0, %1, %2, %3, %4, %5, %6, %7"
       "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
@@ -307,7 +354,7 @@ __device__ __forceinline__ void mma_rs64(float (&d)[32],
                                         int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." WG_T "." WG_T " {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
@@ -392,6 +439,30 @@ __device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
   lo = __byte_perm(__float_as_uint(s0), __float_as_uint(s1), 0x7632);
 }
 
+// x0 = p0 * 2^14 and x1 as float16 pairs (x0 the low half): hi = f16(x)
+// to nearest, lo = f16((x - hi) * 2^12); x - hi and both scalings exact
+__device__ __forceinline__ void split2h(float p0, float p1, uint32_t& hi,
+                                        uint32_t& lo) {
+  const float x0 = __fmul_rn(p0, X_SCALE), x1 = __fmul_rn(p1, X_SCALE);
+  const __half2 h = __floats2half2_rn(x0, x1);
+  const float2 hf = __half22float2(h);
+  const __half2 l =
+      __floats2half2_rn(__fmul_rn(__fsub_rn(x0, hf.x), LO_SCALE),
+                        __fmul_rn(__fsub_rn(x1, hf.y), LO_SCALE));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// two floats rounded to nearest into an elem pair (the first the low half)
+__device__ __forceinline__ uint32_t round2(float a, float b) {
+#ifdef LAG_FLASH_F16
+  const __half2 y = __floats2half2_rn(a, b);
+#else
+  const __nv_bfloat162 y = __floats2bfloat162_rn(a, b);
+#endif
+  return *reinterpret_cast<const uint32_t*>(&y);
+}
+
 // the shared address `a` anew, where it stands: the compiler cannot
 // compute descriptors from it ahead of the wgmmas issued before, which
 // would hold registers the accumulators need
@@ -430,13 +501,13 @@ __device__ __forceinline__ void scores(float (&d)[S::BK / 2], uint32_t qw,
 
 template <class S>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_bf16_kernel(const __grid_constant__ CUtensorMap qm,
+flash_kernel(const __grid_constant__ CUtensorMap qm,
                   const __grid_constant__ CUtensorMap km,
                   const __grid_constant__ CUtensorMap vm,
                   const __grid_constant__ CUtensorMap qtm,
                   const __grid_constant__ CUtensorMap ktm,
                   const __grid_constant__ CUtensorMap vtm,
-                  bf16* __restrict__ o, int Sq, int Skv, int H, int KV,
+                  elem* __restrict__ o, int Sq, int Skv, int H, int KV,
                   float scale, int causal, int window) {
   constexpr int BK = S::BK, NCH = S::NCH, TAIL = S::TAIL, PASS = S::PASS;
   constexpr int KV_BYTES = S::KV_BYTES;
@@ -537,9 +608,10 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qm,
   if (window > 0 && wq0 - window + 1 > 0) wk_begin = wq0 - window + 1;
 
   mbar_wait(q_full, 0);
-  // the scale folds into q exactly only where it is a power of two
+  // the scale folds into q exactly only where it is a power of two (and
+  // never in float16, whose subnormals start at 2^-14)
   const uint32_t sbits = __float_as_uint(scale);
-  const bool fold = (sbits & 0x7fffffu) == 0 && (sbits >> 23) != 0;
+  const bool fold = !kF16 && (sbits & 0x7fffffu) == 0 && (sbits >> 23) != 0;
   if (fold) {
     uint32_t* const qp = reinterpret_cast<uint32_t*>(smem_raw + (qw - raw));
     for (int i = t; i < S::Q_BYTES / 4; i += 128) {
@@ -574,8 +646,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qm,
     const bool active = k0 < wk_end && k0 + BK > wk_begin;
     const uint32_t ks = ring + s * 2 * KV_BYTES, vs = ks + KV_BYTES;
     float al0 = 1.f, al1 = 1.f;
-    // P's three bfloat16 terms as A fragments, per 16 keys: lo, mid, hi
-    uint32_t pf[BK / 16][3][4];
+    // P's terms as A fragments, per 16 keys: lo, mid, hi (float16: lo, hi)
+    uint32_t pf[BK / 16][TERMS][4];
     mbar_wait(k_full(s), ph);
     if (active) {
       float sc[BK / 2];
@@ -611,9 +683,14 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qm,
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          split3(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], pf[kk][2][r],
-                 pf[kk][1][r], pf[kk][0][r]);
+        for (int r = 0; r < 4; ++r) {
+          if constexpr (kF16)
+            split2h(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1],
+                    pf[kk][TERMS - 1][r], pf[kk][0][r]);
+          else
+            split3(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1],
+                   pf[kk][TERMS - 1][r], pf[kk][1][r], pf[kk][0][r]);
+        }
     }
     mbar_wait(v_full(s), ph);
     if (active) {
@@ -635,43 +712,61 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qm,
 #pragma unroll
         for (int e = 0; e < TN; ++e) ft[e] = 0.f;
         own(ft);
-        wgmma_fence();
+        // bfloat16: one phase of all three terms; float16: lo, then hi
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
+        for (int ph = 0; ph < (kF16 ? 2 : 1); ++ph) {
+          wgmma_fence();
 #pragma unroll
-          for (int term = 0; term < 3; ++term) {
-            const int accum = kk > 0 || term > 0;
+          for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+            for (int term = kF16 ? ph : 0; term < (kF16 ? ph + 1 : TERMS);
+                 ++term) {
+              const int accum = kk > 0 || term > 0;
+#pragma unroll
+              for (int c = 0; c < PASS; ++c)
+                mma_rs64(f[c], pf[kk][term],
+                         desc(vp + (p0 + c) * BK * 128 + kk * 16 * 128,
+                              BK * 128, 1024, 1),
+                         accum);
+              if constexpr (kTail) {
+                if (tail)
+                  mma_rs16(ft, pf[kk][term],
+                           desc(vp + NCH * BK * 128 + kk * 16 * 32, 16, 256,
+                                3),
+                           accum);
+              }
+            }
+          wgmma_commit_and_wait();
+#pragma unroll
+          for (int c = 0; c < PASS; ++c) own(f[c]);
+          own(ft);
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+            for (int term = 0; term < TERMS; ++term) own(pf[kk][term]);
+          if (kF16 && ph == 0) {       // the lo phase: times 2^-12, exact
 #pragma unroll
             for (int c = 0; c < PASS; ++c)
-              mma_rs64(f[c], pf[kk][term],
-                       desc(vp + (p0 + c) * BK * 128 + kk * 16 * 128,
-                            BK * 128, 1024, 1),
-                       accum);
-            if constexpr (kTail) {
-              if (tail)
-                mma_rs16(ft, pf[kk][term],
-                         desc(vp + NCH * BK * 128 + kk * 16 * 32, 16, 256, 3),
-                         accum);
-            }
+#pragma unroll
+              for (int e = 0; e < 32; ++e) f[c][e] *= 1.f / LO_SCALE;
+#pragma unroll
+            for (int e = 0; e < TN; ++e) ft[e] *= 1.f / LO_SCALE;
+#pragma unroll
+            for (int c = 0; c < PASS; ++c) own(f[c]);
+            own(ft);
           }
-        wgmma_commit_and_wait();
-#pragma unroll
-        for (int c = 0; c < PASS; ++c) own(f[c]);
-        own(ft);
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-          for (int term = 0; term < 3; ++term) own(pf[kk][term]);
+        }
 #pragma unroll
         for (int c = 0; c < PASS; ++c)
 #pragma unroll
           for (int e = 0; e < 32; ++e)
             acc[p0 + c][e] = fmaf(acc[p0 + c][e], (e & 2) ? al1 : al0,
-                                  f[c][e]);
+                                  f[c][e] * (1.f / X_SCALE));
         if (tail) {
 #pragma unroll
           for (int e = 0; e < TN; ++e)
-            acct[e] = fmaf(acct[e], (e & 2) ? al1 : al0, ft[e]);
+            acct[e] = fmaf(acct[e], (e & 2) ? al1 : al0,
+                           ft[e] * (1.f / X_SCALE));
         }
       }
     }
@@ -691,21 +786,19 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap qm,
     const int r = e ? r1 : r0;
     const float den = e ? den1 : den0;
     if (r < Sq) {
-      bf16* const dst = o + (((int64_t)b * Sq + r) * H + h) * S::HD + 2 * tq;
+      elem* const dst = o + (((int64_t)b * Sq + r) * H + h) * S::HD + 2 * tq;
 #pragma unroll
       for (int c = 0; c < NCH; ++c)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const __nv_bfloat162 y = __floats2bfloat162_rn(
+          *reinterpret_cast<uint32_t*>(dst + 64 * c + 8 * j) = round2(
               acc[c][4 * j + 2 * e] / den, acc[c][4 * j + 2 * e + 1] / den);
-          *reinterpret_cast<__nv_bfloat162*>(dst + 64 * c + 8 * j) = y;
         }
       if (TAIL) {
 #pragma unroll
         for (int j = 0; j < TAIL / 8; ++j) {
-          const __nv_bfloat162 y = __floats2bfloat162_rn(
+          *reinterpret_cast<uint32_t*>(dst + 64 * NCH + 8 * j) = round2(
               acct[4 * j + 2 * e] / den, acct[4 * j + 2 * e + 1] / den);
-          *reinterpret_cast<__nv_bfloat162*>(dst + 64 * NCH + 8 * j) = y;
         }
       }
     }
@@ -739,7 +832,7 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a 4-D map over a contiguous bfloat16 (batch, rows, heads, hd) tensor:
+// a 4-D map over a contiguous 2-byte (batch, rows, heads, hd) tensor:
 // boxes of `cols` columns (from any column) of one head, `box_rows` rows
 bool encode(EncodeTiled enc, CUtensorMap* map, const void* base, int64_t hd,
             int64_t heads, int64_t rows, int64_t batch, uint32_t cols,
@@ -751,7 +844,7 @@ bool encode(EncodeTiled enc, CUtensorMap* map, const void* base, int64_t hd,
                                  (cuuint64_t)(rows * heads * hd * 2)};
   const cuuint32_t box[4] = {cols, 1, box_rows, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+  return enc(map, MAP_TYPE, 4, const_cast<void*>(base),
              dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -797,7 +890,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   if (!opted_in[dev]) {
-    err = cudaFuncSetAttribute(flash_bf16_kernel<S>,
+    err = cudaFuncSetAttribute(flash_kernel<S>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                S::SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
@@ -806,8 +899,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
   const dim3 grid((unsigned)(B * H), (unsigned)nq);
   // a window of 2^31 - 1 or more masks nothing a query can see
   const int win = window >= 0x7fffffffLL ? 0x7fffffff : (int)window;
-  flash_bf16_kernel<S><<<grid, THREADS, S::SMEM_BYTES, stream>>>(
-      qm, km, vm, qtm, ktm, vtm, (bf16*)o, (int)Sq, (int)Skv, (int)H,
+  flash_kernel<S><<<grid, THREADS, S::SMEM_BYTES, stream>>>(
+      qm, km, vm, qtm, ktm, vtm, (elem*)o, (int)Sq, (int)Skv, (int)H,
       (int)KV, scale, causal, win);
   return (int)cudaGetLastError();
 }
@@ -816,10 +909,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
 
 extern "C" {
 
-// q, o: (B, Sq, H, hd); k, v: (B, Skv, KV, hd); bfloat16, contiguous,
-// 16-byte aligned.  window <= 0: no window.  hd 64, 80, 128 and 256 are
-// built.
-int lag_flash_attention_bf16(const void* q, const void* k, const void* v,
+// q, o: (B, Sq, H, hd); k, v: (B, Skv, KV, hd); bfloat16 (float16 in the
+// -DLAG_FLASH_F16 build: lag_flash_attention_f16), contiguous, 16-byte
+// aligned.  window <= 0: no window.  hd 64, 80, 128 and 256 are built.
+int LAG_FLASH_ENTRY(const void* q, const void* k, const void* v,
                              void* o, int64_t B, int64_t Sq, int64_t Skv,
                              int64_t H, int64_t KV, int64_t hd, float scale,
                              int causal, int64_t window, void* stream) {

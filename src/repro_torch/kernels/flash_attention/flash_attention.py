@@ -1,26 +1,33 @@
 """Flash attention forward on Hopper: the launch of
-``csrc/flash_attention.cu`` (float32) and ``csrc/flash_attention_bf16.cu``
-(bfloat16), ports of the Pallas kernel
+``csrc/flash_attention.cu`` (float32), ``csrc/flash_attention_bf16.cu``
+(bfloat16, and float16 from the same source built with
+``-DLAG_FLASH_F16``) and ``csrc/flash_attention_wide.cu`` (head_dim above
+256, all three dtypes), ports of the Pallas kernel
 ``repro.kernels.flash_attention.flash_attention.flash_attention_padded``.
 
 The CUDA kernels take any Sq and Skv (they mask the ragged edges
 themselves, so no length is padded), contiguous operands in the reference's
-layout, and are built for head_dim 64, 80, 128 and 256 (one instantiation
-each per dtype).  Any head_dim from 1 to 256 is served: a smaller one is
-zero-padded to the next built head_dim (``pad_head_dim``; zero columns add
-exactly 0 to q·kᵀ and give zero output columns, which are sliced off) and
-keeps its true scale hd ** -0.5.  Both run their products on the tensor
-cores with float32 accumulators: float32 in split TF32 (three TF32
-products per float32 product, float32-accurate, ``mma.sync``, K and V
-through a ``cp.async`` ring); bfloat16 on the bfloat16 tensor cores
-(``wgmma``; one product for the scores, whose bfloat16 terms are exact,
-three for P·V with P split into three bfloat16 terms; K and V through
-TMA), the output rounded to bfloat16 once (the reference kernel's float32
-attention on the widened inputs).  They have no backward, like the
-reference's kernel: an input that requires grad raises.  ``LAUNCHES``
-counts the launches of each dtype's kernel (``flash_attention`` for
-float32, ``flash_attention_bf16`` for bfloat16); nothing else increments
-it.
+layout, and any head_dim, as the reference's kernel does.  The tensor-core
+kernels are built for head_dim 64, 80, 128 and 256 (one instantiation each
+per dtype) and serve 1 to 256: a smaller head_dim is zero-padded to the
+next built one (``pad_head_dim``; zero columns add exactly 0 to q·kᵀ and
+give zero output columns, which are sliced off) and keeps its true scale
+hd ** -0.5.  They run their products on the tensor cores with float32
+accumulators: float32 in split TF32 (three TF32 products per float32
+product, float32-accurate, ``mma.sync``, K and V through a ``cp.async``
+ring); bfloat16 and float16 on their tensor cores (``wgmma``; one product
+for the scores, whose 2-byte terms are exact, and P·V with P split into
+three bfloat16 terms, or two float16 terms scaled by exact powers of two;
+K and V through TMA), the output rounded to the 2-byte dtype once (the
+reference kernel's float32 attention on the widened inputs).  A head_dim
+above 256 takes the wide kernel (float32 FMA on the CUDA cores, a grid over
+chunks of 128 output columns, each block recomputing its rows' scores over
+the full head_dim).  They have no backward, like the reference's kernel:
+an input that requires grad raises.  ``LAUNCHES`` counts the launches of
+each kernel and dtype (``flash_attention``, ``flash_attention_bf16``,
+``flash_attention_f16``, ``flash_attention_wide``,
+``flash_attention_wide_bf16``, ``flash_attention_wide_f16``); nothing else
+increments it.
 """
 from __future__ import annotations
 
@@ -64,13 +71,22 @@ INSTANCES_BF16 = {64: (128, 2), 80: (128, 2), 128: (64, 2), 256: (64, 2)}
 SHARED_BYTES_BF16 = {hd: 1024 + wgs * 64 * hd * 2 + 2 * 2 * bk * hd * 2 + 64
                      for hd, (bk, wgs) in INSTANCES_BF16.items()}
 
-#: each dtype's kernel: (its name in ``LAUNCHES``, entry point)
+#: each dtype's tensor-core kernel: (its name in ``LAUNCHES``, entry point)
 ENTRIES = {torch.float32: ("flash_attention", "lag_flash_attention_f32"),
            torch.bfloat16: ("flash_attention_bf16",
-                            "lag_flash_attention_bf16")}
+                            "lag_flash_attention_bf16"),
+           torch.float16: ("flash_attention_f16", "lag_flash_attention_f16")}
+#: each dtype's wide kernel (head_dim above ``HEAD_DIMS[-1]``)
+WIDE_ENTRIES = {
+    torch.float32: ("flash_attention_wide", "lag_flash_attention_wide_f32"),
+    torch.bfloat16: ("flash_attention_wide_bf16",
+                     "lag_flash_attention_wide_bf16"),
+    torch.float16: ("flash_attention_wide_f16",
+                    "lag_flash_attention_wide_f16")}
 
 #: kernel launches since the last ``reset_launches()``
-LAUNCHES: Dict[str, int] = {name: 0 for name, _ in ENTRIES.values()}
+LAUNCHES: Dict[str, int] = {name: 0 for table in (ENTRIES, WIDE_ENTRIES)
+                            for name, _ in table.values()}
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 _ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, ctypes.c_float,
@@ -82,8 +98,17 @@ LIBRARY = build.CudaLibrary(
 LIBRARY_BF16 = build.CudaLibrary(
     "flash_attention_bf16", _CSRC / "flash_attention_bf16.cu",
     {ENTRIES[torch.bfloat16][1]: _ARGS})
-#: each dtype's library
-LIBRARIES = {torch.float32: LIBRARY, torch.bfloat16: LIBRARY_BF16}
+#: the bfloat16 design on wgmma's .f16 operands: the same source, built
+#: again
+LIBRARY_F16 = build.CudaLibrary(
+    "flash_attention_f16", _CSRC / "flash_attention_bf16.cu",
+    {ENTRIES[torch.float16][1]: _ARGS}, extra_flags=("-DLAG_FLASH_F16",))
+LIBRARY_WIDE = build.CudaLibrary(
+    "flash_attention_wide", _CSRC / "flash_attention_wide.cu",
+    {entry: _ARGS for _, entry in WIDE_ENTRIES.values()})
+#: each dtype's tensor-core library
+LIBRARIES = {torch.float32: LIBRARY, torch.bfloat16: LIBRARY_BF16,
+             torch.float16: LIBRARY_F16}
 
 
 def reset_launches() -> None:
@@ -92,13 +117,15 @@ def reset_launches() -> None:
 
 
 def padded_head_dim(hd: int) -> int:
-    """The smallest built head_dim at or above ``hd`` (1 to 256)."""
+    """The smallest built head_dim at or above ``hd`` (1 to 256): the
+    tensor-core kernel a head_dim takes (above 256 the wide kernel takes it
+    unpadded)."""
     for built in HEAD_DIMS:
         if 1 <= hd <= built:
             return built
-    raise ValueError(f"flash_attention_fwd: head_dim {hd} not served (the "
-                     f"kernels take 1 to {HEAD_DIMS[-1]}, built for "
-                     f"{HEAD_DIMS})")
+    raise ValueError(f"flash_attention_fwd: head_dim {hd} not served by "
+                     f"the tensor-core kernels (1 to {HEAD_DIMS[-1]}, built "
+                     f"for {HEAD_DIMS}; the wide kernel takes any above)")
 
 
 def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -121,8 +148,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_fwd: CUDA operands on one device "
                          f"required, got {[str(t.device) for t in (q, k, v)]}")
     if q.dtype not in ENTRIES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention_fwd: float32 or bfloat16 q, k, v "
-                        f"of one dtype required, got "
+        raise TypeError(f"flash_attention_fwd: float32, bfloat16 or float16 "
+                        f"q, k, v of one dtype required, got "
                         f"{[t.dtype for t in (q, k, v)]}")
     if any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention_fwd has no backward (nor has the "
@@ -136,7 +163,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != B or k.shape[3] != hd or KV == 0 or H % KV:
         raise ValueError(f"flash_attention_fwd: q {tuple(q.shape)} and k/v "
                          f"{tuple(k.shape)} do not pair (H % KV == 0)")
-    padded_head_dim(hd)                        # 1 to 256, or raises
+    if hd < 1:
+        raise ValueError(f"flash_attention_fwd: head_dim {hd} not served")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention_fwd: window must be >= 1, got "
                          f"{window}")
@@ -144,10 +172,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                for t in (q, k, v)):
         raise ValueError("flash_attention_fwd: operands must be contiguous "
                          "and 16-byte aligned")
-    name, entry = ENTRIES[q.dtype]
-    q, k, v = pad_head_dim(q, k, v)
+    if hd > HEAD_DIMS[-1]:
+        name, entry = WIDE_ENTRIES[q.dtype]
+        lib = LIBRARY_WIDE
+    else:
+        name, entry = ENTRIES[q.dtype]
+        lib = LIBRARIES[q.dtype]
+        q, k, v = pad_head_dim(q, k, v)
     o = torch.empty_like(q)
-    build.launch(getattr(build.load(LIBRARIES[o.dtype]), entry),
+    build.launch(getattr(build.load(lib), entry),
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
                  Sq, Skv, H, KV, o.shape[-1], float(hd ** -0.5), int(causal),
                  0 if window is None else int(window), device=q.device)

@@ -47,15 +47,20 @@
 //     kernel on the widened operands (the same element-to-thread map, the
 //     same fold order).  Everything is computed in float32, as the Pallas
 //     kernels cast every operand to float32.  The instantiations, one entry
-//     point each (suffix: none for float32 operands, _bb both bfloat16,
-//     _fb a float32 first operand against a bfloat16 second; LAQ's residual
-//     e is float32 in all three):
-//       lag_sq_2d{,_bb,_fb}              (a, b)      b NULL: sum a^2
-//       lag_masked_update_2d{,_bb,_fb}   (a, b)      written at b's type,
-//                                                    one rounding
-//       lag_absmax_2d{,_bb,_fb}          (g, q, e)
-//       lag_laq_encode_2d{,_bb,_fb}      (g, q, e)   payload and residual
-//                                                    float32
+//     point each (suffix: none for float32 operands, _bb / _hh both
+//     bfloat16 / float16, _fb / _fh a float32 first operand against a
+//     bfloat16 / float16 second; LAQ's residual e is float32 in all five):
+//       lag_sq_2d{,_bb,_fb,_hh,_fh}              (a, b)     b NULL: sum a^2
+//       lag_masked_update_2d{,_bb,_fb,_hh,_fh}   (a, b)     written at b's
+//                                                           type, one
+//                                                           rounding
+//       lag_absmax_2d{,_bb,_fb,_hh,_fh}          (g, q, e)
+//       lag_laq_encode_2d{,_bb,_fb,_hh,_fh}      (g, q, e)  payload and
+//                                                           residual float32
+//     A float16 is widened exactly (subnormals included) and written with
+//     __float2half_rn: IEEE round-to-nearest-even into the subnormals
+//     (below 2^-14) and to +-inf past 65504, as numpy and XLA round; the
+//     library is built without -ftz or --use_fast_math.
 //
 // C interface (loaded with ctypes): each entry point launches on the given
 // stream, does not synchronise, allocates nothing (the caller passes the
@@ -63,6 +68,7 @@
 // caller raises on a refused launch.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -113,6 +119,30 @@ __device__ __forceinline__ void store4(bf16_t* p, int64_t i, float4 v) {
   u.x = f32_to_bf16(v.x) | (f32_to_bf16(v.y) << 16);
   u.y = f32_to_bf16(v.z) | (f32_to_bf16(v.w) << 16);
   reinterpret_cast<uint2*>(p)[i] = u;
+}
+
+__device__ __forceinline__ float4 load4(const __half* p, int64_t i) {
+  const uint2 u = reinterpret_cast<const uint2*>(p)[i];
+  const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ float load1(const __half* p, int64_t k) {
+  return __half2float(p[k]);
+}
+
+__device__ __forceinline__ void store4(__half* p, int64_t i, float4 v) {
+  const __half2 lo = __float22half2_rn(make_float2(v.x, v.y));
+  const __half2 hi = __float22half2_rn(make_float2(v.z, v.w));
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  reinterpret_cast<uint2*>(p)[i] = u;
+}
+
+__device__ __forceinline__ void store1(__half* p, int64_t k, float v) {
+  p[k] = __float2half_rn(v);
 }
 
 __device__ __forceinline__ void store1(float* p, int64_t k, float v) {
@@ -431,4 +461,6 @@ extern "C" {
 LAG_TRIGGER_ENTRIES(, float, float)
 LAG_TRIGGER_ENTRIES(_bb, bf16_t, bf16_t)
 LAG_TRIGGER_ENTRIES(_fb, float, bf16_t)
+LAG_TRIGGER_ENTRIES(_hh, __half, __half)
+LAG_TRIGGER_ENTRIES(_fh, float, __half)
 }  // extern "C"

@@ -7,13 +7,14 @@ ragged tail itself, so nothing is padded (the reference pads every leaf to
 a multiple of 256 × 128).  Operands must lie on one CUDA device.  The
 Pallas kernels cast every operand to float32 inside; the CUDA kernels load
 each operand at its own dtype and widen it exactly, in the operand
-combinations ``ENTRIES`` lists: a bfloat16 tree's leaves (bf16, bf16), a
-float32 gradient against a bfloat16 ĝ (f32, bf16), LAQ's residual float32
-beside either.  Any other combination raises ``TypeError`` on every
-device (``check_dtypes``; ``ops`` checks CPU tensors too).  The sums come
+combinations ``ENTRIES`` lists: a bfloat16 or float16 tree's leaves
+((bf16, bf16), (f16, f16)), a float32 gradient against a bfloat16 or
+float16 ĝ ((f32, bf16), (f32, f16)), LAQ's residual float32 beside any.
+Any other combination raises ``TypeError`` on every device
+(``check_dtypes``; ``ops`` checks CPU tensors too).  The sums come
 back as 0-d float32 tensors on the device.  ``LAUNCHES`` counts the
 launches of each instantiation (the kernel's name, with ``SUFFIX`` for a
-bfloat16 operand); nothing else increments it.
+2-byte operand); nothing else increments it.
 """
 from __future__ import annotations
 
@@ -25,32 +26,31 @@ import torch
 
 from repro_torch.kernels import build
 
-_F32, _BF16 = torch.float32, torch.bfloat16
+_F32, _BF16, _F16 = torch.float32, torch.bfloat16, torch.float16
+#: the operand-type instantiations of ``csrc/lag_trigger.cu``: (first,
+#: second) operand dtypes → C entry suffix (a bfloat16 or float16 tree's
+#: leaves; a float32 gradient against a bfloat16 or float16 ĝ)
+_PAIRS = {(_F32, _F32): "", (_BF16, _BF16): "_bb", (_F32, _BF16): "_fb",
+          (_F16, _F16): "_hh", (_F32, _F16): "_fh"}
 #: the instantiations ``csrc/lag_trigger.cu`` builds, per kernel: operand
 #: dtypes → C entry (delta_sqnorm and masked_update (a, b), the update
 #: written at b's dtype; sqnorm (a,); absmax and encode (g, q, e), e and
 #: the encode's payload and residual float32)
 ENTRIES: Dict[str, Dict[Tuple[torch.dtype, ...], str]] = {
-    "delta_sqnorm_2d": {(_F32, _F32): "lag_sq_2d",
-                        (_BF16, _BF16): "lag_sq_2d_bb",
-                        (_F32, _BF16): "lag_sq_2d_fb"},
-    "sqnorm_2d": {(_F32,): "lag_sq_2d", (_BF16,): "lag_sq_2d_bb"},
-    "masked_update_2d": {(_F32, _F32): "lag_masked_update_2d",
-                         (_BF16, _BF16): "lag_masked_update_2d_bb",
-                         (_F32, _BF16): "lag_masked_update_2d_fb"},
-    "innovation_absmax_2d": {(_F32, _F32, _F32): "lag_absmax_2d",
-                             (_BF16, _BF16, _F32): "lag_absmax_2d_bb",
-                             (_F32, _BF16, _F32): "lag_absmax_2d_fb"},
-    "laq_encode_2d": {(_F32, _F32, _F32): "lag_laq_encode_2d",
-                      (_BF16, _BF16, _F32): "lag_laq_encode_2d_bb",
-                      (_F32, _BF16, _F32): "lag_laq_encode_2d_fb"},
+    "delta_sqnorm_2d": {d: "lag_sq_2d" + x for d, x in _PAIRS.items()},
+    "sqnorm_2d": {(_F32,): "lag_sq_2d", (_BF16,): "lag_sq_2d_bb",
+                  (_F16,): "lag_sq_2d_hh"},
+    "masked_update_2d": {d: "lag_masked_update_2d" + x
+                         for d, x in _PAIRS.items()},
+    "innovation_absmax_2d": {d + (_F32,): "lag_absmax_2d" + x
+                             for d, x in _PAIRS.items()},
+    "laq_encode_2d": {d + (_F32,): "lag_laq_encode_2d" + x
+                      for d, x in _PAIRS.items()},
 }
 #: an instantiation's name in ``LAUNCHES``: the kernel's, with a suffix for
-#: a bfloat16 operand (its C entry's; ``_bf16`` for one bfloat16 operand)
-SUFFIX = {(_F32,): "", (_BF16,): "_bf16", (_F32, _F32): "",
-          (_BF16, _BF16): "_bb", (_F32, _BF16): "_fb",
-          (_F32, _F32, _F32): "", (_BF16, _BF16, _F32): "_bb",
-          (_F32, _BF16, _F32): "_fb"}
+#: a 2-byte operand (its C entry's; ``_bf16`` / ``_f16`` for one operand)
+SUFFIX = {(_F32,): "", (_BF16,): "_bf16", (_F16,): "_f16", **_PAIRS,
+          **{d + (_F32,): x for d, x in _PAIRS.items()}}
 
 #: blocks of a reduction's first pass (8 of 256 threads on each of the
 #: H100's 132 SMs); the second pass folds their partials

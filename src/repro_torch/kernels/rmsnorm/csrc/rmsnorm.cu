@@ -5,12 +5,19 @@
 //
 //   y = (x * rsqrt(mean(x^2) + eps)).astype(out) * scale.astype(out)
 //
-// row by row over x (rows, d), float32 or bfloat16 (out is x's dtype).  The
-// reference's order of operations is kept: the row is multiplied by the
-// rsqrt first, then by the scale, two separate roundings to out's dtype.
-// In bfloat16 the mean of squares and the rsqrt stay float32 on the widened
-// row; then y = bf16(bf16(x * r) * scale), scale already at x's dtype (the
-// wrapper casts a float32 scale as the reference does).
+// row by row over x (rows, d), float32, bfloat16 or float16 (out is x's
+// dtype).  The reference's order of operations is kept: the row is
+// multiplied by the rsqrt first, then by the scale, two separate roundings
+// to out's dtype.  In a 2-byte dtype the mean of squares and the rsqrt stay
+// float32 on the widened row (widening is exact, float16's subnormals
+// included); then y = T(T(x * r) * scale), scale already at x's dtype (the
+// wrapper casts a float32 scale as the reference does), each rounding to
+// nearest even (float16: into its subnormals, and to +-inf past 65504).
+//
+// Two kernels.  rmsnorm_stream_kernel (below) takes rows whose byte length
+// is a multiple of 8 and whose base is 16-byte aligned, up to d = 8192: the
+// prefill's rows.  rmsnorm_rows_kernel (at the end) takes every other row
+// the reference's kernel takes: any d >= 1, any alignment, any width.
 //
 // Bound: bytes.  Each element is read once and written once with a few
 // flops between, so at prefill (8192 rows x 2048, bfloat16) the kernel
@@ -64,9 +71,10 @@
 //
 // C interface (loaded with ctypes): launches on the given stream, does not
 // synchronise, allocates nothing, returns cudaGetLastError();
-// lag_rmsnorm_plan reports the tiling a launch picks.
+// lag_rmsnorm_plan reports the tiling a stream launch picks.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -196,25 +204,45 @@ template <> struct Io<float, true> {
   }
 };
 
-__device__ __forceinline__ float2 widen2(uint32_t u) {
-  return make_float2(__uint_as_float(u << 16),
-                     __uint_as_float(u & 0xffff0000u));
-}
+// two 2-byte values packed in 32 bits (the first in the low half), widened
+// exactly, and two floats rounded to nearest even into them
+template <typename T> struct Pair;
 
-// bf16(bf16(v0 * r) * s0), bf16(bf16(v1 * r) * s1), packed
+template <> struct Pair<bf16> {
+  static __device__ __forceinline__ float2 widen(uint32_t u) {
+    return make_float2(__uint_as_float(u << 16),
+                       __uint_as_float(u & 0xffff0000u));
+  }
+  static __device__ __forceinline__ uint32_t round(float a, float b) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&p);
+  }
+};
+
+template <> struct Pair<__half> {
+  static __device__ __forceinline__ float2 widen(uint32_t u) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
+  }
+  static __device__ __forceinline__ uint32_t round(float a, float b) {
+    const __half2 p = __floats2half2_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&p);
+  }
+};
+
+// T(T(v0 * r) * s0), T(T(v1 * r) * s1), packed
+template <typename T>
 __device__ __forceinline__ uint32_t norm2(float v0, float v1, float r,
                                           float s0, float s1) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(__fmul_rn(v0, r),
-                                                 __fmul_rn(v1, r));
-  const float2 q = widen2(*reinterpret_cast<const uint32_t*>(&p));
-  const __nv_bfloat162 o = __floats2bfloat162_rn(__fmul_rn(q.x, s0),
-                                                 __fmul_rn(q.y, s1));
-  return *reinterpret_cast<const uint32_t*>(&o);
+  const float2 q = Pair<T>::widen(Pair<T>::round(__fmul_rn(v0, r),
+                                                 __fmul_rn(v1, r)));
+  return Pair<T>::round(__fmul_rn(q.x, s0), __fmul_rn(q.y, s1));
 }
 
-template <bool A16> struct Io<bf16, A16> {
+// a 2-byte T (bfloat16 or float16): a chunk of eight is one 16-byte
+// access, or two 8-byte ones where the rows are not 16-byte aligned
+template <typename T, bool A16> struct Io2 {
   typedef uint4 Raw;
-  static __device__ __forceinline__ Raw load(const bf16* p, bool two) {
+  static __device__ __forceinline__ Raw load(const T* p, bool two) {
     if (A16) return *reinterpret_cast<const uint4*>(p);
     const uint2 a = *reinterpret_cast<const uint2*>(p);
     const uint2 b = two ? *reinterpret_cast<const uint2*>(p + 4)
@@ -222,33 +250,36 @@ template <bool A16> struct Io<bf16, A16> {
     return make_uint4(a.x, a.y, b.x, b.y);
   }
   static __device__ __forceinline__ void widen(const Raw& r, float (&f)[8]) {
-    float2 t = widen2(r.x); f[0] = t.x; f[1] = t.y;
-    t = widen2(r.y); f[2] = t.x; f[3] = t.y;
-    t = widen2(r.z); f[4] = t.x; f[5] = t.y;
-    t = widen2(r.w); f[6] = t.x; f[7] = t.y;
+    float2 t = Pair<T>::widen(r.x); f[0] = t.x; f[1] = t.y;
+    t = Pair<T>::widen(r.y); f[2] = t.x; f[3] = t.y;
+    t = Pair<T>::widen(r.z); f[4] = t.x; f[5] = t.y;
+    t = Pair<T>::widen(r.w); f[6] = t.x; f[7] = t.y;
   }
-  static __device__ __forceinline__ void store(bf16* p, const float (&v)[8],
+  static __device__ __forceinline__ void store(T* p, const float (&v)[8],
                                                float r, const float (&s)[8],
                                                bool two) {
     uint4 o;
-    o.x = norm2(v[0], v[1], r, s[0], s[1]);
-    o.y = norm2(v[2], v[3], r, s[2], s[3]);
+    o.x = norm2<T>(v[0], v[1], r, s[0], s[1]);
+    o.y = norm2<T>(v[2], v[3], r, s[2], s[3]);
     if (A16) {
-      o.z = norm2(v[4], v[5], r, s[4], s[5]);
-      o.w = norm2(v[6], v[7], r, s[6], s[7]);
+      o.z = norm2<T>(v[4], v[5], r, s[4], s[5]);
+      o.w = norm2<T>(v[6], v[7], r, s[6], s[7]);
       *reinterpret_cast<uint4*>(p) = o;
       return;
     }
     *reinterpret_cast<uint2*>(p) = make_uint2(o.x, o.y);
     if (two) {
-      o.z = norm2(v[4], v[5], r, s[4], s[5]);
-      o.w = norm2(v[6], v[7], r, s[6], s[7]);
+      o.z = norm2<T>(v[4], v[5], r, s[4], s[5]);
+      o.w = norm2<T>(v[6], v[7], r, s[6], s[7]);
       *reinterpret_cast<uint2*>(p + 4) = make_uint2(o.z, o.w);
     }
   }
 };
 
-// x, y (rows, d) with d = 4 (mod 8) only where T is bfloat16 and not A16;
+template <bool A16> struct Io<bf16, A16> : Io2<bf16, A16> {};
+template <bool A16> struct Io<__half, A16> : Io2<__half, A16> {};
+
+// x, y (rows, d) with d = 4 (mod 8) only where T is 2-byte and not A16;
 // tiles of `tile_rows` rows (a multiple of 8 / W, even where not A16), a
 // ring of `stages` stages of `stage_bytes` each after the HEADER
 template <typename T, bool A16>
@@ -410,10 +441,20 @@ rmsnorm_stream_kernel(const T* __restrict__ x, const T* __restrict__ scale,
   }
 }
 
-// per device: SM count, and each kernel's shared-memory limit set so far
+// per device: its SM count
 constexpr int MAX_DEVICES = 16;
 int sm_count[MAX_DEVICES];
-int smem_limit[3][MAX_DEVICES];
+
+int device_sms(int* dev) {
+  cudaGetDevice(dev);
+  if (*dev < 0 || *dev >= MAX_DEVICES) return -(int)cudaErrorInvalidDevice;
+  if (sm_count[*dev] == 0) {
+    const cudaError_t err = cudaDeviceGetAttribute(
+        &sm_count[*dev], cudaDevAttrMultiProcessorCount, *dev);
+    if (err != cudaSuccess) return -(int)err;
+  }
+  return sm_count[*dev];
+}
 
 // the launch's plan for rows of d elements of `size` bytes
 struct Plan {
@@ -441,27 +482,23 @@ Plan plan_of(int d, int size) {
 }
 
 template <typename T, bool A16>
-int launch_stream(int variant, const T* x, const T* scale, T* y,
-                  int64_t rows, int d, float eps, cudaStream_t s) {
+int launch_stream(const T* x, const T* scale, T* y, int64_t rows, int d,
+                  float eps, cudaStream_t s) {
   auto kernel = rmsnorm_stream_kernel<T, A16>;
+  static int smem_limit[MAX_DEVICES];     // this kernel's, set so far
   int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (sm_count[dev] == 0) {
-    const cudaError_t err = cudaDeviceGetAttribute(
-        &sm_count[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int sms = device_sms(&dev);
+  if (sms < 0) return -sms;
   const Plan p = plan_of(d, sizeof(T));
   const int smem = HEADER + p.stages * p.stage_bytes;
-  if (smem > smem_limit[variant][dev]) {
+  if (smem > smem_limit[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    smem_limit[variant][dev] = smem;
+    smem_limit[dev] = smem;
   }
   const int64_t tiles = (rows + p.tile_rows - 1) / p.tile_rows;
-  const int64_t most = (int64_t)blocks_per_sm(sizeof(T)) * sm_count[dev];
+  const int64_t most = (int64_t)blocks_per_sm(sizeof(T)) * sms;
   const int64_t per_block = (tiles + most - 1) / most;   // tiles a block
   const unsigned grid = (unsigned)((tiles + per_block - 1) / per_block);
   kernel<<<grid, THREADS, smem, s>>>(x, scale, y, rows, d, p.W, p.tile_rows,
@@ -475,12 +512,197 @@ int launch(const T* x, const T* scale, T* y, int64_t rows, int64_t d,
   if (d % 4 != 0 || d > MAX_D) return (int)cudaErrorInvalidValue;
   if (rows == 0 || d == 0) return 0;
   if constexpr (sizeof(T) == 4) {
-    return launch_stream<T, true>(0, x, scale, y, rows, (int)d, eps, s);
+    return launch_stream<T, true>(x, scale, y, rows, (int)d, eps, s);
   } else {
     if (d % 8 == 0)
-      return launch_stream<T, true>(1, x, scale, y, rows, (int)d, eps, s);
-    return launch_stream<T, false>(2, x, scale, y, rows, (int)d, eps, s);
+      return launch_stream<T, true>(x, scale, y, rows, (int)d, eps, s);
+    return launch_stream<T, false>(x, scale, y, rows, (int)d, eps, s);
   }
+}
+
+// ---------------------------------------------------------------------------
+// rmsnorm_rows_kernel: the rows the stream cannot take
+// ---------------------------------------------------------------------------
+//
+// A row whose byte length is not a multiple of 8 or whose base is not
+// 16-byte aligned (d = 1, 3, 17, 4099, ...), and a row wider than 8192 (d =
+// 8200, 16384, 20000, ...): no TMA, no ring.  A row belongs to a team of W
+// warps (W = 1, 2, 4, 8, the least with 256 W >= d, so a thread takes at
+// most eight elements before the team is 8 warps), 8 / W teams a block of
+// 256 threads, a grid-stride walk over the rows.
+//
+//   * LOADS BY VECTOR WHERE ALIGNED, ELSE BY ELEMENT: where d % 4 == 0 and
+//     x, y and the scale are aligned to four elements (16 bytes of
+//     float32, 8 of a 2-byte type), thread t of the team takes the groups
+//     of four t, t + 32 W, ... of the row; elsewhere the elements t, t +
+//     32 W, ...  Either way a warp's access is contiguous.
+//   * THE ROW IS KEPT IN SHARED MEMORY WHERE IT FITS: the first pass folds
+//     the squares and keeps what it read in the team's stash (each thread
+//     reads back only what it wrote: no barrier); where the block's rows
+//     do not fit (STASH_BYTES), the second pass reads the row again, from
+//     L2 where it still is.
+//   * THE FOLD: a thread folds its elements in order with fmaf (a group's
+//     four in order), then a fixed xor butterfly of shuffles, then the
+//     team's W warp sums in warp order: fixed by d and the vector flag,
+//     the same bits in any launch; the 2-byte row's rsqrt is bitwise the
+//     float32 kernel's on the widened row (tests/rmsnorm_fold.py emulates
+//     it).  rsqrt(sum / d + eps) and the write as in the stream kernel.
+
+constexpr int ROW_THREADS = 256;
+constexpr int ROW_WARPS = ROW_THREADS / WARP;
+constexpr int STASH_BYTES = 98304;     // a block's stash: two blocks a SM
+
+template <typename T> struct Elem;
+template <> struct Elem<float> {
+  static __device__ __forceinline__ float load(const float* p) { return *p; }
+  static __device__ __forceinline__ float4 load4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+  static __device__ __forceinline__ void store(float* p, float v, float r,
+                                               float s) {
+    *p = __fmul_rn(__fmul_rn(v, r), s);
+  }
+  static __device__ __forceinline__ void store4(float* p, float4 v, float r,
+                                                float4 s) {
+    *reinterpret_cast<float4*>(p) = make_float4(
+        __fmul_rn(__fmul_rn(v.x, r), s.x), __fmul_rn(__fmul_rn(v.y, r), s.y),
+        __fmul_rn(__fmul_rn(v.z, r), s.z), __fmul_rn(__fmul_rn(v.w, r), s.w));
+  }
+};
+
+template <typename T> struct Elem2 {
+  static __device__ __forceinline__ float load(const T* p) {
+    const unsigned short u = *reinterpret_cast<const unsigned short*>(p);
+    return Pair<T>::widen((uint32_t)u).x;
+  }
+  static __device__ __forceinline__ float4 load4(const T* p) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 a = Pair<T>::widen(u.x), b = Pair<T>::widen(u.y);
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+  static __device__ __forceinline__ void store(T* p, float v, float r,
+                                               float s) {
+    const uint32_t o = norm2<T>(v, 0.f, r, s, 0.f);
+    *reinterpret_cast<unsigned short*>(p) = (unsigned short)(o & 0xffffu);
+  }
+  static __device__ __forceinline__ void store4(T* p, float4 v, float r,
+                                                float4 s) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(
+        norm2<T>(v.x, v.y, r, s.x, s.y), norm2<T>(v.z, v.w, r, s.z, s.w));
+  }
+};
+template <> struct Elem<bf16> : Elem2<bf16> {};
+template <> struct Elem<__half> : Elem2<__half> {};
+
+// the team's warps a row of d elements
+inline int rows_team_warps(int64_t d) {
+  int W = 1;
+  while (W < ROW_WARPS && (int64_t)ROW_THREADS * W < d) W *= 2;
+  return W;
+}
+
+// x, y (rows, d); VEC: every row in groups of four aligned elements;
+// stash: the block's rows kept in shared memory (teams x d elements)
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(ROW_THREADS)
+rmsnorm_rows_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                    T* __restrict__ y, int64_t rows, int64_t d, int W,
+                    int stash, float eps) {
+  typedef Elem<T> el;
+  extern __shared__ __align__(16) unsigned char row_smem[];
+  __shared__ float part[2][ROW_WARPS];
+  const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  const int team = warp / W, wt = warp % W, teams = ROW_WARPS / W;
+  const int tl = wt * WARP + lane, tn = W * WARP;
+  float* const keep = reinterpret_cast<float*>(row_smem) + team * d;
+  int parity = 0;
+  for (int64_t r = (int64_t)blockIdx.x * teams + team; r < rows;
+       r += (int64_t)gridDim.x * teams) {
+    const T* const xr = x + r * d;
+    T* const yr = y + r * d;
+    float acc = 0.f;
+    if (VEC) {
+      for (int64_t g = tl; g < d / 4; g += tn) {
+        const float4 v = el::load4(xr + 4 * g);
+        acc = fmaf(v.x, v.x, acc);
+        acc = fmaf(v.y, v.y, acc);
+        acc = fmaf(v.z, v.z, acc);
+        acc = fmaf(v.w, v.w, acc);
+        if (stash) reinterpret_cast<float4*>(keep)[g] = v;
+      }
+    } else {
+      for (int64_t i = tl; i < d; i += tn) {
+        const float v = el::load(xr + i);
+        acc = fmaf(v, v, acc);
+        if (stash) keep[i] = v;
+      }
+    }
+    acc = warp_sum(acc);
+    if (W > 1) {                       // the team's warp sums, in warp order
+      float* const p = part[parity] + team * W;
+      if (lane == 0) p[wt] = acc;
+      bar_sync(1 + team, tn);
+      acc = 0.f;
+      for (int w = 0; w < W; ++w) acc += p[w];
+      parity ^= 1;
+    }
+    const float rs = rsqrtf(acc / (float)d + eps);
+    if (VEC) {
+      for (int64_t g = tl; g < d / 4; g += tn) {
+        const float4 v = stash ? reinterpret_cast<const float4*>(keep)[g]
+                               : el::load4(xr + 4 * g);
+        el::store4(yr + 4 * g, v, rs, el::load4(scale + 4 * g));
+      }
+    } else {
+      for (int64_t i = tl; i < d; i += tn)
+        el::store(yr + i, stash ? keep[i] : el::load(xr + i), rs,
+                  el::load(scale + i));
+    }
+  }
+}
+
+template <typename T, bool VEC>
+int launch_rows_as(const T* x, const T* scale, T* y, int64_t rows,
+                   int64_t d, float eps, cudaStream_t s) {
+  auto kernel = rmsnorm_rows_kernel<T, VEC>;
+  static int smem_set[MAX_DEVICES];
+  int dev = 0;
+  const int sms = device_sms(&dev);
+  if (sms < 0) return -sms;
+  const int W = rows_team_warps(d), teams = ROW_WARPS / W;
+  // the block's rows in shared memory where they fit, else read twice
+  const int64_t keep = teams * d * (int64_t)sizeof(float);
+  const int stash = keep <= STASH_BYTES;
+  const int smem = stash ? (int)keep : 0;
+  if (!smem_set[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, STASH_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = 1;
+  }
+  int64_t blocks = (rows + teams - 1) / teams;
+  const int64_t most = (int64_t)sms * 16;
+  if (blocks > most) blocks = most;
+  kernel<<<(unsigned)blocks, ROW_THREADS, smem, s>>>(x, scale, y, rows, d,
+                                                     W, stash, eps);
+  return (int)cudaGetLastError();
+}
+
+// the rows kernel's launches by dtype (0 float32, 1 bfloat16, 2 float16)
+// and by load (0 by element, 1 by vector), read by lag_rmsnorm_rows_counts
+int64_t rows_counts[3][2];
+
+template <typename T>
+int launch_rows(const T* x, const T* scale, T* y, int64_t rows, int64_t d,
+                float eps, cudaStream_t s, int which) {
+  if (d < 1) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  const uintptr_t a = (uintptr_t)x | (uintptr_t)y | (uintptr_t)scale;
+  const bool vec = d % 4 == 0 && a % (4 * sizeof(T)) == 0;
+  const int err = vec ? launch_rows_as<T, true>(x, scale, y, rows, d, eps, s)
+                      : launch_rows_as<T, false>(x, scale, y, rows, d, eps, s);
+  if (err == 0) ++rows_counts[which][vec];
+  return err;
 }
 
 }  // namespace
@@ -502,8 +724,36 @@ int lag_rmsnorm_bf16(const void* x, const void* scale, void* y, int64_t rows,
                 (cudaStream_t)stream);
 }
 
-// the plan both entries launch for rows of d elements of `size` bytes (4
-// or 2): out = {warps a row, rows a tile, stages a ring, blocks a SM}
+// the same in float16: x, y (rows, d), scale (d,), all float16
+int lag_rmsnorm_f16(const void* x, const void* scale, void* y, int64_t rows,
+                    int64_t d, float eps, void* stream) {
+  return launch((const __half*)x, (const __half*)scale, (__half*)y, rows, d,
+                eps, (cudaStream_t)stream);
+}
+
+// the rows kernel, in each dtype: x, y (rows, d), scale (d,), contiguous,
+// any d >= 1, any alignment of their elements
+int lag_rmsnorm_rows_f32(const void* x, const void* scale, void* y,
+                         int64_t rows, int64_t d, float eps, void* stream) {
+  return launch_rows((const float*)x, (const float*)scale, (float*)y, rows,
+                     d, eps, (cudaStream_t)stream, 0);
+}
+
+int lag_rmsnorm_rows_bf16(const void* x, const void* scale, void* y,
+                          int64_t rows, int64_t d, float eps, void* stream) {
+  return launch_rows((const bf16*)x, (const bf16*)scale, (bf16*)y, rows, d,
+                     eps, (cudaStream_t)stream, 1);
+}
+
+int lag_rmsnorm_rows_f16(const void* x, const void* scale, void* y,
+                         int64_t rows, int64_t d, float eps, void* stream) {
+  return launch_rows((const __half*)x, (const __half*)scale, (__half*)y,
+                     rows, d, eps, (cudaStream_t)stream, 2);
+}
+
+// the plan the stream entries launch for rows of d elements of `size`
+// bytes (4 or 2): out = {warps a row, rows a tile, stages a ring, blocks a
+// SM}
 int lag_rmsnorm_plan(int64_t d, int64_t size, int64_t* out) {
   if (d % 4 != 0 || d <= 0 || d > MAX_D || (size != 4 && size != 2))
     return (int)cudaErrorInvalidValue;
@@ -513,6 +763,12 @@ int lag_rmsnorm_plan(int64_t d, int64_t size, int64_t* out) {
   out[2] = p.stages;
   out[3] = blocks_per_sm((int)size);
   return 0;
+}
+
+// the rows kernel's launches so far: out = {float32 by element, by vector,
+// bfloat16 by element, by vector, float16 by element, by vector}
+void lag_rmsnorm_rows_counts(int64_t* out) {
+  for (int i = 0; i < 6; ++i) out[i] = rows_counts[i / 2][i % 2];
 }
 
 }  // extern "C"

@@ -1,15 +1,29 @@
 """Fused RMSNorm on Hopper: the launch of ``csrc/rmsnorm.cu`` (port of the
 Pallas kernel ``repro.kernels.rmsnorm.rmsnorm.rmsnorm_2d``).
 
-The CUDA kernel takes any number of rows (no row padding), float32 or
-bfloat16, and widths that are a multiple of 4 up to ``MAX_D``: a persistent
-grid streams tiles of rows through shared memory by TMA, and a team of 1 to
-8 warps (by d alone) folds each row.  The output is at x's dtype and the
-scale is cast to it first, as in the reference's kernel (so a bfloat16 x
-with a float32 scale writes bfloat16, where the plain version promotes to
-float32).  ``LAUNCHES`` counts the launches of each instantiation
-(``rmsnorm`` for float32, ``rmsnorm_bf16`` for bfloat16); nothing else
-increments it.
+The CUDA kernels take any number of rows (no row padding), float32,
+bfloat16 or float16, and any width d >= 1, as the reference's kernel does.
+The output is at x's dtype and the scale is cast to it first, as in the
+reference's kernel (so a 2-byte x with a float32 scale writes x's dtype,
+where the plain version promotes to float32).
+
+Both kernels read x as contiguous rows: a non-contiguous x (a strided
+view) is first copied to a contiguous one, and the rule below is applied to
+the copy.  Two kernels, chosen by one rule (:func:`stream_takes`): a row
+whose byte length is a multiple of 8 and of at most ``MAX_D`` elements,
+with x and the scale 16-byte aligned, goes through the stream kernel (a
+persistent grid streams tiles of rows through shared memory by TMA, and a
+team of 1 to 8 warps, by d alone, folds each row): every row the models
+give it.  Every other row (d 1, 3, 17, 4099, a contiguous x or scale whose
+base is not 16-byte aligned, d above 8192) goes through the rows kernel (a
+team of warps a row, loads by groups of four where d % 4 == 0 and x, y and
+the scale are aligned to four elements, else by element, the row kept in
+shared memory where it fits, else read twice through L2;
+:func:`rows_counts` says which load each launch took).  Neither falls back
+to the plain version.  ``LAUNCHES`` counts the launches of each
+instantiation (``rmsnorm``, ``rmsnorm_bf16``, ``rmsnorm_f16`` for the
+stream kernel, ``rmsnorm_rows``, ``rmsnorm_rows_bf16``, ``rmsnorm_rows_f16``
+for the rows kernel); nothing else increments it.
 """
 from __future__ import annotations
 
@@ -21,24 +35,34 @@ import torch
 
 from repro_torch.kernels import build
 
-#: the widest row the kernel takes (a team of 8 warps, four chunks of 8
-#: elements a thread)
+#: the widest row the stream kernel takes (a team of 8 warps, four chunks
+#: of 8 elements a thread)
 MAX_D = 8192
 
-#: the instantiation of each dtype: (its name in ``LAUNCHES``, entry point)
+#: the stream kernel's instantiation of each dtype: (its name in
+#: ``LAUNCHES``, entry point)
 ENTRIES = {torch.float32: ("rmsnorm", "lag_rmsnorm_f32"),
-           torch.bfloat16: ("rmsnorm_bf16", "lag_rmsnorm_bf16")}
+           torch.bfloat16: ("rmsnorm_bf16", "lag_rmsnorm_bf16"),
+           torch.float16: ("rmsnorm_f16", "lag_rmsnorm_f16")}
+#: the rows kernel's
+ROWS_ENTRIES = {torch.float32: ("rmsnorm_rows", "lag_rmsnorm_rows_f32"),
+                torch.bfloat16: ("rmsnorm_rows_bf16",
+                                 "lag_rmsnorm_rows_bf16"),
+                torch.float16: ("rmsnorm_rows_f16", "lag_rmsnorm_rows_f16")}
 
 #: kernel launches since the last ``reset_launches()``
-LAUNCHES: Dict[str, int] = {name: 0 for name, _ in ENTRIES.values()}
+LAUNCHES: Dict[str, int] = {name: 0 for table in (ENTRIES, ROWS_ENTRIES)
+                            for name, _ in table.values()}
 
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
          ctypes.c_int64, ctypes.c_float)
 LIBRARY = build.CudaLibrary(
     "rmsnorm", Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu",
-    {entry: _ARGS for _, entry in ENTRIES.values()})
-#: dtype → (its name in ``LAUNCHES``, the C function), at first launch
-_ENTRY: Dict[torch.dtype, Tuple[str, object]] = {}
+    {entry: _ARGS for table in (ENTRIES, ROWS_ENTRIES)
+     for _, entry in table.values()})
+#: (dtype, stream?) → (its name in ``LAUNCHES``, the C function), at first
+#: launch
+_ENTRY: Dict[Tuple[torch.dtype, bool], Tuple[str, object]] = {}
 
 
 def reset_launches() -> None:
@@ -47,42 +71,45 @@ def reset_launches() -> None:
 
 
 def _refuse(x: torch.Tensor, scale: torch.Tensor) -> None:
-    """Raise on what the kernel does not take, first failure first."""
+    """Raise on what the kernels do not take (device, dtype, shape), first
+    failure first."""
     if not (x.is_cuda and scale.device == x.device):
         raise ValueError(f"rmsnorm_2d: CUDA operands on one device "
                          f"required, got {x.device} and {scale.device}")
     if x.dtype not in ENTRIES or scale.dtype not in (x.dtype, torch.float32):
-        raise TypeError(f"rmsnorm_2d: x float32 or bfloat16 and scale at "
-                        f"its dtype or float32 required, got {x.dtype} and "
-                        f"{scale.dtype}")
-    if x.dim() != 2 or scale.shape != (x.shape[1],):
-        raise ValueError(f"rmsnorm_2d: want x (R, d) and scale (d,), got "
-                         f"{tuple(x.shape)} and {tuple(scale.shape)}")
-    if x.shape[1] % 4 or x.shape[1] > MAX_D:
-        raise ValueError(f"rmsnorm_2d: width {x.shape[1]} not taken (a "
-                         f"multiple of 4 up to {MAX_D})")
-    scale = scale.to(x.dtype)
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
-               for t in (x, scale)):
-        raise ValueError("rmsnorm_2d: operands must be contiguous and "
-                         "16-byte aligned")
+        raise TypeError(f"rmsnorm_2d: x float32, bfloat16 or float16 and "
+                        f"scale at its dtype or float32 required, got "
+                        f"{x.dtype} and {scale.dtype}")
+    if x.dim() != 2 or scale.shape != (x.shape[1],) or x.shape[1] < 1:
+        raise ValueError(f"rmsnorm_2d: want x (R, d) and scale (d,), d >= "
+                         f"1, got {tuple(x.shape)} and {tuple(scale.shape)}")
+
+
+def stream_takes(x: torch.Tensor, scale: torch.Tensor) -> bool:
+    """The rule between the two kernels, on contiguous x and scale: the
+    stream kernel takes a row of at most ``MAX_D`` elements whose byte
+    length is a multiple of 8 (d a multiple of 4 in every dtype), with x
+    and the scale 16-byte aligned; the rows kernel takes the rest."""
+    d = x.shape[1]
+    return (d % 4 == 0 and d <= MAX_D and x.data_ptr() % 16 == 0
+            and scale.data_ptr() % 16 == 0)
 
 
 def rmsnorm_2d(x: torch.Tensor, scale: torch.Tensor, *,
                eps: float = 1e-6) -> torch.Tensor:
-    """x (R, d) float32 or bfloat16, scale (d,) at x's dtype or float32,
-    on one CUDA device → (R, d) at x's dtype."""
+    """x (R, d) float32, bfloat16 or float16, scale (d,) at x's dtype or
+    float32, on one CUDA device → (R, d) at x's dtype."""
     dtype = x.dtype
-    # every condition of ``_refuse`` at once, read as few times as can be
+    # the common case's conditions at once, read as few times as can be
     if not (x.is_cuda and x.dim() == 2 and dtype in ENTRIES
             and scale.get_device() == x.get_device()
             and scale.dtype is dtype and scale.shape == x.shape[1:]
-            and x.shape[1] % 4 == 0 and x.shape[1] <= MAX_D
-            and x.is_contiguous() and scale.is_contiguous()
-            and x.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0):
+            and x.shape[1] >= 1):
         _refuse(x, scale)            # raises, or passes a float32 scale
         scale = scale.to(dtype)
-    name, fn = _ENTRY.get(dtype) or _resolve(dtype)
+    x, scale = x.contiguous(), scale.contiguous()
+    stream = stream_takes(x, scale)
+    name, fn = _ENTRY.get((dtype, stream)) or _resolve(dtype, stream)
     y = torch.empty_like(x)
     rows, d = x.shape
     build.launch(fn, x.data_ptr(), scale.data_ptr(), y.data_ptr(), rows, d,
@@ -91,23 +118,36 @@ def rmsnorm_2d(x: torch.Tensor, scale: torch.Tensor, *,
     return y
 
 
-def _resolve(dtype: torch.dtype):
-    """(name, C entry point) of ``dtype``'s instantiation, resolved once."""
-    name, entry = ENTRIES[dtype]
-    _ENTRY[dtype] = name, getattr(build.load(LIBRARY), entry)
-    return _ENTRY[dtype]
+def _resolve(dtype: torch.dtype, stream: bool):
+    """(name, C entry point) of ``dtype``'s instantiation of one kernel,
+    resolved once."""
+    name, entry = (ENTRIES if stream else ROWS_ENTRIES)[dtype]
+    _ENTRY[dtype, stream] = name, getattr(build.load(LIBRARY), entry)
+    return _ENTRY[dtype, stream]
+
+
+def rows_counts() -> Dict[torch.dtype, Tuple[int, int]]:
+    """The rows kernel's launches so far by dtype, (by element, by groups
+    of four), as the library counts them (built if needed; never reset)."""
+    fn = build.load(LIBRARY).lag_rmsnorm_rows_counts
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int64)]
+    fn.restype = None
+    out = (ctypes.c_int64 * 6)()
+    fn(out)
+    return {dt: (out[2 * i], out[2 * i + 1]) for i, dt in enumerate(
+        (torch.float32, torch.bfloat16, torch.float16))}
 
 
 def plan(d: int, dtype: torch.dtype) -> Tuple[int, int, int, int]:
-    """The tiling a launch of rows of width ``d`` at ``dtype`` picks, from
-    the library itself (built if needed): (warps a row, rows a tile,
-    stages a ring, blocks a SM)."""
+    """The tiling a stream launch of rows of width ``d`` at ``dtype``
+    picks, from the library itself (built if needed): (warps a row, rows a
+    tile, stages a ring, blocks a SM)."""
     fn = build.load(LIBRARY).lag_rmsnorm_plan
     fn.argtypes = [ctypes.c_int64, ctypes.c_int64,
                    ctypes.POINTER(ctypes.c_int64)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int64 * 4)()
-    err = fn(d, dtype.itemsize, out)
-    if err != 0:
+    if fn(d, dtype.itemsize, out) != 0:
         raise ValueError(f"rmsnorm plan: no plan for d {d} at {dtype}")
     return tuple(out)
+

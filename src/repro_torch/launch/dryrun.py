@@ -6,6 +6,8 @@ device — port of ``repro.launch.dryrun`` for one card.
     python -m repro_torch.launch.dryrun --arch all --shape all --out DIR
     python -m repro_torch.launch.dryrun --arch all --shape all --reduced \
         --batch 4 --seq 64 --workers 2 --out DIR     # the tests' sizes
+    python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k \
+        --dtype float16 --out DIR                    # a float16 config
 
 The reference lowers and compiles each step on its production mesh with
 shape stand-ins and reads XLA's memory and cost analyses.  The port runs
@@ -30,8 +32,8 @@ the reference's record keys where their meaning carries over
 ``memory.temp_size_in_bytes``: the transient peak; ``cost.flops``;
 ``status``; ``workers``) and ``mesh: "one_card"``.  ``--mesh`` and the
 collectives wait for the device plane (ROADMAP queue 1 item 5).  A
-bfloat16 config that keeps float32 leaves (the MoE router, mamba2's and
-RG-LRU's float32 leaves) reckons its training state as the trainer holds
+bfloat16 or float16 config that keeps float32 leaves (the MoE router,
+mamba2's and RG-LRU's float32 leaves) reckons its training state as the trainer holds
 it: two parts a tree (``fastpath.layout.Parts``), each at its leaves'
 dtype, and each plane op launched once per part.
 """
@@ -80,10 +82,11 @@ def count_params(cfg: ModelConfig) -> int:
     return sum(math.prod(t.shape) for t in tree_leaves(model.templates(cfg)))
 
 
-def dryrun_config(arch: str) -> ModelConfig:
-    """The reference's dry-run config: bfloat16 params and compute; MoE
-    groups aligned with its 16-way model axis."""
-    cfg = get_config(arch, dtype="bfloat16", param_dtype="bfloat16")
+def dryrun_config(arch: str, dtype: str = "bfloat16") -> ModelConfig:
+    """The reference's dry-run config: bfloat16 params and compute (or
+    ``dtype``'s, float16); MoE groups aligned with its 16-way model
+    axis."""
+    cfg = get_config(arch, dtype=dtype, param_dtype=dtype)
     if cfg.num_experts:
         cfg = cfg.replace(moe_seq_shards=16)
     return cfg
@@ -240,13 +243,15 @@ def reckon(cfg: ModelConfig, shape_name: str, workers: int,
            tcfg: Optional[TrainerConfig] = None, policy=None) -> Dict:
     """The reckoning of ``cfg`` at ``shape_name`` (``batch`` / ``seq``
     override the shape's): a training step at ``workers`` with ``tcfg``
-    (default: the reference's dry-run trainer, lag-wk with bfloat16 ĝ) and
-    ``policy`` (:func:`reckon_train`), else the serving step."""
+    (default: the reference's dry-run trainer, lag-wk with bfloat16 ĝ, or
+    float16 ĝ for a float16 config) and ``policy``
+    (:func:`reckon_train`), else the serving step."""
     shp = SHAPES[shape_name]
     inputs = input_specs(cfg, shape_name, batch, seq)
     if shp.kind == "train":
+        gh = "float16" if cfg.param_dtype == "float16" else "bfloat16"
         tcfg = tcfg or TrainerConfig(algo="lag-wk", num_workers=workers,
-                                     lr=1e-3, grad_hat_dtype="bfloat16")
+                                     lr=1e-3, grad_hat_dtype=gh)
         return reckon_train(cfg, tcfg.replace(num_workers=workers), inputs,
                             policy)
     return reckon_serve(cfg, shp.kind, inputs, seq or shp.seq_len)
@@ -283,12 +288,14 @@ def max_layers(cfg: ModelConfig, shape_name: str, workers: int,
 
 def run_one(arch: str, shape_name: str, workers: int,
             budget: float = CARD_BYTES, reduced: bool = False,
-            batch: Optional[int] = None, seq: Optional[int] = None) -> Dict:
-    cfg = dryrun_config(arch)
+            batch: Optional[int] = None, seq: Optional[int] = None,
+            dtype: str = "bfloat16") -> Dict:
+    cfg = dryrun_config(arch, dtype)
     if reduced:
         cfg = cfg.reduced()
     ok, reason = applicable(cfg, shape_name)
-    rec = {"arch": arch, "shape": shape_name, "mesh": MESH, "n_devices": 1}
+    rec = {"arch": arch, "shape": shape_name, "mesh": MESH, "n_devices": 1,
+           "dtype": dtype}
     if not ok:
         rec.update(status="skipped", reason=reason)
         return rec
@@ -330,6 +337,10 @@ def main(argv=None) -> int:
                    help="override the shapes' global batch")
     p.add_argument("--seq", type=int, default=None,
                    help="override the shapes' sequence length")
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=("bfloat16", "float16"),
+                   help="params and compute (the reference's: bfloat16); "
+                        "training keeps ĝ at this dtype")
     args = p.parse_args(argv)
 
     archs = [args.arch] if args.arch != "all" \
@@ -342,8 +353,9 @@ def main(argv=None) -> int:
             count_params(dryrun_config(arch)))
         for shape_name in shapes:
             rec = run_one(arch, shape_name, workers, CARD_BYTES,
-                          args.reduced, args.batch, args.seq)
-            fname = f"{arch}_{shape_name}_{MESH}.json".replace("/", "_")
+                          args.reduced, args.batch, args.seq, args.dtype)
+            tag = "" if args.dtype == "bfloat16" else f"_{args.dtype}"
+            fname = f"{arch}_{shape_name}_{MESH}{tag}.json".replace("/", "_")
             with open(os.path.join(args.out, fname), "w") as f:
                 json.dump(rec, f, indent=1)
             status, extra = rec["status"], ""

@@ -61,3 +61,46 @@ def kernel_rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     y = T(T(x · r) · T(scale)), T = x's dtype."""
     return ((x.float() * r).to(x.dtype).float()
             * scale.to(x.dtype).float()).to(x.dtype)
+
+
+# The rows kernel (``rmsnorm_rows_kernel``: rows the TMA stream does not
+# take, any d): a row's team is the least W of 1, 2, 4, 8 with 256 W >= d.
+# Thread t of the team takes the groups of four t, t + 32 W, ... where the
+# row is aligned for four-element loads (``vec``: d % 4 == 0 on an aligned
+# buffer), else the elements t, t + 32 W, ...; it folds them in order with
+# fmaf, then the xor butterfly and the team's warp sums in warp order, as
+# the stream kernel does.
+RMS_ROWS_WIDTHS = (1, 3, 17, 4099, 8200, 16384, 20000)
+
+
+def rows_team_warps(d: int) -> int:
+    w = 1
+    while w < 8 and 256 * w < d:
+        w *= 2
+    return w
+
+
+def rows_mean_square(x: torch.Tensor, eps: float = 1e-6,
+                     vec: bool = None) -> np.ndarray:
+    """x (R, d) float32 or 2-byte → the rows kernel's sum / d + eps per
+    row, float32; ``vec`` defaults to the aligned buffer's (d % 4 == 0)."""
+    R, d = x.shape
+    vec = d % 4 == 0 if vec is None else vec
+    W = rows_team_warps(d)
+    T = 32 * W
+    unit = 4 if vec else 1
+    K = -(-(-(-d // unit)) // T)                 # units a thread
+    v = np.zeros((R, K * T * unit), np.float64)  # zeros fold as no-ops
+    v[:, :d] = x.float().numpy()
+    v = v.reshape(R, K, T, unit)                 # unit k·T + t of thread t
+    acc = np.zeros((R, T), np.float32)
+    for k in range(K):
+        for e in range(unit):
+            acc = (v[:, k, :, e] * v[:, k, :, e] + acc).astype(np.float32)
+    acc = acc.reshape(R, W, 32)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, :, np.arange(32) ^ o]
+    tot = acc[:, 0, 0]
+    for w in range(1, W):
+        tot = tot + acc[:, w, 0]
+    return tot / np.float32(d) + np.float32(eps)

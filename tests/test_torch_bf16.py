@@ -278,21 +278,29 @@ def test_bfloat16_values_are_exact_in_tf32():
 
 
 def test_bf16_instantiations_and_their_shared_memory():
-    """Both kernels take bfloat16 beside float32, launches counted apart;
-    RMSNorm's two dtypes share one source, flash attention's bfloat16
-    kernel has its own (``flash_attention_bf16.cu``: q and a two-stage
-    K/V ring of bfloat16 tiles, no lo buffer), each block within Hopper's
-    227 KB."""
+    """Both kernels take bfloat16 (and float16) beside float32, launches
+    counted apart, each with a second kernel for what the first does not
+    take (RMSNorm's rows kernel, the wide flash kernel) in every dtype;
+    RMSNorm's dtypes share one source, flash attention's bfloat16 kernel
+    has its own (``flash_attention_bf16.cu``: q and a two-stage K/V ring of
+    bfloat16 tiles, no lo buffer; float16 is the same source built again),
+    each block within Hopper's 227 KB."""
     from repro_torch.kernels.flash_attention import flash_attention as t_fa
     from repro_torch.kernels.rmsnorm import rmsnorm as t_rms
-    for mod, name in ((t_rms, "rmsnorm"), (t_fa, "flash_attention")):
-        assert set(mod.ENTRIES) == {torch.float32, torch.bfloat16}
-        assert set(mod.LAUNCHES) == {name, name + "_bf16"}
+    for mod, name, second in ((t_rms, "rmsnorm", "rmsnorm_rows"),
+                              (t_fa, "flash_attention",
+                               "flash_attention_wide")):
+        assert set(mod.ENTRIES) == {torch.float32, torch.bfloat16,
+                                    torch.float16}
+        assert set(mod.LAUNCHES) == {n + sfx for n in (name, second)
+                                     for sfx in ("", "_bf16", "_f16")}
     assert set(t_rms.LIBRARY.entry_points) == {
-        e for _, e in t_rms.ENTRIES.values()}
+        e for table in (t_rms.ENTRIES, t_rms.ROWS_ENTRIES)
+        for _, e in table.values()}
     for dtype, (_, entry) in t_fa.ENTRIES.items():
         assert set(t_fa.LIBRARIES[dtype].entry_points) == {entry}
-    assert t_fa.LIBRARY_BF16.source.name == "flash_attention_bf16.cu"
+    assert t_fa.LIBRARY_BF16.source.name == "flash_attention_bf16.cu" \
+        == t_fa.LIBRARY_F16.source.name
     assert t_fa.SHARED_BYTES_BF16 == {64: 83008, 80: 103488, 128: 99392,
                                       256: 197696}
     for hd, nbytes in t_fa.SHARED_BYTES_BF16.items():

@@ -528,7 +528,7 @@ def test_paths_not_ported_at_bf16_raise_by_name(tmp_path):
     like = {"theta": torch.zeros_like(st["theta"])}
     assert torch.equal(store.restore(str(tmp_path), like)[0]["theta"],
                        st["theta"])
-    for bad in ("float16", "float32"):      # None or "bfloat16" only
+    for bad in ("float32", "float64"):      # None or a 2-byte float only
         with pytest.raises(ValueError, match="grad_hat_dtype"):
             TrainerConfig(grad_hat_dtype=bad)
     assert path.endswith("step_0.npz")
@@ -546,8 +546,8 @@ def test_wrappers_raise_for_unbuilt_dtype_combinations():
     with pytest.raises(TypeError, match="float32"):
         kernels.absmax_blocks(b, b, b)             # the residual is float32
     with pytest.raises(TypeError, match="float32"):
-        kernels.sqnorm_blocks(b)
+        kernels.sqnorm_blocks(b.double())
     with pytest.raises(TypeError, match="float32"):
         kernels.laq_encode_blocks(b, b, f, torch.zeros((2, 1)), 4,
                                   payload_out=b)
-    assert lag_trainer.GRAD_HAT_DTYPES == (None, "bfloat16")
+    assert lag_trainer.GRAD_HAT_DTYPES == (None, "bfloat16", "float16")

@@ -172,11 +172,11 @@ def test_layout_round_trips_float64_bitwise():
     sback = lo.unflatten_stacked(lo.flatten_stacked(stacked))
     for k in tree:
         assert bits_equal(sback[k].numpy(), stacked[k].numpy())
-    # float32 and float16 trees keep float32 buffers, a bfloat16 tree
-    # bfloat16 ones (its leaves are views)
+    # a float32 tree keeps float32 buffers, a bfloat16 or float16 tree
+    # buffers of its own dtype (its leaves are views)
     for dt, want in ((torch.float32, torch.float32),
                      (torch.bfloat16, torch.bfloat16),
-                     (torch.float16, torch.float32)):
+                     (torch.float16, torch.float16)):
         lo = FlatLayout.for_tree({"w": torch.ones(3, dtype=dt)})
         assert lo.flatten({"w": torch.ones(3, dtype=dt)}).dtype \
             == want == lo.empty().dtype

@@ -166,6 +166,28 @@ def test_cli_lines_and_json_records(tmp_path, capsys):
         assert rec["memory"]["state_bytes"]["theta"] > 0
 
 
+def test_cli_dtype_float16_records(tmp_path):
+    """``--dtype float16`` reckons the float16 config: records of their
+    own (``_float16`` in the name, ``"dtype"``), θ at the bfloat16 config's
+    bytes (both 2-byte trees), float32 parts kept as float32."""
+    args = ["--shape", "train_4k", "--reduced", "--batch", "4", "--seq",
+            "32", "--workers", "2", "--out", str(tmp_path)]
+    for arch in ("llama3.2-1b", "mamba2-370m"):
+        assert dryrun.main(["--arch", arch, *args]) == 0
+        assert dryrun.main(["--arch", arch, "--dtype", "float16", *args]) == 0
+        bf = json.loads((tmp_path / f"{arch}_train_4k_one_card.json")
+                        .read_text())
+        fh = json.loads((tmp_path / f"{arch}_train_4k_one_card_float16.json")
+                        .read_text())
+        assert (bf["dtype"], fh["dtype"]) == ("bfloat16", "float16")
+        assert fh["status"] == "ok" and fh["fits"] is True
+        assert fh["memory"]["state_bytes"]["theta"] \
+            == bf["memory"]["state_bytes"]["theta"]
+    with pytest.raises(SystemExit):
+        dryrun.main(["--arch", "llama3.2-1b", "--dtype", "float32", *args])
+
+
+
 # ---------------------------------------------------------------------------
 # The examples, on the CPU at tiny sizes
 # ---------------------------------------------------------------------------

@@ -851,10 +851,10 @@ def test_cuda_flash_attention_at_zero_padded_head_dims(cuda_device, S, Skv,
 
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_what_no_instantiation_serves(cuda_device):
-    """float32 and bfloat16 are taken at any head_dim from 1 to 256 (96 is
-    zero-padded to 128, its output the plain version's); head_dim 257, a
-    width that is not whole groups of four (float32 or bfloat16), another
-    dtype and mixed dtypes are refused."""
+    """float32, bfloat16 and float16 are taken at any head_dim (96 is
+    zero-padded to 128, its output the plain version's; 257 and above take
+    the wide kernel) and RMSNorm at any width (8196 and 1027 take the rows
+    kernel); another dtype and mixed dtypes are refused."""
     q, k, v = (torch.from_numpy(a).to(cuda_device)
                for a in attn_inputs(8, 8, B=1, hd=96))
     got = t_fa_ops.flash_attention(q, k, v)
@@ -865,33 +865,36 @@ def test_cuda_wrappers_refuse_what_no_instantiation_serves(cuda_device):
                                     v.bfloat16()).shape == q.shape
     q, k, v = (torch.from_numpy(a).to(cuda_device)
                for a in attn_inputs(8, 8, B=1, hd=257))
-    with pytest.raises(ValueError, match="head_dim 257 not served"):
-        t_fa_ops.flash_attention(q, k, v)
-    with pytest.raises(ValueError, match="head_dim 257 not served"):
-        t_fa_ops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    torch.testing.assert_close(t_fa_ops.flash_attention(q, k, v),
+                               t_fa_ref.attention(q, k, v), rtol=ATTN_TOL,
+                               atol=ATTN_TOL)
+    for dt in (torch.bfloat16, torch.half):
+        assert t_fa_ops.flash_attention(q.to(dt), k.to(dt),
+                                        v.to(dt)).dtype == dt
     q, k, v = (torch.from_numpy(a).to(cuda_device)
                for a in attn_inputs(8, 8, B=1))
-    assert t_fa_ops.flash_attention(q.bfloat16(), k.bfloat16(),
-                                    v.bfloat16()).dtype == torch.bfloat16
-    with pytest.raises(TypeError, match="bfloat16"):
-        t_fa_ops.flash_attention(q.half(), k.half(), v.half())
+    assert t_fa_ops.flash_attention(q.half(), k.half(),
+                                    v.half()).dtype == torch.half
+    with pytest.raises(TypeError, match="float16"):
+        t_fa_ops.flash_attention(q.double(), k.double(), v.double())
     with pytest.raises(TypeError, match="one dtype"):
         t_fa_ops.flash_attention(q.bfloat16(), k, v)
     x = torch.ones((2, 8196), device=cuda_device)
-    with pytest.raises(ValueError, match="not taken"):
-        t_rms_ops.rmsnorm(x, torch.ones(8196, device=cuda_device))
+    torch.testing.assert_close(t_rms_ops.rmsnorm(
+        x, torch.ones(8196, device=cuda_device)), x, rtol=RMS_TOL,
+        atol=RMS_TOL)
     for d in (1027, 8196):
         x = torch.ones((2, d), device=cuda_device, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="not taken"):
-            t_rms_ops.rmsnorm(x, torch.ones(d, device=cuda_device,
-                                            dtype=torch.bfloat16))
-    x = torch.ones((2, 1024), device=cuda_device, dtype=torch.bfloat16)
+        assert t_rms_ops.rmsnorm(x, torch.ones(
+            d, device=cuda_device, dtype=torch.bfloat16)).dtype \
+            == torch.bfloat16
+    x = torch.ones((2, 1024), device=cuda_device, dtype=torch.half)
     assert t_rms_ops.rmsnorm(x, torch.ones(1024, device=cuda_device,
-                                           dtype=torch.bfloat16)).dtype \
-        == torch.bfloat16
-    with pytest.raises(TypeError, match="bfloat16"):
-        t_rms_ops.rmsnorm(x.half(), torch.ones(1024, device=cuda_device,
-                                               dtype=torch.half))
+                                           dtype=torch.half)).dtype \
+        == torch.half
+    with pytest.raises(TypeError, match="float16"):
+        t_rms_ops.rmsnorm(x.double(), torch.ones(1024, device=cuda_device,
+                                                 dtype=torch.double))
 
 
 # ---------------------------------------------------------------------------
@@ -901,7 +904,8 @@ def test_cuda_wrappers_refuse_what_no_instantiation_serves(cuda_device):
 # ---------------------------------------------------------------------------
 
 PLANE_COMBOS = [(k, dts) for k, table in fp_kernels.ENTRIES.items()
-                for dts in table if torch.bfloat16 in dts]
+                for dts in table if torch.bfloat16 in dts
+                and k != "sqnorm_blocks"]     # test_torch_f16_cuda.py's
 
 
 def plane_operand(dev, gen, W, R, dtype, scale=1.0):

@@ -509,7 +509,9 @@ def test_legacy_unbuilt_combinations_raise_on_the_cpu():
     with pytest.raises(TypeError, match="no instantiation"):
         ops.masked_lazy_update(b, f, torch.tensor(1.0))
     with pytest.raises(TypeError, match="no instantiation"):
-        ops.fused_tree_sqnorm(h)
+        ops.fused_tree_sqnorm(d)                       # float64
+    with pytest.raises(TypeError, match="no instantiation"):
+        ops.delta_sqnorm(h, b)                         # (f16, bf16)
     with pytest.raises(TypeError, match="no instantiation"):
         ops.laq_encode(b, b, b)                        # a bf16 residual
     with pytest.raises(TypeError, match="no instantiation"):
@@ -517,7 +519,9 @@ def test_legacy_unbuilt_combinations_raise_on_the_cpu():
     ops.laq_encode(d, d, d, use_ref=True)
     assert set(lag_trigger.ENTRIES["laq_encode_2d"]) == {
         (torch.float32,) * 3, (torch.bfloat16, torch.bfloat16, torch.float32),
-        (torch.float32, torch.bfloat16, torch.float32)}
+        (torch.float32, torch.bfloat16, torch.float32),
+        (torch.float16, torch.float16, torch.float32),
+        (torch.float32, torch.float16, torch.float32)}
     assert lag_trigger.LAUNCHES.keys() == {
         k + lag_trigger.SUFFIX[dts] for k, v in lag_trigger.ENTRIES.items()
         for dts in v}
