@@ -6,16 +6,18 @@
 Phases (any failure raises and the script exits non-zero):
 
   1. device: the card's name, count and ``nvidia-smi`` name/power limit.
-  2. build: compile the six CUDA sources into seven libraries (the comm
-     plane's, rmsnorm's, flash attention's float32 kernel, its bfloat16
-     kernel and, from the same source with -DLAG_FLASH_F16, its float16
-     kernel, its wide kernel, and the legacy per-leaf kernels) with nvcc
-     (sm_90a), one process each, all at once;
-     ptxas's registers and spills of every kernel, the flash kernels' shared
-     memory per head_dim, a check that none of the float32 flash kernel's
-     four instantiations (head_dim 64, 80, 128, 256) spills, and the count
-     of ``HGMMA`` instructions (wgmma) in the bfloat16 and float16 flash
-     libraries' SASS (``cuobjdump -sass``), which must not be 0.
+  2. build: compile the five CUDA sources into six libraries (the comm
+     plane's, rmsnorm's, flash attention's float32 kernels, its bfloat16
+     kernels and, from the same source with -DLAG_FLASH_F16, its float16
+     kernels, and the legacy per-leaf kernels) with nvcc (sm_90a), one
+     process each, all at once; ptxas's registers and spills of every
+     kernel, the flash kernels' shared memory per head_dim, a check that
+     none of the float32 flash library's six instantiations (head_dim 64,
+     80, 128, 256; wide 384, 512) spills, the count of ``HGMMA``
+     instructions (wgmma) in the bfloat16 and float16 flash libraries' SASS
+     (``cuobjdump -sass``), which must not be 0, and each wide
+     instantiation's own tensor-core instructions (HMMA in float32, HGMMA
+     in 2-byte), none of which may be 0.
   3. the comm plane's kernels vs plain versions on ragged synthetic
      layouts (leaf sizes {1, 127, 129, 32768, 0}, W ∈ {1, 3}, the
      unstacked operand, LAQ bits {2, 4, 8}, all three masked modes):
@@ -375,15 +377,17 @@ Phases (any failure raises and the script exits non-zero):
         1024-8192 (bitwise the float32 kernel's row rounded twice) and
         timed at the prefill's shape; the rows RMSNorm kernel at
         RMS_ROWS_WIDTHS in all three dtypes (aligned, and contiguous rows
-        one element off an aligned base, which the stream's rule refuses
-        and the rows kernel loads by element), timed at (8192, d) for
-        RMS_ROWS_TIMED; the float16
+        one to three elements off an aligned base, which the stream's rule
+        refuses), on the path ``rows_path`` names, and at RMS_STREAM_OFF
+        one to three elements off, bitwise the stream's output; timed at
+        (8192, d) for RMS_ROWS_TIMED beside ``F.rms_norm``; the float16
         flash kernel on the ragged sets at head_dim 64 and 256, on the
         dominant-key rows and at phase 18a's eight shapes (within one
-        float16 ulp + 1e-6 of the widened plain version, rounded), timed
-        at the prefill's shape; the wide flash kernel at head_dim 320 and
-        512 in all three dtypes on a ragged set and at ATTN_WIDE_HD; each
-        timed beside its bound, plain version and library call;
+        float16 ulp + 1e-6 of the widened plain version, rounded), each of
+        those shapes timed beside f16 SDPA; the wide flash kernel at
+        ATTN_WIDE_RAGGED in all three dtypes on a ragged set and at
+        ATTN_WIDE_HD; each timed beside its bound (float32: split TF32 and
+        the FMA units'), plain version and library call;
      b. llama3.2-1b float16 through ``launch.serve`` with ``use_pallas=
         True`` (batch 4, prompt 2048, 32 tokens, 2 rounds): 33 RMSNorm and
         16 flash launches a prefill; kernel route vs plain route within 2 ×
@@ -501,8 +505,9 @@ REPLACES.update({k: REPLACES["flash_attention"]
 SOURCES.update({k: LEGACY_SOURCE for k in LEGACY_F16})
 SOURCES.update({k: SOURCES["rmsnorm"] for k in ("rmsnorm_f16",) + RMS_ROWS})
 SOURCES.update({"flash_attention_f16": SOURCES["flash_attention_bf16"],
-                **{k: "src/repro_torch/kernels/flash_attention/csrc/"
-                      "flash_attention_wide.cu" for k in FLASH_WIDE}})
+                "flash_attention_wide": SOURCES["flash_attention"],
+                "flash_attention_wide_bf16": SOURCES["flash_attention_bf16"],
+                "flash_attention_wide_f16": SOURCES["flash_attention_bf16"]})
 OFF_PATH.update({k: OFF_PATH[k.rsplit("_", 1)[0]]
                  for k in PLANE_F16 + LEGACY_F16
                  if k.rsplit("_", 1)[0] in OFF_PATH})
@@ -902,10 +907,16 @@ F16_COMBOS = {"f16-f16": "_hh", "f32-f16": "_fh"}
 # stream's 8192), the two timed at (8192, d), the first in the kernels line
 RMS_ROWS_WIDTHS = (1, 3, 17, 4099, 8200, 16384, 20000)
 RMS_ROWS_TIMED = (4099, 20000)
+# 22a: widths the stream takes, given to the rows kernel 1 to 3 elements
+# off an aligned base
+RMS_STREAM_OFF = (132, 2048, 8192)
 # 22a: the wide flash kernel's timed shapes (B, S, H, KV, hd, causal,
 # window), the first in the kernels line
 ATTN_WIDE_HD = ((2, 2048, 16, 4, 320, True, None),
                 (2, 2048, 16, 4, 512, True, None))
+# 22a: the wide kernel's ragged head_dims: padded to 8 (257), each
+# instantiation (320, 512), slabs above 512 (600)
+ATTN_WIDE_RAGGED = (257, 320, 512, 600)
 # 22b: the two routes in float16, held as BF16_ROUTE_READINGS holds them
 # (the kernel route's error against the float32 logits within
 # BF16_ERR_RATIO × the plain route's; logits and cache within
@@ -3556,10 +3567,10 @@ def bf16_ulp(torch, x, dtype=None):
 
 def bf16_rms_case(torch, x, sc):
     """A 2-byte (bfloat16 or float16) RMSNorm launch held three ways:
-    bitwise to the float32 kernel's y on the widened row (scale 1, both
-    placed at x's and sc's element offsets, so that the float32 launch
-    takes the same kernel and loads, hence the same fold) rounded twice as
-    the reference kernel rounds; to the plain version on the
+    bitwise to the float32 kernel's y on the widened row (scale 1, an
+    aligned copy: both kernels fold by d alone, whatever the offset of x)
+    rounded twice as the reference kernel rounds; to the plain version on
+    the
     widened row rounded the same way within one ulp at each rounding,
     |scale|·ulp(y) + ulp(out) (the mean's sum order may move y across a
     rounding boundary); to the plain 2-byte version within the reference's
@@ -3568,17 +3579,11 @@ def bf16_rms_case(torch, x, sc):
     from repro_torch.kernels.rmsnorm import ref as rms_ref
     from repro_torch.kernels.rmsnorm import rmsnorm as rms
 
-    def placed(t, like):
-        """``t`` at ``like``'s element offset in a buffer of its own."""
-        k = like.storage_offset() if like.is_contiguous() else 0
-        return t.new_empty(t.numel() + k)[k:].view_as(t).copy_(t)
-
     dt = x.dtype
     got = rms.rmsnorm_2d(x, sc)
     ones = torch.ones_like(sc, dtype=torch.float32)
     s32 = sc.float()
-    exact = (rms.rmsnorm_2d(placed(x.float(), x), placed(ones, sc)).to(
-        dt).float() * s32).to(dt)
+    exact = (rms.rmsnorm_2d(x.float(), ones).to(dt).float() * s32).to(dt)
     y = rms_ref.rmsnorm(x.float(), ones)
     want = (y.to(dt).float() * s32).to(dt)
     diff = (got.float() - want.float()).abs()
@@ -3641,15 +3646,18 @@ def bf16_flash_case(torch, q, k, v, causal=True, window=None):
     """A 2-byte (bfloat16 or float16) flash launch against the plain
     version on the widened inputs rounded to q's dtype (the reference
     kernel's function) within one ulp (+ 1e-6), and against the plain
-    2-byte version within the reference's REF_FLASH_TOL.  → (max |Δ|,
-    [failures])."""
+    2-byte version within the reference's REF_FLASH_TOL.  The widened plain
+    version runs its P·V in float64: near an output of 0 the float32 one's
+    own sum errs by more than 1e-6 (outputs of about 1e-4 under a window of
+    16 keys, sums of terms near 1), where the kernel agrees with float64
+    (PERF.md §6).  → (max |Δ|, [failures])."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
     dt = q.dtype
     got = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
-    want = fa_ref.attention(q.float(), k.float(), v.float(), causal=causal,
-                            window=window).to(dt)
+    want = fa_ref.attention(q.double(), k.double(), v.double(),
+                            causal=causal, window=window).to(dt)
     plain = fa_ref.attention(q, k, v, causal=causal, window=window)
     S, Skv = q.shape[1], k.shape[1]
     if S > Skv and window is not None:       # rows that see no key
@@ -4984,65 +4992,88 @@ def sqnorm_blocks_half(torch, dev):
 def rms_rows_kernel_phase(torch, dev, gen, bad):
     """22a: the rows kernel (what the TMA stream does not take) at
     RMS_ROWS_WIDTHS in all three dtypes, rows 1, 7 and 1000, and 9
-    contiguous rows one element off an aligned base: float32 within MODEL_TOL of the plain version, a 2-byte
-    dtype as ``bf16_rms_case`` holds it; every launch counted on the rows
-    kernel's instantiation, and by vector or by element as the rule says
-    (``rms.rows_counts``); then (8192, d) timed at RMS_ROWS_TIMED.  → its
-    rows of the kernels line (at d RMS_ROWS_TIMED[0])."""
+    contiguous rows one to three elements off an aligned base: float32
+    within MODEL_TOL of the plain version, a 2-byte dtype as
+    ``bf16_rms_case`` holds it (bitwise the float32 kernel on the aligned
+    widened row); every launch counted on the rows kernel's instantiation
+    and on the path ``rms.rows_path`` names (``rms.rows_counts``); at
+    widths the stream takes (RMS_STREAM_OFF), one to three elements off,
+    bitwise the stream's output on an aligned copy; then (8192, d) timed at
+    RMS_ROWS_TIMED, beside ``F.rms_norm``.  → its rows of the kernels line
+    (at d RMS_ROWS_TIMED[0])."""
     from repro_torch.kernels.rmsnorm import ref as rms_ref
     from repro_torch.kernels.rmsnorm import rmsnorm as rms
 
     F = torch.nn.functional
     names = {dt: name for dt, (name, _) in rms.ROWS_ENTRIES.items()}
     rows = {}
+
+    def offset(t, off):
+        """``t`` contiguous, ``off`` elements past an aligned base."""
+        buf = t.new_empty(t.numel() + off)
+        return buf[off:].view_as(t).copy_(t)
+
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         worst = 0.0
         for d in RMS_ROWS_WIDTHS:
-            for r in (1, 7, 1000, "off"):
-                n = 9 if r == "off" else r
-                # "off": contiguous rows one element (2 or 4 bytes) past an
-                # aligned base, and the scale likewise
-                off = int(r == "off")
-                x = torch.randn((n * d + off,), device=dev,
-                                generator=gen).to(dt)[off:].view(n, d)
-                sc = torch.randn((d + off,), device=dev,
-                                 generator=gen).to(dt)[off:]
+            # (rows, elements past an aligned base, the scale's likewise)
+            for n, off in ((1, 0), (7, 0), (1000, 0), (9, 1), (9, 2), (9, 3)):
+                x = offset(torch.randn((n, d), device=dev,
+                                       generator=gen).to(dt), off)
+                sc = offset(torch.randn((d,), device=dev,
+                                        generator=gen).to(dt), off)
+                what = f"rmsnorm rows {dt} ({n}, {d}) offset {off}"
                 if off and rms.stream_takes(x, sc):
-                    bad.append(f"rmsnorm {dt} ({n}, {d}) off: the stream "
-                               f"kernel's rule takes it")
+                    bad.append(f"{what}: the stream kernel's rule takes it")
                 before = rms.LAUNCHES[names[dt]]
+                path = rms.ROWS_PATHS.index(rms.rows_path(x))
+                if path != (1 if off else 0):
+                    bad.append(f"{what}: path {rms.ROWS_PATHS[path]}")
                 loads = rms.rows_counts()[dt]
                 if dt == torch.float32:
                     got = rms.rmsnorm_2d(x, sc)
                     e = max_abs(got, rms_ref.rmsnorm(x, sc))
                     if not e <= MODEL_TOL * max(1.0, float(got.abs().max())):
-                        bad.append(f"rmsnorm rows f32 ({n}, {d}) {r}: {e}")
+                        bad.append(f"{what}: {e}")
                 else:
                     _, e, b = bf16_rms_case(torch, x, sc)
-                    bad += [f"rmsnorm rows {dt} ({n}, {d}) {r}: {m}"
-                            for m in b]
+                    bad += [f"{what}: {m}" for m in b]
                 worst = max(worst, e)
                 # the 2-byte case launches the float32 rows kernel too
                 if rms.LAUNCHES[names[dt]] == before:
-                    bad.append(f"rmsnorm {dt} ({n}, {d}) {r}: not the rows "
-                               f"kernel")
-                # one launch at dt, by element where unaligned or d % 4
-                vec = not off and d % 4 == 0
+                    bad.append(f"{what}: not the rows kernel")
                 now = rms.rows_counts()[dt]
-                if now[vec] != loads[vec] + 1 or now[not vec] != loads[
-                        not vec]:
-                    bad.append(f"rmsnorm {dt} ({n}, {d}) {r}: rows kernel "
-                               f"loads {loads} -> {now}, want one "
-                               f"{'by vector' if vec else 'by element'}")
+                if [a - b for a, b in zip(now, loads)] != [
+                        int(i == path) for i in range(3)]:
+                    bad.append(f"{what}: rows kernel paths {loads} -> {now},"
+                               f" want one on {rms.ROWS_PATHS[path]}")
+        for d in RMS_STREAM_OFF:
+            for off in (1, 2, 3):
+                x = torch.randn((100, d), device=dev, generator=gen).to(dt)
+                sc = torch.randn((d,), device=dev, generator=gen).to(dt)
+                got = rms.rmsnorm_2d(offset(x, off), offset(sc, off))
+                if not bitwise(torch, got, rms.rmsnorm_2d(x, sc)):
+                    bad.append(f"rmsnorm rows {dt} (100, {d}) offset {off}: "
+                               f"not the stream's output")
         print(f"  22a rmsnorm rows kernel {dt}: d {RMS_ROWS_WIDTHS}, rows 1,"
-              f" 7, 1000 and contiguous rows one element off an aligned "
-              f"base (loads by element), max |Δ| {worst:.3e} "
-              f"against the {'plain' if dt == torch.float32 else 'widened plain'}"
-              f" version")
+              f" 7, 1000 and 9 contiguous rows 1 to 3 elements off an "
+              f"aligned base, max |Δ| {worst:.3e} against the "
+              f"{'plain' if dt == torch.float32 else 'widened plain'} "
+              f"version; d {RMS_STREAM_OFF} 1 to 3 elements off bitwise the "
+              f"stream's output")
         for d in RMS_ROWS_TIMED:
             R = RMS_FULL[0]
             x = torch.randn((R, d), device=dev, generator=gen).to(dt)
             sc = torch.randn((d,), device=dev, generator=gen).to(dt)
+            # the timed shape held too: its tiles wrap every block's ring
+            if dt == torch.float32:
+                e = max_abs(rms.rmsnorm_2d(x, sc), rms_ref.rmsnorm(x, sc))
+                if not e <= MODEL_TOL * max(1.0, float(x.abs().max())):
+                    bad.append(f"rmsnorm rows f32 ({R}, {d}): {e}")
+            else:
+                _, e, b = bf16_rms_case(torch, x, sc)
+                bad += [f"rmsnorm rows {dt} ({R}, {d}): {m}" for m in b]
+            worst = max(worst, e)
             size = x.element_size()
             t_b, by = bound_ms(2 * R * d * size + d * size, 4 * R * d)
             r_ = dict(
@@ -5055,7 +5086,8 @@ def rms_rows_kernel_phase(torch, dev, gen, bad):
             print(f"  22a rmsnorm rows {dt} ({R}, {d}): {r_['ms']:.4f} ms "
                   f"(plain {r_['plain_ms']:.4f}, bound {t_b:.4f} ms by {by}"
                   f" = {t_b / r_['ms']:.1%}, F.rms_norm "
-                  f"{r_['library_ms']:.4f} ms)")
+                  f"{r_['library_ms']:.4f} ms, kernel / library "
+                  f"{r_['ms'] / r_['library_ms']:.3f})")
             if d == RMS_ROWS_TIMED[0]:
                 rows[names[dt]] = r_
             del x, sc
@@ -5085,6 +5117,22 @@ def flash_wide_case(torch, q, k, v, causal, window, bad, what):
     return e
 
 
+def flash_library_ms(torch, q, k, v, causal, window):
+    """``F.scaled_dot_product_attention`` on the same (B, S, H, hd) inputs
+    (GQA by ``enable_gqa``, a window as a boolean mask), ms."""
+    F = torch.nn.functional
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = None
+    if window is not None:
+        S, Skv = q.shape[1], k.shape[1]
+        qp = torch.arange(S, device=q.device)[:, None]
+        kp = torch.arange(Skv, device=q.device)[None, :]
+        mask = (qp - kp < window) & ((qp >= kp) if causal else True)
+    return cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True), n=5)
+
+
 def flash_f16_and_wide_phase(torch, dev, gen, bad):
     """22a: the float16 flash kernel on the ragged set at head_dim 64 and
     256, phase 18a's eight shapes and the dominant-key row (one key per row
@@ -5097,7 +5145,6 @@ def flash_f16_and_wide_phase(torch, dev, gen, bad):
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
-    F = torch.nn.functional
     h16 = torch.float16
     rows = {}
 
@@ -5140,38 +5187,32 @@ def flash_f16_and_wide_phase(torch, dev, gen, bad):
         bad += [f"flash f16 full {(B, S, H, KV, hd)}: {m}" for m in b]
         ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(
             q, k, v, causal=causal, window=window), n=5)
+        lib = flash_library_ms(torch, q, k, v, causal, window)
         line = (f"  22a flash_attention f16 ({B}, {S}, {H}/{KV}, {hd}) "
                 f"{'causal' if causal else 'non-causal'}"
                 + (f" window {window}" if window else "")
-                + f": max |Δ| {e:.3e} | {ms:.4f} ms")
+                + f": max |Δ| {e:.3e} | {ms:.4f} ms (SDPA f16 {lib:.4f} ms, "
+                f"kernel / library {ms / lib:.3f})")
         if (B, S, H, KV, hd) == ATTN_FULL:
             pos = torch.arange(S, device=dev)
             pairs = B * H * int((pos[:, None] >= pos[None]).sum())
             flop = 4 * hd * pairs
             nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
             t_b, by = bound_ms(nbytes, flop, BF16_FLOP_PER_S)
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             r = rows["flash_attention_f16"] = dict(
                 max_abs_err=e, ms=ms,
                 plain_ms=cuda_ms(torch, lambda: fa_ref.attention(
                     q, k, v, causal=causal), n=3),
-                bound_ms=t_b, bound_by=by,
-                library_ms=cuda_ms(torch, lambda: F.
-                                   scaled_dot_product_attention(
-                                       qt, kt, vt, is_causal=causal,
-                                       enable_gqa=True), n=10))
+                bound_ms=t_b, bound_by=by, library_ms=lib)
             line += (f" (plain {r['plain_ms']:.4f} ms, bound {t_b:.4f} ms by"
                      f" {by} = {t_b / ms:.1%}, the design's 1 + 2 float16 "
-                     f"products {1.5 * t_b:.4f} ms, library "
-                     f"{r['library_ms']:.4f} ms, kernel / library "
-                     f"{ms / r['library_ms']:.3f})")
-            del qt, kt, vt
+                     f"products {1.5 * t_b:.4f} ms)")
         print(line)
         del q, k, v
     # the wide kernel: ragged, then the timed shapes, in all three dtypes
     for dt in (torch.float32, torch.bfloat16, h16):
         worst = 0.0
-        for hd in (320, 512):
+        for hd in ATTN_WIDE_RAGGED:
             for S, Skv, causal, window in ((1, 1, True, None),
                                            (65, 65, True, 16),
                                            (129, 129, True, None),
@@ -5192,29 +5233,35 @@ def flash_f16_and_wide_phase(torch, dev, gen, bad):
             flop = 4 * B * H * hd * (S * (S + 1) // 2)
             size = q.element_size()
             nbytes = size * (2 * B * S * H * hd + 2 * B * S * KV * hd)
-            rate = F32_FLOP_PER_S if dt == torch.float32 else BF16_FLOP_PER_S
-            t_b, by = bound_ms(nbytes, flop, rate)
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            try:
-                lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True), n=3)
-            except RuntimeError:
-                lib = None
+            if dt == torch.float32:
+                # split TF32: three TF32 products per float32 product
+                t_b, by = bound_ms(nbytes, 3 * flop, TF32_FLOP_PER_S)
+                other = (f"the FMA units' "
+                         f"{bound_ms(nbytes, flop, F32_FLOP_PER_S)[0]:.4f} ms")
+            else:
+                t_b, by = bound_ms(nbytes, flop, BF16_FLOP_PER_S)
+                terms = 3 if dt == torch.bfloat16 else 2
+                other = (f"the design's 1 + {terms} products "
+                         f"{t_b * (1 + terms) / 2:.4f} ms")
             r = dict(max_abs_err=e, ms=cuda_ms(
                 torch, lambda: fa.flash_attention_fwd(q, k, v,
-                                                      causal=causal), n=3),
+                                                      causal=causal), n=5),
                 plain_ms=cuda_ms(torch, lambda: fa_ref.attention(
                     q, k, v, causal=causal), n=2),
-                bound_ms=t_b, bound_by=by, library_ms=lib)
+                bound_ms=t_b, bound_by=by,
+                library_ms=flash_library_ms(torch, q, k, v, causal, None))
             print(f"  22a flash_attention wide {dt} ({B}, {S}, {H}/{KV}, "
-                  f"{hd}) causal: max |Δ| {e:.3e} | {r['ms']:.3f} ms (plain "
+                  f"{hd}) causal: max |Δ| {e:.3e} | {r['ms']:.4f} ms (plain "
                   f"{r['plain_ms']:.3f} ms, bound {t_b:.4f} ms by {by} = "
-                  f"{t_b / r['ms']:.2%}, library {lib})")
+                  f"{t_b / r['ms']:.2%}; {other}; SDPA "
+                  f"{r['library_ms']:.4f} ms, kernel / library "
+                  f"{r['ms'] / r['library_ms']:.3f})")
             if hd == ATTN_WIDE_HD[0][4]:
                 rows[fa.WIDE_ENTRIES[dt][0]] = r
-            del q, k, v, qt, kt, vt
-        print(f"  22a flash_attention wide {dt}: ragged and full cases at hd "
-              f"320 and 512, max |Δ| {worst:.3e}")
+            del q, k, v
+        print(f"  22a flash_attention wide {dt}: ragged cases at hd "
+              f"{ATTN_WIDE_RAGGED}, full at "
+              f"{tuple(c[4] for c in ATTN_WIDE_HD)}, max |Δ| {worst:.3e}")
     gc.collect()
     torch.cuda.empty_cache()
     return rows
@@ -5399,7 +5446,7 @@ def main():
 
     t0 = time.perf_counter()
     libs = [kernels.LIBRARY, rms.LIBRARY, fa.LIBRARY, fa.LIBRARY_BF16,
-            fa.LIBRARY_F16, fa.LIBRARY_WIDE, lt.LIBRARY]
+            fa.LIBRARY_F16, lt.LIBRARY]
     build.build(libs)                  # one nvcc per source, all at once
     for lib in libs:
         build.load(lib)
@@ -5427,9 +5474,10 @@ def main():
           f" | bfloat16 {bf16_spills or '(cached build)'}")
     check(all(" 0 bytes spill stores, 0 bytes spill loads" in line
               for line in spills), f"the flash kernel spills: {spills}")
-    check(not spills or len(spills) == len(fa.HEAD_DIMS),
+    check(not spills or len(spills) == len(fa.HEAD_DIMS)
+          + len(fa.WIDE_HEAD_DIMS),
           f"want one ptxas report per float32 flash instantiation "
-          f"{fa.HEAD_DIMS}: {spills}")
+          f"{fa.HEAD_DIMS} and wide {fa.WIDE_HEAD_DIMS}: {spills}")
     for lib in (fa.LIBRARY_BF16, fa.LIBRARY_F16):
         sass = sass_of(lib.path())
         hgmma = sass.count("HGMMA")
@@ -5437,6 +5485,19 @@ def main():
               f"{sass.count('HMMA')} HMMA (mma.sync) instructions in its "
               f"SASS")
         check(hgmma > 0, f"the {lib.name} kernel has no wgmma")
+    # the wide kernels (head_dim above 256) on the tensor cores: each
+    # instantiation's own SASS, wgmma in 2-byte, mma.sync in float32
+    for lib, op in ((fa.LIBRARY, "HMMA"), (fa.LIBRARY_BF16, "HGMMA"),
+                    (fa.LIBRARY_F16, "HGMMA")):
+        funcs = [f for f in sass_of(lib.path()).split("Function : ")[1:]
+                 if "flash_wide_kernel" in f.split("\n", 1)[0]]
+        counts = [(f.count(op), f.count("FFMA")) for f in funcs]
+        print(f"  {lib.name} wide kernel: (tensor-core {op}, FFMA) "
+              f"instructions per instantiation {counts}")
+        check(len(funcs) == len(fa.WIDE_HEAD_DIMS)
+              and all(n > 0 for n, _ in counts),
+              f"the {lib.name} wide kernel is not on the tensor cores: "
+              f"{counts}")
     # 12c's data and 13d's CPU run, made beside phases 3-13
     gisette, fleet = cpu_child(GISETTE_CHILD), cpu_child(FLEET_CHILD)
 

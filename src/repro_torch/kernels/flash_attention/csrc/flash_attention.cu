@@ -19,7 +19,8 @@
 //
 // One templated source, four instantiations (the C entry point picks one
 // by head_dim; any other head_dim is refused; the wrapper zero-pads a
-// head_dim between to the next of them):
+// head_dim between to the next of them), and flash_wide_kernel (at the end,
+// entry lag_flash_attention_wide_f32) for every head_dim above 256:
 //
 //   hd   stored  keys a tile  q's hi fragments  n tiles a P.V pass  warps  shared
 //   64   64      64           registers         8 (all)            4      112 KB
@@ -256,6 +257,11 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// every group but the most recent one complete
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 __device__ __forceinline__ bool visible(int64_t qi, int64_t kp, int64_t Skv,
@@ -637,6 +643,346 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// head_dim above 256: flash_wide_kernel (entry lag_flash_attention_wide_f32)
+// ---------------------------------------------------------------------------
+//
+// head_dim 256's layout widened: CWARPS (3 up to head_dim 384, 4 up to 512)
+// warps per 16 query rows, each owning 128 columns of a slab of OC = 128
+// CWARPS (its own 128-column sub-tile of every K and V tile, laid out and
+// swizzled as at 128), two row groups a block (32 query rows: q's hi and lo
+// fragments of 32 rows x 512 columns fill 128 KB).  Above 512 the grid's
+// third dimension takes the output's slabs.
+//   * Split TF32 as above, three products per float32 product.
+//   * Scores once per (32 rows, key tile) over the full head_dim: each warp
+//     multiplies its columns of every slab (16 columns at a time into a
+//     fresh accumulator, added in float32), the CWARPS partial scores of a
+//     row group meet in shared memory and every warp of the group adds
+//     them in column-warp order, so all hold the same bits.
+//   * q's fragments are split once into each thread's own slots of shared
+//     memory where the head_dim is one slab; above, each key tile reloads
+//     them per slab (from L2).
+//   * An item stream through a three-stage cp.async ring: per key tile of
+//     16 keys, K's slabs, then the block's slab of V; items n + 1 and n + 2
+//     land under the work on item n, one barrier an item.  K's and V's
+//     fragments are split into hi and lo as they are read (each by the two
+//     row groups: no pass over the tile, no buffer of lo).  At OC 512: 3 x
+//     32 KB of ring, 128 KB of q's fragments.
+//   * Columns past hd (the wrapper pads hd to a multiple of 8) are
+//     zero-filled by the copy and not stored.
+
+constexpr int WBK = 16;                  // its keys a tile
+
+template <int CWARPS_>
+struct Wide {
+  static constexpr int HALVES = CWARPS_; // warps per 16 query rows
+  static constexpr int WROWS = 2;        // row groups of 16 a block
+  static constexpr int W = 128;          // columns a warp
+  static constexpr int HDP = W * HALVES; // OC: columns a slab
+  static constexpr int BK = WBK;
+  static constexpr int OG = 2;
+  static constexpr int NT = W / 8;
+  static constexpr int THREADS = 32 * WROWS * HALVES;
+  static constexpr int BQ = 16 * WROWS;
+  static constexpr int ITEM = BK * HDP;  // floats of a K slab or V slab
+  static constexpr int STAGES = 3;
+  static constexpr int QF = WROWS * HALVES * NT * 32 * 4;   // q's lo (hi)
+  static constexpr int SMEM_BYTES =
+      (STAGES * ITEM + 2 * QF) * (int)sizeof(float);
+  static_assert(SMEM_BYTES <= 232448, "shared memory");
+  static_assert(ITEM % (4 * THREADS) == 0, "item copies");
+  static_assert(WROWS * HALVES * BK * 16 <= ITEM, "exchange");
+};
+
+using Wide384 = Wide<3>;
+using Wide512 = Wide<4>;
+
+template <class S>
+__global__ void __launch_bounds__(S::THREADS, 1)
+flash_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  int64_t Sq, int64_t Skv, int64_t H, int64_t KV, int64_t hd,
+                  int ns, float scale, int causal, int64_t window) {
+  constexpr int BK = S::BK, NT = S::NT, W = S::W, OC = S::HDP;
+  constexpr int THREADS = S::THREADS, ITEM = S::ITEM, BQW = S::BQ;
+  constexpr int WROWS = S::WROWS;
+  extern __shared__ __align__(16) float smem[];
+  float* const ring = smem;                // S::STAGES items
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wr = warp % WROWS, cw = warp / WROWS;
+  const int sub = cw * BK * W;
+  const int gr = lane / 4, tq = lane % 4;
+  const int64_t bh = blockIdx.x;
+  const int64_t b = bh / H, h = bh % H;
+  const int64_t g = h / (H / KV);
+  const int64_t q0 = (int64_t)(gridDim.y - 1 - blockIdx.y) * BQW;
+  const int64_t z0 = (int64_t)blockIdx.z * OC;
+  const int64_t r0 = q0 + wr * 16 + gr, r1 = r0 + 8;
+
+  uint4* const qlo = reinterpret_cast<uint4*>(ring + S::STAGES * ITEM)
+                     + warp * NT * 32 + lane;
+  uint4* const qhi = qlo + WROWS * S::HALVES * NT * 32;
+  // this thread's q fragments of slab j, split, into its own slots
+  auto load_q = [&](int j) {
+    const int64_t c0 = (int64_t)j * OC + cw * W;
+    const float* qr0 = q + ((b * Sq + (r0 < Sq ? r0 : 0)) * H + h) * hd + c0;
+    const float* qr1 = q + ((b * Sq + (r1 < Sq ? r1 : 0)) * H + h) * hd + c0;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int m = 0; m < W / 16; ++m) {
+      const bool col = c0 + 4 * (4 * m + tq) < hd;
+      const float4 x = r0 < Sq && col ? load4(qr0 + 4 * (4 * m + tq)) : zero;
+      const float4 y = r1 < Sq && col ? load4(qr1 + 4 * (4 * m + tq)) : zero;
+      uint32_t hi[8], lo[8];
+      split(x.x, hi[0], lo[0]);
+      split(y.x, hi[1], lo[1]);
+      split(x.y, hi[2], lo[2]);
+      split(y.y, hi[3], lo[3]);
+      split(x.z, hi[4], lo[4]);
+      split(y.z, hi[5], lo[5]);
+      split(x.w, hi[6], lo[6]);
+      split(y.w, hi[7], lo[7]);
+      qlo[32 * (2 * m)] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      qhi[32 * (2 * m)] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      qlo[32 * (2 * m + 1)] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
+      qhi[32 * (2 * m + 1)] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+    }
+  };
+
+  const int64_t q_last = (q0 + BQW < Sq ? q0 + BQW : Sq) - 1;
+  int64_t k_end = Skv;
+  if (causal && q_last + 1 < k_end) k_end = q_last + 1;
+  int64_t k_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) k_begin = q0 - window + 1;
+  const int64_t t_begin = k_begin / BK, t_end = (k_end + BK - 1) / BK;
+  const int64_t items = (t_end > t_begin ? t_end - t_begin : 0) * (ns + 1);
+
+  // item n into ring stage s: key tile t_begin + n / (ns + 1); part p = n %
+  // (ns + 1): K's slab p, or (p == ns) V's slab of this block
+  auto load_item = [&](int64_t n, int s) {
+    const int64_t kt = t_begin + n / (ns + 1);
+    const int p = (int)(n % (ns + 1));
+    const float* const src = p < ns ? k : v;
+    const int64_t c0 = p < ns ? (int64_t)p * OC : z0;
+    float* const dst = ring + s * ITEM;
+#pragma unroll
+    for (int it = 0; it < ITEM / 4 / THREADS; ++it) {
+      const int i = it * THREADS + threadIdx.x;
+      const int r = i / (OC / 4), c = i % (OC / 4);
+      const int64_t kp = kt * BK + r, col = c0 + 4 * c;
+      const bool in = kp < Skv && col < hd;
+      const int64_t idx = in ? ((b * Skv + kp) * KV + g) * hd + col : 0;
+      cp_async4(dst + tile_at<S>(r, c), src + idx, in);
+    }
+    cp_async_commit();
+  };
+
+  if (ns == 1) load_q(0);
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
+  float sc[BK / 8][4];
+  float al0 = 1.f, al1 = 1.f;
+
+  for (int i = 0; i < S::STAGES - 1; ++i)
+    if (i < items) load_item(i, i);
+  for (int64_t n = 0; n < items; ++n) {
+    const int s = (int)(n % S::STAGES);
+    const int p = (int)(n % (ns + 1));
+    const int64_t k0 = (t_begin + n / (ns + 1)) * BK;
+    // item n has landed (n + 1 may still be on its way), for every thread;
+    // every warp is done with item n - 1, whose stage takes item n + 2
+    if (n + 1 < items) cp_async_wait_1();
+    else cp_async_wait_all();
+    __syncthreads();
+    if (n + S::STAGES - 1 < items)
+      load_item(n + S::STAGES - 1, (int)((n + S::STAGES - 1) % S::STAGES));
+    float* const xs = ring + s * ITEM;
+    const float* const xh = xs + sub;    // this warp's columns
+
+    if (p < ns) {
+      // -- this warp's part of the scores over slab p
+      if (p == 0) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+      }
+      if (ns > 1) load_q(p);
+#pragma unroll
+      for (int m = 0; m < W / 16; ++m) {
+        uint32_t ql[2][4], qa[2][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const uint4 x = qlo[32 * (2 * m + u)];
+          const uint4 y = qhi[32 * (2 * m + u)];
+          ql[u][0] = x.x; ql[u][1] = x.y; ql[u][2] = x.z; ql[u][3] = x.w;
+          qa[u][0] = y.x; qa[u][1] = y.y; qa[u][2] = y.z; qa[u][3] = y.w;
+        }
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          // B = K^T at key 8j + gr: hd 16m + 4tq .. + 3, two k steps
+          const float4 kx = load4(xh + chunk_at<W>(8 * j + gr, 4 * m + tq));
+          uint32_t bh[4], bl[4];
+          split(kx.x, bh[0], bl[0]);
+          split(kx.y, bh[1], bl[1]);
+          split(kx.z, bh[2], bl[2]);
+          split(kx.w, bh[3], bl[3]);
+          float f[4] = {0.f, 0.f, 0.f, 0.f};
+          mma3(f, qa[0], ql[0], __uint_as_float(bh[0]),
+               __uint_as_float(bh[1]), __uint_as_float(bl[0]),
+               __uint_as_float(bl[1]));
+          mma3(f, qa[1], ql[1], __uint_as_float(bh[2]),
+               __uint_as_float(bh[3]), __uint_as_float(bl[2]),
+               __uint_as_float(bl[3]));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] += f[e];
+        }
+      }
+      if (p + 1 < ns) continue;
+      // the row group's partial scores, added in column-warp order by
+      // every warp of the group, through this item's stage once every warp
+      // is done reading it
+      __syncthreads();
+      float* const mine = xs + warp * (BK / 8) * 4 * 32 + lane;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[32 * (4 * j + e)] = sc[j][e];
+      asm volatile("bar.sync %0, %1;" :: "r"(1 + wr), "r"(32 * S::HALVES)
+                   : "memory");
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float t = xs[wr * (BK / 8) * 4 * 32 + 32 * (4 * j + e) + lane];
+#pragma unroll
+          for (int c = 1; c < S::HALVES; ++c)
+            t += xs[(c * WROWS + wr) * (BK / 8) * 4 * 32 + 32 * (4 * j + e)
+                    + lane];
+          sc[j][e] = t * scale;
+        }
+      uint32_t vis = 0xffffffffu;
+      const bool full = k0 + BK <= Skv && (!causal || k0 + BK - 1 <= q0)
+                        && (window <= 0 || q0 + BQW - 1 - k0 < window);
+      if (!full) {
+        vis = 0u;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int64_t kp = k0 + 8 * j + 2 * tq + (e & 1);
+            if (visible(e < 2 ? r0 : r1, kp, Skv, causal, window))
+              vis |= 1u << (4 * j + e);
+          }
+      }
+      if (full) softmax_tile<false, BK>(sc, vis, m0, m1, l0, l1, al0, al1);
+      else softmax_tile<true, BK>(sc, vis, m0, m1, l0, l1, al0, al1);
+      continue;
+    }
+
+    // -- acc = acc * alpha + P . V for this warp's 128 columns
+#pragma unroll
+    for (int c0 = 0; c0 < NT / 4; c0 += S::OG) {
+      float ot[4 * S::OG][4];
+#pragma unroll
+      for (int n2 = 0; n2 < 4 * S::OG; ++n2)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ot[n2][e] = 0.f;
+#pragma unroll
+      for (int js = 0; js < BK / 8; ++js) {
+        uint32_t ph[4], pl[4];
+        split(sc[js][0], ph[0], pl[0]);
+        split(sc[js][2], ph[1], pl[1]);
+        split(sc[js][1], ph[2], pl[2]);
+        split(sc[js][3], ph[3], pl[3]);
+#pragma unroll
+        for (int cc = 0; cc < S::OG; ++cc) {
+          const int o0 = chunk_at<W>(8 * js + 2 * tq, NT / 4 * gr + c0 + cc);
+          const int o1 = chunk_at<W>(8 * js + 2 * tq + 1,
+                                     NT / 4 * gr + c0 + cc);
+          const float4 v0 = load4(xh + o0), v1 = load4(xh + o1);
+          const float a0[4] = {v0.x, v0.y, v0.z, v0.w};
+          const float a1[4] = {v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            uint32_t h0, l0, h1, l1;
+            split(a0[u], h0, l0);
+            split(a1[u], h1, l1);
+            mma3(ot[4 * cc + u], ph, pl, __uint_as_float(h0),
+                 __uint_as_float(h1), __uint_as_float(l0),
+                 __uint_as_float(l1));
+          }
+        }
+      }
+#pragma unroll
+      for (int n2 = 0; n2 < 4 * S::OG; ++n2)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[4 * c0 + n2][e] = fmaf(acc[4 * c0 + n2][e], e < 2 ? al0 : al1,
+                                     ot[n2][e]);
+    }
+  }
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int64_t r = e ? r1 : r0;
+    const float den = e ? den1 : den0;
+    if (r < Sq) {
+      float* const dst = o + ((b * Sq + r) * H + h) * hd + z0 + cw * W;
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int cc = 0; cc < NT / 4; ++cc) {
+          const int col = NT * (2 * tq + c) + 4 * cc;
+          if (z0 + cw * W + col < hd)
+            *reinterpret_cast<float4*>(dst + col) = make_float4(
+                acc[4 * cc][2 * e + c] / den, acc[4 * cc + 1][2 * e + c] / den,
+                acc[4 * cc + 2][2 * e + c] / den,
+                acc[4 * cc + 3][2 * e + c] / den);
+        }
+    }
+  }
+}
+
+template <class S>
+int launch_wide(const void* q, const void* k, const void* v, void* o,
+                int64_t B, int64_t Sq, int64_t Skv, int64_t H, int64_t KV,
+                int64_t hd, float scale, int causal, int64_t window,
+                cudaStream_t stream) {
+  const int64_t nq = (Sq + S::BQ - 1) / S::BQ;
+  const int64_t ns = (hd + S::HDP - 1) / S::HDP;
+  if (B * H > 0x7fffffffLL || nq > 65535 || ns > 65535 || hd % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  static bool opted_in[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
+    err = cudaFuncSetAttribute(flash_wide_kernel<S>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               S::SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    opted_in[dev] = true;
+  }
+  const dim3 grid((unsigned)(B * H), (unsigned)nq, (unsigned)ns);
+  flash_wide_kernel<S><<<grid, S::THREADS, S::SMEM_BYTES, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Skv,
+      H, KV, hd, (int)ns, scale, causal, window);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -664,6 +1010,24 @@ int lag_flash_attention_f32(const void* q, const void* k, const void* v,
                          window, s);
   return launch<Hd256>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
                        s);
+}
+
+// head_dim above 256: q, o (B, Sq, H, hd), k, v (B, Skv, KV, hd), float32,
+// contiguous, 16-byte aligned, hd a multiple of 8
+int lag_flash_attention_wide_f32(const void* q, const void* k, const void* v,
+                                 void* o, int64_t B, int64_t Sq, int64_t Skv,
+                                 int64_t H, int64_t KV, int64_t hd,
+                                 float scale, int causal, int64_t window,
+                                 void* stream) {
+  if (KV <= 0 || H % KV != 0 || hd <= Hd256::HD || hd % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (B * H == 0 || Sq == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (hd <= Wide384::HDP)
+    return launch_wide<Wide384>(q, k, v, o, B, Sq, Skv, H, KV, hd, scale,
+                                causal, window, s);
+  return launch_wide<Wide512>(q, k, v, o, B, Sq, Skv, H, KV, hd, scale,
+                              causal, window, s);
 }
 
 }  // extern "C"

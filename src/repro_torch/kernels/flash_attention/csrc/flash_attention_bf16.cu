@@ -94,6 +94,11 @@
 // at 64, 80 and 128; at 256 ptxas spills about 200 bytes a thread, and 64
 // keys a tile still ran faster on an H100 than 32 (PERF.md §6).
 //
+// Above head_dim 256, flash_wide_kernel (at the end; entry
+// lag_flash_attention_wide_bf16, _f16 in the float16 build): the same
+// products at 64 query rows a block, the output's columns split between
+// the two consumer warpgroups.
+//
 // No backward: the reference's kernel has none either.
 //
 // FLOAT16 (the same source built again with -DLAG_FLASH_F16: entry point
@@ -133,9 +138,11 @@
 #ifdef LAG_FLASH_F16
 #define WG_T "f16"
 #define LAG_FLASH_ENTRY lag_flash_attention_f16
+#define LAG_FLASH_WIDE_ENTRY lag_flash_attention_wide_f16
 #else
 #define WG_T "bf16"
 #define LAG_FLASH_ENTRY lag_flash_attention_bf16
+#define LAG_FLASH_WIDE_ENTRY lag_flash_attention_wide_bf16
 #endif
 
 namespace {
@@ -805,6 +812,298 @@ flash_kernel(const __grid_constant__ CUtensorMap qm,
   }
 }
 
+// ---------------------------------------------------------------------------
+// head_dim above 256: flash_wide_kernel (entry LAG_FLASH_WIDE_ENTRY)
+// ---------------------------------------------------------------------------
+//
+// The design above at 64 query rows a block, the output's columns split
+// between the two consumer warpgroups.  A block takes one (batch, head), 64
+// query rows and a slab of OC = 128 CW output columns (CW 64-column chunks
+// a warpgroup: 3 up to head_dim 384, 4 up to 512); above 512 the grid's
+// third dimension takes the slabs (ns = ceil(hd / OC) of them).
+//   * Scores once per (64 rows, key tile), over the full head_dim: each
+//     warpgroup multiplies ITS chunks of every slab's q and K (one 2-byte
+//     product, k steps of 16 columns, m64n32k16), and the two partial
+//     scores meet in shared memory: each warpgroup adds the other's to its
+//     own, a + b = b + a, so both hold the same scores bit for bit and run
+//     the same online softmax.  Then each runs P.V for its own chunks of
+//     the slab (P split as above), from its own P in registers.
+//   * q stays in shared memory where the head_dim is one slab (64 KB at
+//     512); above, each key tile streams q's slab j with K's (q's buffer
+//     released by the consumers after the slab's products).
+//   * K (each slab) and V (the block's slab) through TMA into a ring of
+//     two stages of 32 keys each (32 KB at 512), K and V with their own
+//     full / empty mbarriers; the exchange is double-buffered by tile
+//     parity, one 256-thread named barrier a tile.  At OC 512: 1 KB of
+//     alignment, q 64 KB, the ring 128 KB, the exchange 32 KB.
+//   * head_dims not a multiple of 64 need no padding: TMA zero-fills the
+//     columns past hd (the wrapper pads hd to a multiple of 8, which the
+//     tensor map's row stride needs); columns past hd are not stored.
+//   * Registers a consumer thread: the output 32 CW floats, a 64-column
+//     P.V accumulator, the scores (16) and P's terms (24 in bfloat16).
+
+constexpr int WBK = 32;                 // keys a tile of the wide kernel
+
+// CW 64-column chunks a warpgroup, OC = 128 CW columns a block
+template <int CW_>
+struct WideShape {
+  static constexpr int CW = CW_;
+  static constexpr int OC = 128 * CW;
+  static constexpr int Q_BYTES = ROWS * OC * 2;
+  static constexpr int KV_BYTES = WBK * OC * 2;
+  // the partial scores: 2 (tile parity) x NC x 128 threads x WBK / 2
+  static constexpr int X_BYTES = 2 * NC * 128 * (WBK / 2) * 4;
+  // 1 KB to align, q, the ring, the exchange, 10 mbarriers
+  static constexpr int SMEM_BYTES =
+      1024 + Q_BYTES + STAGES * 2 * KV_BYTES + X_BYTES + 128;
+  static_assert(SMEM_BYTES <= 232448, "shared memory");
+};
+
+using Wide384 = WideShape<3>;
+using Wide512 = WideShape<4>;
+
+template <class S>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_wide_kernel(const __grid_constant__ CUtensorMap qm,
+                  const __grid_constant__ CUtensorMap km,
+                  const __grid_constant__ CUtensorMap vm,
+                  elem* __restrict__ o, int Sq, int Skv, int H, int KV,
+                  int hd, int ns, float scale, int causal, int window) {
+  constexpr int CW = S::CW, OC = S::OC, KV_BYTES = S::KV_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t q_s = (raw + 1023u) & ~1023u;       // 2 CW chunks of q
+  const uint32_t ring = q_s + S::Q_BYTES;            // STAGES x (K, V)
+  const uint32_t xch = ring + STAGES * 2 * KV_BYTES;
+  const uint32_t q_full = xch + S::X_BYTES, q_empty = q_full + 8;
+  auto k_full = [&](int s) { return q_full + 16u + 8u * s; };
+  auto k_empty = [&](int s) { return q_full + 32u + 8u * s; };
+  auto v_full = [&](int s) { return q_full + 48u + 8u * s; };
+  auto v_empty = [&](int s) { return q_full + 64u + 8u * s; };
+
+  const int b = (int)blockIdx.x / H, h = (int)blockIdx.x % H;
+  const int g = h / (H / KV);
+  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * ROWS;
+  const int z0 = (int)blockIdx.z * OC;               // the block's slab
+
+  const int q_last = (q0 + ROWS < Sq ? q0 + ROWS : Sq) - 1;
+  int k_end = Skv;
+  if (causal && q_last + 1 < k_end) k_end = q_last + 1;
+  int k_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) k_begin = q0 - window + 1;
+  const int t_begin = k_begin / WBK;
+  const int tiles = (k_end + WBK - 1) / WBK - t_begin;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, NC * 128);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(k_empty(s), NC * 128);
+      mbar_init(v_full(s), 1);
+      mbar_init(v_empty(s), NC * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // -- the producer: q's slab (once, or each tile above one slab), K's
+    // slabs, the block's slab of V
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      int kc = 0, qc = 0;                // K slabs and q slabs issued
+      for (int i = 0; i < tiles; ++i) {
+        const int row = (t_begin + i) * WBK;
+        for (int j = 0; j < ns; ++j) {
+          if (ns > 1 || i == 0) {
+            if (qc > 0) mbar_wait(q_empty, (uint32_t)(qc - 1) & 1u);
+            mbar_expect_tx(q_full, S::Q_BYTES);
+#pragma unroll
+            for (int c = 0; c < 2 * CW; ++c)
+              tma_load(q_s + c * ROWS * 128, &qm, q_full, j * OC + 64 * c,
+                       h, q0, b);
+            ++qc;
+          }
+          const int s = kc % STAGES;
+          if (kc >= STAGES)
+            mbar_wait(k_empty(s), ((uint32_t)(kc / STAGES) & 1u) ^ 1u);
+          const uint32_t ks = ring + s * 2 * KV_BYTES;
+          mbar_expect_tx(k_full(s), KV_BYTES);
+#pragma unroll
+          for (int c = 0; c < 2 * CW; ++c)
+            tma_load(ks + c * WBK * 128, &km, k_full(s), j * OC + 64 * c, g,
+                     row, b);
+          ++kc;
+        }
+        const int s = i % STAGES;
+        if (i >= STAGES)
+          mbar_wait(v_empty(s), ((uint32_t)(i / STAGES) & 1u) ^ 1u);
+        const uint32_t vs = ring + s * 2 * KV_BYTES + KV_BYTES;
+        mbar_expect_tx(v_full(s), KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < 2 * CW; ++c)
+          tma_load(vs + c * WBK * 128, &vm, v_full(s), z0 + 64 * c, g, row,
+                   b);
+      }
+    }
+    return;
+  }
+
+  // -- a consumer warpgroup: chunks cw CW .. cw CW + CW - 1 of each slab
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(CONSUMER_REGS));
+  const int cw = threadIdx.x / 128 - 1;
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int gr = lane / 4, tq = lane % 4;
+  const int r0 = q0 + 16 * warp + gr, r1 = r0 + 8;
+  float* const xbuf = reinterpret_cast<float*>(smem_raw + (xch - raw));
+
+  float acc[CW][32];
+#pragma unroll
+  for (int c = 0; c < CW; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
+
+  int kc = 0, qc = 0;
+  for (int i = 0; i < tiles; ++i) {
+    const int k0 = (t_begin + i) * WBK;
+    float sc[WBK / 2];
+#pragma unroll
+    for (int e = 0; e < WBK / 2; ++e) sc[e] = 0.f;
+    for (int j = 0; j < ns; ++j) {
+      if (ns > 1 || i == 0) {
+        mbar_wait(q_full, (uint32_t)qc & 1u);
+        ++qc;
+      }
+      const int s = kc % STAGES;
+      mbar_wait(k_full(s), (uint32_t)(kc / STAGES) & 1u);
+      const uint32_t ks = ring + s * 2 * KV_BYTES;
+      own(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        const uint32_t qa = anew(q_s + (cw * CW + c) * ROWS * 128);
+        const uint32_t kb = anew(ks + (cw * CW + c) * WBK * 128);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          mma_ss32(sc, desc(qa + 32 * jj, 16, 1024, 1),
+                   desc(kb + 32 * jj, 16, 1024, 1), j > 0 || c > 0 || jj > 0);
+      }
+      wgmma_commit_and_wait();
+      own(sc);
+      mbar_arrive(k_empty(s));
+      ++kc;
+      if (ns > 1) mbar_arrive(q_empty);
+    }
+    // the two partial scores: publish this warpgroup's, add the other's
+    float* const mine = xbuf + ((i & 1) * NC + cw) * (WBK / 2) * 128 + t;
+    const float* const other =
+        xbuf + ((i & 1) * NC + (cw ^ 1)) * (WBK / 2) * 128 + t;
+#pragma unroll
+    for (int e = 0; e < WBK / 2; ++e) mine[128 * e] = sc[e];
+    asm volatile("bar.sync 1, %0;\n" :: "n"(NC * 128) : "memory");
+#pragma unroll
+    for (int e = 0; e < WBK / 2; ++e) sc[e] = (sc[e] + other[128 * e]) * scale;
+
+    float al0, al1;
+    const bool full = k0 + WBK <= Skv && (!causal || k0 + WBK - 1 <= q0)
+                      && (window <= 0 || q0 + ROWS - 1 - k0 < window);
+    if (full) {
+      softmax_tile<false, WBK>(sc, 0, m0, m1, l0, l1, al0, al1);
+    } else {
+      uint64_t vis = 0;
+#pragma unroll
+      for (int e = 0; e < WBK / 2; ++e) {
+        const int kp = k0 + 8 * (e / 4) + 2 * tq + (e & 1);
+        if (visible((e & 2) ? r1 : r0, kp, Skv, causal, window))
+          vis |= 1ull << e;
+      }
+      softmax_tile<true, WBK>(sc, vis, m0, m1, l0, l1, al0, al1);
+    }
+    uint32_t pf[WBK / 16][TERMS][4];
+#pragma unroll
+    for (int kk = 0; kk < WBK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if constexpr (kF16)
+          split2h(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1],
+                  pf[kk][TERMS - 1][r], pf[kk][0][r]);
+        else
+          split3(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1],
+                 pf[kk][TERMS - 1][r], pf[kk][1][r], pf[kk][0][r]);
+      }
+
+    const int s = i % STAGES;
+    mbar_wait(v_full(s), (uint32_t)(i / STAGES) & 1u);
+    const uint32_t vs = ring + s * 2 * KV_BYTES + KV_BYTES;
+#pragma unroll
+    for (int c = 0; c < CW; ++c) {
+      const uint32_t vp = anew(vs + (cw * CW + c) * WBK * 128);
+      float f[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) f[e] = 0.f;
+      own(f);
+#pragma unroll
+      for (int ph = 0; ph < (kF16 ? 2 : 1); ++ph) {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < WBK / 16; ++kk)
+#pragma unroll
+          for (int term = kF16 ? ph : 0; term < (kF16 ? ph + 1 : TERMS);
+               ++term)
+            mma_rs64(f, pf[kk][term],
+                     desc(vp + kk * 16 * 128, WBK * 128, 1024, 1),
+                     kk > 0 || term > 0);
+        wgmma_commit_and_wait();
+        own(f);
+#pragma unroll
+        for (int kk = 0; kk < WBK / 16; ++kk)
+#pragma unroll
+          for (int term = 0; term < TERMS; ++term) own(pf[kk][term]);
+        if (kF16 && ph == 0) {
+#pragma unroll
+          for (int e = 0; e < 32; ++e) f[e] *= 1.f / LO_SCALE;
+          own(f);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        acc[c][e] = fmaf(acc[c][e], (e & 2) ? al1 : al0,
+                         f[e] * (1.f / X_SCALE));
+    }
+    mbar_arrive(v_empty(s));
+  }
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = e ? r1 : r0;
+    const float den = e ? den1 : den0;
+    if (r < Sq) {
+      elem* const dst = o + (((int64_t)b * Sq + r) * H + h) * hd;
+#pragma unroll
+      for (int c = 0; c < CW; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = z0 + (cw * CW + c) * 64 + 8 * j + 2 * tq;
+          if (col < hd)
+            *reinterpret_cast<uint32_t*>(dst + col) = round2(
+                acc[c][4 * j + 2 * e] / den, acc[c][4 * j + 2 * e + 1] / den);
+        }
+    }
+  }
+}
+
 // cuTensorMapEncodeTiled, from the driver through the runtime (no link
 // against libcuda)
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -905,6 +1204,52 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
   return (int)cudaGetLastError();
 }
 
+
+// head_dim above 256 (hd a multiple of 8): the wide kernel at OC 384 up to
+// head_dim 384, else at OC 512 with ceil(hd / 512) slabs
+template <class S>
+int launch_wide(const void* q, const void* k, const void* v, void* o,
+                int64_t B, int64_t Sq, int64_t Skv, int64_t H, int64_t KV,
+                int64_t hd, float scale, int causal, int64_t window,
+                cudaStream_t stream) {
+  const int64_t nq = (Sq + ROWS - 1) / ROWS, ns = (hd + S::OC - 1) / S::OC;
+  if (B * H > 0x7fffffffLL || nq > 65535 || ns > 65535
+      || Sq > 0x7fffffffLL - ROWS || Skv > 0x7fffffffLL - 128
+      || hd > 0x7fffffffLL || hd % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  const EncodeTiled enc = encoder();
+  if (!enc) return (int)cudaErrorNotSupported;
+  const void* kb = Skv > 0 ? k : q;
+  const void* vb = Skv > 0 ? v : q;
+  const int64_t kv_heads = Skv > 0 ? KV : H, kv_rows = Skv > 0 ? Skv : Sq;
+  CUtensorMap qm, km, vm;
+  if (!(encode(enc, &qm, q, hd, H, Sq, B, 64, ROWS,
+               CU_TENSOR_MAP_SWIZZLE_128B)
+        && encode(enc, &km, kb, hd, kv_heads, kv_rows, B, 64, WBK,
+                  CU_TENSOR_MAP_SWIZZLE_128B)
+        && encode(enc, &vm, vb, hd, kv_heads, kv_rows, B, 64, WBK,
+                  CU_TENSOR_MAP_SWIZZLE_128B)))
+    return (int)cudaErrorInvalidValue;
+  static bool opted_in[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
+    err = cudaFuncSetAttribute(flash_wide_kernel<S>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               S::SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    opted_in[dev] = true;
+  }
+  const dim3 grid((unsigned)(B * H), (unsigned)nq, (unsigned)ns);
+  const int win = window >= 0x7fffffffLL ? 0x7fffffff : (int)window;
+  flash_wide_kernel<S><<<grid, THREADS, S::SMEM_BYTES, stream>>>(
+      qm, km, vm, (elem*)o, (int)Sq, (int)Skv, (int)H, (int)KV, (int)hd,
+      (int)ns, scale, causal, win);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -932,6 +1277,23 @@ int LAG_FLASH_ENTRY(const void* q, const void* k, const void* v,
                          window, s);
   return launch<Hd256>(q, k, v, o, B, Sq, Skv, H, KV, scale, causal, window,
                        s);
+}
+
+// head_dim above 256: q, o (B, Sq, H, hd), k, v (B, Skv, KV, hd), 2-byte as
+// above, contiguous, 16-byte aligned, hd a multiple of 8
+int LAG_FLASH_WIDE_ENTRY(const void* q, const void* k, const void* v,
+                         void* o, int64_t B, int64_t Sq, int64_t Skv,
+                         int64_t H, int64_t KV, int64_t hd, float scale,
+                         int causal, int64_t window, void* stream) {
+  if (KV <= 0 || H % KV != 0 || hd <= Hd256::HD || hd % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (B * H == 0 || Sq == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (hd <= Wide384::OC)
+    return launch_wide<Wide384>(q, k, v, o, B, Sq, Skv, H, KV, hd, scale,
+                                causal, window, s);
+  return launch_wide<Wide512>(q, k, v, o, B, Sq, Skv, H, KV, hd, scale,
+                              causal, window, s);
 }
 
 }  // extern "C"

@@ -1,31 +1,35 @@
 """Flash attention forward on Hopper: the launch of
-``csrc/flash_attention.cu`` (float32), ``csrc/flash_attention_bf16.cu``
+``csrc/flash_attention.cu`` (float32) and ``csrc/flash_attention_bf16.cu``
 (bfloat16, and float16 from the same source built with
-``-DLAG_FLASH_F16``) and ``csrc/flash_attention_wide.cu`` (head_dim above
-256, all three dtypes), ports of the Pallas kernel
+``-DLAG_FLASH_F16``), ports of the Pallas kernel
 ``repro.kernels.flash_attention.flash_attention.flash_attention_padded``.
 
 The CUDA kernels take any Sq and Skv (they mask the ragged edges
 themselves, so no length is padded), contiguous operands in the reference's
-layout, and any head_dim, as the reference's kernel does.  The tensor-core
-kernels are built for head_dim 64, 80, 128 and 256 (one instantiation each
-per dtype) and serve 1 to 256: a smaller head_dim is zero-padded to the
-next built one (``pad_head_dim``; zero columns add exactly 0 to q·kᵀ and
-give zero output columns, which are sliced off) and keeps its true scale
-hd ** -0.5.  They run their products on the tensor cores with float32
-accumulators: float32 in split TF32 (three TF32 products per float32
-product, float32-accurate, ``mma.sync``, K and V through a ``cp.async``
-ring); bfloat16 and float16 on their tensor cores (``wgmma``; one product
-for the scores, whose 2-byte terms are exact, and P·V with P split into
-three bfloat16 terms, or two float16 terms scaled by exact powers of two;
-K and V through TMA), the output rounded to the 2-byte dtype once (the
-reference kernel's float32 attention on the widened inputs).  A head_dim
-above 256 takes the wide kernel (float32 FMA on the CUDA cores, a grid over
-chunks of 128 output columns, each block recomputing its rows' scores over
-the full head_dim).  They have no backward, like the reference's kernel:
-an input that requires grad raises.  ``LAUNCHES`` counts the launches of
-each kernel and dtype (``flash_attention``, ``flash_attention_bf16``,
-``flash_attention_f16``, ``flash_attention_wide``,
+layout, and any head_dim, as the reference's kernel does.  The kernels are
+built for head_dim 64, 80, 128 and 256 (one instantiation each per dtype)
+and serve 1 to 256: a smaller head_dim is zero-padded to the next built one
+(``pad_head_dim``; zero columns add exactly 0 to q·kᵀ and give zero output
+columns, which are sliced off) and keeps its true scale hd ** -0.5.  They
+run their products on the tensor cores with float32 accumulators: float32
+in split TF32 (three TF32 products per float32 product, float32-accurate,
+``mma.sync``, K and V through a ``cp.async`` ring); bfloat16 and float16 on
+their tensor cores (``wgmma``; one product for the scores, whose 2-byte
+terms are exact, and P·V with P split into three bfloat16 terms, or two
+float16 terms scaled by exact powers of two; K and V through TMA), the
+output rounded to the 2-byte dtype once (the reference kernel's float32
+attention on the widened inputs).  A head_dim above 256 takes the wide
+kernel of the same source and dtype (``wide_head_dim``: padded to a
+multiple of 8 only), on the same tensor cores in the same arithmetic: a
+block's output columns split across warps (float32: 3 or 4 warps of 128
+columns per 16 query rows) or warpgroups (2-byte: two of 192 or 256
+columns per 64 rows), the scores computed once per key tile as partial
+products over each one's columns, added in a fixed order in shared memory;
+above head_dim 512 the grid takes slabs of 512 output columns, each block
+streaming q's slabs with K's.  They have no backward, like the reference's
+kernel: an input that requires grad raises.  ``LAUNCHES`` counts the
+launches of each kernel and dtype (``flash_attention``,
+``flash_attention_bf16``, ``flash_attention_f16``, ``flash_attention_wide``,
 ``flash_attention_wide_bf16``, ``flash_attention_wide_f16``); nothing else
 increments it.
 """
@@ -71,6 +75,28 @@ INSTANCES_BF16 = {64: (128, 2), 80: (128, 2), 128: (64, 2), 256: (64, 2)}
 SHARED_BYTES_BF16 = {hd: 1024 + wgs * 64 * hd * 2 + 2 * 2 * bk * hd * 2 + 64
                      for hd, (bk, wgs) in INSTANCES_BF16.items()}
 
+#: the wide kernels' instantiations (head_dim above 256), by the columns a
+#: block takes: a head_dim takes the first at or above it, above 512 the
+#: grid takes slabs of 512.  float32: 3 or 4 warps of 128 columns per 16
+#: query rows, two row groups a block, 16 keys a tile; bfloat16 and
+#: float16: two consumer warpgroups of 64 rows x 192 or 256 columns, 32
+#: keys a tile
+WIDE_HEAD_DIMS = (384, 512)
+
+#: dynamic shared memory a float32 wide block takes (``Wide::SMEM_BYTES``):
+#: three ring stages of 16 keys x the columns, and q's hi and lo
+#: fragments, 32 rows x the columns each
+WIDE_SHARED_BYTES = {oc: (3 * 16 * oc + 2 * 32 * oc) * 4
+                     for oc in WIDE_HEAD_DIMS}
+
+#: dynamic shared memory a 2-byte wide block takes (``WideShape::
+#: SMEM_BYTES``): 1 KB to align, q's 64 rows, two stages of K and V (32 keys
+#: each), the partial scores' exchange (two tile parities x two warpgroups
+#: x 128 threads x 16 floats), 128 bytes of mbarriers
+WIDE_SHARED_BYTES_BF16 = {oc: 1024 + 64 * oc * 2 + 2 * 2 * 32 * oc * 2
+                          + 2 * 2 * 128 * 16 * 4 + 128
+                          for oc in WIDE_HEAD_DIMS}
+
 #: each dtype's tensor-core kernel: (its name in ``LAUNCHES``, entry point)
 ENTRIES = {torch.float32: ("flash_attention", "lag_flash_attention_f32"),
            torch.bfloat16: ("flash_attention_bf16",
@@ -92,21 +118,23 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 _ARGS = (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, ctypes.c_float,
          ctypes.c_int, _I64)
 _CSRC = Path(__file__).resolve().parent / "csrc"
+
+
+def _entries(dtype):
+    return {ENTRIES[dtype][1]: _ARGS, WIDE_ENTRIES[dtype][1]: _ARGS}
+
+
 LIBRARY = build.CudaLibrary(
-    "flash_attention", _CSRC / "flash_attention.cu",
-    {ENTRIES[torch.float32][1]: _ARGS})
+    "flash_attention", _CSRC / "flash_attention.cu", _entries(torch.float32))
 LIBRARY_BF16 = build.CudaLibrary(
     "flash_attention_bf16", _CSRC / "flash_attention_bf16.cu",
-    {ENTRIES[torch.bfloat16][1]: _ARGS})
+    _entries(torch.bfloat16))
 #: the bfloat16 design on wgmma's .f16 operands: the same source, built
 #: again
 LIBRARY_F16 = build.CudaLibrary(
     "flash_attention_f16", _CSRC / "flash_attention_bf16.cu",
-    {ENTRIES[torch.float16][1]: _ARGS}, extra_flags=("-DLAG_FLASH_F16",))
-LIBRARY_WIDE = build.CudaLibrary(
-    "flash_attention_wide", _CSRC / "flash_attention_wide.cu",
-    {entry: _ARGS for _, entry in WIDE_ENTRIES.values()})
-#: each dtype's tensor-core library
+    _entries(torch.float16), extra_flags=("-DLAG_FLASH_F16",))
+#: each dtype's library (its tensor-core kernel and its wide kernel)
 LIBRARIES = {torch.float32: LIBRARY, torch.bfloat16: LIBRARY_BF16,
              torch.float16: LIBRARY_F16}
 
@@ -118,8 +146,8 @@ def reset_launches() -> None:
 
 def padded_head_dim(hd: int) -> int:
     """The smallest built head_dim at or above ``hd`` (1 to 256): the
-    tensor-core kernel a head_dim takes (above 256 the wide kernel takes it
-    unpadded)."""
+    instantiation a head_dim takes (above 256 the wide kernel takes it,
+    ``wide_head_dim``)."""
     for built in HEAD_DIMS:
         if 1 <= hd <= built:
             return built
@@ -128,12 +156,26 @@ def padded_head_dim(hd: int) -> int:
                      f"for {HEAD_DIMS}; the wide kernel takes any above)")
 
 
+def wide_head_dim(hd: int) -> int:
+    """The head_dim a wide launch takes for ``hd`` above 256: the next
+    multiple of 8 (the row stride its copies need); the kernel zero-fills
+    the columns past it up to its instantiation's and stores none of
+    them."""
+    if hd <= HEAD_DIMS[-1]:
+        raise ValueError(f"wide_head_dim: head_dim {hd} takes the built "
+                         f"instantiations (1 to {HEAD_DIMS[-1]})")
+    return -(-hd // 8) * 8
+
+
 def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """q, k, v zero-padded along head_dim to ``padded_head_dim``: zero
-    columns add exactly 0 to every q·k and give zero output columns, so
-    attention with the true scale on the padded operands, cut back to hd
-    columns, is attention on the operands."""
-    pad = padded_head_dim(q.shape[-1]) - q.shape[-1]
+    """q, k, v zero-padded along head_dim to ``padded_head_dim`` (above
+    256: ``wide_head_dim``): zero columns add exactly 0 to every q·k and
+    give zero output columns, so attention with the true scale on the
+    padded operands, cut back to hd columns, is attention on the
+    operands."""
+    hd = q.shape[-1]
+    pad = (wide_head_dim(hd) if hd > HEAD_DIMS[-1]
+           else padded_head_dim(hd)) - hd
     if not pad:
         return q, k, v
     return tuple(F.pad(t, (0, pad)) for t in (q, k, v))
@@ -172,15 +214,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                for t in (q, k, v)):
         raise ValueError("flash_attention_fwd: operands must be contiguous "
                          "and 16-byte aligned")
-    if hd > HEAD_DIMS[-1]:
-        name, entry = WIDE_ENTRIES[q.dtype]
-        lib = LIBRARY_WIDE
-    else:
-        name, entry = ENTRIES[q.dtype]
-        lib = LIBRARIES[q.dtype]
-        q, k, v = pad_head_dim(q, k, v)
+    name, entry = (WIDE_ENTRIES if hd > HEAD_DIMS[-1] else
+                   ENTRIES)[q.dtype]
+    q, k, v = pad_head_dim(q, k, v)
     o = torch.empty_like(q)
-    build.launch(getattr(build.load(lib), entry),
+    build.launch(getattr(build.load(LIBRARIES[q.dtype]), entry),
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
                  Sq, Skv, H, KV, o.shape[-1], float(hd ** -0.5), int(causal),
                  0 if window is None else int(window), device=q.device)

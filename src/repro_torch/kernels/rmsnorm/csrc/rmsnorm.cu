@@ -526,182 +526,563 @@ int launch(const T* x, const T* scale, T* y, int64_t rows, int64_t d,
 //
 // A row whose byte length is not a multiple of 8 or whose base is not
 // 16-byte aligned (d = 1, 3, 17, 4099, ...), and a row wider than 8192 (d =
-// 8200, 16384, 20000, ...): no TMA, no ring.  A row belongs to a team of W
-// warps (W = 1, 2, 4, 8, the least with 256 W >= d, so a thread takes at
-// most eight elements before the team is 8 warps), 8 / W teams a block of
-// 256 threads, a grid-stride walk over the rows.
+// 8200, 16384, 20000, ...).  The stream's design, with the alignment taken
+// out of the device memory's way:
 //
-//   * LOADS BY VECTOR WHERE ALIGNED, ELSE BY ELEMENT: where d % 4 == 0 and
-//     x, y and the scale are aligned to four elements (16 bytes of
-//     float32, 8 of a 2-byte type), thread t of the team takes the groups
-//     of four t, t + 32 W, ... of the row; elsewhere the elements t, t +
-//     32 W, ...  Either way a warp's access is contiguous.
-//   * THE ROW IS KEPT IN SHARED MEMORY WHERE IT FITS: the first pass folds
-//     the squares and keeps what it read in the team's stash (each thread
-//     reads back only what it wrote: no barrier); where the block's rows
-//     do not fit (STASH_BYTES), the second pass reads the row again, from
-//     L2 where it still is.
-//   * THE FOLD: a thread folds its elements in order with fmaf (a group's
-//     four in order), then a fixed xor butterfly of shuffles, then the
-//     team's W warp sums in warp order: fixed by d and the vector flag,
-//     the same bits in any launch; the 2-byte row's rsqrt is bitwise the
-//     float32 kernel's on the widened row (tests/rmsnorm_fold.py emulates
-//     it).  rsqrt(sum / d + eps) and the write as in the stream kernel.
+//   * THE ALIGNED COVER BY TMA: a tile is tile_rows consecutive rows of the
+//     contiguous x, one byte range; the producer brings its 16-byte-aligned
+//     cover (at most 15 bytes more at each end, inside the same aligned
+//     words) into a shared-memory ring with 1D bulk copies, whatever the
+//     alignment of x or of the rows.  The ring is one circular buffer (112
+//     KB, two blocks a SM, up to d 8192; 224 KB, one block a SM, up to d
+//     24576): a tile takes its cover's bytes where the last one ended (two
+//     copies where it wraps), up to ROWS_SLOTS tiles in flight, so a wide
+//     row (80 KB of float32 at d 20000) leaves room for the next ones and
+//     narrow rows pack densely.  The bytes a bulk store still reads are
+//     reclaimed only when a load needs them.
+//   * ONE FOLD ORDER, BY d ALONE, THE STREAM'S: chunks of eight elements, a
+//     team of W warps a row (W = 1, 2, 4, 8, the least with 128 W >= the
+//     chunks), thread t of the team folds chunks t, t + 32 W, ... in order
+//     (up to 12 a thread: d 24576), each chunk's elements in order with
+//     fmaf, then the xor butterfly and the team's warp sums in warp order.
+//     A chunk is read from shared memory at any element offset (the two or
+//     three aligned 16-byte words that hold it, shifted into place), so the
+//     bits depend on d alone: the row's rsqrt is the same at any alignment,
+//     and equal to the stream kernel's where both take a width (a 2-byte
+//     row one element off is bitwise the float32 stream's on the aligned
+//     widened row).  Up to d 8192 a team folds two rows at once (one
+//     barrier for both): at d 4099 a row is one team of eight warps, and a
+//     row at a time left the SM waiting on each row's chain of reads,
+//     shuffles and barrier.
+//   * WRITES: where x's base and y's lie at the same 16-byte phase (y comes
+//     from torch.empty_like: every aligned x), the consumers normalise the
+//     tile in place and the producer writes its aligned interior to y with
+//     bulk stores, the ragged ends (< 16 bytes each) by element; elsewhere
+//     the consumers store y by element.
+//   * THE SCALE IS READ ONCE PER BLOCK into registers (a thread's chunks
+//     are the same in every row).
+//   * Wider rows (d above 24576, or a row past half the ring) go through
+//     rmsnorm_rows_global_kernel: a block of 256 threads a row, several
+//     blocks a SM, the row read twice from device memory (L2), the same
+//     fold order.
+//
+// float16 and bfloat16 run at one rate here (PERF.md); the earlier design
+// (a warp's loads by element, synchronous) ran float16 1.4-1.7x slower.
+// rsqrt(sum / d + eps) and the write as in the stream kernel.
 
 constexpr int ROW_THREADS = 256;
 constexpr int ROW_WARPS = ROW_THREADS / WARP;
-constexpr int STASH_BYTES = 98304;     // a block's stash: two blocks a SM
+constexpr int ROWS_SLOTS = 24;          // tiles in flight a block
+constexpr int ROWS_TILE = 16384;        // a tile's target bytes
+constexpr int ROWS_HEADER = 1024;       // 2 x ROWS_SLOTS mbarriers, partials
+constexpr int ROWS_SMEM = 229376;       // the ring(s) of one SM
 
-template <typename T> struct Elem;
-template <> struct Elem<float> {
-  static __device__ __forceinline__ float load(const float* p) { return *p; }
-  static __device__ __forceinline__ float4 load4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
+// the rows kernel's two shapes: up to 8192 elements a row (four chunks a
+// thread at most), two rows folded at once by a team, two blocks a SM; up
+// to 24576 (twelve chunks a thread), a row at a time, one block a SM
+template <int MAXC_>
+struct RowsShape {
+  static constexpr int MAXC = MAXC_;
+  static constexpr int GROUP = MAXC == 4 ? 2 : 1;      // rows a team folds
+  static constexpr int BLOCKS = MAXC == 4 ? 2 : 1;     // blocks a SM
+  static constexpr int RING = ROWS_SMEM / BLOCKS;
+  static constexpr int SMEM_BYTES = ROWS_HEADER + RING;
+  static constexpr int MAX_D = MAXC * CONSUMER_WARPS * WARP * 8;
+};
+using RowsNarrow = RowsShape<4>;
+using RowsWide = RowsShape<12>;
+
+// a chunk of eight T as raw 32-bit words: widened to floats, and y = T(T(v
+// * r) * s) packed back
+template <typename T> struct Chunk;
+template <> struct Chunk<float> {
+  static constexpr int WORDS = 8;
+  static __device__ __forceinline__ void widen(const uint32_t (&u)[8],
+                                               float (&f)[8]) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) f[e] = __uint_as_float(u[e]);
   }
-  static __device__ __forceinline__ void store(float* p, float v, float r,
-                                               float s) {
-    *p = __fmul_rn(__fmul_rn(v, r), s);
-  }
-  static __device__ __forceinline__ void store4(float* p, float4 v, float r,
-                                                float4 s) {
-    *reinterpret_cast<float4*>(p) = make_float4(
-        __fmul_rn(__fmul_rn(v.x, r), s.x), __fmul_rn(__fmul_rn(v.y, r), s.y),
-        __fmul_rn(__fmul_rn(v.z, r), s.z), __fmul_rn(__fmul_rn(v.w, r), s.w));
+  static __device__ __forceinline__ void norm(const float (&v)[8], float r,
+                                              const float (&s)[8],
+                                              uint32_t (&u)[8]) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      u[e] = __float_as_uint(__fmul_rn(__fmul_rn(v[e], r), s[e]));
   }
 };
-
-template <typename T> struct Elem2 {
-  static __device__ __forceinline__ float load(const T* p) {
-    const unsigned short u = *reinterpret_cast<const unsigned short*>(p);
-    return Pair<T>::widen((uint32_t)u).x;
+template <typename T> struct Chunk2 {
+  static constexpr int WORDS = 4;
+  static __device__ __forceinline__ void widen(const uint32_t (&u)[4],
+                                               float (&f)[8]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 t = Pair<T>::widen(u[j]);
+      f[2 * j] = t.x;
+      f[2 * j + 1] = t.y;
+    }
   }
-  static __device__ __forceinline__ float4 load4(const T* p) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const float2 a = Pair<T>::widen(u.x), b = Pair<T>::widen(u.y);
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  static __device__ __forceinline__ void store(T* p, float v, float r,
-                                               float s) {
-    const uint32_t o = norm2<T>(v, 0.f, r, s, 0.f);
-    *reinterpret_cast<unsigned short*>(p) = (unsigned short)(o & 0xffffu);
-  }
-  static __device__ __forceinline__ void store4(T* p, float4 v, float r,
-                                                float4 s) {
-    *reinterpret_cast<uint2*>(p) = make_uint2(
-        norm2<T>(v.x, v.y, r, s.x, s.y), norm2<T>(v.z, v.w, r, s.z, s.w));
+  static __device__ __forceinline__ void norm(const float (&v)[8], float r,
+                                              const float (&s)[8],
+                                              uint32_t (&u)[4]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      u[j] = norm2<T>(v[2 * j], v[2 * j + 1], r, s[2 * j], s[2 * j + 1]);
   }
 };
-template <> struct Elem<bf16> : Elem2<bf16> {};
-template <> struct Elem<__half> : Elem2<__half> {};
+template <> struct Chunk<bf16> : Chunk2<bf16> {};
+template <> struct Chunk<__half> : Chunk2<__half> {};
 
-// the team's warps a row of d elements
-inline int rows_team_warps(int64_t d) {
-  int W = 1;
-  while (W < ROW_WARPS && (int64_t)ROW_THREADS * W < d) W *= 2;
-  return W;
+// element e of a chunk's words, as its raw bits
+template <typename T>
+__device__ __forceinline__ uint32_t elem_bits(const uint32_t* u, int e) {
+  if (sizeof(T) == 4) return u[e];
+  return (u[e >> 1] >> (16 * (e & 1))) & 0xffffu;
 }
 
-// x, y (rows, d); VEC: every row in groups of four aligned elements;
-// stash: the block's rows kept in shared memory (teams x d elements)
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(ROW_THREADS)
+template <typename T>
+__device__ __forceinline__ uint32_t get_elem(const void* p) {
+  if (sizeof(T) == 4) return *reinterpret_cast<const uint32_t*>(p);
+  return *reinterpret_cast<const unsigned short*>(p);
+}
+
+template <typename T>
+__device__ __forceinline__ void put_elem(void* p, uint32_t bits) {
+  if (sizeof(T) == 4) *reinterpret_cast<uint32_t*>(p) = bits;
+  else *reinterpret_cast<unsigned short*>(p) = (unsigned short)bits;
+}
+
+// the first n (at most 8) elements at p as a chunk's words, zeros past them
+template <typename T>
+__device__ __forceinline__ void load_chunk(const T* p, int n,
+                                           uint32_t (&u)[Chunk<T>::WORDS]) {
+#pragma unroll
+  for (int e = 0; e < Chunk<T>::WORDS; ++e) u[e] = 0u;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    if (e >= n) continue;
+    if (sizeof(T) == 4)
+      u[e] = *reinterpret_cast<const uint32_t*>(p + e);
+    else
+      u[e >> 1] |= (uint32_t)*reinterpret_cast<const unsigned short*>(p + e)
+                   << (16 * (e & 1));
+  }
+}
+
+// a circular byte buffer of `size` bytes (a multiple of 16) in shared
+// memory; offsets below 2 size
+struct Ring {
+  unsigned char* p;
+  uint32_t size;
+  __device__ __forceinline__ unsigned char* at(uint32_t off) const {
+    return p + (off >= size ? off - size : off);
+  }
+};
+
+// the chunk of eight T at byte `off` of the ring (any element offset): the
+// aligned 16-byte words that hold it, shifted into place
+template <typename T>
+__device__ __forceinline__ void ring_chunk(const Ring& ring, uint32_t off,
+                                           uint32_t (&u)[Chunk<T>::WORDS]) {
+  constexpr int N = Chunk<T>::WORDS;         // words a chunk
+  constexpr int NW = N / 4 + 1;              // aligned words that hold it
+  uint32_t w[4 * NW];
+  const uint32_t a = off & ~15u;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint4 x = *reinterpret_cast<const uint4*>(ring.at(a + 16 * i));
+    w[4 * i] = x.x; w[4 * i + 1] = x.y; w[4 * i + 2] = x.z;
+    w[4 * i + 3] = x.w;
+  }
+  const uint32_t q = (off >> 2) & 3u, bits = (off & 3u) * 8u;
+  uint32_t v[N + 1];
+#pragma unroll
+  for (int j = 0; j <= N; ++j)
+    v[j] = q == 0 ? w[j] : q == 1 ? w[j + 1] : q == 2 ? w[j + 2] : w[j + 3];
+#pragma unroll
+  for (int j = 0; j < N; ++j) u[j] = __funnelshift_r(v[j], v[j + 1], bits);
+}
+
+// the chunk's first n elements (words u) back at byte `off` of the ring
+template <typename T>
+__device__ __forceinline__ void ring_put(const Ring& ring, uint32_t off,
+                                         const uint32_t (&u)[Chunk<T>::WORDS],
+                                         int n) {
+  constexpr int N = Chunk<T>::WORDS;
+  if (n == 8 && (off & 15u) == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i)
+      *reinterpret_cast<uint4*>(ring.at(off + 16 * i)) =
+          make_uint4(u[4 * i], u[4 * i + 1], u[4 * i + 2], u[4 * i + 3]);
+  } else if (n == 8 && (off & 3u) == 0) {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      *reinterpret_cast<uint32_t*>(ring.at(off + 4 * j)) = u[j];
+  } else if (n == 8) {              // a 2-byte chunk at 2 (mod 4)
+    put_elem<T>(ring.at(off), u[0]);
+#pragma unroll
+    for (int j = 0; j < N - 1; ++j)
+      *reinterpret_cast<uint32_t*>(ring.at(off + 2 + 4 * j)) =
+          __funnelshift_r(u[j], u[j + 1], 16);
+    put_elem<T>(ring.at(off + 14), u[N - 1] >> 16);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (e < n)
+        put_elem<T>(ring.at(off + e * (uint32_t)sizeof(T)),
+                    elem_bits<T>(u, e));
+  }
+}
+
+// a tile: its rows, x's bytes [xs, xs + nr row_bytes) and their aligned
+// cover [cs, cs + cover)
+struct RowsTile {
+  int nr;
+  uint64_t xs, cs;
+  uint32_t cover;
+};
+
+__device__ __forceinline__ RowsTile rows_tile(uint64_t xbase, int64_t rows,
+                                              int64_t tile_rows,
+                                              int64_t row_bytes,
+                                              int64_t tile) {
+  RowsTile t;
+  const int64_t r0 = tile * tile_rows;
+  t.nr = (int)(rows - r0 < tile_rows ? rows - r0 : tile_rows);
+  t.xs = xbase + (uint64_t)(r0 * row_bytes);
+  t.cs = t.xs & ~(uint64_t)15;
+  t.cover = (uint32_t)(((t.xs + (uint64_t)(t.nr * row_bytes) + 15)
+                        & ~(uint64_t)15) - t.cs);
+  return t;
+}
+
+// x, y (rows, d), tiles of tile_rows rows; in_place: x's base and y's at
+// the same 16-byte phase (the tile normalised in the ring, written back by
+// bulk stores), else y stored by element
+template <typename T, class S>
+__global__ void __launch_bounds__(THREADS, S::BLOCKS)
 rmsnorm_rows_kernel(const T* __restrict__ x, const T* __restrict__ scale,
-                    T* __restrict__ y, int64_t rows, int64_t d, int W,
-                    int stash, float eps) {
-  typedef Elem<T> el;
-  extern __shared__ __align__(16) unsigned char row_smem[];
+                    T* __restrict__ y, int64_t rows, int d, int W,
+                    int64_t tile_rows, int in_place, float eps) {
+  typedef Chunk<T> ck;
+  constexpr int N = ck::WORDS, MAXC = S::MAXC, GROUP = S::GROUP;
+  constexpr uint32_t CB = 8 * sizeof(T);     // a chunk's bytes
+  constexpr uint32_t RING = S::RING;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t full0 = smem_u32(smem), written0 = full0 + 8 * ROWS_SLOTS;
+  float* const part = reinterpret_cast<float*>(smem + 16 * ROWS_SLOTS);
+  const Ring ring{smem + ROWS_HEADER, RING};
+  const uint32_t ring_s = smem_u32(ring.p);
+
+  const int64_t row_bytes = (int64_t)d * sizeof(T);
+  const int64_t tiles = (rows + tile_rows - 1) / tile_rows;
+  const uint64_t xbase = (uint64_t)x, ybase = (uint64_t)y;
+  const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ROWS_SLOTS; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(written0 + 8 * s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    // -- the producer: every tile's cover in, the tiles written in place
+    // out; the ring's bytes and slots taken and freed in tile order
+    if (lane != 0) return;
+    // ring bytes: taken by loads; stored (their bulk stores may still be
+    // reading them); freed (reusable)
+    uint64_t taken = 0, stored = 0, freed = 0;
+    int64_t ld = blockIdx.x;
+    int kl = 0, ks = 0;
+    for (int64_t st = blockIdx.x; st < tiles; st += gridDim.x, ++ks) {
+      for (; ld < tiles && kl - ks < ROWS_SLOTS; ld += gridDim.x, ++kl) {
+        const RowsTile t = rows_tile(xbase, rows, tile_rows, row_bytes, ld);
+        if (taken + t.cover - freed > RING) {
+          if (stored == freed) break;     // the consumers hold the rest
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+          freed = stored;
+          if (taken + t.cover - freed > RING) break;
+        }
+        const uint32_t bar = full0 + 8 * (kl % ROWS_SLOTS);
+        const uint32_t off = (uint32_t)(taken % RING);
+        const uint32_t first = t.cover < RING - off ? t.cover : RING - off;
+        mbar_expect_tx(bar, t.cover);
+        bulk_load(ring_s + off, reinterpret_cast<const void*>(t.cs), first,
+                  bar);
+        if (first < t.cover)
+          bulk_load(ring_s, reinterpret_cast<const void*>(t.cs + first),
+                    t.cover - first, bar);
+        taken += t.cover;
+      }
+      mbar_wait(written0 + 8 * (ks % ROWS_SLOTS),
+                (uint32_t)(ks / ROWS_SLOTS) & 1u);
+      const RowsTile t = rows_tile(xbase, rows, tile_rows, row_bytes, st);
+      if (in_place) {
+        // y's bytes [ys, ye): the aligned interior by bulk stores (two
+        // where the ring wraps), the ends by element; y byte Y is at ring
+        // offset base + (Y - (ys & ~15))
+        const uint32_t base = (uint32_t)(stored % RING);
+        const uint64_t ys = ybase + (t.xs - xbase);
+        const uint64_t ye = ys + (uint64_t)(t.nr * row_bytes);
+        const uint64_t y0 = ys & ~(uint64_t)15;
+        const uint64_t a = (ys + 15) & ~(uint64_t)15, e = ye & ~(uint64_t)15;
+        auto at = [&](uint64_t Y) { return ring.at(base + (uint32_t)(Y - y0)); };
+        if (a < e) {
+          const uint32_t off = (uint32_t)(ring.at(base + (uint32_t)(a - y0))
+                                          - ring.p);
+          const uint32_t bytes = (uint32_t)(e - a);
+          const uint32_t first = bytes < RING - off ? bytes : RING - off;
+          bulk_store(reinterpret_cast<void*>(a), ring_s + off, first);
+          if (first < bytes)
+            bulk_store(reinterpret_cast<void*>(a + first), ring_s,
+                       bytes - first);
+        }
+        const uint64_t head_end = a < ye ? a : ye;
+        const uint64_t tail = e > a ? e : a;
+        for (uint64_t Y = ys; Y < head_end; Y += sizeof(T))
+          put_elem<T>(reinterpret_cast<void*>(Y), get_elem<T>(at(Y)));
+        for (uint64_t Y = tail; Y < ye; Y += sizeof(T))
+          put_elem<T>(reinterpret_cast<void*>(Y), get_elem<T>(at(Y)));
+      }
+      // the ring's bytes are free once the stores have read them (the
+      // loads above wait for that only when they need the bytes)
+      stored += t.cover;
+      if (!in_place) freed = stored;
+    }
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    return;
+  }
+
+  // -- a consumer warp, warp `wt` of team `team` (W warps a row)
+  const int cw = warp - 1;
+  const int team = cw / W, wt = cw % W, teams = CONSUMER_WARPS / W;
+  const int tl = wt * WARP + lane, tn = W * WARP;
+  const int chunks = (d + 7) / 8;
+
+  uint32_t sw[MAXC][N];              // this thread's chunks of the scale
+#pragma unroll
+  for (int k = 0; k < MAXC; ++k) {
+    const int c = tl + k * tn;
+    load_chunk<T>(scale + 8 * c, c < chunks ? d - 8 * c : 0, sw[k]);
+  }
+
+  int parity = 0;
+  uint64_t taken = 0;
+  int k_t = 0;
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++k_t) {
+    const RowsTile t = rows_tile(xbase, rows, tile_rows, row_bytes, tile);
+    const int slot = k_t % ROWS_SLOTS;
+    mbar_wait(full0 + 8 * slot, (uint32_t)(k_t / ROWS_SLOTS) & 1u);
+    // x byte X of the tile is at ring offset start + (X - cs)
+    const uint32_t start = (uint32_t)(taken % RING) + (uint32_t)(t.xs - t.cs);
+    // the team's rows r, r + teams, ... GROUP at a time: their folds, one
+    // barrier for the group's warp sums, their writes
+    for (int r = team; r < t.nr; r += teams * GROUP) {
+      float acc[GROUP];
+      uint32_t row0[GROUP];
+#pragma unroll
+      for (int b = 0; b < GROUP; ++b) {
+        row0[b] = (start + (uint32_t)((r + b * teams) * row_bytes)) % RING;
+        acc[b] = 0.f;
+        if (r + b * teams >= t.nr) continue;
+#pragma unroll
+        for (int k = 0; k < MAXC; ++k) {
+          const int c = tl + k * tn;
+          if (c < chunks) {
+            uint32_t u[N];
+            float f[8];
+            ring_chunk<T>(ring, row0[b] + (uint32_t)c * CB, u);
+            ck::widen(u, f);
+            const int n = d - 8 * c < 8 ? d - 8 * c : 8;
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              if (e < n) acc[b] = fmaf(f[e], f[e], acc[b]);
+          }
+        }
+        acc[b] = warp_sum(acc[b]);
+      }
+      if (W > 1) {                   // the team's warp sums, in warp order
+        float* const p = part + parity * GROUP * CONSUMER_WARPS + team * W;
+        if (lane == 0) {
+#pragma unroll
+          for (int b = 0; b < GROUP; ++b) p[b * CONSUMER_WARPS + wt] = acc[b];
+        }
+        bar_sync(1 + team, tn);
+#pragma unroll
+        for (int b = 0; b < GROUP; ++b) {
+          acc[b] = 0.f;
+          for (int w = 0; w < W; ++w) acc[b] += p[b * CONSUMER_WARPS + w];
+        }
+        parity ^= 1;
+      }
+#pragma unroll
+      for (int b = 0; b < GROUP; ++b) {
+        if (r + b * teams >= t.nr) continue;
+        const float rs = rsqrtf(acc[b] / (float)d + eps);
+        T* const yr = y + (tile * tile_rows + r + b * teams) * (int64_t)d;
+#pragma unroll
+        for (int k = 0; k < MAXC; ++k) {
+          const int c = tl + k * tn;
+          if (c < chunks) {
+            const uint32_t off = row0[b] + (uint32_t)c * CB;
+            uint32_t u[N];
+            float f[8], s[8];
+            ring_chunk<T>(ring, off, u);
+            ck::widen(u, f);
+            ck::widen(sw[k], s);
+            ck::norm(f, rs, s, u);
+            const int n = d - 8 * c < 8 ? d - 8 * c : 8;
+            if (in_place) {
+              ring_put<T>(ring, off, u, n);
+            } else {
+#pragma unroll
+              for (int e = 0; e < 8; ++e)
+                if (e < n) put_elem<T>(yr + 8 * c + e, elem_bits<T>(u, e));
+            }
+          }
+        }
+      }
+    }
+    // the writes, visible to the bulk store (the async proxy), then counted
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0) mbar_arrive(written0 + 8 * slot);
+    taken += t.cover;
+  }
+}
+
+// rows too wide for the ring: a block of 256 threads a row, the row read
+// twice from device memory, the same fold order (chunks t, t + 256, ...)
+template <typename T>
+__global__ void __launch_bounds__(ROW_THREADS)
+rmsnorm_rows_global_kernel(const T* __restrict__ x,
+                           const T* __restrict__ scale, T* __restrict__ y,
+                           int64_t rows, int64_t d, float eps) {
+  typedef Chunk<T> ck;
   __shared__ float part[2][ROW_WARPS];
   const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
-  const int team = warp / W, wt = warp % W, teams = ROW_WARPS / W;
-  const int tl = wt * WARP + lane, tn = W * WARP;
-  float* const keep = reinterpret_cast<float*>(row_smem) + team * d;
+  const int64_t chunks = (d + 7) / 8;
   int parity = 0;
-  for (int64_t r = (int64_t)blockIdx.x * teams + team; r < rows;
-       r += (int64_t)gridDim.x * teams) {
+  for (int64_t r = blockIdx.x; r < rows; r += gridDim.x) {
     const T* const xr = x + r * d;
-    T* const yr = y + r * d;
     float acc = 0.f;
-    if (VEC) {
-      for (int64_t g = tl; g < d / 4; g += tn) {
-        const float4 v = el::load4(xr + 4 * g);
-        acc = fmaf(v.x, v.x, acc);
-        acc = fmaf(v.y, v.y, acc);
-        acc = fmaf(v.z, v.z, acc);
-        acc = fmaf(v.w, v.w, acc);
-        if (stash) reinterpret_cast<float4*>(keep)[g] = v;
-      }
-    } else {
-      for (int64_t i = tl; i < d; i += tn) {
-        const float v = el::load(xr + i);
-        acc = fmaf(v, v, acc);
-        if (stash) keep[i] = v;
-      }
+    for (int64_t c = threadIdx.x; c < chunks; c += ROW_THREADS) {
+      const int n = d - 8 * c < 8 ? (int)(d - 8 * c) : 8;
+      uint32_t u[ck::WORDS];
+      float f[8];
+      load_chunk<T>(xr + 8 * c, n, u);
+      ck::widen(u, f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (e < n) acc = fmaf(f[e], f[e], acc);
     }
     acc = warp_sum(acc);
-    if (W > 1) {                       // the team's warp sums, in warp order
-      float* const p = part[parity] + team * W;
-      if (lane == 0) p[wt] = acc;
-      bar_sync(1 + team, tn);
-      acc = 0.f;
-      for (int w = 0; w < W; ++w) acc += p[w];
-      parity ^= 1;
-    }
+    if (lane == 0) part[parity][warp] = acc;
+    __syncthreads();
+    acc = 0.f;
+    for (int w = 0; w < ROW_WARPS; ++w) acc += part[parity][w];
+    parity ^= 1;
     const float rs = rsqrtf(acc / (float)d + eps);
-    if (VEC) {
-      for (int64_t g = tl; g < d / 4; g += tn) {
-        const float4 v = stash ? reinterpret_cast<const float4*>(keep)[g]
-                               : el::load4(xr + 4 * g);
-        el::store4(yr + 4 * g, v, rs, el::load4(scale + 4 * g));
-      }
-    } else {
-      for (int64_t i = tl; i < d; i += tn)
-        el::store(yr + i, stash ? keep[i] : el::load(xr + i), rs,
-                  el::load(scale + i));
+    for (int64_t c = threadIdx.x; c < chunks; c += ROW_THREADS) {
+      const int n = d - 8 * c < 8 ? (int)(d - 8 * c) : 8;
+      uint32_t u[ck::WORDS], w[ck::WORDS];
+      float f[8], s[8];
+      load_chunk<T>(xr + 8 * c, n, u);
+      load_chunk<T>(scale + 8 * c, n, w);
+      ck::widen(u, f);
+      ck::widen(w, s);
+      ck::norm(f, rs, s, u);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (e < n) put_elem<T>(y + r * d + 8 * c + e, elem_bits<T>(u, e));
     }
   }
-}
-
-template <typename T, bool VEC>
-int launch_rows_as(const T* x, const T* scale, T* y, int64_t rows,
-                   int64_t d, float eps, cudaStream_t s) {
-  auto kernel = rmsnorm_rows_kernel<T, VEC>;
-  static int smem_set[MAX_DEVICES];
-  int dev = 0;
-  const int sms = device_sms(&dev);
-  if (sms < 0) return -sms;
-  const int W = rows_team_warps(d), teams = ROW_WARPS / W;
-  // the block's rows in shared memory where they fit, else read twice
-  const int64_t keep = teams * d * (int64_t)sizeof(float);
-  const int stash = keep <= STASH_BYTES;
-  const int smem = stash ? (int)keep : 0;
-  if (!smem_set[dev]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, STASH_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    smem_set[dev] = 1;
-  }
-  int64_t blocks = (rows + teams - 1) / teams;
-  const int64_t most = (int64_t)sms * 16;
-  if (blocks > most) blocks = most;
-  kernel<<<(unsigned)blocks, ROW_THREADS, smem, s>>>(x, scale, y, rows, d,
-                                                     W, stash, eps);
-  return (int)cudaGetLastError();
 }
 
 // the rows kernel's launches by dtype (0 float32, 1 bfloat16, 2 float16)
-// and by load (0 by element, 1 by vector), read by lag_rmsnorm_rows_counts
-int64_t rows_counts[3][2];
+// and by path (0 the ring, in place and bulk stores; 1 the ring, y stored
+// by element; 2 the two-pass global kernel), read by lag_rmsnorm_rows_counts
+int64_t rows_counts[3][3];
+
+// the team's warps of a row of d elements (the stream's rule, any d)
+inline int rows_team_warps(int64_t d) {
+  const int64_t chunks = (d + 7) / 8;
+  int W = 1;
+  while (W < CONSUMER_WARPS && (int64_t)MAX_CHUNKS * WARP * W < chunks)
+    W *= 2;
+  return W;
+}
+
+template <typename T, class S>
+int launch_rows_ring(const T* x, const T* scale, T* y, int64_t rows,
+                     int64_t d, float eps, cudaStream_t s, int sms,
+                     int dev, int in_place) {
+  auto kernel = rmsnorm_rows_kernel<T, S>;
+  static bool smem_set[MAX_DEVICES];
+  if (!smem_set[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = true;
+  }
+  const int W = rows_team_warps(d), teams = CONSUMER_WARPS / W;
+  const int64_t row_bytes = d * (int64_t)sizeof(T);
+  // about ROWS_TILE bytes, a whole number of groups a team where the ring
+  // takes two such tiles
+  int64_t per = ROWS_TILE / (teams * row_bytes);
+  per = per > 1 ? per : 1;
+  const int64_t grouped = (per + S::GROUP - 1) / S::GROUP * S::GROUP;
+  if (grouped * teams * row_bytes + 32 <= S::RING / 2) per = grouped;
+  const int64_t tile_rows = per * teams;
+  const int64_t tiles = (rows + tile_rows - 1) / tile_rows;
+  const int64_t most = (int64_t)sms * S::BLOCKS;
+  const unsigned grid = (unsigned)(tiles < most ? tiles : most);
+  kernel<<<grid, THREADS, S::SMEM_BYTES, s>>>(x, scale, y, rows, (int)d, W,
+                                              tile_rows, in_place, eps);
+  return (int)cudaGetLastError();
+}
+
+// the rows kernel's path for rows of d elements of `size` bytes, x and y
+// at these addresses: 0 the ring written back in place (x's base and y's
+// at one 16-byte phase), 1 the ring storing y by element, 2 the two-pass
+// kernel; *shape: 0 RowsNarrow, 1 RowsWide
+int rows_path(int64_t d, int64_t size, uintptr_t x, uintptr_t y, int* shape) {
+  const int64_t row_bytes = d * size;
+  *shape = d <= RowsNarrow::MAX_D && row_bytes + 32 <= RowsNarrow::RING / 2
+               ? 0
+           : d <= RowsWide::MAX_D && row_bytes + 32 <= RowsWide::RING / 2
+               ? 1
+               : -1;
+  if (*shape < 0) return 2;
+  return x % 16 == y % 16 ? 0 : 1;
+}
 
 template <typename T>
 int launch_rows(const T* x, const T* scale, T* y, int64_t rows, int64_t d,
                 float eps, cudaStream_t s, int which) {
-  if (d < 1) return (int)cudaErrorInvalidValue;
+  if (d < 1 || d > 0x7fffffffLL / 8) return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
-  const uintptr_t a = (uintptr_t)x | (uintptr_t)y | (uintptr_t)scale;
-  const bool vec = d % 4 == 0 && a % (4 * sizeof(T)) == 0;
-  const int err = vec ? launch_rows_as<T, true>(x, scale, y, rows, d, eps, s)
-                      : launch_rows_as<T, false>(x, scale, y, rows, d, eps, s);
-  if (err == 0) ++rows_counts[which][vec];
+  int dev = 0;
+  const int sms = device_sms(&dev);
+  if (sms < 0) return -sms;
+  int shape, err;
+  const int path = rows_path(d, sizeof(T), (uintptr_t)x, (uintptr_t)y,
+                             &shape);
+  if (path == 2) {
+    const int64_t blocks = rows < (int64_t)sms * 8 ? rows : (int64_t)sms * 8;
+    rmsnorm_rows_global_kernel<T><<<(unsigned)blocks, ROW_THREADS, 0, s>>>(
+        x, scale, y, rows, d, eps);
+    err = (int)cudaGetLastError();
+  } else if (shape == 0) {
+    err = launch_rows_ring<T, RowsNarrow>(x, scale, y, rows, d, eps, s, sms,
+                                          dev, path == 0);
+  } else {
+    err = launch_rows_ring<T, RowsWide>(x, scale, y, rows, d, eps, s, sms,
+                                        dev, path == 0);
+  }
+  if (err == 0) ++rows_counts[which][path];
   return err;
 }
 
@@ -765,10 +1146,19 @@ int lag_rmsnorm_plan(int64_t d, int64_t size, int64_t* out) {
   return 0;
 }
 
-// the rows kernel's launches so far: out = {float32 by element, by vector,
-// bfloat16 by element, by vector, float16 by element, by vector}
+// the rows kernel's path (0, 1, 2 as launch_rows counts it) for rows of d
+// elements of `size` bytes at x, their output at y
+int lag_rmsnorm_rows_path(int64_t d, int64_t size, const void* x,
+                          const void* y) {
+  int shape;
+  return rows_path(d, size, (uintptr_t)x, (uintptr_t)y, &shape);
+}
+
+// the rows kernel's launches so far, by dtype (float32, bfloat16, float16)
+// and path (the ring in place, the ring storing y by element, the two-pass
+// global kernel): out[3 * dtype + path]
 void lag_rmsnorm_rows_counts(int64_t* out) {
-  for (int i = 0; i < 6; ++i) out[i] = rows_counts[i / 2][i % 2];
+  for (int i = 0; i < 9; ++i) out[i] = rows_counts[i / 3][i % 3];
 }
 
 }  // extern "C"

@@ -15,15 +15,18 @@ with x and the scale 16-byte aligned, goes through the stream kernel (a
 persistent grid streams tiles of rows through shared memory by TMA, and a
 team of 1 to 8 warps, by d alone, folds each row): every row the models
 give it.  Every other row (d 1, 3, 17, 4099, a contiguous x or scale whose
-base is not 16-byte aligned, d above 8192) goes through the rows kernel (a
-team of warps a row, loads by groups of four where d % 4 == 0 and x, y and
-the scale are aligned to four elements, else by element, the row kept in
-shared memory where it fits, else read twice through L2;
-:func:`rows_counts` says which load each launch took).  Neither falls back
-to the plain version.  ``LAUNCHES`` counts the launches of each
-instantiation (``rmsnorm``, ``rmsnorm_bf16``, ``rmsnorm_f16`` for the
-stream kernel, ``rmsnorm_rows``, ``rmsnorm_rows_bf16``, ``rmsnorm_rows_f16``
-for the rows kernel); nothing else increments it.
+base is not 16-byte aligned, d above 8192) goes through the rows kernel:
+the same persistent TMA design on each tile's 16-byte-aligned cover, the
+row read from shared memory at any element offset and folded in the
+stream's order, fixed by d alone (so a row's rsqrt does not depend on its
+alignment); y written back by bulk stores where x's base is aligned, by
+element elsewhere; rows past 24576 elements (or half the ring) read twice
+through L2 by a block a row.  :func:`rows_counts` says which path each
+launch took.  Neither falls back to the plain version.  ``LAUNCHES``
+counts the launches of each instantiation (``rmsnorm``, ``rmsnorm_bf16``,
+``rmsnorm_f16`` for the stream kernel, ``rmsnorm_rows``,
+``rmsnorm_rows_bf16``, ``rmsnorm_rows_f16`` for the rows kernel); nothing
+else increments it.
 """
 from __future__ import annotations
 
@@ -126,15 +129,33 @@ def _resolve(dtype: torch.dtype, stream: bool):
     return _ENTRY[dtype, stream]
 
 
-def rows_counts() -> Dict[torch.dtype, Tuple[int, int]]:
-    """The rows kernel's launches so far by dtype, (by element, by groups
-    of four), as the library counts them (built if needed; never reset)."""
+#: the rows kernel's paths, in the order ``rows_counts`` counts them: the
+#: TMA ring writing y back by bulk stores (x's base 16-byte aligned, as
+#: every ``torch.empty_like`` y is), the ring storing y by element (x's
+#: base not aligned), the two-pass kernel for rows too wide for the ring
+ROWS_PATHS = ("ring", "ring_by_element", "two_pass")
+
+
+def rows_path(x: torch.Tensor) -> str:
+    """The path the rows kernel takes for a contiguous x (R, d), as the
+    library decides it (built if needed)."""
+    fn = build.load(LIBRARY).lag_rmsnorm_rows_path
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return ROWS_PATHS[fn(x.shape[1], x.element_size(), x.data_ptr(), 0)]
+
+
+def rows_counts() -> Dict[torch.dtype, Tuple[int, int, int]]:
+    """The rows kernel's launches so far by dtype, one count per
+    ``ROWS_PATHS`` entry, as the library counts them (built if needed;
+    never reset)."""
     fn = build.load(LIBRARY).lag_rmsnorm_rows_counts
     fn.argtypes = [ctypes.POINTER(ctypes.c_int64)]
     fn.restype = None
-    out = (ctypes.c_int64 * 6)()
+    out = (ctypes.c_int64 * 9)()
     fn(out)
-    return {dt: (out[2 * i], out[2 * i + 1]) for i, dt in enumerate(
+    return {dt: tuple(out[3 * i:3 * i + 3]) for i, dt in enumerate(
         (torch.float32, torch.bfloat16, torch.float16))}
 
 

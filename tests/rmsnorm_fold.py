@@ -26,12 +26,12 @@ def kernel_team_warps(d: int) -> int:
 
 
 def kernel_mean_square(x: torch.Tensor, eps: float = 1e-6) -> np.ndarray:
-    """x (R, d) float32 or bfloat16 → the kernel's sum / d + eps per row,
-    float32 (a bfloat16 row widened first)."""
+    """x (R, d) float32 or 2-byte → the kernel's sum / d + eps per row,
+    float32 (a 2-byte row widened first)."""
     R, d = x.shape
     W = kernel_team_warps(d)
     T = 32 * W
-    K = -(-(-(-d // 8)) // T)                    # chunks a thread, at most 4
+    K = -(-(-(-d // 8)) // T)                    # chunks a thread
     v = np.zeros((R, K * T * 8), np.float64)     # zeros fold as no-ops
     v[:, :d] = x.float().numpy()                 # each chunk widened
     v = v.reshape(R, K, T, 8)                    # chunk k·T + t of thread t
@@ -64,43 +64,15 @@ def kernel_rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 
 
 # The rows kernel (``rmsnorm_rows_kernel``: rows the TMA stream does not
-# take, any d): a row's team is the least W of 1, 2, 4, 8 with 256 W >= d.
-# Thread t of the team takes the groups of four t, t + 32 W, ... where the
-# row is aligned for four-element loads (``vec``: d % 4 == 0 on an aligned
-# buffer), else the elements t, t + 32 W, ...; it folds them in order with
-# fmaf, then the xor butterfly and the team's warp sums in warp order, as
-# the stream kernel does.
+# take, any d, any alignment) folds in the stream's order, fixed by d alone:
+# each chunk of eight is read from shared memory at whatever element offset
+# the row lies, so neither the alignment nor the dtype moves the bits (rows
+# past 8192 elements: W = 8, more than four chunks a thread; past 24576 the
+# two-pass kernel, a block of eight warps a row, the same order).
 RMS_ROWS_WIDTHS = (1, 3, 17, 4099, 8200, 16384, 20000)
 
 
-def rows_team_warps(d: int) -> int:
-    w = 1
-    while w < 8 and 256 * w < d:
-        w *= 2
-    return w
-
-
-def rows_mean_square(x: torch.Tensor, eps: float = 1e-6,
-                     vec: bool = None) -> np.ndarray:
+def rows_mean_square(x: torch.Tensor, eps: float = 1e-6) -> np.ndarray:
     """x (R, d) float32 or 2-byte → the rows kernel's sum / d + eps per
-    row, float32; ``vec`` defaults to the aligned buffer's (d % 4 == 0)."""
-    R, d = x.shape
-    vec = d % 4 == 0 if vec is None else vec
-    W = rows_team_warps(d)
-    T = 32 * W
-    unit = 4 if vec else 1
-    K = -(-(-(-d // unit)) // T)                 # units a thread
-    v = np.zeros((R, K * T * unit), np.float64)  # zeros fold as no-ops
-    v[:, :d] = x.float().numpy()
-    v = v.reshape(R, K, T, unit)                 # unit k·T + t of thread t
-    acc = np.zeros((R, T), np.float32)
-    for k in range(K):
-        for e in range(unit):
-            acc = (v[:, k, :, e] * v[:, k, :, e] + acc).astype(np.float32)
-    acc = acc.reshape(R, W, 32)
-    for o in (16, 8, 4, 2, 1):
-        acc = acc + acc[:, :, np.arange(32) ^ o]
-    tot = acc[:, 0, 0]
-    for w in range(1, W):
-        tot = tot + acc[:, w, 0]
-    return tot / np.float32(d) + np.float32(eps)
+    row, float32: ``kernel_mean_square`` at any d."""
+    return kernel_mean_square(x, eps)

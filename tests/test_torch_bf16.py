@@ -284,7 +284,8 @@ def test_bf16_instantiations_and_their_shared_memory():
     RMSNorm's dtypes share one source, flash attention's bfloat16 kernel
     has its own (``flash_attention_bf16.cu``: q and a two-stage K/V ring of
     bfloat16 tiles, no lo buffer; float16 is the same source built again),
-    each block within Hopper's 227 KB."""
+    each dtype's wide kernel in its tensor-core kernel's library, each
+    block within Hopper's 227 KB."""
     from repro_torch.kernels.flash_attention import flash_attention as t_fa
     from repro_torch.kernels.rmsnorm import rmsnorm as t_rms
     for mod, name, second in ((t_rms, "rmsnorm", "rmsnorm_rows"),
@@ -298,7 +299,8 @@ def test_bf16_instantiations_and_their_shared_memory():
         e for table in (t_rms.ENTRIES, t_rms.ROWS_ENTRIES)
         for _, e in table.values()}
     for dtype, (_, entry) in t_fa.ENTRIES.items():
-        assert set(t_fa.LIBRARIES[dtype].entry_points) == {entry}
+        assert set(t_fa.LIBRARIES[dtype].entry_points) == {
+            entry, t_fa.WIDE_ENTRIES[dtype][1]}
     assert t_fa.LIBRARY_BF16.source.name == "flash_attention_bf16.cu" \
         == t_fa.LIBRARY_F16.source.name
     assert t_fa.SHARED_BYTES_BF16 == {64: 83008, 80: 103488, 128: 99392,

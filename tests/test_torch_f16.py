@@ -10,10 +10,10 @@ interpret mode).
   sums within the float32 sum-order tolerance, residuals within the
   reference's own LAQ tolerance (``test_torch_layout_plan``); each plain
   version bitwise the float32 plain version on the widened operands.
-- Kernel 6's rows kernel (what the TMA stream does not take): its fold,
-  emulated in ``rmsnorm_fold.rows_mean_square``, against the reference's
-  kernel at d 1 to 20000 in all three dtypes: float32 within 1e-5, a
-  2-byte dtype within one ulp a rounding.
+- Kernel 6's rows kernel (what the TMA stream does not take): its fold
+  (the stream's, by d alone), emulated in ``rmsnorm_fold.rows_mean_square``,
+  against the reference's kernel at d 1 to 20000 in all three dtypes:
+  float32 within 1e-5, a 2-byte dtype within one ulp a rounding.
 - Kernel 7 at float16: the kernel's arithmetic emulated (one float16
   product for the scores, P split into two float16 terms scaled by 2^14
   and 2^26, two phases into one float32 accumulator) within one float16
@@ -253,16 +253,22 @@ def test_legacy_plain_versions_match_pallas_at_f16(shape, combo):
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16", "float16"))
 @pytest.mark.parametrize("d", RMS_ROWS_WIDTHS)
 def test_rows_kernel_fold_matches_reference(d, dtype):
-    """The rows kernel's fold (by element where d % 4 != 0, by groups of
-    four elsewhere) against the reference's Pallas kernel in interpret
-    mode and its oracle: float32 within RMS_TOL; a 2-byte dtype within one
-    ulp a rounding, |scale|·ulp(y) + ulp(out)."""
+    """The rows kernel's fold (the stream's order, by d alone: the same at
+    element offsets 0 to 3 of a buffer) against the reference's Pallas
+    kernel in interpret mode and its oracle: float32 within RMS_TOL; a
+    2-byte dtype within one ulp a rounding, |scale|·ulp(y) + ulp(out)."""
     rng = np.random.default_rng(d)
     tdt = getattr(torch, dtype)
     x = torch.from_numpy(rng.standard_normal((8, d)).astype(np.float32)
                          ).to(tdt)
     s = torch.from_numpy(rng.standard_normal(d).astype(np.float32)).to(tdt)
-    r = torch.from_numpy((1.0 / np.sqrt(rows_mean_square(x).astype(
+    ms = rows_mean_square(x)
+    for off in range(1, 4):
+        buf = torch.zeros(x.numel() + off, dtype=tdt)
+        xo = buf[off:].view(8, d).copy_(x)
+        assert xo.storage_offset() == off
+        assert ms.tobytes() == rows_mean_square(xo).tobytes()
+    r = torch.from_numpy((1.0 / np.sqrt(ms.astype(
         np.float64))).astype(np.float32))[:, None]
     got = kernel_rmsnorm(x, s, r).float().numpy()
     jx = jnp.asarray(x.float().numpy()).astype(dtype)

@@ -13,14 +13,17 @@ one).  The file imports no JAX, so it runs where the card is:
   every output bitwise the float32 kernel on the widened operands (one
   element-to-thread map and fold order in every dtype).
 - Kernel 6: the float16 stream bitwise the float32 kernel's row rounded
-  twice; the rows kernel (d 1 to 20000, aligned and one element off) in all
-  three dtypes bit for bit ``rmsnorm_fold.rows_mean_square``'s fold through
-  the card's rsqrt, the 2-byte rows bitwise the float32 rows kernel's
-  rounded twice, float32 within 1e-5 of the plain version.
+  twice; the rows kernel (d 1 to 20000 at element offsets 0 to 3, and
+  the two-pass kernel past 24576) in all three dtypes bit for bit
+  ``rmsnorm_fold.rows_mean_square``'s fold through the card's rsqrt, the
+  2-byte rows bitwise the float32 kernel's on the aligned widened row
+  rounded twice, float32 within 1e-5 of the plain version; at widths the
+  stream takes, one to three elements off, bitwise the stream's output.
 - Kernel 7: the float16 tensor-core kernel within one float16 ulp (+ 1e-6)
   of the plain version on the widened inputs, rounded, on ragged cases and
-  on the dominant-key rows; the wide kernel (head_dim 320 and 512) in all
-  three dtypes, float32 within 1e-5, a 2-byte dtype within one ulp.
+  on the dominant-key rows; the wide kernel (head_dim 257 to 600: both
+  instantiations, the padding to 8 and the slabs above 512) in all three
+  dtypes, float32 within 1e-5, a 2-byte dtype within one ulp.
 - Each instantiation is counted under its own name in ``LAUNCHES``.
 """
 import numpy as np
@@ -218,16 +221,18 @@ def test_cuda_rmsnorm_f16_stream(cuda_device, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("offset", (0, 1, 2, 3))
 @pytest.mark.parametrize("dtype", (F32, BF16, F16),
                          ids=("f32", "bf16", "f16"))
 @pytest.mark.parametrize("d", RMS_ROWS_WIDTHS)
 def test_cuda_rmsnorm_rows_kernel(cuda_device, d, dtype, offset):
-    """The rows kernel loads and folds as ``rows_mean_square`` (by groups
-    of four on an aligned buffer with d % 4 == 0, by element otherwise, as
-    ``rms.rows_counts`` shows), bit for bit
-    through the card's rsqrt; 2-byte rows are the float32 rows kernel's
-    rounded twice; float32 within 1e-5 of the plain version."""
+    """The rows kernel folds as ``rows_mean_square`` (the stream's order,
+    by d alone) at any element offset, on the path ``rms.rows_path`` names
+    (the ring written back by bulk stores where x is aligned, by element
+    elsewhere, as ``rms.rows_counts`` shows), bit for bit through the
+    card's rsqrt; 2-byte rows are the float32 rows kernel's on the widened
+    row (aligned) rounded twice; float32 within 1e-5 of the plain
+    version."""
     rng = np.random.default_rng(d)
     x = torch.from_numpy(rng.standard_normal((16, d)).astype(np.float32))
     s = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
@@ -235,25 +240,92 @@ def test_cuda_rmsnorm_rows_kernel(cuda_device, d, dtype, offset):
     xs = card(x.reshape(-1), dtype, offset, cuda_device).view(16, d)
     ss = card(s, dtype, offset, cuda_device)
     rms.reset_launches()
-    vec = d % 4 == 0 and offset == 0
+    path = rms.ROWS_PATHS.index(rms.rows_path(xs))
+    assert path == (0 if offset == 0 else 1)
     loads = rms.rows_counts()[dtype]
     got = rms.rmsnorm_2d(xs, ss)
     assert not rms.stream_takes(xs, ss)
     assert rms.LAUNCHES[rms.ROWS_ENTRIES[dtype][0]] == 1
-    now = rms.rows_counts()[dtype]          # one launch, by the load vec says
-    assert (now[vec] - loads[vec], now[not vec] - loads[not vec]) == (1, 0)
-    ms = torch.from_numpy(rows_mean_square(x, vec=vec)).to(cuda_device)
+    now = rms.rows_counts()[dtype]          # one launch, on that path
+    assert [a - b for a, b in zip(now, loads)] == [int(i == path)
+                                                   for i in range(3)]
+    ms = torch.from_numpy(rows_mean_square(x)).to(cuda_device)
     want = kernel_rmsnorm(x, s, torch.rsqrt(ms)[:, None].cpu())
     assert torch.equal(got.cpu(), want)
     if dtype == F32:
         torch.testing.assert_close(got, rms_ref.rmsnorm(xs, ss),
                                    rtol=1e-5, atol=1e-5)
     else:
-        y32 = rms.rmsnorm_2d(card(x.float().reshape(-1), F32, offset,
-                                  cuda_device).view(16, d),
-                             card(torch.ones(d), F32, offset, cuda_device))
+        y32 = rms.rmsnorm_2d(x.float().to(cuda_device),
+                             torch.ones(d, device=cuda_device))
         assert torch.equal(got, (y32.to(dtype).float()
                                  * ss.float()).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", (1, 2, 3))
+@pytest.mark.parametrize("dtype", (F32, BF16, F16),
+                         ids=("f32", "bf16", "f16"))
+@pytest.mark.parametrize("d", (132, 2048, 6000, 8192))
+def test_cuda_rmsnorm_rows_kernel_is_the_stream_unaligned(cuda_device, d,
+                                                          dtype, offset):
+    """A width the stream takes, at an element offset it does not: the
+    rows kernel's output bitwise the stream kernel's on an aligned copy
+    (one fold order), and a 2-byte row's bitwise the float32 stream's on
+    the widened row rounded twice."""
+    g = torch.Generator(device=cuda_device).manual_seed(d + offset)
+    x = torch.randn((100, d), device=cuda_device, generator=g).to(dtype)
+    s = torch.randn((d,), device=cuda_device, generator=g).to(dtype)
+    xs = card(x.reshape(-1), dtype, offset, cuda_device).view(100, d)
+    ss = card(s, dtype, offset, cuda_device)
+    rms.reset_launches()
+    got = rms.rmsnorm_2d(xs, ss)
+    assert rms.LAUNCHES[rms.ROWS_ENTRIES[dtype][0]] == 1
+    assert torch.equal(got, rms.rmsnorm_2d(x, s))
+    assert rms.LAUNCHES[rms.ENTRIES[dtype][0]] == 1
+    if dtype != F32:
+        y32 = rms.rmsnorm_2d(x.float(), torch.ones(d, device=cuda_device))
+        assert rms.LAUNCHES["rmsnorm"] == 1
+        assert torch.equal(got, (y32.to(dtype).float() * s.float()).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", (0, 1))
+@pytest.mark.parametrize("dtype", (F32, BF16, F16),
+                         ids=("f32", "bf16", "f16"))
+@pytest.mark.parametrize("rows,d", [(3000, 4099), (600, 20000)])
+def test_cuda_rmsnorm_rows_kernel_wraps_the_ring(cuda_device, rows, d,
+                                                 dtype, offset):
+    """Enough rows that every block's tiles wrap its ring (up to d 8192 two
+    blocks a SM of 112 KB, beyond one of 224 KB): bit for bit the fold."""
+    rng = np.random.default_rng(rows + d)
+    x = torch.from_numpy(rng.standard_normal((rows, d)).astype(np.float32))
+    s = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+    x, s = x.to(dtype), s.to(dtype)
+    xs = card(x.reshape(-1), dtype, offset, cuda_device).view(rows, d)
+    got = rms.rmsnorm_2d(xs, card(s, dtype, offset, cuda_device))
+    ms = torch.from_numpy(rows_mean_square(x)).to(cuda_device)
+    assert torch.equal(got.cpu(), kernel_rmsnorm(
+        x, s, torch.rsqrt(ms)[:, None].cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (F32, BF16, F16),
+                         ids=("f32", "bf16", "f16"))
+@pytest.mark.parametrize("d", (24577, 40000))
+def test_cuda_rmsnorm_rows_two_pass(cuda_device, d, dtype):
+    """Rows too wide for the ring: the two-pass kernel, the same fold."""
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.standard_normal((5, d)).astype(np.float32))
+    s = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+    x, s = x.to(dtype), s.to(dtype)
+    assert rms.rows_path(x) == "two_pass"
+    loads = rms.rows_counts()[dtype]
+    got = rms.rmsnorm_2d(x.to(cuda_device), s.to(cuda_device))
+    assert rms.rows_counts()[dtype][2] == loads[2] + 1
+    ms = torch.from_numpy(rows_mean_square(x)).to(cuda_device)
+    assert torch.equal(got.cpu(), kernel_rmsnorm(
+        x, s, torch.rsqrt(ms)[:, None].cpu()))
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +387,7 @@ def test_cuda_flash_f16_dominant_key_rows(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", (F32, BF16, F16), ids=("f32", "bf16",
                                                          "f16"))
-@pytest.mark.parametrize("hd", (257, 320, 512))
+@pytest.mark.parametrize("hd", (257, 320, 384, 512, 600))
 @pytest.mark.parametrize("S,Skv,causal,window", [
     (1, 1, True, None), (129, 129, True, None), (65, 65, True, 16),
     (129, 1000, False, None), (1000, 129, True, 64)])
