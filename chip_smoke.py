@@ -15,9 +15,12 @@ Phases (any failure raises and the script exits non-zero):
      none of the float32 flash library's six instantiations (head_dim 64,
      80, 128, 256; wide 384, 512) spills, the count of ``HGMMA``
      instructions (wgmma) in the bfloat16 and float16 flash libraries' SASS
-     (``cuobjdump -sass``), which must not be 0, and each wide
+     (``cuobjdump -sass``), which must not be 0, each wide
      instantiation's own tensor-core instructions (HMMA in float32, HGMMA
-     in 2-byte), none of which may be 0.
+     in 2-byte), none of which may be 0, and in each float16
+     ``flash_f16_kernel`` instantiation at most one wgmma wait
+     (WARPGROUP.DEPBAR) for every four HGMMA: ptxas did not serialize
+     its products.
   3. the comm plane's kernels vs plain versions on ragged synthetic
      layouts (leaf sizes {1, 127, 129, 32768, 0}, W ∈ {1, 3}, the
      unstacked operand, LAQ bits {2, 4, 8}, all three masked modes):
@@ -373,7 +376,10 @@ Phases (any failure raises and the script exits non-zero):
         bfloat16 and float16, at phases 19a and 20a's shapes, on inputs
         that reach float16's subnormals and ±65504 (``f16_edges``):
         bitwise their plain versions (sums within 1e-5) and the float32
-        kernels on the widened operands; the float16 RMSNorm stream at d
+        kernels on the widened operands (kernel 5 read steadily: the
+        median and min-max of 50 single launches, beside
+        ``torch.linalg.vector_norm`` flat and per 1024-element
+        sub-block); the float16 RMSNorm stream at d
         1024-8192 (bitwise the float32 kernel's row rounded twice) and
         timed at the prefill's shape; the rows RMSNorm kernel at
         RMS_ROWS_WIDTHS in all three dtypes (aligned, and contiguous rows
@@ -384,7 +390,8 @@ Phases (any failure raises and the script exits non-zero):
         flash kernel on the ragged sets at head_dim 64 and 256, on the
         dominant-key rows and at phase 18a's eight shapes (within one
         float16 ulp + 1e-6 of the widened plain version, rounded), each of
-        those shapes timed beside f16 SDPA; the wide flash kernel at
+        those shapes timed beside f16 SDPA, its bound and the design's
+        (1 + 2 float16 products); the wide flash kernel at
         ATTN_WIDE_RAGGED in all three dtypes on a ragged set and at
         ATTN_WIDE_HD; each timed beside its bound (float32: split TF32 and
         the FMA units'), plain version and library call;
@@ -996,6 +1003,27 @@ def cuda_ms(torch, fn, n=5, warmup=1):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def steady_ms(torch, fn, n=50):
+    """``n`` single-launch CUDA-event readings after one warm launch →
+    (median, min, max) ms: a reading that one slow launch does not move."""
+    fn()
+    torch.cuda.synchronize()
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    for a, b in evs:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    t = sorted(a.elapsed_time(b) for a, b in evs)
+    return t[n // 2] if n % 2 else (t[n // 2 - 1] + t[n // 2]) / 2, t[0], \
+        t[-1]
+
+
+def steady_line(r):
+    return f"{r[0]:.4f} ms ({r[1]:.4f}–{r[2]:.4f})"
 
 
 def cold_ms(torch, fn, inputs, n=50):
@@ -4942,7 +4970,10 @@ def sqnorm_blocks_half(torch, dev):
     """22a: kernel 5 (``sqnorm_blocks``, on no path) at bfloat16 and
     float16 at phase 4's shape (W = 2, full width): bitwise the float32
     kernel on the widened operand, the partials within SUM_RTOL of the plain
-    version; → its rows of the kernels line."""
+    version; read steadily (``steady_ms``: the median and min-max of 50
+    single launches) beside ``torch.linalg.vector_norm``, flat and per
+    1024-element sub-block (the one call that writes per-sub-block
+    results); → its rows of the kernels line (the medians)."""
     from repro_torch.configs import get_config
     from repro_torch.dist.lag_trainer import param_layout
     from repro_torch.fastpath import kernels, kernels_ref
@@ -4970,20 +5001,24 @@ def sqnorm_blocks_half(torch, dev):
                                        atol=0)
             err = max(err, max_abs(got[:, sr], want))
         t_b, by = bound_ms(N * 2 + S * 4, 2 * N)
-        flat = a.view(-1)
+        flat, subs = a.view(-1), a.view(-1, 1024)
+        kern = steady_ms(torch, lambda: kernels.sqnorm_blocks(a))
+        lib = steady_ms(torch, lambda: torch.linalg.vector_norm(flat))
+        lib_sub = steady_ms(torch, lambda: torch.linalg.vector_norm(
+            subs, dim=1, dtype=torch.float32))
         r = rows["sqnorm_blocks" + sfx] = dict(
-            max_abs_err=err, ms=cuda_ms(torch, lambda: kernels.sqnorm_blocks(
-                a)),
+            max_abs_err=err, ms=kern[0],
             plain_ms=cuda_ms(torch, lambda: [kernels_ref.sqnorm_blocks(
                 a[:, r0:r0 + step]) for r0 in range(0, R, step)], n=2),
-            bound_ms=t_b, bound_by=by,
-            library_ms=cuda_ms(torch, lambda: torch.linalg.vector_norm(
-                flat)))
+            bound_ms=t_b, bound_by=by, library_ms=lib[0])
         print(f"  22a sqnorm_blocks{sfx}: max_abs_err {err:.3e} | "
-              f"{r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, bound "
-              f"{t_b:.3f} ms by {by}, library {r['library_ms']:.3f} ms) | "
-              f"bound / kernel {t_b / r['ms']:.1%}")
-        del a, got, flat
+              f"median (min–max) of 50: {steady_line(kern)} (plain "
+              f"{r['plain_ms']:.3f} ms, bound {t_b:.4f} ms by {by}; "
+              f"vector_norm flat {steady_line(lib)}, per sub-block "
+              f"{steady_line(lib_sub)}) | bound / kernel "
+              f"{t_b / r['ms']:.1%}, kernel / vector_norm "
+              f"{r['ms'] / r['library_ms']:.3f}")
+        del a, got, flat, subs
         gc.collect()
         torch.cuda.empty_cache()
     return rows
@@ -5186,28 +5221,34 @@ def flash_f16_and_wide_phase(torch, dev, gen, bad):
         e, b = bf16_flash_case(torch, q, k, v, causal, window)
         bad += [f"flash f16 full {(B, S, H, KV, hd)}: {m}" for m in b]
         ms = cuda_ms(torch, lambda: fa.flash_attention_fwd(
-            q, k, v, causal=causal, window=window), n=5)
+            q, k, v, causal=causal, window=window), n=10)
         lib = flash_library_ms(torch, q, k, v, causal, window)
+        # the (query, key) pairs the masks leave, 4·hd FLOP each, at the
+        # tensor cores' float16 rate; the design's 1 + 2 products 1.5 ×
+        pos = torch.arange(S, device=dev)
+        keep = pos[:, None] >= pos[None] if causal else \
+            torch.ones((S, S), dtype=torch.bool, device=dev)
+        if window is not None:
+            keep &= pos[:, None] - pos[None] < window
+        flop = 4 * hd * B * H * int(keep.sum())
+        nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+        t_b, by = bound_ms(nbytes, flop, BF16_FLOP_PER_S)
         line = (f"  22a flash_attention f16 ({B}, {S}, {H}/{KV}, {hd}) "
                 f"{'causal' if causal else 'non-causal'}"
                 + (f" window {window}" if window else "")
                 + f": max |Δ| {e:.3e} | {ms:.4f} ms (SDPA f16 {lib:.4f} ms, "
-                f"kernel / library {ms / lib:.3f})")
+                f"kernel / library {ms / lib:.3f}; bound {t_b:.4f} ms by "
+                f"{by} = {t_b / ms:.1%}, the design's 1 + 2 float16 products "
+                f"{1.5 * t_b:.4f} ms = {1.5 * t_b / ms:.1%})")
         if (B, S, H, KV, hd) == ATTN_FULL:
-            pos = torch.arange(S, device=dev)
-            pairs = B * H * int((pos[:, None] >= pos[None]).sum())
-            flop = 4 * hd * pairs
-            nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
-            t_b, by = bound_ms(nbytes, flop, BF16_FLOP_PER_S)
             r = rows["flash_attention_f16"] = dict(
                 max_abs_err=e, ms=ms,
                 plain_ms=cuda_ms(torch, lambda: fa_ref.attention(
                     q, k, v, causal=causal), n=3),
                 bound_ms=t_b, bound_by=by, library_ms=lib)
-            line += (f" (plain {r['plain_ms']:.4f} ms, bound {t_b:.4f} ms by"
-                     f" {by} = {t_b / ms:.1%}, the design's 1 + 2 float16 "
-                     f"products {1.5 * t_b:.4f} ms)")
+            line += f" (plain {r['plain_ms']:.4f} ms)"
         print(line)
+        del keep
         del q, k, v
     # the wide kernel: ragged, then the timed shapes, in all three dtypes
     for dt in (torch.float32, torch.bfloat16, h16):
@@ -5498,6 +5539,19 @@ def main():
               and all(n > 0 for n, _ in counts),
               f"the {lib.name} wide kernel is not on the tensor cores: "
               f"{counts}")
+    # the float16 kernel's products stay asynchronous: where ptxas cannot
+    # prove a wgmma's registers untouched until its wait, it waits after
+    # every wgmma (as many WARPGROUP.DEPBAR as HGMMA)
+    funcs = [f for f in sass_of(fa.LIBRARY_F16.path()).split(
+        "Function : ")[1:] if "flash_f16_kernel" in f.split("\n", 1)[0]]
+    counts = [(f.count("HGMMA"), f.count("WARPGROUP.DEPBAR"))
+              for f in funcs]
+    print(f"  {fa.LIBRARY_F16.name} flash_f16_kernel: (HGMMA, wgmma waits) "
+          f"per instantiation {counts}; {fa.SHARED_BYTES_F16} bytes of "
+          f"dynamic shared memory a block")
+    check(len(funcs) == len(fa.INSTANCES_F16)
+          and all(0 < 4 * w <= n for n, w in counts),
+          f"the float16 flash kernel's wgmmas are serialized: {counts}")
     # 12c's data and 13d's CPU run, made beside phases 3-13
     gisette, fleet = cpu_child(GISETTE_CHILD), cpu_child(FLEET_CHILD)
 

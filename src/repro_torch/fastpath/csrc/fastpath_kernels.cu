@@ -46,6 +46,18 @@
 //     partial crosses a sub-block and nothing crosses a block, so the same
 //     inputs give the same bits on every launch (the fixed-order contract
 //     of the reference plan) and no cross-block pass or atomic is needed.
+//   * Kernel 5 at a 2-byte type (sq_half_kernel): the same map and fold
+//     with 16-byte loads: for steps 2P and 2P + 1 of a sub-block, an even
+//     lane l loads the word of groups l + 64P and l + 1 + 64P (its own at
+//     step 2P, lane l + 1's), its odd neighbour the word of groups l + 32
+//     + 64P and l + 33 + 64P (lane l's at step 2P + 1, its own); the pair
+//     swaps the 8 bytes that belong to the other (two shuffles), and each
+//     lane folds its groups l + 32j in order.  One warp's four loads read
+//     the sub-block's 2 KB as four 512-byte runs: half the load
+//     instructions of 8-byte loads.  (A persistent grid whose warps walk
+//     the sub-blocks by a grid stride, each issuing the next sub-block's
+//     loads before the current one's folds, ran 5-6 % slower on an H100:
+//     PERF.md §6.)
 //   * Elementwise folds: four elements per thread, grid-stride.
 //   * Offsets are int64 throughout: at full width a (2, 9.66M, 128) operand
 //     holds 2.47e9 elements, above 2^31.
@@ -185,6 +197,28 @@ __global__ void delta_sq_kernel(const void* a, const void* b, float* out,
   if (lane == 0) out[sub] = acc;
 }
 
+// a bfloat16 or float16 group of four as float32 (u.x's low half first):
+// widening is exact (Quad<T>::load's)
+__device__ __forceinline__ float4 widen(uint2 u, bf16) {
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ float4 widen(uint2 u, __half) {
+  const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ float sq_acc(float acc, float4 x) {
+  acc = __fadd_rn(acc, __fmul_rn(x.x, x.x));
+  acc = __fadd_rn(acc, __fmul_rn(x.y, x.y));
+  acc = __fadd_rn(acc, __fmul_rn(x.z, x.z));
+  return __fadd_rn(acc, __fmul_rn(x.w, x.w));
+}
+
 // per-(worker, sub-block) sum a^2: delta_sq_kernel with one operand
 template <typename TA>
 __global__ void sq_kernel(const void* a, float* out, int64_t total_subs) {
@@ -201,6 +235,41 @@ __global__ void sq_kernel(const void* a, float* out, int64_t total_subs) {
     acc = __fadd_rn(acc, __fmul_rn(x.y, x.y));
     acc = __fadd_rn(acc, __fmul_rn(x.z, x.z));
     acc = __fadd_rn(acc, __fmul_rn(x.w, x.w));
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) out[sub] = acc;
+}
+
+// kernel 5 at a 2-byte type T (see the header): sq_kernel<T>'s sums, bit
+// for bit, with 16-byte loads; a holds total_subs * 128 words of 16 bytes
+template <typename T>
+__global__ void sq_half_kernel(const uint4* __restrict__ a,
+                               float* __restrict__ out, int64_t total_subs) {
+  const int64_t sub = (int64_t)blockIdx.x * WARPS_PER_BLOCK
+                      + threadIdx.x / WARP;
+  if (sub >= total_subs) return;             // the whole warp leaves
+  const int lane = threadIdx.x % WARP;
+  const bool odd = lane & 1;
+  // lane l's word of each 512-byte run: an even lane the word of groups l
+  // and l + 1 (its own and lane l + 1's), an odd lane that of groups l + 31
+  // and l + 32 (lane l - 1's and its own, one step on)
+  const uint4* const w = a + sub * 128 + (lane >> 1) + 16 * (lane & 1);
+  uint4 u[4];
+#pragma unroll
+  for (int P = 0; P < 4; ++P) u[P] = __ldg(w + 32 * P);
+  float acc = 0.f;
+#pragma unroll
+  for (int P = 0; P < 4; ++P) {
+    // an even lane gives its neighbour the second group of its word, an
+    // odd lane the first
+    const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? u[P].x : u[P].z,
+                                        1);
+    const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? u[P].y : u[P].w,
+                                        1);
+    const uint2 g0 = odd ? make_uint2(r0, r1) : make_uint2(u[P].x, u[P].y);
+    const uint2 g1 = odd ? make_uint2(u[P].z, u[P].w) : make_uint2(r0, r1);
+    acc = sq_acc(acc, widen(g0, T()));         // group lane + 64P
+    acc = sq_acc(acc, widen(g1, T()));         // group lane + 32 + 64P
   }
   acc = warp_sum(acc);
   if (lane == 0) out[sub] = acc;
@@ -337,6 +406,15 @@ int sq(const void* a, void* out, int64_t total_subs, void* stream) {
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int sq_half(const void* a, void* out, int64_t total_subs, void* stream) {
+  if (total_subs == 0) return 0;
+  sq_half_kernel<T><<<sub_grid(total_subs), THREADS, 0,
+                      (cudaStream_t)stream>>>((const uint4*)a, (float*)out,
+                                              total_subs);
+  return (int)cudaGetLastError();
+}
+
 template <typename TG, typename TQ>
 int absmax(const void* g, const void* q, const void* e, void* out,
            int64_t total_subs, void* stream) {
@@ -437,12 +515,12 @@ int lag_sq_blocks(const void* a, void* out, int64_t total_subs,
 
 int lag_sq_blocks_bf16(const void* a, void* out, int64_t total_subs,
                        void* stream) {
-  return sq<bf16>(a, out, total_subs, stream);
+  return sq_half<bf16>(a, out, total_subs, stream);
 }
 
 int lag_sq_blocks_f16(const void* a, void* out, int64_t total_subs,
                       void* stream) {
-  return sq<__half>(a, out, total_subs, stream);
+  return sq_half<__half>(a, out, total_subs, stream);
 }
 
 }  // extern "C"

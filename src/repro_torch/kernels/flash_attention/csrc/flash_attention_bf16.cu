@@ -76,9 +76,10 @@
 //     unchanged).  Positions in 32 bits (the launch refuses Sq or Skv
 //     above 2^31 - 129), offsets in 64; any Sq and Skv, no padding.
 //   * No inter-warpgroup ping-pong and no overlap of the softmax with the
-//     next tile's products yet: each warpgroup waits for its products.
+//     next tile's products (bfloat16; float16 has both, below): each
+//     warpgroup waits for its products.
 //
-// Instantiations (the C entry point picks one by head_dim):
+// Instantiations (the C entry point picks one by head_dim), bfloat16:
 //
 //   hd   chunks   keys a tile  P.V passes          shared memory a block
 //   64   64       128          1                   83,008 bytes
@@ -102,9 +103,9 @@
 // No backward: the reference's kernel has none either.
 //
 // FLOAT16 (the same source built again with -DLAG_FLASH_F16: entry point
-// lag_flash_attention_f16).  The design above on wgmma's .f16 operand type,
-// which has the same instruction shapes and float32 accumulators; q, k, v
-// and o float16, the output rounded to float16 once.
+// lag_flash_attention_f16, kernel flash_f16_kernel).  wgmma's .f16 operand
+// type, which has the same instruction shapes and float32 accumulators; q,
+// k, v and o float16, the output rounded to float16 once.
 //   * Scores: one float16 product (11 x 11 significant bits: exact in
 //     float32).  The scale is never folded into q (a power of two would
 //     push q's small values into float16's subnormals): the scores are
@@ -116,14 +117,54 @@
 //     bits.  So each term is scaled by an exact power of two: x = p * 2^14
 //     (at most 16384), hi = f16(x) rounded to nearest, lo = f16((x - hi) *
 //     2^12) (x - hi is exact; |lo| < 2^15); hi + lo * 2^-12 holds x to about
-//     2^-23 of x for p >= 2^-28, and to 2^-51 absolute below.  The products
-//     run in two phases into one fresh float32 accumulator: lo . V, the
-//     accumulator times 2^-12 (exact), then + hi . V, times 2^-14 (exact).
-//     Two terms are enough (one misses by 2^-12 of p; the error against
-//     the float32 plain version is float32's own, about 1e-6 on outputs of
-//     size 1: tests/test_torch_f16.py emulates the design, one term and
-//     the unscaled split).
+//     2^-23 of x for p >= 2^-28, and to 2^-51 absolute below.  Two terms
+//     are enough (one misses by 2^-12 of p; tests/test_torch_f16.py
+//     emulates the design, one term and the unscaled split).
+//   * The order (one wait for both terms): the running output acc
+//     is kept at x's scale (2^14 times the sum) and is itself the hi
+//     term's accumulator: each tile, acc = acc * alpha (float32), then
+//     hi . V is multiplied into acc and lo . V into a fresh accumulator f
+//     in ONE commit group, waited on once; then acc = fma(f, 2^-12, acc)
+//     (f * 2^-12 exact: one rounding); o = acc * 2^-14 / l at the end.
+//   * The schedule: the tensor cores do not wait on the softmax.
+//     Each tile, a warpgroup issues tile t + 1's q . k^T (one commit
+//     group), then tile t's P . V (hi and lo: the next group), waits for
+//     the scores alone (wgmma.wait_group 1) and runs tile t + 1's scale,
+//     mask, exp2 and row sums while P . V multiplies; then it waits for
+//     P . V, folds f into acc and splits tile t + 1's P into its two
+//     terms.  So the next tile's scores live beside this tile's P terms:
+//     a second score buffer of BK / 2 registers (at head_dim 256, which
+//     has no room for it, the next scores follow this tile's P . V).
+//     ptxas keeps wgmma asynchronous only where no other instruction
+//     writes a wgmma's registers between its issue and its wait, and
+//     where the products are not issued under a branch (else it waits
+//     after every wgmma, and the overlap is lost).  So every ALU write
+//     (acc * alpha) comes before the tile's one fence; the fresh
+//     accumulators are never zeroed (each one's first product overwrites
+//     it); and every tile runs the products, also one that masks all of
+//     a warpgroup's queries (p = 0, alpha = 1: acc and l come out
+//     unchanged), the last tile on a released stage's K, its scores
+//     dropped.  The two consumer warpgroups take turns (ping-pong) at
+//     issuing their products: named barriers 1 and 2 (bar.sync on its
+//     own, bar.arrive on the other's), so one warpgroup's softmax runs
+//     under the other's products.  K and V are released apart (an empty
+//     mbarrier each): a tile's K once its scores are in, its V after its
+//     P . V.
 //
+// Instantiations, float16 (registers a consumer thread: acc, f, P's two
+// terms, the next tile's scores, of 240):
+//
+//   hd   keys a tile  P.V passes  stages  registers      shared memory
+//   64   128          1           3       32+32+64+64    115,816 bytes
+//   80   128          1           3       40+40+64+64    144,488
+//   128  64           1           3       64+64+32+32    132,200
+//   256  64           4           2       128+32+32      197,704
+//
+// At head_dim 256 the fresh accumulator takes 64 columns at a time (four
+// passes, each waited on), and the next tile's scores are issued after
+// this tile's P . V.  Ping-pong helped at 64 and 128 (2-3 %); 64 keys a
+// tile at head_dim 80 ran 16 % slower than 128 on an H100 (PERF.md §6).
+
 // C interface (loaded with ctypes): launches on the given stream, does not
 // synchronise, allocates nothing, returns the first CUDA error of the
 // tensor-map encoding, the shared-memory attribute call or the launch.
@@ -193,10 +234,42 @@ struct Shape {
   static_assert(SMEM_BYTES <= 232448, "shared memory");
 };
 
+#ifdef LAG_FLASH_F16
+// one float16 instantiation: Shape's fields and ST ring stages
+template <int HD_, int NCH_, int TAIL_, int BK_, int PASS_, int ST_,
+          bool OV_>
+struct F16Shape {
+  static constexpr int HD = HD_;
+  static constexpr int NCH = NCH_;
+  static constexpr int TAIL = TAIL_;
+  static constexpr int BK = BK_;
+  static constexpr int PASS = PASS_;
+  static constexpr int ST = ST_;
+  // tile t + 1's scores issued before tile t's P . V (else after it)
+  static constexpr bool OVERLAP = OV_;
+  static constexpr int HDP = 64 * NCH + TAIL;
+  static constexpr int Q_BYTES = ROWS * HDP * 2;
+  static constexpr int KV_BYTES = BK * HDP * 2;
+  // 1 KB to align, the q tiles, the ring, 1 + 4 ST mbarriers (q; K full,
+  // V full, K empty, V empty a stage)
+  static constexpr int SMEM_BYTES =
+      1024 + NC * Q_BYTES + ST * 2 * KV_BYTES + 8 * (1 + 4 * ST);
+  static_assert(HD == HDP && (TAIL == 0 || TAIL == 16), "chunks");
+  static_assert(BK % 16 == 0 && BK <= 128 && NCH % PASS == 0, "tiles");
+  static_assert(ST >= 2, "K of tile t + 1 is read while V of t is");
+  static_assert(SMEM_BYTES <= 232448, "shared memory");
+};
+
+using Hd64 = F16Shape<64, 1, 0, 128, 1, 3, true>;
+using Hd80 = F16Shape<80, 1, 16, 128, 1, 3, true>;
+using Hd128 = F16Shape<128, 2, 0, 64, 2, 3, true>;
+using Hd256 = F16Shape<256, 4, 0, 64, 1, 2, false>;
+#else
 using Hd64 = Shape<64, 1, 0, 128, 1>;
 using Hd80 = Shape<80, 1, 16, 128, 1>;
 using Hd128 = Shape<128, 2, 0, 64, 2>;
 using Hd256 = Shape<256, 4, 0, 64, 1>;
+#endif
 
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -257,9 +330,28 @@ __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_commit_and_wait() {
+__device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// until at most N of this warpgroup's commit groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  wgmma_commit();
+  wgmma_wait<0>();
+}
+
+// named barriers of the two consumer warpgroups (id 0 is __syncthreads')
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(NC * 128) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "n"(NC * 128) : "memory");
 }
 
 // keeps the compiler from moving reads or writes of registers that an
@@ -506,6 +598,45 @@ __device__ __forceinline__ void scores(float (&d)[S::BK / 2], uint32_t qw,
   }
 }
 
+#ifdef LAG_FLASH_F16
+// one float16 P . V pass over the output's chunks p0 .. p0 + PASS - 1 (and
+// the tail chunk with the last pass): hi . V multiplied into the running
+// output acc, lo . V into the fresh f / ft (its first product overwrites
+// them), 16 keys a step, one commit group (not waited on here); the caller
+// fences
+template <class S, int TN>
+__device__ __forceinline__ void pv_f16(float (&acc)[S::NCH][32],
+                                       float (&acct)[TN],
+                                       float (&f)[S::PASS][32],
+                                       float (&ft)[TN],
+                                       const uint32_t (&pf)[S::BK / 16][2][4],
+                                       uint32_t vs, int p0) {
+  constexpr int BK = S::BK, NCH = S::NCH, PASS = S::PASS;
+  const bool tail = S::TAIL != 0 && p0 + PASS == NCH;
+  const uint32_t vp = anew(vs);
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+    for (int c = 0; c < PASS; ++c) {
+      const uint64_t d = desc(vp + (p0 + c) * BK * 128 + kk * 16 * 128,
+                              BK * 128, 1024, 1);
+      mma_rs64(acc[p0 + c], pf[kk][1], d, 1);
+      mma_rs64(f[c], pf[kk][0], d, kk > 0);
+    }
+    if constexpr (S::TAIL != 0) {
+      if (tail) {
+        const uint64_t d =
+            desc(vp + NCH * BK * 128 + kk * 16 * 32, 16, 256, 3);
+        mma_rs16(acct, pf[kk][1], d, 1);
+        mma_rs16(ft, pf[kk][0], d, kk > 0);
+      }
+    }
+  }
+  wgmma_commit();
+}
+#endif
+
+#ifndef LAG_FLASH_F16
 template <class S>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_kernel(const __grid_constant__ CUtensorMap qm,
@@ -615,10 +746,9 @@ flash_kernel(const __grid_constant__ CUtensorMap qm,
   if (window > 0 && wq0 - window + 1 > 0) wk_begin = wq0 - window + 1;
 
   mbar_wait(q_full, 0);
-  // the scale folds into q exactly only where it is a power of two (and
-  // never in float16, whose subnormals start at 2^-14)
+  // the scale folds into q exactly only where it is a power of two
   const uint32_t sbits = __float_as_uint(scale);
-  const bool fold = !kF16 && (sbits & 0x7fffffu) == 0 && (sbits >> 23) != 0;
+  const bool fold = (sbits & 0x7fffffu) == 0 && (sbits >> 23) != 0;
   if (fold) {
     uint32_t* const qp = reinterpret_cast<uint32_t*>(smem_raw + (qw - raw));
     for (int i = t; i < S::Q_BYTES / 4; i += 128) {
@@ -653,7 +783,7 @@ flash_kernel(const __grid_constant__ CUtensorMap qm,
     const bool active = k0 < wk_end && k0 + BK > wk_begin;
     const uint32_t ks = ring + s * 2 * KV_BYTES, vs = ks + KV_BYTES;
     float al0 = 1.f, al1 = 1.f;
-    // P's terms as A fragments, per 16 keys: lo, mid, hi (float16: lo, hi)
+    // P's terms as A fragments, per 16 keys: lo, mid, hi
     uint32_t pf[BK / 16][TERMS][4];
     mbar_wait(k_full(s), ph);
     if (active) {
@@ -690,14 +820,9 @@ flash_kernel(const __grid_constant__ CUtensorMap qm,
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          if constexpr (kF16)
-            split2h(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1],
-                    pf[kk][TERMS - 1][r], pf[kk][0][r]);
-          else
-            split3(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1],
-                   pf[kk][TERMS - 1][r], pf[kk][1][r], pf[kk][0][r]);
-        }
+        for (int r = 0; r < 4; ++r)
+          split3(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1],
+                 pf[kk][TERMS - 1][r], pf[kk][1][r], pf[kk][0][r]);
     }
     mbar_wait(v_full(s), ph);
     if (active) {
@@ -719,61 +844,45 @@ flash_kernel(const __grid_constant__ CUtensorMap qm,
 #pragma unroll
         for (int e = 0; e < TN; ++e) ft[e] = 0.f;
         own(ft);
-        // bfloat16: one phase of all three terms; float16: lo, then hi
+        // one phase of all three terms
+        wgmma_fence();
 #pragma unroll
-        for (int ph = 0; ph < (kF16 ? 2 : 1); ++ph) {
-          wgmma_fence();
+        for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-          for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-            for (int term = kF16 ? ph : 0; term < (kF16 ? ph + 1 : TERMS);
-                 ++term) {
-              const int accum = kk > 0 || term > 0;
-#pragma unroll
-              for (int c = 0; c < PASS; ++c)
-                mma_rs64(f[c], pf[kk][term],
-                         desc(vp + (p0 + c) * BK * 128 + kk * 16 * 128,
-                              BK * 128, 1024, 1),
-                         accum);
-              if constexpr (kTail) {
-                if (tail)
-                  mma_rs16(ft, pf[kk][term],
-                           desc(vp + NCH * BK * 128 + kk * 16 * 32, 16, 256,
-                                3),
-                           accum);
-              }
-            }
-          wgmma_commit_and_wait();
-#pragma unroll
-          for (int c = 0; c < PASS; ++c) own(f[c]);
-          own(ft);
-#pragma unroll
-          for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-            for (int term = 0; term < TERMS; ++term) own(pf[kk][term]);
-          if (kF16 && ph == 0) {       // the lo phase: times 2^-12, exact
+          for (int term = 0; term < TERMS; ++term) {
+            const int accum = kk > 0 || term > 0;
 #pragma unroll
             for (int c = 0; c < PASS; ++c)
-#pragma unroll
-              for (int e = 0; e < 32; ++e) f[c][e] *= 1.f / LO_SCALE;
-#pragma unroll
-            for (int e = 0; e < TN; ++e) ft[e] *= 1.f / LO_SCALE;
-#pragma unroll
-            for (int c = 0; c < PASS; ++c) own(f[c]);
-            own(ft);
+              mma_rs64(f[c], pf[kk][term],
+                       desc(vp + (p0 + c) * BK * 128 + kk * 16 * 128,
+                            BK * 128, 1024, 1),
+                       accum);
+            if constexpr (kTail) {
+              if (tail)
+                mma_rs16(ft, pf[kk][term],
+                         desc(vp + NCH * BK * 128 + kk * 16 * 32, 16, 256,
+                              3),
+                         accum);
+            }
           }
-        }
+        wgmma_commit_and_wait();
+#pragma unroll
+        for (int c = 0; c < PASS; ++c) own(f[c]);
+        own(ft);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int term = 0; term < TERMS; ++term) own(pf[kk][term]);
 #pragma unroll
         for (int c = 0; c < PASS; ++c)
 #pragma unroll
           for (int e = 0; e < 32; ++e)
             acc[p0 + c][e] = fmaf(acc[p0 + c][e], (e & 2) ? al1 : al0,
-                                  f[c][e] * (1.f / X_SCALE));
+                                  f[c][e]);
         if (tail) {
 #pragma unroll
           for (int e = 0; e < TN; ++e)
-            acct[e] = fmaf(acct[e], (e & 2) ? al1 : al0,
-                           ft[e] * (1.f / X_SCALE));
+            acct[e] = fmaf(acct[e], (e & 2) ? al1 : al0, ft[e]);
         }
       }
     }
@@ -811,6 +920,335 @@ flash_kernel(const __grid_constant__ CUtensorMap qm,
     }
   }
 }
+
+#endif  // !LAG_FLASH_F16
+
+#ifdef LAG_FLASH_F16
+// float16 (see the header): tile t + 1's scores under tile t's P . V, hi . V
+// into the running output and lo . V into a fresh accumulator in one commit
+// group, the two consumer warpgroups taking turns at the tensor cores
+template <class S>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_f16_kernel(const __grid_constant__ CUtensorMap qm,
+                 const __grid_constant__ CUtensorMap km,
+                 const __grid_constant__ CUtensorMap vm,
+                 const __grid_constant__ CUtensorMap qtm,
+                 const __grid_constant__ CUtensorMap ktm,
+                 const __grid_constant__ CUtensorMap vtm,
+                 elem* __restrict__ o, int Sq, int Skv, int H, int KV,
+                 float scale, int causal, int window) {
+  constexpr int BK = S::BK, NCH = S::NCH, TAIL = S::TAIL, PASS = S::PASS;
+  constexpr int ST = S::ST, KV_BYTES = S::KV_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t q_s = (raw + 1023u) & ~1023u;      // NC q tiles
+  const uint32_t ring = q_s + NC * S::Q_BYTES;      // ST x (K, V)
+  const uint32_t q_full = ring + ST * 2 * KV_BYTES;
+  // per stage s: K full, V full, K empty, V empty
+  auto k_full = [&](int s) { return q_full + 8u * (1 + s); };
+  auto v_full = [&](int s) { return q_full + 8u * (1 + ST + s); };
+  auto k_empty = [&](int s) { return q_full + 8u * (1 + 2 * ST + s); };
+  auto v_empty = [&](int s) { return q_full + 8u * (1 + 3 * ST + s); };
+
+  const int b = (int)blockIdx.x / H, h = (int)blockIdx.x % H;
+  const int g = h / (H / KV);
+  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * BQ;
+
+  // the keys any valid query of this block can see
+  const int q_last = (q0 + BQ < Sq ? q0 + BQ : Sq) - 1;
+  int k_end = Skv;
+  if (causal && q_last + 1 < k_end) k_end = q_last + 1;
+  int k_begin = 0;
+  if (window > 0 && q0 - window + 1 > 0) k_begin = q0 - window + 1;
+  const int t_begin = k_begin / BK;
+  const int tiles = (k_end + BK - 1) / BK - t_begin;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), NC * 128);
+      mbar_init(v_empty(s), NC * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // -- the producer warpgroup: one thread issues every copy; a stage's K
+    // waits for its K to be released, its V for its V
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, NC * S::Q_BYTES);
+#pragma unroll
+      for (int w = 0; w < NC; ++w) {
+        const uint32_t dst = q_s + w * S::Q_BYTES;
+        const int row = q0 + w * ROWS;
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+          tma_load(dst + c * ROWS * 128, &qm, q_full, 64 * c, h, row, b);
+        if (TAIL)
+          tma_load(dst + NCH * ROWS * 128, &qtm, q_full, 64 * NCH, h, row,
+                   b);
+      }
+      for (int i = 0; i < tiles; ++i) {
+        const int s = i % ST;
+        const uint32_t ph = (uint32_t)(i / ST) & 1u;
+        const int row = (t_begin + i) * BK;
+        const uint32_t ks = ring + s * 2 * KV_BYTES, vs = ks + KV_BYTES;
+        if (i >= ST) mbar_wait(k_empty(s), ph ^ 1u);   // round i/ST - 1 done
+        mbar_expect_tx(k_full(s), KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+          tma_load(ks + c * BK * 128, &km, k_full(s), 64 * c, g, row, b);
+        if (TAIL)
+          tma_load(ks + NCH * BK * 128, &ktm, k_full(s), 64 * NCH, g, row,
+                   b);
+        if (i >= ST) mbar_wait(v_empty(s), ph ^ 1u);
+        mbar_expect_tx(v_full(s), KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+          tma_load(vs + c * BK * 128, &vm, v_full(s), 64 * c, g, row, b);
+        if (TAIL)
+          tma_load(vs + NCH * BK * 128, &vtm, v_full(s), 64 * NCH, g, row,
+                   b);
+      }
+    }
+    return;
+  }
+
+  // -- a consumer warpgroup: 64 query rows
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(CONSUMER_REGS));
+  const int cw = threadIdx.x / 128 - 1;            // which consumer
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int gr = lane / 4, tq = lane % 4;          // accumulator row, pair
+  const uint32_t qw = q_s + cw * S::Q_BYTES;
+  const int wq0 = q0 + cw * ROWS;
+  const int r0 = wq0 + 16 * warp + gr, r1 = r0 + 8;   // this thread's rows
+
+  constexpr int TN = TAIL ? TAIL / 2 : 1;
+  // O * 2^14: chunk c, [4j + e] is column 64c + 8j + 2tq + (e & 1) of row
+  // r0 (e < 2) or r1
+  float acc[NCH][32];
+  float acct[TN];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < TN; ++i) acct[i] = 0.f;
+  float m0 = NEG, m1 = NEG;       // running max of rows r0, r1
+  float l0 = 0.f, l1 = 0.f;       // this thread's part of the sums
+  uint32_t pf[BK / 16][2][4];     // P's terms per 16 keys: lo, hi
+  float al0 = 1.f, al1 = 1.f;     // the rescale that goes with pf
+
+  // the scores of the tile at key k0 -> its weights p (scale, mask, online
+  // softmax): the mask evaluated per entry only where some query of the
+  // warpgroup sees the tile in part
+  auto softmax = [&](float (&sc)[BK / 2], int k0, float& a0, float& a1) {
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) sc[e] *= scale;
+    const bool full = k0 + BK <= Skv && (!causal || k0 + BK - 1 <= wq0)
+                      && (window <= 0 || wq0 + ROWS - 1 - k0 < window);
+    if (full) {
+      softmax_tile<false, BK>(sc, 0, m0, m1, l0, l1, a0, a1);
+    } else {
+      uint64_t vis = 0;
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const int kp = k0 + 8 * (e / 4) + 2 * tq + (e & 1);
+        if (visible((e & 2) ? r1 : r0, kp, Skv, causal, window))
+          vis |= 1ull << e;
+      }
+      softmax_tile<true, BK>(sc, vis, m0, m1, l0, l1, a0, a1);
+    }
+  };
+  // p -> its two float16 terms as A fragments of 16 keys: register r holds
+  // entries 8kk + 2r and + 1 (rows g, g + 8, g, g + 8; keys 2tq, 2tq, 2tq +
+  // 8, 2tq + 8)
+  auto split = [&](const float (&sc)[BK / 2]) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split2h(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], pf[kk][1][r],
+                pf[kk][0][r]);
+  };
+
+  // every ALU write to a wgmma's registers comes before the fence that
+  // precedes it, and none between its issue and its wait: so ptxas keeps
+  // the products asynchronous.  The fresh accumulators (f, ft, the
+  // scores) are not zeroed: each one's first product overwrites it
+  auto fresh = [&](float (&f)[PASS][32], float (&ft)[TN]) {
+#pragma unroll
+    for (int c = 0; c < PASS; ++c) own(f[c]);
+    own(ft);
+  };
+  // acc += (lo . V) * 2^-12 for the pass at p0: the scaling exact, one
+  // rounding
+  auto fold = [&](float (&f)[PASS][32], float (&ft)[TN], int p0) {
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) own(acc[c]);
+    own(acct);
+#pragma unroll
+    for (int c = 0; c < PASS; ++c) own(f[c]);
+    own(ft);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      own(pf[kk][0]);
+      own(pf[kk][1]);
+    }
+#pragma unroll
+    for (int c = 0; c < PASS; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        acc[p0 + c][e] = fmaf(f[c][e], 1.f / LO_SCALE, acc[p0 + c][e]);
+    if (TAIL && p0 + PASS == NCH) {
+#pragma unroll
+      for (int e = 0; e < TN; ++e)
+        acct[e] = fmaf(ft[e], 1.f / LO_SCALE, acct[e]);
+    }
+  };
+
+  mbar_wait(q_full, 0);
+  if (tiles > 0) {
+    // the first tile's scores, waited on at once
+    const int k0 = t_begin * BK;
+    float sc[BK / 2];
+    own(sc);
+    mbar_wait(k_full(0), 0);
+    wgmma_fence();
+    scores<S>(sc, qw, ring);
+    wgmma_commit_and_wait();
+    own(sc);
+    mbar_arrive(k_empty(0));
+    softmax(sc, k0, al0, al1);
+    split(sc);
+    // warpgroup 0 takes the first turn
+    if (cw == 1) bar_arrive(1);
+  }
+
+  // Every tile runs the products, also one that masks all of this
+  // warpgroup's queries (its p is 0 and its alpha 1: acc and l come out
+  // unchanged), and the last tile multiplies a released stage's K (no copy
+  // lands there any more) and drops the scores: one product more, and the
+  // products are issued without a branch.
+  for (int i = 0; i < tiles; ++i) {
+    const int s = i % ST, sn = (i + 1) % ST;
+    const bool next = i + 1 < tiles;
+    const int kn = (t_begin + i + 1) * BK;
+    const uint32_t vs = ring + s * 2 * KV_BYTES + KV_BYTES;
+    const uint32_t ksn = ring + sn * 2 * KV_BYTES;
+    float sc[BK / 2];               // the next tile's scores
+    float f[PASS][32], ft[TN];      // lo . V, fresh each pass
+    // acc = acc * alpha
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[c][e] *= (e & 2) ? al1 : al0;
+    if (TAIL) {
+#pragma unroll
+      for (int e = 0; e < TN; ++e) acct[e] *= (e & 2) ? al1 : al0;
+    }
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) own(acc[c]);
+    own(acct);
+    fresh(f, ft);
+    own(sc);
+    bar_sync(1 + cw);                              // this warpgroup's turn
+    if (S::OVERLAP && next)
+      mbar_wait(k_full(sn), (uint32_t)((i + 1) / ST) & 1u);
+    mbar_wait(v_full(s), (uint32_t)(i / ST) & 1u);
+    wgmma_fence();
+    if constexpr (S::OVERLAP) {
+      scores<S>(sc, qw, ksn);
+      wgmma_commit();
+    }
+    pv_f16<S>(acc, acct, f, ft, pf, vs, 0);
+    // the other warpgroup's turn (warpgroup 1 gives its last one to none)
+    if (cw == 0 || next) bar_arrive(2 - cw);
+    float an0 = 1.f, an1 = 1.f;
+    if constexpr (S::OVERLAP) {
+      // the next tile's scores: wait for them alone, and run its softmax
+      // while this tile's P . V multiplies
+      wgmma_wait<1>();
+      own(sc);
+      if (next) {
+        mbar_arrive(k_empty(sn));
+        softmax(sc, kn, an0, an1);
+      }
+    }
+    wgmma_wait<0>();
+    fold(f, ft, 0);
+#pragma unroll
+    for (int p0 = PASS; p0 < NCH; p0 += PASS) {
+      fresh(f, ft);
+      wgmma_fence();
+      pv_f16<S>(acc, acct, f, ft, pf, vs, p0);
+      wgmma_wait<0>();
+      fold(f, ft, p0);
+    }
+    mbar_arrive(v_empty(s));
+    if constexpr (!S::OVERLAP) {
+      // the next tile's scores after this tile's P . V: they need no
+      // registers while it multiplies
+      if (next) mbar_wait(k_full(sn), (uint32_t)((i + 1) / ST) & 1u);
+      own(sc);
+      wgmma_fence();
+      scores<S>(sc, qw, ksn);
+      wgmma_commit_and_wait();
+      own(sc);
+      if (next) {
+        mbar_arrive(k_empty(sn));
+        softmax(sc, kn, an0, an1);
+      }
+    }
+    if (next) {
+      split(sc);
+      al0 = an0;
+      al1 = an1;
+    }
+  }
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  // row r0 (r1): columns 8j + 2tq and + 1 of each chunk are [4j] and [4j +
+  // 1] ([4j + 2], [4j + 3]); acc * 2^-14 exact
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = e ? r1 : r0;
+    const float den = e ? den1 : den0;
+    if (r < Sq) {
+      elem* const dst = o + (((int64_t)b * Sq + r) * H + h) * S::HD + 2 * tq;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          *reinterpret_cast<uint32_t*>(dst + 64 * c + 8 * j) = round2(
+              acc[c][4 * j + 2 * e] * (1.f / X_SCALE) / den,
+              acc[c][4 * j + 2 * e + 1] * (1.f / X_SCALE) / den);
+        }
+      if (TAIL) {
+#pragma unroll
+        for (int j = 0; j < TAIL / 8; ++j) {
+          *reinterpret_cast<uint32_t*>(dst + 64 * NCH + 8 * j) = round2(
+              acct[4 * j + 2 * e] * (1.f / X_SCALE) / den,
+              acct[4 * j + 2 * e + 1] * (1.f / X_SCALE) / den);
+        }
+      }
+    }
+  }
+}
+#endif  // LAG_FLASH_F16
 
 // ---------------------------------------------------------------------------
 // head_dim above 256: flash_wide_kernel (entry LAG_FLASH_WIDE_ENTRY)
@@ -1188,8 +1626,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+#ifdef LAG_FLASH_F16
+  const auto kernel = flash_f16_kernel<S>;
+#else
+  const auto kernel = flash_kernel<S>;
+#endif
   if (!opted_in[dev]) {
-    err = cudaFuncSetAttribute(flash_kernel<S>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                S::SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
@@ -1198,7 +1641,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
   const dim3 grid((unsigned)(B * H), (unsigned)nq);
   // a window of 2^31 - 1 or more masks nothing a query can see
   const int win = window >= 0x7fffffffLL ? 0x7fffffff : (int)window;
-  flash_kernel<S><<<grid, THREADS, S::SMEM_BYTES, stream>>>(
+  kernel<<<grid, THREADS, S::SMEM_BYTES, stream>>>(
       qm, km, vm, qtm, ktm, vtm, (elem*)o, (int)Sq, (int)Skv, (int)H,
       (int)KV, scale, causal, win);
   return (int)cudaGetLastError();

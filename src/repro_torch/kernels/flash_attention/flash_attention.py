@@ -16,8 +16,9 @@ in split TF32 (three TF32 products per float32 product, float32-accurate,
 ``mma.sync``, K and V through a ``cp.async`` ring); bfloat16 and float16 on
 their tensor cores (``wgmma``; one product for the scores, whose 2-byte
 terms are exact, and P·V with P split into three bfloat16 terms, or two
-float16 terms scaled by exact powers of two; K and V through TMA), the
-output rounded to the 2-byte dtype once (the reference kernel's float32
+float16 terms scaled by exact powers of two; K and V through TMA; float16
+scheduled so that the tensor cores never wait on the softmax,
+``INSTANCES_F16``), the output rounded to the 2-byte dtype once (the reference kernel's float32
 attention on the widened inputs).  A head_dim above 256 takes the wide
 kernel of the same source and dtype (``wide_head_dim``: padded to a
 multiple of 8 only), on the same tensor cores in the same arithmetic: a
@@ -74,6 +75,24 @@ INSTANCES_BF16 = {64: (128, 2), 80: (128, 2), 128: (64, 2), 256: (64, 2)}
 #: stages of K and V (BK keys each), 64 bytes of mbarriers
 SHARED_BYTES_BF16 = {hd: 1024 + wgs * 64 * hd * 2 + 2 * 2 * bk * hd * 2 + 64
                      for hd, (bk, wgs) in INSTANCES_BF16.items()}
+
+#: the float16 kernel's instantiations (``Hd64`` .. ``Hd256`` of the
+#: ``-DLAG_FLASH_F16`` build, ``flash_f16_kernel``): head_dim -> (keys a
+#: tile, output columns a P·V pass, K/V ring stages, the next tile's
+#: scores issued before this tile's P·V); two consumer warpgroups of 64
+#: query rows a block, taking turns at the tensor cores.  Each tile's
+#: hi·V goes into the running output and its lo·V into a fresh
+#: accumulator in one commit group (one wait a pass)
+INSTANCES_F16 = {64: (128, 64, 3, True), 80: (128, 80, 3, True),
+                 128: (64, 128, 3, True), 256: (64, 64, 2, False)}
+
+#: dynamic shared memory a float16 block takes (``F16Shape::SMEM_BYTES``):
+#: 1 KB to align, two warpgroups' 64 rows of q, the ring's stages of K and
+#: V, and 1 + 4 mbarriers a stage of 8 bytes (q; K and V full; K and V
+#: empty, released apart)
+SHARED_BYTES_F16 = {hd: 1024 + 2 * 64 * hd * 2 + st * 2 * bk * hd * 2
+                    + 8 * (1 + 4 * st)
+                    for hd, (bk, _, st, _) in INSTANCES_F16.items()}
 
 #: the wide kernels' instantiations (head_dim above 256), by the columns a
 #: block takes: a head_dim takes the first at or above it, above 512 the

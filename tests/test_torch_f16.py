@@ -50,6 +50,7 @@ from repro.models import model as jmodel
 
 from repro_torch.configs import get_config
 from repro_torch.fastpath import kernels, kernels_ref
+from repro_torch.kernels.flash_attention import flash_attention as t_fa
 from repro_torch.kernels.flash_attention import ops as t_fa_ops
 from repro_torch.kernels.lag_trigger import ops, ref
 from repro_torch.models import model
@@ -297,32 +298,43 @@ def f16_round(x: torch.Tensor) -> torch.Tensor:
 
 
 def p_phases(p: torch.Tensor, terms: int, scaled: bool):
-    """P as the float16 kernel splits it, as (scale, [terms]) phases run
-    smallest first.  Scaled (the design): x = p·2^14, hi = f16(x), lo =
-    f16((x − hi)·2^12); the lo phase's sum times 2^-12, then + the hi
-    phase, times 2^-14.  Unscaled (bfloat16's split at float16): each term
-    f16 of what the terms before it leave, one phase."""
+    """P as the float16 kernel splits it → (out_scale, into_acc, fresh):
+    the terms multiplied into the running output, the terms multiplied into
+    a fresh accumulator each tile with the factor it is folded back by (or
+    None), and the output's factor at the end.  Scaled (the design): x =
+    p·2^14, hi = f16(x) into the output, lo = f16((x − hi)·2^12) fresh,
+    folded back times 2^-12; the output times 2^-14.  Unscaled (bfloat16's
+    split at float16): each term f16 of what the terms before it leave,
+    smallest first, all into the output."""
     if scaled:
         x = p * 2.0 ** 14
         hi = f16_round(x)
         if terms == 1:
-            return [(2.0 ** -14, [hi])]
+            return 2.0 ** -14, [hi], None
         lo = f16_round((x - hi) * 2.0 ** 12)
-        return [(2.0 ** -12, [lo]), (2.0 ** -14, [hi])]
+        return 2.0 ** -14, [hi], (2.0 ** -12, [lo])
     out = []
     for _ in range(terms):
         out.append(f16_round(p))
         p = p - out[-1]
-    return [(1.0, out[::-1])]
+    return 1.0, out[::-1], None
 
 
-def emulated_f16_kernel(q, k, v, *, causal, window, terms=2, scaled=True):
+def emulated_f16_kernel(q, k, v, *, causal, window, terms=2, scaled=True,
+                        order="one_wait"):
     """The float16 kernel's attention on numpy inputs that hold float16
     values: scores in one product (exact terms, float32 sums of 16-column
     k steps), times the scale after it (never folded into q), masked
-    scores -1e30 with weight 0, P split by ``p_phases``, each phase's
-    16-key products added in order into one float32 accumulator and
-    scaled between phases, o = acc / max(l, 1e-30) rounded to float16."""
+    scores -1e30 with weight 0, P split by ``p_phases`` (the weights taken
+    against the row's max; the online rescale by alpha is left out), in
+    tiles of the instantiation's keys.  ``one_wait`` (the kernel): each
+    tile's 16-key products of the output's terms added in order into the
+    running output, those of the fresh terms into a fresh float32
+    accumulator, folded in times its factor (one rounding); o = acc ·
+    out_scale / max(l, 1e-30) rounded to float16.  ``two_phase`` (the
+    order before, which waited twice): each tile's fresh products times
+    their factor, then the output's terms added to them, the tile times
+    out_scale added to the output."""
     q, k, v = (torch.from_numpy(a) for a in (q, k, v))
     B, S, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
@@ -342,14 +354,36 @@ def emulated_f16_kernel(q, k, v, *, causal, window, terms=2, scaled=True):
                     torch.tensor(0.0))
     pad = -Skv % 16
     vh = torch.nn.functional.pad(v.permute(0, 2, 1, 3), (0, 0, 0, pad))
-    acc = None
-    for scale, ts in p_phases(p, terms, scaled):
-        steps = [k16_products(torch.nn.functional.pad(t, (0, pad)), vh)
-                 for t in ts]
-        for kk in range(steps[0].shape[0]):
-            for st in steps:
-                acc = st[kk] if acc is None else acc + st[kk]
-        acc = acc * scale
+    out_scale, into_acc, fresh = p_phases(p, terms, scaled)
+
+    def steps(ts):
+        return [k16_products(torch.nn.functional.pad(t, (0, pad)), vh)
+                for t in ts]
+
+    hi_steps = steps(into_acc)
+    lo_steps = steps(fresh[1]) if fresh else []
+    per_tile = t_fa.INSTANCES_F16[t_fa.padded_head_dim(hd)][0] // 16
+    acc = torch.zeros(hi_steps[0].shape[1:])
+    for t0 in range(0, hi_steps[0].shape[0], per_tile):
+        kks = range(t0, min(t0 + per_tile, hi_steps[0].shape[0]))
+        f = None
+        for kk in kks:
+            for st in lo_steps:
+                f = st[kk] if f is None else f + st[kk]
+        if order == "one_wait":
+            for kk in kks:
+                for st in hi_steps:
+                    acc = acc + st[kk]
+            if f is not None:
+                acc = acc + f * fresh[0]
+        else:
+            tile = None if f is None else f * fresh[0]
+            for kk in kks:
+                for st in hi_steps:
+                    tile = st[kk] if tile is None else tile + st[kk]
+            acc = acc + tile * out_scale
+    if order == "one_wait":
+        acc = acc * out_scale
     o = acc / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
     return f16_round(o).permute(0, 2, 1, 3).numpy()
 
@@ -427,13 +461,57 @@ def test_f16_split_on_the_dominant_key_rows():
         assert not within_one_f16_ulp(flushed, want)
 
 
+@pytest.mark.parametrize("case", [*F16_ATTN_CASES, "dominant"],
+                         ids=lambda c: str(c))
+def test_f16_one_wait_order_holds_the_two_phase_contract(case):
+    """On the same P, the kernel's order (hi·V into the running output,
+    lo·V fresh a tile and folded back times 2^-12: one wait) holds the
+    contract the two-phase order (lo·V times 2^-12, then + hi·V, a tile at
+    a time: two waits) held: both within one float16 ulp (+ 1e-6) of the
+    reference's kernel on the widened inputs, rounded, and of each other."""
+    if case == "dominant":
+        (q, k, v), want = dominant_case()
+        S = Skv = q.shape[1]
+        causal, window = True, None
+    else:
+        S, Skv, causal, window = case
+        q, k, v = f16_inputs(*attn_inputs(S, Skv, seed=S * 7 + Skv))
+        want = pallas_f16(q, k, v, causal=causal, window=window)
+    one = emulated_f16_kernel(q, k, v, causal=causal, window=window)
+    two = emulated_f16_kernel(q, k, v, causal=causal, window=window,
+                              order="two_phase")
+    one, two, want = live_rows(S, Skv, window, one, two, want)
+    assert within_one_f16_ulp(one, want)
+    assert within_one_f16_ulp(two, want)
+    assert within_one_f16_ulp(one, two)
+
+
+def test_f16_instantiations_fit_registers_and_shared_memory():
+    """One float16 instantiation per built head_dim: what a consumer
+    thread keeps while P·V multiplies (floats: 64 rows x columns / 128
+    threads each) is the running output, the fresh lo·V accumulator of a
+    pass and P's two terms, and where the next tile's scores are issued
+    before it, those too: within 208 of its 240 registers; the block
+    within Hopper's 227 KB, and at least two ring stages (K of tile t + 1
+    is read while V of tile t is)."""
+    assert tuple(t_fa.INSTANCES_F16) == t_fa.HEAD_DIMS
+    assert t_fa.SHARED_BYTES_F16 == {64: 115816, 80: 144488, 128: 132200,
+                                     256: 197704}
+    for hd, (bk, cols, stages, ahead) in t_fa.INSTANCES_F16.items():
+        assert bk % 16 == 0 and bk <= 128 and hd % cols == 0
+        live = hd // 2 + cols // 2 + bk // 2 + (bk // 2 if ahead else 0)
+        assert live <= 208, hd
+        assert stages >= 2 and t_fa.SHARED_BYTES_F16[hd] <= 232448
+
+
 def test_f16_split_terms_are_float16_and_exact():
     """x = p·2^14 and both terms are float16 values (normal for p above
     2^-28); hi + lo·2^-12 holds x to 2^-23 of x there."""
     p = torch.from_numpy(np.random.default_rng(3).random(4096).astype(
         np.float32))
     p = torch.cat([p, p * 1e-8, torch.tensor([1.0, 2.0 ** -28, 0.0])])
-    (s_lo, (lo,)), (s_hi, (hi,)) = p_phases(p, 2, True)
+    out_scale, (hi,), (fold, (lo,)) = p_phases(p, 2, True)
+    assert (out_scale, fold) == (2.0 ** -14, 2.0 ** -12)
     for t in (lo, hi):
         assert torch.equal(f16_round(t), t)
         assert float(t.abs().max()) <= 65504.0

@@ -133,9 +133,14 @@ def test_cuda_plane_f16_instantiations(cuda_device, pair, W, R):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("W,R", [(1, 8), (3, 264), (2, 40000)])
 @pytest.mark.parametrize("dtype", [BF16, F16], ids=["bf16", "f16"])
-def test_cuda_sqnorm_blocks_2byte(cuda_device, dtype):
-    a = edged((3, 264, 128), 5, cuda_device).to(dtype)
+def test_cuda_sqnorm_blocks_2byte(cuda_device, dtype, W, R):
+    """Kernel 5 at 2 bytes (16-byte loads, lane pairs swapping 8 bytes):
+    one sub-block, a partial last block, many blocks: bitwise the float32
+    kernel on the widened operand, within rtol 1e-5 of the plain
+    version."""
+    a = edged((W, R, 128), 5 + W * R, cuda_device).to(dtype)
     fp.reset_launches()
     got = fp.sqnorm_blocks(a)
     assert torch.equal(got, fp.sqnorm_blocks(a.float()))
@@ -356,7 +361,9 @@ def within_one_ulp(got, q, k, v, causal, window):
                                      (256, 4, 1), (32, 4, 2)])
 @pytest.mark.parametrize("S,Skv,causal,window", [
     (1, 1, True, None), (65, 65, True, None), (129, 129, True, 64),
-    (200, 200, False, None), (129, 1000, True, None), (1000, 129, True, 64)])
+    (200, 200, False, None), (129, 1000, True, None), (1000, 129, True, 64),
+    (300, 300, True, None), (97, 500, False, 40), (130, 65, True, 100),
+    (64, 129, False, 16)])
 def test_cuda_flash_f16(cuda_device, hd, H, KV, S, Skv, causal, window):
     q, k, v = attn((1, S, H, hd), (1, Skv, KV, hd), F16, cuda_device,
                    S * hd + Skv)

@@ -103,8 +103,11 @@ def emulated_wide(q, k, v, *, causal, window, dtype):
     else:
         kpad = -Skv % 16                           # keys past Skv: p 0, v 0
         vh = torch.nn.functional.pad(vh, (0, 0, 0, kpad))
-        phases = ([(1.0, p_terms(p)[::-1])] if dtype == "bfloat16"
-                  else p_phases(p, 2, True))
+        if dtype == "bfloat16":
+            phases = [(1.0, p_terms(p)[::-1])]
+        else:                                      # lo, then hi: two waits
+            out_scale, hi, (lo_scale, lo) = p_phases(p, 2, True)
+            phases = [(lo_scale, lo), (out_scale, hi)]
         o = None
         for sc, terms in phases:
             steps = [k16_products(torch.nn.functional.pad(t, (0, kpad)), vh)

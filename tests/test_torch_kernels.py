@@ -823,7 +823,7 @@ def test_cuda_flash_attention_bf16_matches_plain(cuda_device, S, Skv, causal,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16", "float16"))
 @pytest.mark.parametrize("hd", (16, 32))
 @pytest.mark.parametrize("S,Skv,causal,window", ATTN_CASES)
 def test_cuda_flash_attention_at_zero_padded_head_dims(cuda_device, S, Skv,
@@ -832,21 +832,28 @@ def test_cuda_flash_attention_at_zero_padded_head_dims(cuda_device, S, Skv,
     """head_dim 16 and 32 (the reference's own test cases) run the
     head_dim-64 instantiations on zero-padded operands with their true
     scale: float32 within ``ATTN_TOL`` of the plain version, bfloat16
-    within one bfloat16 ulp (+ 1e-6) of it on the widened inputs."""
+    within one bfloat16 ulp (+ 1e-6) of it on the widened inputs, float16
+    within one float16 ulp (+ 1e-6) of it with its P·V in float64."""
     q, k, v = (torch.from_numpy(a).to(cuda_device).to(getattr(torch, dtype))
                for a in attn_inputs(S, Skv, H=8, KV=2, hd=hd))
     got = t_fa_ops.flash_attention(q, k, v, causal=causal, window=window)
     assert got.shape == q.shape and got.dtype == q.dtype
-    want = t_fa_ref.attention(q.float(), k.float(), v.float(),
-                              causal=causal, window=window)
+    wide = torch.float64 if dtype == "float16" else torch.float32
+    want = t_fa_ref.attention(q.to(wide), k.to(wide), v.to(wide),
+                              causal=causal, window=window).float()
     if S > Skv and window is not None:
         live = torch.arange(S, device=cuda_device) - window + 1 < Skv
         got, want = got[:, live], want[:, live]
     if dtype == "float32":
         torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
-    else:
+    elif dtype == "bfloat16":
         assert within_one_bf16_ulp(got.float().cpu(),
                                    want.bfloat16().float().cpu())
+    else:
+        g, w = got.float().cpu(), want.half().float().cpu()
+        _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+        ulp = torch.ldexp(torch.ones_like(g), torch.clamp(e, min=-13) - 11)
+        assert bool(((g - w).abs() <= ulp + 1e-6).all())
 
 
 @pytest.mark.cuda
