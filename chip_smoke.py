@@ -409,6 +409,23 @@ Phases (any failure raises and the script exits non-zero):
         (pods and fleet bitwise), finite losses, exact launches a round
         by instantiation, each peak within PEAK_RATIO_BAND of the
         dry-run's reckoning.
+ 23. the device plane (``devices:D``, ``repro_torch.devrun``):
+     a. the wire format at llama3.2-1b's full-width layout: LAQ's codes at
+        4 and 3 bits packed from the plane's own encode and unpacked, whole
+        and row chunk by row chunk from a host copy, equal to the payload;
+        a quiet slot all-zero; the dense wire the payload buffer itself;
+     b. ``devices:1`` over NCCL in this process (a group of one rank that
+        ``launch.train`` joins), lag-wk, 3 rounds, against ``shards:1``:
+        masks, losses, θ and ĝ bitwise;
+     c. ``devices:2`` over gloo, two spawned ranks sharing the card (the
+        wire staged through host memory), phase 5's lag-wk and laq@4 on
+        the plane, 3 rounds: masks and losses equal to phase 5's first 3,
+        θ and each worker's ĝ bitwise its ``shards:2`` run's after them
+        (bit digests), every round's counted collective bytes exactly the
+        wire format's prediction, a fourth all-quiet lag-wk round (the
+        history raised by 1e9) moving the mask and the losses alone; each rank's kernels 1-4
+        launched every round, its launches added to the kernels line; ms a
+        round, gather ms and peak GB a rank.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Times are CUDA-event times on this card (kernels: the mean of
@@ -1403,11 +1420,12 @@ def scheduled_uploaders(algo, steps, workers=2, seed=0):
 
 
 def trainer_phase(torch, algo, steps=4, use_pallas_comm=False, extra=(),
-                  arch="llama3.2-1b", workers=2):
+                  arch="llama3.2-1b", workers=2, digest_after=None):
     """Run the launcher on ``arch`` at full width (``extra``: more launcher
     flags, e.g. ``--server``); returns the launches of the batched plane's kernels
     (``plane``) and of the legacy per-leaf kernels (``legacy``), the
-    rounds' losses and masks, and the peak memory.  Round 0 uploads from
+    rounds' losses and masks, the peak memory and (``digest_after``) the
+    bit digests of the state after that many rounds.  Round 0 uploads from
     every worker for a triggered policy; a schedule uploads from exactly
     its scheduled worker every round."""
     from repro_torch.fastpath import kernels
@@ -1427,16 +1445,34 @@ def trainer_phase(torch, algo, steps=4, use_pallas_comm=False, extra=(),
                            skipped=int(m["skipped_round"]),
                            comm_total=int(m["comm_total"]), **timing))
 
+    digest, make = {}, train.make_train_step
+    if digest_after is not None and digest_after < steps:
+        # the state after ``digest_after`` rounds, read by wrapping the
+        # launcher's step for this run (phase 23c holds its rounds to
+        # phase 5's first ones)
+        def make_digesting(*a, **kw):
+            step = make(*a, **kw)
+
+            def run(state, batch):
+                state, m = step(state, batch)
+                if state["step"] == digest_after:
+                    digest.update(state_digests(torch, state))
+                return state, m
+            return run
+        train.make_train_step = make_digesting
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     lt.reset_launches()
-    state = train.main(["--arch", arch, "--algo", algo,
-                        "--workers", str(workers), "--batch", "4",
-                        "--seq", "256",
-                        "--steps", str(steps), "--seed", "0", *extra],
-                       on_step=on_step, use_pallas_comm=use_pallas_comm)
+    try:
+        state = train.main(["--arch", arch, "--algo", algo,
+                            "--workers", str(workers), "--batch", "4",
+                            "--seq", "256",
+                            "--steps", str(steps), "--seed", "0", *extra],
+                           on_step=on_step, use_pallas_comm=use_pallas_comm)
+    finally:
+        train.make_train_step = make
     launches = dict(kernels.LAUNCHES)
     legacy = dict(lt.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1447,6 +1483,8 @@ def trainer_phase(torch, algo, steps=4, use_pallas_comm=False, extra=(),
           f"{algo}: non-finite parameters")
     check(rounds[-1]["comm_total"] == sum(sum(r["mask"]) for r in rounds),
           f"{algo}: comm_total disagrees with the masks")
+    if digest_after == steps:
+        digest = state_digests(torch, state)
     sched = scheduled_uploaders(algo, steps)
     if sched is None:
         # (under churn a cohort client may have left before round 0)
@@ -1482,7 +1520,7 @@ def trainer_phase(torch, algo, steps=4, use_pallas_comm=False, extra=(),
           f"{shown}" + fleet + ("" if sched is None else
                                 f" | scheduled uploaders {sched}"))
     return dict(plane=launches, legacy=legacy, rounds=rounds, peak=peak,
-                summary=summary)
+                summary=summary, digest=digest or None)
 
 
 # ---------------------------------------------------------------------------
@@ -5451,6 +5489,291 @@ def phase22(torch, dev, full, launches):
           f"in {time.perf_counter() - t22:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the device plane (devices:D)
+# ---------------------------------------------------------------------------
+
+def bits_digest(torch, t):
+    """An integer digest of a tensor's bits: Σ word_i·(i mod 65521 + 1)
+    over its 32-bit (2-byte: 16-bit) words, mod 2^64 — int64 sums wrap and
+    integer addition is associative, so the device's summation order does
+    not matter.  Equal tensors give equal digests; one flipped bit changes
+    it."""
+    flat = t.detach().reshape(-1)
+    words = flat.view(torch.int32 if flat.element_size() == 4
+                      else torch.int16)
+    total, step = 0, 1 << 26
+    for i in range(0, words.numel(), step):
+        w = words[i:i + step].to(torch.int64)
+        idx = torch.arange(i, i + w.numel(), dtype=torch.int64,
+                           device=w.device)
+        total += int((w * (idx % 65521 + 1)).sum())
+        del w, idx
+    return total % (1 << 64)
+
+
+def state_digests(torch, state):
+    """Digests of a trainer state's θ and of each worker's ĝ row."""
+    return {"theta": bits_digest(torch, state["theta"]),
+            "grad_hat": [bits_digest(torch, r)
+                         for r in state["lag"]["grad_hat"]]}
+
+
+def wire_phase(torch, dev):
+    """23a: the wire format on the card at llama3.2-1b's full-width layout
+    (W = 1): LAQ's codes at 4 and 3 bits packed from the plane's own
+    encode, unpacked whole and, as 23c's ranks do, row chunk by row chunk
+    from a copy on the host — bitwise the payload; a quiet worker's slot
+    all-zero; the dense wire the payload buffer itself (no copy).  Equal
+    means IEEE-equal: a code rounded to −0 comes back +0, as in the
+    reference's round trip."""
+    from repro_torch import comm
+    from repro_torch.comm.laq import pack_codes, unpack_codes
+    from repro_torch.configs import get_config
+    from repro_torch.devrun import runner
+    from repro_torch.dist.lag_trainer import param_layout
+    from repro_torch.fastpath.plan import FastPathPlan
+
+    lo = param_layout(get_config("llama3.2-1b"))
+    gen = torch.Generator(device=dev).manual_seed(23)
+    g = lo.empty((1,), dev)
+    g.normal_(generator=gen)
+    q, e = torch.zeros_like(g), torch.zeros_like(g)
+    on, off = (torch.ones(1, dtype=torch.bool, device=dev),
+               torch.zeros(1, dtype=torch.bool, device=dev))
+    plan = FastPathPlan("on")
+    for bits in (4, 3):
+        pay, resid, _, steps = plan.laq_encode(g, q, e, lo, bits=bits)
+        del resid
+        ms = cuda_ms(torch, lambda: pack_codes(lo, pay, steps, bits, on), n=3)
+        codes, stw = pack_codes(lo, pay, steps, bits, on)
+        ums = cuda_ms(torch, lambda: unpack_codes(lo, codes, stw, bits), n=3)
+        check(torch.equal(unpack_codes(lo, codes, stw, bits), pay),
+              f"23a laq@{bits}: the unpacked codes are not the payload")
+        host = {"codes": codes.cpu(), "steps": stw.cpu()}
+        pol = comm.make_policy(f"laq@{bits}")
+        chunks = 0
+        for r in range(0, lo.rows, runner.SUM_ROWS):
+            rs = slice(r, min(r + runner.SUM_ROWS, lo.rows))
+            piece = pol.wire_unpack(lo, host, rows=rs, device=dev)
+            check(torch.equal(piece, pay[:, rs]),
+                  f"23a laq@{bits}: rows {rs} unpacked from the host differ")
+            chunks += 1
+        quiet, qst = pack_codes(lo, pay, steps, bits, off)
+        check(int(quiet.max()) == 0 and not bool(
+            unpack_codes(lo, quiet, qst, bits).any()),
+            f"23a laq@{bits}: a quiet slot is not all-zero")
+        print(f"  laq@{bits}: codes {tuple(codes.shape)} {codes.dtype} "
+              f"({codes.numel() / 1e9:.3f} GB) + steps {tuple(stw.shape)}; "
+              f"pack {ms:.1f} ms, unpack {ums:.1f} ms; equal to the payload "
+              f"whole and in {chunks} chunks from the host; quiet slot zero")
+        del pay, codes, host, quiet
+    dense = comm.make_policy("lag-wk")
+    buf = g.clone()
+    wire = dense.wire_pack(lo, buf, {}, on)
+    check(wire["payload"].data_ptr() == buf.data_ptr()
+          and torch.equal(dense.wire_unpack(lo, wire), g),
+          "23a dense: the wire is not the payload buffer")
+    print(f"  dense: the payload buffer itself ({g.numel() * 4 / 1e9:.3f} "
+          f"GB, no copy), unpacked equal")
+    del g, q, e, buf, wire
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def devices_one_phase(torch):
+    """23b: ``devices:1`` over NCCL in this process (a group of one rank,
+    which ``launch.train`` joins), lag-wk, 3 rounds, against ``shards:1``:
+    masks, losses, θ and ĝ bitwise."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+
+    shards = trainer_phase(torch, "lag-wk", steps=3, workers=1,
+                           digest_after=3)
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        dev = trainer_phase(torch, "lag-wk", steps=3, workers=1,
+                            digest_after=3,
+                            extra=("--topology", "devices:1",
+                                   "--dist-backend", "nccl"))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check([r["mask"] for r in dev["rounds"]]
+          == [r["mask"] for r in shards["rounds"]]
+          and [r["loss"] for r in dev["rounds"]]
+          == [r["loss"] for r in shards["rounds"]],
+          "23b: devices:1's masks or losses differ from shards:1's")
+    check(dev["digest"] == shards["digest"],
+          "23b: devices:1's θ or ĝ differ from shards:1's")
+    print(f"  devices:1 (nccl) masks, losses, θ and ĝ bitwise shards:1's; "
+          f"rounds 1-2 {dev['summary']['ms']:.1f} ms vs "
+          f"{shards['summary']['ms']:.1f} ms a round")
+    return dev["plane"]
+
+
+DEVICES_ALGOS = (("lag-wk", True), ("laq@4", False))
+DEVICES_STEPS = 3               # 23c's rounds: phase 5's first 3
+DEVICES_QUIET = 1e9             # the history raised so that no worker fires
+
+
+def devices_rank(rank, steps):
+    """One rank of 23c, spawned by ``devrun.launch`` in a gloo group of 2
+    sharing the card: ``steps`` rounds of phase 5's lag-wk (then one
+    all-quiet round) and laq@4 runs at ``devices:2``, with the launcher's settings, weights and
+    batches.  Returns each run's rounds (mask, loss, ms, gather ms, the
+    collective records), digests, this rank's kernel launches and peak."""
+    import torch
+    from repro_torch import devrun
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream, make_inputs
+    from repro_torch.dist.lag_trainer import TrainerConfig, phase_ms
+    from repro_torch.engine import make_topology
+    from repro_torch.fastpath import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("llama3.2-1b")
+    out = {}
+    for algo, quiet in DEVICES_ALGOS:
+        tcfg = TrainerConfig(algo=algo, num_workers=2, lr=0.3, xi=0.1, D=10)
+        topo = make_topology("devices:2")
+        state = devrun.init_device_state(cfg, tcfg, device="cuda", seed=0,
+                                         topology=topo)
+        dev = state["theta"].device
+        step = devrun.make_device_step(cfg, tcfg, topology=topo)
+        stream = TokenStream(vocab=cfg.vocab_size, seed=0)
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        rounds = []
+        for k in range(steps + int(quiet)):
+            if k == steps:
+                state["lag"]["hist"] = state["lag"]["hist"] + DEVICES_QUIET
+                before = bits_digest(torch, state["lag"]["grad_hat"])
+            batch = make_inputs(cfg, stream, k, 4, 256, device=dev)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize(dev)
+            rounds.append(dict(mask=m["comm_mask"].to(torch.int32).tolist(),
+                               loss=float(m["loss"]),
+                               ms=(time.perf_counter() - t0) * 1e3,
+                               gather_ms=m["gather_ms"],
+                               records=m["records"], **phase_ms(m)))
+            if k == steps - 1:
+                digest = state_digests(torch, state)
+        if quiet:
+            rounds[-1]["grad_hat_kept"] = before == bits_digest(
+                torch, state["lag"]["grad_hat"])
+        out[algo] = dict(rounds=rounds, digest=digest,
+                         launches=dict(kernels.LAUNCHES),
+                         peak=torch.cuda.max_memory_allocated(dev) / 1e9)
+        del state, step, m, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def devices_two_phase(torch, phase5_runs, steps=None):
+    """23c: ``devices:2`` over gloo, two rank processes sharing the card,
+    phase 5's lag-wk and laq@4 for DEVICES_STEPS rounds against phase 5's
+    ``shards:2`` runs (its state digested after as many rounds): masks and
+    losses equal, θ and each worker's ĝ bitwise, every round's counted
+    collective bytes exactly the wire format's prediction, lag-wk's
+    all-quiet extra round moving the mask and the losses alone.  Returns
+    the two ranks' kernel launches, summed."""
+    steps = steps or DEVICES_STEPS
+    from repro_torch import devrun
+    from repro_torch.configs import get_config
+    from repro_torch.dist.lag_trainer import TrainerConfig
+    from repro_torch.models import model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = devrun.launch(devices_rank, 2, backend="gloo", args=(steps,),
+                          device="cuda", timeout=600.0)
+    wall = time.perf_counter() - t0
+    params = model.templates(get_config("llama3.2-1b"))
+    launches = {}
+    for algo, quiet in DEVICES_ALGOS:
+        want = phase5_runs[algo]
+        policy = TrainerConfig(algo=algo, num_workers=2).comm_policy()
+        pred = devrun.predicted_collective_bytes(policy, params, 2)
+        for rank, res in enumerate(ranks):
+            got = res[algo]
+            rounds, oracle = got["rounds"][:steps], want["rounds"][:steps]
+            check([r["mask"] for r in rounds] == [r["mask"] for r in oracle],
+                  f"23c {algo} rank {rank}: masks differ from phase 5's")
+            check([r["loss"] for r in rounds] == [r["loss"] for r in oracle],
+                  f"23c {algo} rank {rank}: losses differ from phase 5's: "
+                  f"{[r['loss'] for r in rounds]} vs "
+                  f"{[r['loss'] for r in oracle]}")
+            check(got["digest"]["theta"] == want["digest"]["theta"],
+                  f"23c {algo} rank {rank}: θ differs from phase 5's")
+            check(got["digest"]["grad_hat"][0]
+                  == want["digest"]["grad_hat"][rank],
+                  f"23c {algo} rank {rank}: ĝ differs from phase 5's row")
+            for k, r in enumerate(got["rounds"]):
+                acct = devrun.check_wire_accounting(r["records"], policy,
+                                                    params, 2)
+                counted = acct["measured_total_bytes"]
+                expect = pred["total"] if any(r["mask"]) \
+                    else pred["mask_bytes"] + pred["loss_bytes"]
+                check(counted == expect,
+                      f"23c {algo} rank {rank} round {k}: counted {counted} "
+                      f"bytes, predicted {expect}")
+            if quiet:
+                q = got["rounds"][-1]
+                check(not any(q["mask"]) and q["grad_hat_kept"]
+                      and {x["what"] for x in q["records"]}
+                      == {"mask", "loss"},
+                      f"23c {algo} rank {rank}: the quiet round {q['mask']} "
+                      f"moved {[x['what'] for x in q['records']]}")
+            names = ("delta_sqnorm_blocks", "masked_combine") \
+                if algo == "lag-wk" else ("absmax_blocks",
+                                          "laq_encode_blocks",
+                                          "masked_combine")
+            for n in names:
+                check(got["launches"].get(n, 0) >= steps,
+                      f"23c {algo} rank {rank}: {n} launched "
+                      f"{got['launches'].get(n, 0)} times")
+            for n, v in got["launches"].items():
+                launches[n] = launches.get(n, 0) + v
+            steady = rounds[1:]
+            mean = lambda key: sum(r[key] for r in steady) / len(steady)
+            print(f"  {algo} rank {rank}: masks {[r['mask'] for r in rounds]}"
+                  f" and losses equal to phase 5's, θ and ĝ bitwise | rounds "
+                  f"1-{steps - 1} mean {mean('ms'):.1f} ms (device fwd/bwd "
+                  f"{mean('grad_ms'):.1f} ms), gather {mean('gather_ms'):.1f}"
+                  f" ms (host clock, staged through host memory: no "
+                  f"interconnect figure) | counted "
+                  f"{pred['total']:.0f} B a fired round = predicted"
+                  + (f"; quiet round {got['rounds'][-1]['gather_ms']:.1f} ms,"
+                     f" {pred['mask_bytes'] + pred['loss_bytes']:.0f} B"
+                     if quiet else "")
+                  + f" | peak {got['peak']:.2f} GB")
+    print(f"  phase 23c: 2 ranks, {wall:.1f} s with their start")
+    return launches
+
+
+def phase23(torch, dev, phase5_runs, launches, smi):
+    """Phase 23: 23a's wire format, 23b's devices:1 (nccl) and 23c's
+    devices:2 (gloo) launches into ``launches``."""
+    t23 = time.perf_counter()
+    wire_phase(torch, dev)
+    p23 = devices_one_phase(torch)
+    for k, v in devices_two_phase(torch, phase5_runs).items():
+        p23[k] = p23.get(k, 0) + v
+    for k, v in p23.items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"  phase 23 launches: { {k: v for k, v in p23.items() if v} } "
+          f"in {time.perf_counter() - t23:.1f} s on {smi}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5569,7 +5892,7 @@ def main():
     launches = {k: 0 for k in kernels.LAUNCHES}
     phase5, phase5_runs = {}, {}
     for algo, names in want.items():
-        run = trainer_phase(torch, algo)
+        run = trainer_phase(torch, algo, digest_after=DEVICES_STEPS)
         got = run["plane"]
         phase5[algo], phase5_runs[algo] = run["rounds"], run
         for k in names:
@@ -5783,6 +6106,11 @@ def main():
           "llama3.2-1b float16, c training llama3.2-1b and mamba2-370m at "
           "float16 (plane, legacy, plain; pods:2, fleet:2@2)", flush=True)
     phase22(torch, dev, full, launches)
+
+    say("[23] the device plane: a the wire format at full width, b "
+        "devices:1 over nccl vs shards:1, c devices:2 over gloo (two ranks "
+        "sharing the card) vs phase 5's shards:2", flush=True)
+    phase23(torch, dev, phase5_runs, launches, smi)
 
     rows = [dict(name=k, route="cuda", source=SOURCES.get(k, SOURCE),
                  replaces=REPLACES[k], launches=launches.get(k, 0),

@@ -34,7 +34,7 @@ import json
 import os
 import re
 import zipfile
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -125,14 +125,17 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, like: Pytree, step: Optional[int] = None
-            ) -> Tuple[Pytree, int]:
+def restore(ckpt_dir: str, like: Pytree, step: Optional[int] = None,
+            take: Optional[Dict[str, int]] = None) -> Tuple[Pytree, int]:
     """Restore step ``step`` (the latest by default) into ``like``: every
     tensor leaf is overwritten in place (cast to its dtype, on its device),
     scalar leaves are replaced.  Raises when a path of ``like`` is missing
     from the checkpoint or the checkpoint holds a path ``like`` lacks (a
-    different topology or policy), and on a shape mismatch.  Returns
-    ``(tree, step)``."""
+    different topology or policy), and on a shape mismatch.  ``take``
+    maps a path to a worker: the checkpoint's entry there has a leading
+    worker dim, and that worker's slot alone is restored (a rank of the
+    device plane restores its own mirror state from a ``shards:D`` file).
+    Returns ``(tree, step)``."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -154,6 +157,8 @@ def restore(ckpt_dir: str, like: Pytree, step: Optional[int] = None
         out = []
         for path, leaf in zip(paths, leaves):
             arr = z[keys[path]]
+            if take and path in take:
+                arr = arr[take[path]:take[path] + 1]
             shape = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) \
                 else np.shape(leaf)
             if tuple(arr.shape) != tuple(shape):

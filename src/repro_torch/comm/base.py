@@ -18,6 +18,11 @@ place and turns the payload buffer into the masked delta in place.  The
 plain route is functional.  A tree of bfloat16 and float32 leaves keeps
 each state as a ``fastpath.layout.Parts`` pair, a node of two leaves:
 the fast route's ``tree_map``s step each part.
+
+The collective wire format (``wire_pack``/``wire_unpack``/
+``wire_slot_bytes``) is what the device plane (``repro_torch.devrun``)
+moves between ranks: the dense family ships the masked float32 flat
+buffer, LAQ packed codes and per-leaf steps (``repro_torch.comm.laq``).
 """
 from __future__ import annotations
 
@@ -166,6 +171,49 @@ class CommPolicy:
         the raw payload (size × itemsize per leaf)."""
         return float(sum(l.numel() * l.element_size()
                          for l in tree_leaves(grad_like)))
+
+    # -- the collective wire format (repro_torch.devrun) ---------------------
+    #
+    # When each worker is a rank of its own, the masked payloads cross
+    # between processes as concrete tensors, so each policy declares what
+    # they are: ``wire_pack`` turns the round's stacked (W, rows, 128)
+    # delta (the decode's, a quiet worker's rows zero; plus the encode's
+    # ``aux`` and the upload mask) into a dict of fixed-shape tensors with
+    # a leading worker dim — a quiet worker's slot is all-zero, absorbing
+    # under the sum — ``wire_unpack`` turns gathered ones back into
+    # per-worker float32 summands, and ``wire_slot_bytes`` is one worker's
+    # exact byte count.  The contract is an exact round trip:
+    # ``wire_unpack(wire_pack(delta))`` equals the delta's float32 buffer
+    # (bit for bit but for LAQ's codes rounded to −0, which come back +0),
+    # so summing it in worker order is ``sum_reduce``.
+
+    def wire_pack(self, layout, payload: torch.Tensor, aux: Dict[str, Any],
+                  comm: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """(W, rows, 128) delta → ``{"payload": its float32 buffer}``.
+        The delta is the round's decoded one, whose quiet rows the decode
+        has zeroed and which ``sum_reduce`` sums in-process, so a float32
+        delta goes on the wire as it is: no mask pass, no second copy."""
+        return {"payload": payload.to(torch.float32)}
+
+    def wire_unpack(self, layout, wire: Dict[str, torch.Tensor], *,
+                    rows: Optional[slice] = None, device=None
+                    ) -> torch.Tensor:
+        """Gathered wire tensors (leading worker dim) → (W, rows, 128)
+        float32 summands; summed over dim 0 in worker order they are
+        ``engine.rounds.sum_reduce``'s.  ``rows`` (a slice of
+        whole 256-row blocks) unpacks those rows alone and ``device``
+        moves only what they need there first: the device plane sums a
+        full-width wire staged on the host chunk by chunk."""
+        buf = wire["payload"]
+        if rows is not None:
+            buf = buf[:, rows]
+        return buf if device is None else buf.to(device)
+
+    def wire_slot_bytes(self, layout) -> Dict[str, int]:
+        """Exact bytes of ONE worker's wire tensors, keyed like
+        :meth:`wire_pack`'s dict (framing included: the layout's padding)."""
+        from repro_torch.fastpath.layout import LANES
+        return {"payload": layout.rows * LANES * 4}
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return f"{type(self).__name__}(name={self.name!r})"

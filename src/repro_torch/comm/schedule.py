@@ -147,6 +147,17 @@ class ScheduledPolicy(CommPolicy):
     def wire_bytes(self, grad_like: Pytree) -> float:
         return self.inner.wire_bytes(grad_like)
 
+    def wire_pack(self, layout, payload, aux: Dict[str, Any],
+                  comm: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self.inner.wire_pack(layout, payload, aux, comm)
+
+    def wire_unpack(self, layout, wire: Dict[str, torch.Tensor], *,
+                    rows=None, device=None) -> torch.Tensor:
+        return self.inner.wire_unpack(layout, wire, rows=rows, device=device)
+
+    def wire_slot_bytes(self, layout) -> Dict[str, int]:
+        return self.inner.wire_slot_bytes(layout)
+
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return (f"ScheduledPolicy({self.inner!r}, "
                 f"schedule={self.schedule.name!r})")

@@ -69,18 +69,10 @@ class Problem:
         return torch.sum(torch.logaddexp(torch.zeros_like(u), u),
                          dim=-1) + reg
 
-    def _rows(self, ids):
-        """(X, y) of the workers ``ids`` (all of them when None)."""
-        if ids is None:
-            return self.X, self.y
-        return self.X[ids], self.y[ids]
-
-    def _grads(self, z: torch.Tensor, thetas: torch.Tensor,
-               ids=None) -> torch.Tensor:
+    def _grads(self, z: torch.Tensor, thetas: torch.Tensor) -> torch.Tensor:
         """(M, d) per-worker gradients from margins ``z`` (M, N_m) and the
-        iterates they were taken at (``thetas``: (d,) or (M, d)); ``ids``
-        selects the workers (the regularizer stays split over all M)."""
-        X, y = self._rows(ids)
+        iterates they were taken at (``thetas``: (d,) or (M, d))."""
+        X, y = self.X, self.y
         if self.kind == "linreg":
             c = 2.0 * (z - y)
         else:
@@ -95,20 +87,16 @@ class Problem:
         z = torch.matmul(self.X, theta)
         return torch.sum(self._worker_losses(z, theta))
 
-    def worker_grads(self, theta: torch.Tensor, ids=None) -> torch.Tensor:
-        """(M, d) stacked per-worker gradients ∇L_m(θ); ``ids`` (a (k,)
-        index tensor) gives only those workers' rows (a fleet cohort)."""
-        X, _ = self._rows(ids)
-        return self._grads(torch.matmul(X, theta), theta, ids)
+    def worker_grads(self, theta: torch.Tensor) -> torch.Tensor:
+        """(M, d) stacked per-worker gradients ∇L_m(θ)."""
+        return self._grads(torch.matmul(self.X, theta), theta)
 
-    def worker_grads_at(self, thetas: torch.Tensor, ids=None
-                        ) -> torch.Tensor:
+    def worker_grads_at(self, thetas: torch.Tensor) -> torch.Tensor:
         """(M, d) per-worker gradients with worker m evaluated at its OWN
         iterate ``thetas[m]`` — the ∇L_m(θ̂_m) the LASG-WK trigger
-        differences against; ``ids`` as in :meth:`worker_grads`."""
-        X, _ = self._rows(ids)
-        z = torch.matmul(X, thetas.unsqueeze(-1)).squeeze(-1)
-        return self._grads(z, thetas, ids)
+        differences against."""
+        z = torch.matmul(self.X, thetas.unsqueeze(-1)).squeeze(-1)
+        return self._grads(z, thetas)
 
     def optimum(self, iters: int = 200_000) -> Tuple[torch.Tensor, float]:
         """High-accuracy reference minimizer: linreg in closed form (numpy

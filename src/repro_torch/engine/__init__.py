@@ -11,9 +11,10 @@ from repro_torch.engine.server import (AdamServer, MomentumServer,
                                        ServerOptimizer, make_server)
 from repro_torch.engine.rounds import lag_round, policy_rounds, sum_reduce
 from repro_torch.engine.report import RunReport
-from repro_torch.engine.topology import (AsyncShards, BatchShards, PodMesh,
-                                         SimWorkers, TOPOLOGIES, Topology,
-                                         make_topology, split_batch)
+from repro_torch.engine.topology import (AsyncShards, BatchShards,
+                                         DeviceWorkers, PodMesh, SimWorkers,
+                                         TOPOLOGIES, Topology, make_topology,
+                                         split_batch)
 from repro_torch.engine.experiment import Experiment
 
 # re-exported for one-stop spec building (the policy axis lives in
@@ -28,7 +29,8 @@ __all__ = [
     "Experiment", "RunReport", "round", "lag_round", "policy_rounds",
     "sum_reduce", "ServerOptimizer", "SGDServer", "MomentumServer",
     "AdamServer", "ProxL1Server", "SERVERS", "make_server", "SimWorkers",
-    "BatchShards", "PodMesh", "AsyncShards", "Topology", "TOPOLOGIES",
+    "BatchShards", "PodMesh", "AsyncShards", "DeviceWorkers", "Topology",
+    "TOPOLOGIES",
     "make_topology", "split_batch", "POLICIES",
     "make_policy", "ScheduledPolicy", "CyclicSchedule", "SampledSchedule",
 ]

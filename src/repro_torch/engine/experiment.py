@@ -38,7 +38,10 @@ diffusion-stable default.  The comm plane follows the problem's dtype (a
 float64 problem gets a policy without a plan, the plain route; ``"on"``
 then raises).  Deep defaults follow ``repro_torch.dist.TrainerConfig``;
 deep runs go to ``device`` (the card unless the caller asks for the CPU).
-The reference's ``devices`` topology is not ported yet.
+``topology="devices:D"`` runs inside an initialised ``torch.distributed``
+group of D ranks, one worker a rank (``repro_torch.devrun``; every rank
+calls ``run()`` and gets the same report); outside one it raises, naming
+the launcher.
 """
 from __future__ import annotations
 
@@ -256,8 +259,8 @@ class Experiment:
 
     def _run_deep(self):
         """(report, dense bytes of one parameter copy): ``steps`` rounds of
-        the trainer (``shards``, ``pods``, ``async``), the fleet step or the
-        graph step."""
+        the trainer (``shards``, ``pods``, ``async``), the device plane's
+        step (``devices``), the fleet step or the graph step."""
         # function-level: repro_torch.dist and repro_torch.fleet consume
         # the engine; importing them at module scope would close a cycle
         from repro_torch.configs import get_config
@@ -289,7 +292,19 @@ class Experiment:
         server = self._resolve_server()
         fleet = topo.name == "fleet"
         graph = topo.name == "graph"
-        if fleet:
+        if topo.name == "devices":
+            # one worker per rank of the caller's group: the packed wire
+            # gathered between ranks (function-level import: the device
+            # plane consumes the engine, like the trainer)
+            from repro_torch import devrun
+            state = devrun.init_device_state(
+                cfg, tcfg, device=device, seed=self.seed, policy=policy,
+                server=server, topology=topo)
+            device = state["theta"].device
+            step_fn = devrun.make_device_step(
+                cfg, tcfg, policy=policy, server=server, topology=topo,
+                schedule_seed=self.seed)
+        elif fleet:
             from repro_torch import fleet as fleet_lib
             state = fleet_lib.init_fleet_state(
                 cfg, tcfg, topo, device=device, seed=self.seed,

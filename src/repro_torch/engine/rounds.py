@@ -77,9 +77,19 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
                   theta, grads, lag_state: Dict, layout: Layout,
                   grad_at_hat: Optional[List[torch.Tensor]] = None,
                   step: Optional[int] = None, draw: Optional[int] = None,
-                  theta_view: Optional[torch.Tensor] = None):
+                  theta_view: Optional[torch.Tensor] = None,
+                  worker_offset: int = 0, wire_layout=None):
     """Run a policy for every worker → (comm (W,) bool, delta (W, rows,
     128), new policy-state dict).
+
+    ``worker_offset`` shifts the worker ids: the device plane
+    (``repro_torch.devrun``) runs this function on each rank at local W = 1
+    and passes the rank, so worker m sees the id it has in the in-process
+    run (a cyclic schedule's round robin, a sampled schedule's host draw
+    compared with it).  ``wire_layout`` (the payload's ``FlatLayout``)
+    makes the return a 4-tuple ``(comm, delta, new_pst, wire)``, ``wire``
+    the policy's collective wire dict (``policy.wire_pack``) of this
+    round's masked payload: what the device plane gathers across ranks.
 
     ``theta_view`` (W, rows, 128) is the bounded-staleness hook: each
     worker's own iterate θ^{k−s_m} (the async topology's ring; a ``Parts``
@@ -139,13 +149,19 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
     if fast is not None:
         ctx = CommRound(theta=theta_arg, grad_new=grads, hist=hist,
                         cfg=lagcfg, L_m=L_arr, fast=fast, k=step, draw=draw,
-                        worker_id=torch.arange(W, dtype=torch.int32,
-                                               device=_first(grads).device))
+                        worker_id=worker_offset + torch.arange(
+                            W, dtype=torch.int32,
+                            device=_first(grads).device))
         payload, aux = policy.encode(ctx, pst)
         comm = policy.should_upload(ctx, pst, payload, aux)
         delta, new_pst = policy.fast_decode(plan, pst, payload, aux, comm,
                                             theta=theta_arg, layout=layout)
-        return comm, delta, new_pst
+        if wire_layout is None:
+            return comm, delta, new_pst
+        # the payload buffer is the masked delta now: it is packed as is
+        del payload
+        return comm, delta, new_pst, policy.wire_pack(wire_layout, delta,
+                                                      aux, comm)
 
     # worker m's round returns new trees; its delta then goes over its
     # consumed gradient row and its state over its own state rows, in
@@ -156,7 +172,7 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
     # worker sum adds in the payload's dtype, as the reference's does
     gah_rows = _take_rows(grad_at_hat, W)
     theta_t = layout.unflatten(theta)
-    comms = []
+    comms, wire_aux = [], []
     delta = grads
     for m in range(W):
         if theta_view is not None:
@@ -167,7 +183,7 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
                         L_m=None if L_arr is None else L_arr[m],
                         grad_at_hat=None if gah_rows is None
                         else layout.unflatten(gah_rows[m]),
-                        k=step, worker_id=m, draw=draw)
+                        k=step, worker_id=worker_offset + m, draw=draw)
         st_m = {k: layout.unflatten(row(v, m), like=dtype_of(v))
                 for k, v in pst.items()}
         # encode → trigger → decode, worker m's ∇ℓ_m(θ̂_m) freed once its
@@ -178,6 +194,11 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
             ctx.grad_at_hat = gah_rows[m] = None
         delta_m, new_st = policy.decode(ctx, st_m, payload, aux, comm_m)
         comms.append(comm_m.reshape(()))
+        if wire_layout is not None:
+            # what the wire needs of the encode besides the payload (LAQ's
+            # quantizer steps), kept past the worker's round
+            wire_aux.append({k: v for k, v in aux.items()
+                             if k.startswith("wire_")})
         if m == 0:
             dts = [buffer_dtype(l.dtype for l in ls)
                    for ls in layout.split(tree_leaves(delta_m))]
@@ -189,7 +210,11 @@ def policy_rounds(policy: CommPolicy, lagcfg: lag.LAGConfig,
         for k in pst:
             layout.flatten(new_st[k], out=row(pst[k], m))
         del ctx, st_m, payload, aux, delta_m, new_st
-    return torch.stack(comms), delta, pst
+    comm = torch.stack(comms)
+    if wire_layout is None:
+        return comm, delta, pst
+    aux = {k: torch.stack([a[k] for a in wire_aux]) for k in wire_aux[0]}
+    return comm, delta, pst, policy.wire_pack(wire_layout, delta, aux, comm)
 
 
 def _worker_sum(delta: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,11 @@ A topology owns only batching and placement; the round itself is
                parameters it last saw, kept in a (τ+1)-deep ring of flat
                buffers in the lag state; staleness 0 is bitwise
                ``BatchShards``
+  DeviceWorkers  one lazy worker per rank of a ``torch.distributed``
+               group (``devices:D``, ``repro_torch.devrun``): the masked
+               deltas cross between ranks as the policies' packed wire
+               tensors, gathered and summed in worker order, bitwise the
+               in-process sum
   fleet        sampled k-client cohorts over an N-client population
                (``repro_torch.fleet``)
   graph        the serverless gossip plane: W nodes with their own
@@ -25,8 +30,8 @@ A topology owns only batching and placement; the round itself is
                mixing (``repro_torch.graph``)
 
 ``make_topology`` takes the reference's grammar (``"pods:2"``,
-``"async:4@2"``, ``"fleet:100000@64"``, ``"graph:9@ring"``); ``devices``
-is not ported yet and raises.  The deep step functions consume ``units`` /
+``"async:4@2"``, ``"devices:2"``, ``"fleet:100000@64"``,
+``"graph:9@ring"``).  The deep step functions consume ``units`` /
 ``place_batch`` / ``reduce_fn`` / ``extra_state`` / ``worker_views`` /
 ``advance_views``; the convex run ``SimWorkers.run``.  Simulated
 wall-clock for an upload mask comes from ``repro_torch.netsim.cluster``.
@@ -221,6 +226,50 @@ class AsyncShards(Topology):
                 f"staleness={self.staleness})")
 
 
+class DeviceWorkers(Topology):
+    """One lazy worker per RANK — the ``repro_torch.devrun`` execution
+    plane.
+
+    Same round math as ``BatchShards`` — masks, θ, ĝ and the counters
+    bitwise, where each rank's backward pass is bitwise the in-process
+    worker's — but the workers are the ranks of an initialised
+    ``torch.distributed`` group of D: each runs
+    ``engine.rounds.policy_rounds`` on its own shard at local W = 1, and
+    the masked deltas cross between ranks as the policy's PACKED wire
+    tensors (``CommPolicy.wire_pack``), gathered and summed in worker
+    order.  The step builders live in ``repro_torch.devrun.runner``;
+    without a group of D ranks they raise (the reference falls back to its
+    vmapped trainer there).
+    """
+    name = "devices"
+
+    def num_devices(self, default: Optional[int] = None) -> int:
+        """The worker/rank count: ``devices:D`` pins D; bare ``devices``
+        takes ``default``, else the initialised group's world size, else
+        the visible cards."""
+        if self.num_units:
+            return self.num_units
+        if default:
+            return default
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized():
+            return dist.get_world_size()
+        return torch.cuda.device_count()
+
+    def available(self, default: Optional[int] = None) -> bool:
+        """True inside an initialised group of exactly D ranks."""
+        import torch.distributed as dist
+        return dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() == self.num_devices(default)
+
+    def device_mesh(self, default: Optional[int] = None,
+                    device_type: str = "cuda"):
+        """1-D ``("workers",)`` mesh over the group's D ranks."""
+        from repro_torch.launch.mesh import make_mesh
+        return make_mesh((self.num_devices(default),), ("workers",),
+                         device_type)
+
+
 # ---------------------------------------------------------------------------
 # Convex backend
 # ---------------------------------------------------------------------------
@@ -329,14 +378,12 @@ def _make_graph(num_nodes=None, family=None, **kw):
     return GraphTopology(num_nodes=num_nodes, family=family, **kw)
 
 
-#: the reference's topology the port does not have yet (ROADMAP queue 1
-#: item 5) maps to None
 TOPOLOGIES = {
     "sim": SimWorkers,
     "shards": BatchShards,
     "pods": PodMesh,
     "async": AsyncShards,
-    "devices": None,
+    "devices": DeviceWorkers,
     "fleet": _make_fleet,
     "graph": _make_graph,
 }
@@ -352,14 +399,15 @@ def make_topology(spec) -> Topology:
     The reference's grammar: ``<name>[:<units>][@<staleness>]`` —
     ``"sim"``, ``"shards"``, ``"pods:2"`` (two lazy pods),
     ``"async:4@2"`` (four bounded-staleness workers, the slowest 2 rounds
-    behind; ``"async"`` alone has staleness 1),
+    behind; ``"async"`` alone has staleness 1), ``"devices:2"`` (one
+    worker per rank of a group of two: ``repro_torch.devrun``),
     ``"fleet:<population>@<cohort>"`` (``"fleet:100000@64"`` samples a
     64-client cohort per round from 10⁵ clients) and the gossip plane
     ``"graph:<nodes>@<family>"`` (``"graph:9@ring"``,
     ``"graph:12@torus:3x4"``, ``"graph:9@complete"``,
     ``"graph:16@expander:4"``, ``"graph:16@smallworld:4@0.2"``: the family
     may itself carry ``:``/``@`` arguments), with the reference's
-    validation messages.  ``devices`` raises: not ported yet.
+    validation messages.
     """
     if isinstance(spec, Topology):
         return spec
@@ -375,10 +423,6 @@ def make_topology(spec) -> Topology:
                          f"e.g. 'pods:2'; async also takes '@<staleness>'; "
                          f"fleet needs 'fleet:<population>@<cohort>'; "
                          f"graph needs 'graph:<nodes>@<family>')")
-    if TOPOLOGIES[name] is None:
-        raise ValueError(f"topology {spec!r}: {name!r} is not ported yet; "
-                         f"the port has "
-                         f"{tuple(n for n, f in TOPOLOGIES.items() if f)}")
     if name == "graph":
         # partition("@") split at the FIRST @, so the family half may
         # itself contain '@' ('smallworld:4@0.2')

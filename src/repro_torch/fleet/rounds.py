@@ -270,7 +270,10 @@ def run_convex(problem, policy, server, lagcfg: lag.LAGConfig, topology, *,
     Initialization is the paper's Alg.-1 line 2 (every client uploads
     ∇L_m(θ⁰) once, one O(N) pass): the compact ĝ mirror holds the N
     gradients, ∇⁰ their sum in client order.  Each of the K rounds then
-    differentiates only the cohort's rows.  The iterates are recorded and
+    takes the cohort's rows of the population's gradient: one product,
+    O(N) flops, whose rows do not depend on the cohort (the reference
+    differentiates only the cohort's rows; on the card a product of those
+    alone gives other bits).  The iterates are recorded and
     the losses evaluated after the loop, as the reference does after its
     scan; the loop never waits for the device.
     """
@@ -316,12 +319,17 @@ def run_convex(problem, policy, server, lagcfg: lag.LAGConfig, topology, *,
         alive, cohort, active = sample_cohort(topology, lag_state, r,
                                               seed=seed,
                                               chain=sampling.CONVEX_CHAIN)
-        grads = lo.flatten_stacked(problem.worker_grads(theta_t, cohort))
+        # the cohort's rows of one population product, as in the sync run:
+        # on the card a batched product's bits for a row depend on the
+        # batch (cuBLAS), and round 0's innovation against g0's rows must
+        # be exactly 0, as the reference's is
+        grads = lo.flatten_stacked(problem.worker_grads(theta_t)[cohort])
         cohort_pst = pop.gather_state(lag_state, cohort)
         gah = None
         if policy.needs_grad_at_hat:
             ga = lo.flatten_stacked(problem.worker_grads_at(
-                lo.unflatten_stacked(cohort_pst["theta_hat"]), cohort))
+                lo.unpack_stacked(lag_state[MIRROR_PREFIX + "theta_hat"])
+            )[cohort])
             gah = [ga] if plane else list(ga.unbind(0))
         draw = policy.draw(r, k, seed) if policy.needs_rng else None
         L_cohort = problem.L_m[cohort] if policy.needs_L_m else None

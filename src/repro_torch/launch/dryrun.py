@@ -30,8 +30,9 @@ batch and sequence.  One JSON file per combination under ``--out``, with
 the reference's record keys where their meaning carries over
 (``memory.argument_size_in_bytes``: state + inputs;
 ``memory.temp_size_in_bytes``: the transient peak; ``cost.flops``;
-``status``; ``workers``) and ``mesh: "one_card"``.  ``--mesh`` and the
-collectives wait for the device plane (ROADMAP queue 1 item 5).  A
+``status``; ``workers``) and ``mesh: "one_card"``.  ``--mesh`` waits
+for the sharding on a mesh (ROADMAP queue 1 item 5); the device plane
+counts its collectives at the call (``repro_torch.devrun``).  A
 bfloat16 or float16 config that keeps float32 leaves (the MoE router,
 mamba2's and RG-LRU's float32 leaves) reckons its training state as the trainer holds
 it: two parts a tree (``fastpath.layout.Parts``), each at its leaves'

@@ -21,7 +21,16 @@ reduction), ``async:4@2`` (bounded staleness), or the sampled-cohort fleet
 ``fleet:100000@64`` (``repro_torch.fleet``; ``--fleet-churn`` and
 ``--fleet-selection`` dial dropout and lazy client selection), or the
 serverless gossip graph ``graph:9@ring`` (``repro_torch.graph``: W is the
-node count, the lazy units are the E directed edges).  ``--hetero`` dials
+node count, the lazy units are the E directed edges), or the device plane
+``devices:D`` (``repro_torch.devrun``: one worker a rank, the policies'
+packed wire gathered between ranks).  Under ``devices:D`` the launcher
+joins the caller's group (a torchrun group: ``RANK``/``WORLD_SIZE`` set)
+or spawns D ranks itself over a ``FileStore`` in a temporary directory;
+``--dist-backend`` is ``nccl`` (one card a rank; the default on the card)
+or ``gloo`` (the default for ``--device cpu``; on the card, ranks share
+it and the wire goes through host memory).  Rank 0 prints, logs, prices
+``--cluster`` and writes the checkpoints (the ``shards:D`` file; every
+rank restores its own worker's rows).  ``--hetero`` dials
 the worker shards' data heterogeneity (``repro_torch.netsim.hetero``);
 ``--cluster`` prices the run's uploads on a simulated network
 (``repro_torch.netsim.cluster``: per worker, per client for a fleet, per
@@ -39,6 +48,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import sys
 import time
 
 import numpy as np
@@ -70,8 +81,10 @@ def build_argparser():
                         "(sgd, adam, 'momentum@0.9', 'prox-l1@1e-4')")
     p.add_argument("--topology", default=None,
                    help="topology spec ('shards', 'pods:2', 'async:4@2', "
-                        "'fleet:100000@64', 'graph:9@ring'); default: flat "
-                        "batch shards.  fleet:N@k samples a k-client cohort "
+                        "'fleet:100000@64', 'graph:9@ring', 'devices:2'); "
+                        "default: flat batch shards.  devices:D runs one "
+                        "worker per rank of D (spawned here, or the caller's "
+                        "torchrun group).  fleet:N@k samples a k-client cohort "
                         "per round from N clients (W is then k); "
                         "graph:W@<family> is the serverless gossip plane "
                         "(families ring, torus:RxC, complete, expander:d, "
@@ -106,6 +119,10 @@ def build_argparser():
                         "forced (plain kernel versions on the CPU)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a GPU) or 'cpu'")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="devices:D only: the ranks' backend (default nccl "
+                        "on the card, one card a rank; gloo for --device "
+                        "cpu, or ranks sharing a card)")
     p.add_argument("--reduced", action="store_true",
                    help="CPU-sized variant of the arch")
     p.add_argument("--layers", type=int, default=None,
@@ -136,7 +153,10 @@ def main(argv=None, on_step=None, use_pallas_comm=False):
     ``gather_ms``/``scatter_ms``, a graph's ``mix_ms``).
     ``use_pallas_comm`` selects the legacy per-leaf comm route
     (``TrainerConfig``): a keyword of the API, not a flag of the command
-    line, as in the reference.  Returns the final state."""
+    line, as in the reference.  Returns the final state (this rank's under
+    ``devices:D``; None where the launcher spawned the ranks itself, each
+    of which runs this function, ``on_step`` on none of them)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_argparser().parse_args(argv)
     device = resolve_device(args.device)
     if device.type == "cuda":
@@ -160,6 +180,31 @@ def main(argv=None, on_step=None, use_pallas_comm=False):
         topo = make_topology(args.topology)
     fleet = getattr(topo, "name", None) == "fleet"
     graph = getattr(topo, "name", None) == "graph"
+    devices = getattr(topo, "name", None) == "devices"
+    lead, joined = True, False
+    if devices:
+        import torch.distributed as dist
+        from repro_torch import devrun
+        backend = args.dist_backend or ("gloo" if device.type == "cpu"
+                                        else "nccl")
+        D = topo.num_devices(args.workers)
+        if not dist.is_initialized():
+            if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+                devrun.launch(_train_rank, D, backend=backend,
+                              args=(argv, use_pallas_comm), device=device,
+                              threads=max(1, (os.cpu_count() or 1) // D)
+                              if device.type == "cpu" else None,
+                              timeout=float("inf"))
+                return None
+            devrun.check_backend(backend, int(os.environ["WORLD_SIZE"]),
+                                 device)
+            dist.init_process_group(backend)
+            joined = True
+        lead = dist.get_rank() == 0
+        if not lead:
+            on_step = None
+    elif args.dist_backend is not None:
+        raise SystemExit("--dist-backend is for --topology devices:D")
     if fleet and (args.fleet_churn or args.fleet_selection != "uniform"):
         from repro_torch.fleet import FleetTopology
         topo = FleetTopology(population=topo.population, cohort=topo.cohort,
@@ -195,26 +240,39 @@ def main(argv=None, on_step=None, use_pallas_comm=False):
         train_step = graph_lib.make_graph_step(cfg, tcfg, topo,
                                                policy=policy,
                                                schedule_seed=args.seed)
+    elif devices:
+        state = devrun.init_device_state(cfg, tcfg, device=device,
+                                         seed=args.seed, policy=policy,
+                                         topology=topo)
+        device = state["theta"].device
+        train_step = devrun.make_device_step(cfg, tcfg, policy=policy,
+                                             topology=topo,
+                                             schedule_seed=args.seed)
     else:
         state = init_state(cfg, tcfg, device=device, seed=args.seed,
                            policy=policy, topology=topo)
         train_step = make_train_step(cfg, tcfg, policy=policy, topology=topo,
                                      schedule_seed=args.seed)
+    say = print if lead else (lambda *a, **kw: None)
     start = 0
     if args.resume and args.ckpt_dir and latest_step(args.ckpt_dir) \
             is not None:
-        state, start = restore(args.ckpt_dir, state)
-        print(f"resumed from step {start}")
+        if devices:
+            state, start = devrun.restore_checkpoint(args.ckpt_dir, state,
+                                                     policy)
+        else:
+            state, start = restore(args.ckpt_dir, state)
+        say(f"resumed from step {start}")
     stream = TokenStream(vocab=cfg.vocab_size, seed=args.seed)
-    log = metrics_lib.Logger(args.log)
+    log = metrics_lib.Logger(args.log if lead else None, echo=lead)
     masks, cohorts, cohort_comm = [], [], []
     t_all = time.perf_counter()
     for step in range(start, args.steps):
         if step == start and policy.needs_rng:
             draws = [policy.draw(k, units, args.seed)
                      for k in range(start, args.steps)]
-            print(f"{policy.name}: sampled uploaders of rounds {start}-"
-                  f"{args.steps - 1} (seed {args.seed}): {draws}")
+            say(f"{policy.name}: sampled uploaders of rounds {start}-"
+                f"{args.steps - 1} (seed {args.seed}): {draws}")
         if args.hetero is not None:
             batch = make_heterogeneous_inputs(
                 cfg, stream, step, W, args.batch, args.seq, fixed=False,
@@ -227,6 +285,8 @@ def main(argv=None, on_step=None, use_pallas_comm=False):
         state, m = train_step(state, batch)
         _sync(device)
         timing = dict(ms=(time.perf_counter() - t0) * 1e3, **phase_ms(m))
+        if "gather_ms" in m:
+            timing["gather_ms"] = m["gather_ms"]
         if on_step is not None:
             on_step(step, m, timing)
         mask = m["cohort_comm"] if fleet else m["comm_mask"]
@@ -239,17 +299,21 @@ def main(argv=None, on_step=None, use_pallas_comm=False):
         split = "".join(f" {k} {v:.1f}" for k, v in timing.items()
                         if k != "ms")
         cohort = f" cohort {m['cohort_ids'].tolist()}" if fleet else ""
-        print(f"step {step}: loss {float(m['loss']):.6f} | uploads "
-              f"{int(m['comm_this_round'])}{cohort} mask "
-              f"{mask.to(torch.int32).tolist()} | comm_total "
-              f"{int(m['comm_total'])} | {timing['ms']:.1f} ms{split}",
-              flush=True)
+        say(f"step {step}: loss {float(m['loss']):.6f} | uploads "
+            f"{int(m['comm_this_round'])}{cohort} mask "
+            f"{mask.to(torch.int32).tolist()} | comm_total "
+            f"{int(m['comm_total'])} | {timing['ms']:.1f} ms{split}",
+            flush=True)
         if step % 10 == 0 or step == args.steps - 1:
             log.log(step, loss=m["loss"], comm_round=m["comm_this_round"],
                     comm_total=m["comm_total"])
         if args.ckpt_every and args.ckpt_dir \
                 and (step + 1) % args.ckpt_every == 0:
-            save(args.ckpt_dir, step + 1, state)
+            if devices:
+                devrun.save_checkpoint(args.ckpt_dir, step + 1, state,
+                                       policy)
+            else:
+                save(args.ckpt_dir, step + 1, state)
     log.close()
     dt = time.perf_counter() - t_all
     total = int(state["lag"]["comm_total"])
@@ -259,15 +323,23 @@ def main(argv=None, on_step=None, use_pallas_comm=False):
     # — over this run's rounds (the reference's figure: after a resume the
     # upload counter still counts from step 0)
     gd = rounds * units
-    print(f"done: {rounds} rounds in {dt:.1f}s | uploads {total} vs GD "
-          f"{gd} ({100.0 * total / max(gd, 1):.1f}% of GD) on {device}")
-    if args.cluster is not None and (masks or cohorts):
+    say(f"done: {rounds} rounds in {dt:.1f}s | uploads {total} vs GD "
+        f"{gd} ({100.0 * total / max(gd, 1):.1f}% of GD) on {device}")
+    if joined:
+        dist.destroy_process_group()
+    if lead and args.cluster is not None and (masks or cohorts):
         t_run, t_gd = price_run(args.cluster, state, cfg, tcfg, topo, W,
                                 masks, cohorts, cohort_comm)
         print(f"simulated wall-clock on '{args.cluster}': "
               f"{t_run:.2f}s vs GD {t_gd:.2f}s "
               f"({t_gd / max(t_run, 1e-12):.2f}x advantage)")
     return state
+
+
+def _train_rank(rank, argv, use_pallas_comm):
+    """A spawned rank of ``devices:D``: the launcher again, inside the
+    group (``devrun.launch`` has initialised it)."""
+    main(argv, use_pallas_comm=use_pallas_comm)
 
 
 def price_run(cluster, state, cfg, tcfg, topo, W, masks, cohorts,

@@ -69,8 +69,10 @@ class ModelConfig:
     use_pallas: bool = False
     # the reference's mesh and compile knobs, taken for ``get_config``
     # parity.  act_shard_axes pins activations to mesh axes: () is the
-    # identity, and any other value needs a device mesh, which the port
-    # does not have yet (ROADMAP queue 1 item 5), so ``forward`` raises as
+    # identity, and any other value needs activations sharded over a
+    # device mesh, which the port does not do yet (ROADMAP queue 1 item 5:
+    # ``launch/mesh.py`` builds the mesh, ``dist/sharding.py`` is still to
+    # port), so ``forward`` raises as
     # the reference does with no mesh in context; act_shard_seq only
     # widens that constraint.  scan_unroll (a Python loop instead of
     # lax.scan) and embed_onehot (the lookup as one_hot @ embed, for a

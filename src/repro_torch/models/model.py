@@ -306,9 +306,9 @@ def _constrain_act(cfg: ModelConfig) -> None:
     if cfg.act_shard_axes:
         raise RuntimeError(
             f"act_shard_axes={cfg.act_shard_axes!r} pins activations to a "
-            f"device mesh, which the port does not have (ROADMAP queue 1 "
-            f"item 5); the reference's with_sharding_constraint raises "
-            f"without a mesh in context too")
+            f"device mesh, which the port does not shard over yet (ROADMAP "
+            f"queue 1 item 5); the reference's with_sharding_constraint "
+            f"raises without a mesh in context too")
 
 
 def forward_with_aux(params: Dict, cfg: ModelConfig, inputs: Dict

@@ -35,7 +35,7 @@ whose tree mixes bfloat16 and float32 leaves, in two parts
 (``tests/test_torch_mixed_train.py``).
 
 The CUDA kernels' bfloat16 instantiations run only on the card
-(``tests/test_torch_kernels.py``'s ``cuda`` cases, ``chip_smoke.py`` phase
+(``tests/test_torch_kernels_cuda.py``'s cases, ``chip_smoke.py`` phase
 18).
 """
 import functools

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from cuda_helpers import cuda_device  # noqa: F401 (a fixture)
 from repro_torch.fastpath import kernels as fp
 from repro_torch.fastpath import kernels_ref as fp_ref
 from repro_torch.kernels.flash_attention import flash_attention as fa
@@ -45,13 +46,6 @@ SUM_RTOL = 1e-5
 F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 PAIRS = [(F16, F16), (F32, F16)]
 PAIR_IDS = ["hh", "fh"]
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    return torch.device("cuda")
 
 
 def edged(shape, seed, device, scale=1.0) -> torch.Tensor:

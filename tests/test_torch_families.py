@@ -341,27 +341,3 @@ def test_trainer_matches_reference(arch, algo):
                                    rtol=TRAIN_LOSS_RTOL)
         assert m["comm_mask"].tolist() == mask
     assert want[0][1] == [True, True]
-
-
-# ---------------------------------------------------------------------------
-# On the card: the kernel route against the plain route
-# ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("arch", ARCHS)
-def test_cuda_kernel_route_matches_plain(cuda_device, arch):
-    cfg = get_config(arch).reduced()
-    params = model.init(cfg, device=cuda_device, seed=0)
-    b = make_inputs(cfg, TokenStream(cfg.vocab_size), 0, 2, 80,
-                    device=cuda_device)
-    with torch.no_grad():
-        got = model.forward(params, cfg.replace(use_pallas=True), b)
-        want = model.forward(params, cfg, b)
-    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)

@@ -13,8 +13,8 @@ codes equal off rounding boundaries, and the residual within the payload's
 difference plus one ulp of |v| (XLA-CPU contracts ``v − codes·step`` into
 a fused multiply-add in some elements, the port never does).  Then the
 policy plumbing that selects the route, and a count of what one trainer
-round calls on it.  The kernels themselves run only on the card: the
-``cuda``-marked cases skip here.
+round calls on it.  The kernels themselves run only on the card: their
+``cuda`` cases are ``tests/test_torch_lag_trigger_cuda.py``'s.
 """
 import jax
 import jax.numpy as jnp
@@ -307,64 +307,3 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     ops.fused_tree_sqnorm(x)
     ops.laq_encode(x, x, x)
     assert all(v == 0 for v in lag_trigger.LAUNCHES.values())
-
-
-# ---------------------------------------------------------------------------
-# On the card: each kernel against its plain version
-# ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-# ragged sizes: one element, under and over a vector group and a warp's
-# worth, the reference's 257 × 33, a power of two and one past it
-CUDA_SIZES = (1, 3, 127, 129, 1000, 257 * 33, 32768, 32769)
-
-
-def card_operands(cuda_device, n, offset, specs, dtype="float32"):
-    """Operands of n elements on the card; ``offset`` 1 views them one
-    element into their storage, so the base is unaligned and the kernels
-    take their scalar path."""
-    return [operand((n + offset,), seed, dtype, scale)[1].to(cuda_device)[
-        offset:] for seed, scale in specs]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_cuda_sums_and_update_match_plain(cuda_device, dtype):
-    for n in CUDA_SIZES:
-        for offset in (0, 1):
-            a, b = card_operands(cuda_device, n, offset, ((0, 1.0),
-                                                          (1, 1.0)), dtype)
-            torch.testing.assert_close(lag_trigger.sqnorm_2d(a),
-                                       ref.sqnorm(a), rtol=1e-5, atol=0)
-            torch.testing.assert_close(lag_trigger.delta_sqnorm_2d(a, b),
-                                       ref.delta_sqnorm(a, b), rtol=1e-5,
-                                       atol=0)
-            for m in (0.0, 1.0):
-                got = lag_trigger.masked_update_2d(
-                    a, b, torch.tensor(m, device=cuda_device))
-                assert got.dtype == b.dtype
-                assert torch.equal(got, ref.masked_lazy_update(a, b, m))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("bits", [2, 4, 8])
-def test_cuda_laq_matches_plain_bitwise(cuda_device, bits):
-    for n in CUDA_SIZES:
-        for offset in (0, 1):
-            g, q, e = card_operands(cuda_device, n, offset,
-                                    ((10, 1.0), (11, 0.25), (12, 0.01)))
-            scale = lag_trigger.innovation_absmax_2d(g, q, e)
-            assert torch.equal(scale, ref.innovation_absmax(g, q, e))
-            p, r, sq = lag_trigger.laq_encode_2d(g, q, e, scale, bits)
-            wp, wr, wsq = ref.laq_encode(g, q, e, scale, bits)
-            assert torch.equal(p, wp) and torch.equal(r, wr)
-            torch.testing.assert_close(sq, wsq, rtol=1e-5, atol=0)
-            steps = ops.laq_encode(g, q, e, bits=bits, return_steps=True)[3]
-            assert torch.equal(steps, ref.quantizer_step(scale, bits)
-                               .reshape(1))

@@ -17,23 +17,19 @@ alignment, because each instantiation loads at its own dtype, widens
 exactly and then runs the float32 kernel's element-to-thread map and fold
 order.  Any combination the table does not build raises ``TypeError``.
 """
+import numpy as np
 import pytest
 import torch
 
+from cuda_helpers import cuda_device  # noqa: F401 (a fixture)
 from repro_torch.kernels.lag_trigger import lag_trigger as lt
-from repro_torch.kernels.lag_trigger import ref
+from repro_torch.kernels.lag_trigger import lag_trigger, ops, ref
 
 SUM_RTOL = 1e-5
 SIZES = (1, 3, 127, 129, 1000, 257 * 33, 32768, 32769)
 F32, BF16 = torch.float32, torch.bfloat16
 PAIRS = [(BF16, BF16), (F32, BF16)]
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    return torch.device("cuda")
+DTYPES = ["float32", "bfloat16"]
 
 
 def card(x: torch.Tensor, dtype, offset: int, device) -> torch.Tensor:
@@ -126,3 +122,65 @@ def test_cuda_unbuilt_combinations_raise(cuda_device):
     with pytest.raises(TypeError, match="no instantiation"):
         lt.laq_encode_2d(b, a, b.half(), torch.ones((), device=cuda_device),
                          4)
+
+
+def operand(shape, seed, dtype="float32", scale=1.0):
+    """Normal float32 values from a numpy seed as a tensor of ``dtype``
+    (bfloat16 by round-to-nearest-even)."""
+    x = (scale * np.random.default_rng(seed).standard_normal(shape)).astype(
+        np.float32)
+    return torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+# ---------------------------------------------------------------------------
+# On the card: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# ragged sizes: one element, under and over a vector group and a warp's
+# worth, the reference's 257 × 33, a power of two and one past it
+CUDA_SIZES = (1, 3, 127, 129, 1000, 257 * 33, 32768, 32769)
+
+
+def card_operands(cuda_device, n, offset, specs, dtype="float32"):
+    """Operands of n elements on the card; ``offset`` 1 views them one
+    element into their storage, so the base is unaligned and the kernels
+    take their scalar path."""
+    return [operand((n + offset,), seed, dtype, scale).to(cuda_device)[
+        offset:] for seed, scale in specs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_sums_and_update_match_plain(cuda_device, dtype):
+    for n in CUDA_SIZES:
+        for offset in (0, 1):
+            a, b = card_operands(cuda_device, n, offset, ((0, 1.0),
+                                                          (1, 1.0)), dtype)
+            torch.testing.assert_close(lag_trigger.sqnorm_2d(a),
+                                       ref.sqnorm(a), rtol=1e-5, atol=0)
+            torch.testing.assert_close(lag_trigger.delta_sqnorm_2d(a, b),
+                                       ref.delta_sqnorm(a, b), rtol=1e-5,
+                                       atol=0)
+            for m in (0.0, 1.0):
+                got = lag_trigger.masked_update_2d(
+                    a, b, torch.tensor(m, device=cuda_device))
+                assert got.dtype == b.dtype
+                assert torch.equal(got, ref.masked_lazy_update(a, b, m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_cuda_laq_matches_plain_bitwise(cuda_device, bits):
+    for n in CUDA_SIZES:
+        for offset in (0, 1):
+            g, q, e = card_operands(cuda_device, n, offset,
+                                    ((10, 1.0), (11, 0.25), (12, 0.01)))
+            scale = lag_trigger.innovation_absmax_2d(g, q, e)
+            assert torch.equal(scale, ref.innovation_absmax(g, q, e))
+            p, r, sq = lag_trigger.laq_encode_2d(g, q, e, scale, bits)
+            wp, wr, wsq = ref.laq_encode(g, q, e, scale, bits)
+            assert torch.equal(p, wp) and torch.equal(r, wr)
+            torch.testing.assert_close(sq, wsq, rtol=1e-5, atol=0)
+            steps = ops.laq_encode(g, q, e, bits=bits, return_steps=True)[3]
+            assert torch.equal(steps, ref.quantizer_step(scale, bits)
+                               .reshape(1))

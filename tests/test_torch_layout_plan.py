@@ -24,6 +24,7 @@ from repro.fastpath import kernels as jk
 from repro.fastpath.layout import FlatLayout as JFlatLayout
 from repro.fastpath.plan import FastPathPlan as JPlan
 
+from cuda_helpers import RAGGED, np_tree
 from repro_torch.core.tree import tree_flatten, tree_leaves
 from repro_torch.fastpath import kernels, kernels_ref
 from repro_torch.fastpath.layout import BLOCK, LANES, FlatLayout
@@ -32,19 +33,6 @@ from repro_torch.fastpath.plan import FastPathPlan, make_plan
 SUM_RTOL = 1e-5
 RESID_ULPS = 1
 SRC = Path(__file__).resolve().parents[1] / "src"
-
-# ragged leaf sizes: sub-lane, LANES−1, LANES+1, one exact block, empty
-RAGGED = (1, LANES - 1, LANES + 1, BLOCK, 0)
-
-
-def np_tree(W=None, seed=0, sizes=RAGGED, scale=1.0):
-    """Nested tree whose insertion order differs from JAX's sorted order."""
-    rng = np.random.default_rng(seed)
-    lead = () if W is None else (W,)
-    mk = lambda s: (scale * rng.standard_normal(lead + (s,))).astype(
-        np.float32)
-    return {"z": mk(sizes[0]), "b": {"y": mk(sizes[1]), "a": mk(sizes[2])},
-            "m": [mk(sizes[3]), mk(sizes[4])]}
 
 
 def to_torch(tree):
@@ -301,7 +289,8 @@ def test_plan_laq_steps_are_ieee_quotients(bits):
     """The plane's steps are the IEEE quotient scale / qmax bit for bit,
     the division of a tensor divisor (on CUDA a Python-scalar divisor
     becomes a multiply by the reciprocal; the card-side check is the
-    ``cuda`` test below and ``chip_smoke.py`` phase 6).  That they equal
+    ``cuda`` test in ``tests/test_torch_layout_plan_cuda.py`` and
+    ``chip_smoke.py`` phase 6).  That they equal
     the reference's steps is ``test_plan_laq_encode_matches_reference``."""
     W = 3
     tg, tq, te = (np_tree(W=W, seed=s) for s in (4, 5, 6))
@@ -332,54 +321,3 @@ def test_plan_modes():
     for bad in ("sometimes", "off", None):
         with pytest.raises(ValueError):
             make_plan(bad)
-
-
-# ---------------------------------------------------------------------------
-# On the card: each CUDA kernel against its plain version
-# ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("W", [1, 3])
-def test_cuda_kernels_match_plain_versions(cuda_device, W):
-    _, (a, b, c) = flat_inputs(W, 3, seed=7 * W)
-    ta, tb, tc = (torch.from_numpy(x).to(cuda_device) for x in (a, b, c))
-    got = kernels.delta_sqnorm_blocks(ta, tb[0]).cpu()
-    want = kernels_ref.delta_sqnorm_blocks(ta.cpu(), tb[0].cpu())
-    torch.testing.assert_close(got, want, rtol=SUM_RTOL, atol=0)
-    got = kernels.absmax_blocks(ta, tb, tc).cpu()
-    assert torch.equal(got, kernels_ref.absmax_blocks(ta.cpu(), tb.cpu(),
-                                                      tc.cpu()))
-    steps = kernels_ref.absmax_blocks(ta, tb, tc) / 7.0
-    p, r, sq = kernels.laq_encode_blocks(ta, tb, tc, steps, 4)
-    wp, wr, wsq = kernels_ref.laq_encode_blocks(ta, tb, tc, steps, 4)
-    assert torch.equal(p, wp) and torch.equal(r, wr)
-    torch.testing.assert_close(sq, wsq, rtol=SUM_RTOL, atol=0)
-    torch.testing.assert_close(kernels.sqnorm_blocks(ta),
-                               kernels_ref.sqnorm_blocks(ta), rtol=SUM_RTOL,
-                               atol=0)
-    mask = torch.tensor([True, False, True][:W], device=cuda_device)
-    for mode in ("add", "update", "select"):
-        assert torch.equal(kernels.masked_combine(ta[0], tb, mask, mode),
-                           kernels_ref.masked_combine(ta[0], tb, mask, mode))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("bits", [2, 4, 8])
-def test_cuda_plan_laq_steps_divide_exactly(cuda_device, bits):
-    """On the card the plane's steps equal the CPU's IEEE division of the
-    same scales, bit for bit."""
-    _, (a, b, c) = flat_inputs(3, 3, seed=11)
-    lo = FlatLayout.for_tree(to_torch(np_tree()))
-    ta, tb, tc = (torch.from_numpy(x).to(cuda_device) for x in (a, b, c))
-    plan = FastPathPlan("on")
-    steps = plan.laq_encode(ta, tb, tc, lo, bits=bits)[3]
-    scales = plan._per_leaf(kernels.absmax_blocks(ta, tb, tc), lo, "max")
-    qmax = float(2 ** (bits - 1) - 1)
-    assert torch.equal(steps.cpu(), scales.cpu() / torch.tensor(qmax))

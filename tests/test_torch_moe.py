@@ -506,28 +506,3 @@ def test_trainer_matches_reference(algo):
                                    rtol=TRAIN_LOSS_RTOL)
         assert m["comm_mask"].tolist() == mask
     assert want[0][1] == [True, True]
-
-
-# ---------------------------------------------------------------------------
-# On the card: the kernel route against the plain route
-# ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_cuda_kernel_route_matches_plain(cuda_device):
-    cfg = get_config(ARCH).reduced()
-    params = model.init(cfg, device=cuda_device, seed=0)
-    b = make_inputs(cfg, TokenStream(cfg.vocab_size), 0, 2, 80,
-                    device=cuda_device)
-    with torch.no_grad():
-        got, got_aux = model.forward_with_aux(
-            params, cfg.replace(use_pallas=True), b)
-        want, want_aux = model.forward_with_aux(params, cfg, b)
-    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-    torch.testing.assert_close(got_aux, want_aux, rtol=RTOL, atol=ATOL)

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from cuda_helpers import cuda_device  # noqa: F401 (a fixture)
 from repro_torch.kernels.rmsnorm import ops, ref
 from repro_torch.kernels.rmsnorm import rmsnorm as rms
 
@@ -39,13 +40,6 @@ def row_count(which: str, d: int, dtype, device) -> int:
     return {"1": 1, "7": 7, "tile+1": tile + 1,
             "3 rings+1": 3 * stages * per_sm * sms * tile + 1,
             "8193": 8193}[which]
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    return torch.device("cuda")
 
 
 def check_kernel(x, s):

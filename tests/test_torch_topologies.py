@@ -105,12 +105,17 @@ def test_make_topology_errors_match_reference(spec):
 @pytest.mark.parametrize("spec", ["graph:9@ring", "devices:2", "devices",
                                   "graph"])
 def test_graph_and_devices_are_not_ported_yet(spec):
-    """``devices`` is still not ported; ``graph`` is since the gossip
-    slice: it builds the reference's graph and rejects as the reference
-    does."""
+    """Both are ported now: ``graph`` (the gossip slice) builds the
+    reference's graph and rejects as the reference does; ``devices`` (the
+    device plane) builds a ``DeviceWorkers`` with the reference's name and
+    unit counts.  (The name is kept from when both raised, so that the
+    test's history stays one.)"""
     if spec.startswith("devices"):
-        with pytest.raises(ValueError, match="not ported yet"):
-            make_topology(spec)
+        got, want = make_topology(spec), jmake_topology(spec)
+        assert type(got).__name__ == "DeviceWorkers"
+        assert (got.name, got.num_units, got.num_devices(4), got.units(4)) \
+            == (want.name, want.num_units, want.num_devices(4),
+                want.units(4))
     elif spec == "graph":
         with pytest.raises(ValueError) as got:
             make_topology(spec)
@@ -416,17 +421,21 @@ def test_experiment_model_priced_on_a_cluster():
     assert f.round_seconds.shape == (3,) and f.extras["cluster"] == "fleet"
 
 
-@pytest.mark.parametrize("kw, match", [
-    ({"topology": "sim"}, "'shards' or 'pods:N'"),
-    # graph:9@ring is ported since the gossip slice (its rejects are in
-    # tests/test_torch_graph.py); devices still is not, at any count
-    ({"topology": "devices:4"}, "not ported yet"),
-    ({"topology": "devices:2"}, "not ported yet"),
-    ({"model": 3}, "ModelConfig or an arch name"),
-])
-def test_experiment_model_validation(kw, match):
+# graph:9@ring is ported since the gossip slice (its rejects are in
+# tests/test_torch_graph.py), devices since the device plane: outside a
+# torch.distributed group of D ranks it raises, naming the launcher (the
+# multi-rank runs are tests/test_torch_devrun.py's).  The cases keep the
+# ids they had while devices raised "not ported yet".
+@pytest.mark.parametrize("kw, exc, match", [
+    ({"topology": "sim"}, ValueError, "'shards' or 'pods:N'"),
+    ({"topology": "devices:4"}, RuntimeError, "repro_torch.launch.train"),
+    ({"topology": "devices:2"}, RuntimeError, "repro_torch.launch.train"),
+    ({"model": 3}, ValueError, "ModelConfig or an arch name"),
+], ids=["kw0-'shards' or 'pods:N'", "kw1-not ported yet",
+        "kw2-not ported yet", "kw3-ModelConfig or an arch name"])
+def test_experiment_model_validation(kw, exc, match):
     kw = dict({"model": "llama3.2-1b", "steps": 1, "device": "cpu"}, **kw)
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(exc, match=match):
         Experiment(**kw).run()
 
 
