@@ -426,6 +426,21 @@ Phases (any failure raises and the script exits non-zero):
         history raised by 1e9) moving the mask and the losses alone; each rank's kernels 1-4
         launched every round, its launches added to the kernels line; ms a
         round, gather ms and peak GB a rank.
+ 24. the host mesh (``--mesh host``, ``repro_torch.dist.row_shards``: the
+     LAG state row-sharded over the data ranks, θ whole):
+     a. ``launch.train`` over NCCL in this process at one rank (a group of
+        one that the launcher joins: the sharded code, its collectives
+        local), phase 5's lag-wk, 3 rounds: masks, losses, θ and ĝ bitwise
+        phase 5's first 3 rounds; ms a round beside phase 5's;
+     b. two spawned gloo ranks sharing the card (collectives staged
+        through host memory), llama3.2-1b at full width and 2 of 16 layers,
+        W = 2, lag-wk and laq@4, 3 rounds each, against the one-process
+        ``shards:2`` trainer at the same config run here first: masks and
+        losses equal, θ and each rank's ĝ rows bitwise (bit digests); each
+        round's collective records exactly ``sharding.row_shard_records``'
+        prediction; kernels 1-4 launched every round on the ``(2, rows/2,
+        128)`` shards, counted into the kernels line; each rank's peak GB
+        beside the one-process run's.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Times are CUDA-event times on this card (kernels: the mean of
@@ -5774,6 +5789,208 @@ def phase23(torch, dev, phase5_runs, launches, smi):
           f"in {time.perf_counter() - t23:.1f} s on {smi}")
 
 
+MESH_STEPS = 3                  # phase 24's rounds: phase 5's first 3
+MESH_LAYERS = 2                 # 24b's depth (full width)
+MESH_ALGOS = ("lag-wk", "laq@4")
+#: the plane's kernels a round of each 24b algo launches on each rank
+MESH_LAUNCHES = {"lag-wk": {"delta_sqnorm_blocks": 1, "masked_combine": 1},
+                 "laq@4": {"absmax_blocks": 1, "laq_encode_blocks": 1,
+                           "masked_combine": 2}}
+
+
+def mesh_one_phase(torch, phase5_runs):
+    """24a: ``launch.train --mesh host`` over NCCL at one rank in this
+    process (a group of one that the launcher joins, so the row-sharded
+    step runs with its collectives local), lag-wk, 3 rounds, against
+    phase 5's first 3: masks, losses, θ and ĝ bitwise."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        run = trainer_phase(torch, "lag-wk", steps=MESH_STEPS,
+                            digest_after=MESH_STEPS,
+                            extra=("--mesh", "host", "--dist-backend",
+                                   "nccl"))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = phase5_runs["lag-wk"]
+    oracle = want["rounds"][:MESH_STEPS]
+    check([r["mask"] for r in run["rounds"]] == [r["mask"] for r in oracle]
+          and [r["loss"] for r in run["rounds"]]
+          == [r["loss"] for r in oracle],
+          "24a: the host mesh's masks or losses differ from phase 5's")
+    check(run["digest"] == want["digest"],
+          "24a: the host mesh's θ or ĝ differ from phase 5's")
+    p5 = sum(r["ms"] for r in oracle[1:]) / (MESH_STEPS - 1)
+    print(f"  24a --mesh host (nccl, 1 rank) lag-wk: masks, losses, θ and ĝ"
+          f" bitwise phase 5's first {MESH_STEPS} rounds; rounds 1-"
+          f"{MESH_STEPS - 1} {run['summary']['ms']:.1f} ms a round vs phase "
+          f"5's {p5:.1f} ms | peak {run['peak']:.2f} GB")
+    return run["plane"]
+
+
+def mesh_config():
+    from repro_torch.configs import get_config
+    return get_config("llama3.2-1b").replace(num_layers=MESH_LAYERS)
+
+
+def mesh_run(torch, algo, ghat_rows, mesh=None):
+    """MESH_STEPS rounds of ``algo`` at 24b's config (the launcher's
+    settings: W = 2, lr 0.3, seed 0, batch 4, seq 256) on the card, in one
+    process (``mesh`` None) or on this rank's rows: masks, losses, ms, the
+    collective records, the digests of θ (the layout's rows) and of ĝ's
+    rows ``[start, stop)`` for each pair of ``ghat_rows``, ĝ's shape, the
+    plane's launches and the peak."""
+    from repro_torch.data import TokenStream, make_inputs
+    from repro_torch.dist.lag_trainer import (TrainerConfig, init_state,
+                                              make_train_step, param_layout)
+    from repro_torch.fastpath import kernels
+
+    cfg = mesh_config()
+    tcfg = TrainerConfig(algo=algo, num_workers=2, lr=0.3, xi=0.1, D=10)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init_state(cfg, tcfg, device=dev, seed=0, mesh=mesh)
+    step = make_train_step(cfg, tcfg, mesh=mesh)
+    stream = TokenStream(vocab=cfg.vocab_size, seed=0)
+    kernels.reset_launches()
+    rounds = []
+    for k in range(MESH_STEPS):
+        batch = make_inputs(cfg, stream, k, 4, 256, device=dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize(dev)
+        rounds.append(dict(mask=m["comm_mask"].to(torch.int32).tolist(),
+                           loss=float(m["loss"]),
+                           ms=(time.perf_counter() - t0) * 1e3,
+                           records=m.get("records")))
+    gh = state["lag"]["grad_hat"]
+    out = dict(rounds=rounds, launches=dict(kernels.LAUNCHES),
+               theta=bits_digest(torch, state["theta"][
+                   :param_layout(cfg).rows]),
+               grad_hat=[bits_digest(torch, gh[:, a:b])
+                         for a, b in ghat_rows],
+               shape=tuple(gh.shape),
+               peak=torch.cuda.max_memory_allocated(dev) / 1e9)
+    del state, step, m, batch, gh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank(rank):
+    """One rank of 24b, spawned by ``devrun.launch`` in a gloo group of 2
+    sharing the card: MESH_ALGOS on the host mesh, this rank's rows."""
+    import torch
+    from repro_torch.dist import row_shards
+    from repro_torch.dist.lag_trainer import TrainerConfig, param_layout
+    from repro_torch.fastpath.layout import RowShard
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    mesh = make_host_mesh("cpu")
+    sh = RowShard(param_layout(mesh_config()).rows, 2, rank)
+    out = {}
+    for algo in MESH_ALGOS:
+        out[algo] = mesh_run(torch, algo, [(0, sh.valid)], mesh=mesh)
+        out[algo]["predicted"] = row_shards.predicted_records(
+            mesh_config(), TrainerConfig(algo=algo, num_workers=2), mesh)
+    return out
+
+
+def mesh_two_phase(torch):
+    """24b: two gloo ranks sharing the card against the one-process
+    ``shards:2`` trainer at the same config (run here first).  Returns the
+    ranks' plane launches, summed."""
+    from repro_torch import devrun
+    from repro_torch.dist.collectives import collective_bytes
+    from repro_torch.dist.lag_trainer import param_layout
+    from repro_torch.fastpath.layout import RowShard
+
+    rows = param_layout(mesh_config()).rows
+    shards = [RowShard(rows, 2, r) for r in range(2)]
+    want = {algo: mesh_run(torch, algo, [(sh.start, sh.start + sh.valid)
+                                         for sh in shards])
+            for algo in MESH_ALGOS}
+    t0 = time.perf_counter()
+    ranks = devrun.launch(mesh_rank, 2, backend="gloo", device="cuda",
+                          timeout=600.0)
+    wall = time.perf_counter() - t0
+    launches = {}
+    for algo in MESH_ALGOS:
+        w = want[algo]
+        for rank, res in enumerate(ranks):
+            got = res[algo]
+            check([r["mask"] for r in got["rounds"]]
+                  == [r["mask"] for r in w["rounds"]]
+                  and [r["loss"] for r in got["rounds"]]
+                  == [r["loss"] for r in w["rounds"]],
+                  f"24b {algo} rank {rank}: masks or losses differ from "
+                  f"shards:2's: {[r['loss'] for r in got['rounds']]} vs "
+                  f"{[r['loss'] for r in w['rounds']]}")
+            check(got["theta"] == w["theta"],
+                  f"24b {algo} rank {rank}: θ differs from shards:2's")
+            check(got["grad_hat"] == [w["grad_hat"][rank]],
+                  f"24b {algo} rank {rank}: its ĝ rows differ from "
+                  f"shards:2's")
+            check(got["shape"] == (2, shards[rank].shard_rows, 128),
+                  f"24b {algo} rank {rank}: ĝ is {got['shape']}")
+            key = lambda r: (r["what"], r["kind"], r["bytes"])
+            pred = sorted(map(key, got["predicted"]))
+            for k, r in enumerate(got["rounds"]):
+                check(sorted(map(key, r["records"])) == pred,
+                      f"24b {algo} rank {rank} round {k}: records "
+                      f"{sorted(map(key, r['records']))} vs predicted {pred}")
+            counted = collective_bytes(got["rounds"][0]["records"])
+            check(counted.total_bytes
+                  == collective_bytes(got["predicted"]).total_bytes,
+                  f"24b {algo} rank {rank}: counted bytes differ")
+            for n, per in MESH_LAUNCHES[algo].items():
+                check(got["launches"].get(n, 0) == per * MESH_STEPS,
+                      f"24b {algo} rank {rank}: {n} launched "
+                      f"{got['launches'].get(n, 0)} times in {MESH_STEPS} "
+                      f"rounds, want {per} a round")
+            for n, v in got["launches"].items():
+                launches[n] = launches.get(n, 0) + v
+            per_round = {n: v // MESH_STEPS
+                         for n, v in got["launches"].items() if v}
+            mean = lambda rs: sum(r["ms"] for r in rs[1:]) / (len(rs) - 1)
+            print(f"  24b {algo} rank {rank}: ĝ {got['shape']} of {rows} "
+                  f"rows; masks {[r['mask'] for r in got['rounds']]} and "
+                  f"losses equal to shards:2's, θ and ĝ rows bitwise | "
+                  f"rounds 1-{MESH_STEPS - 1} mean {mean(got['rounds']):.1f}"
+                  f" ms vs shards:2's {mean(w['rounds']):.1f} ms | counted "
+                  f"{counted.total_bytes:.0f} B a round (staged "
+                  f"{counted.staged_bytes:.0f} B) = predicted | launches a "
+                  f"round {per_round} | peak {got['peak']:.2f} GB vs "
+                  f"shards:2's {w['peak']:.2f} GB")
+    print(f"  phase 24b: 2 ranks, {wall:.1f} s with their start")
+    return launches
+
+
+def phase24(torch, phase5_runs, launches, smi):
+    """Phase 24: 24a's one NCCL rank and 24b's two gloo ranks on the host
+    mesh; their launches into ``launches``."""
+    t24 = time.perf_counter()
+    p24 = mesh_one_phase(torch, phase5_runs)
+    for k, v in mesh_two_phase(torch).items():
+        p24[k] = p24.get(k, 0) + v
+    for k, v in p24.items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"  phase 24 launches: { {k: v for k, v in p24.items() if v} } "
+          f"in {time.perf_counter() - t24:.1f} s on {smi}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6111,6 +6328,11 @@ def main():
         "devices:1 over nccl vs shards:1, c devices:2 over gloo (two ranks "
         "sharing the card) vs phase 5's shards:2", flush=True)
     phase23(torch, dev, phase5_runs, launches, smi)
+
+    say("[24] the host mesh (--mesh host): a one NCCL rank vs phase 5, b "
+        "two gloo ranks sharing the card (llama3.2-1b at 2 layers) vs "
+        "shards:2", flush=True)
+    phase24(torch, phase5_runs, launches, smi)
 
     rows = [dict(name=k, route="cuda", source=SOURCES.get(k, SOURCE),
                  replaces=REPLACES[k], launches=launches.get(k, 0),

@@ -126,7 +126,7 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, like: Pytree, step: Optional[int] = None,
-            take: Optional[Dict[str, int]] = None) -> Tuple[Pytree, int]:
+            take: Optional[Dict[str, Any]] = None) -> Tuple[Pytree, int]:
     """Restore step ``step`` (the latest by default) into ``like``: every
     tensor leaf is overwritten in place (cast to its dtype, on its device),
     scalar leaves are replaced.  Raises when a path of ``like`` is missing
@@ -134,7 +134,9 @@ def restore(ckpt_dir: str, like: Pytree, step: Optional[int] = None,
     different topology or policy), and on a shape mismatch.  ``take``
     maps a path to a worker: the checkpoint's entry there has a leading
     worker dim, and that worker's slot alone is restored (a rank of the
-    device plane restores its own mirror state from a ``shards:D`` file).
+    device plane restores its own mirror state from a ``shards:D`` file);
+    or to an index (a tuple of slices), and that part of the entry alone is
+    restored (a rank of the row-sharded trainer restores its rows).
     Returns ``(tree, step)``."""
     if step is None:
         step = latest_step(ckpt_dir)
@@ -158,7 +160,8 @@ def restore(ckpt_dir: str, like: Pytree, step: Optional[int] = None,
         for path, leaf in zip(paths, leaves):
             arr = z[keys[path]]
             if take and path in take:
-                arr = arr[take[path]:take[path] + 1]
+                t = take[path]
+                arr = arr[t:t + 1] if isinstance(t, int) else arr[t]
             shape = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) \
                 else np.shape(leaf)
             if tuple(arr.shape) != tuple(shape):

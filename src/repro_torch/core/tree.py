@@ -7,6 +7,9 @@ the port flattens with JAX's rules: dict children by sorted key, list and
 tuple children in order (a ``NamedTuple`` by field, rebuilt as its own
 type), ``None`` as an empty node, anything else (a tensor, a numpy array, a
 scalar) as a leaf.
+:func:`tree_paths` names each leaf as ``jax.tree_util.keystr`` does
+(``"['params']['blocks']['0']['attn']['wq']"``), the strings the
+placement rules of ``repro_torch.dist.sharding`` key on.
 """
 from __future__ import annotations
 
@@ -73,6 +76,34 @@ def tree_unflatten(treedef: TreeDef, leaves) -> Pytree:
     rest = list(it)
     if rest:
         raise ValueError(f"{len(rest)} leaves left over after unflatten")
+    return out
+
+
+def _paths(t, prefix: str, out: List[str], is_leaf) -> None:
+    if is_leaf is not None and is_leaf(t):
+        out.append(prefix)
+    elif t is None:
+        return
+    elif isinstance(t, dict):
+        for k in sorted(t):
+            _paths(t[k], f"{prefix}[{k!r}]", out, is_leaf)
+    elif isinstance(t, tuple) and hasattr(t, "_fields"):
+        for k, c in zip(t._fields, t):
+            _paths(c, f"{prefix}.{k}", out, is_leaf)
+    elif isinstance(t, (list, tuple)):
+        for i, c in enumerate(t):
+            _paths(c, f"{prefix}[{i}]", out, is_leaf)
+    else:
+        out.append(prefix)
+
+
+def tree_paths(tree: Pytree, is_leaf: Optional[Callable] = None
+               ) -> List[str]:
+    """Each leaf's path in :func:`tree_flatten`'s order, spelled as
+    ``jax.tree_util.keystr`` spells it: ``[<key>!r]`` for a dict key,
+    ``[i]`` for a list or tuple index, ``.<field>`` for a NamedTuple's."""
+    out: List[str] = []
+    _paths(tree, "", out, is_leaf)
     return out
 
 

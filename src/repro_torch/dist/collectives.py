@@ -6,7 +6,8 @@ and charges every collective op its ring-algorithm wire bytes.  A PyTorch
 program has no HLO: the device plane (``repro_torch.devrun``) calls its
 collectives one by one, so :func:`all_gather` writes one record per call
 (kind, output bytes, group) and :func:`collective_bytes` totals the records
-with the reference's cost model.  LAQ (Sun et al., 2019) argues that
+with the reference's cost model (:func:`all_to_all` and
+:func:`all_gather_rows`, the row-sharded trainer's, likewise).  LAQ (Sun et al., 2019) argues that
 communication savings must be measured in bytes on the wire, not upload
 counts; with ``pod_size`` the bytes that cross a pod boundary are totalled
 too.
@@ -179,3 +180,77 @@ def all_gather(x: torch.Tensor, *, records: Optional[List[dict]] = None,
                         "group": ranks, "what": what,
                         "staged_bytes": nbytes if staged else 0})
     return out
+
+
+def _ranks(group, n: int) -> List[int]:
+    import torch.distributed as dist
+    return dist.get_process_group_ranks(group) if group is not None \
+        else list(range(n))
+
+
+def all_to_all(x: torch.Tensor, *, records: Optional[List[dict]] = None,
+               what: Optional[str] = None, group=None) -> torch.Tensor:
+    """``x``'s dim 0 cut into n equal chunks, chunk s sent to rank s of
+    ``group``; returns the chunks every rank sent here, in rank order, in
+    ``x``'s shape, on ``x``'s device — written as one record (``bytes``:
+    ``x``'s, as the reference's all-to-all is charged).
+
+    NCCL exchanges CUDA tensors on the card.  gloo exchanges host tensors:
+    a CUDA ``x`` is staged through host memory, down and back, and
+    ``staged_bytes`` counts both copies."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    if x.shape[0] % n:
+        raise ValueError(f"all_to_all: dim 0 of {tuple(x.shape)} is not a "
+                         f"multiple of the group's {n} ranks")
+    staged = dist.get_backend(group) == "gloo" and x.is_cuda
+    src = (x.detach().to("cpu") if staged else x.detach()).contiguous()
+    nbytes = src.numel() * src.element_size()
+    out = torch.empty_like(src)
+    if nbytes:
+        dist.all_to_all_single(out.view(-1).view(torch.uint8),
+                               src.view(-1).view(torch.uint8), group=group)
+    if records is not None:
+        records.append({"kind": "all-to-all", "bytes": nbytes,
+                        "group": _ranks(group, n), "what": what,
+                        "staged_bytes": 2 * nbytes if staged else 0})
+    return out.to(x.device) if staged else out
+
+
+def all_gather_rows(buf: torch.Tensor, *, records: Optional[List[dict]]
+                    = None, what: Optional[str] = None, group=None
+                    ) -> torch.Tensor:
+    """Every rank's row range of ``buf`` into every rank's ``buf``, in
+    place: ``buf`` is ``(n·R, …)`` and rank r owns rows ``[r·R,
+    (r+1)·R)``, which it has written; one record (``bytes``: the gathered
+    buffer's, as :func:`all_gather`'s).  NCCL gathers into ``buf`` on the
+    card; gloo stages a CUDA ``buf``'s rows through host memory, down and
+    back (``staged_bytes``)."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    r = dist.get_rank(group)
+    if buf.shape[0] % n or not buf.is_contiguous():
+        raise ValueError(f"all_gather_rows: want a contiguous buffer of n·R "
+                         f"rows for the group's {n} ranks, got "
+                         f"{tuple(buf.shape)}")
+    R = buf.shape[0] // n
+    staged = dist.get_backend(group) == "gloo" and buf.is_cuda
+    mine = buf[r * R:(r + 1) * R]
+    src = mine.to("cpu") if staged else mine.clone()
+    out = torch.empty((n * R,) + tuple(buf.shape[1:]), dtype=buf.dtype,
+                      device="cpu") if staged else buf
+    nbytes = src.numel() * src.element_size()
+    if nbytes:
+        gather = getattr(dist, "all_gather_single", None) \
+            or dist.all_gather_into_tensor
+        gather(out.view(-1).view(torch.uint8),
+               src.view(-1).view(torch.uint8), group=group)
+    if staged:
+        buf.copy_(out)
+    if records is not None:
+        records.append({"kind": "all-gather", "bytes": n * nbytes,
+                        "group": _ranks(group, n), "what": what,
+                        "staged_bytes": (1 + n) * nbytes if staged else 0})
+    return buf

@@ -57,7 +57,8 @@ from repro_torch.engine import rounds as engine_rounds
 from repro_torch.engine import server as server_lib
 from repro_torch.engine.topology import BatchShards
 from repro_torch.fastpath import plan as plan_lib
-from repro_torch.fastpath.layout import Layout, layout_for, parts_of, row
+from repro_torch.fastpath.layout import (LANES, Layout, layout_for,
+                                         parts_of, row)
 from repro_torch.kernels.lag_trigger import ops as lag_ops
 from repro_torch.models import model
 from repro_torch.models.common import ModelConfig
@@ -185,14 +186,17 @@ def check_trainable(cfg: ModelConfig, tcfg: Optional[TrainerConfig] = None,
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: ModelConfig, *, device, seed: int = 0,
-                params: Optional[Dict] = None) -> torch.Tensor:
+                params: Optional[Dict] = None,
+                rows: Optional[int] = None) -> torch.Tensor:
     """The flat ``(rows, 128)`` θ buffer on ``device``, at the layout's
     dtype (a ``Parts`` pair for a tree of two dtypes): ``params`` (a
     parameter tree) copied in, or weights drawn from a ``torch.Generator``
-    seeded with ``seed``."""
+    seeded with ``seed``.  ``rows`` (a tree of one dtype) pads the buffer
+    with zero rows past the layout's (the row-sharded trainer's θ)."""
     device = torch.device(device)
     lo = param_layout(cfg)
-    theta = lo.empty(device=device)
+    theta = lo.empty(device=device) if rows is None else torch.zeros(
+        (rows, LANES), dtype=lo.dtype, device=device)
     if params is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
@@ -204,7 +208,7 @@ def init_params(cfg: ModelConfig, *, device, seed: int = 0,
 
 def init_state(cfg: ModelConfig, tcfg: TrainerConfig, *, device,
                seed: int = 0, params: Optional[Dict] = None,
-               policy=None, server=None, topology=None) -> Dict:
+               policy=None, server=None, topology=None, mesh=None) -> Dict:
     """Fresh trainer state on ``device``.
 
     ``params`` (a parameter tree, e.g. from ``repro_torch.weights``) is
@@ -216,7 +220,15 @@ def init_state(cfg: ModelConfig, tcfg: TrainerConfig, *, device,
     group.  Dtypes as the reference's ``init_state``: θ, θ̂ and ∇ at the
     parameters' dtype, ĝ at ``tcfg.grad_hat_dtype`` (default: the
     parameters'), LAQ's residual float32.
+
+    ``mesh`` (a host mesh, ``launch.mesh.make_host_mesh``): this rank's
+    state of the row-sharded trainer (``dist.row_shards.init_state``).
     """
+    if mesh is not None:
+        from repro_torch.dist import row_shards
+        return row_shards.init_state(cfg, tcfg, device=device, mesh=mesh,
+                                     seed=seed, params=params, policy=policy,
+                                     server=server, topology=topology)
     check_trainable(cfg, tcfg, topology)
     device = torch.device(device)
     W = tcfg.num_workers
@@ -325,7 +337,8 @@ def phase_ms(metrics: Dict) -> Dict[str, float]:
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainerConfig, policy=None,
-                    server=None, topology=None, schedule_seed: int = 0):
+                    server=None, topology=None, schedule_seed: int = 0,
+                    mesh=None):
     """Build ``train_step(state, batch) → (state, metrics)``; the state's
     buffers are updated in place.  ``topology`` (default ``BatchShards``)
     places the batch, may hand each worker its own parameter view (the
@@ -335,7 +348,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainerConfig, policy=None,
     draw (num-IAG), deterministic in the step counter.  On the GPU, ``metrics["phase_events"]`` holds three CUDA
     events: before the gradients (both passes for LASG-WK), after them,
     after the round (read them with :func:`phase_ms` once the device has
-    caught up)."""
+    caught up).  ``mesh`` (a host mesh): this rank's step of the
+    row-sharded trainer (``dist.row_shards.make_train_step``)."""
+    if mesh is not None:
+        from repro_torch.dist import row_shards
+        return row_shards.make_train_step(cfg, tcfg, mesh=mesh, policy=policy,
+                                          server=server, topology=topology,
+                                          schedule_seed=schedule_seed)
     check_trainable(cfg, tcfg, topology)
     policy = policy if policy is not None else tcfg.comm_policy()
     server = server if server is not None else tcfg.server_optimizer()

@@ -265,18 +265,32 @@ def finish_round(policy: CommPolicy, server: ServerOptimizer,
                  lagcfg: lag.LAGConfig, *, theta, layout: Layout, opt_state,
                  lag_state: Dict, comm: torch.Tensor, sum_delta,
                  new_pst: Dict,
-                 step: int, index: Optional[torch.Tensor] = None):
+                 step: int, index: Optional[torch.Tensor] = None,
+                 rows=None):
     """The server half of :func:`lag_round`: aggregate recursion, server
     step (``opt_state`` is the server's flat state, None for a stateless
     one), history push, counters, metrics.  ``index`` maps each mask slot
     to its row of ``comm_per_worker`` when the two differ — the fleet's
-    (k,) cohort mask against its per-client (N,) counter."""
+    (k,) cohort mask against its per-client (N,) counter.
+
+    ``rows`` (the row-sharded trainer's ``dist.row_shards.RowShardComm``):
+    ``sum_delta`` and ∇ are this rank's rows; the server steps this rank's
+    rows of θ and of its state from them (every server is elementwise),
+    and the rows are gathered back into the replicated θ and state.  The
+    history's ‖θ^{k+1} − θ^k‖² is then summed leaf by leaf over the whole
+    replicated θ, on every rank alike, so it is bitwise the one-rank
+    trainer's; masks and counters come out the same on every rank."""
     # ∇^k = ∇^{k-1} + Σ δ∇
     nabla = tree_map(lambda n, s: n.add_(s), lag_state["nabla"], sum_delta)
     del sum_delta
     # every server is elementwise: it steps the flat buffers (one-leaf
     # trees; the zero padding stays zero) and keeps its state flat
-    new_theta, new_opt = server.apply(theta, opt_state, nabla, step, lagcfg)
+    if rows is None:
+        new_theta, new_opt = server.apply(theta, opt_state, nabla, step,
+                                          lagcfg)
+    else:
+        new_theta, new_opt = rows.server_step(server, theta, opt_state,
+                                              nabla, step, lagcfg)
     params = layout.unflatten(theta)
     # iterate-lag entry from the ACTUAL movement, summed leaf by leaf
     hist_new = lag.hist_push(lag_state["hist"], lag.tree_sqdist(

@@ -26,6 +26,11 @@ float32 leaves, each in tree order, and its state buffers are
 config of the reference has one).  The reference casts every
 leaf to float32 for its plane and scatters each back at the leaf's dtype;
 here every leaf stays at its own dtype between operations.
+
+:class:`RowShard` cuts a layout's rows into N contiguous ranges of whole
+``BLOCK_ROWS`` blocks, one a rank (the row-sharded trainer,
+``repro_torch.dist.row_shards``): every sub-block, and so every per-leaf
+partial, lies whole on one rank.
 """
 from __future__ import annotations
 
@@ -442,6 +447,79 @@ class MixedLayout:
 
 
 Layout = Union[FlatLayout, MixedLayout]
+
+
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+    """Rank ``rank``'s rows of a ``rows``-row flat buffer cut over
+    ``ranks`` ranks.  Every rank owns the same count ``shard_rows`` of
+    rows, a multiple of ``BLOCK_ROWS`` (so every ``SUB_ROWS`` sub-block lies
+    whole on one rank, and the leaves' padding stays where the one-rank
+    layout has it): the buffer's rows are padded to ``padded_rows`` =
+    ``ranks`` × ``shard_rows``, and the rows past ``rows`` are zero padding
+    on the last ranks (all-zero, absorbing for every plane op, as the
+    layout's own tail).  Rank r owns rows ``[start, stop)``; ``valid`` of
+    them hold the layout's rows."""
+    rows: int
+    ranks: int
+    rank: int
+
+    def __post_init__(self):
+        if self.rows % BLOCK_ROWS or not 0 <= self.rank < self.ranks:
+            raise ValueError(f"a row shard needs rows a multiple of "
+                             f"{BLOCK_ROWS} and 0 <= rank < ranks, got "
+                             f"rows {self.rows}, rank {self.rank} of "
+                             f"{self.ranks}")
+
+    @property
+    def shard_rows(self) -> int:
+        blocks = self.rows // BLOCK_ROWS
+        return -(-blocks // self.ranks) * BLOCK_ROWS
+
+    @property
+    def padded_rows(self) -> int:
+        return self.ranks * self.shard_rows
+
+    @property
+    def start(self) -> int:
+        return self.rank * self.shard_rows
+
+    @property
+    def stop(self) -> int:
+        return self.start + self.shard_rows
+
+    @property
+    def valid(self) -> int:
+        """The layout's rows among this rank's (the rest is padding)."""
+        return max(0, min(self.stop, self.rows) - self.start)
+
+    @property
+    def row_slice(self) -> slice:
+        return slice(self.start, self.stop)
+
+    @property
+    def subs(self) -> slice:
+        """This rank's sub-blocks, in the padded buffer's numbering."""
+        return slice(self.start // SUB_ROWS, self.stop // SUB_ROWS)
+
+    def of(self, buf: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a padded ``(…, padded_rows, LANES)`` buffer
+        (a view)."""
+        return buf[..., self.start:self.stop, :]
+
+    def layout(self, dtype: torch.dtype) -> FlatLayout:
+        """The one-leaf layout of a ``(shard_rows, LANES)`` buffer of
+        ``dtype``: what the plain route sees of a shard (elementwise
+        payloads only: a norm over it would be a shard's norm)."""
+        return FlatLayout.for_tree(
+            [torch.empty((self.shard_rows * LANES,), dtype=dtype,
+                         device="meta")])
+
+    def sub_leaf(self, lo: FlatLayout) -> np.ndarray:
+        """``lo.sub_leaf`` of this rank's sub-blocks (padding: leaf 0)."""
+        full = np.zeros((self.padded_rows // SUB_ROWS,), np.int32)
+        full[:lo.sub_leaf.shape[0]] = lo.sub_leaf
+        return full[self.subs]
 
 
 def layout_for(tree: Pytree) -> Layout:

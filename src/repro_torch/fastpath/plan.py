@@ -24,6 +24,12 @@ op launches its kernel once per part, at that part's dtypes
 of both parts in the tree's leaf order and only then reduces across
 leaves, so the sums are the reference's.  Each part's zero tail folds into
 that part's first leaf.
+
+:class:`RowShardPlan` runs the same ops on one rank's row shard
+(``layout.RowShard``): each kernel on the rank's ``(W, shard_rows, 128)``
+operands, its per-sub-block partials gathered across ranks in rank order
+into the one-rank ``(W, nsubs)`` partials, then folded in the order above —
+so every sum and max is bitwise the one-rank plane's.
 """
 from __future__ import annotations
 
@@ -122,15 +128,34 @@ class FastPathPlan:
 
     # -- buffer-level ops (one kernel launch per part each) ------------------
 
+    # -- what a row shard changes (RowShardPlan) ---------------------------
+
+    def _layout(self, lo):
+        """The layout the partials are reduced with."""
+        return lo
+
+    def _whole(self, partials: torch.Tensor, what: str) -> torch.Tensor:
+        """The (W, nsubs) partials of the whole buffer from this call's
+        own kernel's: here they are."""
+        return partials
+
+    def _step_subs(self, p: FlatLayout, device) -> torch.Tensor:
+        """Each of the operands' sub-blocks' leaf (LAQ's per-sub-block
+        step)."""
+        return self.sub_leaf(p, device)
+
     def delta_sqnorm(self, a, b, lo) -> torch.Tensor:
         """Per-worker ‖a − b‖² over (W, rows, 128) buffers → (W,) float32.
         ``b`` may be the unstacked (rows, 128) shared buffer."""
-        return self._leaf_sums([kernels.delta_sqnorm_blocks(x, y) for x, y
-                                in zip(parts_of(a), parts_of(b))], lo)
+        return self._leaf_sums([self._whole(kernels.delta_sqnorm_blocks(
+            x, y), "delta_sqnorm") for x, y in zip(parts_of(a),
+                                                   parts_of(b))],
+            self._layout(lo))
 
     def sqnorm(self, t: torch.Tensor, lo: FlatLayout) -> torch.Tensor:
         """Per-worker ‖t‖² over a (W, rows, 128) buffer → (W,) float32."""
-        return self._total(kernels.sqnorm_blocks(t), lo)
+        return self._total(self._whole(kernels.sqnorm_blocks(t), "sqnorm"),
+                           self._layout(lo))
 
     def laq_encode(self, g, q, e, lo, *, bits: int, payload_out=None):
         """Batched LAQ encode with per-(worker, leaf) quantizer scales.
@@ -147,19 +172,20 @@ class FastPathPlan:
         ``g``; of a pair, per part, None where a part takes a new buffer)
         receives the payload in place.
         """
+        lo = self._layout(lo)
         pays, resids, sqs, steps = [], [], [], []
         for p, x, y, z, o in zip(lo.parts, parts_of(g), parts_of(q),
                                  parts_of(e), _outs(payload_out, g)):
-            scales = self._per_leaf(kernels.absmax_blocks(x, y, z), p,
-                                    "max")                # (W, leaves of p)
+            scales = self._per_leaf(self._whole(kernels.absmax_blocks(
+                x, y, z), "absmax"), p, "max")            # (W, leaves of p)
             st = scales / torch.full_like(scales,
                                           float(2 ** (bits - 1) - 1))
             pay, res, sq = kernels.laq_encode_blocks(
-                x, y, z, st[:, self.sub_leaf(p, x.device)], bits,
+                x, y, z, st[:, self._step_subs(p, x.device)], bits,
                 payload_out=o)
             pays.append(pay)
             resids.append(res)
-            sqs.append(sq)
+            sqs.append(self._whole(sq, "laq_sq"))
             steps.append(st)
         return (like_parts(g, pays), like_parts(g, resids),
                 self._leaf_sums(sqs, lo), self._leaf_order(steps, lo))
@@ -179,6 +205,52 @@ class FastPathPlan:
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return f"FastPathPlan(mode={self.mode!r})"
+
+
+class RowShardPlan(FastPathPlan):
+    """The plane on one rank's rows of a ``FlatLayout`` (``layout.
+    RowShard``).  The kernels run on the rank's ``(W, shard_rows, 128)``
+    buffers; ``gather(partials, what)`` (the trainer's collective) returns
+    every rank's ``(W, shard_rows/8)`` partials stacked in rank order; they
+    are cut back to the layout's sub-blocks and reduced with the full
+    layout, so ‖g − ĝ‖², the trigger's right-hand side and LAQ's absmax are
+    bitwise the one-rank plane's.  The ops take the shard's one-leaf layout
+    (``RowShard.layout``) as ``lo``, the layout the plain route sees; the
+    full layout is the plan's own."""
+
+    def __init__(self, mode: str, full: FlatLayout, shard, gather):
+        super().__init__(mode)
+        if not isinstance(full, FlatLayout):
+            raise TypeError("a row-sharded plane takes a tree of one dtype "
+                            "(a FlatLayout), not a MixedLayout's parts")
+        self.full, self.shard, self.gather = full, shard, gather
+        self._shard_subs: Dict[str, torch.Tensor] = {}
+
+    def supports(self, layout) -> bool:
+        return FastPathPlan.supports(self.full)
+
+    def _layout(self, lo):
+        if lo.rows != self.shard.shard_rows:
+            raise ValueError(f"a row-sharded plane takes the shard's "
+                             f"{self.shard.shard_rows} rows, got {lo.rows}")
+        return self.full
+
+    def _whole(self, partials: torch.Tensor, what: str) -> torch.Tensor:
+        """This rank's (W, shard_rows/8) partials → every rank's, as the
+        one-rank (W, rows/8) partials (a contiguous tensor, laid out as
+        the one-rank kernel's output is)."""
+        g = self.gather(partials, what).to(partials.device)  # (N, W, s)
+        whole = g.permute(1, 0, 2).reshape(partials.shape[0], -1)
+        return whole[:, :self.full.rows // 8].contiguous()
+
+    def _step_subs(self, p: FlatLayout, device) -> torch.Tensor:
+        key = str(device)
+        idx = self._shard_subs.get(key)
+        if idx is None:
+            idx = torch.as_tensor(self.shard.sub_leaf(self.full),
+                                  dtype=torch.long, device=device)
+            self._shard_subs[key] = idx
+        return idx
 
 
 def _outs(out, like):

@@ -30,9 +30,23 @@ batch and sequence.  One JSON file per combination under ``--out``, with
 the reference's record keys where their meaning carries over
 (``memory.argument_size_in_bytes``: state + inputs;
 ``memory.temp_size_in_bytes``: the transient peak; ``cost.flops``;
-``status``; ``workers``) and ``mesh: "one_card"``.  ``--mesh`` waits
-for the sharding on a mesh (ROADMAP queue 1 item 5); the device plane
-counts its collectives at the call (``repro_torch.devrun``).  A
+``status``; ``workers``) and ``mesh: "one_card"`` (``--mesh one_card``,
+the default).
+
+``--mesh single|multi|both`` reckons the reference's production meshes
+instead, under its record names (``single_pod_16x16``, 256 devices;
+``multi_pod_2x16x16``, 512): per device, ``memory.argument_size_in_bytes``
+is the sum over the reference-layout state and inputs (the reference's
+``init_state`` tree of its ``dryrun_config`` trainer — lag-wk, bfloat16 ĝ
+— and ``arch_worker_count`` workers; the parameters, the decode cache and
+the inputs when serving) of each leaf's bytes over the product of the
+mesh axes its ``dist.sharding`` spec names, and ``fits`` reads it against
+one H100's 80 GB.  Temporaries, FLOPs and collectives on a mesh are not
+reckoned: the reference reads them from the program XLA compiled for the
+mesh, and the port has no compiled program (the port runs no tensor
+parallelism; its collectives are counted at the call,
+``dist.collectives``), so those keys are absent, not guessed.  They are
+refused with ``--reduced``.  A
 bfloat16 or float16 config that keeps float32 leaves (the MoE router,
 mamba2's and RG-LRU's float32 leaves) reckons its training state as the trainer holds
 it: two parts a tree (``fastpath.layout.Parts``), each at its leaves'
@@ -56,16 +70,22 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ALL_ARCHS, ASSIGNED, get_config
 from repro_torch.configs.shapes import SHAPES, applicable, input_specs
-from repro_torch.core.tree import tree_leaves
+from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.dist import sharding
 from repro_torch.dist.lag_trainer import (TrainerConfig, init_state,
                                           make_train_step)
 from repro_torch.fastpath.layout import Parts
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import model
 from repro_torch.models.common import ModelConfig
 
 #: the card's memory (H100 SXM: 80 GB)
 CARD_BYTES = 80e9
 MESH = "one_card"
+#: ``--mesh`` → the reference's production meshes, by its record names
+MESHES = {"single": (("single_pod_16x16", False),),
+          "multi": (("multi_pod_2x16x16", True),),
+          "both": (("single_pod_16x16", False), ("multi_pod_2x16x16", True))}
 
 
 def arch_worker_count(n_params: int) -> int:
@@ -258,6 +278,96 @@ def reckon(cfg: ModelConfig, shape_name: str, workers: int,
     return reckon_serve(cfg, shp.kind, inputs, seq or shp.seq_len)
 
 
+# ---------------------------------------------------------------------------
+# The production meshes: per-device argument bytes under the rules
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def reference_arguments(cfg: ModelConfig, shape_name: str, workers: int
+                        ) -> Dict:
+    """The arguments of the reference's dry-run program for ``cfg`` at
+    ``shape_name`` as meta tensors, in its layout: ``{"state", "batch"}``
+    for training (its ``init_state`` tree of a lag-wk trainer with
+    bfloat16 ĝ: ``params``, ``lag`` = ĝ stacked over the ``workers``, ∇,
+    the history, the counters, and ``step``), ``{"params", "batch"}`` for
+    a prefill, ``{"params", "cache", "tokens", "pos"}`` for a decode
+    step."""
+    shp = SHAPES[shape_name]
+    params = model.templates(cfg)
+    inputs = input_specs(cfg, shape_name)
+    if shp.kind == "train":
+        W = workers
+        lag_state = {
+            "grad_hat": tree_map(lambda p: _meta((W,) + tuple(p.shape),
+                                                 torch.bfloat16), params),
+            "nabla": tree_map(lambda p: _meta(p.shape, p.dtype), params),
+            "hist": _meta((10,), torch.float32),
+            "comm_total": _meta((), torch.int32),
+            "comm_per_worker": _meta((W,), torch.int32)}
+        return {"state": {"params": params, "lag": lag_state,
+                          "step": _meta((), torch.int32)},
+                "batch": inputs}
+    if shp.kind == "prefill":
+        return {"params": params, "batch": inputs}
+    B = inputs["tokens"].shape[0]
+    return {"params": params,
+            "cache": model.init_cache(cfg, B, shp.seq_len, device="meta"),
+            "tokens": {"tokens": inputs["tokens"]},
+            "pos": _meta((), torch.int32)}
+
+
+def argument_bytes_per_device(args: Dict, mesh) -> int:
+    """Σ over ``args``' leaves of each leaf's bytes over the product of
+    the mesh axes in its spec: ``tree_specs`` for the state, parameters and
+    cache (each placed as its own tree, as the reference's dry-run places
+    them), ``batch_specs`` (sequence over model) for the inputs, the
+    decode position replicated."""
+    total = 0
+    for group, tree in args.items():
+        if group == "pos":
+            total += 4
+            continue
+        specs = sharding.batch_specs(tree, mesh) if group in (
+            "batch", "tokens") else sharding.tree_specs(tree, mesh)
+        leaves = tree_leaves(tree)
+        spec_leaves = tree_leaves(specs, is_leaf=lambda x: isinstance(
+            x, sharding.PartitionSpec))
+        total += sum(sharding.shard_bytes(s, t.numel() * t.element_size(),
+                                          mesh)
+                     for s, t in zip(spec_leaves, leaves))
+    return total
+
+
+def run_mesh(arch: str, shape_name: str, workers: int, mesh_name: str,
+             multi_pod: bool, budget: float = CARD_BYTES) -> Dict:
+    """One ``--mesh single|multi`` record: the reference's record keys for
+    what carries over without a compiled program."""
+    cfg = dryrun_config(arch)
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    n = math.prod(mesh.dims)
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
+           "n_devices": n, "dtype": "bfloat16"}
+    ok, reason = applicable(cfg, shape_name)
+    if not ok:
+        rec.update(status="skipped", reason=reason)
+        return rec
+    t0 = time.time()
+    per_dev = argument_bytes_per_device(
+        reference_arguments(cfg, shape_name, workers), mesh)
+    rec.update(status="ok", memory={"argument_size_in_bytes": per_dev},
+               card_bytes=budget, fits=per_dev <= budget,
+               not_reckoned=("temp_size_in_bytes, cost and collectives: "
+                             "the reference reads them from the program "
+                             "XLA compiled for the mesh; the port has none"),
+               reckon_s=round(time.time() - t0, 2))
+    if SHAPES[shape_name].kind == "train":
+        rec["workers"] = workers
+    return rec
+
+
 def max_layers(cfg: ModelConfig, shape_name: str, workers: int,
                budget: float = CARD_BYTES, full: Optional[Dict] = None,
                **kw) -> int:
@@ -342,7 +452,18 @@ def main(argv=None) -> int:
                    choices=("bfloat16", "float16"),
                    help="params and compute (the reference's: bfloat16); "
                         "training keeps ĝ at this dtype")
+    p.add_argument("--mesh", default=MESH,
+                   choices=(MESH,) + tuple(MESHES),
+                   help="one_card (default): the meta-device reckoning on "
+                        "one H100; single / multi / both: the reference's "
+                        "16x16 / 2x16x16 meshes, per-device argument bytes "
+                        "under the placement rules")
     args = p.parse_args(argv)
+    if args.mesh != MESH and (args.reduced or args.dtype != "bfloat16"
+                              or args.batch or args.seq):
+        p.error(f"--mesh {args.mesh} reckons the reference's dry-run "
+                f"configs at their own sizes: it takes no --reduced, "
+                f"--dtype, --batch or --seq")
 
     archs = [args.arch] if args.arch != "all" \
         else (ALL_ARCHS if args.include_sw else ASSIGNED)
@@ -353,12 +474,23 @@ def main(argv=None) -> int:
         workers = args.workers or arch_worker_count(
             count_params(dryrun_config(arch)))
         for shape_name in shapes:
+            if args.mesh != MESH:
+                for mesh_name, multi in MESHES[args.mesh]:
+                    rec = run_mesh(arch, shape_name, workers, mesh_name,
+                                   multi)
+                    _write(args.out, f"{arch}_{shape_name}_{mesh_name}", rec)
+                    if rec["status"] == "ok":
+                        gib = rec["memory"]["argument_size_in_bytes"] / 2**30
+                        extra = f" args/dev={gib:.2f}GiB fits={rec['fits']}"
+                    else:
+                        extra = " " + rec["reason"][:160]
+                    print(f"[{rec['status']:7s}] {arch} × {shape_name} × "
+                          f"{mesh_name}{extra}", flush=True)
+                continue
             rec = run_one(arch, shape_name, workers, CARD_BYTES,
                           args.reduced, args.batch, args.seq, args.dtype)
             tag = "" if args.dtype == "bfloat16" else f"_{args.dtype}"
-            fname = f"{arch}_{shape_name}_{MESH}{tag}.json".replace("/", "_")
-            with open(os.path.join(args.out, fname), "w") as f:
-                json.dump(rec, f, indent=1)
+            _write(args.out, f"{arch}_{shape_name}_{MESH}{tag}", rec)
             status, extra = rec["status"], ""
             if status == "ok":
                 mem = rec["memory"]
@@ -377,6 +509,11 @@ def main(argv=None) -> int:
                   flush=True)
     print(f"done ({n_fail} failures)")
     return n_fail
+
+
+def _write(out: str, stem: str, rec: Dict) -> None:
+    with open(os.path.join(out, stem.replace("/", "_") + ".json"), "w") as f:
+        json.dump(rec, f, indent=1)
 
 
 if __name__ == "__main__":

@@ -5,12 +5,15 @@ over the ranks of the initialised group (one device a rank: the card
 by default, the CPU when asked for).  ``make_production_mesh`` keeps the
 reference's TPU v5e shapes as a description (:class:`MeshShape`) and
 touches no device, so importing or calling it needs none; ``data_axes``
-and ``batch_shards`` read either kind.
+and ``batch_shards`` read either kind.  ``mesh_context`` makes a mesh
+current for the model's activation constraint (``act_shard_axes``), as the
+reference's ``jax.set_mesh`` / ``with mesh`` does.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 
 class MeshShape(NamedTuple):
@@ -29,6 +32,26 @@ def make_mesh(shape, axes, device_type: str = "cuda"):
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(device_type, tuple(shape),
                             mesh_dim_names=tuple(axes))
+
+
+_CURRENT: List = []
+
+
+@contextlib.contextmanager
+def mesh_context(mesh):
+    """Make ``mesh`` (a ``DeviceMesh`` or a :class:`MeshShape`) current
+    inside the block: the mesh that ``ModelConfig.act_shard_axes`` pins
+    activations to (``current_mesh``).  Blocks nest; the innermost wins."""
+    _CURRENT.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _CURRENT.pop()
+
+
+def current_mesh():
+    """The innermost :func:`mesh_context`'s mesh, None outside every one."""
+    return _CURRENT[-1] if _CURRENT else None
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:

@@ -37,6 +37,19 @@ the worker shards' data heterogeneity (``repro_torch.netsim.hetero``);
 directed edge for a graph) and prints the simulated wall-clock against
 GD's.
 
+``--mesh host`` (the default, as in the reference) is the host mesh: with
+``--ranks N`` (or inside a ``torchrun`` group, ``RANK``/``WORLD_SIZE``
+set) the launcher runs ``--topology shards`` on a (N, 1) ``("data",
+"model")`` mesh of N ranks (``repro_torch.dist.row_shards``: rank r owns
+workers r·W/N…, each rank holds 1/N of the rows of ĝ, θ̂, LAQ's residual
+and ∇, θ and the server's state whole); ``--dist-backend`` as for
+``devices:D``, rank 0 prints, logs, prices ``--cluster`` and writes the
+checkpoints (the ``shards:W`` file; every rank restores its rows).  Alone
+(one process, no group) the host mesh is today's one-process trainer.
+``--mesh prod`` / ``prod2`` (the reference's 16×16 and 2×16×16 TPU
+meshes, a model axis of 16) are refused by name: the port runs no tensor
+parallelism.
+
 ``--log run.jsonl`` appends a JSON line at every 10th round and the last
 (``repro_torch.metrics.Logger``); ``--ckpt-dir D --ckpt-every n`` saves
 the whole state every n rounds (``repro_torch.checkpoint``), and
@@ -120,9 +133,18 @@ def build_argparser():
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a GPU) or 'cpu'")
     p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
-                   help="devices:D only: the ranks' backend (default nccl "
-                        "on the card, one card a rank; gloo for --device "
-                        "cpu, or ranks sharing a card)")
+                   help="devices:D or --ranks N: the ranks' backend "
+                        "(default nccl on the card, one card a rank; gloo "
+                        "for --device cpu, or ranks sharing a card)")
+    p.add_argument("--mesh", default="host", choices=["host", "prod", "prod2"],
+                   help="host (default): the (ranks, 1) data x model mesh, "
+                        "the LAG state row-sharded over the ranks; prod / "
+                        "prod2 (the reference's 16x16 / 2x16x16 TPU meshes) "
+                        "are refused: no tensor parallelism")
+    p.add_argument("--ranks", type=int, default=1,
+                   help="--mesh host: spawn this many ranks (or join a "
+                        "torchrun group of as many); 1 without a group: "
+                        "the one-process trainer")
     p.add_argument("--reduced", action="store_true",
                    help="CPU-sized variant of the arch")
     p.add_argument("--layers", type=int, default=None,
@@ -181,18 +203,37 @@ def main(argv=None, on_step=None, use_pallas_comm=False):
     fleet = getattr(topo, "name", None) == "fleet"
     graph = getattr(topo, "name", None) == "graph"
     devices = getattr(topo, "name", None) == "devices"
-    lead, joined = True, False
-    if devices:
+    lead, joined, mesh = True, False, None
+    if args.mesh != "host":
+        from repro_torch.dist import row_shards
+        raise SystemExit(
+            f"--mesh {args.mesh} is the reference's "
+            f"{'2x16x16' if args.mesh == 'prod2' else '16x16'} TPU mesh "
+            f"({512 if args.mesh == 'prod2' else 256} ranks, a model axis of "
+            f"16): tensor parallelism is not ported "
+            f"({row_shards.ITEM_TENSOR_PARALLEL}); --mesh host runs the data "
+            f"axis")
+    meshed = not devices and (args.ranks > 1 or _in_group())
+    if meshed and topo is not None and topo.name != "shards":
+        from repro_torch.dist import row_shards
+        raise SystemExit(
+            f"--mesh host at more than one rank runs --topology shards; "
+            f"--topology {args.topology} under the host mesh is not ported "
+            f"({row_shards.ITEM_TOPOLOGIES})")
+    if devices and args.ranks > 1:
+        raise SystemExit("--ranks is for --mesh host: devices:D spawns its D "
+                         "ranks itself")
+    if devices or meshed:
         import torch.distributed as dist
         from repro_torch import devrun
-        backend = args.dist_backend or ("gloo" if device.type == "cpu"
-                                        else "nccl")
-        D = topo.num_devices(args.workers)
+        ranks = topo.num_devices(args.workers) if devices else args.ranks
         if not dist.is_initialized():
+            backend = args.dist_backend or ("gloo" if device.type == "cpu"
+                                            else "nccl")
             if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
-                devrun.launch(_train_rank, D, backend=backend,
+                devrun.launch(_train_rank, ranks, backend=backend,
                               args=(argv, use_pallas_comm), device=device,
-                              threads=max(1, (os.cpu_count() or 1) // D)
+                              threads=max(1, (os.cpu_count() or 1) // ranks)
                               if device.type == "cpu" else None,
                               timeout=float("inf"))
                 return None
@@ -200,11 +241,21 @@ def main(argv=None, on_step=None, use_pallas_comm=False):
                                  device)
             dist.init_process_group(backend)
             joined = True
+        if meshed:
+            if args.ranks > 1 and dist.get_world_size() != args.ranks:
+                raise SystemExit(f"--ranks {args.ranks} in a group of "
+                                 f"{dist.get_world_size()} ranks")
+            from repro_torch.dist import row_shards
+            from repro_torch.launch.mesh import make_host_mesh
+            mesh = make_host_mesh("cuda" if dist.get_backend() == "nccl"
+                                  else "cpu")
+            device = devrun.rank_device(device)
         lead = dist.get_rank() == 0
         if not lead:
             on_step = None
     elif args.dist_backend is not None:
-        raise SystemExit("--dist-backend is for --topology devices:D")
+        raise SystemExit("--dist-backend is for --topology devices:D or "
+                         "--ranks N")
     if fleet and (args.fleet_churn or args.fleet_selection != "uniform"):
         from repro_torch.fleet import FleetTopology
         topo = FleetTopology(population=topo.population, cohort=topo.cohort,
@@ -250,9 +301,9 @@ def main(argv=None, on_step=None, use_pallas_comm=False):
                                              schedule_seed=args.seed)
     else:
         state = init_state(cfg, tcfg, device=device, seed=args.seed,
-                           policy=policy, topology=topo)
+                           policy=policy, topology=topo, mesh=mesh)
         train_step = make_train_step(cfg, tcfg, policy=policy, topology=topo,
-                                     schedule_seed=args.seed)
+                                     schedule_seed=args.seed, mesh=mesh)
     say = print if lead else (lambda *a, **kw: None)
     start = 0
     if args.resume and args.ckpt_dir and latest_step(args.ckpt_dir) \
@@ -260,6 +311,9 @@ def main(argv=None, on_step=None, use_pallas_comm=False):
         if devices:
             state, start = devrun.restore_checkpoint(args.ckpt_dir, state,
                                                      policy)
+        elif mesh is not None:
+            state, start = row_shards.restore_checkpoint(args.ckpt_dir,
+                                                         state, cfg, mesh)
         else:
             state, start = restore(args.ckpt_dir, state)
         say(f"resumed from step {start}")
@@ -312,6 +366,9 @@ def main(argv=None, on_step=None, use_pallas_comm=False):
             if devices:
                 devrun.save_checkpoint(args.ckpt_dir, step + 1, state,
                                        policy)
+            elif mesh is not None:
+                row_shards.save_checkpoint(args.ckpt_dir, step + 1, state,
+                                           cfg, mesh)
             else:
                 save(args.ckpt_dir, step + 1, state)
     log.close()
@@ -336,9 +393,16 @@ def main(argv=None, on_step=None, use_pallas_comm=False):
     return state
 
 
+def _in_group() -> bool:
+    """True inside an initialised group or a torchrun one to join."""
+    import torch.distributed as dist
+    return (dist.is_available() and dist.is_initialized()) or (
+        "RANK" in os.environ and "WORLD_SIZE" in os.environ)
+
+
 def _train_rank(rank, argv, use_pallas_comm):
-    """A spawned rank of ``devices:D``: the launcher again, inside the
-    group (``devrun.launch`` has initialised it)."""
+    """A spawned rank of ``devices:D`` or ``--ranks N``: the launcher
+    again, inside the group (``devrun.launch`` has initialised it)."""
     main(argv, use_pallas_comm=use_pallas_comm)
 
 

@@ -68,16 +68,20 @@ class ModelConfig:
     # path; for CPU tensors their plain versions
     use_pallas: bool = False
     # the reference's mesh and compile knobs, taken for ``get_config``
-    # parity.  act_shard_axes pins activations to mesh axes: () is the
-    # identity, and any other value needs activations sharded over a
-    # device mesh, which the port does not do yet (ROADMAP queue 1 item 5:
-    # ``launch/mesh.py`` builds the mesh, ``dist/sharding.py`` is still to
-    # port), so ``forward`` raises as
-    # the reference does with no mesh in context; act_shard_seq only
-    # widens that constraint.  scan_unroll (a Python loop instead of
-    # lax.scan) and embed_onehot (the lookup as one_hot @ embed, for a
-    # vocab-sharded table) give the same values in the reference, and the
-    # port runs one program for both: a loop and a gather
+    # parity.  act_shard_axes pins activations (B, S, d) to batch over those
+    # mesh axes (act_shard_seq: sequence over "model" too): () is the
+    # identity; any other value needs a mesh in context
+    # (``launch.mesh.mesh_context``) whose axes include them, and raises by
+    # name without one, as the reference does; on the host mesh the
+    # constraint is the identity on values (``models.model._constrain_act``).
+    # scan_unroll (a Python loop instead of lax.scan) and embed_onehot (the
+    # lookup as one_hot @ embed, for a vocab-sharded table) give the same
+    # values in the reference, and the port runs one program for both: a
+    # loop and a gather.  No port path vocab-shards a table; on one that
+    # does, F.embedding fails in torch 2.13 (a vocab-sharded DTensor table
+    # on a model axis of 2: "IndexError: The shape of the mask … does not
+    # match", and redistributing its output fails on MaskPartial) where
+    # one_hot(tokens) @ table works
     act_shard_axes: Tuple[str, ...] = ()
     act_shard_seq: bool = False
     scan_unroll: bool = False

@@ -299,16 +299,36 @@ def _angles(cfg: ModelConfig, inputs: Dict, B: int, S: int, device):
     return None, None, None
 
 
-def _constrain_act(cfg: ModelConfig) -> None:
-    """The reference's activation sharding constraint: the identity for
-    ``act_shard_axes == ()``; any other value needs a mesh in context, and
-    the reference raises without one, so the port raises."""
-    if cfg.act_shard_axes:
+def _constrain_act(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The reference's activation sharding constraint: (B, S, d) pinned
+    to batch over ``cfg.act_shard_axes`` (sequence over ``"model"`` under
+    ``act_shard_seq``) on the mesh in context (``launch.mesh.
+    mesh_context``).  ``()`` is the identity.  With no mesh in context, or
+    with an axis the mesh lacks, it raises by name, as the reference's
+    ``with_sharding_constraint`` does.  On the host mesh it is a placement
+    the values already have, so the identity on them: the row-sharded
+    trainer (``dist.row_shards``) feeds each rank its own batch rows, and
+    the model axis has one rank."""
+    if not cfg.act_shard_axes:
+        return x
+    from repro_torch.dist.sharding import axis_names
+    from repro_torch.launch.mesh import current_mesh
+    mesh = current_mesh()
+    if mesh is None:
         raise RuntimeError(
-            f"act_shard_axes={cfg.act_shard_axes!r} pins activations to a "
-            f"device mesh, which the port does not shard over yet (ROADMAP "
-            f"queue 1 item 5); the reference's with_sharding_constraint "
-            f"raises without a mesh in context too")
+            f"act_shard_axes={cfg.act_shard_axes!r} pins activations to the "
+            f"mesh in context, and there is none: run the model inside "
+            f"launch.mesh.mesh_context(mesh) (the reference's "
+            f"with_sharding_constraint raises without a mesh too)")
+    want = tuple(cfg.act_shard_axes) + (("model",) if cfg.act_shard_seq
+                                        else ())
+    missing = [a for a in want if a not in axis_names(mesh)]
+    if missing:
+        raise ValueError(f"act_shard_axes={cfg.act_shard_axes!r} (act_shard_"
+                         f"seq={cfg.act_shard_seq}) names mesh axes "
+                         f"{missing} the mesh in context lacks: its axes are "
+                         f"{axis_names(mesh)}")
+    return x
 
 
 def forward_with_aux(params: Dict, cfg: ModelConfig, inputs: Dict
@@ -318,8 +338,7 @@ def forward_with_aux(params: Dict, cfg: ModelConfig, inputs: Dict
     ``cfg.remat``, with gradients enabled, each superblock runs under
     ``torch.utils.checkpoint``; the tail never does."""
     _check_family(cfg)
-    x = _embed(params, cfg, inputs)
-    _constrain_act(cfg)
+    x = _constrain_act(_embed(params, cfg, inputs), cfg)
     B, S, _ = x.shape
     cos, sin, positions = _angles(cfg, inputs, B, S, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -328,6 +347,7 @@ def forward_with_aux(params: Dict, cfg: ModelConfig, inputs: Dict
         for p, kind in layers:
             x, a, _ = layer_apply(p, x, kind, cfg, cos=cos, sin=sin,
                                   positions=positions)
+            x = _constrain_act(x, cfg)
             if a is not None:
                 aux = aux + a
         return x, aux
